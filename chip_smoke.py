@@ -9,22 +9,34 @@ Phases, any failure exits non-zero:
 2. build every kernel from ``hriemo_torch/csrc`` (nvcc, one process per
    source, in parallel) into ``hriemo_torch/_build/``;
 3. each kernel against its plain PyTorch version on the card at the serving
-   path's shapes: max |error| against the stated tolerance, and CUDA-event
+   paths' shapes: max |error| against the stated tolerance (``TOL`` for
+   sublayer outputs, ``ATTN_TOL`` for the raw outputs of the attention
+   cores, which also rejects a streaming result that drops the last,
+   partial key block), and CUDA-event
    times of the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``, a yardstick the
    port never calls), beside the least time the card could take;
-4. the serving path end to end at full width (WavLM base-plus, BERT-base,
-   fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport, text
-   buckets 8..64, random weights from a seed): 16 requests across the
+4. the int8 serving path end to end at full width (WavLM base-plus,
+   BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
+   text buckets 8..64, random weights from a seed): 16 requests across the
    2.5 s and 10 s audio buckets, launch counts per forward, probabilities
    finite and in [0, 1], and the same requests through the plain versions
    (``use_kernels=False``) within the int8 gate of 0.006;
+4b. the bf16 tree (``int8_frontends=False``, the pipeline's default) on the
+   same 16 requests: launch counts, kernel vs plain within 0.006, and
+   ``int8_prob_delta``, the max |int8 - bf16| probability with kernels on
+   both, gated at 0.006 as ``bench.py`` gates it;
+4c. long clips (``max_seconds=45``, buckets 10/30/45 s, batch 2): two clips
+   of 28-30 s and two of 42-45 s on the bf16, int8 and fp32 trees, launch
+   counts per forward (WavLM attention 1499 frames on the fused gated-bias
+   kernel, 2249 per op; fusion self-attention on the one-pass and the
+   streaming kernel) and kernel vs plain within 0.006;
 5. a JSON line ``{"kernels": [...]}``; then the last line
    ``{"ok": true, "device": {...}}``.
 
 Full per-shape results go to ``chip_smoke_out/chip_smoke.json``. With
-``--profile`` it also traces one serving pass with torch.profiler
-(``chip_smoke_out/profile.txt``).
+``--profile`` it also traces one pass of each serving run with
+torch.profiler (``chip_smoke_out/profile_<run>.txt``).
 """
 
 from __future__ import annotations
@@ -45,16 +57,25 @@ from hriemo_torch.nn.layers import Linear, MLP2, init_torch_defaults
 from hriemo_torch.nn.attention import MultiheadAttention
 from hriemo_torch.ops import _cuda
 from hriemo_torch.ops import attention_block as AB
+from hriemo_torch.ops import flash_attention as FA
 from hriemo_torch.ops import fused_ffn as FF
 from hriemo_torch.ops import quant as Q
+from hriemo_torch.ops import wavlm_attention as WA
 from hriemo_torch.ops.quant import quantize_for_serving
 
 SEED = 0
 B = 4                     # requests per flush on the serving path below
 TOL = dict(atol=5e-2, rtol=5e-2, median=5e-3)  # tests/test_attention_block.py:111-115
+# Attention cores' raw outputs are a few hundredths at these lengths, so they
+# get their own limits, set from the card's readings (PERF.md, PR 2): bf16
+# max |error| 0.00098-0.00195 and median 0, fp32 max 9.5e-7. The median is
+# taken per batch element, so an error confined to one element's rows fails.
+ATTN_TOL = {torch.bfloat16: dict(atol=8e-3, rtol=1e-2, median=1e-3, per_batch=True),
+            torch.float32: dict(atol=1e-4, rtol=1e-4, median=1e-5, per_batch=True)}
 PROB_GATE = 0.006         # bench.py INT8_PROB_DELTA_MAX
-# NVIDIA H100 SXM data sheet, dense: HBM bytes/s, int8 and bf16 tensor-core op/s
-PEAK_BYTES, PEAK_INT8, PEAK_BF16 = 3.35e12, 1979e12, 989e12
+# NVIDIA H100 SXM data sheet, dense: HBM bytes/s, int8 and bf16 tensor-core op/s,
+# fp32 op/s outside the tensor cores
+PEAK_BYTES, PEAK_INT8, PEAK_BF16, PEAK_FP32 = 3.35e12, 1979e12, 989e12, 67e12
 TEXT_BUCKETS = (8, 12, 16, 20, 24, 32, 64)   # bench.py:172
 OUT = pathlib.Path("chip_smoke_out")
 
@@ -72,10 +93,25 @@ KERNELS = {
     # int8_linear is XLA's int8 dot in the JAX package, not a Pallas kernel
     "int8_linear": (Q.int8_linear, "hriemo/ops/quant.py:85",
                     "hriemo_torch/csrc/quant_gemm.cu"),
+    "wavlm_fused_attention": (WA.wavlm_fused_attention, "hriemo/ops/wavlm_attention.py:34",
+                              "hriemo_torch/csrc/wavlm_attention.cu"),
+    "onepass_attention": (FA.onepass_attention, "hriemo/ops/flash_attention_pallas.py:81",
+                          "hriemo_torch/csrc/wavlm_attention.cu"),
+    "streaming_attention": (FA.streaming_attention, "hriemo/ops/flash_attention_pallas.py:38",
+                            "hriemo_torch/csrc/flash_attention.cu"),
 }
-# launches of each wrapper in one forward of the serving path
+# launches of each wrapper in one forward of the int8 serving path (2.5 s
+# and 10 s buckets); every wrapper not named launches 0 times
 PER_FORWARD = {"attention_block_int8": 12, "mha_block_int8": 20, "ffn_block_int8": 24,
                "mlp2_int8": 5, "int8_linear": 21}
+# the bf16 tree: WavLM attention on the fused kernel at 499 frames (10 s),
+# per op at 124 (2.5 s, below its 128-frame gate)
+PER_FORWARD_BF16 = {10.0: {"wavlm_fused_attention": 12}, 2.5: {}}
+# long clips, per forward: WavLM attention at 1499 frames (30 s) on the
+# fused kernel, at 2249 (45 s) per op; the fusion stack's two audio
+# self-attentions on the one-pass kernel up to 2048 keys, streaming beyond
+PER_FORWARD_LONG = {30.0: {"wavlm_fused_attention": 12, "onepass_attention": 2},
+                    45.0: {"streaming_attention": 2}}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -102,11 +138,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: int, int8_ops: int = 0, bf16_ops: int = 0):
+def bound(nbytes: int, int8_ops: int = 0, bf16_ops: int = 0, fp32_ops: int = 0):
     """Least time (ms) for the work: the larger of bytes over the memory
     rate and operations over the peak rate of their type."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16
+    t_ops = int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -114,19 +150,22 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def compare(name, got, ref):
+def compare(name, got, ref, tol=TOL):
     """Kernel vs plain on the same inputs: allclose + median, as the JAX
-    kernel tests hold their interpret-mode kernels."""
+    kernel tests hold their interpret-mode kernels. Returns the max and
+    the (largest per batch element, with ``per_batch``) median |error|."""
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)} "
                              "or non-finite output")
     diff = (got - ref).abs()
-    bad = diff > TOL["atol"] + TOL["rtol"] * ref.abs()
-    med = diff.median().item()
-    if bad.any() or med >= TOL["median"]:
-        raise AssertionError(f"{name}: {int(bad.sum())} elements outside atol/rtol "
-                             f"{TOL['atol']}, max |d| {diff.max().item():.4g}, median {med:.3g}")
+    bad = diff > tol["atol"] + tol["rtol"] * ref.abs()
+    med = (diff.flatten(1).median(dim=1).values.max() if tol.get("per_batch")
+           else diff.median()).item()
+    if bad.any() or med >= tol["median"]:
+        raise AssertionError(f"{name}: {int(bad.sum())} elements outside atol {tol['atol']} "
+                             f"rtol {tol['rtol']}, max |d| {diff.max().item():.4g}, "
+                             f"median {med:.3g} (limit {tol['median']})")
     return diff.max().item(), med
 
 
@@ -135,7 +174,8 @@ def quantized(module):
 
 
 def check_kernels(gen):
-    """Phase 3. Returns one record per (kernel, shape)."""
+    """Phase 3. Returns one record per (kernel, shape), and the readings of
+    a deliberately wrong streaming result under ``ATTN_TOL``."""
     dev = torch.device("cuda")
     rows = []
 
@@ -147,11 +187,12 @@ def check_kernels(gen):
         lens[0] = l
         return (torch.arange(l)[None, :] >= lens[:, None]).to(dev)
 
-    def run(kernel, shape, fn, plain, library, nbytes_, int8_ops, bf16_ops):
+    def run(kernel, shape, fn, plain, library, nbytes_, int8_ops, bf16_ops, fp32_ops=0,
+            tol=TOL):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
-        err, med = compare(f"{kernel} {shape}", got, ref)
-        b_ms, b_by = bound(nbytes_, int8_ops, bf16_ops)
+        err, med = compare(f"{kernel} {shape}", got, ref, tol)
+        b_ms, b_by = bound(nbytes_, int8_ops, bf16_ops, fp32_ops)
         rec = dict(kernel=kernel, shape=shape, max_abs_err=err, median_abs_err=med,
                    ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
                    library_ms=None if library is None else cuda_ms(library),
@@ -238,7 +279,70 @@ def check_kernels(gen):
         lambda: Q.int8_linear(x, lin.w_int8, lin.w_scale, lin.bias_f32),
         lambda: Q.int8_linear_plain(x, lin.w_int8, lin.w_scale, lin.bias_f32), None,
         nbytes(x) + m * d * 2 + 512 * d + 8 * d, 2 * m * 512 * d, 0)
-    return rows
+
+    def heads(b, l, h, hd, dtype=torch.bfloat16):
+        """q/k/v as the routes pass them: head views of a [B, L, H*hd] projection."""
+        return randn(b, l, h * hd, dtype=dtype).view(b, l, h, hd).transpose(1, 2)
+
+    def attn_ops(dtype, b, h, lq, lk, hd):
+        ops = 4 * b * h * lq * lk * hd
+        return (ops, 0) if dtype == torch.bfloat16 else (0, ops)
+
+    # WavLM gated-bias attention core, float trees: the 5 s and 10 s buckets
+    # at B=4, 30 s at B=2, and the fp32 tree's 10 s bucket
+    h, hd = 12, 64
+    for bb, l, dt in ((B, 249, torch.bfloat16), (B, 499, torch.bfloat16),
+                      (2, 1499, torch.bfloat16), (B, 499, torch.float32)):
+        q, k, v = (heads(bb, l, h, hd, dt) for _ in range(3))
+        gate = (torch.rand(bb, h, l, generator=gen) * 1.5 + 0.5).to(dev, dt)
+        pos = randn(h, l, l, scale=0.3, dtype=dt)
+        kb = torch.where(mask(bb, l), AB.NEG_INF, 0.0).float()
+        amask = (gate.float()[..., None] * pos.float()[None] + kb[:, None, None, :]).to(dt)
+        run("wavlm_fused_attention", f"B={bb} L={l} {str(dt)[6:]}",
+            lambda: WA.wavlm_fused_attention(q, k, v, gate, pos, kb),
+            lambda: WA.wavlm_fused_attention_plain(q, k, v, gate, pos, kb),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
+            nbytes(q, k, v, gate, pos, kb, q), 0, *attn_ops(dt, bb, h, l, l, hd),
+            tol=ATTN_TOL[dt])
+
+    # fusion audio self-attention, long clips: 30 s (one-pass) and 45 s
+    # (streaming), on the bf16 and int8 trees and on the fp32 tree
+    h, hd = 8, 96
+    for name, l in (("onepass_attention", 1499), ("streaming_attention", 2249)):
+        fn, plain = getattr(FA, name), getattr(FA, name + "_plain")
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (heads(2, l, h, hd, dt) for _ in range(3))
+            kpm = mask(2, l)
+            bias = FA.key_bias(kpm, 2, l, dev)
+            amask = ~kpm[:, None, None, :]
+            run(name, f"B=2 {l}x{l} H={h} hd={hd} {str(dt)[6:]}",
+                lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                         attn_mask=amask),
+                nbytes(q, k, v, bias, q), 0, *attn_ops(dt, 2, h, l, l, hd), tol=ATTN_TOL[dt])
+            if name == "streaming_attention" and dt == torch.bfloat16:
+                limit_check = wrong_block(q, k, v, bias)
+    return rows, limit_check
+
+
+def wrong_block(q, k, v, bias):
+    """``ATTN_TOL`` must reject a streaming result that skips the last,
+    partial key block: only rows whose last keys are valid (batch element
+    0) move. Returns that wrong result's max and median |error|."""
+    ref = FA.streaming_attention_plain(q, k, v, bias)
+    lt = k.shape[2] // FA.BK * FA.BK
+    wrong = FA.streaming_attention_plain(q, k[:, :, :lt], v[:, :, :lt], bias[:, :lt])
+    diff = (wrong.float() - ref.float()).abs()
+    reading = dict(keys=f"{lt} of {k.shape[2]}", max_abs_err=diff.max().item(),
+                   median_abs_err_per_batch=diff.flatten(1).median(dim=1).values.tolist())
+    try:
+        compare("streaming_attention without its last key block", wrong, ref,
+                ATTN_TOL[q.dtype])
+    except AssertionError as e:
+        print(f"  limit check: rejected, as it must be: {e}", flush=True)
+        return reading
+    raise AssertionError(f"ATTN_TOL passes a streaming result without its last key "
+                         f"block: {reading}")
 
 
 def serving_models(gen):
@@ -266,24 +370,69 @@ def requests(rng, n: int = 16):
     return out
 
 
-def serve(pipe, clips):
+def long_requests(rng):
+    """Two clips of 28-30 s (the 30 s bucket, 1499 WavLM frames) and two of
+    42-45 s (the 45 s bucket, 2249 frames), texts at ~150 words/min."""
+    words = np.array("happy sad angry neutral really very today fine so not".split())
+    out = []
+    for i, (lo, hi) in enumerate(((28.0, 30.0), (28.0, 30.0), (42.0, 45.0), (42.0, 45.0))):
+        sec = rng.uniform(lo, hi)
+        pcm = (rng.standard_normal(int(sec * 16000)) * 3000).astype(np.int16)
+        out.append((pcm, " ".join(rng.choice(words, int(sec * 2.5))), f"long{i}"))
+    return out
+
+
+def reset_launches():
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+def check_launches(what, got, want):
+    """``want`` maps kernel name -> launches; every other kernel of ``got``
+    must be 0."""
+    for name in got:
+        if got[name] != want.get(name, 0):
+            raise AssertionError(f"{what}: {name} launched {got[name]} times, "
+                                 f"want {want.get(name, 0)}")
+
+
+def prob_delta(a, b, clips):
+    return float(np.max(np.abs(np.stack([a[c[2]][0] for c in clips])
+                               - np.stack([b[c[2]][0] for c in clips]))))
+
+
+def check_probs(what, got, clips):
+    probs = np.stack([got[c[2]][0] for c in clips])
+    if probs.shape != (len(clips), 4) or not np.isfinite(probs).all() \
+            or probs.min() < 0 or probs.max() > 1 or np.abs(probs.sum(1) - 1).max() > 1e-3:
+        raise AssertionError(f"{what}: bad probabilities: {probs}")
+
+
+def serve(pipe, clips, batch: int = B):
     res = {}
     t = time.perf_counter()
-    for probs, beta, uids in pipe.stream_bucketed(clips, default_batch=B):
+    for probs, beta, uids in pipe.stream_bucketed(clips, default_batch=batch):
         for u, p, b in zip(uids, probs, beta):
             res[u] = (p, b)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t
 
 
-def profile(pipe, clips) -> None:
+def profile(pipe, clips, tag: str, batch: int = B) -> None:
     """``--profile``: torch.profiler over one serving pass; device busy
-    share and device time by kernel name go to chip_smoke_out/profile.txt."""
+    share and device time by kernel name go to
+    chip_smoke_out/profile_<tag>.txt."""
+    if "--profile" not in sys.argv[1:]:
+        return
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, secs = serve(pipe, clips)
+        _, secs = serve(pipe, clips, batch)
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
@@ -292,9 +441,9 @@ def profile(pipe, clips) -> None:
              f"({busy_ms / (secs * 1e3):.1%})"]
     lines += [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:100]}"
               for e in kernels[:30]]
-    (OUT / "profile.txt").write_text("\n".join(lines) + "\n\n"
-                                     + events.table(sort_by="cpu_time_total", row_limit=30))
-    print("profile:", "\n  ".join(lines[:12]), flush=True)
+    (OUT / f"profile_{tag}.txt").write_text(
+        "\n".join(lines) + "\n\n" + events.table(sort_by="cpu_time_total", row_limit=30))
+    print(f"profile {tag}:", "\n  ".join(lines[:12]), flush=True)
 
 
 def main() -> int:
@@ -318,56 +467,129 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(SEED)
     print("kernels vs plain versions:", flush=True)
-    rows = check_kernels(gen)
+    rows, limit_check = check_kernels(gen)
 
     wavlm, bert, fusion = serving_models(gen)
     kw = dict(tokenizer=HashTokenizer(30522), max_seconds=10.0, max_tokens=128,
               multi_label=False, bucket_seconds=(2.5,), int8_frontends=True,
               wav_transport="pcm16", text_bucket_tokens=TEXT_BUCKETS)
     clips = requests(np.random.default_rng(SEED))
+    phases = {}
+
+    # phase 4: the int8 serving path
     pipe = StreamingPipeline(wavlm, bert, fusion, **kw)
     plain = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **kw)
     serve(pipe, clips)  # first calls of each shape: cuDNN plans, allocator
     serve(plain, clips)
-    for fn, _, _ in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     got, secs = serve(pipe, clips)
-    launches = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    launches = read_launches()
     forwards = len(clips) // B
-    print(f"served {len(got)} requests in {forwards} forwards, {secs:.3f} s; "
+    print(f"int8: served {len(got)} requests in {forwards} forwards, {secs:.3f} s; "
           f"launches {launches}", flush=True)
-    for name, n in PER_FORWARD.items():
-        if launches[name] != n * forwards:
-            raise AssertionError(f"{name}: {launches[name]} launches, want {n} x {forwards}")
-    probs = np.stack([got[c[2]][0] for c in clips])
-    if probs.shape != (len(clips), 4) or not np.isfinite(probs).all() \
-            or probs.min() < 0 or probs.max() > 1 or np.abs(probs.sum(1) - 1).max() > 1e-3:
-        raise AssertionError(f"bad probabilities: {probs}")
+    check_launches("int8 serving", launches, {n: k * forwards for n, k in PER_FORWARD.items()})
+    check_probs("int8 serving", got, clips)
     ref, plain_secs = serve(plain, clips)
-    delta = float(np.max(np.abs(probs - np.stack([ref[c[2]][0] for c in clips]))))
+    delta = prob_delta(got, ref, clips)
     beta_delta = float(np.max(np.abs(np.stack([got[c[2]][1] for c in clips])
                                      - np.stack([ref[c[2]][1] for c in clips]))))
-    print(f"kernel vs plain: max prob delta {delta:.3g} (gate {PROB_GATE}), "
+    print(f"int8 kernel vs plain: max prob delta {delta:.3g} (gate {PROB_GATE}), "
           f"max beta delta {beta_delta:.3g}; plain served in {plain_secs:.3f} s", flush=True)
     if not delta <= PROB_GATE:
-        raise AssertionError(f"prob delta {delta} > {PROB_GATE}")
-    if "--profile" in sys.argv[1:]:
-        profile(pipe, clips)
+        raise AssertionError(f"int8: prob delta {delta} > {PROB_GATE}")
+    profile(pipe, clips, "int8")
+    phases["int8"] = dict(launches=launches, forwards=forwards, serve_s=secs,
+                          plain_serve_s=plain_secs, prob_delta=delta, beta_delta=beta_delta)
+    total = dict(launches)  # launches over every main-path run
+
+    # phase 4b: the bf16 tree on the same requests
+    kw16 = dict(kw, int8_frontends=False)
+    pipe16 = StreamingPipeline(wavlm, bert, fusion, **kw16)
+    plain16 = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **kw16)
+    per_bucket = {}
+    for c in clips:
+        sec = pipe16._bucket_for([c[0]], 16000)
+        per_bucket[sec] = per_bucket.get(sec, 0) + 1
+    want = {}
+    for sec, n in per_bucket.items():
+        for name, k in PER_FORWARD_BF16[sec].items():
+            want[name] = want.get(name, 0) + k * -(-n // B)
+    reset_launches()
+    got16, secs16 = serve(pipe16, clips)
+    launches16 = read_launches()
+    print(f"bf16: served {len(got16)} requests in {secs16:.3f} s; launches {launches16}",
+          flush=True)
+    check_launches("bf16 serving", launches16, want)
+    check_probs("bf16 serving", got16, clips)
+    ref16, plain16_secs = serve(plain16, clips)
+    delta16 = prob_delta(got16, ref16, clips)
+    int8_delta = prob_delta(got, got16, clips)
+    print(f"bf16 kernel vs plain: max prob delta {delta16:.3g} (gate {PROB_GATE}); "
+          f"plain served in {plain16_secs:.3f} s", flush=True)
+    print(f"int8_prob_delta {int8_delta:.6f} (max |int8 - bf16| probability, kernels on "
+          f"both; gate {PROB_GATE})", flush=True)
+    if not delta16 <= PROB_GATE:
+        raise AssertionError(f"bf16: prob delta {delta16} > {PROB_GATE}")
+    if not int8_delta <= PROB_GATE:
+        raise AssertionError(f"int8_prob_delta {int8_delta} > {PROB_GATE}")
+    profile(pipe16, clips, "bf16")
+    phases["bf16"] = dict(launches=launches16, serve_s=secs16, plain_serve_s=plain16_secs,
+                          prob_delta=delta16, int8_prob_delta=int8_delta)
+    for name, n in launches16.items():
+        total[name] += n
+    del pipe16, plain16
+
+    # phase 4c: long clips on the bf16, int8 and fp32 trees, one forward per bucket
+    long_kw = dict(kw, max_seconds=45.0, bucket_seconds=(10.0, 30.0))
+    long_clips = long_requests(np.random.default_rng(SEED + 1))
+    trees = (("bf16", dict(int8_frontends=False)), ("int8", dict(int8_frontends=True)),
+             ("fp32", dict(int8_frontends=False, compute_dtype=torch.float32)))
+    for tree, extra in trees:
+        pk = StreamingPipeline(wavlm, bert, fusion, **dict(long_kw, **extra))
+        pp = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **dict(long_kw, **extra))
+        for sec, pair in ((30.0, long_clips[:2]), (45.0, long_clips[2:])):
+            if {pk._bucket_for([c[0]], 16000) for c in pair} != {sec}:
+                raise AssertionError(f"long clips: not all in the {sec} s bucket")
+            reset_launches()
+            got_l, secs_l = serve(pk, pair, batch=2)
+            ll = read_launches()
+            # the int8 tree's other kernels run too; the float trees run none
+            names = ("attention_block_int8", *PER_FORWARD_LONG[30.0], "streaming_attention") \
+                if tree == "int8" else KERNELS
+            check_launches(f"{tree} {sec:g} s", {n: ll[n] for n in names},
+                           PER_FORWARD_LONG[sec])
+            check_probs(f"{tree} {sec:g} s", got_l, pair)
+            ref_l, plain_l = serve(pp, pair, batch=2)
+            d_l = prob_delta(got_l, ref_l, pair)
+            print(f"long {tree} {sec:g} s: served in {secs_l:.3f} s (plain {plain_l:.3f} s), "
+                  f"kernel vs plain max prob delta {d_l:.3g}; launches {ll}", flush=True)
+            if not d_l <= PROB_GATE:
+                raise AssertionError(f"long {tree} {sec:g} s: prob delta {d_l} > {PROB_GATE}")
+            profile(pk, pair, f"long_{tree}_{sec:g}s", batch=2)
+            phases[f"long_{tree}_{sec:g}s"] = dict(launches=ll, serve_s=secs_l,
+                                                   plain_serve_s=plain_l, prob_delta=d_l)
+            for name, n in ll.items():
+                total[name] += n
+        del pk, pp
+        torch.cuda.empty_cache()
+    for name, n in total.items():
+        if n == 0:
+            raise AssertionError(f"{name}: launched on no main path")
 
     kernels = []
     for name, (fn, replaces, source) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        main_row = max(mine, key=lambda r: r["bound_ms"])
+        served = [r for r in mine if not r["shape"].endswith("float32")]  # bf16, the default
+        main_row = max(served, key=lambda r: r["ms"])  # the costliest call on the paths
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name],
+                            launches=total[name],
                             max_abs_err=max(r["max_abs_err"] for r in mine),
                             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
                             library_ms=main_row["library_ms"], shape=main_row["shape"]))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        card=smi, build_s=build_s, rows=rows, launches=launches, forwards=forwards,
-        serve_s=secs, plain_serve_s=plain_secs, prob_delta=delta, beta_delta=beta_delta),
-        indent=1))
+        card=smi, build_s=build_s, rows=rows, limit_check=limit_check, launches=total,
+        phases=phases, int8_prob_delta=int8_delta), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

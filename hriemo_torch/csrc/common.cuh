@@ -22,6 +22,34 @@ __device__ __forceinline__ __nv_bfloat16 f2bf(float v) { return __float2bfloat16
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return bf2f(*p); }
 
+// x stored as T (bf16: round to nearest even; fp32: x itself)
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return f2bf(x); }
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+
+// x rounded to T and widened back, as a cast to T and back in the reference
+template <typename T> __device__ __forceinline__ float round_as(float x);
+template <> __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) { return bf2f(f2bf(x)); }
+template <> __device__ __forceinline__ float round_as<float>(float x) { return x; }
+
+// Eight consecutive elements of a row as fp32; p must be 16-byte aligned.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    out[2 * e] = f.x;
+    out[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float* out) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

@@ -1,0 +1,184 @@
+// Streaming (online-softmax) attention of the port's long-clip route
+// (hriemo_torch/ops/flash_attention.py::streaming_attention):
+//
+//   for each block of kBK = 128 keys, in order:
+//     s     = (q . k^T) * scale + kbias                        (fp32)
+//     m_new = max(m, max_j s);  alpha = exp(m - m_new);  p = exp(s - m_new)
+//     l     = l * alpha + sum_j p
+//     acc   = acc * alpha + (p -> T) . v                      (fp32 sums)
+//   out = (acc / l) -> T
+//
+// over q/k/v of type T (bf16 or fp32) read in place through their batch,
+// head and row strides.
+//
+// Replaces the Pallas kernel hriemo/ops/flash_attention_pallas.py::
+// _flash_kernel, routed for Lk > 2048 (the dispatch at :274-277). The TPU
+// kernel carries m, l and acc in VMEM scratch across the sequential key
+// axis of its grid; here one block walks all key blocks of its query tile
+// in a loop, with m and l in shared memory and acc in registers, so no
+// state crosses blocks and Lk has no bound. The TPU kernel's numerics are
+// kept apart from the one-pass kernels': the unnormalized p block is cast
+// to T before PV, and the division by l happens once, at the end. Keys
+// past Lk are simply absent (the TPU wrapper pads them with NEG_INF, which
+// adds exact zeros unless a row's keys are all masked).
+//
+// One block per (tile of kQT = 16 query rows, head, batch element), 4*hd
+// threads; 8 KB of scores and 16*hd floats of queries in shared memory.
+// What bounds it on the card: fp32 CUDA-core FMAs (the tensor cores are
+// idle), plus three block barriers per key block. Moving the two products
+// onto mma.sync/wgmma is later work.
+#include "common.cuh"
+
+namespace hr {
+
+constexpr int kQT = 16;    // query rows per block
+constexpr int kBK = 128;   // keys per block, as the TPU kernel's BK
+constexpr int kRG = 4;     // row groups in PV: blockDim = kRG * hd
+
+template <typename T>
+__global__ void streaming_attn_kernel(const T* __restrict__ q, int q_sb, int q_sh, int q_sl,
+                                      const T* __restrict__ k, int k_sb, int k_sh, int k_sl,
+                                      const T* __restrict__ v, int v_sb, int v_sh, int v_sl,
+                                      int Lq, int Lk, int hd, float scale,
+                                      const float* __restrict__ kbias,
+                                      T* __restrict__ out, int o_sb, int o_sh, int o_sl) {
+  extern __shared__ float smem[];
+  float* qs = smem;               // [kQT][hd]
+  float* S = qs + kQT * hd;       // [kQT][kBK]
+  float* ms = S + kQT * kBK;      // [kQT] running max
+  float* ls = ms + kQT;           // [kQT] running sum
+  float* al = ls + kQT;           // [kQT] this block's alpha
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int i0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
+  const int nq = min(kQT, Lq - i0);
+  const T* qh = q + (size_t)b * q_sb + (size_t)h * q_sh;
+  const T* kh = k + (size_t)b * k_sb + (size_t)h * k_sh;
+  const T* vh = v + (size_t)b * v_sb + (size_t)h * v_sh;
+  const float* kb = kbias + (size_t)b * Lk;
+
+  for (int idx = tid; idx < kQT * hd; idx += nthr) {
+    const int r = idx / hd, d = idx - r * hd;
+    qs[idx] = r < nq ? load_f(qh + (size_t)(i0 + r) * q_sl + d) : 0.f;
+  }
+  if (tid < kQT) {
+    ms[tid] = __int_as_float(0xff800000);  // -inf
+    ls[tid] = 0.f;
+  }
+
+  constexpr int kRPT = kQT / kRG;  // rows per thread in PV
+  const int d = tid % hd, rg = tid / hd;
+  float acc[kRPT];
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) acc[i] = 0.f;
+
+  for (int j0 = 0; j0 < Lk; j0 += kBK) {
+    const int nk = min(kBK, Lk - j0);
+    __syncthreads();  // the query tile is in; the previous block's PV is done with S
+
+    for (int jj = tid; jj < nk; jj += nthr) {
+      const T* kr = kh + (size_t)(j0 + jj) * k_sl;
+      float dot[kQT];
+#pragma unroll
+      for (int r = 0; r < kQT; ++r) dot[r] = 0.f;
+      for (int d0 = 0; d0 < hd; d0 += 8) {
+        float kv[8];
+        load8(kr + d0, kv);
+#pragma unroll
+        for (int r = 0; r < kQT; ++r) {
+          const float4 a = *reinterpret_cast<const float4*>(qs + r * hd + d0);
+          const float4 c = *reinterpret_cast<const float4*>(qs + r * hd + d0 + 4);
+          dot[r] += a.x * kv[0] + a.y * kv[1] + a.z * kv[2] + a.w * kv[3] + c.x * kv[4] +
+                    c.y * kv[5] + c.z * kv[6] + c.w * kv[7];
+        }
+      }
+      const float kbj = kb[j0 + jj];
+#pragma unroll
+      for (int r = 0; r < kQT; ++r) S[r * kBK + jj] = __fadd_rn(__fmul_rn(dot[r], scale), kbj);
+    }
+    __syncthreads();
+
+    for (int r = warp; r < kQT; r += nwarps) {
+      float* sr = S + r * kBK;
+      float mx = __int_as_float(0xff800000);
+      for (int jj = lane; jj < nk; jj += 32) mx = fmaxf(mx, sr[jj]);
+      const float m_prev = ms[r];
+      const float m_cur = fmaxf(warp_max(mx), m_prev);
+      float psum = 0.f;
+      for (int jj = lane; jj < nk; jj += 32) {
+        const float p = expf(__fadd_rn(sr[jj], -m_cur));
+        psum += p;
+        sr[jj] = round_as<T>(p);
+      }
+      psum = warp_sum(psum);
+      if (lane == 0) {
+        const float alpha = expf(__fadd_rn(m_prev, -m_cur));  // exp(-inf) = 0 at the first block
+        ls[r] = __fadd_rn(__fmul_rn(ls[r], alpha), psum);
+        ms[r] = m_cur;
+        al[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    float pv[kRPT];
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i) pv[i] = 0.f;
+    const T* vc = vh + (size_t)j0 * v_sl + d;
+#pragma unroll 4
+    for (int jj = 0; jj < nk; ++jj) {
+      const float vv = load_f(vc + (size_t)jj * v_sl);
+#pragma unroll
+      for (int i = 0; i < kRPT; ++i) pv[i] += S[(rg + kRG * i) * kBK + jj] * vv;
+    }
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i) acc[i] = __fadd_rn(__fmul_rn(acc[i], al[rg + kRG * i]), pv[i]);
+  }
+
+  T* oh = out + (size_t)b * o_sb + (size_t)h * o_sh + d;
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int r = rg + kRG * i;
+    if (r < nq) oh[(size_t)(i0 + r) * o_sl] = from_f<T>(__fdiv_rn(acc[i], ls[r]));
+  }
+}
+
+template <typename T>
+void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
+            int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq, int Lk,
+            int hd, float scale, const void* kbias, void* out, int o_sb, int o_sh, int o_sl,
+            cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * (kQT * hd + kQT * kBK + 3 * kQT);
+  dim3 grid((Lq + kQT - 1) / kQT, H, B);
+  streaming_attn_kernel<T><<<grid, kRG * hd, smem, stream>>>(
+      static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
+      static_cast<const T*>(v), v_sb, v_sh, v_sl, Lq, Lk, hd, scale,
+      static_cast<const float*>(kbias), static_cast<T*>(out), o_sb, o_sh, o_sl);
+}
+
+}  // namespace hr
+
+using namespace hr;
+
+extern "C" {
+
+// Operands as in hr_onepass_attention (csrc/wavlm_attention.cu), without a
+// gate. Needs Lk >= 1 and blockDim 4*hd <= 1024 (hd <= 256); shared memory
+// stays under 48 KB.
+int hr_streaming_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
+                           int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
+                           int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
+                           const void* kbias, void* out, int o_sb, int o_sh, int o_sl,
+                           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B > 0 && Lq > 0) {
+    if (fp32)
+      launch<float>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
+                    hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
+    else
+      launch<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
+                            Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

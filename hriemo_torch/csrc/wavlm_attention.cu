@@ -1,0 +1,189 @@
+// One-pass attention core of the port's float attention routes
+// (hriemo_torch/ops/wavlm_attention.py, hriemo_torch/ops/flash_attention.py):
+//
+//   s   = (q . k^T) * scale  [+ gate[b,h,i] * pos[h,i,j]]  + kbias[b,j]   (fp32)
+//   out = ((exp(s - max s) / sum) -> T) . v                               (fp32 sums -> T)
+//
+// over q/k/v of type T (bf16 or fp32), read in place through their batch,
+// head and row strides (the projections' [B, L, H*hd] outputs, no copy).
+//
+// Replaces the two Pallas kernels that compute this one-pass softmax with
+// K/V resident in VMEM:
+//   hriemo/ops/wavlm_attention.py::_kernel, WavLM's gated relative position
+//     bias: gate [B, H, Lq] fp32 and pos [H, Lq, Lk] of type T given;
+//   hriemo/ops/flash_attention_pallas.py::_onepass_kernel, gate = pos = NULL,
+//     routed for 1024 <= Lq and 1024 <= Lk <= 2048.
+//
+// One block per (tile of kQT = 16 query rows, head, batch element), 4*hd
+// threads. The block's whole fp32 score panel [16, Lk] stays in shared
+// memory (128 KB at Lk = 2048: above 48 KB the kernel opts in to the
+// H100's 227 KB of dynamic shared memory), so the softmax is exact and one
+// pass, as in the TPU kernels, and no score or bias goes to device memory:
+//   1. the query tile goes to shared memory as fp32, with its 16 gates;
+//   2. scores: each thread owns one key at a time and dots it with all 16
+//      query rows (fp32 sums of the products), multiplies by scale, then
+//      adds gate * pos and the key bias, in the TPU kernels' order;
+//   3. softmax per row, one warp per row; p / l is rounded to T, as the TPU
+//      kernels cast p / l to v's dtype before PV;
+//   4. PV: thread (d, row group) sums p[r][j] * v[j][d] in fp32, stores T.
+// A row whose keys are all masked (every kbias NEG_INF) comes out as a
+// finite average of v.
+// What bounds it on the card: fp32 CUDA-core FMAs in steps 2 and 4 (the
+// tensor cores are idle) and L2 reads of K and V, which every query tile of
+// a head reads again. Moving steps 2 and 4 onto mma.sync/wgmma is later work.
+#include "common.cuh"
+
+namespace hr {
+
+constexpr int kQT = 16;                 // query rows per block
+constexpr int kRG = 4;                  // row groups in PV: blockDim = kRG * hd
+constexpr int kMaxSmem = 227 * 1024;    // H100 dynamic shared memory per block
+
+template <typename T>
+__global__ void onepass_attn_kernel(const T* __restrict__ q, int q_sb, int q_sh, int q_sl,
+                                    const T* __restrict__ k, int k_sb, int k_sh, int k_sl,
+                                    const T* __restrict__ v, int v_sb, int v_sh, int v_sl,
+                                    int H, int Lq, int Lk, int hd, float scale,
+                                    const float* __restrict__ kbias,
+                                    const float* __restrict__ gate,
+                                    const T* __restrict__ pos,
+                                    T* __restrict__ out, int o_sb, int o_sh, int o_sl) {
+  extern __shared__ float smem[];
+  float* qs = smem;            // [kQT][hd]
+  float* gs = qs + kQT * hd;   // [kQT]
+  float* S = gs + kQT;         // [kQT][Lk]
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthr >> 5;
+  const int i0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
+  const int nq = min(kQT, Lq - i0);
+  const T* qh = q + (size_t)b * q_sb + (size_t)h * q_sh;
+  const T* kh = k + (size_t)b * k_sb + (size_t)h * k_sh;
+  const T* vh = v + (size_t)b * v_sb + (size_t)h * v_sh;
+  const float* kb = kbias + (size_t)b * Lk;
+  const bool gated = gate != nullptr;
+
+  for (int idx = tid; idx < kQT * hd; idx += nthr) {
+    const int r = idx / hd, d = idx - r * hd;
+    qs[idx] = r < nq ? load_f(qh + (size_t)(i0 + r) * q_sl + d) : 0.f;
+  }
+  if (tid < kQT) gs[tid] = gated && tid < nq ? gate[((size_t)b * H + h) * Lq + i0 + tid] : 0.f;
+  __syncthreads();
+
+  for (int j = tid; j < Lk; j += nthr) {
+    const T* kr = kh + (size_t)j * k_sl;
+    float acc[kQT];
+#pragma unroll
+    for (int r = 0; r < kQT; ++r) acc[r] = 0.f;
+    for (int d0 = 0; d0 < hd; d0 += 8) {
+      float kv[8];
+      load8(kr + d0, kv);
+#pragma unroll
+      for (int r = 0; r < kQT; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(qs + r * hd + d0);
+        const float4 c = *reinterpret_cast<const float4*>(qs + r * hd + d0 + 4);
+        acc[r] += a.x * kv[0] + a.y * kv[1] + a.z * kv[2] + a.w * kv[3] + c.x * kv[4] +
+                  c.y * kv[5] + c.z * kv[6] + c.w * kv[7];
+      }
+    }
+    const float kbj = kb[j];
+#pragma unroll
+    for (int r = 0; r < kQT; ++r) {
+      float s = __fmul_rn(acc[r], scale);
+      if (gated && r < nq)
+        s = __fadd_rn(s, __fmul_rn(gs[r], load_f(pos + ((size_t)h * Lq + i0 + r) * Lk + j)));
+      S[r * Lk + j] = __fadd_rn(s, kbj);
+    }
+  }
+  __syncthreads();
+
+  for (int r = warp; r < nq; r += nwarps) {
+    float* sr = S + r * Lk;
+    float m = __int_as_float(0xff800000);  // -inf
+    for (int j = lane; j < Lk; j += 32) m = fmaxf(m, sr[j]);
+    m = warp_max(m);
+    float l = 0.f;
+    for (int j = lane; j < Lk; j += 32) {
+      const float p = expf(__fadd_rn(sr[j], -m));
+      sr[j] = p;
+      l += p;
+    }
+    l = warp_sum(l);
+    for (int j = lane; j < Lk; j += 32) sr[j] = round_as<T>(__fdiv_rn(sr[j], l));
+  }
+  __syncthreads();
+
+  constexpr int kRPT = kQT / kRG;  // rows per thread
+  const int d = tid % hd, rg = tid / hd;
+  float acc[kRPT];
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) acc[i] = 0.f;
+  const T* vc = vh + d;
+#pragma unroll 4
+  for (int j = 0; j < Lk; ++j) {
+    const float vv = load_f(vc + (size_t)j * v_sl);
+#pragma unroll
+    for (int i = 0; i < kRPT; ++i) acc[i] += S[(rg + kRG * i) * Lk + j] * vv;
+  }
+  T* oh = out + (size_t)b * o_sb + (size_t)h * o_sh + d;
+#pragma unroll
+  for (int i = 0; i < kRPT; ++i) {
+    const int r = rg + kRG * i;
+    if (r < nq) oh[(size_t)(i0 + r) * o_sl] = from_f<T>(acc[i]);
+  }
+}
+
+template <typename T>
+void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
+            int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq, int Lk,
+            int hd, float scale, const void* kbias, const void* gate, const void* pos, void* out,
+            int o_sb, int o_sh, int o_sl, int smem, cudaStream_t stream) {
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaFuncSetAttribute(onepass_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMaxSmem);
+    attr_set = true;
+  }
+  dim3 grid((Lq + kQT - 1) / kQT, H, B);
+  onepass_attn_kernel<T><<<grid, kRG * hd, smem, stream>>>(
+      static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
+      static_cast<const T*>(v), v_sb, v_sh, v_sl, H, Lq, Lk, hd, scale,
+      static_cast<const float*>(kbias), static_cast<const float*>(gate),
+      static_cast<const T*>(pos), static_cast<T*>(out), o_sb, o_sh, o_sl);
+}
+
+}  // namespace hr
+
+using namespace hr;
+
+extern "C" {
+
+// Shared memory one block needs; the caller refuses shapes above kMaxSmem.
+int hr_onepass_smem_bytes(int Lk, int hd) {
+  return (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
+}
+
+int hr_onepass_max_smem_bytes() { return kMaxSmem; }
+
+// q/k/v/out: element (b, h, i, d) at b*sb + h*sh + i*sl + d, each row 16-byte
+// aligned; fp32 != 0 for fp32 q/k/v/out/pos, else bf16. kbias [B, Lk] fp32
+// additive. gate [B, H, Lq] fp32 and pos [H, Lq, Lk], or both NULL for no
+// gate. Needs blockDim 4*hd <= 1024.
+int hr_onepass_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
+                         int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
+                         int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
+                         const void* kbias, const void* gate, const void* pos, void* out,
+                         int o_sb, int o_sh, int o_sl, void* stream) {
+  const int smem = hr_onepass_smem_bytes(Lk, hd);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B > 0 && Lq > 0) {
+    if (fp32)
+      launch<float>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
+                    hd, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, smem, s);
+    else
+      launch<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
+                            Lq, Lk, hd, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, smem, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

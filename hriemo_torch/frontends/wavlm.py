@@ -8,10 +8,13 @@ names are the HF ``WavLMModel`` state-dict names the JAX package uses.
 An int8 tree (``ops.quant.quantize_for_serving``) at a length the
 attention kernel takes runs each layer as two kernels: the attention
 sublayer (``ops.attention_block.attention_block_int8``) and the FFN block
-(``ops.fused_ffn.ffn_block_int8``). The JAX package pads L to 128 once for
-its TPU tiles (``wavlm.py:352-358``); the port runs at the true L, which
-gives the same valid rows. GroupNorm over the padded waveform bucket is
-real semantics and stays.
+(``ops.fused_ffn.ffn_block_int8``). Every other layer projects q/k/v per
+op (int8 or float) and runs its attention core through the fused
+gated-bias kernel (``ops.wavlm_attention``) at 128 <= L <= 2048, else per
+op, as ``hriemo/frontends/wavlm.py:279-296`` routes. The JAX package pads
+L to 128 once for its TPU tiles (``wavlm.py:352-358``); the port runs at
+the true L, which gives the same valid rows. GroupNorm over the padded
+waveform bucket is real semantics and stays.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..ops.attention_block import (WavLMAttnOperands, attention_block_int8,
                                    wavlm_attn_operands)
 from ..ops.conv_stack import group_norm_stats_from_waveform
 from ..ops.fused_ffn import FfnOperands, ffn_operands, route_ffn_block, use_fused_ffn
+from ..ops.wavlm_attention import use_fused, wavlm_fused_attention, wavlm_fused_attention_plain
 
 
 @dataclasses.dataclass
@@ -102,10 +106,12 @@ class WavLMAttention(nn.Module):
         self.gru_rel_pos_linear = Linear(d // h, 8)
         if num_buckets is not None:  # layer 0 embeds the shared bias
             self.rel_attn_embed = nn.Embedding(num_buckets, h)
+        self.use_kernels = True
 
     def forward(self, x, kbias, position_bias):
-        """Per-op route (``hriemo/frontends/wavlm.py:249-298``, einsum
-        branch): the path of float trees and of lengths the kernel skips."""
+        """Projections per op, then the fused core or the einsum branch
+        (``hriemo/frontends/wavlm.py:249-298``): the path of float trees
+        and of lengths the int8 sublayer kernel skips."""
         b, l, d = x.shape
         h = self.n_heads
         hd = d // h
@@ -118,12 +124,17 @@ class WavLMAttention(nn.Module):
             return t.reshape(b, l, h, hd).transpose(1, 2)
 
         q, k, v = heads(self.q_proj(x)), heads(self.k_proj(x)), heads(self.v_proj(x))
-        scores = (q / math.sqrt(hd)).float() @ k.float().transpose(-1, -2)
-        scores = scores + (gate * position_bias[None]).float()
-        if kbias is not None:
-            scores = scores + kbias[:, None, None, :]
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = (probs.float() @ v.float()).to(x.dtype)
+        if use_fused(l, hd):
+            kpb = kbias if kbias is not None else torch.zeros((b, l), device=x.device)
+            fn = wavlm_fused_attention if self.use_kernels else wavlm_fused_attention_plain
+            ctx = fn(q, k, v, gate[..., 0], position_bias, kpb)
+        else:
+            scores = (q / math.sqrt(hd)).float() @ k.float().transpose(-1, -2)
+            scores = scores + (gate * position_bias[None]).float()
+            if kbias is not None:
+                scores = scores + kbias[:, None, None, :]
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            ctx = (probs.float() @ v.float()).to(x.dtype)
         return self.out_proj(ctx.transpose(1, 2).reshape(b, l, d))
 
 

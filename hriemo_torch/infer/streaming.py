@@ -1,8 +1,12 @@
 """End-to-end serving: raw waveforms and texts -> emotion probabilities
 (port of ``StreamingPipeline``, ``hriemo/infer/streaming.py:63-340``).
 
-WavLM, then BERT, then the fusion model, in the compute dtype (bf16) and,
-with ``int8_frontends``, W8A8 through the port's Hopper kernels. Audio is
+WavLM, then BERT, then the fusion model, in the compute dtype (bf16 by
+default, or fp32) or, with ``int8_frontends``, W8A8, each through the port's
+Hopper kernels where the JAX package routes to its TPU kernels: on the float
+trees WavLM's attention core at 128..2048 frames, and on every tree the
+fusion stack's audio self-attention from 1024 frames (20.5 s) on, which is
+how long clips (``max_seconds`` up to 45 s and beyond) are served. Audio is
 padded to the smallest length bucket that fits the batch's longest clip;
 text to the smallest text bucket that covers its longest real text, which
 is output-exact (BERT is mask-exact and the fused mask ORs the text mask).

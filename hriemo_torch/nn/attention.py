@@ -4,9 +4,11 @@
 Packed ``in_proj_weight [3d, d]`` / ``in_proj_bias [3d]`` and an
 ``out_proj`` Linear, ``key_padding_mask`` True = PAD as an additive NEG_INF
 bias. A quantized MHA (``in_proj_w_int8``) whose shapes pass
-``use_mha_block`` goes to the MHA kernel (``hriemo/nn/attention.py:85-98``);
-every other call runs per op: int8 or plain projections, fp32 softmax,
-bf16 probabilities.
+``use_mha_block`` goes to the MHA kernel (``hriemo/nn/attention.py:85-98``).
+Every other call projects per op (int8 or plain), then runs its core
+through ``ops.flash_attention.flash_mha`` when ``use_flash`` holds
+(Lq, Lk >= 1024: ``hriemo/nn/attention.py:131-148``), else per op: fp32
+softmax, probabilities in the compute dtype.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 from ..core.masking import mask_to_bias
 from ..ops.attention_block import (MhaOperands, mha_block_int8, mha_block_int8_plain,
                                    mha_operands, use_mha_block)
+from ..ops.flash_attention import flash_mha, flash_mha_plain, use_flash
 from ..ops.quant import int8_linear, int8_linear_plain, quantize_linear_params
 from .layers import Linear
 
@@ -73,12 +76,19 @@ class MultiheadAttention(nn.Module):
         def heads(t):
             return t.reshape(t.shape[0], t.shape[1], h, d // h).transpose(1, 2)
 
-        scale = 1.0 / math.sqrt(d // h)
-        scores = heads(q * scale).float() @ heads(k).float().transpose(-1, -2)
-        bias = mask_to_bias(key_padding_mask, scores.dtype)
-        if bias is not None:
-            scores = scores + bias
-        probs = torch.softmax(scores, dim=-1).to(query.dtype)
-        out = (probs.float() @ heads(v).float()).to(query.dtype)
+        if use_flash(heads(q).shape, heads(k).shape):
+            # The port exports no attention weights and runs no attention
+            # dropout (eval only), so the JAX need_weights and dropout
+            # exclusions of this route have nothing to guard here.
+            fn = flash_mha if self.use_kernels else flash_mha_plain
+            out = fn(heads(q), heads(k), heads(v), key_padding_mask)
+        else:
+            scale = 1.0 / math.sqrt(d // h)
+            scores = heads(q * scale).float() @ heads(k).float().transpose(-1, -2)
+            bias = mask_to_bias(key_padding_mask, scores.dtype)
+            if bias is not None:
+                scores = scores + bias
+            probs = torch.softmax(scores, dim=-1).to(query.dtype)
+            out = (probs.float() @ heads(v).float()).to(query.dtype)
         out = out.transpose(1, 2).reshape(query.shape[0], query.shape[1], d)
         return self.out_proj(out)

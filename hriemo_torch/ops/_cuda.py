@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import pathlib
 import subprocess
@@ -29,7 +30,7 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 # the accurate versions, as in the plain PyTorch versions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-LIBS = ("quant_gemm", "attention")
+LIBS = ("quant_gemm", "attention", "wavlm_attention", "flash_attention")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -45,6 +46,16 @@ SIGNATURES = {
         "hr_attention_smem_bytes": [I, I],
         "hr_attention_core": [P, I, P, I, P, I, I, I, I, I, I, P, P,
                               P, I, P, P, P, P, P, I, P],
+    },
+    "wavlm_attention": {
+        "hr_onepass_smem_bytes": [I, I],
+        "hr_onepass_max_smem_bytes": [],
+        "hr_onepass_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
+                                 P, P, P, P, I, I, I, P],
+    },
+    "flash_attention": {
+        "hr_streaming_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
+                                   P, P, I, I, I, P],
     },
 }
 
@@ -145,6 +156,49 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
         raise ValueError(f"{name}: on {t.device}, kernel needs {device or 'cuda'}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")
+
+
+def heads_operand(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+                  device: torch.device) -> list[int]:
+    """A ``[B, H, L, hd]`` kernel operand read in place, such as a head view
+    of a ``[B, L, H*hd]`` projection: ``[data pointer, batch stride, head
+    stride, row stride]`` in elements. Each row must be contiguous and
+    16-byte aligned (strides and the pointer a multiple of 8 elements)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel needs {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel needs {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, kernel needs {device}")
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name}: rows must be contiguous")
+    strides = [s if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3])]
+    if t.data_ptr() % 16 or any(s % 8 for s in strides):
+        raise ValueError(f"{name}: rows are not 16-byte aligned")
+    return [t.data_ptr(), *strides]
+
+
+def attention_operands(q, k, v, kbias, what: str):
+    """Checks the operands of the float attention kernels (q ``[B, H, Lq,
+    hd]``, k/v ``[B, H, Lk, hd]`` bf16 or fp32 read in place, kbias ``[B,
+    Lk]`` fp32) and allocates the output. Returns the leading C arguments,
+    ``(fp32, q, k, v, B, H, Lq, Lk, hd, scale, kbias)`` with each of q/k/v
+    as pointer and strides, and the output ``[B, H, Lq, hd]``, a head view of
+    a contiguous ``[B, Lq, H*hd]`` tensor."""
+    b, h, lq, hd = q.shape
+    lk = k.shape[2]
+    dev = q.device
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: dtype {q.dtype}, needs bf16 or fp32")
+    if hd % 8 or hd > 256 or lk < 1:
+        raise ValueError(f"{what}: head dim {hd} or key length {lk} not taken")
+    args = [int(q.dtype == torch.float32)]
+    for t, name, l in ((q, "q", lq), (k, "k", lk), (v, "v", lk)):
+        args += heads_operand(t, name, q.dtype, (b, h, l, hd), dev)
+    require(kbias, "key_padding_bias", torch.float32, (b, lk), dev)
+    args += [b, h, lq, lk, hd, 1.0 / math.sqrt(hd), kbias.data_ptr()]
+    out = torch.empty((b, lq, h, hd), dtype=q.dtype, device=dev)
+    return args, out.transpose(1, 2)
 
 
 # Epilogues of the shared int8 GEMM (csrc/int8_gemm.cuh)

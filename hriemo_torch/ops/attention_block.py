@@ -90,12 +90,13 @@ def wavlm_attn_operands(attn, ln) -> WavLMAttnOperands:
                              ln.weight.detach().float(), ln.bias.detach().float())
 
 
-def _softmax_pv(s, v):
-    """fp32 softmax, p/l rounded to bf16, PV accumulated in fp32 -> bf16."""
+def softmax_pv(s, v):
+    """fp32 softmax of ``s``, ``p / l`` cast to v's dtype, PV summed in fp32,
+    result in v's dtype: the one-pass softmax of every attention kernel."""
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    return ((p / l).to(torch.bfloat16).float() @ v.float()).to(torch.bfloat16)
+    return ((p / l).to(v.dtype).float() @ v.float()).to(v.dtype)
 
 
 def _heads(t, b, l, h):
@@ -123,7 +124,7 @@ def attention_block_int8_plain(x, ops: WavLMAttnOperands, pos, kbias, eps: float
     gate = (ga * (gb * ops.gconst - 1.0) + 2.0).transpose(1, 2)[..., None]  # [B, H, L, 1]
     s = q.float() @ k.float().transpose(-1, -2)
     s = s + gate * pos.float()[None] + kbias[:, None, None, :]
-    ctx = _merge(_softmax_pv(s, v))
+    ctx = _merge(softmax_pv(s, v))
     cq, cs = quant_rows(ctx.float())
     y = int8_matmul_exact(cq, m.w_out) * cs * m.s_out[:, 0] + m.b_out
     y = y + x2.float()
@@ -209,7 +210,7 @@ def mha_block_int8_plain(xq, xkv, ops: MhaOperands, key_padding_mask):
     sc = _heads(q, b, lq, h).float() @ _heads(k, b, lk, h).float().transpose(-1, -2)
     kpb = (torch.zeros((b, lk), device=xq.device) if key_padding_mask is None
            else torch.where(key_padding_mask, NEG_INF, 0.0))
-    ctx = _merge(_softmax_pv(sc + kpb[:, None, None, :], _heads(v, b, lk, h)))
+    ctx = _merge(softmax_pv(sc + kpb[:, None, None, :], _heads(v, b, lk, h)))
     cq, cs = quant_rows(ctx.float())
     y = int8_matmul_exact(cq, ops.w_out) * cs * ops.s_out[:, 0] + ops.b_out
     return y.to(xq.dtype).reshape(b, lq, d)

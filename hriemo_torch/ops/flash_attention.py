@@ -1,0 +1,120 @@
+"""Fused attention for long sequences (port of ``hriemo/ops/flash_attention.py``
+and ``hriemo/ops/flash_attention_pallas.py``).
+
+:func:`flash_mha` takes already projected per-head q/k/v ``[B, H, L, hd]``
+and a ``[B, Lk]`` True = PAD key-padding mask, and never materializes the
+``[B, H, Lq, Lk]`` scores in device memory. It dispatches on the key length
+as ``flash_attention_pallas.py:274-277`` does:
+
+* :func:`onepass_attention` for ``Lk <= ONEPASS_MAX_LK`` replaces the Pallas
+  kernel ``_onepass_kernel`` (``flash_attention_pallas.py:81``, launched at
+  ``:126``): one-pass softmax, ``p / l`` cast to v's dtype before PV. On the
+  card it is the one-pass launch of ``csrc/wavlm_attention.cu`` without a
+  gate.
+* :func:`streaming_attention` beyond that replaces ``_flash_kernel``
+  (``:38``, launched at ``:182``): an online softmax over 128-key blocks,
+  the unnormalized p block cast to v's dtype before PV, ``acc / l`` at the
+  end. On the card it is ``csrc/flash_attention.cu``.
+
+The two keep their own numerics, each its TPU kernel's. Both scale the fp32
+dot after the product, where the per-op branch of ``nn/attention.py``
+scales q first. The caller routes here when :func:`use_flash` holds
+(``nn/attention.py``). The TPU wrappers pad the keys to 128 with NEG_INF;
+the port runs at the true length, which gives the same rows except where
+every key is masked (finite output all the same).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.masking import NEG_INF
+from . import _cuda
+from .attention_block import softmax_pv
+from .wavlm_attention import onepass_launch, scaled_scores
+
+# one-pass path while K/V and the fp32 score panel fit (flash_attention_pallas.py:107)
+ONEPASS_MAX_LK = 2048
+BK = 128  # keys per step of the streaming softmax (flash_attention_pallas.py:35)
+
+
+def onepass_attention_plain(q, k, v, bias):
+    """Plain PyTorch version of :func:`onepass_attention`."""
+    return softmax_pv(scaled_scores(q, k) + bias.float()[:, None, None, :], v)
+
+
+def onepass_attention(q, k, v, bias):
+    """q ``[B, H, Lq, hd]``, k/v ``[B, H, Lk, hd]`` (bf16 or fp32, views read in
+    place), bias ``[B, Lk]`` fp32 additive. Returns ``[B, H, Lq, hd]``."""
+    if q.device.type == "cpu":
+        return onepass_attention_plain(q, k, v, bias)
+    out = onepass_launch(q, k, v, bias)
+    onepass_attention.launches += 1
+    return out
+
+
+onepass_attention.launches = 0
+
+
+def streaming_attention_plain(q, k, v, bias):
+    """Plain PyTorch version of :func:`streaming_attention`: the same
+    128-key steps in the same order."""
+    b, h, lq, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float()
+    m = torch.full((b, h, lq, 1), -math.inf, device=q.device)
+    l = torch.zeros((b, h, lq, 1), device=q.device)
+    acc = torch.zeros((b, h, lq, hd), device=q.device)
+    for j0 in range(0, k.shape[2], BK):
+        kb, vb = k[:, :, j0:j0 + BK], v[:, :, j0:j0 + BK]
+        s = (qf @ kb.float().transpose(-1, -2)) * scale + bias.float()[:, None, None, j0:j0 + BK]
+        m_cur = torch.maximum(s.amax(dim=-1, keepdim=True), m)
+        alpha = torch.exp(m - m_cur)
+        p = torch.exp(s - m_cur)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).float() @ vb.float()
+        m = m_cur
+    return (acc / l).to(q.dtype)
+
+
+def streaming_attention(q, k, v, bias):
+    """Same arguments as :func:`onepass_attention`; any key length."""
+    if q.device.type == "cpu":
+        return streaming_attention_plain(q, k, v, bias)
+    args, o = _cuda.attention_operands(q, k, v, bias, "streaming attention kernel")
+    _cuda.check(_cuda.lib("flash_attention").hr_streaming_attention(
+        *args, o.data_ptr(), *o.stride()[:3], _cuda.stream()), "hr_streaming_attention")
+    streaming_attention.launches += 1
+    return o
+
+
+streaming_attention.launches = 0
+
+
+def key_bias(key_padding_mask, b: int, lk: int, device) -> torch.Tensor:
+    """``[B, Lk]`` True = PAD mask (or None) -> fp32 additive bias."""
+    if key_padding_mask is None:
+        return torch.zeros((b, lk), device=device)
+    return torch.where(key_padding_mask, NEG_INF, 0.0).float()
+
+
+def flash_mha(q, k, v, key_padding_mask=None):
+    """Fused attention over ``[B, H, L, hd]`` q/k/v: the one-pass kernel up
+    to ``ONEPASS_MAX_LK`` keys, the streaming kernel beyond."""
+    fn = onepass_attention if k.shape[2] <= ONEPASS_MAX_LK else streaming_attention
+    return fn(q, k, v, key_bias(key_padding_mask, q.shape[0], k.shape[2], q.device))
+
+
+def flash_mha_plain(q, k, v, key_padding_mask=None):
+    """Plain PyTorch version of :func:`flash_mha`, dispatched the same way."""
+    fn = onepass_attention_plain if k.shape[2] <= ONEPASS_MAX_LK else streaming_attention_plain
+    return fn(q, k, v, key_bias(key_padding_mask, q.shape[0], k.shape[2], q.device))
+
+
+def use_flash(q_shape, k_shape) -> bool:
+    """``hriemo/ops/flash_attention.py::_use_pallas`` without the device test:
+    only where the score panel becomes a memory problem."""
+    _, _, lq, hd = q_shape
+    return lq >= 1024 and k_shape[2] >= 1024 and hd % 8 == 0 and hd <= 256

@@ -1,6 +1,6 @@
 """PyTorch port: every CUDA kernel against its plain PyTorch version on the
 card, at edge shapes the serving path can give (ragged row counts, short
-and long keys, hd=96, a fully padded key row).
+and long keys, hd=96, a fully padded key row, fp32 inputs, Lq != Lk).
 
 Needs an NVIDIA GPU: marked ``cuda`` and skipped without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -17,7 +17,9 @@ from hriemo_torch.nn.attention import MultiheadAttention
 from hriemo_torch.nn.layers import MLP2, LayerNorm, Linear, init_torch_defaults
 from hriemo_torch.ops import _cuda
 from hriemo_torch.ops import attention_block as AB
+from hriemo_torch.ops import flash_attention as FA
 from hriemo_torch.ops import fused_ffn as FF
+from hriemo_torch.ops import wavlm_attention as WA
 from hriemo_torch.ops import quant as Q
 from hriemo_torch.ops.quant import quantize_for_serving
 
@@ -143,3 +145,83 @@ def test_wrappers_raise_instead_of_falling_back(gen):
         Q.int8_linear(_randn(gen, 4, 256, dtype=torch.float32), lin.w_int8, lin.w_scale)
     with pytest.raises(ValueError):     # a strided view is refused, not copied
         Q.int8_linear(_randn(gen, 256, 8).t(), lin.w_int8, lin.w_scale)
+
+
+def _heads_view(gen, b, l, h, hd, dtype):
+    """[B, H, L, hd] head view of a [B, L, H*hd] projection, as the routes pass it."""
+    return _randn(gen, b, l, h * hd, dtype=dtype).view(b, l, h, hd).transpose(1, 2)
+
+
+def _close_attention(got, ref):
+    """An attention core's raw output (|values| of a few hundredths to a few
+    tenths) against its plain version, at chip_smoke.py's ATTN_TOL: fp32
+    sums in another order only, or one bf16 rounding of the same p and
+    output; the median is taken per batch element, so an error confined to
+    one element's rows still fails."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        return
+    got, ref = got.float(), ref.float()
+    torch.testing.assert_close(got, ref, atol=8e-3, rtol=1e-2)
+    assert (got - ref).abs().flatten(1).median(dim=1).values.max().item() < 1e-3
+
+
+@pytest.mark.parametrize("l", [128, 130, 2048])
+@pytest.mark.parametrize("hd", [64, 96])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wavlm_fused_attention(gen, l, hd, dtype):
+    """Element 1 has every key masked (a pad_flush filler clip)."""
+    b, h = 3, 4
+    q, k, v = (_heads_view(gen, b, l, h, hd, dtype) for _ in range(3))
+    gate = (torch.rand(b, h, l, generator=gen) * 1.5 + 0.5).to("cuda", dtype)
+    pos = _randn(gen, h, l, l, scale=0.3, dtype=dtype)
+    kb = torch.where(_pad_mask([l, 0, l // 3], l), AB.NEG_INF, 0.0).float()
+    before = WA.wavlm_fused_attention.launches
+    got = WA.wavlm_fused_attention(q, k, v, gate, pos, kb)
+    torch.cuda.synchronize()
+    assert WA.wavlm_fused_attention.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close_attention(got, WA.wavlm_fused_attention_plain(q, k, v, gate, pos, kb))
+
+
+@pytest.mark.parametrize("lq,lk", [(1024, 1024), (130, 2048), (1030, 128), (1024, 2049),
+                                   (2049, 130), (33, 2249)])
+@pytest.mark.parametrize("hd", [64, 96])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels(gen, lq, lk, hd, dtype):
+    """Both kernels at every shape (the one-pass one up to 2048 keys), with
+    one element whose keys are all masked; flash_mha's dispatch."""
+    b, h = 3, 8
+    q = _heads_view(gen, b, lq, h, hd, dtype)
+    k, v = (_heads_view(gen, b, lk, h, hd, dtype) for _ in range(2))
+    kpm = _pad_mask([lk, lk // 3, 0], lk)
+    bias = FA.key_bias(kpm, b, lk, q.device)
+    kernels = [(FA.streaming_attention, FA.streaming_attention_plain)]
+    if lk <= FA.ONEPASS_MAX_LK:
+        kernels.append((FA.onepass_attention, FA.onepass_attention_plain))
+    for fn, plain in kernels:
+        before = fn.launches
+        got = fn(q, k, v, bias)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _close_attention(got, plain(q, k, v, bias))
+    routed = FA.onepass_attention if lk <= FA.ONEPASS_MAX_LK else FA.streaming_attention
+    before = routed.launches
+    FA.flash_mha(q, k, v, kpm)
+    assert routed.launches == before + 1
+
+
+def test_attention_kernels_raise_instead_of_falling_back(gen):
+    q = _heads_view(gen, 1, 64, 2, 64, torch.bfloat16)
+    kb = torch.zeros(1, 64, device="cuda")
+    with pytest.raises(TypeError):      # half precision is not a dtype of the kernels
+        FA.onepass_attention(q.half(), q.half(), q.half(), kb)
+    with pytest.raises(ValueError):     # rows must be contiguous
+        FA.streaming_attention(q.transpose(-1, -2), q, q, kb)
+    with pytest.raises(TypeError):      # the position bias has q's dtype
+        WA.wavlm_fused_attention(q, q, q, torch.ones(1, 2, 64, device="cuda"),
+                                 torch.zeros(2, 64, 64, device="cuda"), kb)
+    with pytest.raises(ValueError):     # the one-pass score panel must fit shared memory
+        long = _heads_view(gen, 1, 8192, 2, 64, torch.bfloat16)
+        FA.onepass_attention(q, long, long, torch.zeros(1, 8192, device="cuda"))

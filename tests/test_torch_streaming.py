@@ -10,11 +10,15 @@ from hriemo.infer.streaming import StreamingPipeline as JaxPipeline
 from hriemo.models import FusionWithEmotionDecoder
 import hriemo_torch.frontends as TF
 import hriemo_torch.models as TM
+from hriemo_torch.frontends.wavlm import feat_extract_output_lengths
 from hriemo_torch.infer import HashTokenizer, StreamingPipeline
 from hriemo_torch.ops import attention_block as TA
+from hriemo_torch.ops import flash_attention as TFA
 from hriemo_torch.ops import fused_ffn as TFF
+from hriemo_torch.ops import wavlm_attention as TW
 
-from torch_port_helpers import assert_kernel_close, one_torch_thread, port, same_config  # noqa: F401
+from torch_port_helpers import (FP32_TOL, assert_kernel_close, one_torch_thread,  # noqa: F401
+                                port, same_config)
 
 D = 256
 FUSION = dict(d_model=D, num_emotions=4, n_heads=8, num_layers_fusion=1,
@@ -66,6 +70,83 @@ def test_slice_matches_jax_kernel_path(models, monkeypatch):
     assert tp.bert.encoder.layer[0].mha_ops is not None
     assert tp.fusion.cross_modal.layers[0].ffn_a.ops is not None
     assert TA.attention_block_int8.launches == TFF.ffn_block_int8.launches == 0
+
+
+SERVE_BF16 = dict(max_seconds=2.6, max_tokens=32, multi_label=False,
+                  bucket_seconds=(0.1, 0.3, 1.3), int8_frontends=False,
+                  wav_transport="pcm16", text_bucket_tokens=(8, 16))
+# (clip samples low, high, WavLM frames of the bucket) per route class at the
+# tiny strides (20 samples a frame): per-op; fused WavLM core; plus the
+# one-pass fusion self-attention; per-op WavLM plus the streaming one
+ROUTE_FLUSHES = [(900, 1600, 79), (3000, 4800, 239), (15000, 20800, 1039),
+                 (30000, 41600, 2079)]
+
+
+def _force_jax_kernel_routes(monkeypatch):
+    """The JAX package's kernel gates without their TPU test, so its
+    Pallas kernels run here in interpret mode."""
+    import hriemo.nn.attention as jattn
+    import hriemo.ops.flash_attention as jflash
+    import hriemo.ops.wavlm_attention as jwavlm
+    monkeypatch.setattr(jwavlm, "use_fused", TW.use_fused)
+    monkeypatch.setattr(jattn, "_kernel_available", lambda: True)
+    monkeypatch.setattr(jflash, "_use_pallas", TFA.use_flash)
+
+
+def _spy(monkeypatch, module, names, calls):
+    for name in names:
+        fn = getattr(module, name)
+        monkeypatch.setattr(module, name,
+                            lambda *a, _f=fn, _n=name: calls.append(_n) or _f(*a))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_float_slice_matches_jax_kernel_path(models, monkeypatch, dtype):
+    """The float tree (bf16, the served default, and fp32) at d=256, one
+    flush of two clips in each route class of the attention cores;
+    probabilities and beta against the JAX package on its kernel routes,
+    and the port's route per flush."""
+    import jax.numpy as jnp
+
+    import hriemo.ops.flash_attention_pallas as jfp
+    import hriemo.ops.wavlm_attention as jwavlm
+    _force_jax_kernel_routes(monkeypatch)
+    (jw, jb, jf), (tw, tb, tf) = models
+    tok = HashTokenizer(99)
+    jp = JaxPipeline(jw, jb, jf, tokenizer=tok, compute_dtype=getattr(jnp, dtype), **SERVE_BF16)
+    tp = StreamingPipeline(tw, tb, tf, tokenizer=tok, device="cpu",
+                           compute_dtype=getattr(torch, dtype), **SERVE_BF16)
+    jax_calls, port_calls = [], []
+    _spy(monkeypatch, jwavlm, ["_fused_impl"], jax_calls)
+    _spy(monkeypatch, jfp, ["_onepass_impl", "_pallas_mha_fwd_impl"], jax_calls)
+    _spy(monkeypatch, TW, ["wavlm_fused_attention_plain"], port_calls)
+    _spy(monkeypatch, TFA, ["onepass_attention_plain", "streaming_attention_plain"], port_calls)
+    jax_name = {"wavlm_fused_attention_plain": "_fused_impl",
+                "onepass_attention_plain": "_onepass_impl",
+                "streaming_attention_plain": "_pallas_mha_fwd_impl"}
+    rng = np.random.default_rng(5)
+    words = "happy sad angry neutral really very today fine so not".split()
+    for lo, hi, frames in ROUTE_FLUSHES:
+        wavs = [(rng.standard_normal(int(n)) * 3000).astype(np.int16)
+                for n in (hi, rng.integers(lo, hi))]
+        texts = [" ".join(rng.choice(words, int(rng.integers(1, 12)))) for _ in wavs]
+        assert feat_extract_output_lengths(
+            tw.config, tp.preprocess(wavs, texts)[0].shape[1]) == frames
+        jax_calls.clear()
+        port_calls.clear()
+        p_ref, b_ref = jp.infer(wavs, texts)
+        p_got, b_got = tp.infer(wavs, texts)
+        want = (["wavlm_fused_attention_plain"] if 128 <= frames <= 2048 else []) + \
+            (["onepass_attention_plain"] if 1024 <= frames <= 2048 else []) + \
+            (["streaming_attention_plain"] if frames > 2048 else [])
+        assert port_calls == want, (frames, port_calls)
+        assert set(jax_calls) == {jax_name[c] for c in want}, (frames, jax_calls)
+        assert p_got.shape == (2, 4) and np.isfinite(p_got).all()
+        assert_kernel_close(p_got, p_ref)
+        assert_kernel_close(b_got, b_ref)
+        if dtype == "float32":  # no bf16 rounding: the fp32 tolerance holds
+            np.testing.assert_allclose(p_got, p_ref, atol=FP32_TOL)
+            np.testing.assert_allclose(b_got, b_ref, atol=FP32_TOL)
 
 
 def test_stream_and_bucketed_scheduler(models):
