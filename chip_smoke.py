@@ -12,10 +12,13 @@ Phases, any failure exits non-zero:
    paths' shapes: max |error| against the stated tolerance (``TOL`` for
    sublayer outputs, ``ATTN_TOL`` for the raw outputs of the attention
    cores, which also rejects a streaming result that drops the last,
-   partial key block), and CUDA-event
+   partial key block; ``CONV_TOL`` for the conv-stack stages, which also
+   rejects a K1 result with one tile's halo rows zeroed), and CUDA-event
    times of the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``, a yardstick the
-   port never calls), beside the least time the card could take;
+   port never calls), beside the least time the card could take; for the
+   float FFN and the conv stack, the routed path's time (``route_ms``:
+   cuBLAS and LayerNorm, cuDNN ``_feature_encoder``) instead;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -31,7 +34,16 @@ Phases, any failure exits non-zero:
    counts per forward (WavLM attention 1499 frames on the fused gated-bias
    kernel, 2249 per op; fusion self-attention on the one-pass and the
    streaming kernel) and kernel vs plain within 0.006;
-5. a JSON line ``{"kernels": [...]}``; then the last line
+5. the feature-extraction entry point at full width (WavLM base-plus and
+   BERT-base, random weights from a seed): a synthetic IEMOCAP tree of 24
+   utterances, the port's index builder, ``extract_iemocap`` audio (seq and
+   utter, fp32 and bf16, batch 8, 10 s) and text (seq, 128 tokens), then
+   ``check_integrity``; launch counts per audio forward, features with
+   kernels vs ``use_kernels=False``, utterances per second; then a
+   forced-gate run (the conv-stack and float-FFN gates monkeypatched on for
+   one batch) that must launch the three conv-stack kernels once and the
+   FFN kernel 12 times per forward and match the routed features;
+6. a JSON line ``{"kernels": [...]}``; then the last line
    ``{"ok": true, "device": {...}}``.
 
 Full per-shape results go to ``chip_smoke_out/chip_smoke.json``. With
@@ -41,10 +53,14 @@ torch.profiler (``chip_smoke_out/profile_<run>.txt``).
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,10 +69,15 @@ import torch
 from hriemo_torch.frontends import BertConfig, BertEncoder, WavLMConfig, WavLMEncoder
 from hriemo_torch.infer import HashTokenizer, StreamingPipeline
 from hriemo_torch.models import FusionWithEmotionDecoder
-from hriemo_torch.nn.layers import Linear, MLP2, init_torch_defaults
+from hriemo_torch.data import load_feature
+from hriemo_torch.dataprep import extract_iemocap as EX
+from hriemo_torch.dataprep import iemocap_index as II
+from hriemo_torch.dataprep.integrity import check_integrity
+from hriemo_torch.nn.layers import Linear, MLP2, gelu, init_torch_defaults, layer_norm
 from hriemo_torch.nn.attention import MultiheadAttention
 from hriemo_torch.ops import _cuda
 from hriemo_torch.ops import attention_block as AB
+from hriemo_torch.ops import conv_stack as CS
 from hriemo_torch.ops import flash_attention as FA
 from hriemo_torch.ops import fused_ffn as FF
 from hriemo_torch.ops import quant as Q
@@ -72,11 +93,21 @@ TOL = dict(atol=5e-2, rtol=5e-2, median=5e-3)  # tests/test_attention_block.py:1
 # taken per batch element, so an error confined to one element's rows fails.
 ATTN_TOL = {torch.bfloat16: dict(atol=8e-3, rtol=1e-2, median=1e-3, per_batch=True),
             torch.float32: dict(atol=1e-4, rtol=1e-4, median=1e-5, per_batch=True)}
+# Conv-stack stage outputs (GELU activations of O(1)) get their own limits,
+# set from the card's readings (PERF.md §6): bf16 max |error| 0.0156 (one
+# bf16 step below 4) and median 0; fp32 max 1.2e-5, median 2.4e-7. A K1
+# result with one tile's halo rows zeroed reads max 1.3 and must fail.
+CONV_TOL = {torch.bfloat16: dict(atol=3e-2, rtol=1e-2, median=1e-3, per_batch=True),
+            torch.float32: dict(atol=1e-4, rtol=1e-4, median=1e-5, per_batch=True)}
+# GroupNorm sums (of order 1e3-1e4 at 10 s): readings max 0.0137, median 1.4e-4
+STATS_TOL = dict(atol=1e-2, rtol=1e-4, median=1e-3)
+FP32_TOL = dict(atol=2e-4, rtol=0.0, median=2e-5)  # fp32 sublayer outputs near 1
 PROB_GATE = 0.006         # bench.py INT8_PROB_DELTA_MAX
 # NVIDIA H100 SXM data sheet, dense: HBM bytes/s, int8 and bf16 tensor-core op/s,
 # fp32 op/s outside the tensor cores
 PEAK_BYTES, PEAK_INT8, PEAK_BF16, PEAK_FP32 = 3.35e12, 1979e12, 989e12, 67e12
 TEXT_BUCKETS = (8, 12, 16, 20, 24, 32, 64)   # bench.py:172
+EPS = 1e-5                # WavLM's layer_norm_eps (GroupNorm)
 OUT = pathlib.Path("chip_smoke_out")
 
 # (wrapper, TPU kernel it replaces, CUDA sources) for the kernels line
@@ -99,6 +130,14 @@ KERNELS = {
                           "hriemo_torch/csrc/wavlm_attention.cu"),
     "streaming_attention": (FA.streaming_attention, "hriemo/ops/flash_attention_pallas.py:38",
                             "hriemo_torch/csrc/flash_attention.cu"),
+    "ffn_block_bf16": (FF.ffn_block_bf16, "hriemo/ops/fused_ffn.py:112",
+                       "hriemo_torch/csrc/ffn_bf16.cu"),
+    "conv_stack_stats": (CS.conv_stack_stats, "hriemo/ops/conv_stack.py:108",
+                         "hriemo_torch/csrc/conv_stack.cu"),
+    "conv_stack_k1": (CS.conv_stack_k1, "hriemo/ops/conv_stack.py:128",
+                      "hriemo_torch/csrc/conv_stack.cu"),
+    "conv_stack_k2": (CS.conv_stack_k2, "hriemo/ops/conv_stack.py:152",
+                      "hriemo_torch/csrc/conv_stack.cu"),
 }
 # launches of each wrapper in one forward of the int8 serving path (2.5 s
 # and 10 s buckets); every wrapper not named launches 0 times
@@ -112,6 +151,20 @@ PER_FORWARD_BF16 = {10.0: {"wavlm_fused_attention": 12}, 2.5: {}}
 # self-attentions on the one-pass kernel up to 2048 keys, streaming beyond
 PER_FORWARD_LONG = {30.0: {"wavlm_fused_attention": 12, "onepass_attention": 2},
                     45.0: {"streaming_attention": 2}}
+# feature extraction, per WavLM forward at 10 s (499 frames): routed, and
+# with the conv-stack and float-FFN gates forced on
+PER_FORWARD_EXTRACT = {"wavlm_fused_attention": 12}
+PER_FORWARD_FORCED = {"wavlm_fused_attention": 12, "ffn_block_bf16": 12,
+                      "conv_stack_stats": 1, "conv_stack_k1": 1, "conv_stack_k2": 1}
+EXTRACT_ENVELOPE = dict(atol=0.15, rtol=0.15)  # tests/test_conv_stack.py bf16 vs fp32
+# Extracted features: fp32 at the encoders' 1e-4 (tests/test_torch_frontends.py).
+# bf16 hidden states are 12 layers deep, not one sublayer as TOL is: one
+# bf16 rounding flipped in the attention core spreads across the row at the
+# next LayerNorm, so the card reads a median |d| of one bf16 step at |x| in
+# [1, 2) (0.0078) and max 0.094, with 6 of 9.2M elements outside TOL's
+# allclose (PERF.md §6). Held at two such steps and the bf16 envelope.
+FEATURE_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+               "bfloat16": dict(EXTRACT_ENVELOPE, median=2e-2)}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -151,9 +204,10 @@ def nbytes(*ts) -> int:
 
 
 def compare(name, got, ref, tol=TOL):
-    """Kernel vs plain on the same inputs: allclose + median, as the JAX
-    kernel tests hold their interpret-mode kernels. Returns the max and
-    the (largest per batch element, with ``per_batch``) median |error|."""
+    """Kernel vs plain on the same inputs: allclose + median (when ``tol``
+    has one), as the JAX kernel tests hold their interpret-mode kernels.
+    Returns the max and the (largest per batch element, with
+    ``per_batch``) median |error|."""
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)} "
@@ -162,10 +216,10 @@ def compare(name, got, ref, tol=TOL):
     bad = diff > tol["atol"] + tol["rtol"] * ref.abs()
     med = (diff.flatten(1).median(dim=1).values.max() if tol.get("per_batch")
            else diff.median()).item()
-    if bad.any() or med >= tol["median"]:
+    if bad.any() or med >= tol.get("median", math.inf):
         raise AssertionError(f"{name}: {int(bad.sum())} elements outside atol {tol['atol']} "
                              f"rtol {tol['rtol']}, max |d| {diff.max().item():.4g}, "
-                             f"median {med:.3g} (limit {tol['median']})")
+                             f"median {med:.3g} (limit {tol.get('median')})")
     return diff.max().item(), med
 
 
@@ -188,7 +242,7 @@ def check_kernels(gen):
         return (torch.arange(l)[None, :] >= lens[:, None]).to(dev)
 
     def run(kernel, shape, fn, plain, library, nbytes_, int8_ops, bf16_ops, fp32_ops=0,
-            tol=TOL):
+            tol=TOL, route=None):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         err, med = compare(f"{kernel} {shape}", got, ref, tol)
@@ -196,12 +250,15 @@ def check_kernels(gen):
         rec = dict(kernel=kernel, shape=shape, max_abs_err=err, median_abs_err=med,
                    ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
                    library_ms=None if library is None else cuda_ms(library),
+                   route_ms=None if route is None else cuda_ms(route),
                    bound_ms=b_ms, bound_by=b_by)
         rows.append(rec)
         print(f"  {kernel:22s} {shape:28s} max|d| {err:.3g} (median {med:.2g}) "
               f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-              f"library {rec['library_ms'] if library else None}  bound {b_ms:.4f} ms ({b_by})",
+              f"library {rec['library_ms'] if library else None}  "
+              f"route {rec['route_ms'] if route else None}  bound {b_ms:.4f} ms ({b_by})",
               flush=True)
+        return got, ref
 
     # WavLM attention sublayer, the 10 s bucket
     d, h, hd = 768, 12, 64
@@ -322,7 +379,140 @@ def check_kernels(gen):
                 nbytes(q, k, v, bias, q), 0, *attn_ops(dt, 2, h, l, l, hd), tol=ATTN_TOL[dt])
             if name == "streaming_attention" and dt == torch.bfloat16:
                 limit_check = wrong_block(q, k, v, bias)
-    return rows, limit_check
+
+    # float FFN block (off the routed paths): WavLM's widths at the
+    # extraction batch (8 x 499 rows) and a ragged row count, both trees and
+    # both GELUs; the route is cuBLAS Linear -> GELU -> Linear -> LayerNorm
+    d, f = 768, 3072
+    for m, dt, fast in [(m, dt, fast) for m in (8 * 499, 41)
+                        for dt in (torch.bfloat16, torch.float32) for fast in (True, False)]:
+        w1, w2 = randn(f, d, scale=0.05, dtype=dt), randn(d, f, scale=0.05, dtype=dt)
+        b1, b2 = randn(f, scale=0.02, dtype=torch.float32), randn(d, scale=0.02, dtype=torch.float32)
+        g = 1.0 + randn(d, scale=0.1, dtype=torch.float32)
+        b_ = randn(d, scale=0.1, dtype=torch.float32)
+        x = randn(m, d, dtype=dt)
+        b1c, b2c = b1.to(dt), b2.to(dt)
+        fp32 = dt == torch.float32
+        ops = 4 * m * d * f
+        run("ffn_block_bf16", f"M={m} {'tanh' if fast else 'erf'} {str(dt)[6:]}",
+            lambda: FF.ffn_block_bf16(x, w1, b1, w2, b2, g, b_, 1e-5, fast),
+            lambda: FF.ffn_block_bf16_plain(x, w1, b1, w2, b2, g, b_, 1e-5, fast), None,
+            nbytes(x, x, w1, w2, b1, b2, g, b_), 0, 0 if fp32 else ops, ops if fp32 else 0,
+            tol=FP32_TOL if fp32 else TOL,
+            route=lambda: layer_norm(x + (gelu(x @ w1.t() + b1c, fast) @ w2.t() + b2c), g, b_,
+                                     1e-5))
+        if m == 8 * 499 and fp32 and fast:
+            ffn_grad = ffn_backward_check(x, w1, b1, w2, b2, g, b_)
+
+    # conv stack: each stage on 8 x 10 s (the extraction batch), a 1 s clip
+    # at B=1, and 2920 samples (72 conv3 rows, 8 output frames: both end on
+    # a tile); both trees; the fused stack against the routed feature encoder
+    enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1))
+    enc.init_weights(gen)
+    enc = enc.to(dev).eval()
+    enc16 = copy.deepcopy(enc).to(torch.bfloat16)
+    for dt in (torch.bfloat16, torch.float32):
+        w0, gn_w, gn_b, *taps = CS.stack_operands(enc.feature_extractor, dt)
+        tdt = 0 if dt == torch.float32 else 1
+        for b, tw in ((8, 160000), (1, 16000), (2, 2920)):
+            wave = randn(b, tw, scale=0.3, dtype=dt)
+            lens = CS.conv_lengths(tw)
+            tag = f"B={b} Tw={tw} {str(dt)[6:]}"
+            stats = CS.conv_stack_stats_plain(wave, w0)
+            x3 = CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], EPS, False)
+            ops0 = 2 * b * lens[0] * 512 * 10
+            ops1 = ops0 + 2 * b * sum(lens[1:4]) * 512 * 512 * 3
+            ops2 = 2 * b * (3 * lens[4] + 2 * lens[5] + 2 * lens[6]) * 512 * 512
+            conv_ops = lambda n: (0, n * tdt, n * (1 - tdt))
+            run("conv_stack_stats", tag, lambda: CS.conv_stack_stats(wave, w0),
+                lambda: CS.conv_stack_stats_plain(wave, w0), None,
+                nbytes(wave, w0, stats), *conv_ops(ops0), tol=STATS_TOL)
+            got3, ref3 = run(
+                "conv_stack_k1", tag,
+                lambda: CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, *taps[:3], EPS, False),
+                lambda: CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], EPS,
+                                               False), None,
+                nbytes(wave, stats, w0, gn_w, gn_b, *taps[:3], x3), *conv_ops(ops1),
+                tol=CONV_TOL[dt])
+            out = CS.conv_stack_k2_plain(x3, *taps[3:], False)
+            run("conv_stack_k2", tag, lambda: CS.conv_stack_k2(x3, *taps[3:], False),
+                lambda: CS.conv_stack_k2_plain(x3, *taps[3:], False), None,
+                nbytes(x3, *taps[3:], out), *conv_ops(ops2), tol=CONV_TOL[dt])
+            if b != 8:
+                continue
+            if dt == torch.bfloat16:
+                halo_check = zeroed_halo(wave, stats, w0, gn_w, gn_b, taps[:3], ref3)
+            # the fused stack: fp32 against the cuDNN route (TF32 off) at
+            # tests/test_conv_stack.py's 2e-4/2e-3, bf16 against the fp32
+            # route at its 0.15 envelope
+            route_enc = enc if dt == torch.float32 else enc16
+            with torch.no_grad():
+                fused = CS.conv_stack_fused(enc.feature_extractor, wave, enc.config)
+                ref = enc._feature_encoder(wave.float())
+            tol = (dict(atol=2e-4, rtol=2e-3) if dt == torch.float32 else EXTRACT_ENVELOPE)
+            err, _ = compare(f"conv_stack_fused {tag} vs the fp32 route", fused, ref, tol)
+            rec = dict(kernel="conv_stack_fused", shape=tag, max_abs_err_vs_fp32_route=err,
+                       ms=cuda_ms(lambda: CS.conv_stack_fused(enc.feature_extractor, wave,
+                                                              enc.config)),
+                       plain_ms=cuda_ms(lambda: CS.conv_stack_fused(
+                           enc.feature_extractor, wave, enc.config, use_kernels=False)),
+                       route_ms=cuda_ms(lambda: route_enc._feature_encoder(wave)),
+                       bound_ms=sum(r["bound_ms"] for r in rows[-3:]))
+            rows.append(rec)
+            print(f"  conv_stack_fused       {tag:28s} vs fp32 route max|d| {err:.3g}  "
+                  f"kernels {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
+                  f"route {rec['route_ms']:.4f} ms", flush=True)
+    return rows, dict(streaming_last_block=limit_check, conv_k1_halo=halo_check,
+                      ffn_backward=ffn_grad)
+
+
+def ffn_backward_check(x, w1, b1, w2, b2, g, b):
+    """ffn_block_bf16's gradients of x and W1 (kernel forward, backward
+    through the unfused reference) against autograd through the plain
+    path, at tests/test_fused_ffn.py's 1e-3 (the upstream gradients differ
+    by the forwards' difference, and W1's sums over M rows); returns the
+    max |error| of each."""
+    grads = []
+    for fn in (FF.ffn_block_bf16, FF.ffn_reference):
+        xi, wi = x.clone().requires_grad_(True), w1.clone().requires_grad_(True)
+        (fn(xi, wi, b1, w2, b2, g, b, 1e-5, True) ** 2).sum().backward()
+        grads.append((xi.grad, wi.grad))
+    out = {}
+    for name, got, ref in zip(("x", "w1"), *grads):
+        out[name], _ = compare(f"ffn_block_bf16 gradient of {name}", got, ref,
+                               dict(atol=1e-3, rtol=1e-3))
+    print(f"  ffn_block_bf16 backward M={x.shape[0]} float32: max|d| x {out['x']:.3g}, "
+          f"W1 {out['w1']:.3g}", flush=True)
+    return out
+
+
+def zeroed_halo(wave, stats, w0, gn_w, gn_b, taps, ref):
+    """``CONV_TOL`` must reject a K1 result whose tile read its 7 conv0 halo
+    rows (those of the next tile) as zeros: batch element 0, conv3 frames
+    24..31, rebuilt from the tile's own samples. Returns that wrong
+    result's max and median |error|."""
+    j0 = 24
+    seg = wave[:1, 40 * j0: 40 * j0 + 360]            # the tile's 71 conv0 rows
+    inv_n = 1.0 / CS.conv_lengths(wave.shape[1])[0]
+    mean = stats[:1, 0:1] * inv_n
+    var = stats[:1, 1:2] * inv_n - mean * mean
+    x = FF.gelu_fp32((CS._conv0(seg, w0) - mean) * torch.rsqrt(var + EPS) * gn_w + gn_b,
+                     False).to(wave.dtype)
+    x[:, 64:] = 0                                      # the halo rows
+    for t in taps:
+        x = CS._conv_s2(x, t, False)
+    wrong = ref.clone()
+    wrong[:1, j0:j0 + 8] = x
+    diff = (wrong.float() - ref.float()).abs()
+    reading = dict(tile=f"frames {j0}..{j0 + 7} of batch element 0",
+                   max_abs_err=diff.max().item(),
+                   median_abs_err_per_batch=diff.flatten(1).median(dim=1).values.tolist())
+    try:
+        compare("conv_stack_k1 with one tile's halo rows zeroed", wrong, ref, CONV_TOL[wave.dtype])
+    except AssertionError as e:
+        print(f"  limit check: rejected, as it must be: {e}", flush=True)
+        return reading
+    raise AssertionError(f"CONV_TOL passes a K1 result with zeroed halo rows: {reading}")
 
 
 def wrong_block(q, k, v, bias):
@@ -423,8 +613,13 @@ def serve(pipe, clips, batch: int = B):
 
 
 def profile(pipe, clips, tag: str, batch: int = B) -> None:
-    """``--profile``: torch.profiler over one serving pass; device busy
-    share and device time by kernel name go to
+    """``--profile``: torch.profiler over one serving pass."""
+    profile_call(tag, lambda: serve(pipe, clips, batch)[1])
+
+
+def profile_call(tag: str, fn) -> None:
+    """``--profile``: torch.profiler over ``fn()``, which returns its wall
+    seconds; device busy share and device time by kernel name go to
     chip_smoke_out/profile_<tag>.txt."""
     if "--profile" not in sys.argv[1:]:
         return
@@ -432,7 +627,7 @@ def profile(pipe, clips, tag: str, batch: int = B) -> None:
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, secs = serve(pipe, clips, batch)
+        secs = fn()
     events = prof.key_averages()
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
@@ -444,6 +639,159 @@ def profile(pipe, clips, tag: str, batch: int = B) -> None:
     (OUT / f"profile_{tag}.txt").write_text(
         "\n".join(lines) + "\n\n" + events.table(sort_by="cpu_time_total", row_limit=30))
     print(f"profile {tag}:", "\n  ".join(lines[:12]), flush=True)
+
+
+def fake_iemocap(root: pathlib.Path, rng, sessions=(1, 4, 5), per_session=9):
+    """A synthetic IEMOCAP tree in tests/test_dataprep.py::make_fake_iemocap's
+    layout: per session one dialog of ``per_session`` utterances of 1.5-12 s
+    (every third at 44.1 kHz stereo), transcripts at ~150 words/min, and
+    one 'oth' label per session, which the index drops."""
+    from scipy.io import wavfile
+
+    labels = ["ang", "hap", "sad", "neu", "fru", "exc"]
+    words = np.array("happy sad angry neutral really very today fine so not".split())
+    for s in sessions:
+        sess = root / f"Session{s}"
+        dialog = f"Ses0{s}F_impro01"
+        dirs = {k: sess / p for k, p in (("emo", "dialog/EmoEvaluation"),
+                                          ("tr", "dialog/transcriptions"),
+                                          ("wav", f"sentences/wav/{dialog}"))}
+        for d in dirs.values():
+            d.mkdir(parents=True)
+        emo_lines, tr_lines = ["% header"], []
+        for i in range(per_session):
+            uid = f"{dialog}_F{i:03d}"
+            sec = rng.uniform(1.5, 12.0)
+            lab = "oth" if i == per_session - 1 else labels[(s + i) % len(labels)]
+            emo_lines.append(f"[{2 * i:.4f} - {2 * i + sec:.4f}]\t{uid}\t{lab}\t[2.5, 2.5, 2.5]")
+            sr, shape = (44100, (int(sec * 44100), 2)) if i % 3 == 0 else (16000, (int(sec * 16000),))
+            wavfile.write(dirs["wav"] / f"{uid}.wav", sr,
+                          (rng.standard_normal(shape) * 3000).astype(np.int16))
+            text = " ".join(rng.choice(words, max(1, int(sec * 2.5))))
+            tr_lines.append(f"{uid} [{2 * i:.4f}-{2 * i + sec:.4f}]: {text}")
+        (dirs["emo"] / f"{dialog}.txt").write_text("\n".join(emo_lines))
+        (dirs["tr"] / f"{dialog}.txt").write_text("\n".join(tr_lines))
+
+
+def compare_features(what, got_dir, ref_dir, uids, tol):
+    """Seq-level feature files of ``uids`` in two directories: the same
+    masks and finite hidden states within ``tol``: ``atol``/``rtol`` per
+    element (and ``median``, per utterance), or ``rel``, a limit on max |d|
+    / max |ref| per utterance. Returns the reading: max |d|, the largest
+    per-utterance median and relative max, and the share of elements
+    outside TOL's atol/rtol."""
+    reading = dict(max_abs_err=0.0, max_median=0.0, max_rel=0.0, outside_tol=0, elements=0)
+    fails = []
+    for uid in uids:
+        (got, gm), (ref, rm) = (load_feature(d / f"{uid}.npz") for d in (got_dir, ref_dir))
+        if not np.array_equal(gm, rm) or got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{what} {uid}: mask, shape or non-finite values differ")
+        d = np.abs(got - ref)
+        med, rel = float(np.median(d)), float(d.max() / np.abs(ref).max())
+        reading["max_abs_err"] = max(reading["max_abs_err"], float(d.max()))
+        reading["max_median"] = max(reading["max_median"], med)
+        reading["max_rel"] = max(reading["max_rel"], rel)
+        reading["outside_tol"] += int((d > TOL["atol"] + TOL["rtol"] * np.abs(ref)).sum())
+        reading["elements"] += d.size
+        bad = rel > tol["rel"] if "rel" in tol else \
+            (d > tol["atol"] + tol["rtol"] * np.abs(ref)).any() or med >= tol.get("median", 1.0)
+        if bad:
+            fails.append(uid)
+    print(f"  {what}: {reading} (limit {tol})", flush=True)
+    if fails:
+        raise AssertionError(f"{what}: {len(fails)} utterances outside {tol}: {fails[:4]}")
+    return reading
+
+
+def extraction(gen, smi: str):
+    """Phase 5. Returns its record and the launches of its main-path runs."""
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_extract_"))
+    try:
+        return _extraction(gen, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _extraction(gen, smi, root):
+    fake_iemocap(root / "IEMOCAP", np.random.default_rng(SEED + 2))
+    idx = II.main(["--base", str(root / "IEMOCAP"), "--out_dir", str(root / "data")])
+    rows = II.read_csv(idx)
+    if len(rows) != 24:
+        raise AssertionError(f"index: {len(rows)} rows, want 24")
+    wavlm = WavLMEncoder(WavLMConfig.base_plus())
+    wavlm.init_weights(gen)
+    bert = BertEncoder(BertConfig.base_uncased())
+    bert.init_weights(gen)
+
+    def args(modality, dtype, level="seq"):
+        return EX.parse_args(["--modality", modality, "--level", level, "--index_csv", str(idx),
+                              "--out_dir", "unused", "--random_init", "--batch_size", "8",
+                              "--max_seconds", "10", "--max_len_text", "128",
+                              "--compute_dtype", dtype])
+
+    def out(name):
+        d = root / name
+        d.mkdir()
+        return d
+
+    rec, total = {}, {name: 0 for name in KERNELS}
+    uids = [r["utter_id"] for r in rows]
+    for dtype in ("float32", "bfloat16"):
+        EX.extract_audio(args("audio", dtype), rows[:8], out(f"warm_{dtype}"), model=wavlm)
+        for level in ("seq", "utter"):
+            reset_launches()
+            st = EX.extract_audio(args("audio", dtype, level), rows, out(f"audio_{level}_{dtype}"),
+                                  model=wavlm)
+            ll = read_launches()
+            check_launches(f"extract audio {level} {dtype}", ll,
+                           {n: k * st["forwards"] for n, k in PER_FORWARD_EXTRACT.items()})
+            for name, n in ll.items():
+                total[name] += n
+            rec[f"audio_{level}_{dtype}"] = dict(st, utt_per_s=st["count"] / st["seconds"],
+                                                 launches=ll)
+            print(f"extract audio {level} {dtype}: {st['count']} utterances in "
+                  f"{st['forwards']} forwards, {st['seconds']:.3f} s, "
+                  f"{st['count'] / st['seconds']:.2f} utt/s at B=8 ({smi}); launches {ll}",
+                  flush=True)
+        profile_call(f"extract_{dtype}", lambda: EX.extract_audio(
+            args("audio", dtype), rows, out(f"profile_{dtype}"), model=wavlm)["seconds"])
+        st = EX.extract_audio(args("audio", dtype), rows, out(f"plain_{dtype}"), model=wavlm,
+                              use_kernels=False)
+        rec[f"kernels_vs_plain_{dtype}"] = dict(
+            compare_features(f"extract {dtype} kernels vs plain", root / f"audio_seq_{dtype}",
+                             root / f"plain_{dtype}", uids, FEATURE_TOL[dtype]),
+            plain_seconds=st["seconds"])
+
+    st = EX.extract_text(args("text", "float32"), rows, out("text_seq"), model=bert)
+    rec["text_seq_float32"] = dict(st, utt_per_s=st["count"] / st["seconds"])
+    report = check_integrity(str(idx), str(root / "audio_seq_float32"), str(root / "text_seq"))
+    print(f"extract text: {st['count']} utterances in {st['seconds']:.3f} s; integrity "
+          f"{report}", flush=True)
+    if not report["ok"] or report["csv_missing_audio"] or report["csv_missing_text"]:
+        raise AssertionError(f"check_integrity: {report}")
+    rec["integrity"] = report
+
+    # forced gates: the fused conv stack and the float FFN block on one batch
+    gates = (CS.use_conv_stack, FF.use_ffn_bf16)
+    CS.use_conv_stack, FF.use_ffn_bf16 = (lambda *a: True), (lambda *a: True)
+    try:
+        for dtype in ("float32", "bfloat16"):
+            reset_launches()
+            st = EX.extract_audio(args("audio", dtype), rows[:8], out(f"forced_{dtype}"),
+                                  model=wavlm)
+            ll = read_launches()
+            check_launches(f"forced gates {dtype}", ll,
+                           {n: k * st["forwards"] for n, k in PER_FORWARD_FORCED.items()})
+            for name, n in ll.items():
+                total[name] += n
+            print(f"forced gates {dtype}: launches {ll}", flush=True)
+            tol = dict(rel=2e-3) if dtype == "float32" else EXTRACT_ENVELOPE
+            rec[f"forced_{dtype}"] = dict(st, launches=ll, vs_routed=compare_features(
+                f"forced gates {dtype} vs routed", root / f"forced_{dtype}",
+                root / f"audio_seq_{dtype}", uids[:8], tol))
+    finally:
+        CS.use_conv_stack, FF.use_ffn_bf16 = gates
+    return rec, total
 
 
 def main() -> int:
@@ -467,7 +815,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(SEED)
     print("kernels vs plain versions:", flush=True)
-    rows, limit_check = check_kernels(gen)
+    rows, limit_checks = check_kernels(gen)
 
     wavlm, bert, fusion = serving_models(gen)
     kw = dict(tokenizer=HashTokenizer(30522), max_seconds=10.0, max_tokens=128,
@@ -572,6 +920,10 @@ def main() -> int:
                 total[name] += n
         del pk, pp
         torch.cuda.empty_cache()
+    # phase 5: the feature-extraction entry point
+    phases["extract"], ll = extraction(gen, smi)
+    for name, n in ll.items():
+        total[name] += n
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"{name}: launched on no main path")
@@ -586,9 +938,10 @@ def main() -> int:
                             max_abs_err=max(r["max_abs_err"] for r in mine),
                             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
                             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-                            library_ms=main_row["library_ms"], shape=main_row["shape"]))
+                            library_ms=main_row["library_ms"], route_ms=main_row["route_ms"],
+                            shape=main_row["shape"]))
     (OUT / "chip_smoke.json").write_text(json.dumps(dict(
-        card=smi, build_s=build_s, rows=rows, limit_check=limit_check, launches=total,
+        card=smi, build_s=build_s, rows=rows, limit_checks=limit_checks, launches=total,
         phases=phases, int8_prob_delta=int8_delta), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

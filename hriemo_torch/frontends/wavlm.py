@@ -1,7 +1,8 @@
 """WavLM audio frontend (port of ``hriemo/frontends/wavlm.py``, eval path).
 
 Conv feature encoder (GroupNorm statistics from the waveform's Gram
-matrix), feature projection, convolutional positional embedding, and a
+matrix; the fused conv-stack kernels of ``ops.conv_stack`` behind the JAX
+package's gate, which is off), feature projection, convolutional positional embedding, and a
 post-norm encoder with WavLM's gated relative position bias. Parameter
 names are the HF ``WavLMModel`` state-dict names the JAX package uses.
 
@@ -30,7 +31,7 @@ from ..nn.layers import LayerNorm, Linear, gelu
 from ..ops.attention_block import (WavLMAttnOperands, attention_block_int8,
                                    attention_block_int8_plain, use_attention_block,
                                    wavlm_attn_operands)
-from ..ops.conv_stack import group_norm_stats_from_waveform
+from ..ops import conv_stack
 from ..ops.fused_ffn import FfnOperands, ffn_operands, route_ffn_block, use_fused_ffn
 from ..ops.wavlm_attention import use_fused, wavlm_fused_attention, wavlm_fused_attention_plain
 
@@ -204,6 +205,7 @@ class WavLMEncoder(nn.Module):
         self.encoder.layer_norm = LayerNorm(d, cfg.layer_norm_eps)
         self.encoder.layers = nn.ModuleList(
             WavLMEncoderLayer(cfg, i == 0) for i in range(cfg.num_hidden_layers))
+        self.use_kernels = True
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -232,6 +234,10 @@ class WavLMEncoder(nn.Module):
 
     def _feature_encoder(self, input_values):
         cfg = self.config
+        if conv_stack.use_conv_stack(cfg, self.feature_extractor):
+            # the fused stack, routed off as in hriemo/frontends/wavlm.py:206-213
+            return conv_stack.conv_stack_fused(self.feature_extractor, input_values, cfg,
+                                               self.use_kernels)
         x = input_values[:, None, :]
         for i, layer in enumerate(self.feature_extractor.conv_layers):
             conv = layer.conv
@@ -240,7 +246,8 @@ class WavLMEncoder(nn.Module):
                 gp = layer.layer_norm
                 if (cfg.conv_kernel[0] == 10 and cfg.conv_stride[0] == 5
                         and conv.bias is None):
-                    mean, var = group_norm_stats_from_waveform(input_values, conv.weight)
+                    mean, var = conv_stack.group_norm_stats_from_waveform(input_values,
+                                                                          conv.weight)
                 else:  # GroupNorm with one channel per group
                     xf = x.float()
                     mean = xf.mean(-1)

@@ -30,7 +30,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 # the accurate versions, as in the plain PyTorch versions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-LIBS = ("quant_gemm", "attention", "wavlm_attention", "flash_attention")
+LIBS = ("quant_gemm", "attention", "wavlm_attention", "flash_attention", "ffn_bf16",
+        "conv_stack")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -56,6 +57,16 @@ SIGNATURES = {
     "flash_attention": {
         "hr_streaming_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
                                    P, P, I, I, I, P],
+    },
+    "ffn_bf16": {
+        "hr_ffn_smem_bytes": [I, I, I],
+        "hr_ffn_max_smem_bytes": [],
+        "hr_ffn_block": [I, P, P, P, P, P, P, P, I, I, I, F, I, P, P],
+    },
+    "conv_stack": {
+        "hr_conv_stats": [I, P, I, I, P, I, P, P],
+        "hr_conv_k1": [I, P, I, I, P, P, P, P, P, P, P, F, F, I, I, P, P],
+        "hr_conv_k2": [I, P, I, I, P, P, P, I, I, P, P],
     },
 }
 

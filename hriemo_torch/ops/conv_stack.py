@@ -1,15 +1,47 @@
-"""GroupNorm statistics of WavLM's conv0 from the waveform
-(port of ``hriemo/ops/conv_stack.py:316-374``).
+"""WavLM feature-encoder conv stack (port of ``hriemo/ops/conv_stack.py``).
 
-Plain PyTorch: in JAX this is XLA code, not a Pallas kernel. conv0 is
-linear in the waveform, so the per-channel moments of its output over
-time come from the 10x10 Gram matrix of the waveform's stride-5 phase
-view, and GroupNorm needs no pass over the conv0 activation.
+Two parts:
+
+* :func:`group_norm_stats_from_waveform` (``:316-374``), plain PyTorch: in
+  JAX this is XLA code, not a Pallas kernel. conv0 is linear in the
+  waveform, so the per-channel moments of its output over time come from
+  the 10x10 Gram matrix of the waveform's stride-5 phase view, and the
+  routed feature encoder (``frontends/wavlm.py``) needs no pass over the
+  conv0 activation for its GroupNorm.
+* The fused stack (``:60-274``), three Hopper kernels of
+  ``csrc/conv_stack.cu``, each with its plain PyTorch version and launch
+  count, composed by :func:`conv_stack_fused`:
+
+  - :func:`conv_stack_stats` replaces ``_stats_kernel`` (``pallas_call`` at
+    ``:228``): per-channel sum and sum of squares of conv0 over its valid
+    rows, ``[B, 2, C]`` fp32;
+  - :func:`conv_stack_k1` replaces ``_k1_kernel`` (``:243``): conv0,
+    GroupNorm from those sums (``var = s2/n - mean^2``, no clamp, unlike
+    the Gram route), GELU, conv1..3, ``[B, t3, C]``;
+  - :func:`conv_stack_k2` replaces ``_k2_kernel`` (``:263``): conv4..6,
+    ``[B, t_out, C]``.
+
+  Rounding points are the TPU kernels': fp32 sums, GroupNorm and GELU (the
+  config's tanh or erf) in fp32, each conv's output cast to the input dtype
+  before the next conv, conv0's output normalised before any rounding. The
+  JAX package routes the stack off (:func:`use_conv_stack`), and so does
+  the port; it is forward-only, like the TPU kernels.
+
+Stage operands: the waveform ``[B, Tw]`` and weights in its dtype, conv0's
+weight as ``[C, 10]``, conv1..6 tap-major ``[K, C_out, C_in]``
+(:func:`conv_taps`), GroupNorm parameters and statistics in fp32.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import _cuda
+from .fused_ffn import gelu_fp32
+
+KERNEL = (10, 3, 3, 3, 3, 2, 2)   # the base feature encoder's conv pattern
+STRIDE = (5, 2, 2, 2, 2, 2, 2)
+CHANNELS = 512                    # the kernels' width (csrc/conv_stack.cu kC)
 
 
 def _gram_phase_views(wave):
@@ -41,3 +73,194 @@ def group_norm_stats_from_waveform(wave, conv0_weight):
     # E[x^2] - mean^2 cancels for near-constant conv0 outputs (silence);
     # clamp so rstd never sees a tiny negative variance
     return mean, torch.clamp_min(ex2 - mean * mean, 0.0)
+
+
+def conv_lengths(tw: int) -> list[int]:
+    """True output lengths of conv0..6 for a ``tw``-sample waveform."""
+    lens = [(tw - KERNEL[0]) // STRIDE[0] + 1]
+    for k, s in zip(KERNEL[1:], STRIDE[1:]):
+        lens.append((lens[-1] - k) // s + 1)
+    return lens
+
+
+def conv_taps(weight, dtype):
+    """torch Conv1d weight ``[C_out, C_in, K]`` -> tap-major ``[K, C_out,
+    C_in]`` contiguous in ``dtype``, the kernels' weight layout."""
+    return weight.detach().to(dtype).permute(2, 0, 1).contiguous()
+
+
+# ---------------------------------------------------------------- plain
+
+def _conv0(wave, w0):
+    """conv0 without bias, fp32 sums: ``[B, n0, C]``. ``w0 [C, 10]``."""
+    return wave.unfold(1, 10, 5).float() @ w0.float().t()
+
+
+def _conv_s2(x, taps, fast_gelu):
+    """gelu(stride-2 conv) over ``x [B, T, C]``, fp32 sums of the taps in
+    order, rounded to x's dtype."""
+    k = taps.shape[0]
+    t = (x.shape[1] - k) // 2 + 1
+    acc = None
+    for j in range(k):
+        part = x[:, j:j + 2 * (t - 1) + 1:2].float() @ taps[j].float().t()
+        acc = part if acc is None else acc + part
+    return gelu_fp32(acc, fast_gelu).to(x.dtype)
+
+
+def conv_stack_stats_plain(wave, w0):
+    """Plain PyTorch version of :func:`conv_stack_stats`."""
+    x0 = _conv0(wave, w0)
+    return torch.stack([x0.sum(dim=1), (x0 * x0).sum(dim=1)], dim=1)
+
+
+def conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu: bool):
+    """Plain PyTorch version of :func:`conv_stack_k1`."""
+    x0 = _conv0(wave, w0)
+    inv_n = 1.0 / x0.shape[1]
+    mean = stats[:, 0:1] * inv_n                      # [B, 1, C]
+    var = stats[:, 1:2] * inv_n - mean * mean
+    rstd = torch.rsqrt(var + eps)
+    x = gelu_fp32((x0 - mean) * rstd * gn_w.float() + gn_b.float(), fast_gelu).to(wave.dtype)
+    for taps in (w1, w2, w3):
+        x = _conv_s2(x, taps, fast_gelu)
+    return x
+
+
+def conv_stack_k2_plain(x3, w4, w5, w6, fast_gelu: bool):
+    """Plain PyTorch version of :func:`conv_stack_k2`."""
+    x = x3
+    for taps in (w4, w5, w6):
+        x = _conv_s2(x, taps, fast_gelu)
+    return x
+
+
+# --------------------------------------------------------------- kernels
+
+def _check_wave(wave, what):
+    if wave.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what}: dtype {wave.dtype}, needs bf16 or fp32")
+    if wave.dim() != 2:
+        raise ValueError(f"{what}: waveform must be [B, Tw], got {tuple(wave.shape)}")
+    _cuda.require(wave, "wave", wave.dtype)
+
+
+def _check_taps(taps, k, dtype, dev, name):
+    _cuda.require(taps, name, dtype, (k, CHANNELS, CHANNELS), dev)
+
+
+def conv_stack_stats(wave, w0):
+    """Sum and sum of squares over time of conv0 ``[B, 2, C]`` fp32, over
+    its ``(Tw - 10) // 5 + 1`` valid rows. ``wave [B, Tw]`` bf16 or fp32;
+    ``w0 [C, 10]`` in the waveform's dtype."""
+    if wave.device.type == "cpu":
+        return conv_stack_stats_plain(wave, w0)
+    _check_wave(wave, "conv_stack_stats")
+    b, tw = wave.shape
+    n0 = conv_lengths(tw)[0]
+    if n0 < 1:
+        raise ValueError(f"conv_stack_stats: {tw} samples give no conv0 row")
+    _cuda.require(w0, "w0", wave.dtype, (CHANNELS, 10), wave.device)
+    out = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=wave.device)
+    _cuda.check(_cuda.lib("conv_stack").hr_conv_stats(
+        int(wave.dtype == torch.float32), wave.data_ptr(), b, tw, w0.data_ptr(), n0,
+        out.data_ptr(), _cuda.stream()), "hr_conv_stats")
+    conv_stack_stats.launches += 1
+    return out
+
+
+conv_stack_stats.launches = 0
+
+
+def conv_stack_k1(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu: bool):
+    """conv0, GroupNorm (from ``stats``, :func:`conv_stack_stats`), GELU and
+    conv1..3 (taps ``[3, C, C]``): ``[B, t3, C]`` in the waveform's dtype."""
+    if wave.device.type == "cpu":
+        return conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps, fast_gelu)
+    _check_wave(wave, "conv_stack_k1")
+    b, tw = wave.shape
+    lens = conv_lengths(tw)
+    if lens[3] < 1:
+        raise ValueError(f"conv_stack_k1: {tw} samples give no conv3 frame")
+    dt, dev = wave.dtype, wave.device
+    _cuda.require(stats, "stats", torch.float32, (b, 2, CHANNELS), dev)
+    _cuda.require(w0, "w0", dt, (CHANNELS, 10), dev)
+    _cuda.require(gn_w, "gn_w", torch.float32, (CHANNELS,), dev)
+    _cuda.require(gn_b, "gn_b", torch.float32, (CHANNELS,), dev)
+    for taps, name in ((w1, "w1"), (w2, "w2"), (w3, "w3")):
+        _check_taps(taps, 3, dt, dev, name)
+    out = torch.empty((b, lens[3], CHANNELS), dtype=dt, device=dev)
+    _cuda.check(_cuda.lib("conv_stack").hr_conv_k1(
+        int(dt == torch.float32), wave.data_ptr(), b, tw, stats.data_ptr(), w0.data_ptr(),
+        gn_w.data_ptr(), gn_b.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+        1.0 / lens[0], eps, int(fast_gelu), lens[3], out.data_ptr(), _cuda.stream()),
+        "hr_conv_k1")
+    conv_stack_k1.launches += 1
+    return out
+
+
+conv_stack_k1.launches = 0
+
+
+def conv_stack_k2(x3, w4, w5, w6, fast_gelu: bool):
+    """conv4 (taps ``[3, C, C]``), conv5 and conv6 (``[2, C, C]``) over the
+    conv3 rows ``x3 [B, t3, C]``: ``[B, t_out, C]`` in x3's dtype."""
+    if x3.device.type == "cpu":
+        return conv_stack_k2_plain(x3, w4, w5, w6, fast_gelu)
+    dt, dev = x3.dtype, x3.device
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"conv_stack_k2: dtype {dt}, needs bf16 or fp32")
+    b, t3 = x3.shape[:2]
+    _cuda.require(x3, "x3", dt, (b, t3, CHANNELS), dev)
+    t_out = t3
+    for k in KERNEL[4:]:
+        t_out = (t_out - k) // 2 + 1
+    if t_out < 1:
+        raise ValueError(f"conv_stack_k2: {t3} conv3 rows give no output frame")
+    _check_taps(w4, 3, dt, dev, "w4")
+    _check_taps(w5, 2, dt, dev, "w5")
+    _check_taps(w6, 2, dt, dev, "w6")
+    out = torch.empty((b, t_out, CHANNELS), dtype=dt, device=dev)
+    _cuda.check(_cuda.lib("conv_stack").hr_conv_k2(
+        int(dt == torch.float32), x3.data_ptr(), b, t3, w4.data_ptr(), w5.data_ptr(),
+        w6.data_ptr(), int(fast_gelu), t_out, out.data_ptr(), _cuda.stream()), "hr_conv_k2")
+    conv_stack_k2.launches += 1
+    return out
+
+
+conv_stack_k2.launches = 0
+
+
+def stack_operands(feature_extractor, dtype):
+    """The stages' weights from a port WavLM ``feature_extractor`` (torch
+    layout ``[O, I, K]``): ``(w0 [C, 10], gn_w, gn_b, taps1..taps6)``."""
+    layers = feature_extractor.conv_layers
+    w0 = layers[0].conv.weight.detach()[:, 0, :].to(dtype).contiguous()
+    gn = layers[0].layer_norm
+    return (w0, gn.weight.detach().float().contiguous(), gn.bias.detach().float().contiguous(),
+            *(conv_taps(layers[i].conv.weight, dtype) for i in range(1, 7)))
+
+
+def conv_stack_fused(feature_extractor, wave, cfg, use_kernels: bool = True):
+    """Full WavLM feature encoder: ``wave [B, Tw]`` -> ``[B, t_out, C]`` in
+    the waveform's dtype (``hriemo/ops/conv_stack.py::conv_stack_fused``).
+    ``cfg`` must have the base 7-layer pattern without conv bias;
+    ``use_kernels=False`` runs the three plain versions."""
+    if (tuple(cfg.conv_kernel) != KERNEL or tuple(cfg.conv_stride) != STRIDE
+            or cfg.conv_bias or len(set(cfg.conv_dim)) != 1):
+        raise ValueError("conv_stack_fused: needs the base 7-layer conv pattern, "
+                         "equal widths and no conv bias")
+    w0, gn_w, gn_b, *taps = stack_operands(feature_extractor, wave.dtype)
+    stats_fn, k1, k2 = ((conv_stack_stats, conv_stack_k1, conv_stack_k2) if use_kernels else
+                        (conv_stack_stats_plain, conv_stack_k1_plain, conv_stack_k2_plain))
+    x3 = k1(wave, stats_fn(wave, w0), w0, gn_w, gn_b, *taps[:3], cfg.layer_norm_eps,
+            cfg.fast_gelu)
+    return k2(x3, *taps[3:], cfg.fast_gelu)
+
+
+def use_conv_stack(cfg, feature_extractor) -> bool:
+    """Routing of the feature encoder to :func:`conv_stack_fused`: off, as in
+    the JAX package (``hriemo/ops/conv_stack.py:277-313``: the fused stack
+    lost the whole-model comparison on its TPU). The port keeps that
+    routing; a caller may force it on."""
+    return False

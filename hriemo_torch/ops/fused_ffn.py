@@ -22,6 +22,14 @@ operations against ~2.4 MB of weights); the first version also writes and
 re-reads the fp32 [M, 3072] intermediate, which the TPU kernel keeps in
 VMEM, so at small M its bytes dominate. Fusing the requantize into the
 first GEMM's epilogue removes that round trip in a later version.
+
+A third kernel, :func:`ffn_block_bf16`, replaces ``_kernel_bf16``
+(``:112-124``, ``pallas_call`` at ``:192``): the same block over bf16 or
+fp32 x and weights, one launch of ``csrc/ffn_bf16.cu`` with the hidden
+panel in shared memory. Its gradient recomputes through the unfused
+reference, as the JAX custom VJP does. The JAX routing never calls it
+(float FFNs go per op, ``route_ffn_block``); :func:`use_ffn_bf16` is that
+gate, False.
 """
 
 from __future__ import annotations
@@ -184,16 +192,108 @@ def use_fused_ffn(d: int, f: int) -> bool:
     return d % 128 == 0 and f % 128 == 0 and 2 * d * f <= 8 * 2 ** 20
 
 
+def ffn_reference(x, w1, b1, w2, b2, ln_w, ln_b, eps: float, fast_gelu: bool):
+    """``hriemo/ops/fused_ffn.py::_xla_reference``: the unfused float block,
+    ``x . W1^T`` rounded to x's dtype before ``b1`` is added; the gradient
+    of :func:`ffn_block_bf16` goes through it."""
+    dt = x.dtype
+    h = gelu_fp32((x @ w1.to(dt).t() + b1).float(), fast_gelu).to(dt)
+    y = x.float() + h @ w2.to(dt).t() + b2
+    return layer_norm_rows(y, ln_w, ln_b, eps).to(dt)
+
+
+def ffn_block_bf16_plain(x, w1, b1, w2, b2, ln_w, ln_b, eps: float, fast_gelu: bool):
+    """Plain PyTorch version of :func:`ffn_block_bf16`, in the kernel's
+    order: fp32 sums of the first product plus ``b1``, fp32 GELU rounded
+    to x's dtype, fp32 sums of the second product, then ``(x + y) + b2``
+    and LayerNorm in fp32."""
+    dt = x.dtype
+    h = gelu_fp32(x.float() @ w1.to(dt).float().t() + b1.float(), fast_gelu).to(dt)
+    y = (x.float() + h.float() @ w2.to(dt).float().t()) + b2.float()
+    return layer_norm_rows(y, ln_w.float(), ln_b.float(), eps).to(dt)
+
+
+def _ffn_bf16_launch(x, w1, b1, w2, b2, ln_w, ln_b, eps, fast_gelu):
+    m, d = x.shape
+    f = w1.shape[0]
+    dt, dev = x.dtype, x.device
+    if dt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"ffn_block_bf16: dtype {dt}, needs bf16 or fp32")
+    _cuda.require(x, "x", dt)
+    _cuda.require(w1, "w1", dt, (f, d), dev)
+    _cuda.require(w2, "w2", dt, (d, f), dev)
+    _cuda.require(b1, "b1", torch.float32, (f,), dev)
+    for t, name in ((b2, "b2"), (ln_w, "ln_w"), (ln_b, "ln_b")):
+        _cuda.require(t, name, torch.float32, (d,), dev)
+    if d % 32 or f % 32:
+        raise ValueError(f"ffn_block_bf16: widths {d}, {f} must be multiples of 32")
+    lib = _cuda.lib("ffn_bf16")
+    fp32 = int(dt == torch.float32)
+    if lib.hr_ffn_smem_bytes(fp32, d, f) > lib.hr_ffn_max_smem_bytes():
+        raise ValueError(f"ffn_block_bf16: widths {d}, {f} do not fit shared memory")
+    out = torch.empty_like(x)
+    _cuda.check(lib.hr_ffn_block(fp32, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                                 b2.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), m, d, f, eps,
+                                 int(fast_gelu), out.data_ptr(), _cuda.stream()),
+                "hr_ffn_block")
+    ffn_block_bf16.launches += 1
+    return out
+
+
+class _FfnBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ln_w, ln_b, eps, fast_gelu):
+        ctx.save_for_backward(x, w1, b1, w2, b2, ln_w, ln_b)
+        ctx.eps, ctx.fast_gelu = eps, fast_gelu
+        fn = ffn_block_bf16_plain if x.device.type == "cpu" else _ffn_bf16_launch
+        return fn(x, w1, b1, w2, b2, ln_w, ln_b, eps, fast_gelu)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = [t.detach().requires_grad_(t.is_floating_point()) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ffn_reference(*ins, ctx.eps, ctx.fast_gelu)
+            grads = torch.autograd.grad(out, ins, g, allow_unused=True)
+        return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+def ffn_block_bf16(x, w1, b1, w2, b2, ln_w, ln_b, eps: float = 1e-5, fast_gelu: bool = True):
+    """Fused float FFN block ``LN(x + W2 gelu(W1 x + b1) + b2)`` over ``x [M,
+    D]`` bf16 or fp32, torch-layout weights ``w1 [F, D]``, ``w2 [D, F]`` of
+    x's dtype, fp32 ``b1``, ``b2``, ``ln_w``, ``ln_b``; returns ``[M, D]``
+    in x's dtype. On the CPU the plain version runs; on the card one launch
+    (or a raise). Differentiable: the backward recomputes through
+    :func:`ffn_reference`."""
+    return _FfnBf16.apply(x, w1, b1, w2, b2, ln_w, ln_b, eps, fast_gelu)
+
+
+ffn_block_bf16.launches = 0
+
+
+def use_ffn_bf16(d: int, f: int) -> bool:
+    """Routing of float FFN blocks to :func:`ffn_block_bf16`: off, as in the
+    JAX package, whose ``route_ffn_block`` sends bf16 and fp32 FFNs per op
+    (``hriemo/ops/fused_ffn.py:338-342``)."""
+    return False
+
+
 def route_ffn_block(p_in, p_out, ln, x, eps: float, fast_gelu: bool,
                     ops: FfnOperands | None, use_kernels: bool = True):
     """Post-norm FFN block over ``x [B, L, D]`` (``route_ffn_block``,
     ``hriemo/ops/fused_ffn.py:330``): the fused kernel for int8 Linears
     whose shapes it takes (``ops`` is then set), else Linear -> GELU ->
-    Linear -> LN(x + .)."""
+    Linear -> LN(x + .); float Linears go to :func:`ffn_block_bf16` only
+    where :func:`use_ffn_bf16` says so (never, unless a caller forces it)."""
     b, l, d = x.shape
     if ops is not None:
         fn = ffn_block_int8 if use_kernels else ffn_block_int8_plain
         return fn(x.reshape(b * l, d), ops, eps, fast_gelu).reshape(b, l, d)
+    if p_in.w_int8 is None and use_ffn_bf16(d, p_in.weight.shape[0]):
+        fn = ffn_block_bf16 if use_kernels else ffn_block_bf16_plain
+        return fn(x.reshape(b * l, d), p_in.weight, p_in.bias.float(), p_out.weight,
+                  p_out.bias.float(), ln.weight.float(), ln.bias.float(), eps,
+                  fast_gelu).reshape(b, l, d)
     from ..nn.layers import gelu
 
     return ln(x + p_out(gelu(p_in(x), fast_gelu)), eps)

@@ -1,6 +1,7 @@
 """PyTorch port: every CUDA kernel against its plain PyTorch version on the
-card, at edge shapes the serving path can give (ragged row counts, short
-and long keys, hd=96, a fully padded key row, fp32 inputs, Lq != Lk).
+card, at edge shapes the serving and extraction paths can give (ragged row
+counts, short and long keys, hd=96, a fully padded key row, fp32 inputs,
+Lq != Lk, clips shorter than one conv-stack tile or ending on a tile).
 
 Needs an NVIDIA GPU: marked ``cuda`` and skipped without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -12,11 +13,12 @@ port is installed:
 import pytest
 import torch
 
-from hriemo_torch.frontends.wavlm import WavLMAttention
+from hriemo_torch.frontends.wavlm import WavLMAttention, WavLMConfig, WavLMEncoder
 from hriemo_torch.nn.attention import MultiheadAttention
 from hriemo_torch.nn.layers import MLP2, LayerNorm, Linear, init_torch_defaults
 from hriemo_torch.ops import _cuda
 from hriemo_torch.ops import attention_block as AB
+from hriemo_torch.ops import conv_stack as CS
 from hriemo_torch.ops import flash_attention as FA
 from hriemo_torch.ops import fused_ffn as FF
 from hriemo_torch.ops import wavlm_attention as WA
@@ -34,7 +36,8 @@ MEDIAN = 5e-3
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 products and convs stay fp32
+    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator().manual_seed(0)
 
 
@@ -225,3 +228,127 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
     with pytest.raises(ValueError):     # the one-pass score panel must fit shared memory
         long = _heads_view(gen, 1, 8192, 2, 64, torch.bfloat16)
         FA.onepass_attention(q, long, long, torch.zeros(1, 8192, device="cuda"))
+
+
+def _ffn_operands(gen, d, f, dtype):
+    f32 = torch.float32
+    return (_randn(gen, f, d, scale=0.05, dtype=dtype), _randn(gen, f, scale=0.02, dtype=f32),
+            _randn(gen, d, f, scale=0.05, dtype=dtype), _randn(gen, d, scale=0.02, dtype=f32),
+            1.0 + _randn(gen, d, scale=0.1, dtype=f32), _randn(gen, d, scale=0.1, dtype=f32))
+
+
+@pytest.mark.parametrize("m", [1, 41, 300])
+@pytest.mark.parametrize("fast_gelu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ffn_block_bf16(gen, m, fast_gelu, dtype):
+    """The float FFN block at WavLM's widths: bf16 at the sublayer
+    tolerance, fp32 at 2e-4 (fp32 sums in another order only)."""
+    ops = _ffn_operands(gen, 768, 3072, dtype)
+    x = _randn(gen, m, 768, dtype=dtype)
+    before = FF.ffn_block_bf16.launches
+    got = FF.ffn_block_bf16(x, *ops, 1e-5, fast_gelu)
+    torch.cuda.synchronize()
+    assert FF.ffn_block_bf16.launches == before + 1
+    ref = FF.ffn_block_bf16_plain(x, *ops, 1e-5, fast_gelu)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-4, rtol=0)
+    else:
+        _close(got, ref)
+
+
+def test_ffn_block_bf16_backward(gen):
+    """Kernel forward, backward through the unfused reference: the
+    gradients of x and W1 equal autograd through the reference."""
+    w1, b1, w2, b2, g, b = _ffn_operands(gen, 256, 1024, torch.float32)
+    x = _randn(gen, 37, 256, dtype=torch.float32)
+    grads = []
+    for fn in (FF.ffn_block_bf16, FF.ffn_reference):
+        xi, wi = x.clone().requires_grad_(True), w1.clone().requires_grad_(True)
+        (fn(xi, wi, b1, w2, b2, g, b, 1e-5, True) ** 2).sum().backward()
+        grads.append((xi.grad, wi.grad))
+    for got, ref in zip(*grads):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def _stack_operands(gen, dtype):
+    enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1))
+    enc.init_weights(gen)
+    enc = enc.to("cuda").eval()
+    return enc, CS.stack_operands(enc.feature_extractor, dtype)
+
+
+@pytest.mark.parametrize("b,tw", [(1, 16000), (2, 400), (3, 2920), (2, 160000)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_stack_stages(gen, b, tw, dtype):
+    """Each stage against its plain version on the same inputs: B=1 at 1 s;
+    400 samples (one output frame, shorter than a tile); 2920 samples (72
+    conv3 rows and 8 output frames: both end on a tile); 10 s."""
+    _, (w0, gn_w, gn_b, *taps) = _stack_operands(gen, dtype)
+    wave = _randn(gen, b, tw, scale=0.3, dtype=dtype)
+    before = [CS.conv_stack_stats.launches, CS.conv_stack_k1.launches, CS.conv_stack_k2.launches]
+    stats = CS.conv_stack_stats(wave, w0)
+    torch.testing.assert_close(stats, CS.conv_stack_stats_plain(wave, w0), rtol=1e-4, atol=1e-2)
+    x3 = CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, True)
+    ref3 = CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, True)
+    out = CS.conv_stack_k2(ref3, *taps[3:], True)
+    ref = CS.conv_stack_k2_plain(ref3, *taps[3:], True)
+    torch.cuda.synchronize()
+    assert [CS.conv_stack_stats.launches, CS.conv_stack_k1.launches,
+            CS.conv_stack_k2.launches] == [n + 1 for n in before]
+    lens = CS.conv_lengths(tw)
+    assert x3.shape == (b, lens[3], 512) and out.shape == (b, lens[6], 512)
+    for got, want in ((x3, ref3), (out, ref)):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            _close(got, want)
+
+
+def test_conv_stack_k1_shorter_than_a_tile(gen):
+    _, (w0, gn_w, gn_b, *taps) = _stack_operands(gen, torch.float32)
+    wave = _randn(gen, 2, 300, scale=0.3, dtype=torch.float32)  # 6 conv3 rows
+    stats = CS.conv_stack_stats(wave, w0)
+    got = CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, False)
+    assert got.shape == (2, 6, 512)
+    torch.testing.assert_close(
+        got, CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, False),
+        atol=1e-4, rtol=1e-4)
+
+
+def test_conv_stack_fused_matches_routed_encoder(gen):
+    """fp32 against the routed cuDNN feature encoder with TF32 off, at
+    tests/test_conv_stack.py's 2e-4/2e-3."""
+    enc, _ = _stack_operands(gen, torch.float32)
+    wave = _randn(gen, 2, 40000, scale=0.3, dtype=torch.float32)
+    with torch.no_grad():
+        ref = enc._feature_encoder(wave)
+        got = CS.conv_stack_fused(enc.feature_extractor, wave, enc.config)
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-3)
+
+
+def test_new_kernels_raise_instead_of_falling_back(gen):
+    w1, b1, w2, b2, g, b = _ffn_operands(gen, 256, 1024, torch.bfloat16)
+    x = _randn(gen, 8, 256)
+    with pytest.raises(TypeError):      # half precision is not a dtype of the kernel
+        FF.ffn_block_bf16(x.half(), w1.half(), b1, w2.half(), b2, g, b)
+    with pytest.raises(ValueError):     # a strided view is refused, not copied
+        FF.ffn_block_bf16(_randn(gen, 256, 16).t(), w1, b1, w2, b2, g, b)
+    with pytest.raises(ValueError):     # weights on the CPU
+        FF.ffn_block_bf16(x, w1.cpu(), b1, w2, b2, g, b)
+    _, (w0, gn_w, gn_b, *taps) = _stack_operands(gen, torch.float32)
+    wave = _randn(gen, 2, 16000, dtype=torch.float32)
+    with pytest.raises(TypeError):
+        CS.conv_stack_stats(wave.half(), w0.half())
+    with pytest.raises(ValueError):
+        CS.conv_stack_stats(_randn(gen, 2, 32000, dtype=torch.float32)[:, ::2], w0)
+    stats = CS.conv_stack_stats(wave, w0)
+    with pytest.raises(ValueError):     # statistics on the CPU
+        CS.conv_stack_k1(wave, stats.cpu(), w0, gn_w, gn_b, *taps[:3], 1e-5, True)
+    with pytest.raises(TypeError):      # bf16 weights for an fp32 waveform
+        CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, taps[0].bfloat16(), *taps[1:3], 1e-5, True)
+    x3 = CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, True)
+    with pytest.raises(ValueError):
+        CS.conv_stack_k2(x3.transpose(0, 1), *taps[3:], True)
+    with pytest.raises(ValueError):
+        CS.conv_stack_k2(x3, taps[3].cpu(), *taps[4:], True)
