@@ -12,13 +12,15 @@ Phases, any failure exits non-zero:
    paths' shapes: max |error| against the stated tolerance (``TOL`` for
    sublayer outputs, ``ATTN_TOL`` for the raw outputs of the attention
    cores, which also rejects a streaming result that drops the last,
-   partial key block; ``CONV_TOL`` for the conv-stack stages, which also
+   partial key block and a gated one-pass result that drops its last,
+   partial key tile; ``CONV_TOL`` for the conv-stack stages, which also
    rejects a K1 result with one tile's halo rows zeroed), and CUDA-event
    times of the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``, a yardstick the
-   port never calls), beside the least time the card could take; for the
-   float FFN and the conv stack, the routed path's time (``route_ms``:
-   cuBLAS and LayerNorm, cuDNN ``_feature_encoder``) instead;
+   port never calls, and ``ms / library_ms``), beside the least time the
+   card could take; for the float FFN and the conv stack, the routed path's
+   time (``route_ms``: cuBLAS and LayerNorm, cuDNN ``_feature_encoder``)
+   instead;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -108,6 +110,7 @@ PROB_GATE = 0.006         # bench.py INT8_PROB_DELTA_MAX
 PEAK_BYTES, PEAK_INT8, PEAK_BF16, PEAK_FP32 = 3.35e12, 1979e12, 989e12, 67e12
 TEXT_BUCKETS = (8, 12, 16, 20, 24, 32, 64)   # bench.py:172
 EPS = 1e-5                # WavLM's layer_norm_eps (GroupNorm)
+ONEPASS_KEY_TILE = 64     # keys per tile of csrc/wavlm_attention.cu's bf16 kernel
 OUT = pathlib.Path("chip_smoke_out")
 
 # (wrapper, TPU kernel it replaces, CUDA sources) for the kernels line
@@ -229,7 +232,7 @@ def quantized(module):
 
 def check_kernels(gen):
     """Phase 3. Returns one record per (kernel, shape), and the readings of
-    a deliberately wrong streaming result under ``ATTN_TOL``."""
+    the deliberately wrong results under ``ATTN_TOL`` and ``CONV_TOL``."""
     dev = torch.device("cuda")
     rows = []
 
@@ -252,10 +255,12 @@ def check_kernels(gen):
                    library_ms=None if library is None else cuda_ms(library),
                    route_ms=None if route is None else cuda_ms(route),
                    bound_ms=b_ms, bound_by=b_by)
+        rec["ms_over_library"] = None if library is None else rec["ms"] / rec["library_ms"]
         rows.append(rec)
+        vs_lib = "" if library is None else f" (ms / library_ms {rec['ms_over_library']:.3f})"
         print(f"  {kernel:22s} {shape:28s} max|d| {err:.3g} (median {med:.2g}) "
               f"kernel {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
-              f"library {rec['library_ms'] if library else None}  "
+              f"library {rec['library_ms'] if library else None}{vs_lib}  "
               f"route {rec['route_ms'] if route else None}  bound {b_ms:.4f} ms ({b_by})",
               flush=True)
         return got, ref
@@ -361,6 +366,15 @@ def check_kernels(gen):
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
             nbytes(q, k, v, gate, pos, kb, q), 0, *attn_ops(dt, bb, h, l, l, hd),
             tol=ATTN_TOL[dt])
+        if (bb, l, dt) == (2, 1499, torch.bfloat16):
+            gated_upto = lambda n, q=q, k=k, v=v, gate=gate, pos=pos, kb=kb: \
+                WA.wavlm_fused_attention_plain(q, k[:, :, :n], v[:, :, :n], gate, pos[:, :, :n],
+                                               kb[:, :n])
+    # after the timings: its large plain versions would move where the fp32
+    # row's tensors are allocated, and with them that row's time (PERF.md §6)
+    gated_check = dropped_tile("wavlm_fused_attention", ONEPASS_KEY_TILE, 1499,
+                               torch.bfloat16, gated_upto)
+    del gated_upto
 
     # fusion audio self-attention, long clips: 30 s (one-pass) and 45 s
     # (streaming), on the bf16 and int8 trees and on the fp32 tree
@@ -378,7 +392,9 @@ def check_kernels(gen):
                                                                          attn_mask=amask),
                 nbytes(q, k, v, bias, q), 0, *attn_ops(dt, 2, h, l, l, hd), tol=ATTN_TOL[dt])
             if name == "streaming_attention" and dt == torch.bfloat16:
-                limit_check = wrong_block(q, k, v, bias)
+                limit_check = dropped_tile(
+                    name, FA.BK, l, dt,
+                    lambda n: plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
 
     # float FFN block (off the routed paths): WavLM's widths at the
     # extraction batch (8 x 499 rows) and a ragged row count, both trees and
@@ -462,8 +478,8 @@ def check_kernels(gen):
             print(f"  conv_stack_fused       {tag:28s} vs fp32 route max|d| {err:.3g}  "
                   f"kernels {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
                   f"route {rec['route_ms']:.4f} ms", flush=True)
-    return rows, dict(streaming_last_block=limit_check, conv_k1_halo=halo_check,
-                      ffn_backward=ffn_grad)
+    return rows, dict(streaming_last_block=limit_check, onepass_gated_last_tile=gated_check,
+                      conv_k1_halo=halo_check, ffn_backward=ffn_grad)
 
 
 def ffn_backward_check(x, w1, b1, w2, b2, g, b):
@@ -515,24 +531,24 @@ def zeroed_halo(wave, stats, w0, gn_w, gn_b, taps, ref):
     raise AssertionError(f"CONV_TOL passes a K1 result with zeroed halo rows: {reading}")
 
 
-def wrong_block(q, k, v, bias):
-    """``ATTN_TOL`` must reject a streaming result that skips the last,
-    partial key block: only rows whose last keys are valid (batch element
-    0) move. Returns that wrong result's max and median |error|."""
-    ref = FA.streaming_attention_plain(q, k, v, bias)
-    lt = k.shape[2] // FA.BK * FA.BK
-    wrong = FA.streaming_attention_plain(q, k[:, :, :lt], v[:, :, :lt], bias[:, :lt])
+def dropped_tile(name, tile, lk, dtype, plain_upto):
+    """``ATTN_TOL`` must reject a result that skips the last, partial key
+    tile of ``tile`` keys: ``plain_upto(n)`` is the plain version over the
+    first ``n`` keys. Only rows whose last keys are valid (batch element 0)
+    move. Returns that wrong result's max and median |error|."""
+    ref = plain_upto(lk)
+    lt = lk // tile * tile
+    wrong = plain_upto(lt)
     diff = (wrong.float() - ref.float()).abs()
-    reading = dict(keys=f"{lt} of {k.shape[2]}", max_abs_err=diff.max().item(),
+    reading = dict(keys=f"{lt} of {lk}", max_abs_err=diff.max().item(),
                    median_abs_err_per_batch=diff.flatten(1).median(dim=1).values.tolist())
     try:
-        compare("streaming_attention without its last key block", wrong, ref,
-                ATTN_TOL[q.dtype])
+        compare(f"{name} without its last key tile", wrong, ref, ATTN_TOL[dtype])
     except AssertionError as e:
         print(f"  limit check: rejected, as it must be: {e}", flush=True)
         return reading
-    raise AssertionError(f"ATTN_TOL passes a streaming result without its last key "
-                         f"block: {reading}")
+    raise AssertionError(f"ATTN_TOL passes a {name} result without its last key tile: "
+                         f"{reading}")
 
 
 def serving_models(gen):

@@ -1,0 +1,200 @@
+// Tensor-core tile machinery shared by the bf16 float attention kernels
+// (csrc/wavlm_attention.cu, csrc/flash_attention.cu), FlashAttention-2
+// style on mma.sync.m16n8k16 (bf16 in, fp32 accumulate):
+//
+// - a block is kTcWarps = 4 warps and kTcRows = 64 query rows, 16 a warp;
+//   each warp keeps its 16 rows of q in registers as A fragments for the
+//   whole key loop, and its slice of the output in fp32 C fragments;
+// - K and V tiles arrive in shared memory by cp.async 16-byte copies into
+//   rows of HD + 8 elements (the 16-byte pad puts the eight rows that one
+//   ldmatrix reads on distinct banks); rows past the key length are zeroed
+//   by the copy itself (src-size 0), so p = 0 never meets garbage in V;
+// - QK^T takes its B fragments from K by ldmatrix, PV from V by
+//   ldmatrix.trans; the scores' C fragments, rounded to bf16, are PV's A
+//   fragments without leaving registers;
+// - each lane holds two rows of a score tile (g = lane / 4 and g + 8), and
+//   a row's four lanes are adjacent, so row max and row sum are two xor
+//   shuffles.
+//
+// Lane layout of a C fragment c[n][0..3] of n-tile n (8 keys or columns):
+// c[n][0], c[n][1] at row g, columns 8n + 2t, 8n + 2t + 1 (t = lane % 4);
+// c[n][2], c[n][3] at row g + 8, the same columns.
+#pragma once
+
+#include "float_gemm.cuh"
+
+namespace hr {
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcRows = 16 * kTcWarps;   // query rows per block
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes to shared memory, of which the first `bytes` (0..16) come from
+// src and the rest are zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+// 4 bytes (one fp32), or a zero when bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Two values rounded to bf16, the first in the low half (the lower k index
+// of an mma operand pair).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// p / l rounded to nearest, as __fdiv_rn gives it, from y = __frcp_rn(l)
+// (1 <= l): the product and two remainder corrections (Markstein), with no
+// branch to a slow path. Only a quotient below 2^-126 (a denormal) may differ
+// in its last bit, far below one bf16 step.
+__device__ __forceinline__ float div_rn(float p, float l, float y) {
+  float q = __fmul_rn(p, y);
+  q = __fmaf_rn(__fmaf_rn(-q, l, p), y, q);
+  return __fmaf_rn(__fmaf_rn(-q, l, p), y, q);
+}
+
+// Scores of the tile's absent keys (from tile-local key nk on) become -inf,
+// so exp gives exact zeros.
+template <int NT>
+__device__ __forceinline__ void mask_keys(float (&s)[NT][4], int nk, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n * 8 + 2 * t + (e & 1) >= nk) s[n][e] = neg_inf();
+}
+
+// This warp's 16 query rows (row0 = its first) as A fragments, zeros for
+// rows at or past Lq. q: the head's row 0, rows sl elements apart.
+template <int HD>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[HD / 16][4], const __nv_bfloat16* q, int sl,
+                                       int row0, int Lq, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = row0 + g, rb = ra + 8;
+  const uint32_t* pa = reinterpret_cast<const uint32_t*>(q + (size_t)ra * sl);
+  const uint32_t* pb = reinterpret_cast<const uint32_t*>(q + (size_t)rb * sl);
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    qf[ks][0] = ra < Lq ? pa[ks * 8 + t] : 0u;       // row g,     k 2t, 2t+1
+    qf[ks][1] = rb < Lq ? pb[ks * 8 + t] : 0u;       // row g + 8, k 2t, 2t+1
+    qf[ks][2] = ra < Lq ? pa[ks * 8 + 4 + t] : 0u;   // row g,     k 2t+8, 2t+9
+    qf[ks][3] = rb < Lq ? pb[ks * 8 + 4 + t] : 0u;   // row g + 8, k 2t+8, 2t+9
+  }
+}
+
+// Rows j0 .. j0+R-1 of a [L, HD] head (rows sl elements apart) into R
+// shared rows of HD + 8 elements; rows at or past L are zeroed.
+template <int HD, int R>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int sl,
+                                          int j0, int L, int tid) {
+  constexpr int kChunks = HD / 8;
+  for (int idx = tid; idx < R * kChunks; idx += kTcThreads) {
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    const bool ok = j0 + r < L;
+    cp_async16(dst + r * (HD + 8) + c * 8, src + (size_t)(ok ? j0 + r : 0) * sl + c * 8,
+               ok ? 16 : 0);
+  }
+}
+
+// R fp32 key biases from j0 on; zeros past L.
+template <int R>
+__device__ __forceinline__ void load_bias(float* dst, const float* src, int j0, int L, int tid) {
+  for (int idx = tid; idx < R; idx += kTcThreads) {
+    const bool ok = j0 + idx < L;
+    cp_async4(dst + idx, src + (ok ? j0 + idx : 0), ok ? 4 : 0);
+  }
+}
+
+// s[n] = this warp's 16 query rows . keys 8n .. 8n+7 of the tile, fp32
+// sums over HD. ks: the K tile in shared memory, rows of HD + 8.
+template <int HD, int NT>
+__device__ __forceinline__ void qk_tile(float (&s)[NT][4], const uint32_t (&qf)[HD / 16][4],
+                                        const __nv_bfloat16* ks, int lane) {
+  // ldmatrix.x4 matrices: keys +0..7 at k +0..7 and +8..15 (b0, b1 of
+  // n-tile 2m), keys +8..15 at the same k (b0, b1 of n-tile 2m + 1)
+  const int kr = (lane & 7) + ((lane >> 4) << 3), kc = ((lane >> 3) & 1) << 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k) {
+#pragma unroll
+    for (int m = 0; m < NT / 2; ++m) {
+      uint32_t b[4];
+      ldsm_x4(b, ks + (m * 16 + kr) * (HD + 8) + k * 16 + kc);
+      mma_bf16(s[2 * m], qf[k][0], qf[k][1], qf[k][2], qf[k][3], b[0], b[1]);
+      mma_bf16(s[2 * m + 1], qf[k][0], qf[k][1], qf[k][2], qf[k][3], b[2], b[3]);
+    }
+  }
+}
+
+// o += P . V over the tile's NT * 8 keys: pa[m] holds keys 16m .. 16m+15 of
+// this warp's 16 rows as an A fragment; vs: the V tile, rows of HD + 8.
+template <int HD, int NT>
+__device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const uint32_t (&pa)[NT / 2][4],
+                                        const __nv_bfloat16* vs, int lane) {
+  // ldmatrix.x4.trans matrices: keys +0..7 and +8..15 at columns +0..7 (b0,
+  // b1 of column tile 2d), the same keys at columns +8..15 (tile 2d + 1)
+  const int vr = (lane & 7) + (((lane >> 3) & 1) << 3), vc = (lane >> 4) << 3;
+#pragma unroll
+  for (int m = 0; m < NT / 2; ++m) {
+#pragma unroll
+    for (int d = 0; d < HD / 16; ++d) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vs + (m * 16 + vr) * (HD + 8) + d * 16 + vc);
+      mma_bf16(o[2 * d], pa[m][0], pa[m][1], pa[m][2], pa[m][3], b[0], b[1]);
+      mma_bf16(o[2 * d + 1], pa[m][0], pa[m][1], pa[m][2], pa[m][3], b[2], b[3]);
+    }
+  }
+}
+
+// The warp's output rows (row0 + g and row0 + g + 8, those below Lq) as
+// bf16. o: the head's row 0, rows sl elements apart.
+template <int HD>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* o, int sl, int row0, int Lq,
+                                           const float (&acc)[HD / 8][4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = row0 + g, rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    if (ra < Lq) store2(o + (size_t)ra * sl + n * 8 + 2 * t, acc[n][0], acc[n][1]);
+    if (rb < Lq) store2(o + (size_t)rb * sl + n * 8 + 2 * t, acc[n][2], acc[n][3]);
+  }
+}
+
+}  // namespace hr

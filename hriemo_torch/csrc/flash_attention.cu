@@ -15,19 +15,36 @@
 // _flash_kernel, routed for Lk > 2048 (the dispatch at :274-277). The TPU
 // kernel carries m, l and acc in VMEM scratch across the sequential key
 // axis of its grid; here one block walks all key blocks of its query tile
-// in a loop, with m and l in shared memory and acc in registers, so no
-// state crosses blocks and Lk has no bound. The TPU kernel's numerics are
+// in a loop, so no state crosses blocks and Lk has no bound. The TPU kernel's numerics are
 // kept apart from the one-pass kernels': the unnormalized p block is cast
 // to T before PV, and the division by l happens once, at the end. Keys
 // past Lk are simply absent (the TPU wrapper pads them with NEG_INF, which
 // adds exact zeros unless a row's keys are all masked).
 //
-// One block per (tile of kQT = 16 query rows, head, batch element), 4*hd
-// threads; 8 KB of scores and 16*hd floats of queries in shared memory.
-// What bounds it on the card: fp32 CUDA-core FMAs (the tensor cores are
-// idle), plus three block barriers per key block. Moving the two products
-// onto mma.sync/wgmma is later work.
-#include "common.cuh"
+// bf16 at head dim 64 or 96: streaming_mma_kernel, on the tensor cores
+// (csrc/attention_tiles.cuh). A block takes 64 query rows, 16 per warp,
+// with q in registers as mma A fragments and m, l and acc in registers
+// (two rows a lane); per 128-key block: s = QK^T on mma.sync, scale and
+// key bias (__fmul_rn/__fadd_rn), row max and sum by quad shuffles, the
+// unnormalized p rounded to bf16 as PV's A fragments, pv = PV on mma.sync
+// into its own fp32 fragment, then acc = acc * alpha + pv as the TPU kernel
+// orders it. K, V and the key biases arrive through a two-stage cp.async
+// ring (107 KB at hd 96, 73 KB at hd 64); the only block barrier per key
+// block is the ring's. Keys past Lk get s = -inf (exact zeros after the
+// exp) and zeroed K/V rows; query rows past Lq read zeros and are never
+// stored.
+// What bounds it (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py): the
+// softmax's work per score on the FMA and MUFU pipes, with two blocks an
+// SM (255 registers at hd 96) to hide it. At B=2 2249^2 8x96 it takes 0.23
+// ms against a 0.031 ms bound (the bf16 operations) and 0.26 ms for SDPA.
+// The CUDA-core kernel that this replaces took 2.70 ms.
+//
+// fp32, and bf16 at other head dims: streaming_attn_kernel on CUDA cores,
+// one block per (tile of kQT = 16 query rows, head, batch element), 4*hd
+// threads; 8 KB of scores and 16*hd floats of queries in shared memory; m
+// and l in shared memory, three block barriers per key block (no TF32: the
+// fp32 trees are held at 1e-4).
+#include "attention_tiles.cuh"
 
 namespace hr {
 
@@ -155,6 +172,126 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
       static_cast<const float*>(kbias), static_cast<T*>(out), o_sb, o_sh, o_sl);
 }
 
+__host__ __device__ constexpr int mma_stage_bytes(int hd) { return 2 * kBK * (hd + 8) * 2 + kBK * 4; }
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+    streaming_mma_kernel(const __nv_bfloat16* __restrict__ q, int q_sb, int q_sh, int q_sl,
+                         const __nv_bfloat16* __restrict__ k, int k_sb, int k_sh, int k_sl,
+                         const __nv_bfloat16* __restrict__ v, int v_sb, int v_sh, int v_sl,
+                         int Lq, int Lk, float scale, const float* __restrict__ kbias,
+                         __nv_bfloat16* __restrict__ out, int o_sb, int o_sh, int o_sl) {
+  constexpr int NT = kBK / 8;  // n-tiles of a score block
+  constexpr int kStage = mma_stage_bytes(HD);
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = lane & 3;
+  const int b = blockIdx.x, h = blockIdx.z;
+  const int row0 = blockIdx.y * kTcRows + warp * 16;  // this warp's first query row
+  const __nv_bfloat16* kh = k + (size_t)b * k_sb + (size_t)h * k_sh;
+  const __nv_bfloat16* vh = v + (size_t)b * v_sb + (size_t)h * v_sh;
+  const float* kb = kbias + (size_t)b * Lk;
+
+  auto Ks = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(ring + st * kStage); };
+  auto Vs = [&](int st) { return Ks(st) + kBK * (HD + 8); };
+  auto Bs = [&](int st) { return reinterpret_cast<float*>(Vs(st) + kBK * (HD + 8)); };
+  const int nblocks = (Lk + kBK - 1) / kBK;
+  auto issue = [&](int it) {
+    const int st = it & 1, j0 = it * kBK;
+    load_rows<HD, kBK>(Ks(st), kh, k_sl, j0, Lk, tid);
+    load_rows<HD, kBK>(Vs(st), vh, v_sl, j0, Lk, tid);
+    load_bias<kBK>(Bs(st), kb, j0, Lk, tid);
+    cp_async_commit();
+  };
+  issue(0);
+
+  uint32_t qf[HD / 16][4];
+  load_q<HD>(qf, q + (size_t)b * q_sb + (size_t)h * q_sh, q_sl, row0, Lq, lane);
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < nblocks; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // block it is in; block it - 1 is done with the other stage
+    if (it + 1 < nblocks) issue(it + 1);
+    const int st = it & 1, j0 = it * kBK;
+    const float* bs = Bs(st);
+
+    float s[NT][4];
+    qk_tile<HD, NT>(s, qf, Ks(st), lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float2 kb2 = *reinterpret_cast<const float2*>(bs + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = __fadd_rn(__fmul_rn(s[n][e], scale), (e & 1) ? kb2.y : kb2.x);
+    }
+    if (j0 + kBK > Lk) mask_keys<NT>(s, Lk - j0, lane);
+
+    float alpha[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = neg_inf();
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * rr], s[n][2 * rr + 1]));
+      const float m_cur = fmaxf(quad_max(mx), m[rr]);
+      float psum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        s[n][2 * rr] = expf(__fadd_rn(s[n][2 * rr], -m_cur));
+        s[n][2 * rr + 1] = expf(__fadd_rn(s[n][2 * rr + 1], -m_cur));
+        psum += s[n][2 * rr] + s[n][2 * rr + 1];
+      }
+      alpha[rr] = expf(__fadd_rn(m[rr], -m_cur));  // exp(-inf) = 0 at the first block
+      l[rr] = __fadd_rn(__fmul_rn(l[rr], alpha[rr]), quad_sum(psum));
+      m[rr] = m_cur;
+    }
+    uint32_t pa[NT / 2][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      pa[n >> 1][2 * (n & 1)] = pack_bf16(s[n][0], s[n][1]);
+      pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(s[n][2], s[n][3]);
+    }
+    float pv[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+    pv_tile<HD, NT>(pv, pa, Vs(st), lane);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], alpha[e >> 1]), pv[n][e]);
+  }
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = __fdiv_rn(acc[n][e], l[e >> 1]);
+  store_rows<HD>(out + (size_t)b * o_sb + (size_t)h * o_sh, o_sl, row0, Lq, acc, lane);
+}
+
+template <int HD>
+void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
+                int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq,
+                int Lk, float scale, const void* kbias, void* out, int o_sb, int o_sh, int o_sl,
+                cudaStream_t stream) {
+  constexpr int smem = 2 * mma_stage_bytes(HD);
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaFuncSetAttribute(streaming_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    attr_set = true;
+  }
+  dim3 grid(B, (Lq + kTcRows - 1) / kTcRows, H);
+  using bf = __nv_bfloat16;
+  streaming_mma_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf*>(q), q_sb, q_sh, q_sl, static_cast<const bf*>(k), k_sb, k_sh, k_sl,
+      static_cast<const bf*>(v), v_sb, v_sh, v_sl, Lq, Lk, scale,
+      static_cast<const float*>(kbias), static_cast<bf*>(out), o_sb, o_sh, o_sl);
+}
+
 }  // namespace hr
 
 using namespace hr;
@@ -162,22 +299,27 @@ using namespace hr;
 extern "C" {
 
 // Operands as in hr_onepass_attention (csrc/wavlm_attention.cu), without a
-// gate. Needs Lk >= 1 and blockDim 4*hd <= 1024 (hd <= 256); shared memory
-// stays under 48 KB.
+// gate. Needs Lk >= 1, hd % 8 == 0 and hd <= 256 (blockDim 4*hd of the
+// CUDA-core kernel, whose shared memory stays under 48 KB).
 int hr_streaming_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                            int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                            int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
                            const void* kbias, void* out, int o_sb, int o_sh, int o_sl,
                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B > 0 && Lq > 0) {
-    if (fp32)
-      launch<float>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
-                    hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
-    else
-      launch<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
-                            Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
-  }
+  if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
+  if (!fp32 && hd == 64)
+    launch_mma<64>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
+                   scale, kbias, out, o_sb, o_sh, o_sl, s);
+  else if (!fp32 && hd == 96)
+    launch_mma<96>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
+                   scale, kbias, out, o_sb, o_sh, o_sl, s);
+  else if (fp32)
+    launch<float>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
+                  hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
+  else
+    launch<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
+                          Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
   return (int)cudaGetLastError();
 }
 

@@ -49,7 +49,7 @@ SIGNATURES = {
                               P, I, P, P, P, P, P, I, P],
     },
     "wavlm_attention": {
-        "hr_onepass_smem_bytes": [I, I],
+        "hr_onepass_smem_bytes": [I, I, I],
         "hr_onepass_max_smem_bytes": [],
         "hr_onepass_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
                                  P, P, P, P, I, I, I, P],

@@ -53,9 +53,9 @@ def onepass_launch(q, k, v, kbias, gate=None, pos=None):
     b, h, lq, hd = q.shape
     lk = k.shape[2]
     lib = _cuda.lib("wavlm_attention")
-    if lib.hr_onepass_smem_bytes(lk, hd) > lib.hr_onepass_max_smem_bytes():
-        raise ValueError(f"one-pass attention kernel: key length {lk} does not fit "
-                         "shared memory")
+    if lib.hr_onepass_smem_bytes(args[0], lk, hd) > lib.hr_onepass_max_smem_bytes():
+        raise ValueError(f"one-pass attention kernel: the score panel of key length {lk} "
+                         f"at head dim {hd} in {q.dtype} does not fit shared memory")
     if gate is not None:
         _cuda.require(gate, "gate", torch.float32, (b, h, lq), q.device)
         _cuda.require(pos, "position_bias", q.dtype, (h, lq, lk), q.device)

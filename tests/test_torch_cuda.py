@@ -1,7 +1,8 @@
 """PyTorch port: every CUDA kernel against its plain PyTorch version on the
 card, at edge shapes the serving and extraction paths can give (ragged row
-counts, short and long keys, hd=96, a fully padded key row, fp32 inputs,
-Lq != Lk, clips shorter than one conv-stack tile or ending on a tile).
+counts, short and long keys, keys and queries that cut the attention
+tiles, hd=96 and 40, a fully padded key row, fp32 inputs, Lq != Lk, clips
+shorter than one conv-stack tile or ending on a tile).
 
 Needs an NVIDIA GPU: marked ``cuda`` and skipped without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -169,16 +170,27 @@ def _close_attention(got, ref):
     assert (got - ref).abs().flatten(1).median(dim=1).values.max().item() < 1e-3
 
 
-@pytest.mark.parametrize("l", [128, 130, 2048])
-@pytest.mark.parametrize("hd", [64, 96])
+# (Lq, Lk) that cut the tensor-core kernels' tiles (64 query rows; 64 keys
+# one-pass, 128 streaming): one row or key, one short of and one past a
+# tile, 1499 and 2249 (the 30 s and 45 s clips), Lq != Lk both ways. Odd and
+# other non-multiples of 8 leave the gated pos rows off 16-byte alignment.
+ATTN_SHAPES = [(128, 128), (130, 130), (2048, 2048), (1, 1), (63, 63), (65, 65),
+               (1499, 1499), (2249, 2249), (1, 65), (63, 1499), (1499, 63), (2249, 130)]
+# 64 and 96 run on the tensor cores in bf16; 40 on the CUDA-core kernels
+ATTN_HEAD_DIMS = [64, 96, 40]
+
+
+@pytest.mark.parametrize("lq,lk", ATTN_SHAPES)
+@pytest.mark.parametrize("hd", ATTN_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_wavlm_fused_attention(gen, l, hd, dtype):
+def test_wavlm_fused_attention(gen, lq, lk, hd, dtype):
     """Element 1 has every key masked (a pad_flush filler clip)."""
     b, h = 3, 4
-    q, k, v = (_heads_view(gen, b, l, h, hd, dtype) for _ in range(3))
-    gate = (torch.rand(b, h, l, generator=gen) * 1.5 + 0.5).to("cuda", dtype)
-    pos = _randn(gen, h, l, l, scale=0.3, dtype=dtype)
-    kb = torch.where(_pad_mask([l, 0, l // 3], l), AB.NEG_INF, 0.0).float()
+    q = _heads_view(gen, b, lq, h, hd, dtype)
+    k, v = (_heads_view(gen, b, lk, h, hd, dtype) for _ in range(2))
+    gate = (torch.rand(b, h, lq, generator=gen) * 1.5 + 0.5).to("cuda", dtype)
+    pos = _randn(gen, h, lq, lk, scale=0.3, dtype=dtype)
+    kb = torch.where(_pad_mask([lk, 0, lk // 3], lk), AB.NEG_INF, 0.0).float()
     before = WA.wavlm_fused_attention.launches
     got = WA.wavlm_fused_attention(q, k, v, gate, pos, kb)
     torch.cuda.synchronize()
@@ -188,8 +200,9 @@ def test_wavlm_fused_attention(gen, l, hd, dtype):
 
 
 @pytest.mark.parametrize("lq,lk", [(1024, 1024), (130, 2048), (1030, 128), (1024, 2049),
-                                   (2049, 130), (33, 2249)])
-@pytest.mark.parametrize("hd", [64, 96])
+                                   (2049, 130), (33, 2249), (1, 1), (63, 65), (65, 63),
+                                   (1499, 1499), (2249, 2249), (1, 2249), (2249, 1)])
+@pytest.mark.parametrize("hd", ATTN_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_kernels(gen, lq, lk, hd, dtype):
     """Both kernels at every shape (the one-pass one up to 2048 keys), with
@@ -225,9 +238,14 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
     with pytest.raises(TypeError):      # the position bias has q's dtype
         WA.wavlm_fused_attention(q, q, q, torch.ones(1, 2, 64, device="cuda"),
                                  torch.zeros(2, 64, 64, device="cuda"), kb)
-    with pytest.raises(ValueError):     # the one-pass score panel must fit shared memory
-        long = _heads_view(gen, 1, 8192, 2, 64, torch.bfloat16)
-        FA.onepass_attention(q, long, long, torch.zeros(1, 8192, device="cuda"))
+    # bf16 at hd 64 keeps no score panel, so 8192 keys run; the fp32
+    # kernel's panel [16, 8192] must fit shared memory and does not
+    kb_long = torch.zeros(1, 8192, device="cuda")
+    long = _heads_view(gen, 1, 8192, 2, 64, torch.bfloat16)
+    assert torch.isfinite(FA.onepass_attention(q, long, long, kb_long)).all()
+    with pytest.raises(ValueError):
+        long = _heads_view(gen, 1, 8192, 2, 64, torch.float32)
+        FA.onepass_attention(q.float(), long, long, kb_long)
 
 
 def _ffn_operands(gen, d, f, dtype):
