@@ -20,7 +20,13 @@ Phases, any failure exits non-zero:
    port never calls, and ``ms / library_ms``), beside the least time the
    card could take; for the float FFN and the conv stack, the routed path's
    time (``route_ms``: cuBLAS and LayerNorm, cuDNN ``_feature_encoder``)
-   instead;
+   instead; then the two kernels under the int8 wrappers alone, beside
+   their own yardsticks: the int8 attention core (``attention_core_int8``)
+   against SDPA, with its own limit check (a gated B=4 L=499 result
+   without its last key tile), and the shared int8 GEMM at the 10 s
+   bucket's rows, bit-equal to its plain version, against
+   ``torch._int_mm``; phase 4 then gives each of these rows its launches
+   per forward;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -142,6 +148,8 @@ KERNELS = {
     "conv_stack_k2": (CS.conv_stack_k2, "hriemo/ops/conv_stack.py:152",
                       "hriemo_torch/csrc/conv_stack.cu"),
 }
+# the two kernels under the int8 wrappers, counted by shape too
+COUNTED_BY_SHAPE = (AB.attention_core_int8, _cuda.int8_gemm)
 # launches of each wrapper in one forward of the int8 serving path (2.5 s
 # and 10 s buckets); every wrapper not named launches 0 times
 PER_FORWARD = {"attention_block_int8": 12, "mha_block_int8": 20, "ffn_block_int8": 24,
@@ -478,8 +486,87 @@ def check_kernels(gen):
             print(f"  conv_stack_fused       {tag:28s} vs fp32 route max|d| {err:.3g}  "
                   f"kernels {rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  "
                   f"route {rec['route_ms']:.4f} ms", flush=True)
+    # after the float and conv rows, so that where their tensors are placed,
+    # which moves their times, stays as it was: the int8 sublayers' core
+    # alone against SDPA on the same q/k/v, read in
+    # place from packed projections as the sublayers pass them (1/sqrt(hd)
+    # is in q: scale 1 for both): WavLM gated at the 2.5 s and 10 s buckets,
+    # fusion self 499^2, BERT self 64^2 and fusion cross, with padding
+    d = 768
+    wops = layer.attn_ops
+    for h, lq, lk, mode in ((12, 124, 124, "gated"), (12, 499, 499, "gated"),
+                            (8, 499, 499, "self"), (12, 64, 64, "self"),
+                            (8, 499, 16, "cross"), (8, 16, 499, "cross")):
+        hd = d // h
+        if mode == "cross":
+            q, kv = randn(B * lq, d, scale=hd ** -0.5), randn(B * lk, 2 * d)
+            k, v = kv.split(d, dim=1)
+        else:
+            qkv = randn(B * lq, 3 * d)
+            qkv[:, :d] *= hd ** -0.5
+            q, k, v = qkv.split(d, dim=1)
+        pad = mask(B, lk)
+        if mode == "gated":
+            kw = dict(kbias=torch.where(pad, AB.NEG_INF, 0.0).float(),
+                      gate=(randn(B * lq, d), wops.wg, wops.bg, wops.gconst,
+                            randn(h, lq, lk, scale=0.3)))
+            x_, *_, pos_ = kw["gate"]
+            amask = (AB._gate(*kw["gate"][:4], B, lq, h) * pos_.float()[None]
+                     + kw["kbias"][:, None, None, :]).to(torch.bfloat16)
+            in_bytes, gate_ops = nbytes(x_, pos_, kw["kbias"]), 2 * B * lq * d * 8
+        else:
+            kw, amask = dict(kpm=pad), ~pad[:, None, None, :]
+            in_bytes, gate_ops = nbytes(pad), 0
+        qh, kh, vh = (t.view(B, -1, h, hd).transpose(1, 2) for t in (q, k, v))
+        run("attention_core_int8", f"B={B} {mode} {lq}x{lk} H={h}",
+            lambda: AB.attention_core_int8(q, k, v, B, h, **kw).view(B, lq, d),
+            lambda: AB.attention_core_int8_plain(q, k, v, B, h, **kw).view(B, lq, d),
+            lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask,
+                                                                     scale=1.0),
+            nbytes(q, k, v, q) + in_bytes, 0, 4 * B * h * lq * lk * hd, gate_ops,
+            tol=ATTN_TOL[torch.bfloat16])
+        rows[-1]["counter_key"] = [B, lq, lk, h, hd]
+        if mode == "gated" and lq == 499:
+            def core_upto(n, q=q, k=k, v=v, kw=kw, h=h):
+                cut = lambda t: t.view(B, 499, d)[:, :n].reshape(B * n, d)
+                x_, wg_, bg_, gc_, pos_ = kw["gate"]
+                return AB.attention_core_int8_plain(
+                    q, cut(k), cut(v), B, h, kbias=kw["kbias"][:, :n],
+                    gate=(x_, wg_, bg_, gc_, pos_[:, :, :n])).view(B, 499, d)
+
+    # the shared int8 GEMM alone at the 10 s bucket's rows, each (N, K) with
+    # the epilogue it has on the path (q/k/v, WavLM out-proj, FFN in and out,
+    # feature projection); torch._int_mm (int32 out, no epilogue) on the same
+    # int8 operands is the yardstick. The int32 sum is exact: bit-equal.
+    m = B * 499
+    for n, k, epi in ((2304, 768, _cuda.EPI_BF16), (768, 768, _cuda.EPI_RESID_LAST),
+                      (3072, 768, _cuda.EPI_GELU_F32), (768, 3072, _cuda.EPI_RESID_FIRST),
+                      (768, 512, _cuda.EPI_BF16)):
+        a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev)
+        w = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).to(dev)
+        a_s = (torch.rand(m, generator=gen) * 1e-2 + 1e-4).to(dev)
+        w_s = (torch.rand(n, 1, generator=gen) * 1e-3 + 1e-5).to(dev)
+        bias = randn(n, dtype=torch.float32)
+        resid = randn(m, n) if epi in (_cuda.EPI_RESID_FIRST, _cuda.EPI_RESID_LAST) else None
+        run("int8_gemm", f"M={m} N={n} K={k} epi={epi}",
+            lambda: _cuda.int8_gemm(a, a_s, w, w_s, bias, epi, resid=resid),
+            lambda: FF.int8_gemm_plain(a, a_s, w, w_s, bias, epi, resid),
+            lambda: torch._int_mm(a, w.t()),
+            nbytes(a, w, a_s, w_s, bias, resid) + m * n * (2 if epi == _cuda.EPI_BF16 else 4),
+            2 * m * n * k, 0, tol=dict(atol=0.0, rtol=0.0))
+        rows[-1]["counter_key"] = [m, n, k]
+        # each block configuration forced, beside the one chosen by shape
+        rows[-1]["config_ms"] = {name: cuda_ms(lambda c=c: _cuda.int8_gemm(
+            a, a_s, w, w_s, bias, epi, resid=resid, config=c))
+            for c, name in enumerate(_cuda.GEMM_CONFIGS)}
+        print(f"    by configuration: {rows[-1]['config_ms']}", flush=True)
+
+    # the int8 core without its last key tile, after every timing
+    core_check = dropped_tile("attention_core_int8", ONEPASS_KEY_TILE, 499, torch.bfloat16,
+                              core_upto)
     return rows, dict(streaming_last_block=limit_check, onepass_gated_last_tile=gated_check,
-                      conv_k1_halo=halo_check, ffn_backward=ffn_grad)
+                      int8_core_last_tile=core_check, conv_k1_halo=halo_check,
+                      ffn_backward=ffn_grad)
 
 
 def ffn_backward_check(x, w1, b1, w2, b2, g, b):
@@ -591,6 +678,9 @@ def long_requests(rng):
 def reset_launches():
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    for fn in COUNTED_BY_SHAPE:
+        fn.launches = 0
+        fn.shapes.clear()
 
 
 def read_launches():
@@ -651,7 +741,7 @@ def profile_call(tag: str, fn) -> None:
     lines = [f"wall {secs * 1e3:.3f} ms (profiled), device busy {busy_ms:.3f} ms "
              f"({busy_ms / (secs * 1e3):.1%})"]
     lines += [f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key[:100]}"
-              for e in kernels[:30]]
+              for e in kernels]
     (OUT / f"profile_{tag}.txt").write_text(
         "\n".join(lines) + "\n\n" + events.table(sort_by="cpu_time_total", row_limit=30))
     print(f"profile {tag}:", "\n  ".join(lines[:12]), flush=True)
@@ -852,6 +942,21 @@ def main() -> int:
     print(f"int8: served {len(got)} requests in {forwards} forwards, {secs:.3f} s; "
           f"launches {launches}", flush=True)
     check_launches("int8 serving", launches, {n: k * forwards for n, k in PER_FORWARD.items()})
+    core = AB.attention_core_int8.launches
+    if core != launches["attention_block_int8"] + launches["mha_block_int8"]:
+        raise AssertionError(f"int8 serving: the attention core launched {core} times, once "
+                             "per attention sublayer expected")
+    # launches per forward of each phase-3 row's shape: the 16 requests are
+    # 8 in each of the two buckets, 2 forwards each
+    shapes = {"attention_core_int8": AB.attention_core_int8.shapes,
+              "int8_gemm": _cuda.int8_gemm.shapes}
+    for r in rows:
+        if "counter_key" in r:
+            r["launches_per_forward"] = shapes[r["kernel"]][tuple(r["counter_key"])] / 2
+            print(f"  {r['kernel']} {r['shape']}: {r['launches_per_forward']:g} launches per "
+                  "forward", flush=True)
+    print(f"int8: attention core {core} launches, int8 GEMM {_cuda.int8_gemm.launches}",
+          flush=True)
     check_probs("int8 serving", got, clips)
     ref, plain_secs = serve(plain, clips)
     delta = prob_delta(got, ref, clips)

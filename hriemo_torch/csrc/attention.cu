@@ -1,15 +1,27 @@
-// Attention core of the two attention-sublayer kernels
+// Attention core of the two int8 attention sublayers
 // (hriemo_torch/ops/attention_block.py): softmax(q k^T + bias) v per head,
-// over bf16 q/k/v that the int8 projection GEMM has already produced.
+// over bf16 q/k/v that the int8 projection GEMM has already produced,
+// read in place from its packed output.
 //
 // Replaces the per-(element, head) core of the Pallas kernels
 // hriemo/ops/attention_block.py::_kernel (WavLM: gated relative position
 // bias, :218-260) and ::_mha_kernel (plain key-padding bias, :576-605).
 //
-// One block per (query tile of kQT rows, head, batch element); 4*hd
-// threads. The whole key row of scores stays in shared memory (Lk <= 1024
-// on every routed shape, 499 on the main path), so softmax is exact and
-// one-pass, as in the TPU kernel:
+// Head dims 64 (WavLM, BERT) and 96 (fusion): the tensor-core kernel of
+// csrc/onepass_mma.cuh, 64 query rows a block on mma.sync.m16n8k16, a
+// cp.async ring of 64-key K/V tiles and no score panel, the gate computed
+// in the block's prologue from x, the key bias an fp32 array (WavLM) or a
+// bool padding mask (MHA). What bounds it on the card: the per-score FMA
+// and MUFU work of the exact-p/l contract (two sweeps, accurate expf, a
+// rounded division per score), as in the float route. The CUDA-core
+// kernel below, which this replaces at those head dims, did QK^T and PV as
+// fp32 FMAs with the tensor cores idle and read the head's K and V again
+// for every 16 query rows.
+//
+// Other head dims (hd % 8 == 0, 4*hd <= 1024): attn_core_kernel on CUDA
+// cores, one block per (query tile of kQT rows, head, batch element). The
+// whole key row of scores stays in shared memory (Lk <= 1024 on every
+// routed shape), so softmax is exact and one-pass, as in the TPU kernel:
 //   1. the query tile goes to shared memory as fp32 (bf16 values);
 //      WavLM: each warp computes its rows' gate from x and the shared
 //      hd->8 gate Linear: sigmoid(sum g[0:4]) * (sigmoid(sum g[4:8]) * c_h - 1) + 2;
@@ -17,13 +29,10 @@
 //      query row of the tile (fp32 sums of exact bf16 products), then adds
 //      gate * pos (pos stored bf16) and the key-padding bias;
 //   3. softmax per row (one warp per row): m = max, p = exp(s - m),
-//      l = sum p, p / l rounded to bf16, as the reference casts p/l;
+//      l = sum p, p / l (div_rn) rounded to bf16, as the reference casts p/l;
 //   4. PV: thread (d, row group) accumulates sum_j p[r][j] * v[j][d] in fp32
 //      and stores bf16.
-// What bounds it on the card: fp32 CUDA-core FMAs in steps 2 and 4 (the
-// tensor cores are idle here) and L2 reads of K and V, which every query
-// tile reads again. A later version moves steps 2 and 4 onto mma.sync.
-#include "common.cuh"
+#include "onepass_mma.cuh"
 
 namespace hr {
 
@@ -55,22 +64,8 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
   }
   if (pos != nullptr) {
     for (int r = warp; r < nq; r += nwarps) {
-      const __nv_bfloat16* xr = x + (qrow0 + r) * x_ld + h * hd;
-      float gp[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) gp[c] = 0.f;
-      for (int d = lane; d < hd; d += 32) {
-        const float xv = bf2f(xr[d]);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) gp[c] += xv * wg[c * hd + d];
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) gp[c] = __fadd_rn(warp_sum(gp[c]), bg[c]);
-      if (lane == 0) {
-        const float ga = sigmoid(__fadd_rn(__fadd_rn(__fadd_rn(gp[0], gp[1]), gp[2]), gp[3]));
-        const float gb = sigmoid(__fadd_rn(__fadd_rn(__fadd_rn(gp[4], gp[5]), gp[6]), gp[7]));
-        gate[r] = __fadd_rn(__fmul_rn(ga, __fadd_rn(__fmul_rn(gb, gconst[h]), -1.0f)), 2.0f);
-      }
+      const float gr = wavlm_gate(x + (qrow0 + r) * x_ld + h * hd, wg, bg, gconst[h], hd, lane);
+      if (lane == 0) gate[r] = gr;
     }
   }
   __syncthreads();
@@ -122,7 +117,8 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
       l += p;
     }
     l = warp_sum(l);
-    for (int j = lane; j < Lk; j += 32) sr[j] = bf2f(f2bf(__fdiv_rn(sr[j], l)));
+    const float rl = __frcp_rn(l);
+    for (int j = lane; j < Lk; j += 32) sr[j] = bf2f(f2bf(div_rn(sr[j], l, rl)));
   }
   __syncthreads();
 
@@ -150,38 +146,55 @@ using namespace hr;
 
 extern "C" {
 
-// Shared memory the core needs for one block.
-int hr_attention_smem_bytes(int Lk, int hd) {
-  return (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
-}
-
 // q/k/v point at head 0 of their regions; row r of batch element b is at
-// (b*L + r)*ld. kbias: [B, Lk] fp32 additive or NULL; kpm: [B, Lk] bool
-// (True = PAD) or NULL. WavLM gate (all NULL for plain MHA): x [B*Lq, x_ld]
-// bf16, wg [8, hd] fp32, bg [8] fp32, gconst [H] fp32, pos [H, Lq, Lk] bf16.
-// ctx: [B*Lq, ctx_ld] bf16, head h at column h*hd. Needs blockDim 4*hd <= 1024.
+// (b*L + r)*ld, each row 16-byte aligned. kbias: [B, Lk] fp32 additive or
+// NULL; kpm: [B, Lk] bool (True = PAD) or NULL, not both. WavLM gate (all
+// NULL for plain MHA): x [B*Lq, x_ld] bf16, wg [8, hd] fp32, bg [8] fp32,
+// gconst [H] fp32, pos [H, Lq, Lk] bf16. ctx: [B*Lq, ctx_ld] bf16, head h
+// at column h*hd. Needs hd % 8 == 0 and 4*hd <= 1024; Lk <= 1024 at head
+// dims other than 64 and 96 (the score panel).
 int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const void* v,
                       int v_ld, int B, int Lq, int Lk, int H, int hd, const void* kbias,
                       const void* kpm, const void* x, int x_ld, const void* wg,
                       const void* bg, const void* gconst, const void* pos, void* ctx,
                       int ctx_ld, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
+  using bf = __nv_bfloat16;
+  if (hd == 64 || hd == 96) {
+    OnepassArgs a{};
+    a.q = static_cast<const bf*>(q), a.k = static_cast<const bf*>(k), a.v = static_cast<const bf*>(v);
+    a.q_sb = Lq * q_ld, a.q_sh = hd, a.q_sl = q_ld;
+    a.k_sb = Lk * k_ld, a.k_sh = hd, a.k_sl = k_ld;
+    a.v_sb = Lk * v_ld, a.v_sh = hd, a.v_sl = v_ld;
+    a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = 1.0f;  // 1/sqrt(hd) is in q already
+    a.kbias = static_cast<const float*>(kbias), a.kpm = static_cast<const uint8_t*>(kpm);
+    a.x = static_cast<const bf*>(x), a.x_ld = x_ld, a.wg = static_cast<const float*>(wg);
+    a.bg = static_cast<const float*>(bg), a.gconst = static_cast<const float*>(gconst);
+    a.pos = static_cast<const bf*>(pos), a.out = static_cast<bf*>(ctx);
+    a.o_sb = Lq * ctx_ld, a.o_sh = hd, a.o_sl = ctx_ld;
+    const int keys = kbias != nullptr ? kKeysBias : kKeysPad;
+    if (pos != nullptr)
+      launch_onepass_mma_keys<kGateFromX>(a, B, hd, keys, s);
+    else
+      launch_onepass_mma_keys<kNoGate>(a, B, hd, keys, s);
+    return (int)cudaGetLastError();
+  }
   static bool attr_set = false;
-  const int smem = hr_attention_smem_bytes(Lk, hd);
   if (!attr_set) {
     cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          200 * 1024);
     attr_set = true;
   }
-  if (B > 0 && Lq > 0) {
-    dim3 grid((Lq + kQT - 1) / kQT, H, B);
-    attn_core_kernel<<<grid, 4 * hd, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(q), q_ld, static_cast<const __nv_bfloat16*>(k), k_ld,
-        static_cast<const __nv_bfloat16*>(v), v_ld, Lq, Lk, hd,
-        static_cast<const float*>(kbias), static_cast<const uint8_t*>(kpm),
-        static_cast<const __nv_bfloat16*>(x), x_ld, static_cast<const float*>(wg),
-        static_cast<const float*>(bg), static_cast<const float*>(gconst),
-        static_cast<const __nv_bfloat16*>(pos), static_cast<__nv_bfloat16*>(ctx), ctx_ld);
-  }
+  const int smem = (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
+  dim3 grid((Lq + kQT - 1) / kQT, H, B);
+  attn_core_kernel<<<grid, 4 * hd, smem, s>>>(
+      static_cast<const bf*>(q), q_ld, static_cast<const bf*>(k), k_ld,
+      static_cast<const bf*>(v), v_ld, Lq, Lk, hd, static_cast<const float*>(kbias),
+      static_cast<const uint8_t*>(kpm), static_cast<const bf*>(x), x_ld,
+      static_cast<const float*>(wg), static_cast<const float*>(bg),
+      static_cast<const float*>(gconst), static_cast<const bf*>(pos), static_cast<bf*>(ctx),
+      ctx_ld);
   return (int)cudaGetLastError();
 }
 

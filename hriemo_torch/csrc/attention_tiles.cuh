@@ -31,26 +31,6 @@ constexpr int kTcRows = 16 * kTcWarps;   // query rows per block
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes to shared memory, of which the first `bytes` (0..16) come from
-// src and the rest are zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-// 4 bytes (one fp32), or a zero when bytes is 0.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])

@@ -50,6 +50,29 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes to shared memory, of which the first `bytes` (0..16) come from
+// src and the rest are zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+// 4 bytes (one fp32), or a zero when bytes is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

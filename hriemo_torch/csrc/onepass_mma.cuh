@@ -1,0 +1,278 @@
+// The one-pass bf16 attention core on the tensor cores, shared by the
+// float route (csrc/wavlm_attention.cu: wavlm_fused_attention,
+// onepass_attention) and the int8 sublayers' core (csrc/attention.cu:
+// attention_block_int8, mha_block_int8):
+//
+//   s   = (q . k^T) * scale  [+ gate[i] * pos[h,i,j]]  + key bias[b,j]   (fp32)
+//   out = ((exp(s - max s) / sum) -> bf16) . v                       (fp32 sums -> bf16)
+//
+// over bf16 q/k/v read in place through their batch, head and row strides.
+// The int8 route's q/k/v are column blocks of the projection GEMM's packed
+// [B*L, 3D] (or [B*Lq, D] and [B*Lk, 2D]) output, its 1/sqrt(hd) already in
+// q (scale 1, exact), and its ctx [B*Lq, D].
+//
+// A block takes 64 query rows, 16 per warp (csrc/attention_tiles.cuh), and
+// walks the keys in tiles of 64 twice:
+//   sweep 1: s for each tile (mma.sync QK^T, then scale, gate * pos and the
+//     key bias in the TPU kernels' order, __fmul_rn/__fadd_rn), the running
+//     row max m and the running sum l = l * exp(m_old - m) + sum exp(s - m);
+//   sweep 2: s again, p = exp(s - m) / l (rounded to nearest: the
+//     reciprocal of l and two remainder corrections, div_rn), rounded to bf16 as
+//     the TPU kernels cast p / l to v's dtype before PV, then PV on mma.sync
+//     with fp32 sums.
+// The contract rounds p / l, so l must be known before PV: the price of
+// keeping no score panel is 1.5x the products and twice the exps. l differs
+// from the panel's sum in fp32 order and rescaling only, before p / l is
+// rounded. Keys past Lk get s = -inf, so exp gives exact zeros; query rows
+// past Lq read zeros and are never stored; a row whose keys are all masked
+// (every key bias -1e9) comes out as a finite average of v.
+// Shared memory does not grow with Lk: a two-stage cp.async ring of K, V,
+// the key biases and (gated) the [64, 64] pos tile, 55 KB at hd 64 and
+// 72 KB at hd 96, so three or four blocks share an SM. pos rows are only
+// 2-byte aligned at odd Lk, so each row is copied from the 16-byte boundary
+// below its first key and read at its offset (e & 7) in shared memory,
+// without a padded copy in device memory. Blocks run batch element
+// fastest, so the blocks that read the same pos tile run together and share
+// it through L2.
+//
+// The gate comes from a [B, H, Lq] fp32 array (float route) or is computed
+// in the block's prologue from x (int8 route): WavLM's
+// sigmoid(sum g[0:4]) * (sigmoid(sum g[4:8]) * c_h - 1) + 2 over the shared
+// [8, hd] gate Linear (wavlm_gate, which the CUDA-core kernel of
+// csrc/attention.cu calls too). The key bias is an fp32 [B, Lk] additive array, or a
+// bool [B, Lk] key-padding mask (True = PAD -> -1e9; none: every key valid).
+//
+// What bounds it (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py): the
+// per-score work on the FMA and MUFU pipes, not the tensor cores or device
+// memory: the epilogue and an accurate expf in both sweeps and a division
+// in the second, about 35 instructions a score.
+#pragma once
+
+#include "attention_tiles.cuh"
+
+namespace hr {
+
+constexpr int kOneBK = 64;              // keys per tile
+constexpr int kPosLd = kOneBK + 8;      // a realigned pos row: the tile's keys + up to 7
+
+enum GateFrom : int { kNoGate = 0, kGateArray = 1, kGateFromX = 2 };
+enum KeyMask : int { kKeysBias = 0, kKeysPad = 1 };
+
+struct OnepassArgs {
+  const __nv_bfloat16 *q, *k, *v;           // element (b, h, i, d) at b*sb + h*sh + i*sl + d
+  int q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl;
+  int H, Lq, Lk;
+  float scale;
+  const float* kbias;                       // kKeysBias: [B, Lk] fp32 additive
+  const uint8_t* kpm;                       // kKeysPad: [B, Lk] bool or NULL
+  const float* gate;                        // kGateArray: [B, H, Lq] fp32
+  const __nv_bfloat16* x;                   // kGateFromX: [B*Lq, x_ld], head h at column h*HD
+  int x_ld;
+  const float *wg, *bg, *gconst;            // [8, HD], [8], [H]
+  const __nv_bfloat16* pos;                 // gated: [H, Lq, Lk]
+  __nv_bfloat16* out;
+  int o_sb, o_sh, o_sl;
+};
+
+// Bytes of one ring stage: K and V tiles, the key biases and, gated, the
+// realigned pos tile.
+__host__ __device__ constexpr int mma_stage_bytes(int hd, bool gated) {
+  return 2 * kOneBK * (hd + 8) * 2 + kOneBK * 4 + (gated ? kTcRows * kPosLd * 2 : 0);
+}
+
+// WavLM's gate of one query row from its head's hd columns of x (xr), every
+// lane of the warp taking part: the [8, hd] Linear by lane-strided fp32
+// sums and a warp reduction, then the two sigmoids, each step rounded. Every
+// lane returns the gate. Shared with the CUDA-core kernel of csrc/attention.cu.
+__device__ __forceinline__ float wavlm_gate(const __nv_bfloat16* xr, const float* wg,
+                                            const float* bg, float c_h, int hd, int lane) {
+  float gp[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) gp[c] = 0.f;
+  for (int d = lane; d < hd; d += 32) {
+    const float xv = bf2f(xr[d]);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) gp[c] += xv * wg[c * hd + d];
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) gp[c] = __fadd_rn(warp_sum(gp[c]), bg[c]);
+  const float ga = sigmoid(__fadd_rn(__fadd_rn(__fadd_rn(gp[0], gp[1]), gp[2]), gp[3]));
+  const float gb = sigmoid(__fadd_rn(__fadd_rn(__fadd_rn(gp[4], gp[5]), gp[6]), gp[7]));
+  return __fadd_rn(__fmul_rn(ga, __fadd_rn(__fmul_rn(gb, c_h), -1.0f)), 2.0f);
+}
+
+template <int HD, int GATE, int KEYS>
+__global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassArgs a) {
+  constexpr int NT = kOneBK / 8;  // n-tiles of a score tile
+  constexpr bool kGated = GATE != kNoGate;
+  constexpr int kStage = mma_stage_bytes(HD, kGated);
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x, i0 = blockIdx.y * kTcRows, h = blockIdx.z;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int row0 = i0 + warp * 16;  // this warp's first query row
+  const __nv_bfloat16* qh = a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh;
+  const __nv_bfloat16* kh = a.k + (size_t)b * a.k_sb + (size_t)h * a.k_sh;
+  const __nv_bfloat16* vh = a.v + (size_t)b * a.v_sb + (size_t)h * a.v_sh;
+  const size_t krow0 = (size_t)b * Lk;  // this element's key 0 in kbias / kpm
+  // pos element (i0, 0) of this head; the tensor's length bounds every copy
+  const size_t pos_i0 = ((size_t)h * Lq + i0) * Lk, pos_len = (size_t)a.H * Lq * Lk;
+  const int nq = min(kTcRows, Lq - i0);
+
+  auto Ks = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(ring + st * kStage); };
+  auto Vs = [&](int st) { return Ks(st) + kOneBK * (HD + 8); };
+  auto Bs = [&](int st) { return reinterpret_cast<float*>(Vs(st) + kOneBK * (HD + 8)); };
+  auto Ps = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(Bs(st) + kOneBK); };
+
+  const int ntiles = (Lk + kOneBK - 1) / kOneBK, steps = 2 * ntiles;
+  // step it: tile it % ntiles of sweep it / ntiles (V only in sweep 2)
+  auto issue = [&](int it) {
+    const int st = it & 1, j0 = (it % ntiles) * kOneBK;
+    load_rows<HD, kOneBK>(Ks(st), kh, a.k_sl, j0, Lk, tid);
+    if (it >= ntiles) load_rows<HD, kOneBK>(Vs(st), vh, a.v_sl, j0, Lk, tid);
+    if (KEYS == kKeysBias) load_bias<kOneBK>(Bs(st), a.kbias + krow0, j0, Lk, tid);
+    if (kGated) {
+      // row r from the 16-byte boundary at or below its key j0
+      constexpr int kChunks = kPosLd / 8;
+      for (int idx = tid; idx < kTcRows * kChunks; idx += kTcThreads) {
+        const int r = idx / kChunks, c = idx - r * kChunks;
+        const size_t ad = ((pos_i0 + (size_t)r * Lk + j0) & ~(size_t)7) + 8 * c;
+        const size_t left = r < nq && ad < pos_len ? 2 * (pos_len - ad) : 0;  // bytes
+        const int bytes = left < 16 ? (int)left : 16;
+        cp_async16(Ps(st) + r * kPosLd + 8 * c, a.pos + (bytes ? ad : 0), bytes);
+      }
+    }
+    cp_async_commit();
+    if (KEYS == kKeysPad) {
+      // bytes at any alignment: plain loads; the stage is free (see the loop)
+      for (int idx = tid; idx < kOneBK; idx += kTcThreads) {
+        const int j = j0 + idx;
+        Bs(st)[idx] = j < Lk && a.kpm != nullptr && a.kpm[krow0 + j] ? kNegInf : 0.f;
+      }
+    }
+  };
+  issue(0);
+
+  uint32_t qf[HD / 16][4];
+  load_q<HD>(qf, qh, a.q_sl, row0, Lq, lane);
+  // this lane's rows g and g + 8: gate, and the column of key 0 in its
+  // realigned pos row
+  float gt[2] = {0.f, 0.f};
+  int psh[2] = {0, 0};
+  if (GATE == kGateArray) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int i = row0 + g + 8 * rr;
+      if (i < Lq) gt[rr] = a.gate[((size_t)b * a.H + h) * Lq + i];
+    }
+  }
+  if (GATE == kGateFromX) {
+#pragma unroll 1
+    for (int r = 0; r < 16 && row0 + r < Lq; ++r) {  // warp-uniform
+      const float gr = wavlm_gate(a.x + ((size_t)b * Lq + row0 + r) * a.x_ld + h * HD, a.wg,
+                                  a.bg, a.gconst[h], HD, lane);
+      if (r == g) gt[0] = gr;
+      if (r == g + 8) gt[1] = gr;
+    }
+  }
+  if (kGated) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      psh[rr] = (int)((pos_i0 + (size_t)(warp * 16 + g + 8 * rr) * Lk) & 7);
+  }
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f}, rl[2];  // rl = 1 / l
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // step it's tiles are in; step it - 1 is done with the other stage
+    if (it + 1 < steps) issue(it + 1);
+    const int st = it & 1, j0 = (it % ntiles) * kOneBK;
+    const float* bs = Bs(st);
+    const __nv_bfloat16* ps = Ps(st) + (warp * 16 + g) * kPosLd;
+
+    float s[NT][4];
+    qk_tile<HD, NT>(s, qf, Ks(st), lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float2 kb2 = *reinterpret_cast<const float2*>(bs + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = e >> 1;
+        float x = __fmul_rn(s[n][e], a.scale);
+        if (kGated)
+          x = __fadd_rn(x, __fmul_rn(gt[rr], bf2f(ps[rr * 8 * kPosLd + psh[rr] + c + (e & 1)])));
+        s[n][e] = __fadd_rn(x, (e & 1) ? kb2.y : kb2.x);
+      }
+    }
+    if (j0 + kOneBK > Lk) mask_keys<NT>(s, Lk - j0, lane);
+
+    if (it < ntiles) {  // sweep 1: running max and rescaled running sum
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = neg_inf();
+#pragma unroll
+        for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * rr], s[n][2 * rr + 1]));
+        const float mn = fmaxf(m[rr], quad_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          sum += expf(__fadd_rn(s[n][2 * rr], -mn)) + expf(__fadd_rn(s[n][2 * rr + 1], -mn));
+        l[rr] = __fadd_rn(__fmul_rn(l[rr], expf(__fadd_rn(m[rr], -mn))), quad_sum(sum));
+        m[rr] = mn;
+      }
+    } else {  // sweep 2: p / l rounded to bf16, then PV
+      if (it == ntiles) rl[0] = __frcp_rn(l[0]), rl[1] = __frcp_rn(l[1]);
+      uint32_t pa[NT / 2][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = div_rn(expf(__fadd_rn(s[n][e], -m[e >> 1])), l[e >> 1], rl[e >> 1]);
+        pa[n >> 1][2 * (n & 1)] = pack_bf16(p[0], p[1]);
+        pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(p[2], p[3]);
+      }
+      pv_tile<HD, NT>(o, pa, Vs(st), lane);
+    }
+  }
+  store_rows<HD>(a.out + (size_t)b * a.o_sb + (size_t)h * a.o_sh, a.o_sl, row0, Lq, o, lane);
+}
+
+// The launch helpers keep a per-library flag for the shared-memory opt-in:
+// internal linkage, or the flag of a template instantiated in two libraries
+// (csrc/attention.cu, csrc/wavlm_attention.cu) would be one process-wide symbol
+// and the second library's kernel would never opt in.
+namespace {
+
+template <int HD, int GATE, int KEYS>
+void launch_onepass_mma(const OnepassArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = 2 * mma_stage_bytes(HD, GATE != kNoGate);
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaFuncSetAttribute(onepass_mma_kernel<HD, GATE, KEYS>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    attr_set = true;
+  }
+  // batch element fastest: the blocks that read one pos tile run together
+  dim3 grid(B, (a.Lq + kTcRows - 1) / kTcRows, a.H);
+  onepass_mma_kernel<HD, GATE, KEYS><<<grid, kTcThreads, smem, stream>>>(a);
+}
+
+// The launch for head dim hd (64 or 96, the caller checks) and the gate
+// and key-mask kinds chosen at run time.
+template <int GATE>
+void launch_onepass_mma_keys(const OnepassArgs& a, int B, int hd, int keys, cudaStream_t s) {
+  if (hd == 64 && keys == kKeysBias) launch_onepass_mma<64, GATE, kKeysBias>(a, B, s);
+  else if (hd == 64) launch_onepass_mma<64, GATE, kKeysPad>(a, B, s);
+  else if (keys == kKeysBias) launch_onepass_mma<96, GATE, kKeysBias>(a, B, s);
+  else launch_onepass_mma<96, GATE, kKeysPad>(a, B, s);
+}
+
+}  // namespace
+
+}  // namespace hr

@@ -10,27 +10,59 @@
 
 namespace hr {
 
+// 16 bytes of a row as fp32: eight bf16 or four fp32 values.
+__device__ __forceinline__ void load8or4(const __nv_bfloat16* p, float* v) { load8(p, v); }
+__device__ __forceinline__ void load8or4(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+}
+
 // amax -> scale -> round half to even -> clip +-127, one block per row.
 // div127 selects the scale formula:
 //   0: max(amax, 1e-8) * (1/127)  -- the kernels' _quant_rows
 //      (hriemo/ops/fused_ffn.py:66, hriemo/ops/attention_block.py:100)
 //   1: max(amax, 1e-8) / 127      -- quantize_rowwise (hriemo/ops/quant.py:63)
+// Rows whose length is a multiple of 16 bytes of T are read and written by
+// vectors (16 bytes of x, 4 or 8 bytes of q a thread), others element by
+// element; the arithmetic per element is the same.
 template <typename T>
 __global__ void rowquant_kernel(const T* __restrict__ x, int K, int div127,
                                 int8_t* __restrict__ q, float* __restrict__ s) {
+  constexpr int VEC = 16 / sizeof(T);
   __shared__ float red[32];
   const size_t row = blockIdx.x;
   const T* xr = x + row * K;
+  int8_t* qr = q + row * K;
+  const bool vec = K % VEC == 0;
   float amax = 0.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) amax = fmaxf(amax, fabsf(load_f(xr + i)));
+  if (vec) {
+    for (int i = threadIdx.x * VEC; i < K; i += blockDim.x * VEC) {
+      float v[VEC];
+      load8or4(xr + i, v);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+  } else {
+    for (int i = threadIdx.x; i < K; i += blockDim.x) amax = fmaxf(amax, fabsf(load_f(xr + i)));
+  }
   amax = block_reduce<true>(amax, red);
   const float m = fmaxf(amax, (float)1e-8);
   const float sc = div127 ? __fdiv_rn(m, 127.0f) : __fmul_rn(m, (float)(1.0 / 127.0));
-  int8_t* qr = q + row * K;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) {
-    float v = rintf(__fdiv_rn(load_f(xr + i), sc));
-    v = fminf(fmaxf(v, -127.f), 127.f);
-    qr[i] = (int8_t)v;
+  const auto quant = [&](float v) {
+    return (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v, sc)), -127.f), 127.f);
+  };
+  if (vec) {
+    for (int i = threadIdx.x * VEC; i < K; i += blockDim.x * VEC) {
+      float v[VEC];
+      load8or4(xr + i, v);
+      alignas(8) int8_t o[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) o[e] = quant(v[e]);
+      if (VEC == 8) *reinterpret_cast<uint2*>(qr + i) = *reinterpret_cast<const uint2*>(o);
+      else *reinterpret_cast<uint32_t*>(qr + i) = *reinterpret_cast<const uint32_t*>(o);
+    }
+  } else {
+    for (int i = threadIdx.x; i < K; i += blockDim.x) qr[i] = quant(load_f(xr + i));
   }
   if (threadIdx.x == 0) s[row] = sc;
 }
@@ -59,6 +91,48 @@ __global__ void layernorm_kernel(const float* __restrict__ y, const float* __res
   }
 }
 
+struct GemmArgs {
+  const int8_t* a;
+  const float* as;
+  const int8_t* w;
+  const float* ws;
+  const float* bias;
+  const __nv_bfloat16* resid;
+  int M, N, K;
+  void* out;
+  cudaStream_t stream;
+};
+
+namespace {  // per-library opt-in flags (see csrc/onepass_mma.cuh)
+
+template <int WG, int BN, int STAGES, bool OVERLAP, int EPI>
+void launch_gemm(const GemmArgs& g) {
+  using T = GemmTile<WG, BN, STAGES, OVERLAP>;
+  const auto kernel = int8_gemm_kernel<WG, BN, STAGES, OVERLAP, EPI>;
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    attr_set = true;
+  }
+  dim3 grid((g.N + BN - 1) / BN, (g.M + T::BM - 1) / T::BM);
+  kernel<<<grid, T::THREADS, T::SMEM, g.stream>>>(g.a, g.as, g.w, g.ws, g.bias, g.resid, g.M,
+                                                  g.N, g.K, g.out);
+}
+
+template <int WG, int BN, int STAGES, bool OVERLAP>
+void launch_gemm_epi(const GemmArgs& g, int epi) {
+  switch (epi) {
+    case kEpiGeluF32: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiGeluF32>(g);
+    case kEpiReluF32: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiReluF32>(g);
+    case kEpiResidFirst: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiResidFirst>(g);
+    case kEpiResidLast: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiResidLast>(g);
+    case kEpiGeluErfF32: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiGeluErfF32>(g);
+    default: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiBf16>(g);
+  }
+}
+
+}  // namespace
+
 }  // namespace hr
 
 using namespace hr;
@@ -81,18 +155,38 @@ int hr_rowquant(const void* x, int x_bf16, int M, int K, int div127, void* q, vo
 }
 
 // a: [M, K] int8, as: [M] fp32, w: [N, K] int8, ws: [N] fp32, bias: [N] fp32 or
-// NULL, resid: [M, N] bf16 or NULL; out: [M, N] bf16 (epi 0) or fp32.
+// NULL, resid: [M, N] bf16 or NULL; out: [M, N] bf16 (epi 0) or fp32. K % 16
+// == 0 and 16-byte aligned a and w (the wrapper checks). config: the block
+// configuration (0: 64x64 tiles, 4 stages; 1: 64x64, 6 stages, one wgmma
+// batch in flight; 2: 128x128, 3 stages), or -1 to choose it by shape:
+// 64x64 tiles with four stages, three blocks an SM, are the fastest or near
+// it at most of the path's shapes; a long K on a grid of under two blocks
+// an SM takes six stages with a batch in flight; 128x128 tiles (two blocks
+// an SM) win at the FFN's 3072 columns over thousands of rows
+// (chip_smoke.py times all three at each bare-GEMM row).
 int hr_int8_gemm(const void* a, const void* as, const void* w, const void* ws,
                  const void* bias, const void* resid, int M, int N, int K, int epi,
-                 void* out, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M > 0) {
-    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    int8_gemm_kernel<<<grid, kGemmThreads, 0, st>>>(
-        static_cast<const int8_t*>(a), static_cast<const float*>(as),
-        static_cast<const int8_t*>(w), static_cast<const float*>(ws),
-        static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(resid), M, N, K,
-        epi, out);
+                 int config, void* out, void* stream) {
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const GemmArgs g{static_cast<const int8_t*>(a), static_cast<const float*>(as),
+                   static_cast<const int8_t*>(w), static_cast<const float*>(ws),
+                   static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(resid),
+                   M, N, K, out, static_cast<cudaStream_t>(stream)};
+  if (config < 0) {
+    const bool small_grid = ((M + 63) / 64) * ((N + 63) / 64) < 2 * sms;
+    config = K >= 2048 && small_grid ? 1 : M >= 1024 && N >= 3072 ? 2 : 0;
+  }
+  switch (config) {
+    case 0: launch_gemm_epi<1, 64, 4, false>(g, epi); break;
+    case 1: launch_gemm_epi<1, 64, 6, true>(g, epi); break;
+    case 2: launch_gemm_epi<2, 128, 3, false>(g, epi); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -14,40 +14,17 @@
 //   hriemo/ops/flash_attention_pallas.py::_onepass_kernel, gate = pos = NULL,
 //     routed for 1024 <= Lq and 1024 <= Lk <= 2048.
 //
-// bf16 at head dim 64 (WavLM) or 96 (fusion): onepass_mma_kernel, on the
-// tensor cores (csrc/attention_tiles.cuh). A block takes 64 query rows, 16
-// per warp, and walks the keys in tiles of 64 twice:
-//   sweep 1: s for each tile (mma.sync QK^T, then scale, gate * pos and the
-//     key bias in the TPU kernels' order, __fmul_rn/__fadd_rn), the running
-//     row max m and the running sum l = l * exp(m_old - m) + sum exp(s - m);
-//   sweep 2: s again, p = exp(s - m) / l (rounded to nearest: the
-//     reciprocal of l and two remainder corrections, div_rn), rounded to bf16 as
-//     the TPU kernels cast p / l to v's dtype before PV, then PV on mma.sync
-//     with fp32 sums.
-// The contract rounds p / l, so l must be known before PV: the price of
-// keeping no score panel is 1.5x the products and twice the exps. l differs
-// from the panel's sum in fp32 order and rescaling only, before p / l is
-// rounded. Keys past Lk get s = -inf, so exp gives exact zeros; query rows
-// past Lq read zeros and are never stored; a row whose keys are all masked
-// (every kbias NEG_INF) comes out as a finite average of v.
-// Shared memory no longer grows with Lk: a two-stage cp.async ring of K, V,
-// the key biases and (gated) the [64, 64] pos tile, 55 KB at hd 64 and
-// 72 KB at hd 96, so three or four blocks share an SM. pos rows are only
-// 2-byte aligned at odd Lk, so each row is copied from the 16-byte boundary
-// below its first key and read at its offset (e & 7) in shared memory,
-// without a padded copy in device memory. Blocks run batch element
-// fastest, so the blocks that read the same pos tile run together and share
-// it through L2.
-// What bounds it (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py): the
-// per-score work on the FMA and MUFU pipes, not the tensor cores or device
-// memory. Each score takes the epilogue and an accurate expf in both
-// sweeps, and a division in the second: about 35 instructions a score, so
-// a 16x8 block of scores costs some 140 warp instructions beside its 12
-// mma.sync at hd 64. At B=2 L=1499 the gated launch takes 0.26 ms against
-// a 0.022 ms bound (the bytes). It took 0.35 ms with __fdiv_rn, which
-// branches to a slow path after every division, and 1.84 ms on the
-// CUDA-core kernel that this replaces. Blocks take 128 registers at hd 64,
-// so four fit on an SM, and 576 blocks make 1.1 waves there.
+// bf16 at head dim 64 (WavLM) or 96 (fusion): onepass_mma_kernel on the
+// tensor cores, the two-sweep kernel of csrc/onepass_mma.cuh, with the gate
+// read from its [B, H, Lq] array. What bounds it (NVIDIA H100 80GB HBM3 at
+// 700 W, chip_smoke.py): the per-score work on the FMA and MUFU pipes, about
+// 35 instructions a score, so a 16x8 block of scores costs some 140 warp
+// instructions beside its 12 mma.sync at hd 64. At B=2 L=1499 the gated
+// launch takes 0.26 ms against a 0.022 ms bound (the bytes). It took 0.35 ms
+// with __fdiv_rn, which branches to a slow path after every division, and
+// 1.84 ms on the CUDA-core kernel that this replaces. Blocks take 128
+// registers at hd 64, so four fit on an SM, and 576 blocks make 1.1 waves
+// there.
 //
 // fp32, and bf16 at other head dims (hd % 8 == 0, hd <= 256):
 // onepass_attn_kernel on CUDA cores, one block per 16 query rows with the
@@ -59,15 +36,13 @@
 //      adds gate * pos and the key bias, in the TPU kernels' order;
 //   3. softmax per row, one warp per row; p / l is rounded to T;
 //   4. PV: thread (d, row group) sums p[r][j] * v[j][d] in fp32, stores T.
-#include "attention_tiles.cuh"
+#include "onepass_mma.cuh"
 
 namespace hr {
 
 constexpr int kQT = 16;                 // query rows per block (CUDA cores)
 constexpr int kRG = 4;                  // row groups in PV: blockDim = kRG * hd
 constexpr int kMaxSmem = 227 * 1024;    // H100 dynamic shared memory per block
-constexpr int kOneBK = 64;              // keys per tile (tensor cores)
-constexpr int kPosLd = kOneBK + 8;      // a realigned pos row: the tile's keys + up to 7
 
 template <typename T>
 __global__ void onepass_attn_kernel(const T* __restrict__ q, int q_sb, int q_sh, int q_sl,
@@ -162,137 +137,6 @@ __global__ void onepass_attn_kernel(const T* __restrict__ q, int q_sb, int q_sh,
   }
 }
 
-// Bytes of one ring stage of onepass_mma_kernel: K and V tiles, the key
-// biases and, gated, the realigned pos tile.
-__host__ __device__ constexpr int mma_stage_bytes(int hd, bool gated) {
-  return 2 * kOneBK * (hd + 8) * 2 + kOneBK * 4 + (gated ? kTcRows * kPosLd * 2 : 0);
-}
-
-template <int HD, bool GATED>
-__global__ void __launch_bounds__(kTcThreads)
-    onepass_mma_kernel(const __nv_bfloat16* __restrict__ q, int q_sb, int q_sh, int q_sl,
-                       const __nv_bfloat16* __restrict__ k, int k_sb, int k_sh, int k_sl,
-                       const __nv_bfloat16* __restrict__ v, int v_sb, int v_sh, int v_sl,
-                       int H, int Lq, int Lk, float scale, const float* __restrict__ kbias,
-                       const float* __restrict__ gate, const __nv_bfloat16* __restrict__ pos,
-                       __nv_bfloat16* __restrict__ out, int o_sb, int o_sh, int o_sl) {
-  constexpr int NT = kOneBK / 8;  // n-tiles of a score tile
-  constexpr int kStage = mma_stage_bytes(HD, GATED);
-  extern __shared__ __align__(16) unsigned char ring[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x, i0 = blockIdx.y * kTcRows, h = blockIdx.z;
-  const int row0 = i0 + warp * 16;  // this warp's first query row
-  const __nv_bfloat16* qh = q + (size_t)b * q_sb + (size_t)h * q_sh;
-  const __nv_bfloat16* kh = k + (size_t)b * k_sb + (size_t)h * k_sh;
-  const __nv_bfloat16* vh = v + (size_t)b * v_sb + (size_t)h * v_sh;
-  const float* kb = kbias + (size_t)b * Lk;
-  // pos element (i0, 0) of this head; the tensor's length bounds every copy
-  const size_t pos_i0 = ((size_t)h * Lq + i0) * Lk, pos_len = (size_t)H * Lq * Lk;
-  const int nq = min(kTcRows, Lq - i0);
-
-  auto Ks = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(ring + st * kStage); };
-  auto Vs = [&](int st) { return Ks(st) + kOneBK * (HD + 8); };
-  auto Bs = [&](int st) { return reinterpret_cast<float*>(Vs(st) + kOneBK * (HD + 8)); };
-  auto Ps = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(Bs(st) + kOneBK); };
-
-  const int ntiles = (Lk + kOneBK - 1) / kOneBK, steps = 2 * ntiles;
-  // step it: tile it % ntiles of sweep it / ntiles (V only in sweep 2)
-  auto issue = [&](int it) {
-    const int st = it & 1, j0 = (it % ntiles) * kOneBK;
-    load_rows<HD, kOneBK>(Ks(st), kh, k_sl, j0, Lk, tid);
-    if (it >= ntiles) load_rows<HD, kOneBK>(Vs(st), vh, v_sl, j0, Lk, tid);
-    load_bias<kOneBK>(Bs(st), kb, j0, Lk, tid);
-    if (GATED) {
-      // row r from the 16-byte boundary at or below its key j0
-      constexpr int kChunks = kPosLd / 8;
-      for (int idx = tid; idx < kTcRows * kChunks; idx += kTcThreads) {
-        const int r = idx / kChunks, c = idx - r * kChunks;
-        const size_t a = ((pos_i0 + (size_t)r * Lk + j0) & ~(size_t)7) + 8 * c;
-        const size_t left = r < nq && a < pos_len ? 2 * (pos_len - a) : 0;  // bytes
-        const int bytes = left < 16 ? (int)left : 16;
-        cp_async16(Ps(st) + r * kPosLd + 8 * c, pos + (bytes ? a : 0), bytes);
-      }
-    }
-    cp_async_commit();
-  };
-  issue(0);
-
-  uint32_t qf[HD / 16][4];
-  load_q<HD>(qf, qh, q_sl, row0, Lq, lane);
-  // this lane's rows: gate, and the column of key 0 in its realigned pos row
-  float gt[2] = {0.f, 0.f};
-  int psh[2] = {0, 0};
-  if (GATED) {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = warp * 16 + g + 8 * rr;
-      if (i0 + r < Lq) gt[rr] = gate[((size_t)b * H + h) * Lq + i0 + r];
-      psh[rr] = (int)((pos_i0 + (size_t)r * Lk) & 7);
-    }
-  }
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f}, rl[2];  // rl = 1 / l
-  float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int it = 0; it < steps; ++it) {
-    cp_async_wait_all();
-    __syncthreads();  // step it's tiles are in; step it - 1 is done with the other stage
-    if (it + 1 < steps) issue(it + 1);
-    const int st = it & 1, j0 = (it % ntiles) * kOneBK;
-    const float* bs = Bs(st);
-    const __nv_bfloat16* ps = Ps(st) + (warp * 16 + g) * kPosLd;
-
-    float s[NT][4];
-    qk_tile<HD, NT>(s, qf, Ks(st), lane);
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int c = n * 8 + 2 * t;
-      const float2 kb2 = *reinterpret_cast<const float2*>(bs + c);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        float x = __fmul_rn(s[n][e], scale);
-        if (GATED)
-          x = __fadd_rn(x, __fmul_rn(gt[rr], bf2f(ps[rr * 8 * kPosLd + psh[rr] + c + (e & 1)])));
-        s[n][e] = __fadd_rn(x, (e & 1) ? kb2.y : kb2.x);
-      }
-    }
-    if (j0 + kOneBK > Lk) mask_keys<NT>(s, Lk - j0, lane);
-
-    if (it < ntiles) {  // sweep 1: running max and rescaled running sum
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        float mx = neg_inf();
-#pragma unroll
-        for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * rr], s[n][2 * rr + 1]));
-        const float mn = fmaxf(m[rr], quad_max(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-          sum += expf(__fadd_rn(s[n][2 * rr], -mn)) + expf(__fadd_rn(s[n][2 * rr + 1], -mn));
-        l[rr] = __fadd_rn(__fmul_rn(l[rr], expf(__fadd_rn(m[rr], -mn))), quad_sum(sum));
-        m[rr] = mn;
-      }
-    } else {  // sweep 2: p / l rounded to bf16, then PV
-      if (it == ntiles) rl[0] = __frcp_rn(l[0]), rl[1] = __frcp_rn(l[1]);
-      uint32_t pa[NT / 2][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        float p[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[e] = div_rn(expf(__fadd_rn(s[n][e], -m[e >> 1])), l[e >> 1], rl[e >> 1]);
-        pa[n >> 1][2 * (n & 1)] = pack_bf16(p[0], p[1]);
-        pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(p[2], p[3]);
-      }
-      pv_tile<HD, NT>(o, pa, Vs(st), lane);
-    }
-  }
-  store_rows<HD>(out + (size_t)b * o_sb + (size_t)h * o_sh, o_sl, row0, Lq, o, lane);
-}
-
 template <typename T>
 void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
             int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq, int Lk,
@@ -310,28 +154,6 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
       static_cast<const T*>(v), v_sb, v_sh, v_sl, H, Lq, Lk, hd, scale,
       static_cast<const float*>(kbias), static_cast<const float*>(gate),
       static_cast<const T*>(pos), static_cast<T*>(out), o_sb, o_sh, o_sl);
-}
-
-template <int HD, bool GATED>
-void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
-                int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq,
-                int Lk, float scale, const void* kbias, const void* gate, const void* pos,
-                void* out, int o_sb, int o_sh, int o_sl, cudaStream_t stream) {
-  constexpr int smem = 2 * mma_stage_bytes(HD, GATED);
-  static bool attr_set = false;  // one per instantiation
-  if (!attr_set) {
-    cudaFuncSetAttribute(onepass_mma_kernel<HD, GATED>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    attr_set = true;
-  }
-  // batch element fastest: the blocks that read one pos tile run together
-  dim3 grid(B, (Lq + kTcRows - 1) / kTcRows, H);
-  using bf = __nv_bfloat16;
-  onepass_mma_kernel<HD, GATED><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf*>(q), q_sb, q_sh, q_sl, static_cast<const bf*>(k), k_sb, k_sh, k_sl,
-      static_cast<const bf*>(v), v_sb, v_sh, v_sl, H, Lq, Lk, scale,
-      static_cast<const float*>(kbias), static_cast<const float*>(gate),
-      static_cast<const bf*>(pos), static_cast<bf*>(out), o_sb, o_sh, o_sl);
 }
 
 bool on_tensor_cores(int fp32, int hd) { return !fp32 && (hd == 64 || hd == 96); }
@@ -365,19 +187,18 @@ int hr_onepass_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
   if (on_tensor_cores(fp32, hd)) {
-    const bool gated = gate != nullptr;
-    if (hd == 64 && gated)
-      launch_mma<64, true>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
-                           Lq, Lk, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, s);
-    else if (hd == 64)
-      launch_mma<64, false>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
-                            Lq, Lk, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, s);
-    else if (gated)
-      launch_mma<96, true>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
-                           Lq, Lk, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, s);
-    else
-      launch_mma<96, false>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
-                            Lq, Lk, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, s);
+    using bf = __nv_bfloat16;
+    OnepassArgs a{};
+    a.q = static_cast<const bf*>(q), a.k = static_cast<const bf*>(k), a.v = static_cast<const bf*>(v);
+    a.q_sb = q_sb, a.q_sh = q_sh, a.q_sl = q_sl, a.k_sb = k_sb, a.k_sh = k_sh, a.k_sl = k_sl;
+    a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = scale;
+    a.kbias = static_cast<const float*>(kbias), a.gate = static_cast<const float*>(gate);
+    a.pos = static_cast<const bf*>(pos), a.out = static_cast<bf*>(out);
+    a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
+    if (hd == 64 && gate != nullptr) launch_onepass_mma<64, kGateArray, kKeysBias>(a, B, s);
+    else if (hd == 64) launch_onepass_mma<64, kNoGate, kKeysBias>(a, B, s);
+    else if (gate != nullptr) launch_onepass_mma<96, kGateArray, kKeysBias>(a, B, s);
+    else launch_onepass_mma<96, kNoGate, kKeysBias>(a, B, s);
     return (int)cudaGetLastError();
   }
   const int smem = hr_onepass_smem_bytes(fp32, Lk, hd);

@@ -13,6 +13,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import math
@@ -40,11 +41,10 @@ F = ctypes.c_float
 SIGNATURES = {
     "quant_gemm": {
         "hr_rowquant": [P, I, I, I, I, P, P, P],
-        "hr_int8_gemm": [P, P, P, P, P, P, I, I, I, I, P, P],
+        "hr_int8_gemm": [P, P, P, P, P, P, I, I, I, I, I, P, P],
         "hr_layernorm": [P, P, P, I, I, F, P, P],
     },
     "attention": {
-        "hr_attention_smem_bytes": [I, I],
         "hr_attention_core": [P, I, P, I, P, I, I, I, I, I, I, P, P,
                               P, I, P, P, P, P, P, I, P],
     },
@@ -230,21 +230,36 @@ def rowquant(x: torch.Tensor, div127: bool):
     return q, s
 
 
+# Block configurations of the int8 GEMM, by index (csrc/quant_gemm.cu)
+GEMM_CONFIGS = ("64x64 s4", "64x64 s6 overlap", "128x128 s3")
+
+
 def int8_gemm(a, a_scale, w, w_scale, bias, epi: int, resid=None,
-              w_rows: tuple[int, int] | None = None) -> torch.Tensor:
+              w_rows: tuple[int, int] | None = None, config: int = -1) -> torch.Tensor:
     """``epilogue(a [M,K] int8 . w[N,K]^T)``. ``w_rows=(r0, n)`` uses rows
     r0..r0+n of ``w``, ``w_scale`` and ``bias`` without a copy (the packed
-    MHA in_proj). Output bf16 for EPI_BF16, else fp32."""
+    MHA in_proj). Output bf16 for EPI_BF16, else fp32. ``config`` forces one
+    of :data:`GEMM_CONFIGS` (-1: chosen by shape). Its plain version is
+    ``ops.fused_ffn.int8_gemm_plain``. ``int8_gemm.launches`` counts its
+    launches, ``int8_gemm.shapes`` the same by ``(M, N, K)``."""
     m, k = a.shape
     r0, n = w_rows if w_rows is not None else (0, w.shape[0])
+    if k % 16:
+        raise ValueError(f"int8 GEMM needs K % 16 == 0, got {k}")
     out = torch.empty((m, n), device=a.device,
                       dtype=torch.bfloat16 if epi == EPI_BF16 else torch.float32)
     check(lib("quant_gemm").hr_int8_gemm(
         a.data_ptr(), a_scale.data_ptr(), w.data_ptr() + r0 * k,
         w_scale.data_ptr() + 4 * r0,
         None if bias is None else bias.data_ptr() + 4 * r0,
-        ptr(resid), m, n, k, epi, out.data_ptr(), stream()), "hr_int8_gemm")
+        ptr(resid), m, n, k, epi, config, out.data_ptr(), stream()), "hr_int8_gemm")
+    int8_gemm.launches += 1
+    int8_gemm.shapes[(m, n, k)] += 1
     return out
+
+
+int8_gemm.launches = 0
+int8_gemm.shapes = collections.Counter()
 
 
 def layernorm(y: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float):

@@ -17,18 +17,20 @@ Two Hopper kernels, each with its plain PyTorch version beside it:
 
 On the card each is a sequence of launches: row quantize (``csrc/
 quant_gemm.cu``), one int8 GEMM for q/k/v (self) or one for q and one for
-k/v (cross) storing bf16, the attention core (``csrc/attention.cu``), row
-quantize of the context, the out-proj GEMM (with the residual epilogue
-for WavLM) and, for WavLM, the LayerNorm pass. The TPU kernel pads rows to
-128 and, for L <= 64, packs several short elements into one tile; that is
-TPU layout, so the port runs every element at its true length and holds
-the per-element result. What bounds them on the card: the attention core's
-fp32 CUDA-core work (see ``csrc/attention.cu``) at L=499, the projection
-GEMMs' int8 operations at short L.
+k/v (cross) storing bf16 (``csrc/int8_gemm.cuh``, wgmma), the attention
+core (:func:`attention_core_int8`, ``csrc/attention.cu``), row quantize of
+the context, the out-proj GEMM (with the residual epilogue for WavLM) and,
+for WavLM, the LayerNorm pass. The TPU kernel pads rows to 128 and, for
+L <= 64, packs several short elements into one tile; that is TPU layout, so
+the port runs every element at its true length and holds the
+per-element result. What bounds them on the card: the core's per-score
+work under its exact-p/l contract at L=499 (see ``csrc/onepass_mma.cuh``),
+the projection GEMMs' int8 operations, and the host's launches at short L.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import NamedTuple
 
@@ -109,6 +111,100 @@ def _merge(t):
     return t.transpose(1, 2).reshape(b * l, h * hd)
 
 
+def _gate(x, wg, bg, gconst, b, lq, h):
+    """WavLM's gate ``[B, H, Lq, 1]`` from the sublayer input ``x [B*Lq,
+    D]``; the gate GEMM reads x as bf16, as the TPU kernel's
+    ``x.astype(wg.dtype)``."""
+    g = x.to(torch.bfloat16).float().reshape(b, lq, h, -1) @ wg.t() + bg
+    ga = torch.sigmoid(g[..., 0:4].sum(-1))
+    gb = torch.sigmoid(g[..., 4:8].sum(-1))
+    return (ga * (gb * gconst - 1.0) + 2.0).transpose(1, 2)[..., None]
+
+
+def attention_core_int8_plain(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gate=None):
+    """Plain PyTorch version of :func:`attention_core_int8`: fp32 scores,
+    ``+ gate * pos``, ``+ kbias`` or the padding mask's NEG_INF, then
+    :func:`softmax_pv`."""
+    lq, lk, h = q.shape[0] // b, k.shape[0] // b, n_heads
+    s = _heads(q, b, lq, h).float() @ _heads(k, b, lk, h).float().transpose(-1, -2)
+    if gate is not None:
+        x, wg, bg, gconst, pos = gate
+        s = s + _gate(x, wg, bg, gconst, b, lq, h) * pos.float()[None]
+    if kbias is not None:
+        s = s + kbias[:, None, None, :]
+    if kpm is not None:
+        s = s + torch.where(kpm, NEG_INF, 0.0)[:, None, None, :]
+    return _merge(softmax_pv(s, _heads(v, b, lk, h)))
+
+
+def _rows(t, name, rows, cols, dev):
+    """A ``[rows, cols]`` bf16 kernel operand read in place, rows possibly
+    further apart than ``cols`` (a column block of a packed projection):
+    returns ``(data pointer, row stride)``."""
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel needs bf16")
+    if tuple(t.shape) != (rows, cols) or t.device != dev:
+        raise ValueError(f"{name}: {tuple(t.shape)} on {t.device}, kernel needs "
+                         f"{(rows, cols)} on {dev}")
+    if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+        raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned")
+    return t.data_ptr(), t.stride(0)
+
+
+def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gate=None):
+    """The int8 sublayers' attention core: ``softmax(q k^T [+ gate * pos] +
+    key bias) v`` per head, fp32 scores, ``p / l`` rounded to bf16 before
+    PV. ``q [B*Lq, D]``, ``k``/``v [B*Lk, D]`` bf16, each row contiguous (a
+    column block of the packed projection is read in place), 1/sqrt(hd)
+    already in q; ``kbias [B, Lk]`` fp32 additive or ``kpm [B, Lk]`` bool
+    (True = PAD) or neither; ``gate = (x [B*Lq, D] bf16, wg [8, hd], bg
+    [8], gconst [H], pos [H, Lq, Lk] bf16)`` for WavLM's gated position
+    bias. Returns ``ctx [B*Lq, D]`` bf16. ``attention_core_int8.launches``
+    counts its launches, ``.shapes`` the same by ``(B, Lq, Lk, H, hd)``.
+
+    On the CPU the plain version runs; on the card one launch of
+    ``csrc/attention.cu`` (tensor cores at head dims 64 and 96), or a raise.
+    """
+    if q.device.type == "cpu":
+        return attention_core_int8_plain(q, k, v, b, n_heads, kbias, kpm, gate)
+    d, h, dev = q.shape[1], n_heads, q.device
+    lq, lk = q.shape[0] // b, k.shape[0] // b
+    hd = d // h
+    if hd * h != d or hd % 8 or hd > 256:
+        raise ValueError(f"attention kernel: unsupported width d={d}, heads={h}")
+    if lk > 1024:
+        raise ValueError(f"attention kernel: key length {lk} > 1024")
+    if kbias is not None and kpm is not None:
+        raise ValueError("attention kernel: give kbias or kpm, not both")
+    args = [*_rows(q, "q", b * lq, d, dev), *_rows(k, "k", b * lk, d, dev),
+            *_rows(v, "v", b * lk, d, dev), b, lq, lk, h, hd]
+    if kbias is not None:
+        _cuda.require(kbias, "kbias", torch.float32, (b, lk), dev)
+    if kpm is not None:
+        _cuda.require(kpm, "key_padding_mask", torch.bool, (b, lk), dev)
+    args += [_cuda.ptr(kbias), _cuda.ptr(kpm)]
+    if gate is not None:
+        x, wg, bg, gconst, pos = gate
+        _cuda.require(wg, "wg", torch.float32, (8, hd), dev)
+        _cuda.require(bg, "bg", torch.float32, (8,), dev)
+        _cuda.require(gconst, "gconst", torch.float32, (h,), dev)
+        _cuda.require(pos, "pos", torch.bfloat16, (h, lq, lk), dev)
+        args += [*_rows(x, "x", b * lq, d, dev), wg.data_ptr(), bg.data_ptr(),
+                 gconst.data_ptr(), pos.data_ptr()]
+    else:
+        args += [None, 0, None, None, None, None]
+    ctx = torch.empty((b * lq, d), dtype=torch.bfloat16, device=dev)
+    _cuda.check(_cuda.lib("attention").hr_attention_core(
+        *args, ctx.data_ptr(), d, _cuda.stream()), "hr_attention_core")
+    attention_core_int8.launches += 1
+    attention_core_int8.shapes[(b, lq, lk, h, hd)] += 1
+    return ctx
+
+
+attention_core_int8.launches = 0
+attention_core_int8.shapes = collections.Counter()  # by (B, Lq, Lk, H, hd)
+
+
 def attention_block_int8_plain(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
     """Plain PyTorch version of :func:`attention_block_int8`."""
     b, l, d = x.shape
@@ -116,15 +212,9 @@ def attention_block_int8_plain(x, ops: WavLMAttnOperands, pos, kbias, eps: float
     x2 = x.reshape(b * l, d)
     xq, xs = quant_rows(x2.float())
     qkv = (int8_matmul_exact(xq, m.w_in) * xs * m.s_in[:, 0] + m.b_in).to(torch.bfloat16)
-    q, k, v = (_heads(t, b, l, h) for t in qkv.split(d, dim=1))
-    # the gate GEMM reads x as bf16, as the TPU kernel's x.astype(wg.dtype)
-    g = x.to(torch.bfloat16).float().reshape(b, l, h, d // h) @ ops.wg.t() + ops.bg
-    ga = torch.sigmoid(g[..., 0:4].sum(-1))
-    gb = torch.sigmoid(g[..., 4:8].sum(-1))
-    gate = (ga * (gb * ops.gconst - 1.0) + 2.0).transpose(1, 2)[..., None]  # [B, H, L, 1]
-    s = q.float() @ k.float().transpose(-1, -2)
-    s = s + gate * pos.float()[None] + kbias[:, None, None, :]
-    ctx = _merge(softmax_pv(s, v))
+    q, k, v = qkv.split(d, dim=1)
+    ctx = attention_core_int8_plain(q, k, v, b, h, kbias=kbias,
+                                    gate=(x2, ops.wg, ops.bg, ops.gconst, pos))
     cq, cs = quant_rows(ctx.float())
     y = int8_matmul_exact(cq, m.w_out) * cs * m.s_out[:, 0] + m.b_out
     y = y + x2.float()
@@ -138,21 +228,6 @@ def _check_mha(ops: MhaOperands, d: int, dev):
     _cuda.require(ops.w_out, "w_out", torch.int8, (d, d), dev)
     _cuda.require(ops.s_out, "s_out", torch.float32, (d, 1), dev)
     _cuda.require(ops.b_out, "b_out", torch.float32, (d,), dev)
-    hd = d // ops.n_heads
-    if d % 16 or hd % 8 or hd > 256 or hd * ops.n_heads != d:
-        raise ValueError(f"attention kernel: unsupported width d={d}, heads={ops.n_heads}")
-
-
-def _core(q, q_ld, k, k_ld, v, v_ld, b, lq, lk, h, hd, ctx, kbias=None, kpm=None,
-          gate=None):
-    """Launch ``csrc/attention.cu``; q/k/v/ctx are data pointers (ints)."""
-    if lk > 1024:
-        raise ValueError(f"attention kernel: key length {lk} > 1024")
-    x, x_ld, wg, bg, gconst, pos = gate if gate is not None else (None, 0, None, None, None, None)
-    _cuda.check(_cuda.lib("attention").hr_attention_core(
-        q, q_ld, k, k_ld, v, v_ld, b, lq, lk, h, hd, _cuda.ptr(kbias), _cuda.ptr(kpm),
-        _cuda.ptr(x), x_ld, _cuda.ptr(wg), _cuda.ptr(bg), _cuda.ptr(gconst),
-        _cuda.ptr(pos), ctx.data_ptr(), ctx.shape[1], _cuda.stream()), "hr_attention_core")
 
 
 def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
@@ -168,24 +243,17 @@ def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
     if x.device.type == "cpu":
         return attention_block_int8_plain(x, ops, pos, kbias, eps)
     m, h = ops.mha, ops.mha.n_heads
-    hd = d // h
     dev = x.device
     _cuda.require(x, "x", torch.bfloat16)
     _check_mha(m, d, dev)
-    _cuda.require(pos, "pos", torch.bfloat16, (h, l, l), dev)
-    _cuda.require(kbias, "kbias", torch.float32, (b, l), dev)
-    _cuda.require(ops.wg, "wg", torch.float32, (8, hd), dev)
-    _cuda.require(ops.bg, "bg", torch.float32, (8,), dev)
-    _cuda.require(ops.gconst, "gconst", torch.float32, (h,), dev)
     _cuda.require(ops.ln_w, "ln_w", torch.float32, (d,), dev)
     _cuda.require(ops.ln_b, "ln_b", torch.float32, (d,), dev)
     x2 = x.view(b * l, d)
     xq, xs = _cuda.rowquant(x2, div127=False)
     qkv = _cuda.int8_gemm(xq, xs, m.w_in, m.s_in, m.b_in, _cuda.EPI_BF16)
-    ctx = torch.empty((b * l, d), dtype=torch.bfloat16, device=dev)
-    base = qkv.data_ptr()
-    _core(base, 3 * d, base + 2 * d, 3 * d, base + 4 * d, 3 * d, b, l, l, h, hd, ctx,
-          kbias=kbias, gate=(x2, d, ops.wg, ops.bg, ops.gconst, pos))
+    q, k, v = qkv.split(d, dim=1)
+    ctx = attention_core_int8(q, k, v, b, h, kbias=kbias,
+                              gate=(x2, ops.wg, ops.bg, ops.gconst, pos))
     cq, cs = _cuda.rowquant(ctx, div127=False)
     y = _cuda.int8_gemm(cq, cs, m.w_out, m.s_out, m.b_out, _cuda.EPI_RESID_LAST, resid=x2)
     out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps)
@@ -207,10 +275,7 @@ def mha_block_int8_plain(xq, xkv, ops: MhaOperands, key_padding_mask):
     q = (int8_matmul_exact(aq, w[:d]) * aqs * s[:d] + bias[:d]).to(torch.bfloat16)
     kv = (int8_matmul_exact(ak, w[d:]) * aks * s[d:] + bias[d:]).to(torch.bfloat16)
     k, v = kv.split(d, dim=1)
-    sc = _heads(q, b, lq, h).float() @ _heads(k, b, lk, h).float().transpose(-1, -2)
-    kpb = (torch.zeros((b, lk), device=xq.device) if key_padding_mask is None
-           else torch.where(key_padding_mask, NEG_INF, 0.0))
-    ctx = _merge(softmax_pv(sc + kpb[:, None, None, :], _heads(v, b, lk, h)))
+    ctx = attention_core_int8_plain(q, k, v, b, h, kpm=key_padding_mask)
     cq, cs = quant_rows(ctx.float())
     y = int8_matmul_exact(cq, ops.w_out) * cs * ops.s_out[:, 0] + ops.b_out
     return y.to(xq.dtype).reshape(b, lq, d)
@@ -230,26 +295,18 @@ def mha_block_int8(xq, xkv, ops: MhaOperands, key_padding_mask):
     _cuda.require(xq, "xq", torch.bfloat16)
     _cuda.require(xkv, "xkv", torch.bfloat16, (b, lk, d), dev)
     _check_mha(ops, d, dev)
-    if key_padding_mask is not None:
-        _cuda.require(key_padding_mask, "key_padding_mask", torch.bool, (b, lk), dev)
     aq, aqs = _cuda.rowquant(xq.view(b * lq, d), div127=False)
     if xkv is xq:
         qkv = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16)
-        q = k = qkv.data_ptr()
-        ld_q = ld_kv = 3 * d
-        k_off, v_off = 2 * d, 4 * d
+        q, k, v = qkv.split(d, dim=1)
     else:
         ak, aks = _cuda.rowquant(xkv.view(b * lk, d), div127=False)
-        qb = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
-                             w_rows=(0, d))
-        kvb = _cuda.int8_gemm(ak, aks, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
-                              w_rows=(d, 2 * d))
-        q, k = qb.data_ptr(), kvb.data_ptr()
-        ld_q, ld_kv = d, 2 * d
-        k_off, v_off = 0, 2 * d
-    ctx = torch.empty((b * lq, d), dtype=torch.bfloat16, device=dev)
-    _core(q, ld_q, k + k_off, ld_kv, k + v_off, ld_kv, b, lq, lk, h, d // h, ctx,
-          kpm=key_padding_mask)
+        q = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
+                            w_rows=(0, d))
+        kv = _cuda.int8_gemm(ak, aks, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
+                             w_rows=(d, 2 * d))
+        k, v = kv.split(d, dim=1)
+    ctx = attention_core_int8(q, k, v, b, h, kpm=key_padding_mask)
     cq, cs = _cuda.rowquant(ctx, div127=False)
     y = _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out, _cuda.EPI_BF16)
     mha_block_int8.launches += 1

@@ -94,6 +94,31 @@ def layer_norm_rows(y, w, b, eps):
     return (y - mean) * torch.rsqrt(var + eps) * w + b
 
 
+def int8_gemm_plain(a, a_scale, w, w_scale, bias, epi: int, resid=None):
+    """Plain version of the shared int8 GEMM (``_cuda.int8_gemm``): ``a [M,
+    K]`` int8, ``a_scale [M]``, ``w [N, K]`` int8, ``w_scale [N, 1]``,
+    ``bias [N]`` or None, ``resid [M, N]`` bf16 for the residual epilogues.
+    Each step rounds as the kernel's epilogue does, with the erf GELU's
+    ``x / sqrt(2)`` an IEEE division (a tensor divisor: PyTorch's CUDA
+    division by a Python scalar multiplies by the reciprocal)."""
+    v = int8_matmul_exact(a, w) * a_scale[:, None] * w_scale[:, 0]
+    vb = v if bias is None else v + bias
+    if epi == _cuda.EPI_BF16:
+        return vb.to(torch.bfloat16)
+    if epi == _cuda.EPI_GELU_F32:
+        return gelu_fp32(vb, True)
+    if epi == _cuda.EPI_GELU_ERF_F32:
+        return 0.5 * vb * (1.0 + torch.erf(vb / vb.new_full((), math.sqrt(2.0))))
+    if epi == _cuda.EPI_RELU_F32:
+        return torch.clamp_min(vb, 0.0)
+    if epi == _cuda.EPI_RESID_FIRST:
+        y = resid.float() + v
+        return y if bias is None else y + bias
+    if epi == _cuda.EPI_RESID_LAST:
+        return vb + resid.float()
+    raise ValueError(f"int8 GEMM: unknown epilogue {epi}")
+
+
 def ffn_block_int8_plain(x, ops: FfnOperands, eps: float, fast_gelu: bool):
     """Plain PyTorch version of :func:`ffn_block_int8`."""
     p = ops.pair
@@ -117,8 +142,6 @@ def _check_pair(x, p: Mlp2Operands):
     _cuda.require(p.w2, "w2", torch.int8, (dout, f), dev)
     _cuda.require(p.s2, "s2", torch.float32, (dout, 1), dev)
     _cuda.require(p.b2, "b2", torch.float32, (dout,), dev)
-    if din % 16 or f % 16:
-        raise ValueError(f"int8 GEMM needs K % 16 == 0, got {din} and {f}")
 
 
 def ffn_block_int8(x, ops: FfnOperands, eps: float, fast_gelu: bool):

@@ -97,8 +97,6 @@ def int8_linear(x, w_int8, w_scale, bias=None):
     _cuda.require(w_scale, "w_scale", torch.float32, (n, 1), x.device)
     if bias is not None:
         _cuda.require(bias, "bias", torch.float32, (n,), x.device)
-    if k % 16:
-        raise ValueError(f"int8_linear: in_features {k} is not a multiple of 16")
     xq, xs = _cuda.rowquant(x2, div127=True)
     y = _cuda.int8_gemm(xq, xs, w_int8, w_scale, bias, _cuda.EPI_BF16)
     int8_linear.launches += 1

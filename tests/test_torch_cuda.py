@@ -116,7 +116,7 @@ def test_mlp2(gen, din, f, dout, m):
     _close(FF.mlp2_int8(x, ops), FF.mlp2_int8_plain(x, ops))
 
 
-@pytest.mark.parametrize("l", [48, 62, 97, 124])
+@pytest.mark.parametrize("l", [48, 62, 97, 124, 63, 65, 499, 1024])
 def test_attention_block(gen, l):
     d, h = 256, 4
     holder = torch.nn.Module()
@@ -141,6 +141,89 @@ def test_mha_block(gen, d, h, lq, lk, self_attn):
     xkv = xq if self_attn else _randn(gen, 3, lk, d)
     kpm = _pad_mask([lk, max(1, lk // 3), 0], lk)  # element 2: every key PAD
     _close(AB.mha_block_int8(xq, xkv, ops, kpm), AB.mha_block_int8_plain(xq, xkv, ops, kpm))
+
+
+EPILOGUES = [_cuda.EPI_BF16, _cuda.EPI_GELU_F32, _cuda.EPI_RELU_F32, _cuda.EPI_RESID_FIRST,
+             _cuda.EPI_RESID_LAST, _cuda.EPI_GELU_ERF_F32]
+
+
+def _gemm_operands(gen, m, n, k):
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
+    w = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8).cuda()
+    a_s = (torch.rand(m, generator=gen) * 1e-2 + 1e-4).cuda()
+    w_s = (torch.rand(n, 1, generator=gen) * 1e-3 + 1e-5).cuda()
+    return a, a_s, w, w_s
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 63, 65, 129, 1996])
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("config", [-1, *range(len(_cuda.GEMM_CONFIGS))])
+def test_int8_gemm_bit_equal(gen, m, epi, config):
+    """The int32 sum is exact, so the GEMM equals its plain version bit for
+    bit, for every epilogue and block configuration (-1: chosen by shape),
+    at row counts that cut the 64- and 128-row tiles and N and K that cut
+    the 64/128-column and 128-byte K tiles (K % 16 == 0); no bias at N=260,
+    which also takes the unaligned-row stores."""
+    for n, k in ((256, 784), (776, 512), (2304, 3072), (260, 512)):
+        a, a_s, w, w_s = _gemm_operands(gen, m, n, k)
+        bias = None if n == 260 else _randn(gen, n, dtype=torch.float32)
+        resid = _randn(gen, m, n) if epi in (_cuda.EPI_RESID_FIRST, _cuda.EPI_RESID_LAST) \
+            else None
+        before = _cuda.int8_gemm.launches
+        got = _cuda.int8_gemm(a, a_s, w, w_s, bias, epi, resid=resid, config=config)
+        torch.cuda.synchronize()
+        assert _cuda.int8_gemm.launches == before + 1
+        torch.testing.assert_close(got, FF.int8_gemm_plain(a, a_s, w, w_s, bias, epi, resid),
+                                   atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("m", [16, 65, 1996])
+def test_int8_gemm_w_rows(gen, m):
+    """Both slices of a packed [3D, D] in_proj (q rows, then k/v rows): W,
+    its scales and bias offset by r0 rows without a copy."""
+    d = 768
+    a, a_s, w, w_s = _gemm_operands(gen, m, 3 * d, d)
+    bias = _randn(gen, 3 * d, dtype=torch.float32)
+    for r0, n in ((0, d), (d, 2 * d)):
+        got = _cuda.int8_gemm(a, a_s, w, w_s, bias, _cuda.EPI_BF16, w_rows=(r0, n))
+        ref = FF.int8_gemm_plain(a, a_s, w[r0:r0 + n], w_s[r0:r0 + n], bias[r0:r0 + n],
+                                 _cuda.EPI_BF16)
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+# (Lq, Lk) that cut the int8 core's tiles (64 query rows, 64 keys): the
+# routing gates' ends 8 and 1024, one short of and one past a tile, 499 (the
+# 10 s bucket), and Lq != Lk both ways (the fusion's cross-attention)
+CORE_SHAPES = [(8, 8), (16, 16), (63, 63), (64, 64), (65, 65), (499, 499), (1024, 1024),
+               (16, 499), (499, 16), (8, 1024), (1024, 8), (63, 65), (65, 63)]
+
+
+@pytest.mark.parametrize("lq,lk", CORE_SHAPES)
+@pytest.mark.parametrize("hd", [64, 96, 32])   # 32: the CUDA-core kernel
+@pytest.mark.parametrize("mode", ["gated", "kpm", "none"])
+def test_attention_core_int8(gen, lq, lk, hd, mode):
+    """q/k/v read in place as column blocks of packed projections; element
+    2 has every key PAD (kbias -1e9 or kpm True) and still averages v."""
+    b, h = 3, 4
+    d = h * hd
+    q = _randn(gen, b * lq, 2 * d, scale=hd ** -0.5)[:, d:]
+    kv = _randn(gen, b * lk, 2 * d)
+    k, v = kv[:, :d], kv[:, d:]
+    pad = _pad_mask([lk, max(1, lk // 3), 0], lk)
+    kw = {}
+    if mode == "gated":
+        kw["kbias"] = torch.where(pad, AB.NEG_INF, 0.0).float()
+        kw["gate"] = (_randn(gen, b * lq, d), _randn(gen, 8, hd, scale=0.1, dtype=torch.float32),
+                      _randn(gen, 8, scale=0.1, dtype=torch.float32),
+                      _randn(gen, h, dtype=torch.float32), _randn(gen, h, lq, lk, scale=0.3))
+    elif mode == "kpm":
+        kw["kpm"] = pad
+    before = AB.attention_core_int8.launches
+    got = AB.attention_core_int8(q, k, v, b, h, **kw)
+    torch.cuda.synchronize()
+    assert AB.attention_core_int8.launches == before + 1
+    ref = AB.attention_core_int8_plain(q, k, v, b, h, **kw)
+    _close_attention(got.view(b, lq, d), ref.view(b, lq, d))
 
 
 def test_wrappers_raise_instead_of_falling_back(gen):
