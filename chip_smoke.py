@@ -13,7 +13,8 @@ Phases, any failure exits non-zero:
    sublayer outputs, ``ATTN_TOL`` for the raw outputs of the attention
    cores, which also rejects a streaming result that drops the last,
    partial key block and a gated one-pass result that drops its last,
-   partial key tile; ``CONV_TOL`` for the conv-stack stages, which also
+   partial key tile, each in bf16 and in fp32 at its kernel's key tile;
+   ``CONV_TOL`` for the conv-stack stages, which also
    rejects a K1 result with one tile's halo rows zeroed), and CUDA-event
    times of the kernel, the plain version and, where one PyTorch call
    computes the same function, that call (``library_ms``, a yardstick the
@@ -32,13 +33,16 @@ Phases, any failure exits non-zero:
    text buckets 8..64, random weights from a seed): 16 requests across the
    2.5 s and 10 s audio buckets, launch counts per forward, probabilities
    finite and in [0, 1], and the same requests through the plain versions
-   (``use_kernels=False``) within the int8 gate of 0.006;
+   (``use_kernels=False``) within the int8 gate of 0.006; then the same on
+   the int8 tree at fp32 compute (``compute_dtype=torch.float32``), whose
+   int8 sublayers take and store fp32 activations;
 4b. the bf16 tree (``int8_frontends=False``, the pipeline's default) on the
    same 16 requests: launch counts, kernel vs plain within 0.006, and
    ``int8_prob_delta``, the max |int8 - bf16| probability with kernels on
    both, gated at 0.006 as ``bench.py`` gates it;
 4c. long clips (``max_seconds=45``, buckets 10/30/45 s, batch 2): two clips
-   of 28-30 s and two of 42-45 s on the bf16, int8 and fp32 trees, launch
+   of 28-30 s and two of 42-45 s on the bf16, int8, fp32 and int8-at-fp32
+   trees, launch
    counts per forward (WavLM attention 1499 frames on the fused gated-bias
    kernel, 2249 per op; fusion self-attention on the one-pass and the
    streaming kernel) and kernel vs plain within 0.006;
@@ -112,11 +116,17 @@ STATS_TOL = dict(atol=1e-2, rtol=1e-4, median=1e-3)
 FP32_TOL = dict(atol=2e-4, rtol=0.0, median=2e-5)  # fp32 sublayer outputs near 1
 PROB_GATE = 0.006         # bench.py INT8_PROB_DELTA_MAX
 # NVIDIA H100 SXM data sheet, dense: HBM bytes/s, int8 and bf16 tensor-core op/s,
-# fp32 op/s outside the tensor cores
+# fp32 op/s outside the tensor cores, TF32 tensor-core op/s
 PEAK_BYTES, PEAK_INT8, PEAK_BF16, PEAK_FP32 = 3.35e12, 1979e12, 989e12, 67e12
+PEAK_TF32 = 495e12
+# The fp32 attention cores at head dims 64 and 96 run 3xTF32: three TF32
+# products for each fp32 one (csrc/attention_tf32.cuh), so their bound is
+# three times the fp32 operations at the TF32 rate
+TF32_PRODUCTS = 3
 TEXT_BUCKETS = (8, 12, 16, 20, 24, 32, 64)   # bench.py:172
 EPS = 1e-5                # WavLM's layer_norm_eps (GroupNorm)
 ONEPASS_KEY_TILE = 64     # keys per tile of csrc/wavlm_attention.cu's bf16 kernel
+TF32_KEY_TILE = 32        # keys per tile of the fp32 kernels (csrc/attention_tf32.cuh)
 OUT = pathlib.Path("chip_smoke_out")
 
 # (wrapper, TPU kernel it replaces, CUDA sources) for the kernels line
@@ -202,11 +212,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: int, int8_ops: int = 0, bf16_ops: int = 0, fp32_ops: int = 0):
+def bound(nbytes: int, int8_ops: int = 0, bf16_ops: int = 0, fp32_ops: int = 0,
+          tf32_ops: int = 0):
     """Least time (ms) for the work: the larger of bytes over the memory
     rate and operations over the peak rate of their type."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
+    t_ops = (int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
+             + tf32_ops / PEAK_TF32)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -253,11 +265,11 @@ def check_kernels(gen):
         return (torch.arange(l)[None, :] >= lens[:, None]).to(dev)
 
     def run(kernel, shape, fn, plain, library, nbytes_, int8_ops, bf16_ops, fp32_ops=0,
-            tol=TOL, route=None):
+            tf32_ops=0, tol=TOL, route=None):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         err, med = compare(f"{kernel} {shape}", got, ref, tol)
-        b_ms, b_by = bound(nbytes_, int8_ops, bf16_ops, fp32_ops)
+        b_ms, b_by = bound(nbytes_, int8_ops, bf16_ops, fp32_ops, tf32_ops)
         rec = dict(kernel=kernel, shape=shape, max_abs_err=err, median_abs_err=med,
                    ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
                    library_ms=None if library is None else cuda_ms(library),
@@ -355,14 +367,21 @@ def check_kernels(gen):
         return randn(b, l, h * hd, dtype=dtype).view(b, l, h, hd).transpose(1, 2)
 
     def attn_ops(dtype, b, h, lq, lk, hd):
+        """(bf16, fp32, tf32) operations of an attention core: fp32 at head
+        dims 64 and 96 runs 3xTF32."""
         ops = 4 * b * h * lq * lk * hd
-        return (ops, 0) if dtype == torch.bfloat16 else (0, ops)
+        if dtype == torch.bfloat16:
+            return ops, 0, 0
+        return (0, 0, TF32_PRODUCTS * ops) if hd in (64, 96) else (0, ops, 0)
 
     # WavLM gated-bias attention core, float trees: the 5 s and 10 s buckets
-    # at B=4, 30 s at B=2, and the fp32 tree's 10 s bucket
+    # at B=4, 30 s at B=2; fp32: the 10 s bucket at B=4, the long fp32 30 s
+    # clips at B=2 and the fp32 extraction batch (8 x 10 s)
     h, hd = 12, 64
+    gated_upto = {}
     for bb, l, dt in ((B, 249, torch.bfloat16), (B, 499, torch.bfloat16),
-                      (2, 1499, torch.bfloat16), (B, 499, torch.float32)):
+                      (2, 1499, torch.bfloat16), (B, 499, torch.float32),
+                      (2, 1499, torch.float32), (8, 499, torch.float32)):
         q, k, v = (heads(bb, l, h, hd, dt) for _ in range(3))
         gate = (torch.rand(bb, h, l, generator=gen) * 1.5 + 0.5).to(dev, dt)
         pos = randn(h, l, l, scale=0.3, dtype=dt)
@@ -374,19 +393,22 @@ def check_kernels(gen):
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
             nbytes(q, k, v, gate, pos, kb, q), 0, *attn_ops(dt, bb, h, l, l, hd),
             tol=ATTN_TOL[dt])
-        if (bb, l, dt) == (2, 1499, torch.bfloat16):
-            gated_upto = lambda n, q=q, k=k, v=v, gate=gate, pos=pos, kb=kb: \
+        if (bb, l) == (2, 1499):
+            gated_upto[dt] = lambda n, q=q, k=k, v=v, gate=gate, pos=pos, kb=kb: \
                 WA.wavlm_fused_attention_plain(q, k[:, :, :n], v[:, :, :n], gate, pos[:, :, :n],
                                                kb[:, :n])
     # after the timings: its large plain versions would move where the fp32
     # row's tensors are allocated, and with them that row's time (PERF.md §6)
-    gated_check = dropped_tile("wavlm_fused_attention", ONEPASS_KEY_TILE, 1499,
-                               torch.bfloat16, gated_upto)
+    gated_check = {str(dt)[6:]: dropped_tile("wavlm_fused_attention", tile, 1499, dt,
+                                             gated_upto[dt])
+                   for dt, tile in ((torch.bfloat16, ONEPASS_KEY_TILE),
+                                    (torch.float32, TF32_KEY_TILE))}
     del gated_upto
 
     # fusion audio self-attention, long clips: 30 s (one-pass) and 45 s
     # (streaming), on the bf16 and int8 trees and on the fp32 tree
     h, hd = 8, 96
+    limit_check = {}
     for name, l in (("onepass_attention", 1499), ("streaming_attention", 2249)):
         fn, plain = getattr(FA, name), getattr(FA, name + "_plain")
         for dt in (torch.bfloat16, torch.float32):
@@ -399,9 +421,9 @@ def check_kernels(gen):
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
                                                                          attn_mask=amask),
                 nbytes(q, k, v, bias, q), 0, *attn_ops(dt, 2, h, l, l, hd), tol=ATTN_TOL[dt])
-            if name == "streaming_attention" and dt == torch.bfloat16:
-                limit_check = dropped_tile(
-                    name, FA.BK, l, dt,
+            if name == "streaming_attention":  # the kernel's key block in each dtype
+                limit_check[str(dt)[6:]] = dropped_tile(
+                    name, FA.BK if dt == torch.bfloat16 else TF32_KEY_TILE, l, dt,
                     lambda n: plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
 
     # float FFN block (off the routed paths): WavLM's widths at the
@@ -923,7 +945,9 @@ def main() -> int:
     print("kernels vs plain versions:", flush=True)
     rows, limit_checks = check_kernels(gen)
 
-    wavlm, bert, fusion = serving_models(gen)
+    # the served and the extracted weights draw from generators of their own,
+    # so that rows added to phase 3 do not change them
+    wavlm, bert, fusion = serving_models(torch.Generator().manual_seed(SEED + 3))
     kw = dict(tokenizer=HashTokenizer(30522), max_seconds=10.0, max_tokens=128,
               multi_label=False, bucket_seconds=(2.5,), int8_frontends=True,
               wav_transport="pcm16", text_bucket_tokens=TEXT_BUCKETS)
@@ -970,6 +994,34 @@ def main() -> int:
     phases["int8"] = dict(launches=launches, forwards=forwards, serve_s=secs,
                           plain_serve_s=plain_secs, prob_delta=delta, beta_delta=beta_delta)
     total = dict(launches)  # launches over every main-path run
+    del pipe, plain
+
+    # phase 4, the int8 tree at fp32 compute: int8 weights, fp32 activations
+    kw32 = dict(kw, compute_dtype=torch.float32)
+    pipe32 = StreamingPipeline(wavlm, bert, fusion, **kw32)
+    plain32 = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **kw32)
+    serve(pipe32, clips)
+    serve(plain32, clips)
+    reset_launches()
+    got32, secs32 = serve(pipe32, clips)
+    launches32 = read_launches()
+    print(f"int8 at fp32: served {len(got32)} requests in {secs32:.3f} s; launches {launches32}",
+          flush=True)
+    check_launches("int8 at fp32 serving", launches32,
+                   {n: k * forwards for n, k in PER_FORWARD.items()})
+    check_probs("int8 at fp32 serving", got32, clips)
+    ref32, plain32_secs = serve(plain32, clips)
+    delta32 = prob_delta(got32, ref32, clips)
+    print(f"int8 at fp32 kernel vs plain: max prob delta {delta32:.3g} (gate {PROB_GATE}); "
+          f"max |int8 at fp32 - int8| probability {prob_delta(got32, got, clips):.3g}; "
+          f"plain served in {plain32_secs:.3f} s", flush=True)
+    if not delta32 <= PROB_GATE:
+        raise AssertionError(f"int8 at fp32: prob delta {delta32} > {PROB_GATE}")
+    phases["int8_fp32"] = dict(launches=launches32, serve_s=secs32, plain_serve_s=plain32_secs,
+                               prob_delta=delta32, vs_int8=prob_delta(got32, got, clips))
+    for name, n in launches32.items():
+        total[name] += n
+    del pipe32, plain32
 
     # phase 4b: the bf16 tree on the same requests
     kw16 = dict(kw, int8_frontends=False)
@@ -1012,7 +1064,8 @@ def main() -> int:
     long_kw = dict(kw, max_seconds=45.0, bucket_seconds=(10.0, 30.0))
     long_clips = long_requests(np.random.default_rng(SEED + 1))
     trees = (("bf16", dict(int8_frontends=False)), ("int8", dict(int8_frontends=True)),
-             ("fp32", dict(int8_frontends=False, compute_dtype=torch.float32)))
+             ("fp32", dict(int8_frontends=False, compute_dtype=torch.float32)),
+             ("int8_fp32", dict(int8_frontends=True, compute_dtype=torch.float32)))
     for tree, extra in trees:
         pk = StreamingPipeline(wavlm, bert, fusion, **dict(long_kw, **extra))
         pp = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **dict(long_kw, **extra))
@@ -1022,9 +1075,9 @@ def main() -> int:
             reset_launches()
             got_l, secs_l = serve(pk, pair, batch=2)
             ll = read_launches()
-            # the int8 tree's other kernels run too; the float trees run none
+            # the int8 trees' other kernels run too; the float trees run none
             names = ("attention_block_int8", *PER_FORWARD_LONG[30.0], "streaming_attention") \
-                if tree == "int8" else KERNELS
+                if tree.startswith("int8") else KERNELS
             check_launches(f"{tree} {sec:g} s", {n: ll[n] for n in names},
                            PER_FORWARD_LONG[sec])
             check_probs(f"{tree} {sec:g} s", got_l, pair)
@@ -1042,7 +1095,7 @@ def main() -> int:
         del pk, pp
         torch.cuda.empty_cache()
     # phase 5: the feature-extraction entry point
-    phases["extract"], ll = extraction(gen, smi)
+    phases["extract"], ll = extraction(torch.Generator().manual_seed(SEED + 4), smi)
     for name, n in ll.items():
         total[name] += n
     for name, n in total.items():

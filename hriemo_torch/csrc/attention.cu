@@ -43,7 +43,7 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
                                  const __nv_bfloat16* __restrict__ v, int v_ld, int Lq, int Lk,
                                  int hd, const float* __restrict__ kbias,
                                  const uint8_t* __restrict__ kpm,
-                                 const __nv_bfloat16* __restrict__ x, int x_ld,
+                                 const void* __restrict__ x, int x_ld, int x_f32,
                                  const float* __restrict__ wg, const float* __restrict__ bg,
                                  const float* __restrict__ gconst,
                                  const __nv_bfloat16* __restrict__ pos,
@@ -64,7 +64,11 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
   }
   if (pos != nullptr) {
     for (int r = warp; r < nq; r += nwarps) {
-      const float gr = wavlm_gate(x + (qrow0 + r) * x_ld + h * hd, wg, bg, gconst[h], hd, lane);
+      const size_t xo = (qrow0 + r) * x_ld + h * hd;
+      const float gr = x_f32 ? wavlm_gate(static_cast<const float*>(x) + xo, wg, bg, gconst[h],
+                                          hd, lane)
+                             : wavlm_gate(static_cast<const __nv_bfloat16*>(x) + xo, wg, bg,
+                                          gconst[h], hd, lane);
       if (lane == 0) gate[r] = gr;
     }
   }
@@ -149,13 +153,14 @@ extern "C" {
 // q/k/v point at head 0 of their regions; row r of batch element b is at
 // (b*L + r)*ld, each row 16-byte aligned. kbias: [B, Lk] fp32 additive or
 // NULL; kpm: [B, Lk] bool (True = PAD) or NULL, not both. WavLM gate (all
-// NULL for plain MHA): x [B*Lq, x_ld] bf16, wg [8, hd] fp32, bg [8] fp32,
-// gconst [H] fp32, pos [H, Lq, Lk] bf16. ctx: [B*Lq, ctx_ld] bf16, head h
-// at column h*hd. Needs hd % 8 == 0 and 4*hd <= 1024; Lk <= 1024 at head
-// dims other than 64 and 96 (the score panel).
+// NULL for plain MHA): x [B*Lq, x_ld] bf16 (x_f32 = 0) or fp32 (1), read as
+// bf16 by the gate; wg [8, hd] fp32, bg [8] fp32, gconst [H] fp32, pos [H,
+// Lq, Lk] bf16. ctx: [B*Lq, ctx_ld] bf16, head h at column h*hd. Needs
+// hd % 8 == 0 and 4*hd <= 1024; Lk <= 1024 at head dims other than 64 and
+// 96 (the score panel).
 int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const void* v,
                       int v_ld, int B, int Lq, int Lk, int H, int hd, const void* kbias,
-                      const void* kpm, const void* x, int x_ld, const void* wg,
+                      const void* kpm, const void* x, int x_ld, int x_f32, const void* wg,
                       const void* bg, const void* gconst, const void* pos, void* ctx,
                       int ctx_ld, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -169,7 +174,7 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
     a.v_sb = Lk * v_ld, a.v_sh = hd, a.v_sl = v_ld;
     a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = 1.0f;  // 1/sqrt(hd) is in q already
     a.kbias = static_cast<const float*>(kbias), a.kpm = static_cast<const uint8_t*>(kpm);
-    a.x = static_cast<const bf*>(x), a.x_ld = x_ld, a.wg = static_cast<const float*>(wg);
+    a.x = x, a.x_ld = x_ld, a.x_f32 = x_f32, a.wg = static_cast<const float*>(wg);
     a.bg = static_cast<const float*>(bg), a.gconst = static_cast<const float*>(gconst);
     a.pos = static_cast<const bf*>(pos), a.out = static_cast<bf*>(ctx);
     a.o_sb = Lq * ctx_ld, a.o_sh = hd, a.o_sl = ctx_ld;
@@ -191,7 +196,7 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
   attn_core_kernel<<<grid, 4 * hd, smem, s>>>(
       static_cast<const bf*>(q), q_ld, static_cast<const bf*>(k), k_ld,
       static_cast<const bf*>(v), v_ld, Lq, Lk, hd, static_cast<const float*>(kbias),
-      static_cast<const uint8_t*>(kpm), static_cast<const bf*>(x), x_ld,
+      static_cast<const uint8_t*>(kpm), x, x_ld, x_f32,
       static_cast<const float*>(wg), static_cast<const float*>(bg),
       static_cast<const float*>(gconst), static_cast<const bf*>(pos), static_cast<bf*>(ctx),
       ctx_ld);

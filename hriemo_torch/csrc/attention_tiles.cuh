@@ -1,6 +1,8 @@
 // Tensor-core tile machinery shared by the bf16 float attention kernels
 // (csrc/wavlm_attention.cu, csrc/flash_attention.cu), FlashAttention-2
-// style on mma.sync.m16n8k16 (bf16 in, fp32 accumulate):
+// style on mma.sync.m16n8k16 (bf16 in, fp32 accumulate); the fp32 kernels
+// of csrc/attention_tf32.cuh share its block shape, key masking and row
+// reductions:
 //
 // - a block is kTcWarps = 4 warps and kTcRows = 64 query rows, 16 a warp;
 //   each warp keeps its 16 rows of q in registers as A fragments for the
@@ -163,10 +165,11 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const uint32_t (&
   }
 }
 
-// The warp's output rows (row0 + g and row0 + g + 8, those below Lq) as
-// bf16. o: the head's row 0, rows sl elements apart.
-template <int HD>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* o, int sl, int row0, int Lq,
+// The warp's output rows (row0 + g and row0 + g + 8, those below Lq) as T
+// (bf16, or fp32 for csrc/attention_tf32.cuh). o: the head's row 0, rows sl
+// elements apart.
+template <int HD, typename T>
+__device__ __forceinline__ void store_rows(T* o, int sl, int row0, int Lq,
                                            const float (&acc)[HD / 8][4], int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int ra = row0 + g, rb = ra + 8;

@@ -39,12 +39,22 @@
 // ms against a 0.031 ms bound (the bf16 operations) and 0.26 ms for SDPA.
 // The CUDA-core kernel that this replaces took 2.70 ms.
 //
-// fp32, and bf16 at other head dims: streaming_attn_kernel on CUDA cores,
-// one block per (tile of kQT = 16 query rows, head, batch element), 4*hd
+// fp32 at head dim 64 or 96: attn_tf32_kernel<HD, false, true>
+// (csrc/attention_tf32.cuh), the same online softmax on mma.sync.m16n8k8 in
+// 3xTF32: each fp32 operand is split into two TF32 parts and a product
+// takes three mma, which keeps about 2^-20 of each product. One TF32
+// product (2^-11) does not hold the fp32 trees' 1e-4 at large scores
+// (chip_tf32_terms.py), and fp32 FMAs run at a seventh of the TF32 rate. It
+// steps every 32 keys: nothing is rounded to a narrower type between fp32
+// steps, so only fp32 rounding moves. At B=2 2249^2 8x96 it takes about
+// 0.66 ms against SDPA's 1.10 (chip_smoke.py), where the CUDA-core kernel
+// below took 3.60.
+//
+// Other head dims, bf16 or fp32: streaming_attn_kernel on CUDA cores, one
+// block per (tile of kQT = 16 query rows, head, batch element), 4*hd
 // threads; 8 KB of scores and 16*hd floats of queries in shared memory; m
-// and l in shared memory, three block barriers per key block (no TF32: the
-// fp32 trees are held at 1e-4).
-#include "attention_tiles.cuh"
+// and l in shared memory, three block barriers per key block.
+#include "attention_tf32.cuh"
 
 namespace hr {
 
@@ -300,7 +310,9 @@ extern "C" {
 
 // Operands as in hr_onepass_attention (csrc/wavlm_attention.cu), without a
 // gate. Needs Lk >= 1, hd % 8 == 0 and hd <= 256 (blockDim 4*hd of the
-// CUDA-core kernel, whose shared memory stays under 48 KB).
+// CUDA-core kernel, whose shared memory stays under 48 KB). hd 64/96:
+// streaming_mma_kernel (bf16) or attn_tf32_kernel (fp32); other head dims:
+// streaming_attn_kernel.
 int hr_streaming_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                            int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                            int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
@@ -308,6 +320,18 @@ int hr_streaming_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl
                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
+  if (fp32 && (hd == 64 || hd == 96)) {
+    Tf32Args a{};
+    a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);
+    a.v = static_cast<const float*>(v);
+    a.q_sb = q_sb, a.q_sh = q_sh, a.q_sl = q_sl, a.k_sb = k_sb, a.k_sh = k_sh, a.k_sl = k_sl;
+    a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = scale;
+    a.kbias = static_cast<const float*>(kbias), a.out = static_cast<float*>(out);
+    a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
+    if (hd == 64) launch_attn_tf32<64, false, true>(a, B, s);
+    else launch_attn_tf32<96, false, true>(a, B, s);
+    return (int)cudaGetLastError();
+  }
   if (!fp32 && hd == 64)
     launch_mma<64>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
                    scale, kbias, out, o_sb, o_sh, o_sl, s);

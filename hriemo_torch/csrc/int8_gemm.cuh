@@ -29,7 +29,10 @@
 //   applies the epilogue (a template parameter, no per-element switch) to
 //   16 consecutive output bytes and stores them with one vector store;
 // - the block shape and ring depth are chosen per call in hr_int8_gemm
-//   (csrc/quant_gemm.cu), by shape, among three configurations.
+//   (csrc/quant_gemm.cu), by shape, among three configurations;
+// - activations follow x's dtype, as the JAX wrappers store x.dtype: the
+//   residual epilogues read a residual of type RT (bf16 or fp32), and
+//   kEpiF32 stores the dequantized fp32 value where kEpiBf16 rounds it.
 #pragma once
 
 #include "common.cuh"
@@ -43,10 +46,12 @@ enum Epilogue : int {
   kEpiResidFirst = 3,   // f32 out = (resid + (acc*as)*ws) + b   (fused FFN)
   kEpiResidLast = 4,    // f32 out = ((acc*as)*ws + b) + resid   (attention block)
   kEpiGeluErfF32 = 5,   // f32 out = gelu_erf((acc*as)*ws + b)
+  kEpiF32 = 6,          // f32 out = (acc*as)*ws [+ b]             (fp32 activations)
 };
 
 // b is 0 without a bias, resid 0 without a residual: v + 0 is v, as the
-// plain versions that add no bias give it.
+// plain versions that add no bias give it. kEpiBf16 and kEpiF32 compute the
+// same value and differ only in the type they store.
 template <int EPI>
 __device__ __forceinline__ float epilogue(int acc, float as, float ws, float b, float resid) {
   const float v = __fmul_rn(__fmul_rn((float)acc, as), ws);
@@ -163,11 +168,11 @@ __device__ __forceinline__ void load_tile(uint8_t* tile, const int8_t* src, int 
   }
 }
 
-template <int WG, int BN, int STAGES, bool OVERLAP, int EPI>
+template <int WG, int BN, int STAGES, bool OVERLAP, int EPI, typename RT>
 __global__ void __launch_bounds__(128 * WG, (GemmTile<WG, BN, STAGES, OVERLAP>::MIN_BLOCKS))
 int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ as,
                  const int8_t* __restrict__ W, const float* __restrict__ ws,
-                 const float* __restrict__ bias, const __nv_bfloat16* __restrict__ resid,
+                 const float* __restrict__ bias, const RT* __restrict__ resid,
                  int M, int N, int K, void* __restrict__ out) {
   using T = GemmTile<WG, BN, STAGES, OVERLAP>;
   extern __shared__ uint8_t smem_raw[];
@@ -242,7 +247,7 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ as,
     for (int e = 0; e < VEC; ++e) {
       const int nn = min(n + e, N - 1);  // columns past N are computed and not stored
       v[e] = epilogue<EPI>(cs[r * T::C_LD + c + e], a_s, ws[nn], bias ? bias[nn] : 0.f,
-                           kResid ? bf2f(resid[o + (nn - n)]) : 0.f);
+                           kResid ? load_f(resid + o + (nn - n)) : 0.f);
     }
     if (aligned && n + VEC <= N) {
       if (kBf16) {

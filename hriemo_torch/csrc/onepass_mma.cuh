@@ -36,7 +36,7 @@
 // it through L2.
 //
 // The gate comes from a [B, H, Lq] fp32 array (float route) or is computed
-// in the block's prologue from x (int8 route): WavLM's
+// in the block's prologue from x (int8 route, bf16 or fp32 x): WavLM's
 // sigmoid(sum g[0:4]) * (sigmoid(sum g[4:8]) * c_h - 1) + 2 over the shared
 // [8, hd] gate Linear (wavlm_gate, which the CUDA-core kernel of
 // csrc/attention.cu calls too). The key bias is an fp32 [B, Lk] additive array, or a
@@ -66,8 +66,8 @@ struct OnepassArgs {
   const float* kbias;                       // kKeysBias: [B, Lk] fp32 additive
   const uint8_t* kpm;                       // kKeysPad: [B, Lk] bool or NULL
   const float* gate;                        // kGateArray: [B, H, Lq] fp32
-  const __nv_bfloat16* x;                   // kGateFromX: [B*Lq, x_ld], head h at column h*HD
-  int x_ld;
+  const void* x;                            // kGateFromX: [B*Lq, x_ld], head h at column h*HD,
+  int x_ld, x_f32;                          //   bf16, or fp32 when x_f32
   const float *wg, *bg, *gconst;            // [8, HD], [8], [H]
   const __nv_bfloat16* pos;                 // gated: [H, Lq, Lk]
   __nv_bfloat16* out;
@@ -82,15 +82,18 @@ __host__ __device__ constexpr int mma_stage_bytes(int hd, bool gated) {
 
 // WavLM's gate of one query row from its head's hd columns of x (xr), every
 // lane of the warp taking part: the [8, hd] Linear by lane-strided fp32
-// sums and a warp reduction, then the two sigmoids, each step rounded. Every
-// lane returns the gate. Shared with the CUDA-core kernel of csrc/attention.cu.
-__device__ __forceinline__ float wavlm_gate(const __nv_bfloat16* xr, const float* wg,
-                                            const float* bg, float c_h, int hd, int lane) {
+// sums and a warp reduction, then the two sigmoids, each step rounded. x is
+// read as bf16 (an fp32 x rounded to it), as the TPU kernel's
+// x.astype(wg.dtype) with bf16 gate weights. Every lane returns the gate.
+// Shared with the CUDA-core kernel of csrc/attention.cu.
+template <typename T>
+__device__ __forceinline__ float wavlm_gate(const T* xr, const float* wg, const float* bg,
+                                            float c_h, int hd, int lane) {
   float gp[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) gp[c] = 0.f;
   for (int d = lane; d < hd; d += 32) {
-    const float xv = bf2f(xr[d]);
+    const float xv = round_as<__nv_bfloat16>(load_f(xr + d));
 #pragma unroll
     for (int c = 0; c < 8; ++c) gp[c] += xv * wg[c * hd + d];
   }
@@ -170,8 +173,11 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
   if (GATE == kGateFromX) {
 #pragma unroll 1
     for (int r = 0; r < 16 && row0 + r < Lq; ++r) {  // warp-uniform
-      const float gr = wavlm_gate(a.x + ((size_t)b * Lq + row0 + r) * a.x_ld + h * HD, a.wg,
-                                  a.bg, a.gconst[h], HD, lane);
+      const size_t xo = ((size_t)b * Lq + row0 + r) * a.x_ld + h * HD;
+      const float gr = a.x_f32 ? wavlm_gate(static_cast<const float*>(a.x) + xo, a.wg, a.bg,
+                                            a.gconst[h], HD, lane)
+                               : wavlm_gate(static_cast<const __nv_bfloat16*>(a.x) + xo, a.wg,
+                                            a.bg, a.gconst[h], HD, lane);
       if (r == g) gt[0] = gr;
       if (r == g + 8) gt[1] = gr;
     }

@@ -67,11 +67,13 @@ __global__ void rowquant_kernel(const T* __restrict__ x, int K, int div127,
   if (threadIdx.x == 0) s[row] = sc;
 }
 
-// out = LayerNorm(y) with fp32 statistics, one block per row:
+// out = LayerNorm(y) with fp32 statistics, one block per row, stored as T
+// (bf16, or fp32 for fp32 activations):
 // mean = sum/N, var = sum((y-mean)^2)/N, (y-mean)*(1/sqrt(var+eps))*g + b.
+template <typename T>
 __global__ void layernorm_kernel(const float* __restrict__ y, const float* __restrict__ g,
                                  const float* __restrict__ b, int N, float eps,
-                                 __nv_bfloat16* __restrict__ out) {
+                                 T* __restrict__ out) {
   __shared__ float red[32];
   const size_t row = blockIdx.x;
   const float* yr = y + row * N;
@@ -87,7 +89,7 @@ __global__ void layernorm_kernel(const float* __restrict__ y, const float* __res
   const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const float c = __fmul_rn(__fadd_rn(yr[i], -mean), rstd);
-    out[row * N + i] = f2bf(__fadd_rn(__fmul_rn(c, g[i]), b[i]));
+    out[row * N + i] = from_f<T>(__fadd_rn(__fmul_rn(c, g[i]), b[i]));
   }
 }
 
@@ -97,7 +99,8 @@ struct GemmArgs {
   const int8_t* w;
   const float* ws;
   const float* bias;
-  const __nv_bfloat16* resid;
+  const void* resid;    // bf16, or fp32 when resid_f32
+  int resid_f32;
   int M, N, K;
   void* out;
   cudaStream_t stream;
@@ -105,18 +108,26 @@ struct GemmArgs {
 
 namespace {  // per-library opt-in flags (see csrc/onepass_mma.cuh)
 
-template <int WG, int BN, int STAGES, bool OVERLAP, int EPI>
+template <int WG, int BN, int STAGES, bool OVERLAP, int EPI, typename RT = __nv_bfloat16>
 void launch_gemm(const GemmArgs& g) {
   using T = GemmTile<WG, BN, STAGES, OVERLAP>;
-  const auto kernel = int8_gemm_kernel<WG, BN, STAGES, OVERLAP, EPI>;
+  const auto kernel = int8_gemm_kernel<WG, BN, STAGES, OVERLAP, EPI, RT>;
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     attr_set = true;
   }
   dim3 grid((g.N + BN - 1) / BN, (g.M + T::BM - 1) / T::BM);
-  kernel<<<grid, T::THREADS, T::SMEM, g.stream>>>(g.a, g.as, g.w, g.ws, g.bias, g.resid, g.M,
-                                                  g.N, g.K, g.out);
+  kernel<<<grid, T::THREADS, T::SMEM, g.stream>>>(g.a, g.as, g.w, g.ws, g.bias,
+                                                  static_cast<const RT*>(g.resid), g.M, g.N,
+                                                  g.K, g.out);
+}
+
+// The residual epilogues in both residual types; the others read none.
+template <int WG, int BN, int STAGES, bool OVERLAP, int EPI>
+void launch_gemm_resid(const GemmArgs& g) {
+  if (g.resid_f32) launch_gemm<WG, BN, STAGES, OVERLAP, EPI, float>(g);
+  else launch_gemm<WG, BN, STAGES, OVERLAP, EPI, __nv_bfloat16>(g);
 }
 
 template <int WG, int BN, int STAGES, bool OVERLAP>
@@ -124,9 +135,10 @@ void launch_gemm_epi(const GemmArgs& g, int epi) {
   switch (epi) {
     case kEpiGeluF32: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiGeluF32>(g);
     case kEpiReluF32: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiReluF32>(g);
-    case kEpiResidFirst: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiResidFirst>(g);
-    case kEpiResidLast: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiResidLast>(g);
+    case kEpiResidFirst: return launch_gemm_resid<WG, BN, STAGES, OVERLAP, kEpiResidFirst>(g);
+    case kEpiResidLast: return launch_gemm_resid<WG, BN, STAGES, OVERLAP, kEpiResidLast>(g);
     case kEpiGeluErfF32: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiGeluErfF32>(g);
+    case kEpiF32: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiF32>(g);
     default: return launch_gemm<WG, BN, STAGES, OVERLAP, kEpiBf16>(g);
   }
 }
@@ -155,7 +167,8 @@ int hr_rowquant(const void* x, int x_bf16, int M, int K, int div127, void* q, vo
 }
 
 // a: [M, K] int8, as: [M] fp32, w: [N, K] int8, ws: [N] fp32, bias: [N] fp32 or
-// NULL, resid: [M, N] bf16 or NULL; out: [M, N] bf16 (epi 0) or fp32. K % 16
+// NULL, resid: [M, N] bf16 (resid_f32 = 0) or fp32 (1), or NULL; out: [M, N]
+// bf16 (epi 0) or fp32. K % 16
 // == 0 and 16-byte aligned a and w (the wrapper checks). config: the block
 // configuration (0: 64x64 tiles, 4 stages; 1: 64x64, 6 stages, one wgmma
 // batch in flight; 2: 128x128, 3 stages), or -1 to choose it by shape:
@@ -165,8 +178,8 @@ int hr_rowquant(const void* x, int x_bf16, int M, int K, int div127, void* q, vo
 // an SM) win at the FFN's 3072 columns over thousands of rows
 // (chip_smoke.py times all three at each bare-GEMM row).
 int hr_int8_gemm(const void* a, const void* as, const void* w, const void* ws,
-                 const void* bias, const void* resid, int M, int N, int K, int epi,
-                 int config, void* out, void* stream) {
+                 const void* bias, const void* resid, int resid_f32, int M, int N, int K,
+                 int epi, int config, void* out, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
   static int sms = 0;
   if (sms == 0) {
@@ -176,8 +189,8 @@ int hr_int8_gemm(const void* a, const void* as, const void* w, const void* ws,
   }
   const GemmArgs g{static_cast<const int8_t*>(a), static_cast<const float*>(as),
                    static_cast<const int8_t*>(w), static_cast<const float*>(ws),
-                   static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(resid),
-                   M, N, K, out, static_cast<cudaStream_t>(stream)};
+                   static_cast<const float*>(bias), resid, resid_f32, M, N, K, out,
+                   static_cast<cudaStream_t>(stream)};
   if (config < 0) {
     const bool small_grid = ((M + 63) / 64) * ((N + 63) / 64) < 2 * sms;
     config = K >= 2048 && small_grid ? 1 : M >= 1024 && N >= 3072 ? 2 : 0;
@@ -191,15 +204,16 @@ int hr_int8_gemm(const void* a, const void* as, const void* w, const void* ws,
   return (int)cudaGetLastError();
 }
 
-// y: [M, N] fp32; g, b: [N] fp32; out: [M, N] bf16.
+// y: [M, N] fp32; g, b: [N] fp32; out: [M, N] bf16 (out_f32 = 0) or fp32 (1).
 int hr_layernorm(const void* y, const void* g, const void* b, int M, int N, float eps,
-                 void* out, void* stream) {
+                 int out_f32, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M > 0)
-    layernorm_kernel<<<M, 256, 0, st>>>(static_cast<const float*>(y),
-                                        static_cast<const float*>(g),
-                                        static_cast<const float*>(b), N, eps,
-                                        static_cast<__nv_bfloat16*>(out));
+  const float *yf = static_cast<const float*>(y), *gf = static_cast<const float*>(g),
+              *bf = static_cast<const float*>(b);
+  if (M > 0 && out_f32)
+    layernorm_kernel<<<M, 256, 0, st>>>(yf, gf, bf, N, eps, static_cast<float*>(out));
+  else if (M > 0)
+    layernorm_kernel<<<M, 256, 0, st>>>(yf, gf, bf, N, eps, static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
 

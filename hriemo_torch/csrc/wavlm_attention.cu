@@ -26,16 +26,25 @@
 // registers at hd 64, so four fit on an SM, and 576 blocks make 1.1 waves
 // there.
 //
-// fp32, and bf16 at other head dims (hd % 8 == 0, hd <= 256):
+// fp32 at head dim 64 or 96: attn_tf32_kernel (csrc/attention_tf32.cuh),
+// the same two sweeps on mma.sync.m16n8k8 in 3xTF32: each fp32 operand is
+// split into two TF32 parts and a product takes three mma, which keeps
+// about 2^-20 of each product. One TF32 product (2^-11) does not hold the
+// fp32 trees' 1e-4 at large scores (chip_tf32_terms.py), and fp32 FMAs run
+// at a seventh of the TF32 rate. No score panel, so Lk has no limit. At
+// B=2 1499^2 8x96 it takes about 0.42 ms against SDPA's 0.45 (chip_smoke.py),
+// where the CUDA-core kernel below took 1.85.
+//
+// Other head dims (hd % 8 == 0, hd <= 256), bf16 or fp32:
 // onepass_attn_kernel on CUDA cores, one block per 16 query rows with the
-// fp32 score panel [16, Lk] in up to 227 KB of shared memory (no TF32: the
-// fp32 trees are held at 1e-4):
+// fp32 score panel [16, Lk] in up to 227 KB of shared memory:
 //   1. the query tile goes to shared memory as fp32, with its 16 gates;
 //   2. scores: each thread owns one key at a time and dots it with all 16
 //      query rows (fp32 sums of the products), multiplies by scale, then
 //      adds gate * pos and the key bias, in the TPU kernels' order;
 //   3. softmax per row, one warp per row; p / l is rounded to T;
 //   4. PV: thread (d, row group) sums p[r][j] * v[j][d] in fp32, stores T.
+#include "attention_tf32.cuh"
 #include "onepass_mma.cuh"
 
 namespace hr {
@@ -156,7 +165,7 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
       static_cast<const T*>(pos), static_cast<T*>(out), o_sb, o_sh, o_sl);
 }
 
-bool on_tensor_cores(int fp32, int hd) { return !fp32 && (hd == 64 || hd == 96); }
+bool on_tensor_cores(int hd) { return hd == 64 || hd == 96; }
 
 }  // namespace hr
 
@@ -168,7 +177,7 @@ extern "C" {
 // caller refuses shapes above kMaxSmem, which only the CUDA-core kernel's
 // score panel can reach.
 int hr_onepass_smem_bytes(int fp32, int Lk, int hd) {
-  if (on_tensor_cores(fp32, hd)) return 2 * mma_stage_bytes(hd, true);
+  if (on_tensor_cores(hd)) return fp32 ? tf32_smem_bytes(hd, true) : 2 * mma_stage_bytes(hd, true);
   return (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
 }
 
@@ -178,7 +187,8 @@ int hr_onepass_max_smem_bytes() { return kMaxSmem; }
 // aligned; fp32 != 0 for fp32 q/k/v/out/pos, else bf16. kbias [B, Lk] fp32
 // additive. gate [B, H, Lq] fp32 and pos [H, Lq, Lk], or both NULL for no
 // gate. Needs hd % 8 == 0 and hd <= 256 (blockDim 4*hd of the CUDA-core
-// kernel).
+// kernel). bf16 at hd 64/96: onepass_mma_kernel; fp32 there:
+// attn_tf32_kernel; other head dims: onepass_attn_kernel.
 int hr_onepass_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                          int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                          int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
@@ -186,7 +196,22 @@ int hr_onepass_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, 
                          int o_sb, int o_sh, int o_sl, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  if (on_tensor_cores(fp32, hd)) {
+  if (on_tensor_cores(hd) && fp32) {
+    Tf32Args a{};
+    a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);
+    a.v = static_cast<const float*>(v);
+    a.q_sb = q_sb, a.q_sh = q_sh, a.q_sl = q_sl, a.k_sb = k_sb, a.k_sh = k_sh, a.k_sl = k_sl;
+    a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = scale;
+    a.kbias = static_cast<const float*>(kbias), a.gate = static_cast<const float*>(gate);
+    a.pos = static_cast<const float*>(pos), a.out = static_cast<float*>(out);
+    a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
+    if (hd == 64 && gate != nullptr) launch_attn_tf32<64, true, false>(a, B, s);
+    else if (hd == 64) launch_attn_tf32<64, false, false>(a, B, s);
+    else if (gate != nullptr) launch_attn_tf32<96, true, false>(a, B, s);
+    else launch_attn_tf32<96, false, false>(a, B, s);
+    return (int)cudaGetLastError();
+  }
+  if (on_tensor_cores(hd)) {
     using bf = __nv_bfloat16;
     OnepassArgs a{};
     a.q = static_cast<const bf*>(q), a.k = static_cast<const bf*>(k), a.v = static_cast<const bf*>(v);

@@ -41,12 +41,12 @@ F = ctypes.c_float
 SIGNATURES = {
     "quant_gemm": {
         "hr_rowquant": [P, I, I, I, I, P, P, P],
-        "hr_int8_gemm": [P, P, P, P, P, P, I, I, I, I, I, P, P],
-        "hr_layernorm": [P, P, P, I, I, F, P, P],
+        "hr_int8_gemm": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
+        "hr_layernorm": [P, P, P, I, I, F, I, P, P],
     },
     "attention": {
         "hr_attention_core": [P, I, P, I, P, I, I, I, I, I, I, P, P,
-                              P, I, P, P, P, P, P, I, P],
+                              P, I, I, P, P, P, P, P, I, P],
     },
     "wavlm_attention": {
         "hr_onepass_smem_bytes": [I, I, I],
@@ -153,11 +153,17 @@ def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
+# Activation dtypes of the int8 wrappers: their outputs, residuals and
+# LayerNorms follow x's dtype, as the JAX wrappers store x.dtype.
+ACT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def require(t: torch.Tensor, name: str, dtype, shape=None,
             device: torch.device | None = None) -> None:
-    """Checks a kernel operand: dtype, shape, contiguity, device and the
-    16-byte alignment the kernels' vector loads assume."""
-    if t.dtype != dtype:
+    """Checks a kernel operand: dtype (one, or a tuple of those taken),
+    shape, contiguity, device and the 16-byte alignment the kernels' vector
+    loads assume."""
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: dtype {t.dtype}, kernel needs {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel needs {tuple(shape)}")
@@ -214,7 +220,12 @@ def attention_operands(q, k, v, kbias, what: str):
 
 # Epilogues of the shared int8 GEMM (csrc/int8_gemm.cuh)
 (EPI_BF16, EPI_GELU_F32, EPI_RELU_F32, EPI_RESID_FIRST, EPI_RESID_LAST,
- EPI_GELU_ERF_F32) = range(6)
+ EPI_GELU_ERF_F32, EPI_F32) = range(7)
+
+
+def out_epi(dtype: torch.dtype) -> int:
+    """The dequant-and-bias epilogue that stores ``dtype`` (bf16 or fp32)."""
+    return EPI_F32 if dtype == torch.float32 else EPI_BF16
 
 
 def rowquant(x: torch.Tensor, div127: bool):
@@ -238,7 +249,8 @@ def int8_gemm(a, a_scale, w, w_scale, bias, epi: int, resid=None,
               w_rows: tuple[int, int] | None = None, config: int = -1) -> torch.Tensor:
     """``epilogue(a [M,K] int8 . w[N,K]^T)``. ``w_rows=(r0, n)`` uses rows
     r0..r0+n of ``w``, ``w_scale`` and ``bias`` without a copy (the packed
-    MHA in_proj). Output bf16 for EPI_BF16, else fp32. ``config`` forces one
+    MHA in_proj). Output bf16 for EPI_BF16, else fp32; ``resid`` (the
+    residual epilogues) is bf16 or fp32. ``config`` forces one
     of :data:`GEMM_CONFIGS` (-1: chosen by shape). Its plain version is
     ``ops.fused_ffn.int8_gemm_plain``. ``int8_gemm.launches`` counts its
     launches, ``int8_gemm.shapes`` the same by ``(M, N, K)``."""
@@ -252,7 +264,8 @@ def int8_gemm(a, a_scale, w, w_scale, bias, epi: int, resid=None,
         a.data_ptr(), a_scale.data_ptr(), w.data_ptr() + r0 * k,
         w_scale.data_ptr() + 4 * r0,
         None if bias is None else bias.data_ptr() + 4 * r0,
-        ptr(resid), m, n, k, epi, config, out.data_ptr(), stream()), "hr_int8_gemm")
+        ptr(resid), int(resid is not None and resid.dtype == torch.float32), m, n, k, epi,
+        config, out.data_ptr(), stream()), "hr_int8_gemm")
     int8_gemm.launches += 1
     int8_gemm.shapes[(m, n, k)] += 1
     return out
@@ -262,11 +275,13 @@ int8_gemm.launches = 0
 int8_gemm.shapes = collections.Counter()
 
 
-def layernorm(y: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float):
-    """bf16 LayerNorm of fp32 rows ``y [M, N]``, fp32 statistics."""
+def layernorm(y: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
+              dtype: torch.dtype = torch.bfloat16):
+    """LayerNorm of fp32 rows ``y [M, N]``, fp32 statistics, stored as
+    ``dtype`` (bf16 or fp32)."""
     m, n = y.shape
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=y.device)
+    out = torch.empty((m, n), dtype=dtype, device=y.device)
     check(lib("quant_gemm").hr_layernorm(
-        y.data_ptr(), g.data_ptr(), b.data_ptr(), m, n, eps, out.data_ptr(),
-        stream()), "hr_layernorm")
+        y.data_ptr(), g.data_ptr(), b.data_ptr(), m, n, eps, int(dtype == torch.float32),
+        out.data_ptr(), stream()), "hr_layernorm")
     return out

@@ -15,6 +15,11 @@ Two Hopper kernels, each with its plain PyTorch version beside it:
   key-padding bias, returning the output before the residual, in xq's
   dtype.
 
+x is bf16 or fp32: the residual, the LayerNorm and the output follow its
+dtype, as the TPU kernels store ``x.dtype``, while q/k/v, the position bias
+and the attention core stay bf16, as the TPU kernel casts them
+(``hriemo/ops/attention_block.py:208-213``, ``:449``).
+
 On the card each is a sequence of launches: row quantize (``csrc/
 quant_gemm.cu``), one int8 GEMM for q/k/v (self) or one for q and one for
 k/v (cross) storing bf16 (``csrc/int8_gemm.cuh``, wgmma), the attention
@@ -56,7 +61,7 @@ class MhaOperands(NamedTuple):
 
 class WavLMAttnOperands(NamedTuple):
     mha: MhaOperands     # q/k/v packed as an in_proj
-    wg: torch.Tensor     # [8, hd] fp32 gate Linear weight
+    wg: torch.Tensor     # [8, hd] gate Linear weight: bf16 values, stored fp32
     bg: torch.Tensor     # [8] fp32
     gconst: torch.Tensor  # [H] fp32
     ln_w: torch.Tensor   # [D] fp32
@@ -80,14 +85,17 @@ def mha_operands(w_in, s_in, b_in, out_proj, n_heads: int) -> MhaOperands:
 
 def wavlm_attn_operands(attn, ln) -> WavLMAttnOperands:
     """From a quantized ``frontends.wavlm.WavLMAttention`` and its
-    post-attention ``LayerNorm``."""
+    post-attention ``LayerNorm``. The gate weight is rounded to bf16, as the
+    TPU kernel's (``hriemo/ops/attention_block.py:464``); on bf16 trees it
+    is bf16 already."""
     def cat(name):
         ts = [getattr(getattr(attn, p), name) for p in ("q_proj", "k_proj", "v_proj")]
         return torch.cat(ts, 0)
     h = attn.n_heads
     mha = mha_operands(cat("w_int8"), cat("w_scale"), cat("bias"), attn.out_proj, h)
     g = attn.gru_rel_pos_linear
-    return WavLMAttnOperands(mha, g.weight.detach().float(), g.bias.detach().float(),
+    return WavLMAttnOperands(mha, g.weight.detach().to(torch.bfloat16).float(),
+                             g.bias.detach().float(),
                              attn.gru_rel_pos_const.detach().float().reshape(h),
                              ln.weight.detach().float(), ln.bias.detach().float())
 
@@ -137,16 +145,16 @@ def attention_core_int8_plain(q, k, v, b: int, n_heads: int, kbias=None, kpm=Non
     return _merge(softmax_pv(s, _heads(v, b, lk, h)))
 
 
-def _rows(t, name, rows, cols, dev):
-    """A ``[rows, cols]`` bf16 kernel operand read in place, rows possibly
-    further apart than ``cols`` (a column block of a packed projection):
-    returns ``(data pointer, row stride)``."""
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: dtype {t.dtype}, kernel needs bf16")
+def _rows(t, name, rows, cols, dev, dtypes=(torch.bfloat16,)):
+    """A ``[rows, cols]`` kernel operand of one of ``dtypes`` read in place,
+    rows possibly further apart than ``cols`` (a column block of a packed
+    projection): returns ``(data pointer, row stride)``."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel needs one of {dtypes}")
     if tuple(t.shape) != (rows, cols) or t.device != dev:
         raise ValueError(f"{name}: {tuple(t.shape)} on {t.device}, kernel needs "
                          f"{(rows, cols)} on {dev}")
-    if t.stride(1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+    if t.stride(1) != 1 or (t.stride(0) * t.element_size()) % 16 or t.data_ptr() % 16:
         raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned")
     return t.data_ptr(), t.stride(0)
 
@@ -157,10 +165,11 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
     PV. ``q [B*Lq, D]``, ``k``/``v [B*Lk, D]`` bf16, each row contiguous (a
     column block of the packed projection is read in place), 1/sqrt(hd)
     already in q; ``kbias [B, Lk]`` fp32 additive or ``kpm [B, Lk]`` bool
-    (True = PAD) or neither; ``gate = (x [B*Lq, D] bf16, wg [8, hd], bg
-    [8], gconst [H], pos [H, Lq, Lk] bf16)`` for WavLM's gated position
-    bias. Returns ``ctx [B*Lq, D]`` bf16. ``attention_core_int8.launches``
-    counts its launches, ``.shapes`` the same by ``(B, Lq, Lk, H, hd)``.
+    (True = PAD) or neither; ``gate = (x [B*Lq, D] bf16 or fp32, read as
+    bf16, wg [8, hd], bg [8], gconst [H], pos [H, Lq, Lk] bf16)`` for
+    WavLM's gated position bias. Returns ``ctx [B*Lq, D]`` bf16.
+    ``attention_core_int8.launches`` counts its launches, ``.shapes`` the
+    same by ``(B, Lq, Lk, H, hd)``.
 
     On the CPU the plain version runs; on the card one launch of
     ``csrc/attention.cu`` (tensor cores at head dims 64 and 96), or a raise.
@@ -189,10 +198,11 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
         _cuda.require(bg, "bg", torch.float32, (8,), dev)
         _cuda.require(gconst, "gconst", torch.float32, (h,), dev)
         _cuda.require(pos, "pos", torch.bfloat16, (h, lq, lk), dev)
-        args += [*_rows(x, "x", b * lq, d, dev), wg.data_ptr(), bg.data_ptr(),
+        args += [*_rows(x, "x", b * lq, d, dev, _cuda.ACT_DTYPES),
+                 int(x.dtype == torch.float32), wg.data_ptr(), bg.data_ptr(),
                  gconst.data_ptr(), pos.data_ptr()]
     else:
-        args += [None, 0, None, None, None, None]
+        args += [None, 0, 0, None, None, None, None]
     ctx = torch.empty((b * lq, d), dtype=torch.bfloat16, device=dev)
     _cuda.check(_cuda.lib("attention").hr_attention_core(
         *args, ctx.data_ptr(), d, _cuda.stream()), "hr_attention_core")
@@ -210,6 +220,7 @@ def attention_block_int8_plain(x, ops: WavLMAttnOperands, pos, kbias, eps: float
     b, l, d = x.shape
     m, h = ops.mha, ops.mha.n_heads
     x2 = x.reshape(b * l, d)
+    pos = pos.to(torch.bfloat16)
     xq, xs = quant_rows(x2.float())
     qkv = (int8_matmul_exact(xq, m.w_in) * xs * m.s_in[:, 0] + m.b_in).to(torch.bfloat16)
     q, k, v = qkv.split(d, dim=1)
@@ -231,10 +242,12 @@ def _check_mha(ops: MhaOperands, d: int, dev):
 
 
 def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
-    """WavLM attention sublayer: ``x [B, L, D]`` bf16 -> ``LN(x + attn(x))``.
+    """WavLM attention sublayer: ``x [B, L, D]`` bf16 or fp32 -> ``LN(x +
+    attn(x))`` in x's dtype.
 
-    ``pos`` [H, L, L] bf16 is the shared position bias, ``kbias`` [B, L]
-    fp32 the additive key-padding bias (0 valid / NEG_INF pad).
+    ``pos`` [H, L, L] is the shared position bias, rounded to bf16 as the
+    TPU wrapper stores it; ``kbias`` [B, L] fp32 the additive key-padding
+    bias (0 valid / NEG_INF pad).
     """
     b, l, d = x.shape
     if kbias.shape[0] != b:
@@ -244,11 +257,12 @@ def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
         return attention_block_int8_plain(x, ops, pos, kbias, eps)
     m, h = ops.mha, ops.mha.n_heads
     dev = x.device
-    _cuda.require(x, "x", torch.bfloat16)
+    _cuda.require(x, "x", _cuda.ACT_DTYPES)
     _check_mha(m, d, dev)
     _cuda.require(ops.ln_w, "ln_w", torch.float32, (d,), dev)
     _cuda.require(ops.ln_b, "ln_b", torch.float32, (d,), dev)
     x2 = x.view(b * l, d)
+    pos = pos.to(torch.bfloat16)
     xq, xs = _cuda.rowquant(x2, div127=False)
     qkv = _cuda.int8_gemm(xq, xs, m.w_in, m.s_in, m.b_in, _cuda.EPI_BF16)
     q, k, v = qkv.split(d, dim=1)
@@ -256,7 +270,7 @@ def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
                               gate=(x2, ops.wg, ops.bg, ops.gconst, pos))
     cq, cs = _cuda.rowquant(ctx, div127=False)
     y = _cuda.int8_gemm(cq, cs, m.w_out, m.s_out, m.b_out, _cuda.EPI_RESID_LAST, resid=x2)
-    out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps)
+    out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps, x.dtype)
     attention_block_int8.launches += 1
     return out.view(b, l, d)
 
@@ -292,8 +306,8 @@ def mha_block_int8(xq, xkv, ops: MhaOperands, key_padding_mask):
     lk = xkv.shape[1]
     h = ops.n_heads
     dev = xq.device
-    _cuda.require(xq, "xq", torch.bfloat16)
-    _cuda.require(xkv, "xkv", torch.bfloat16, (b, lk, d), dev)
+    _cuda.require(xq, "xq", _cuda.ACT_DTYPES)
+    _cuda.require(xkv, "xkv", xq.dtype, (b, lk, d), dev)
     _check_mha(ops, d, dev)
     aq, aqs = _cuda.rowquant(xq.view(b * lq, d), div127=False)
     if xkv is xq:
@@ -308,7 +322,7 @@ def mha_block_int8(xq, xkv, ops: MhaOperands, key_padding_mask):
         k, v = kv.split(d, dim=1)
     ctx = attention_core_int8(q, k, v, b, h, kpm=key_padding_mask)
     cq, cs = _cuda.rowquant(ctx, div127=False)
-    y = _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out, _cuda.EPI_BF16)
+    y = _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out, _cuda.out_epi(xq.dtype))
     mha_block_int8.launches += 1
     return y.view(b, lq, d)
 

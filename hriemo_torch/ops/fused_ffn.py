@@ -15,13 +15,15 @@ Two Hopper kernels, each with its plain PyTorch version beside it:
 
 On the card each is a sequence of launches of ``csrc/quant_gemm.cu``: row
 quantize, int8 GEMM with the bias+activation epilogue (fp32 out), row
-quantize, int8 GEMM with the residual (FFN) or bf16 (mlp2) epilogue, and
-for the FFN the LayerNorm pass. What bounds them: int8 tensor-core
-operations at the main path's 2k rows (the two GEMMs are 4*M*768*3072
-operations against ~2.4 MB of weights); the first version also writes and
-re-reads the fp32 [M, 3072] intermediate, which the TPU kernel keeps in
-VMEM, so at small M its bytes dominate. Fusing the requantize into the
-first GEMM's epilogue removes that round trip in a later version.
+quantize, int8 GEMM with the residual (FFN) or dequant (mlp2) epilogue, and
+for the FFN the LayerNorm pass. x is bf16 or fp32, and the residual read
+and the output follow its dtype, as the TPU kernels store ``x.dtype``.
+What bounds them: int8 tensor-core operations at the main path's 2k rows
+(the two GEMMs are 4*M*768*3072 operations against ~2.4 MB of weights);
+the first version also writes and re-reads the fp32 [M, 3072]
+intermediate, which the TPU kernel keeps in VMEM, so at small M its bytes
+dominate. Fusing the requantize into the first GEMM's epilogue removes
+that round trip in a later version.
 
 A third kernel, :func:`ffn_block_bf16`, replaces ``_kernel_bf16``
 (``:112-124``, ``pallas_call`` at ``:192``): the same block over bf16 or
@@ -97,7 +99,8 @@ def layer_norm_rows(y, w, b, eps):
 def int8_gemm_plain(a, a_scale, w, w_scale, bias, epi: int, resid=None):
     """Plain version of the shared int8 GEMM (``_cuda.int8_gemm``): ``a [M,
     K]`` int8, ``a_scale [M]``, ``w [N, K]`` int8, ``w_scale [N, 1]``,
-    ``bias [N]`` or None, ``resid [M, N]`` bf16 for the residual epilogues.
+    ``bias [N]`` or None, ``resid [M, N]`` (bf16 or fp32) for the residual
+    epilogues.
     Each step rounds as the kernel's epilogue does, with the erf GELU's
     ``x / sqrt(2)`` an IEEE division (a tensor divisor: PyTorch's CUDA
     division by a Python scalar multiplies by the reciprocal)."""
@@ -105,6 +108,8 @@ def int8_gemm_plain(a, a_scale, w, w_scale, bias, epi: int, resid=None):
     vb = v if bias is None else v + bias
     if epi == _cuda.EPI_BF16:
         return vb.to(torch.bfloat16)
+    if epi == _cuda.EPI_F32:
+        return vb
     if epi == _cuda.EPI_GELU_F32:
         return gelu_fp32(vb, True)
     if epi == _cuda.EPI_GELU_ERF_F32:
@@ -134,7 +139,7 @@ def ffn_block_int8_plain(x, ops: FfnOperands, eps: float, fast_gelu: bool):
 def _check_pair(x, p: Mlp2Operands):
     f, din = p.w1.shape
     dout = p.w2.shape[0]
-    _cuda.require(x, "x", torch.bfloat16, (x.shape[0], din))
+    _cuda.require(x, "x", _cuda.ACT_DTYPES, (x.shape[0], din))
     dev = x.device
     _cuda.require(p.w1, "w1", torch.int8, (f, din), dev)
     _cuda.require(p.s1, "s1", torch.float32, (f, 1), dev)
@@ -145,7 +150,8 @@ def _check_pair(x, p: Mlp2Operands):
 
 
 def ffn_block_int8(x, ops: FfnOperands, eps: float, fast_gelu: bool):
-    """Fused W8A8 FFN block over ``x [M, D]`` bf16 -> ``[M, D]`` bf16.
+    """Fused W8A8 FFN block over ``x [M, D]`` bf16 or fp32 -> ``[M, D]`` in
+    x's dtype.
 
     On the CPU the plain version runs; on the card five launches (see the
     module docstring), no torch compute in between.
@@ -162,7 +168,7 @@ def ffn_block_int8(x, ops: FfnOperands, eps: float, fast_gelu: bool):
                         _cuda.EPI_GELU_F32 if fast_gelu else _cuda.EPI_GELU_ERF_F32)
     hq, hs = _cuda.rowquant(h, div127=False)
     y = _cuda.int8_gemm(hq, hs, p.w2, p.s2, p.b2, _cuda.EPI_RESID_FIRST, resid=x)
-    out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps)
+    out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps, x.dtype)
     ffn_block_int8.launches += 1
     return out
 
@@ -182,7 +188,8 @@ def mlp2_int8_plain(x, ops: Mlp2Operands):
 
 
 def mlp2_int8(x, ops: Mlp2Operands):
-    """Fused W8A8 ``Linear -> ReLU -> Linear`` over ``x [..., Din]`` bf16."""
+    """Fused W8A8 ``Linear -> ReLU -> Linear`` over ``x [..., Din]`` bf16 or
+    fp32, output in x's dtype."""
     if x.device.type == "cpu":
         return mlp2_int8_plain(x, ops)
     shape = x.shape
@@ -191,7 +198,7 @@ def mlp2_int8(x, ops: Mlp2Operands):
     xq, xs = _cuda.rowquant(x2, div127=False)
     h = _cuda.int8_gemm(xq, xs, ops.w1, ops.s1, ops.b1, _cuda.EPI_RELU_F32)
     hq, hs = _cuda.rowquant(h, div127=False)
-    y = _cuda.int8_gemm(hq, hs, ops.w2, ops.s2, ops.b2, _cuda.EPI_BF16)
+    y = _cuda.int8_gemm(hq, hs, ops.w2, ops.s2, ops.b2, _cuda.out_epi(x.dtype))
     mlp2_int8.launches += 1
     return y.reshape(*shape[:-1], ops.w2.shape[0])
 

@@ -83,7 +83,8 @@ def int8_linear(x, w_int8, w_scale, bias=None):
     Replaces no Pallas kernel: in JAX this is XLA's int8 ``dot_general``
     (``hriemo/ops/quant.py:85``). On the card it is one row-quantize launch
     and one launch of the shared int8 GEMM (``csrc/int8_gemm.cuh``), whose
-    epilogue applies the dequant and bias and stores bf16. It is bound by
+    epilogue applies the dequant and bias and stores x's dtype (bf16 or
+    fp32, as the JAX function returns ``x.dtype``). It is bound by
     the weight bytes at the decoder's few rows and by int8 tensor-core
     operations at WavLM's feature projection.
     """
@@ -92,13 +93,13 @@ def int8_linear(x, w_int8, w_scale, bias=None):
     shape = x.shape
     n, k = w_int8.shape
     x2 = x.reshape(-1, k)
-    _cuda.require(x2, "x", torch.bfloat16)
+    _cuda.require(x2, "x", _cuda.ACT_DTYPES)
     _cuda.require(w_int8, "w_int8", torch.int8, (n, k), x.device)
     _cuda.require(w_scale, "w_scale", torch.float32, (n, 1), x.device)
     if bias is not None:
         _cuda.require(bias, "bias", torch.float32, (n,), x.device)
     xq, xs = _cuda.rowquant(x2, div127=True)
-    y = _cuda.int8_gemm(xq, xs, w_int8, w_scale, bias, _cuda.EPI_BF16)
+    y = _cuda.int8_gemm(xq, xs, w_int8, w_scale, bias, _cuda.out_epi(x.dtype))
     int8_linear.launches += 1
     return y.reshape(*shape[:-1], n)
 

@@ -126,3 +126,37 @@ def test_mha_module_routing_matches_jax(monkeypatch, lq):
     got = mod(bf16(xq), tkv, tkv, torch.from_numpy(mask))
     assert_kernel_close(got, np.asarray(ref, np.float32))
     assert TA.use_mha_block(True, lq, lk, d, h) == (lq >= 8)
+
+
+def test_wavlm_gate_rounds_weights_as_the_kernel():
+    """The int8 sublayer's gate on an fp32 tree: the port's ``_gate`` on
+    ``wavlm_attn_operands`` against the TPU kernel's expression, computed
+    with jnp on the same params (``hriemo/ops/attention_block.py:198-200``,
+    ``:464-466``): x and the gate weight rounded to bf16, fp32 sums over a
+    block-diagonal [D, 8H] weight, then the two sigmoids."""
+    rng = np.random.default_rng(3)
+    ap, p_ln = _wavlm_layer(rng)
+    g = ap["gru_rel_pos_linear"]
+    g["weight"] = jnp.asarray(rng.standard_normal((8, D // H)) * 0.3, jnp.float32)
+    ap["gru_rel_pos_const"] = jnp.asarray(rng.uniform(0.5, 1.5, (1, H, 1, 1)), jnp.float32)
+    x = rng.standard_normal((B * L, D)).astype(np.float32)
+
+    wg = jax.scipy.linalg.block_diag(*([g["weight"].T.astype(jnp.bfloat16)] * H))
+    bg = jnp.tile(g["bias"].astype(jnp.float32), H)[None, :]
+    gproj = jax.lax.dot_general(jnp.asarray(x).astype(jnp.bfloat16), wg,
+                                (((1,), (0,)), ((), ())),
+                                preferred_element_type=jnp.float32) + bg
+    gp = gproj.reshape(B, L, H, 8)
+    ga = jax.nn.sigmoid(jnp.sum(gp[..., 0:4], axis=-1))
+    gb = jax.nn.sigmoid(jnp.sum(gp[..., 4:8], axis=-1))
+    ref = ga * (gb * ap["gru_rel_pos_const"].reshape(H) - 1.0) + 2.0     # [B, L, H]
+
+    holder = torch.nn.Module()
+    holder.attn, holder.ln = WavLMAttention(D, H, None), LayerNorm(D)
+    holder.attn.load_state_dict({k: torch.from_numpy(v) for k, v in flat(ap).items()})
+    holder.ln.load_state_dict({k: torch.from_numpy(v) for k, v in flat(p_ln).items()})
+    quantize_for_serving(holder, min_dim=64)       # an fp32 tree
+    ops = TA.wavlm_attn_operands(holder.attn, holder.ln)
+    got = TA._gate(torch.from_numpy(x), ops.wg, ops.bg, ops.gconst, B, L, H)   # [B, H, L, 1]
+    np.testing.assert_allclose(got[..., 0].transpose(1, 2).numpy(), np.asarray(ref),
+                               atol=1e-6, rtol=0)

@@ -1,8 +1,9 @@
 """PyTorch port: every CUDA kernel against its plain PyTorch version on the
 card, at edge shapes the serving and extraction paths can give (ragged row
 counts, short and long keys, keys and queries that cut the attention
-tiles, hd=96 and 40, a fully padded key row, fp32 inputs, Lq != Lk, clips
-shorter than one conv-stack tile or ending on a tile).
+tiles, hd=96 and 40, a fully padded key row, fp32 inputs, the int8
+wrappers at fp32 activations, Lq != Lk, clips shorter than one conv-stack
+tile or ending on a tile).
 
 Needs an NVIDIA GPU: marked ``cuda`` and skipped without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -87,37 +88,59 @@ def test_quantize_on_card_equals_cpu(gen):
     torch.testing.assert_close(s.cpu(), rs, atol=0, rtol=0)
 
 
+# the int8 wrappers' activation dtypes: bf16 trees, and fp32 trees (int8
+# weights at fp32 compute), where x, the residual and the output are fp32
+ACT_DTYPES = [torch.bfloat16, torch.float32]
+
+
 @pytest.mark.parametrize("m,k,n,bias", [(1, 768, 768, True), (65, 512, 768, True),
                                         (130, 3072, 768, False), (4, 768, 2048, True)])
-def test_int8_linear(gen, m, k, n, bias):
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_int8_linear(gen, m, k, n, bias, dtype):
+    """bf16 at the sublayer tolerance; fp32 bit-equal (the row quantize and
+    the fp32 dequant epilogue round as the plain version does)."""
     lin = _quantized(Linear(k, n, bias), gen)
-    x = _randn(gen, m, k)
+    x = _randn(gen, m, k, dtype=dtype)
     before = Q.int8_linear.launches
     got = Q.int8_linear(x, lin.w_int8, lin.w_scale, lin.bias_f32)
     assert Q.int8_linear.launches == before + 1
-    _close(got, Q.int8_linear_plain(x, lin.w_int8, lin.w_scale, lin.bias_f32))
+    ref = Q.int8_linear_plain(x, lin.w_int8, lin.w_scale, lin.bias_f32)
+    assert got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    else:
+        _close(got, ref)
 
 
 @pytest.mark.parametrize("fast_gelu", [True, False])
 @pytest.mark.parametrize("m", [1, 63, 300])
-def test_ffn_block(gen, m, fast_gelu):
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_ffn_block(gen, m, fast_gelu, dtype):
     pair = _quantized(MLP2(256, 1024, 256), gen)
     ops = FF.FfnOperands(pair.ops, _randn(gen, 256, dtype=torch.float32).abs(),
                          _randn(gen, 256, scale=0.1, dtype=torch.float32))
-    x = _randn(gen, m, 256)
-    _close(FF.ffn_block_int8(x, ops, 1e-5, fast_gelu),
-           FF.ffn_block_int8_plain(x, ops, 1e-5, fast_gelu))
+    x = _randn(gen, m, 256, dtype=dtype)
+    got = FF.ffn_block_int8(x, ops, 1e-5, fast_gelu)
+    assert got.dtype == dtype
+    _close(got, FF.ffn_block_int8_plain(x, ops, 1e-5, fast_gelu))
 
 
 @pytest.mark.parametrize("din,f,dout,m", [(256, 1024, 256, 97), (1024, 256, 768, 3)])
-def test_mlp2(gen, din, f, dout, m):
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_mlp2(gen, din, f, dout, m, dtype):
     ops = _quantized(MLP2(din, f, dout), gen).ops
-    x = _randn(gen, m, din)
-    _close(FF.mlp2_int8(x, ops), FF.mlp2_int8_plain(x, ops))
+    x = _randn(gen, m, din, dtype=dtype)
+    got = FF.mlp2_int8(x, ops)
+    assert got.dtype == dtype
+    _close(got, FF.mlp2_int8_plain(x, ops))
 
 
 @pytest.mark.parametrize("l", [48, 62, 97, 124, 63, 65, 499, 1024])
-def test_attention_block(gen, l):
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_attention_block(gen, l, dtype):
+    """fp32 x: the gate reads it as bf16 in the core's prologue, the
+    residual and the LayerNorm stay fp32, and an fp32 position bias is
+    rounded to bf16 as the TPU wrapper stores it."""
     d, h = 256, 4
     holder = torch.nn.Module()
     holder.attn, holder.ln = WavLMAttention(d, h, None), LayerNorm(d)
@@ -125,26 +148,30 @@ def test_attention_block(gen, l):
     with torch.no_grad():
         holder.attn.gru_rel_pos_const.fill_(1.3)
     ops = AB.wavlm_attn_operands(holder.attn, holder.ln)
-    x = _randn(gen, 3, l, d)
-    pos = _randn(gen, h, l, l, scale=0.3)
+    x = _randn(gen, 3, l, d, dtype=dtype)
+    pos = _randn(gen, h, l, l, scale=0.3, dtype=dtype)
     kb = torch.where(_pad_mask([l, l - 17, l // 2], l), AB.NEG_INF, 0.0).float()
-    _close(AB.attention_block_int8(x, ops, pos, kb, 1e-5),
-           AB.attention_block_int8_plain(x, ops, pos, kb, 1e-5))
+    got = AB.attention_block_int8(x, ops, pos, kb, 1e-5)
+    assert got.dtype == dtype
+    _close(got, AB.attention_block_int8_plain(x, ops, pos, kb, 1e-5))
 
 
 @pytest.mark.parametrize("d,h,lq,lk,self_attn", [
     (256, 4, 8, 8, True), (256, 4, 33, 33, True), (384, 4, 50, 50, True),  # hd=96
     (256, 8, 16, 1024, False), (256, 8, 130, 9, False), (768, 8, 64, 499, False)])
-def test_mha_block(gen, d, h, lq, lk, self_attn):
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_mha_block(gen, d, h, lq, lk, self_attn, dtype):
     ops = _quantized(MultiheadAttention(d, h), gen).ops
-    xq = _randn(gen, 3, lq, d)
-    xkv = xq if self_attn else _randn(gen, 3, lk, d)
+    xq = _randn(gen, 3, lq, d, dtype=dtype)
+    xkv = xq if self_attn else _randn(gen, 3, lk, d, dtype=dtype)
     kpm = _pad_mask([lk, max(1, lk // 3), 0], lk)  # element 2: every key PAD
-    _close(AB.mha_block_int8(xq, xkv, ops, kpm), AB.mha_block_int8_plain(xq, xkv, ops, kpm))
+    got = AB.mha_block_int8(xq, xkv, ops, kpm)
+    assert got.dtype == dtype
+    _close(got, AB.mha_block_int8_plain(xq, xkv, ops, kpm))
 
 
 EPILOGUES = [_cuda.EPI_BF16, _cuda.EPI_GELU_F32, _cuda.EPI_RELU_F32, _cuda.EPI_RESID_FIRST,
-             _cuda.EPI_RESID_LAST, _cuda.EPI_GELU_ERF_F32]
+             _cuda.EPI_RESID_LAST, _cuda.EPI_GELU_ERF_F32, _cuda.EPI_F32]
 
 
 def _gemm_operands(gen, m, n, k):
@@ -163,18 +190,20 @@ def test_int8_gemm_bit_equal(gen, m, epi, config):
     bit, for every epilogue and block configuration (-1: chosen by shape),
     at row counts that cut the 64- and 128-row tiles and N and K that cut
     the 64/128-column and 128-byte K tiles (K % 16 == 0); no bias at N=260,
-    which also takes the unaligned-row stores."""
+    which also takes the unaligned-row stores. The residual epilogues read
+    a bf16 residual (bf16 trees) and an fp32 one (fp32 trees)."""
+    resid_epi = epi in (_cuda.EPI_RESID_FIRST, _cuda.EPI_RESID_LAST)
     for n, k in ((256, 784), (776, 512), (2304, 3072), (260, 512)):
         a, a_s, w, w_s = _gemm_operands(gen, m, n, k)
         bias = None if n == 260 else _randn(gen, n, dtype=torch.float32)
-        resid = _randn(gen, m, n) if epi in (_cuda.EPI_RESID_FIRST, _cuda.EPI_RESID_LAST) \
-            else None
-        before = _cuda.int8_gemm.launches
-        got = _cuda.int8_gemm(a, a_s, w, w_s, bias, epi, resid=resid, config=config)
-        torch.cuda.synchronize()
-        assert _cuda.int8_gemm.launches == before + 1
-        torch.testing.assert_close(got, FF.int8_gemm_plain(a, a_s, w, w_s, bias, epi, resid),
-                                   atol=0, rtol=0)
+        for rdt in ACT_DTYPES if resid_epi else [None]:
+            resid = None if rdt is None else _randn(gen, m, n, dtype=rdt)
+            before = _cuda.int8_gemm.launches
+            got = _cuda.int8_gemm(a, a_s, w, w_s, bias, epi, resid=resid, config=config)
+            torch.cuda.synchronize()
+            assert _cuda.int8_gemm.launches == before + 1
+            torch.testing.assert_close(got, FF.int8_gemm_plain(a, a_s, w, w_s, bias, epi, resid),
+                                       atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("m", [16, 65, 1996])
@@ -200,10 +229,11 @@ CORE_SHAPES = [(8, 8), (16, 16), (63, 63), (64, 64), (65, 65), (499, 499), (1024
 
 @pytest.mark.parametrize("lq,lk", CORE_SHAPES)
 @pytest.mark.parametrize("hd", [64, 96, 32])   # 32: the CUDA-core kernel
-@pytest.mark.parametrize("mode", ["gated", "kpm", "none"])
+@pytest.mark.parametrize("mode", ["gated", "kpm", "none", "gated_fp32_x"])
 def test_attention_core_int8(gen, lq, lk, hd, mode):
     """q/k/v read in place as column blocks of packed projections; element
-    2 has every key PAD (kbias -1e9 or kpm True) and still averages v."""
+    2 has every key PAD (kbias -1e9 or kpm True) and still averages v.
+    gated_fp32_x: the gate's x is an fp32 tree's activation, read as bf16."""
     b, h = 3, 4
     d = h * hd
     q = _randn(gen, b * lq, 2 * d, scale=hd ** -0.5)[:, d:]
@@ -211,9 +241,11 @@ def test_attention_core_int8(gen, lq, lk, hd, mode):
     k, v = kv[:, :d], kv[:, d:]
     pad = _pad_mask([lk, max(1, lk // 3), 0], lk)
     kw = {}
-    if mode == "gated":
+    if mode.startswith("gated"):
+        xdt = torch.float32 if mode == "gated_fp32_x" else torch.bfloat16
         kw["kbias"] = torch.where(pad, AB.NEG_INF, 0.0).float()
-        kw["gate"] = (_randn(gen, b * lq, d), _randn(gen, 8, hd, scale=0.1, dtype=torch.float32),
+        kw["gate"] = (_randn(gen, b * lq, d, dtype=xdt),
+                      _randn(gen, 8, hd, scale=0.1, dtype=torch.float32),
                       _randn(gen, 8, scale=0.1, dtype=torch.float32),
                       _randn(gen, h, dtype=torch.float32), _randn(gen, h, lq, lk, scale=0.3))
     elif mode == "kpm":
@@ -228,8 +260,8 @@ def test_attention_core_int8(gen, lq, lk, hd, mode):
 
 def test_wrappers_raise_instead_of_falling_back(gen):
     lin = _quantized(Linear(256, 256), gen)
-    with pytest.raises(TypeError):      # fp32 activations: the kernel takes bf16
-        Q.int8_linear(_randn(gen, 4, 256, dtype=torch.float32), lin.w_int8, lin.w_scale)
+    with pytest.raises(TypeError):      # fp16 activations: the kernel takes bf16 or fp32
+        Q.int8_linear(_randn(gen, 4, 256, dtype=torch.float16), lin.w_int8, lin.w_scale)
     with pytest.raises(ValueError):     # a strided view is refused, not copied
         Q.int8_linear(_randn(gen, 256, 8).t(), lin.w_int8, lin.w_scale)
 
@@ -321,14 +353,51 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
     with pytest.raises(TypeError):      # the position bias has q's dtype
         WA.wavlm_fused_attention(q, q, q, torch.ones(1, 2, 64, device="cuda"),
                                  torch.zeros(2, 64, 64, device="cuda"), kb)
-    # bf16 at hd 64 keeps no score panel, so 8192 keys run; the fp32
-    # kernel's panel [16, 8192] must fit shared memory and does not
+    # the tensor-core kernels (hd 64 and 96, bf16 and fp32) keep no score
+    # panel, so 8192 keys run; at hd 40 the CUDA-core kernel's panel [16,
+    # 8192] must fit shared memory and does not
     kb_long = torch.zeros(1, 8192, device="cuda")
-    long = _heads_view(gen, 1, 8192, 2, 64, torch.bfloat16)
-    assert torch.isfinite(FA.onepass_attention(q, long, long, kb_long)).all()
+    for dt in (torch.bfloat16, torch.float32):
+        long = _heads_view(gen, 1, 8192, 2, 64, dt)
+        assert torch.isfinite(FA.onepass_attention(q.to(dt), long, long, kb_long)).all()
+    q40 = _heads_view(gen, 1, 64, 2, 40, torch.float32)
     with pytest.raises(ValueError):
-        long = _heads_view(gen, 1, 8192, 2, 64, torch.float32)
-        FA.onepass_attention(q.float(), long, long, kb_long)
+        long = _heads_view(gen, 1, 8192, 2, 40, torch.float32)
+        FA.onepass_attention(q40, long, long, kb_long)
+
+
+@pytest.mark.parametrize("kernel", ["gated", "onepass", "streaming"])
+@pytest.mark.parametrize("hd", [64, 96])
+def test_fp32_attention_at_large_scores(gen, kernel, hd):
+    """q and k scaled so that the scores reach about +-30: the fp32
+    kernels' 3xTF32 products hold ATTN_TOL[fp32], where the same plain
+    version with its two products in TF32 (one TF32 product each, as
+    cuBLAS runs them with TF32 allowed) does not."""
+    b, h = 2, 4
+    lq = lk = 2249 if kernel == "streaming" else 499
+    q, k = (_heads_view(gen, b, lq, h, hd, torch.float32) * 2.5 for _ in range(2))
+    v = _heads_view(gen, b, lk, h, hd, torch.float32)
+    kb = torch.where(_pad_mask([lk, lk // 3], lk), AB.NEG_INF, 0.0).float()
+    if kernel == "gated":
+        gate = (torch.rand(b, h, lq, generator=gen) * 1.5 + 0.5).cuda()
+        pos = _randn(gen, h, lq, lk, scale=0.3, dtype=torch.float32)
+        fn = lambda: WA.wavlm_fused_attention(q, k, v, gate, pos, kb)
+        plain = lambda: WA.wavlm_fused_attention_plain(q, k, v, gate, pos, kb)
+    else:
+        name = f"{kernel}_attention"
+        fn = lambda: getattr(FA, name)(q, k, v, kb)
+        plain = lambda: getattr(FA, name + "_plain")(q, k, v, kb)
+    s = WA.scaled_scores(q, k)
+    assert s.abs().max().item() > 25
+    ref = plain()
+    _close_attention(fn(), ref)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_tf32 = plain()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    with pytest.raises(AssertionError):
+        _close_attention(one_tf32, ref)
 
 
 def _ffn_operands(gen, d, f, dtype):

@@ -48,14 +48,20 @@ def _requests(seed, n):
             for i in range(n)]
 
 
-def test_slice_matches_jax_kernel_path(models, monkeypatch):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_slice_matches_jax_kernel_path(models, monkeypatch, dtype):
     """W8A8 end to end at d=256: both audio buckets (0.1 s, 0.15 s), both
-    text buckets, pcm16 transport; probabilities and beta."""
+    text buckets, pcm16 transport; probabilities and beta. At fp32 compute
+    the int8 sublayers take and store fp32 activations, as the JAX
+    wrappers store x's dtype."""
+    import jax.numpy as jnp
+
     monkeypatch.setenv("HRIEMO_FORCE_MEGAKERNELS", "1")
     (jw, jb, jf), (tw, tb, tf) = models
     tok = HashTokenizer(99)
-    jp = JaxPipeline(jw, jb, jf, tokenizer=tok, **SERVE)
-    tp = StreamingPipeline(tw, tb, tf, tokenizer=tok, device="cpu", **SERVE)
+    jp = JaxPipeline(jw, jb, jf, tokenizer=tok, compute_dtype=getattr(jnp, dtype), **SERVE)
+    tp = StreamingPipeline(tw, tb, tf, tokenizer=tok, device="cpu",
+                           compute_dtype=getattr(torch, dtype), **SERVE)
     clips = _requests(0, 6)
     for batch in (clips[:3], clips[3:]):
         wavs, texts = [c[0] for c in batch], [c[1] for c in batch]
