@@ -122,4 +122,14 @@ __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
+__device__ __forceinline__ float gelu(float x, int fast) { return fast ? gelu_tanh(x) : gelu_erf(x); }
+
+// Two adjacent columns, rounded to T.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
 }  // namespace hr

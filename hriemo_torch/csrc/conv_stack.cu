@@ -14,38 +14,53 @@
 // rounding. Weights come tap-major, [K, 512 out, 512 in] in T (conv0:
 // [512, 10]).
 //
-// Design. The TPU kernels take 128 output frames a tile; here a tile of
-// that size would need ~1 MB of shared memory, so a block takes kF = 8
-// output frames and the rows they need (receptive fields overlap, so halo
-// rows are recomputed): K1 holds 8*8+7 conv0 rows and 4*8+3 conv1 rows, and
-// conv2 reuses conv0's rows (110 KB in bf16, 213 KB in fp32); K2 holds 65
-// conv3 rows and 32 conv4 rows. Weights stream from L2 (7.5 MB in bf16
-// hold there), each warp reading the rows of its 64 output channels. Every
-// read is bounded: rows past the waveform or past t3 are zeros, and rows
-// past the true lengths only feed frames that are not stored. No padded
-// arrays are allocated; only the true [B, t3, C] and [B, t_out, C] are
-// written. The stats kernel loops over all rows of a (batch, 32-channel)
-// chunk in one block and adds its eight row groups in a fixed order, so
-// the sums (and K1's output) are the same on every run; no atomics. conv0
-// (10 taps, one input channel) runs on CUDA cores: 1.3% of the stack's
-// operations. conv1..6 run on mma.sync in bf16 and on CUDA-core FMAs in
-// fp32 (float_gemm.cuh).
+// Design.
+// - K1 (conv_stack_k1) is four launches: conv0 + GroupNorm + GELU on CUDA
+//   cores over all n0 rows, the same arithmetic per element as the TPU
+//   kernel, written [B, n0, 512] in T (conv0 has one input channel and 10
+//   taps: 1.3% of the stack's operations); then conv1, conv2 and conv3,
+//   each one large-tile GEMM of csrc/float_wgmma.cuh over a strided view of
+//   its input (output row r of batch element b is the 3*512 contiguous
+//   elements from input row 2r on: lda = 2*512, K = 3*512, tap k of the
+//   tap-major weights read as they are, no copy; batch on the grid's z
+//   axis, rows past t_i zero-filled by the copy and never stored). conv1
+//   and conv2 go to workspaces from the caching allocator, conv3 straight
+//   into out. The TPU kernel kept conv0 on chip; here it makes a round trip
+//   through device memory (262 MB in bf16, 524 MB in fp32 at 8 x 10 s:
+//   about 0.16 / 0.31 ms at 3.35 TB/s), and in exchange every weight tile
+//   staged in shared memory feeds 128 output rows with no halo rows
+//   recomputed, where the first version's blocks of 8 conv3 frames
+//   recomputed 71 conv0, 35 conv1 and 17 conv2 rows and streamed each
+//   conv's 1.5 MB of weights from L2 (about 19 GB of L2 reads at 8 x 10 s).
+// - K2 keeps the first version: a block takes kF = 8 output frames and the
+//   rows they need (halo rows are recomputed): 65 conv3 rows and 32 conv4
+//   rows in shared memory, weights streamed from L2 by each warp for its 64
+//   output channels (mma.sync in bf16, CUDA-core FMAs in fp32,
+//   float_gemm.cuh). Reads are bounded: rows past t3 are zeros, and rows
+//   past the true lengths only feed frames that are not stored.
+// - The stats kernel loops over all rows of a (batch, 32-channel) chunk in
+//   one block and adds its eight row groups in a fixed order, so the sums
+//   (and K1's output) are the same on every run; no atomics.
 //
-// What bounds it on the card: at 8 frames a block every block streams each
-// conv's 1.5 MB of weights from L2, so L2 reads (~4.5 MB per 8 conv3 frames
-// in K1) and not the tensor cores set K1's time in bf16; fp32 is bound by
-// the CUDA cores' FMA rate. Bigger row tiles (thread block clusters
-// sharing shared memory, or two passes over m-tiles) are later work.
+// What bounds them (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and
+// hriemo_torch/utils/float_gemm_variants.py, PERF.md §6): K1 at 8 x 10 s takes
+// 1.52 ms in bf16 and 5.57 in fp32 (the first version 4.05 and 16.84): the
+// three conv GEMMs 1.20 / 5.23 ms, 30% / 41% of their tensor-core bound (0.36
+// ms in bf16, 2.14 in fp32 as three TF32 products), held back by the GEMM's
+// pipeline (csrc/float_wgmma.cuh); the conv0 pass 0.31 / 0.30 ms, the CUDA
+// cores' GroupNorm and accurate GELU per element more than its bytes. K2 and
+// the stats pass, not redesigned yet: L2 weight reads per 8-frame block (K2)
+// and one block per (batch, 32 channels) over all rows (stats).
 #include "float_gemm.cuh"
+#include "float_wgmma.cuh"
 
 namespace hr {
 
 constexpr int kC = 512;            // channels of every conv
-constexpr int kF = 8;              // output frames a block (K1: conv3, K2: conv6)
+constexpr int kF = 8;              // output frames of a K2 block (conv6)
 constexpr int kConvThreads = 256;  // 8 warps, 64 output channels each
-// K1 rows a tile needs: conv0, conv1, conv2; wave samples
-constexpr int kR0 = 8 * kF + 7, kR1 = 4 * kF + 3, kR2 = 2 * kF + 1;
-constexpr int kSamples = 5 * (kR0 - 1) + 10;
+constexpr int kC0Rows = 64;        // conv0 rows of a K1 conv0 block
+constexpr int kC0Samples = 5 * (kC0Rows - 1) + 10;
 // K2 rows a tile needs: conv3, conv4, conv5
 constexpr int kQ3 = 8 * kF + 1, kQ4 = 4 * kF, kQ5 = 2 * kF;
 
@@ -56,13 +71,10 @@ template <typename T> struct ConvLd;
 template <> struct ConvLd<__nv_bfloat16> { static constexpr int v = kC + 16; };
 template <> struct ConvLd<float> { static constexpr int v = kC; };
 
-template <typename T> constexpr size_t k1_smem() {
-  return sizeof(T) * (size_t)(kR0 + kR1) * ConvLd<T>::v + sizeof(float) * kSamples;
-}
 template <typename T> constexpr size_t k2_smem() {
   return sizeof(T) * (size_t)(kQ3 + kQ4) * ConvLd<T>::v;
 }
-static_assert(k1_smem<float>() <= kMaxDynSmem && k2_smem<float>() <= kMaxDynSmem, "smem");
+static_assert(k2_smem<float>() <= kMaxDynSmem, "smem");
 
 // GELU, rounded to T, stored for rows r < rows (row stride ld).
 template <typename T>
@@ -154,26 +166,23 @@ conv_stats_kernel(const T* __restrict__ wave, int Tw, const T* __restrict__ w0, 
   }
 }
 
-// One block per (tile of kF conv3 frames, batch element).
+// K1's first launch: conv0, GroupNorm (statistics from the stats kernel)
+// and GELU of rows r0 .. r0 + kC0Rows - 1 of batch element b, stored in T.
+// One block per (row tile, batch element); thread tid owns channels 2 tid
+// and 2 tid + 1.
 template <typename T>
 __global__ void __launch_bounds__(kConvThreads)
-conv_k1_kernel(const T* __restrict__ wave, int Tw, const float* __restrict__ stats,
-               const T* __restrict__ w0, const float* __restrict__ gnw,
-               const float* __restrict__ gnb, const T* __restrict__ w1,
-               const T* __restrict__ w2, const T* __restrict__ w3, float inv_n, float eps,
-               int fast, int t3, T* __restrict__ out) {
-  constexpr int LD = ConvLd<T>::v;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* a0 = reinterpret_cast<T*>(smem);                       // conv0 rows, later conv2 rows
-  T* a1 = a0 + kR0 * LD;                                     // conv1 rows
-  float* zs = reinterpret_cast<float*>(a1 + kR1 * LD);       // the tile's wave samples
-  const int tid = threadIdx.x, b = blockIdx.y, j0 = blockIdx.x * kF;
-  const size_t s0 = (size_t)40 * j0;  // first sample: conv0 row 8 j0
+conv0_gn_kernel(const T* __restrict__ wave, int Tw, const float* __restrict__ stats,
+                const T* __restrict__ w0, const float* __restrict__ gnw,
+                const float* __restrict__ gnb, float inv_n, float eps, int fast, int n0,
+                T* __restrict__ out) {
+  __shared__ float zs[kC0Samples];  // the tile's wave samples
+  const int tid = threadIdx.x, b = blockIdx.y, r0 = blockIdx.x * kC0Rows;
+  const size_t s0 = (size_t)5 * r0;
   const T* wv = wave + (size_t)b * Tw;
-  for (int i = tid; i < kSamples; i += kConvThreads)
+  for (int i = tid; i < kC0Samples; i += kConvThreads)
     zs[i] = s0 + i < (size_t)Tw ? load_f(wv + s0 + i) : 0.f;
 
-  // conv0 + GroupNorm + GELU; this thread's channels c and c + 1
   const int c = 2 * tid;
   float w[2][10], mean[2], rstd[2], gw[2], gb[2];
 #pragma unroll
@@ -188,7 +197,9 @@ conv_k1_kernel(const T* __restrict__ wave, int Tw, const float* __restrict__ sta
     gb[e] = gnb[c + e];
   }
   __syncthreads();
-  for (int r = 0; r < kR0; ++r) {
+  const int rows = min(kC0Rows, n0 - r0);
+  T* o = out + ((size_t)b * n0 + r0) * kC + c;
+  for (int r = 0; r < rows; ++r) {
     float v[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -198,15 +209,8 @@ conv_k1_kernel(const T* __restrict__ wave, int Tw, const float* __restrict__ sta
       x = __fadd_rn(__fmul_rn(__fmul_rn(__fadd_rn(x, -mean[e]), rstd[e]), gw[e]), gb[e]);
       v[e] = gelu(x, fast);
     }
-    store2(a0 + r * LD + c, v[0], v[1]);
+    store2(o + (size_t)r * kC, v[0], v[1]);
   }
-  __syncthreads();
-  conv_layer<3, kR1, kR0>(a0, w1, GeluStore<T>{a1, kR1, LD, fast});
-  __syncthreads();
-  conv_layer<3, kR2, kR1>(a1, w2, GeluStore<T>{a0, kR2, LD, fast});
-  __syncthreads();
-  conv_layer<3, kF, kR2>(a0, w3,
-                         GeluStore<T>{out + ((size_t)b * t3 + j0) * kC, min(kF, t3 - j0), kC, fast});
 }
 
 // One block per (tile of kF conv6 frames, batch element).
@@ -238,34 +242,24 @@ conv_k2_kernel(const T* __restrict__ x3, int t3, const T* __restrict__ w4,
 }
 
 template <typename T>
-void set_smem_attrs() {
-  static bool done = false;  // one per instantiation
-  if (!done) {
-    cudaFuncSetAttribute(conv_k1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)k1_smem<T>());
-    cudaFuncSetAttribute(conv_k2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)k2_smem<T>());
-    done = true;
-  }
-}
-
-template <typename T>
-void launch_k1(const void* wave, int B, int Tw, const void* stats, const void* w0,
-                      const void* gnw, const void* gnb, const void* w1, const void* w2,
-                      const void* w3, float inv_n, float eps, int fast, int t3, void* out,
-                      cudaStream_t s) {
-  set_smem_attrs<T>();
-  conv_k1_kernel<T><<<dim3((t3 + kF - 1) / kF, B), kConvThreads, k1_smem<T>(), s>>>(
+void launch_conv0(const void* wave, int B, int Tw, const void* stats, const void* w0,
+                  const void* gnw, const void* gnb, float inv_n, float eps, int fast, int n0,
+                  void* out, cudaStream_t s) {
+  conv0_gn_kernel<T><<<dim3((n0 + kC0Rows - 1) / kC0Rows, B), kConvThreads, 0, s>>>(
       static_cast<const T*>(wave), Tw, static_cast<const float*>(stats),
       static_cast<const T*>(w0), static_cast<const float*>(gnw), static_cast<const float*>(gnb),
-      static_cast<const T*>(w1), static_cast<const T*>(w2), static_cast<const T*>(w3), inv_n, eps,
-      fast, t3, static_cast<T*>(out));
+      inv_n, eps, fast, n0, static_cast<T*>(out));
 }
 
 template <typename T>
 void launch_k2(const void* x3, int B, int t3, const void* w4, const void* w5,
                       const void* w6, int fast, int t_out, void* out, cudaStream_t s) {
-  set_smem_attrs<T>();
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaFuncSetAttribute(conv_k2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)k2_smem<T>());
+    attr_set = true;
+  }
   conv_k2_kernel<T><<<dim3((t_out + kF - 1) / kF, B), kConvThreads, k2_smem<T>(), s>>>(
       static_cast<const T*>(x3), t3, static_cast<const T*>(w4), static_cast<const T*>(w5),
       static_cast<const T*>(w6), fast, t_out, static_cast<T*>(out));
@@ -296,20 +290,38 @@ int hr_conv_stats(int fp32, const void* wave, int B, int Tw, const void* w0, int
   return (int)cudaGetLastError();
 }
 
-// wave [B, Tw]; stats [B, 2, 512] fp32; w0 [512, 10]; gnw/gnb [512] fp32;
-// w1..w3 [3, 512, 512]; out [B, t3, 512]; T fp32 (fp32 != 0) or bf16.
-int hr_conv_k1(int fp32, const void* wave, int B, int Tw, const void* stats, const void* w0,
-               const void* gnw, const void* gnb, const void* w1, const void* w2, const void* w3,
-               float inv_n, float eps, int fast_gelu, int t3, void* out, void* stream) {
+// K1's conv0 + GroupNorm + GELU: wave [B, Tw]; stats [B, 2, 512] fp32; w0
+// [512, 10]; gnw/gnb [512] fp32; out [B, n0, 512]; T fp32 (fp32 != 0) or bf16.
+int hr_conv0_gn(int fp32, const void* wave, int B, int Tw, const void* stats, const void* w0,
+                const void* gnw, const void* gnb, float inv_n, float eps, int fast_gelu, int n0,
+                void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B > 0 && t3 > 0) {
+  if (B > 0 && n0 > 0) {
     if (fp32)
-      launch_k1<float>(wave, B, Tw, stats, w0, gnw, gnb, w1, w2, w3, inv_n, eps, fast_gelu, t3,
-                       out, s);
+      launch_conv0<float>(wave, B, Tw, stats, w0, gnw, gnb, inv_n, eps, fast_gelu, n0, out, s);
     else
-      launch_k1<__nv_bfloat16>(wave, B, Tw, stats, w0, gnw, gnb, w1, w2, w3, inv_n, eps,
-                               fast_gelu, t3, out, s);
+      launch_conv0<__nv_bfloat16>(wave, B, Tw, stats, w0, gnw, gnb, inv_n, eps, fast_gelu, n0,
+                                  out, s);
   }
+  return (int)cudaGetLastError();
+}
+
+// K1's stride-2 convs: out [B, M, 512] = T(gelu(rows . taps)), where row r of
+// batch element b is the K = kt * 512 elements at x + b * x_batch + r * lda
+// (ops/conv_stack.py conv_rows: x_batch = t_in * 512, lda = 2 * 512) and
+// taps [kt, 512, 512] tap-major; T fp32 (fp32 != 0) or bf16.
+int hr_conv_s2(int fp32, const void* x, long long x_batch, int lda, int K, const void* taps,
+               int B, int M, int fast_gelu, void* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FloatGemmArgs g{};
+  g.a = x, g.a_batch = x_batch, g.lda = lda;
+  g.w = taps, g.w_tap = (long long)kC * kC, g.ldw = kC, g.ktap = kC;
+  g.M = M, g.N = kC, g.K = K;
+  g.out = out, g.out_batch = (long long)M * kC, g.ldo = kC, g.fast = fast_gelu;
+  if (fp32)
+    launch_float_gemm<float, kFepGelu>(g, B, s);
+  else
+    launch_float_gemm<__nv_bfloat16, kFepGelu>(g, B, s);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
-// Warp-level float GEMM pieces shared by csrc/ffn_bf16.cu and
-// csrc/conv_stack.cu: an activation panel in shared memory times a weight
-// panel read from device memory (L2) with the reduction axis contiguous,
-// fp32 sums.
+// Warp-level float GEMM pieces of the conv stack's K2 (csrc/conv_stack.cu
+// conv_layer), their only GEMM user: an activation panel in shared memory
+// times a weight panel read from device memory (L2) with the reduction axis
+// contiguous, fp32 sums. (The float FFN and K1 run the large-tile GEMM of
+// csrc/float_wgmma.cuh; the bf16 attention tiles, csrc/attention_tiles.cuh,
+// take mma_bf16 from here.)
 //
 // bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Each lane loads 16
 // bytes (8 consecutive channels) of a weight row and of an activation row
@@ -109,14 +111,6 @@ __device__ __forceinline__ void fma_panel(float (&acc)[R][NC], const float* a, i
   }
 }
 
-// Two adjacent columns, rounded to T.
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-
 // Eight consecutive elements (16-byte aligned), copied or zeroed.
 __device__ __forceinline__ void copy8(__nv_bfloat16* dst, const __nv_bfloat16* src) {
   *reinterpret_cast<uint4*>(dst) = ldg16(src);
@@ -132,8 +126,6 @@ __device__ __forceinline__ void zero8(float* dst) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
   reinterpret_cast<float4*>(dst)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
-
-__device__ __forceinline__ float gelu(float x, int fast) { return fast ? gelu_tanh(x) : gelu_erf(x); }
 
 // H100 dynamic shared memory a block may opt in to.
 constexpr int kMaxDynSmem = 227 * 1024;

@@ -17,7 +17,7 @@
 // - wgmma.mma_async m64nBNk32 s8.s8 -> s32, both operands K-major from
 //   shared memory, as A and W already are; each consumer warpgroup owns 64
 //   rows of the block (WG warpgroups, BM = 64 * WG rows) and all BN columns;
-// - a kGemmStages-deep ring of A and W tiles of 128 K-bytes, filled by
+// - a STAGES-deep ring of A and W tiles of 128 K-bytes, filled by
 //   16-byte cp.async from every thread, written in the 128-byte swizzle that
 //   the wgmma descriptors name (16-byte chunk c of row r at chunk c ^ (r % 8),
 //   8-row groups 1024 bytes apart); chunks past M, N or K are zero-filled by
@@ -33,6 +33,8 @@
 // - activations follow x's dtype, as the JAX wrappers store x.dtype: the
 //   residual epilogues read a residual of type RT (bf16 or fp32), and
 //   kEpiF32 stores the dequantized fp32 value where kEpiBf16 rounds it.
+// The ring's tile loader, the swizzle and the wgmma descriptor and fences
+// below also carry the float GEMM (csrc/float_wgmma.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -155,16 +157,20 @@ struct Wgmma<128> {
   }
 };
 
-// rows of a [rows, K] int8 operand from row0 on, K-bytes k0 .. k0+127, into
-// one swizzled tile of R rows
-template <int R, int THREADS>
-__device__ __forceinline__ void load_tile(uint8_t* tile, const int8_t* src, int row0, int rows,
-                                          int K, int k0, int tid) {
+// Rows row0 .. row0+R-1 of an operand of T whose rows are ld elements apart,
+// elements k0 .. k0 + 128/sizeof(T) - 1 of each (128 bytes), into one
+// swizzled tile of R rows; 16-byte chunks of rows >= rows or at K or past it
+// are zero-filled (K is a multiple of 16 bytes: a chunk is all in or all
+// out). Shared with the float GEMM (csrc/float_wgmma.cuh).
+template <int R, int THREADS, typename T>
+__device__ __forceinline__ void load_tile(uint8_t* tile, const T* src, int row0, int rows,
+                                          size_t ld, int K, int k0, int tid) {
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte chunk
   for (int idx = tid; idx < R * 8; idx += THREADS) {
     const int r = idx >> 3, c = idx & 7;
-    const bool ok = row0 + r < rows && k0 + 16 * c < K;
+    const bool ok = row0 + r < rows && k0 + E * c < K;
     cp_async16(tile + r * 128 + ((c ^ (r & 7)) << 4),
-               ok ? src + (size_t)(row0 + r) * K + k0 + 16 * c : src, ok ? 16 : 0);
+               ok ? src + (size_t)(row0 + r) * ld + k0 + E * c : src, ok ? 16 : 0);
   }
 }
 
@@ -184,8 +190,8 @@ int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ as,
 
   auto load = [&](int kt) {
     uint8_t* st = ring + (kt % STAGES) * T::STAGE;
-    load_tile<T::BM, T::THREADS>(st, A, m0, M, K, kt * kGemmBK, tid);
-    load_tile<BN, T::THREADS>(st + T::A_BYTES, W, n0, N, K, kt * kGemmBK, tid);
+    load_tile<T::BM, T::THREADS>(st, A, m0, M, (size_t)K, K, kt * kGemmBK, tid);
+    load_tile<BN, T::THREADS>(st + T::A_BYTES, W, n0, N, (size_t)K, K, kt * kGemmBK, tid);
   };
 
   int acc[BN / 2];

@@ -36,6 +36,7 @@ LIBS = ("quant_gemm", "attention", "wavlm_attention", "flash_attention", "ffn_bf
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 # C signatures, one per entry point (see the matching .cu file)
 SIGNATURES = {
@@ -59,13 +60,12 @@ SIGNATURES = {
                                    P, P, I, I, I, P],
     },
     "ffn_bf16": {
-        "hr_ffn_smem_bytes": [I, I, I],
-        "hr_ffn_max_smem_bytes": [],
-        "hr_ffn_block": [I, P, P, P, P, P, P, P, I, I, I, F, I, P, P],
+        "hr_ffn_gemms": [I, P, P, P, P, P, I, I, I, I, P, P, P],
     },
     "conv_stack": {
         "hr_conv_stats": [I, P, I, I, P, I, P, P],
-        "hr_conv_k1": [I, P, I, I, P, P, P, P, P, P, P, F, F, I, I, P, P],
+        "hr_conv0_gn": [I, P, I, I, P, P, P, P, F, F, I, I, P, P],
+        "hr_conv_s2": [I, P, L, I, I, P, I, I, I, P, P],
         "hr_conv_k2": [I, P, I, I, P, P, P, I, I, P, P],
     },
 }

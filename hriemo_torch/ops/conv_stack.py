@@ -17,7 +17,9 @@ Two parts:
     rows, ``[B, 2, C]`` fp32;
   - :func:`conv_stack_k1` replaces ``_k1_kernel`` (``:243``): conv0,
     GroupNorm from those sums (``var = s2/n - mean^2``, no clamp, unlike
-    the Gram route), GELU, conv1..3, ``[B, t3, C]``;
+    the Gram route), GELU, conv1..3, ``[B, t3, C]``; on the card conv0 is
+    one pass and each of conv1..3 one GEMM over :func:`conv_rows`, the
+    strided view of its input;
   - :func:`conv_stack_k2` replaces ``_k2_kernel`` (``:263``): conv4..6,
     ``[B, t_out, C]``.
 
@@ -87,6 +89,16 @@ def conv_taps(weight, dtype):
     """torch Conv1d weight ``[C_out, C_in, K]`` -> tap-major ``[K, C_out,
     C_in]`` contiguous in ``dtype``, the kernels' weight layout."""
     return weight.detach().to(dtype).permute(2, 0, 1).contiguous()
+
+
+def conv_rows(x, k: int):
+    """The rows of a stride-2 conv with ``k`` taps over ``x [B, T, C]``
+    (contiguous) as one GEMM operand, with no copy: ``[B, t_out, k*C]``,
+    where row r of batch element b is ``x[b, 2r : 2r + k]`` flattened, its
+    ``k*C`` elements contiguous and rows ``2C`` apart (tap j at K-offset
+    ``j*C``). The card's K1 convs read exactly this view."""
+    b, t, c = x.shape
+    return x.as_strided((b, (t - k) // 2 + 1, k * c), (t * c, 2 * c, 1), x.storage_offset())
 
 
 # ---------------------------------------------------------------- plain
@@ -174,7 +186,9 @@ conv_stack_stats.launches = 0
 
 def conv_stack_k1(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu: bool):
     """conv0, GroupNorm (from ``stats``, :func:`conv_stack_stats`), GELU and
-    conv1..3 (taps ``[3, C, C]``): ``[B, t3, C]`` in the waveform's dtype."""
+    conv1..3 (taps ``[3, C, C]``): ``[B, t3, C]`` in the waveform's dtype.
+    On the card four launches: conv0 into a ``[B, n0, C]`` workspace, then
+    each conv one GEMM over :func:`conv_rows` of the previous output."""
     if wave.device.type == "cpu":
         return conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps, fast_gelu)
     _check_wave(wave, "conv_stack_k1")
@@ -189,14 +203,21 @@ def conv_stack_k1(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu
     _cuda.require(gn_b, "gn_b", torch.float32, (CHANNELS,), dev)
     for taps, name in ((w1, "w1"), (w2, "w2"), (w3, "w3")):
         _check_taps(taps, 3, dt, dev, name)
-    out = torch.empty((b, lens[3], CHANNELS), dtype=dt, device=dev)
-    _cuda.check(_cuda.lib("conv_stack").hr_conv_k1(
-        int(dt == torch.float32), wave.data_ptr(), b, tw, stats.data_ptr(), w0.data_ptr(),
-        gn_w.data_ptr(), gn_b.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
-        1.0 / lens[0], eps, int(fast_gelu), lens[3], out.data_ptr(), _cuda.stream()),
-        "hr_conv_k1")
+    lib, fp32 = _cuda.lib("conv_stack"), int(dt == torch.float32)
+    x = torch.empty((b, lens[0], CHANNELS), dtype=dt, device=dev)
+    _cuda.check(lib.hr_conv0_gn(
+        fp32, wave.data_ptr(), b, tw, stats.data_ptr(), w0.data_ptr(), gn_w.data_ptr(),
+        gn_b.data_ptr(), 1.0 / lens[0], eps, int(fast_gelu), lens[0], x.data_ptr(),
+        _cuda.stream()), "hr_conv0_gn")
+    for taps in (w1, w2, w3):
+        rows = conv_rows(x, 3)
+        x = torch.empty((b, rows.shape[1], CHANNELS), dtype=dt, device=dev)
+        _cuda.check(lib.hr_conv_s2(
+            fp32, rows.data_ptr(), rows.stride(0), rows.stride(1), rows.shape[2],
+            taps.data_ptr(), b, rows.shape[1], int(fast_gelu), x.data_ptr(), _cuda.stream()),
+            "hr_conv_s2")
     conv_stack_k1.launches += 1
-    return out
+    return x
 
 
 conv_stack_k1.launches = 0

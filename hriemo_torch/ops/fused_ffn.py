@@ -27,11 +27,12 @@ that round trip in a later version.
 
 A third kernel, :func:`ffn_block_bf16`, replaces ``_kernel_bf16``
 (``:112-124``, ``pallas_call`` at ``:192``): the same block over bf16 or
-fp32 x and weights, one launch of ``csrc/ffn_bf16.cu`` with the hidden
-panel in shared memory. Its gradient recomputes through the unfused
-reference, as the JAX custom VJP does. The JAX routing never calls it
-(float FFNs go per op, ``route_ffn_block``); :func:`use_ffn_bf16` is that
-gate, False.
+fp32 x and weights, three launches: the two products as large-tile GEMMs of
+``csrc/ffn_bf16.cu`` (bf16 on ``wgmma``, fp32 in 3xTF32; the hidden
+activation goes through device memory in x's dtype), then the fp32
+LayerNorm pass. Its gradient recomputes through the unfused reference, as
+the JAX custom VJP does. The JAX routing never calls it (float FFNs go per
+op, ``route_ffn_block``); :func:`use_ffn_bf16` is that gate, False.
 """
 
 from __future__ import annotations
@@ -257,15 +258,13 @@ def _ffn_bf16_launch(x, w1, b1, w2, b2, ln_w, ln_b, eps, fast_gelu):
         _cuda.require(t, name, torch.float32, (d,), dev)
     if d % 32 or f % 32:
         raise ValueError(f"ffn_block_bf16: widths {d}, {f} must be multiples of 32")
-    lib = _cuda.lib("ffn_bf16")
-    fp32 = int(dt == torch.float32)
-    if lib.hr_ffn_smem_bytes(fp32, d, f) > lib.hr_ffn_max_smem_bytes():
-        raise ValueError(f"ffn_block_bf16: widths {d}, {f} do not fit shared memory")
-    out = torch.empty_like(x)
-    _cuda.check(lib.hr_ffn_block(fp32, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                                 b2.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), m, d, f, eps,
-                                 int(fast_gelu), out.data_ptr(), _cuda.stream()),
-                "hr_ffn_block")
+    h = torch.empty((m, f), dtype=dt, device=dev)
+    y = torch.empty((m, d), dtype=torch.float32, device=dev)
+    _cuda.check(_cuda.lib("ffn_bf16").hr_ffn_gemms(
+        int(dt == torch.float32), x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), m, d, f, int(fast_gelu), h.data_ptr(), y.data_ptr(), _cuda.stream()),
+        "hr_ffn_gemms")
+    out = _cuda.layernorm(y, ln_w, ln_b, eps, dt)
     ffn_block_bf16.launches += 1
     return out
 
@@ -292,8 +291,8 @@ def ffn_block_bf16(x, w1, b1, w2, b2, ln_w, ln_b, eps: float = 1e-5, fast_gelu: 
     """Fused float FFN block ``LN(x + W2 gelu(W1 x + b1) + b2)`` over ``x [M,
     D]`` bf16 or fp32, torch-layout weights ``w1 [F, D]``, ``w2 [D, F]`` of
     x's dtype, fp32 ``b1``, ``b2``, ``ln_w``, ``ln_b``; returns ``[M, D]``
-    in x's dtype. On the CPU the plain version runs; on the card one launch
-    (or a raise). Differentiable: the backward recomputes through
+    in x's dtype. On the CPU the plain version runs; on the card three
+    launches (or a raise). Differentiable: the backward recomputes through
     :func:`ffn_reference`."""
     return _FfnBf16.apply(x, w1, b1, w2, b2, ln_w, ln_b, eps, fast_gelu)
 

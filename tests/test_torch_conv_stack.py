@@ -12,10 +12,12 @@ import pytest
 import torch
 
 from hriemo.frontends import WavLMConfig, WavLMEncoder
+from hriemo.ops.conv_stack import _conv_k2s2, _conv_k3s2
 from hriemo.ops.conv_stack import conv_stack_fused as jax_conv_stack
 import hriemo_torch.frontends as TF
 from hriemo_torch.nn.layers import gelu
 from hriemo_torch.ops import conv_stack as CS
+from hriemo_torch.ops.fused_ffn import gelu_fp32
 
 from torch_port_helpers import flat, one_torch_thread, same_config  # noqa: F401
 from hriemo_torch.utils.convert import load_flat_params
@@ -112,3 +114,52 @@ def test_gate_is_off_and_forcing_it_keeps_the_encoder(encoders, monkeypatch):
     assert calls == [1]
     np.testing.assert_array_equal(fm.numpy(), fm_forced.numpy())
     np.testing.assert_allclose(forced.numpy(), routed.numpy(), atol=2e-4, rtol=2e-3)
+
+
+def _bf16_steps(got, ref):
+    """|got - ref| in bf16 steps at the larger of the two magnitudes, taken
+    at 1/16 at least: GELU's tail maps large negative sums to outputs near 0,
+    where fp32 sums in another order move the output by ~1e-7 (many steps of
+    a value of 1e-6)."""
+    a, r = got.float().numpy(), np.asarray(ref, np.float32)
+    mag = np.maximum(np.maximum(np.abs(a), np.abs(r)), 1.0 / 16)
+    return np.abs(a - r) / 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [40, 41])
+@pytest.mark.parametrize("k", [3, 2])
+def test_strided_view_conv_matches_jax(k, t, dtype):
+    """The view the card's K1 convs read (conv_rows: rows 2C apart, K = k*C,
+    tap j at K-offset j*C) times the tap-major weights gives the JAX
+    kernels' stride-2 convs (_conv_k3s2 / _conv_k2s2, which take an even T:
+    odd T gets one zero row, whose output row is not a valid row) and the
+    port's tap-by-tap _conv_s2: fp32 at 1e-5, bf16 within one step."""
+    rng = np.random.default_rng(100 * k + t)
+    c = 64
+    x = rng.standard_normal((1, t, c)).astype(np.float32)
+    taps = rng.standard_normal((k, c, c)).astype(np.float32) * 0.1
+    xt = torch.from_numpy(x).to(dtype)
+    tt = torch.from_numpy(taps).to(dtype)
+    rows = CS.conv_rows(xt, k)
+    t_out = (t - k) // 2 + 1
+    assert rows.shape == (1, t_out, k * c) and rows.stride() == (t * c, 2 * c, 1)
+    assert rows.data_ptr() == xt.data_ptr()  # a view, not a copy
+    np.testing.assert_array_equal(rows[0, 1].float().numpy(),
+                                  xt[0, 2:2 + k].reshape(-1).float().numpy())
+    # the tap-major weights read as [C_out, k*C_in], as the card's GEMM does
+    w = tt.permute(1, 0, 2).reshape(c, k * c)
+    got = gelu_fp32(rows.float() @ w.float().t(), True).to(dtype)
+
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    xj = jnp.asarray(np.pad(x[0], ((0, t % 2), (0, 0)))).astype(jdt)
+    wj = [jnp.asarray(taps[j].T).astype(jdt) for j in range(k)]
+    ref = _conv_k3s2(xj, *wj, True) if k == 3 else _conv_k2s2(xj, jnp.concatenate(wj), True)
+    ref = np.asarray(ref.astype(jnp.float32))[None, :t_out]
+    port = CS._conv_s2(xt, tt, True).float().numpy()
+    assert got.dtype == dtype and got.shape == port.shape == ref.shape
+    for want in (ref, port):
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+        else:
+            assert _bf16_steps(got, want).max() <= 1.0

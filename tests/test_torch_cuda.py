@@ -407,12 +407,14 @@ def _ffn_operands(gen, d, f, dtype):
             1.0 + _randn(gen, d, scale=0.1, dtype=f32), _randn(gen, d, scale=0.1, dtype=f32))
 
 
-@pytest.mark.parametrize("m", [1, 41, 300])
+@pytest.mark.parametrize("m", [1, 41, 128, 129, 300, 3992])
 @pytest.mark.parametrize("fast_gelu", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_ffn_block_bf16(gen, m, fast_gelu, dtype):
-    """The float FFN block at WavLM's widths: bf16 at the sublayer
-    tolerance, fp32 at 2e-4 (fp32 sums in another order only)."""
+    """The float FFN block at WavLM's widths, row counts on each side of a
+    128-row GEMM tile and the extraction batch's 3992: bf16 at the sublayer
+    tolerance, fp32 at 2e-4 (3xTF32 products and fp32 sums in another
+    order)."""
     ops = _ffn_operands(gen, 768, 3072, dtype)
     x = _randn(gen, m, 768, dtype=dtype)
     before = FF.ffn_block_bf16.launches
@@ -448,12 +450,15 @@ def _stack_operands(gen, dtype):
     return enc, CS.stack_operands(enc.feature_extractor, dtype)
 
 
-@pytest.mark.parametrize("b,tw", [(1, 16000), (2, 400), (3, 2920), (2, 160000)])
+@pytest.mark.parametrize("b,tw", [(1, 16000), (2, 400), (3, 2920), (2, 160000), (1, 2580),
+                                  (2, 2600), (2, 5200)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv_stack_stages(gen, b, tw, dtype):
     """Each stage against its plain version on the same inputs: B=1 at 1 s;
     400 samples (one output frame, shorter than a tile); 2920 samples (72
-    conv3 rows and 8 output frames: both end on a tile); 10 s."""
+    conv3 rows and 8 output frames: both end on a K2 tile); 10 s; and K1's
+    convs one row past a 128-row GEMM tile: 2580 samples (t1 = 257), 2600
+    (t2 = 129) and 5200 (t3 = 129)."""
     _, (w0, gn_w, gn_b, *taps) = _stack_operands(gen, dtype)
     wave = _randn(gen, b, tw, scale=0.3, dtype=dtype)
     before = [CS.conv_stack_stats.launches, CS.conv_stack_k1.launches, CS.conv_stack_k2.launches]
@@ -484,6 +489,25 @@ def test_conv_stack_k1_shorter_than_a_tile(gen):
     torch.testing.assert_close(
         got, CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, False),
         atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_stack_k1_workspace_reuse(gen, dtype):
+    """K1's conv workspaces come from the caching allocator: calls of other
+    lengths in turn (each reusing the blocks the last one freed, longer or
+    shorter) still match their plain versions."""
+    _, (w0, gn_w, gn_b, *taps) = _stack_operands(gen, dtype)
+    for tw in (48000, 16000, 32000, 16000):
+        wave = _randn(gen, 2, tw, scale=0.3, dtype=dtype)
+        stats = CS.conv_stack_stats(wave, w0)
+        got = CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, True)
+        ref = CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, True)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        else:
+            _close(got, ref)
+        del got, ref
 
 
 def test_conv_stack_fused_matches_routed_encoder(gen):

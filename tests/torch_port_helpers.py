@@ -69,3 +69,23 @@ def assert_kernel_close(got, ref, atol=KERNEL_ATOL, rtol=KERNEL_RTOL,
 def bf16(x) -> torch.Tensor:
     """numpy -> bf16 torch tensor."""
     return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x with its 13 low mantissa bits cleared: the TF32 value a tensor
+    core reads from fp32 bits."""
+    return (x.float().contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in fp32 as the card's 3xTF32 GEMM (hriemo_torch/csrc/
+    float_wgmma.cuh) computes it: each operand split into big (masked to
+    TF32) and small = x - big, small truncated to TF32 by the tensor core,
+    then small.big + big.small + big.big with fp32 sums."""
+    ab, bb = tf32_truncate(a), tf32_truncate(b)
+    return tf32_truncate(a - ab) @ bb + ab @ tf32_truncate(b - bb) + ab @ bb
+
+
+def matmul_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as one TF32 product: both operands truncated to TF32."""
+    return tf32_truncate(a) @ tf32_truncate(b)
