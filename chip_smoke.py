@@ -10,25 +10,27 @@ Phases, any failure exits non-zero:
    source, in parallel) into ``hriemo_torch/_build/``;
 3. each kernel against its plain PyTorch version on the card at the serving
    paths' shapes: max |error| against the stated tolerance (``TOL`` for
-   sublayer outputs, ``ATTN_TOL`` for the raw outputs of the attention
-   cores, which also rejects a streaming result that drops the last,
-   partial key block and a gated one-pass result that drops its last,
-   partial key tile, each in bf16 and in fp32 at its kernel's key tile;
-   ``CONV_TOL`` for the conv-stack stages, which also rejects, in bf16 and
-   fp32, a K1 result whose conv1 row at the edge of a 128-row GEMM tile
-   drops its third tap), and CUDA-event
-   times of the kernel, the plain version and, where one PyTorch call
-   computes the same function, that call (``library_ms``, a yardstick the
-   port never calls, and ``ms / library_ms``), beside the least time the
-   card could take; for the float FFN and the conv stack, the routed path's
-   time (``route_ms``: cuBLAS and LayerNorm, cuDNN ``_feature_encoder``)
-   instead; then the two kernels under the int8 wrappers alone, beside
-   their own yardsticks: the int8 attention core (``attention_core_int8``)
-   against SDPA, with its own limit check (a gated B=4 L=499 result
-   without its last key tile), and the shared int8 GEMM at the 10 s
-   bucket's rows, bit-equal to its plain version, against
-   ``torch._int_mm``; phase 4 then gives each of these rows its launches
-   per forward;
+   sublayer outputs, ``ATTN_TOL`` for the raw outputs of the attention cores,
+   which also rejects a streaming result that drops the last, partial key
+   block and a gated one-pass result that drops its last, partial key tile,
+   each in bf16 and in fp32 at its kernel's key tile; ``CONV_TOL`` for the
+   conv-stack stages, which also rejects, in bf16 and fp32, a K1 result whose
+   conv1 row and a K2 result whose conv4 row at the edge of a 128-row GEMM
+   tile drops its third tap; ``STATS_TOL`` for the GroupNorm sums, which also
+   rejects a result without the last, partial chunk of conv0 rows, and the
+   stats kernel must give the same bits on two calls), and CUDA-event times of
+   the kernel, the plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``, a yardstick the port never calls, and
+   ``ms / library_ms``), beside the least time the card could take; for the
+   float FFN and the conv stack, the routed path's time (``route_ms``: cuBLAS
+   and LayerNorm; the Gram-matrix GroupNorm statistics for the stats, cuDNN
+   conv4..6 for K2, cuDNN ``_feature_encoder`` for the fused stack) instead;
+   then the two kernels under the int8 wrappers alone, beside their own
+   yardsticks: the int8 attention core (``attention_core_int8``) against SDPA,
+   with its own limit check (a gated B=4 L=499 result without its last key
+   tile), and the shared int8 GEMM at the 10 s bucket's rows, bit-equal to its
+   plain version, against ``torch._int_mm``; phase 4 then gives each of these
+   rows its launches per forward;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -67,6 +69,7 @@ torch.profiler (``chip_smoke_out/profile_<run>.txt``).
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import pathlib
@@ -113,7 +116,8 @@ ATTN_TOL = {torch.bfloat16: dict(atol=8e-3, rtol=1e-2, median=1e-3, per_batch=Tr
 # 0.68 (bf16) and 0.72 (fp32), median 0, and must fail.
 CONV_TOL = {torch.bfloat16: dict(atol=3e-2, rtol=1e-2, median=1e-3, per_batch=True),
             torch.float32: dict(atol=1e-4, rtol=1e-4, median=1e-5, per_batch=True)}
-# GroupNorm sums (of order 1e3-1e4 at 10 s): readings max 0.0137, median 1.4e-4
+# GroupNorm sums (of order 1e3-1e4 at 10 s): readings max 0.0137, median 1.4e-4.
+# A result without the last, partial chunk of conv0 rows must fail.
 STATS_TOL = dict(atol=1e-2, rtol=1e-4, median=1e-3)
 FP32_TOL = dict(atol=2e-4, rtol=0.0, median=2e-5)  # fp32 sublayer outputs near 1
 PROB_GATE = 0.006         # bench.py INT8_PROB_DELTA_MAX
@@ -122,7 +126,7 @@ PROB_GATE = 0.006         # bench.py INT8_PROB_DELTA_MAX
 PEAK_BYTES, PEAK_INT8, PEAK_BF16, PEAK_FP32 = 3.35e12, 1979e12, 989e12, 67e12
 PEAK_TF32 = 495e12
 # The fp32 attention cores at head dims 64 and 96, the fp32 float FFN and
-# K1's fp32 convs run 3xTF32: three TF32 products for each fp32 one
+# the conv stack's fp32 convs (K1's and K2's) run 3xTF32: three TF32 products for each fp32 one
 # (csrc/attention_tf32.cuh, csrc/float_wgmma.cuh), so their bound is three
 # times the fp32 GEMM operations at the TF32 rate
 TF32_PRODUCTS = 3
@@ -458,17 +462,22 @@ def check_kernels(gen):
             ffn_grad = ffn_backward_check(x, w1, b1, w2, b2, g, b_)
 
     # conv stack: each stage on 8 x 10 s (the extraction batch), a 1 s clip
-    # at B=1, and 2920 samples (72 conv3 rows, 8 output frames: both end on
-    # a K2 tile); both trees; the fused stack against the routed feature
-    # encoder. K1's fp32 convs run 3xTF32, its conv0 on CUDA cores.
+    # at B=1, and 2920 samples (72 conv3 rows, 8 output frames); both trees;
+    # the fused stack against the routed feature encoder. The fp32 convs of
+    # K1 and K2 run 3xTF32, conv0 (K1's pass and the stats) on CUDA cores.
+    # Routes, timed after every other row (late_routes): the Gram-matrix
+    # statistics the routed encoder takes, and its cuDNN conv4..6 on the
+    # conv3 output in channel-first layout.
     enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1))
     enc.init_weights(gen)
     enc = enc.to(dev).eval()
     enc16 = copy.deepcopy(enc).to(torch.bfloat16)
-    edge_inputs = {}
+    edge_inputs, late_routes = {}, []
     for dt in (torch.bfloat16, torch.float32):
         w0, gn_w, gn_b, *taps = CS.stack_operands(enc.feature_extractor, dt)
         tdt = 0 if dt == torch.float32 else 1
+        route_enc = enc if dt == torch.float32 else enc16
+        route_convs = route_enc.feature_extractor.conv_layers
         for b, tw in ((8, 160000), (1, 16000), (2, 2920)):
             wave = randn(b, tw, scale=0.3, dtype=dt)
             lens = CS.conv_lengths(tw)
@@ -480,9 +489,12 @@ def check_kernels(gen):
             ops2 = 2 * b * (3 * lens[4] + 2 * lens[5] + 2 * lens[6]) * 512 * 512
             conv_ops = lambda n: (0, n * tdt, n * (1 - tdt))
             k1_ops = (*conv_ops(ops1), 0) if tdt else (0, 0, ops0, TF32_PRODUCTS * (ops1 - ops0))
+            k2_ops = (*conv_ops(ops2), 0) if tdt else (0, 0, 0, TF32_PRODUCTS * ops2)
             run("conv_stack_stats", tag, lambda: CS.conv_stack_stats(wave, w0),
                 lambda: CS.conv_stack_stats_plain(wave, w0), None,
                 nbytes(wave, w0, stats), *conv_ops(ops0), tol=STATS_TOL)
+            late_routes.append((rows[-1], lambda wave=wave, conv=route_convs[0].conv: lambda:
+                                CS.group_norm_stats_from_waveform(wave, conv.weight)))
             run("conv_stack_k1", tag,
                 lambda: CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, *taps[:3], EPS, False),
                 lambda: CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], EPS,
@@ -491,14 +503,14 @@ def check_kernels(gen):
             out = CS.conv_stack_k2_plain(x3, *taps[3:], False)
             run("conv_stack_k2", tag, lambda: CS.conv_stack_k2(x3, *taps[3:], False),
                 lambda: CS.conv_stack_k2_plain(x3, *taps[3:], False), None,
-                nbytes(x3, *taps[3:], out), *conv_ops(ops2), tol=CONV_TOL[dt])
+                nbytes(x3, *taps[3:], out), *k2_ops, tol=CONV_TOL[dt])
+            late_routes.append((rows[-1], functools.partial(k2_route, x3, route_convs[4:7])))
             if b != 8:
                 continue
-            edge_inputs[dt] = (wave, stats, w0, gn_w, gn_b, taps[:3])
+            edge_inputs[dt] = (wave, stats, w0, gn_w, gn_b, taps, x3)
             # the fused stack: fp32 against the cuDNN route (TF32 off) at
             # tests/test_conv_stack.py's 2e-4/2e-3, bf16 against the fp32
             # route at its 0.15 envelope
-            route_enc = enc if dt == torch.float32 else enc16
             with torch.no_grad():
                 fused = CS.conv_stack_fused(enc.feature_extractor, wave, enc.config)
                 ref = enc._feature_encoder(wave.float())
@@ -590,14 +602,29 @@ def check_kernels(gen):
             for c, name in enumerate(_cuda.GEMM_CONFIGS)}
         print(f"    by configuration: {rows[-1]['config_ms']}", flush=True)
 
-    # the int8 core without its last key tile, and K1 without one tile-edge
-    # row's third tap, after every timing
+    # the conv stack's routes, after the other timings
+    for rec, make_route in late_routes:
+        rec["route_ms"] = cuda_ms(make_route())
+        print(f"  {rec['kernel']:22s} {rec['shape']:28s} route {rec['route_ms']:.4f} ms "
+              f"(kernel {rec['ms']:.4f} ms)", flush=True)
+    del late_routes
+    # the int8 core without its last key tile, K1 and K2 without one
+    # tile-edge row's third tap, the stats without their last chunk and
+    # twice on the same input, after every timing
     core_check = dropped_tile("attention_core_int8", ONEPASS_KEY_TILE, 499, torch.bfloat16,
                               core_upto)
-    edge_check = {str(dt)[6:]: dropped_tap(*args) for dt, args in edge_inputs.items()}
+    edge_check, k2_edge_check, chunk_check, stats_bits = {}, {}, {}, {}
+    for dt, (wave, stats, w0, gn_w, gn_b, taps, x3) in edge_inputs.items():
+        name = str(dt)[6:]
+        x0 = CS._conv0_gn(wave[:1], stats[:1], w0, gn_w, gn_b, EPS, False)
+        edge_check[name] = dropped_tap("conv_stack_k1", "conv1", x0, taps[:3])
+        k2_edge_check[name] = dropped_tap("conv_stack_k2", "conv4", x3[:1], taps[3:])
+        chunk_check[name] = dropped_chunk(wave, w0)
+        stats_bits[name] = same_bits(wave, w0)
     return rows, dict(streaming_last_block=limit_check, onepass_gated_last_tile=gated_check,
                       int8_core_last_tile=core_check, conv_k1_tile_edge=edge_check,
-                      ffn_backward=ffn_grad)
+                      conv_k2_tile_edge=k2_edge_check, stats_last_chunk=chunk_check,
+                      stats_same_bits=stats_bits, ffn_backward=ffn_grad)
 
 
 def ffn_backward_check(x, w1, b1, w2, b2, g, b):
@@ -620,34 +647,78 @@ def ffn_backward_check(x, w1, b1, w2, b2, g, b):
     return out
 
 
-def dropped_tap(wave, stats, w0, gn_w, gn_b, taps, row=127):
-    """``CONV_TOL`` must reject a K1 result whose conv1 row ``row`` (127: the
-    last row of the first 128-row GEMM tile) of batch element 0 sums only
-    two of its three taps, as a K-loop that stopped a tap early at the
-    tile's edge would; conv2 and conv3 then run on it as they are. Returns
-    that wrong result's max and median |error|."""
-    inv_n = 1.0 / CS.conv_lengths(wave.shape[1])[0]
-    mean = stats[:1, 0:1] * inv_n
-    var = stats[:1, 1:2] * inv_n - mean * mean
-    x0 = FF.gelu_fp32((CS._conv0(wave[:1], w0) - mean) * torch.rsqrt(var + EPS) * gn_w + gn_b,
-                      False).to(wave.dtype)
-    x1 = CS._conv_s2(x0, taps[0], False)
-    cut = x1.clone()
-    two = sum(x0[:, 2 * row + k].float() @ taps[0][k].float().t() for k in range(2))
-    cut[:, row] = FF.gelu_fp32(two, False).to(wave.dtype)
-    ref, wrong = (CS._conv_s2(CS._conv_s2(x, taps[1], False), taps[2], False) for x in (x1, cut))
+def k2_route(x3, convs):
+    """K2's function on the routed encoder's path, as a call of no
+    arguments: its cuDNN conv4..6 with erf GELU over ``x3 [B, t3, C]`` in
+    channel-first layout (made here, outside the call)."""
+    x3_cf = x3.transpose(1, 2).contiguous()
+
+    def route():
+        with torch.no_grad():
+            x = x3_cf
+            for layer in convs:
+                x = gelu(layer.conv(x), False)
+            return x
+    return route
+
+
+def dropped_tap(kernel, conv, x, taps, row=127):
+    """``CONV_TOL`` must reject a result of ``kernel`` (its convs ``taps``
+    over ``x``, batch element 0) whose first conv's row ``row`` (127: the
+    last row of the first 128-row GEMM tile) sums only two of its three
+    taps, as a K-loop that stopped a tap early at the tile's edge would; the
+    later convs then run on it as they are. Returns that wrong result's max
+    and median |error|."""
+    first = CS._conv_s2(x, taps[0], False)
+    cut = first.clone()
+    two = sum(x[:, 2 * row + k].float() @ taps[0][k].float().t() for k in range(2))
+    cut[:, row] = FF.gelu_fp32(two, False).to(x.dtype)
+    ref, wrong = first, cut
+    for t in taps[1:]:
+        ref, wrong = CS._conv_s2(ref, t, False), CS._conv_s2(wrong, t, False)
     diff = (wrong.float() - ref.float()).abs()
-    reading = dict(row=f"conv1 row {row} of batch element 0 without tap 2",
+    reading = dict(row=f"{conv} row {row} of batch element 0 without tap 2",
                    max_abs_err=diff.max().item(),
                    median_abs_err_per_batch=diff.flatten(1).median(dim=1).values.tolist())
     try:
-        compare(f"conv_stack_k1 {str(wave.dtype)[6:]} with a tile-edge row's third tap dropped",
-                wrong, ref, CONV_TOL[wave.dtype])
+        compare(f"{kernel} {str(x.dtype)[6:]} with a tile-edge row's third tap dropped",
+                wrong, ref, CONV_TOL[x.dtype])
     except AssertionError as e:
         print(f"  limit check: rejected, as it must be: {e}", flush=True)
         return reading
-    raise AssertionError(f"CONV_TOL passes a K1 result without a tile-edge row's third tap: "
-                         f"{reading}")
+    raise AssertionError(f"CONV_TOL passes a {kernel} result without a tile-edge row's third "
+                         f"tap: {reading}")
+
+
+def dropped_chunk(wave, w0):
+    """``STATS_TOL`` must reject GroupNorm sums without the last, partial
+    chunk of ``CS.STATS_ROWS`` conv0 rows, as a second level that stopped a
+    chunk early would give. Returns that wrong result's max |error|."""
+    n0 = CS.conv_lengths(wave.shape[1])[0]
+    kept = (n0 - 1) // CS.STATS_ROWS * CS.STATS_ROWS
+    x0 = CS._conv0(wave, w0)[:, :kept]
+    wrong = torch.stack([x0.sum(dim=1), (x0 * x0).sum(dim=1)], dim=1)
+    ref = CS.conv_stack_stats_plain(wave, w0)
+    reading = dict(rows=f"{kept} of {n0}", max_abs_err=(wrong - ref).abs().max().item())
+    try:
+        compare(f"conv_stack_stats {str(wave.dtype)[6:]} without its last chunk", wrong, ref,
+                STATS_TOL)
+    except AssertionError as e:
+        print(f"  limit check: rejected, as it must be: {e}", flush=True)
+        return reading
+    raise AssertionError(f"STATS_TOL passes GroupNorm sums without their last chunk: {reading}")
+
+
+def same_bits(wave, w0):
+    """The stats kernel adds its chunks in a fixed order: two calls on the
+    same input must give the same bits. Returns True."""
+    first, second = CS.conv_stack_stats(wave, w0), CS.conv_stack_stats(wave, w0)
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"conv_stack_stats {str(wave.dtype)[6:]}: two calls differ, max "
+                             f"|d| {(first - second).abs().max().item():.4g}")
+    print(f"  conv_stack_stats {str(wave.dtype)[6:]}: the same bits on two calls", flush=True)
+    return True
 
 
 def dropped_tile(name, tile, lk, dtype, plain_upto):

@@ -23,7 +23,7 @@
 // c[n][2], c[n][3] at row g + 8, the same columns.
 #pragma once
 
-#include "float_gemm.cuh"
+#include "common.cuh"
 
 namespace hr {
 
@@ -42,6 +42,16 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// c += a . b on one m16n8k16 tile: bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Two values rounded to bf16, the first in the low half (the lower k index

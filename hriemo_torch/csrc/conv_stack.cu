@@ -15,155 +15,118 @@
 // [512, 10]).
 //
 // Design.
-// - K1 (conv_stack_k1) is four launches: conv0 + GroupNorm + GELU on CUDA
-//   cores over all n0 rows, the same arithmetic per element as the TPU
-//   kernel, written [B, n0, 512] in T (conv0 has one input channel and 10
-//   taps: 1.3% of the stack's operations); then conv1, conv2 and conv3,
-//   each one large-tile GEMM of csrc/float_wgmma.cuh over a strided view of
-//   its input (output row r of batch element b is the 3*512 contiguous
-//   elements from input row 2r on: lda = 2*512, K = 3*512, tap k of the
-//   tap-major weights read as they are, no copy; batch on the grid's z
-//   axis, rows past t_i zero-filled by the copy and never stored). conv1
-//   and conv2 go to workspaces from the caching allocator, conv3 straight
-//   into out. The TPU kernel kept conv0 on chip; here it makes a round trip
-//   through device memory (262 MB in bf16, 524 MB in fp32 at 8 x 10 s:
-//   about 0.16 / 0.31 ms at 3.35 TB/s), and in exchange every weight tile
-//   staged in shared memory feeds 128 output rows with no halo rows
-//   recomputed, where the first version's blocks of 8 conv3 frames
-//   recomputed 71 conv0, 35 conv1 and 17 conv2 rows and streamed each
-//   conv's 1.5 MB of weights from L2 (about 19 GB of L2 reads at 8 x 10 s).
-// - K2 keeps the first version: a block takes kF = 8 output frames and the
-//   rows they need (halo rows are recomputed): 65 conv3 rows and 32 conv4
-//   rows in shared memory, weights streamed from L2 by each warp for its 64
-//   output channels (mma.sync in bf16, CUDA-core FMAs in fp32,
-//   float_gemm.cuh). Reads are bounded: rows past t3 are zeros, and rows
-//   past the true lengths only feed frames that are not stored.
-// - The stats kernel loops over all rows of a (batch, 32-channel) chunk in
-//   one block and adds its eight row groups in a fixed order, so the sums
-//   (and K1's output) are the same on every run; no atomics.
+// - Every stride-2 conv, conv1..6, is one launch of hr_conv_s2: one
+//   large-tile GEMM of csrc/float_wgmma.cuh (wgmma in bf16, 3xTF32 in fp32)
+//   over a strided view of its input (output row r of batch element b is
+//   the k*512 contiguous elements from input row 2r on: lda = 2*512, K =
+//   k*512, tap j of the tap-major weights read as it is, no copy; batch on
+//   the grid's z axis, rows past the conv's length zero-filled by the copy
+//   and never stored). K1 is conv0's pass and three such launches, K2 three
+//   (ops/conv_stack.py _conv_launches); their workspaces come from the
+//   caching allocator. Every weight tile staged in shared memory feeds 128
+//   output rows and no halo row is recomputed, where the first versions'
+//   blocks of 8 output frames recomputed their halo rows and streamed every
+//   conv's weights from L2 (K2, counted from its code: about 3.7 MB of L2
+//   reads a block in bf16, 1.85 GB at 8 x 10 s), and ran fp32 on CUDA-core
+//   FMAs.
+// - conv0 (one input channel, 10 taps: 1.3% of the stack's operations) runs
+//   on CUDA cores, 10 FMAs an output in tap order, in both of its users.
+//   K1's pass normalises it, applies GELU and writes [B, n0, 512] in T. The
+//   stats are a two-level sum in a fixed order: a block per (chunk of
+//   kStatsRows rows, batch element) sums its chunk's rows in order for all
+//   512 channels into a [B, chunks, 2, 512] fp32 workspace, then a second
+//   launch adds the chunks in chunk order. No atomics: the sums, and K1's
+//   output, have the same bits on every run. (Not the waveform's Gram
+//   matrix, as group_norm_stats_from_waveform takes them: s2 taken from it
+//   cancels when conv0's outputs are nearly constant, and K1's variance,
+//   unclamped like the TPU kernel's, could go negative.)
 //
 // What bounds them (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and
-// hriemo_torch/utils/float_gemm_variants.py, PERF.md §6): K1 at 8 x 10 s takes
-// 1.52 ms in bf16 and 5.57 in fp32 (the first version 4.05 and 16.84): the
-// three conv GEMMs 1.20 / 5.23 ms, 30% / 41% of their tensor-core bound (0.36
-// ms in bf16, 2.14 in fp32 as three TF32 products), held back by the GEMM's
-// pipeline (csrc/float_wgmma.cuh); the conv0 pass 0.31 / 0.30 ms, the CUDA
-// cores' GroupNorm and accurate GELU per element more than its bytes. K2 and
-// the stats pass, not redesigned yet: L2 weight reads per 8-frame block (K2)
-// and one block per (batch, 32 channels) over all rows (stats).
-#include "float_gemm.cuh"
+// hriemo_torch/utils/float_gemm_variants.py, PERF.md §6), at 8 x 10 s:
+// - K1 1.52 ms in bf16, 5.57 in fp32: the three conv GEMMs 1.20 / 5.23 ms,
+//   30% / 41% of their tensor-core bound (0.36 ms in bf16, 2.14 in fp32 as
+//   three TF32 products), held back by the GEMM's pipeline
+//   (csrc/float_wgmma.cuh); the conv0 pass 0.31 / 0.30 ms, the CUDA cores'
+//   GroupNorm and accurate GELU per element more than its bytes.
+// - K2 0.158 ms in bf16, 0.606 in fp32 (the first version 0.332 / 1.762):
+//   the same GEMM at 37.7 GFLOP (conv4 25.1, conv5 8.4, conv6 4.2), 24% /
+//   38% of its bound (0.038 / 0.229 ms); conv5 and conv6 fill only 256 and
+//   128 blocks of 128 x 128. Short clips gain nothing: at 1 s and B = 1 the
+//   three GEMMs have 4 column blocks each and take 0.073 ms in bf16 (the
+//   first version 0.064).
+// - The stats 0.082 ms in bf16 and 0.081 in fp32 (the first version 0.719 /
+//   0.744), CUDA-core bound: 13 fp32 operations a conv0 output, 1.7 G.
 #include "float_wgmma.cuh"
 
 namespace hr {
 
 constexpr int kC = 512;            // channels of every conv
-constexpr int kF = 8;              // output frames of a K2 block (conv6)
-constexpr int kConvThreads = 256;  // 8 warps, 64 output channels each
+constexpr int kConvThreads = 256;  // thread t owns channels 2t and 2t + 1
 constexpr int kC0Rows = 64;        // conv0 rows of a K1 conv0 block
 constexpr int kC0Samples = 5 * (kC0Rows - 1) + 10;
-// K2 rows a tile needs: conv3, conv4, conv5
-constexpr int kQ3 = 8 * kF + 1, kQ4 = 4 * kF, kQ5 = 2 * kF;
+constexpr int kStatsRows = 256;    // conv0 rows of a stats chunk
+constexpr int kStatsSamples = 5 * kStatsRows + 5;
 
-// Row stride (elements) of the shared activation rows. bf16: 1056 bytes,
-// so 16-byte reads of rows two apart (conv taps of neighbouring output rows)
-// fall in different banks; fp32 rows are read as broadcasts.
-template <typename T> struct ConvLd;
-template <> struct ConvLd<__nv_bfloat16> { static constexpr int v = kC + 16; };
-template <> struct ConvLd<float> { static constexpr int v = kC; };
-
-template <typename T> constexpr size_t k2_smem() {
-  return sizeof(T) * (size_t)(kQ3 + kQ4) * ConvLd<T>::v;
-}
-static_assert(k2_smem<float>() <= kMaxDynSmem, "smem");
-
-// GELU, rounded to T, stored for rows r < rows (row stride ld).
-template <typename T>
-struct GeluStore {
-  T* base;
-  int rows, ld, fast;
-  __device__ __forceinline__ void operator()(int r, int c, float v0, float v1) const {
-    if (r < rows) store2(base + (size_t)r * ld + c, gelu(v0, fast), gelu(v1, fast));
-  }
-};
-
-// Output rows r < ROWS of a stride-2 conv with KT taps: the sum over taps k
-// and input channels i of in[2r + k][i] * w[k][o][i], handed to
-// st(r, o, v(o), v(o + 1)). `in` holds IN_ROWS rows in shared memory.
-// bf16: mma.sync over m-tiles of 16 rows; the last m-tile's padding rows
-// read a valid row and are never stored.
-template <int KT, int ROWS, int IN_ROWS, class St>
-__device__ __forceinline__ void conv_layer(const __nv_bfloat16* in, const __nv_bfloat16* w,
-                                           const St& st) {
-  constexpr int MT = (ROWS + 15) / 16, LD = ConvLd<__nv_bfloat16>::v;
-  static_assert(2 * (ROWS - 1) + KT - 1 < IN_ROWS, "conv reads past its input rows");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n0 = warp * 64;
-  float acc[MT][8][4] = {};
-#pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    const __nv_bfloat16* a[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        a[mt][h] = in + min(2 * (16 * mt + 8 * h + g) + k, IN_ROWS - 1) * LD + 8 * t;
-    mma_panel<MT, 8>(acc, a, w + (size_t)k * kC * kC + (size_t)(n0 + g) * kC + 8 * t, kC, kC);
-  }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + 8 * j + 2 * t;
-      st(16 * mt + g, c, acc[mt][j][0], acc[mt][j][1]);
-      st(16 * mt + g + 8, c, acc[mt][j][2], acc[mt][j][3]);
-    }
-}
-
-// fp32: each lane owns output channels 64 w + 2 lane and +1, every row.
-template <int KT, int ROWS, int IN_ROWS, class St>
-__device__ __forceinline__ void conv_layer(const float* in, const float* w, const St& st) {
-  static_assert(2 * (ROWS - 1) + KT - 1 < IN_ROWS, "conv reads past its input rows");
-  const int c = (threadIdx.x >> 5) * 64 + 2 * (threadIdx.x & 31);
-  float acc[ROWS][2] = {};
-#pragma unroll 1
-  for (int k = 0; k < KT; ++k)
-    fma_panel<ROWS, 2>(acc, in + k * kC, 2 * kC, w + (size_t)k * kC * kC + (size_t)c * kC, kC,
-                       kC);
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) st(r, c, acc[r][0], acc[r][1]);
-}
-
-// One block per (32-channel chunk, batch element); warp w sums rows w, w+8,
-// ..., then the eight partial sums are added in order.
+// The stats' first level: conv0's per-channel sum and sum of squares over
+// rows r0 .. r0 + kStatsRows - 1 (those below n0) of batch element b, into
+// part[b][chunk][0 and 1][512]. One block per (chunk, batch element); each
+// thread adds its rows in order, each row reusing the previous row's upper
+// five samples as its lower five.
 template <typename T>
 __global__ void __launch_bounds__(kConvThreads)
-conv_stats_kernel(const T* __restrict__ wave, int Tw, const T* __restrict__ w0, int n0,
-                  float* __restrict__ out) {
-  __shared__ float red[2][kConvThreads / 32][32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int c = blockIdx.x * 32 + lane, b = blockIdx.y;
-  float w[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) w[i] = load_f(w0 + c * 10 + i);
+conv_stats_part_kernel(const T* __restrict__ wave, int Tw, const T* __restrict__ w0, int n0,
+                       float* __restrict__ part) {
+  __shared__ float zs[kStatsSamples];  // the chunk's wave samples
+  const int tid = threadIdx.x, b = blockIdx.y, r0 = blockIdx.x * kStatsRows;
+  const size_t s0 = (size_t)5 * r0;
   const T* wv = wave + (size_t)b * Tw;
-  float s = 0.f, q = 0.f;
-  for (int r = warp; r < n0; r += kConvThreads / 32) {
-    const T* p = wv + (size_t)5 * r;
-    float x = 0.f;
+  for (int i = tid; i < kStatsSamples; i += kConvThreads)
+    zs[i] = s0 + i < (size_t)Tw ? load_f(wv + s0 + i) : 0.f;
+
+  const int c = 2 * tid;
+  float w[2][10];
 #pragma unroll
-    for (int i = 0; i < 10; ++i) x = fmaf(load_f(p + i), w[i], x);
-    s = __fadd_rn(s, x);
-    q = __fadd_rn(q, __fmul_rn(x, x));
-  }
-  red[0][warp][lane] = s;
-  red[1][warp][lane] = q;
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int i = 0; i < 10; ++i) w[e][i] = load_f(w0 + (c + e) * 10 + i);
   __syncthreads();
-  if (warp < 2) {
-    float v = 0.f;
+  const int rows = min(kStatsRows, n0 - r0);
+  float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f}, lo[5];
 #pragma unroll
-    for (int i = 0; i < kConvThreads / 32; ++i) v = __fadd_rn(v, red[warp][i][lane]);
-    out[((size_t)b * 2 + warp) * kC + c] = v;
+  for (int i = 0; i < 5; ++i) lo[i] = zs[i];
+#pragma unroll 4
+  for (int r = 0; r < rows; ++r) {
+    float hi[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) hi[i] = zs[5 * r + 5 + i];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = 0.f;  // the taps in order, as K1's conv0 pass
+#pragma unroll
+      for (int i = 0; i < 5; ++i) x = fmaf(lo[i], w[e][i], x);
+#pragma unroll
+      for (int i = 0; i < 5; ++i) x = fmaf(hi[i], w[e][5 + i], x);
+      s[e] = __fadd_rn(s[e], x);
+      q[e] = __fadd_rn(q[e], __fmul_rn(x, x));
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) lo[i] = hi[i];
   }
+  float* p = part + ((size_t)b * gridDim.x + blockIdx.x) * 2 * kC + c;
+  store2(p, s[0], s[1]);
+  store2(p + kC, q[0], q[1]);
+}
+
+// The stats' second level: element i of the [2, 512] sums of batch element
+// b, its chunks' partial sums added in chunk order.
+__global__ void __launch_bounds__(kConvThreads)
+conv_stats_sum_kernel(const float* __restrict__ part, int chunks, float* __restrict__ out) {
+  const int i = blockIdx.x * kConvThreads + threadIdx.x, b = blockIdx.y;
+  const float* p = part + (size_t)b * chunks * 2 * kC + i;
+  float v = 0.f;
+#pragma unroll 8
+  for (int k = 0; k < chunks; ++k) v = __fadd_rn(v, p[(size_t)k * 2 * kC]);
+  out[(size_t)b * 2 * kC + i] = v;
 }
 
 // K1's first launch: conv0, GroupNorm (statistics from the stats kernel)
@@ -213,34 +176,6 @@ conv0_gn_kernel(const T* __restrict__ wave, int Tw, const float* __restrict__ st
   }
 }
 
-// One block per (tile of kF conv6 frames, batch element).
-template <typename T>
-__global__ void __launch_bounds__(kConvThreads)
-conv_k2_kernel(const T* __restrict__ x3, int t3, const T* __restrict__ w4,
-               const T* __restrict__ w5, const T* __restrict__ w6, int fast, int t_out,
-               T* __restrict__ out) {
-  constexpr int LD = ConvLd<T>::v;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* q3 = reinterpret_cast<T*>(smem);  // conv3 rows, later conv5 rows
-  T* q4 = q3 + kQ3 * LD;               // conv4 rows
-  const int tid = threadIdx.x, b = blockIdx.y, f0 = blockIdx.x * kF, r0 = 8 * f0;
-  for (int i = tid; i < kQ3 * (kC / 8); i += kConvThreads) {
-    const int r = i / (kC / 8), c = (i - r * (kC / 8)) * 8;
-    if (r0 + r < t3)
-      copy8(q3 + r * LD + c, x3 + ((size_t)b * t3 + r0 + r) * kC + c);
-    else
-      zero8(q3 + r * LD + c);
-  }
-  __syncthreads();
-  conv_layer<3, kQ4, kQ3>(q3, w4, GeluStore<T>{q4, kQ4, LD, fast});
-  __syncthreads();
-  conv_layer<2, kQ5, kQ4>(q4, w5, GeluStore<T>{q3, kQ5, LD, fast});
-  __syncthreads();
-  conv_layer<2, kF, kQ5>(q3, w6,
-                         GeluStore<T>{out + ((size_t)b * t_out + f0) * kC, min(kF, t_out - f0), kC,
-                                      fast});
-}
-
 template <typename T>
 void launch_conv0(const void* wave, int B, int Tw, const void* stats, const void* w0,
                   const void* gnw, const void* gnb, float inv_n, float eps, int fast, int n0,
@@ -251,41 +186,31 @@ void launch_conv0(const void* wave, int B, int Tw, const void* stats, const void
       inv_n, eps, fast, n0, static_cast<T*>(out));
 }
 
-template <typename T>
-void launch_k2(const void* x3, int B, int t3, const void* w4, const void* w5,
-                      const void* w6, int fast, int t_out, void* out, cudaStream_t s) {
-  static bool attr_set = false;  // one per instantiation
-  if (!attr_set) {
-    cudaFuncSetAttribute(conv_k2_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)k2_smem<T>());
-    attr_set = true;
-  }
-  conv_k2_kernel<T><<<dim3((t_out + kF - 1) / kF, B), kConvThreads, k2_smem<T>(), s>>>(
-      static_cast<const T*>(x3), t3, static_cast<const T*>(w4), static_cast<const T*>(w5),
-      static_cast<const T*>(w6), fast, t_out, static_cast<T*>(out));
-}
-
 }  // namespace hr
 
 using namespace hr;
 
 extern "C" {
 
-// wave [B, Tw] and w0 [512, 10]: fp32 (fp32 != 0) or bf16; out [B, 2, 512]
-// fp32; n0 = (Tw - 10) / 5 + 1 >= 1.
-int hr_conv_stats(int fp32, const void* wave, int B, int Tw, const void* w0, int n0, void* out,
-                  void* stream) {
+// wave [B, Tw] and w0 [512, 10]: fp32 (fp32 != 0) or bf16; n0 = (Tw - 10)
+// / 5 + 1 >= 1; part [B, chunks, 2, 512] fp32 workspace, chunks = ceil(n0 /
+// 256); out [B, 2, 512] fp32.
+int hr_conv_stats(int fp32, const void* wave, int B, int Tw, const void* w0, int n0,
+                  int chunks, void* part, void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(kC / 32, B);
+  if (n0 < 1 || chunks != (n0 + kStatsRows - 1) / kStatsRows) return (int)cudaErrorInvalidValue;
   if (B > 0) {
+    const dim3 grid(chunks, B);
     if (fp32)
-      conv_stats_kernel<float><<<grid, kConvThreads, 0, s>>>(
+      conv_stats_part_kernel<float><<<grid, kConvThreads, 0, s>>>(
           static_cast<const float*>(wave), Tw, static_cast<const float*>(w0), n0,
-          static_cast<float*>(out));
+          static_cast<float*>(part));
     else
-      conv_stats_kernel<__nv_bfloat16><<<grid, kConvThreads, 0, s>>>(
+      conv_stats_part_kernel<__nv_bfloat16><<<grid, kConvThreads, 0, s>>>(
           static_cast<const __nv_bfloat16*>(wave), Tw, static_cast<const __nv_bfloat16*>(w0), n0,
-          static_cast<float*>(out));
+          static_cast<float*>(part));
+    conv_stats_sum_kernel<<<dim3(2 * kC / kConvThreads, B), kConvThreads, 0, s>>>(
+        static_cast<const float*>(part), chunks, static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
 }
@@ -306,10 +231,11 @@ int hr_conv0_gn(int fp32, const void* wave, int B, int Tw, const void* stats, co
   return (int)cudaGetLastError();
 }
 
-// K1's stride-2 convs: out [B, M, 512] = T(gelu(rows . taps)), where row r of
-// batch element b is the K = kt * 512 elements at x + b * x_batch + r * lda
-// (ops/conv_stack.py conv_rows: x_batch = t_in * 512, lda = 2 * 512) and
-// taps [kt, 512, 512] tap-major; T fp32 (fp32 != 0) or bf16.
+// The stride-2 convs conv1..6 (K1's last three launches, K2's three): out
+// [B, M, 512] = T(gelu(rows . taps)), where row r of batch element b is the
+// K = kt * 512 elements at x + b * x_batch + r * lda (ops/conv_stack.py
+// conv_rows: x_batch = t_in * 512, lda = 2 * 512) and taps [kt, 512, 512]
+// tap-major; T fp32 (fp32 != 0) or bf16.
 int hr_conv_s2(int fp32, const void* x, long long x_batch, int lda, int K, const void* taps,
                int B, int M, int fast_gelu, void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -322,19 +248,6 @@ int hr_conv_s2(int fp32, const void* x, long long x_batch, int lda, int K, const
     launch_float_gemm<float, kFepGelu>(g, B, s);
   else
     launch_float_gemm<__nv_bfloat16, kFepGelu>(g, B, s);
-  return (int)cudaGetLastError();
-}
-
-// x3 [B, t3, 512]; w4 [3, 512, 512]; w5/w6 [2, 512, 512]; out [B, t_out, 512].
-int hr_conv_k2(int fp32, const void* x3, int B, int t3, const void* w4, const void* w5,
-               const void* w6, int fast_gelu, int t_out, void* out, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B > 0 && t_out > 0) {
-    if (fp32)
-      launch_k2<float>(x3, B, t3, w4, w5, w6, fast_gelu, t_out, out, s);
-    else
-      launch_k2<__nv_bfloat16>(x3, B, t3, w4, w5, w6, fast_gelu, t_out, out, s);
-  }
   return (int)cudaGetLastError();
 }
 

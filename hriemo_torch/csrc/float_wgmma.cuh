@@ -1,7 +1,8 @@
 // Large-tile float GEMM for Hopper: C = epilogue(A . W^T), fp32 sums, over
 // operands of T = bf16 (wgmma bf16 x bf16 -> fp32) or T = fp32 (3xTF32 on
 // wgmma tf32). It carries the float FFN block's two products
-// (csrc/ffn_bf16.cu) and K1's stride-2 convs conv1..3 (csrc/conv_stack.cu).
+// (csrc/ffn_bf16.cu) and the conv stack's stride-2 convs conv1..6
+// (csrc/conv_stack.cu: K1's conv1..3, K2's conv4..6).
 //
 // Operands. A row m (of M) is K contiguous elements at a + m * lda, batch
 // element z (the grid's z axis) at a + z * a_batch: a stride-2 conv with k

@@ -63,10 +63,9 @@ SIGNATURES = {
         "hr_ffn_gemms": [I, P, P, P, P, P, I, I, I, I, P, P, P],
     },
     "conv_stack": {
-        "hr_conv_stats": [I, P, I, I, P, I, P, P],
+        "hr_conv_stats": [I, P, I, I, P, I, I, P, P, P],
         "hr_conv0_gn": [I, P, I, I, P, P, P, P, F, F, I, I, P, P],
         "hr_conv_s2": [I, P, L, I, I, P, I, I, I, P, P],
-        "hr_conv_k2": [I, P, I, I, P, P, P, I, I, P, P],
     },
 }
 

@@ -14,14 +14,16 @@ Two parts:
 
   - :func:`conv_stack_stats` replaces ``_stats_kernel`` (``pallas_call`` at
     ``:228``): per-channel sum and sum of squares of conv0 over its valid
-    rows, ``[B, 2, C]`` fp32;
+    rows, ``[B, 2, C]`` fp32; on the card fp32 partial sums over chunks of
+    :data:`STATS_ROWS` rows, added in chunk order by a second launch, so
+    that the sums have the same bits on every run;
   - :func:`conv_stack_k1` replaces ``_k1_kernel`` (``:243``): conv0,
     GroupNorm from those sums (``var = s2/n - mean^2``, no clamp, unlike
     the Gram route), GELU, conv1..3, ``[B, t3, C]``; on the card conv0 is
     one pass and each of conv1..3 one GEMM over :func:`conv_rows`, the
     strided view of its input;
   - :func:`conv_stack_k2` replaces ``_k2_kernel`` (``:263``): conv4..6,
-    ``[B, t_out, C]``.
+    ``[B, t_out, C]``, on the card one such GEMM each.
 
   Rounding points are the TPU kernels': fp32 sums, GroupNorm and GELU (the
   config's tanh or erf) in fp32, each conv's output cast to the input dtype
@@ -44,6 +46,7 @@ from .fused_ffn import gelu_fp32
 KERNEL = (10, 3, 3, 3, 3, 2, 2)   # the base feature encoder's conv pattern
 STRIDE = (5, 2, 2, 2, 2, 2, 2)
 CHANNELS = 512                    # the kernels' width (csrc/conv_stack.cu kC)
+STATS_ROWS = 256                  # conv0 rows of a stats chunk (csrc/conv_stack.cu kStatsRows)
 
 
 def _gram_phase_views(wave):
@@ -96,7 +99,7 @@ def conv_rows(x, k: int):
     (contiguous) as one GEMM operand, with no copy: ``[B, t_out, k*C]``,
     where row r of batch element b is ``x[b, 2r : 2r + k]`` flattened, its
     ``k*C`` elements contiguous and rows ``2C`` apart (tap j at K-offset
-    ``j*C``). The card's K1 convs read exactly this view."""
+    ``j*C``). The card's convs (K1's and K2's) read exactly this view."""
     b, t, c = x.shape
     return x.as_strided((b, (t - k) // 2 + 1, k * c), (t * c, 2 * c, 1), x.storage_offset())
 
@@ -126,14 +129,20 @@ def conv_stack_stats_plain(wave, w0):
     return torch.stack([x0.sum(dim=1), (x0 * x0).sum(dim=1)], dim=1)
 
 
-def conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu: bool):
-    """Plain PyTorch version of :func:`conv_stack_k1`."""
+def _conv0_gn(wave, stats, w0, gn_w, gn_b, eps: float, fast_gelu: bool):
+    """K1's first stage: conv0, GroupNorm from ``stats`` and GELU, rounded
+    to the waveform's dtype, ``[B, n0, C]``."""
     x0 = _conv0(wave, w0)
     inv_n = 1.0 / x0.shape[1]
     mean = stats[:, 0:1] * inv_n                      # [B, 1, C]
     var = stats[:, 1:2] * inv_n - mean * mean
     rstd = torch.rsqrt(var + eps)
-    x = gelu_fp32((x0 - mean) * rstd * gn_w.float() + gn_b.float(), fast_gelu).to(wave.dtype)
+    return gelu_fp32((x0 - mean) * rstd * gn_w.float() + gn_b.float(), fast_gelu).to(wave.dtype)
+
+
+def conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu: bool):
+    """Plain PyTorch version of :func:`conv_stack_k1`."""
+    x = _conv0_gn(wave, stats, w0, gn_w, gn_b, eps, fast_gelu)
     for taps in (w1, w2, w3):
         x = _conv_s2(x, taps, fast_gelu)
     return x
@@ -161,6 +170,21 @@ def _check_taps(taps, k, dtype, dev, name):
     _cuda.require(taps, name, dtype, (k, CHANNELS, CHANNELS), dev)
 
 
+def _conv_launches(x, taps_seq, fast_gelu):
+    """gelu(stride-2 conv) for each of ``taps_seq`` in turn, from ``x [B, T,
+    C]`` on the card: one GEMM launch each over :func:`conv_rows` of the
+    previous output, into a new tensor from the caching allocator."""
+    lib, fp32 = _cuda.lib("conv_stack"), int(x.dtype == torch.float32)
+    for taps in taps_seq:
+        rows = conv_rows(x, taps.shape[0])
+        x = torch.empty((x.shape[0], rows.shape[1], CHANNELS), dtype=x.dtype, device=x.device)
+        _cuda.check(lib.hr_conv_s2(
+            fp32, rows.data_ptr(), rows.stride(0), rows.stride(1), rows.shape[2],
+            taps.data_ptr(), x.shape[0], rows.shape[1], int(fast_gelu), x.data_ptr(),
+            _cuda.stream()), "hr_conv_s2")
+    return x
+
+
 def conv_stack_stats(wave, w0):
     """Sum and sum of squares over time of conv0 ``[B, 2, C]`` fp32, over
     its ``(Tw - 10) // 5 + 1`` valid rows. ``wave [B, Tw]`` bf16 or fp32;
@@ -173,10 +197,12 @@ def conv_stack_stats(wave, w0):
     if n0 < 1:
         raise ValueError(f"conv_stack_stats: {tw} samples give no conv0 row")
     _cuda.require(w0, "w0", wave.dtype, (CHANNELS, 10), wave.device)
+    chunks = -(-n0 // STATS_ROWS)
+    part = torch.empty((b, chunks, 2, CHANNELS), dtype=torch.float32, device=wave.device)
     out = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=wave.device)
     _cuda.check(_cuda.lib("conv_stack").hr_conv_stats(
-        int(wave.dtype == torch.float32), wave.data_ptr(), b, tw, w0.data_ptr(), n0,
-        out.data_ptr(), _cuda.stream()), "hr_conv_stats")
+        int(wave.dtype == torch.float32), wave.data_ptr(), b, tw, w0.data_ptr(), n0, chunks,
+        part.data_ptr(), out.data_ptr(), _cuda.stream()), "hr_conv_stats")
     conv_stack_stats.launches += 1
     return out
 
@@ -203,19 +229,12 @@ def conv_stack_k1(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu
     _cuda.require(gn_b, "gn_b", torch.float32, (CHANNELS,), dev)
     for taps, name in ((w1, "w1"), (w2, "w2"), (w3, "w3")):
         _check_taps(taps, 3, dt, dev, name)
-    lib, fp32 = _cuda.lib("conv_stack"), int(dt == torch.float32)
-    x = torch.empty((b, lens[0], CHANNELS), dtype=dt, device=dev)
-    _cuda.check(lib.hr_conv0_gn(
-        fp32, wave.data_ptr(), b, tw, stats.data_ptr(), w0.data_ptr(), gn_w.data_ptr(),
-        gn_b.data_ptr(), 1.0 / lens[0], eps, int(fast_gelu), lens[0], x.data_ptr(),
-        _cuda.stream()), "hr_conv0_gn")
-    for taps in (w1, w2, w3):
-        rows = conv_rows(x, 3)
-        x = torch.empty((b, rows.shape[1], CHANNELS), dtype=dt, device=dev)
-        _cuda.check(lib.hr_conv_s2(
-            fp32, rows.data_ptr(), rows.stride(0), rows.stride(1), rows.shape[2],
-            taps.data_ptr(), b, rows.shape[1], int(fast_gelu), x.data_ptr(), _cuda.stream()),
-            "hr_conv_s2")
+    x0 = torch.empty((b, lens[0], CHANNELS), dtype=dt, device=dev)
+    _cuda.check(_cuda.lib("conv_stack").hr_conv0_gn(
+        int(dt == torch.float32), wave.data_ptr(), b, tw, stats.data_ptr(), w0.data_ptr(),
+        gn_w.data_ptr(), gn_b.data_ptr(), 1.0 / lens[0], eps, int(fast_gelu), lens[0],
+        x0.data_ptr(), _cuda.stream()), "hr_conv0_gn")
+    x = _conv_launches(x0, (w1, w2, w3), fast_gelu)
     conv_stack_k1.launches += 1
     return x
 
@@ -225,7 +244,8 @@ conv_stack_k1.launches = 0
 
 def conv_stack_k2(x3, w4, w5, w6, fast_gelu: bool):
     """conv4 (taps ``[3, C, C]``), conv5 and conv6 (``[2, C, C]``) over the
-    conv3 rows ``x3 [B, t3, C]``: ``[B, t_out, C]`` in x3's dtype."""
+    conv3 rows ``x3 [B, t3, C]``: ``[B, t_out, C]`` in x3's dtype. On the
+    card three GEMM launches over :func:`conv_rows`, as K1's convs."""
     if x3.device.type == "cpu":
         return conv_stack_k2_plain(x3, w4, w5, w6, fast_gelu)
     dt, dev = x3.dtype, x3.device
@@ -241,10 +261,7 @@ def conv_stack_k2(x3, w4, w5, w6, fast_gelu: bool):
     _check_taps(w4, 3, dt, dev, "w4")
     _check_taps(w5, 2, dt, dev, "w5")
     _check_taps(w6, 2, dt, dev, "w6")
-    out = torch.empty((b, t_out, CHANNELS), dtype=dt, device=dev)
-    _cuda.check(_cuda.lib("conv_stack").hr_conv_k2(
-        int(dt == torch.float32), x3.data_ptr(), b, t3, w4.data_ptr(), w5.data_ptr(),
-        w6.data_ptr(), int(fast_gelu), t_out, out.data_ptr(), _cuda.stream()), "hr_conv_k2")
+    out = _conv_launches(x3, (w4, w5, w6), fast_gelu)
     conv_stack_k2.launches += 1
     return out
 

@@ -19,7 +19,7 @@ from hriemo_torch.nn.layers import gelu
 from hriemo_torch.ops import conv_stack as CS
 from hriemo_torch.ops.fused_ffn import gelu_fp32
 
-from torch_port_helpers import flat, one_torch_thread, same_config  # noqa: F401
+from torch_port_helpers import flat, matmul_3xtf32, one_torch_thread, same_config  # noqa: F401
 from hriemo_torch.utils.convert import load_flat_params
 
 CFG = dataclasses.replace(WavLMConfig.base_plus(), conv_dim=(128,) * 7, fast_gelu=True,
@@ -163,3 +163,109 @@ def test_strided_view_conv_matches_jax(k, t, dtype):
             np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
         else:
             assert _bf16_steps(got, want).max() <= 1.0
+
+
+def _jax_k2(x, taps, jdt):
+    """conv4..6 of ``x [t3, C]`` as hriemo's ``_k2_kernel`` composes them
+    (``_conv_k3s2`` over R3 + 2 rows, ``_conv_k2s2`` over the first R3 / 2
+    of those, ``_conv_k2s2``), with R3 the rows rounded up to a multiple of
+    8 and zeros past t3: each conv's valid rows, fp32."""
+    t3 = x.shape[0]
+    r3 = 8 * -(-t3 // 8)
+    xj = jnp.asarray(np.pad(x, ((0, r3 + 2 - t3), (0, 0)))).astype(jdt)
+    w4 = [jnp.asarray(taps[0][j].T).astype(jdt) for j in range(3)]
+    w5, w6 = (jnp.asarray(np.concatenate([w[0].T, w[1].T])).astype(jdt) for w in taps[1:])
+    y4 = _conv_k3s2(xj, *w4, True)
+    y5 = _conv_k2s2(y4[:r3 // 2], w5, True)
+    y6 = _conv_k2s2(y5, w6, True)
+    lens, t = [], t3
+    for k in CS.KERNEL[4:]:
+        t = (t - k) // 2 + 1
+        lens.append(t)
+    return [np.array(y.astype(jnp.float32))[None, :n] for y, n in zip((y4, y5, y6), lens)]
+
+
+@pytest.mark.parametrize("product", ["fp32", "3xtf32", "bf16"])
+@pytest.mark.parametrize("t3", [259, 517, 1033])
+def test_k2_as_strided_row_gemms_matches_jax(t3, product):
+    """K2 as the card runs it: conv4, conv5 and conv6 each one GEMM over
+    conv_rows of its input (tap-major weights read as [C_out, k*C_in]), with
+    fp32 products or the card's 3xTF32 split (matmul_3xtf32), and the port's
+    plain _conv_s2 (tap by tap), each conv against the JAX _k2_kernel's
+    chain of _conv_k3s2 / _conv_k2s2 on the same input (the JAX chain's
+    previous output); in fp32 also the whole chain, conv_stack_k2, against
+    the JAX chain. t3 = 259, 517 and 1033 put t4, t5 and t6 at 129: one row
+    past a 128-row GEMM tile. fp32 at 1e-5; bf16 within one step a conv."""
+    rng = np.random.default_rng(t3)
+    c = 64
+    x = rng.standard_normal((t3, c)).astype(np.float32)
+    taps = [(rng.standard_normal((k, c, c)) * np.sqrt(2.0 / (k * c))).astype(np.float32)
+            for k in CS.KERNEL[4:]]
+    dtype = torch.bfloat16 if product == "bf16" else torch.float32
+    mm = matmul_3xtf32 if product == "3xtf32" else (lambda a, b: a @ b)
+    xt = torch.from_numpy(x)[None].to(dtype)
+    tt = [torch.from_numpy(w).to(dtype) for w in taps]
+    refs = _jax_k2(x, taps, jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
+    assert 129 in [r.shape[1] for r in refs]      # one row past a GEMM tile
+
+    def check(got, ref):
+        assert got.dtype == dtype and got.shape == ref.shape
+        if dtype == torch.float32:
+            np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+        else:
+            assert _bf16_steps(got, ref).max() <= 1.0
+
+    inp = xt
+    for w, ref in zip(tt, refs):
+        rows = CS.conv_rows(inp, w.shape[0])
+        wk = w.permute(1, 0, 2).reshape(c, -1)      # [C_out, k*C_in], as the GEMM reads it
+        check(gelu_fp32(mm(rows.float(), wk.float().t()), True).to(dtype), ref)
+        check(CS._conv_s2(inp, w, True), ref)
+        inp = torch.from_numpy(ref).to(dtype)       # exact: the JAX output was stored in dtype
+    if dtype == torch.float32:
+        check(CS.conv_stack_k2(xt, *tt, True), refs[-1])
+
+
+def _stats_in_chunks(wave, w0):
+    """The card's order of the GroupNorm sums: fp32 sum and sum of squares
+    of conv0 over each chunk of STATS_ROWS rows, then the chunks' partial
+    sums added in chunk order. Returns them and the number of chunks."""
+    x0 = CS._conv0(wave, w0)
+    total, chunks = None, 0
+    for r in range(0, x0.shape[1], CS.STATS_ROWS):
+        c = x0[:, r:r + CS.STATS_ROWS]
+        part = torch.stack([c.sum(dim=1), (c * c).sum(dim=1)], dim=1)
+        total = part if total is None else total + part
+        chunks += 1
+    return total, chunks
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n0", [100, 2 * CS.STATS_ROWS, 2 * CS.STATS_ROWS + 1])
+def test_stats_in_chunk_order(encoders, n0, dtype):
+    """The stats as the card adds them (fp32 partial sums per chunk of
+    STATS_ROWS conv0 rows, added in chunk order) at n0 below one chunk, at an
+    exact multiple of it and one row past: against conv_stack_stats_plain
+    and a float64 reference (rtol 1e-5: fp32 sums of a few hundred rows),
+    and, in fp32, K1's and K2's plain versions on those sums against the JAX
+    conv_stack_fused in interpret mode at 1e-5."""
+    jm, tm = encoders
+    tw = 5 * (n0 - 1) + 10
+    wave = torch.from_numpy(_wave(n0, 2, tw)).to(dtype)
+    w0, gn_w, gn_b, *taps = CS.stack_operands(tm.feature_extractor, dtype)
+    stats, chunks = _stats_in_chunks(wave, w0)
+    assert CS.conv_lengths(tw)[0] == n0 and chunks == -(-n0 // CS.STATS_ROWS)
+    x64 = wave.double().unfold(1, 10, 5) @ w0.double().t()
+    ref64 = torch.stack([x64.sum(dim=1), (x64 * x64).sum(dim=1)], dim=1)
+    scale = (x64 * x64).sum(dim=1).max().item()   # the sums' magnitude
+    for ref in (CS.conv_stack_stats_plain(wave, w0).double(), ref64):
+        np.testing.assert_allclose(stats.double().numpy(), ref.numpy(), rtol=1e-5,
+                                   atol=1e-6 * scale)
+    if dtype == torch.bfloat16:
+        return
+    eps = CFG.layer_norm_eps
+    x3 = CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], eps, True)
+    got = CS.conv_stack_k2_plain(x3, *taps[3:], True)
+    ref = jax_conv_stack(jm.params["feature_extractor"], jnp.asarray(wave.numpy()), CFG)
+    assert got.shape == ref.shape == (2, CS.conv_lengths(tw)[6], 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)

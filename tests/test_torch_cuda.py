@@ -451,14 +451,18 @@ def _stack_operands(gen, dtype):
 
 
 @pytest.mark.parametrize("b,tw", [(1, 16000), (2, 400), (3, 2920), (2, 160000), (1, 2580),
-                                  (2, 2600), (2, 5200)])
+                                  (2, 2600), (2, 5200), (1, 10400), (1, 20720), (1, 41360),
+                                  (2, 20640), (2, 2565), (2, 2570)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_conv_stack_stages(gen, b, tw, dtype):
     """Each stage against its plain version on the same inputs: B=1 at 1 s;
     400 samples (one output frame, shorter than a tile); 2920 samples (72
     conv3 rows and 8 output frames: both end on a K2 tile); 10 s; and K1's
     convs one row past a 128-row GEMM tile: 2580 samples (t1 = 257), 2600
-    (t2 = 129) and 5200 (t3 = 129)."""
+    (t2 = 129) and 5200 (t3 = 129); K2's the same: 10400 (t4 = 129), 20720
+    (t5 = 129), 41360 (t6 = 129) and 20640 (t4 = 257); the stats' chunks of
+    256 conv0 rows: 2565 samples (n0 = 512, two whole chunks) and 2570 (one
+    row past)."""
     _, (w0, gn_w, gn_b, *taps) = _stack_operands(gen, dtype)
     wave = _randn(gen, b, tw, scale=0.3, dtype=dtype)
     before = [CS.conv_stack_stats.launches, CS.conv_stack_k1.launches, CS.conv_stack_k2.launches]
@@ -508,6 +512,46 @@ def test_conv_stack_k1_workspace_reuse(gen, dtype):
         else:
             _close(got, ref)
         del got, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_stack_k2_workspace_reuse(gen, dtype):
+    """K2's conv4 and conv5 workspaces come from the caching allocator:
+    calls of other lengths in turn still match their plain versions."""
+    _, (*_, w4, w5, w6) = _stack_operands(gen, dtype)
+    for t3 in (1033, 259, 517, 259):
+        x3 = _randn(gen, 2, t3, 512, dtype=dtype)
+        got = CS.conv_stack_k2(x3, w4, w5, w6, True)
+        ref = CS.conv_stack_k2_plain(x3, w4, w5, w6, True)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        else:
+            _close(got, ref)
+        del got, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_stack_stats_same_bits_every_call(gen, dtype):
+    """The stats add their chunks' partial sums in a fixed order, with no
+    atomics: two calls on 8 x 10 s give the same bits (K1's output depends
+    on them)."""
+    _, (w0, *_) = _stack_operands(gen, dtype)
+    wave = _randn(gen, 8, 160000, scale=0.3, dtype=dtype)
+    first = CS.conv_stack_stats(wave, w0)
+    second = CS.conv_stack_stats(wave, w0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, CS.conv_stack_stats_plain(wave, w0), rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_stack_stats_batch_16(gen, dtype):
+    """B = 16 on the grid's batch axis, 2.5 s clips."""
+    _, (w0, *_) = _stack_operands(gen, dtype)
+    wave = _randn(gen, 16, 40000, scale=0.3, dtype=dtype)
+    got = CS.conv_stack_stats(wave, w0)
+    torch.testing.assert_close(got, CS.conv_stack_stats_plain(wave, w0), rtol=1e-4, atol=1e-2)
 
 
 def test_conv_stack_fused_matches_routed_encoder(gen):
