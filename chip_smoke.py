@@ -58,12 +58,30 @@ Phases, any failure exits non-zero:
    forced-gate run (the conv-stack and float-FFN gates monkeypatched on for
    one batch) that must launch the three conv-stack kernels once and the
    FFN kernel 12 times per forward and match the routed features;
-6. a JSON line ``{"kernels": [...]}``; then the last line
-   ``{"ok": true, "device": {...}}``.
+6. training: (a) the IEMOCAP decoder trainer's ``main`` at its full width
+   (d=768, 8 heads, 2+2 layers, beta hidden 256, dropout 0.1) on a synthetic
+   seq-level corpus of 48 utterances up to its caps (500 audio, 128 text
+   frames), batch 16, two epochs in fp32 and in bf16: losses finite, the
+   checkpoint loads strictly into ``FusionWithEmotionDecoder``; (b) the
+   MOSEI trainer at its defaults (d=256, bf16 over fp32 masters, batch 8 x
+   grad_accum 4, warmup-cosine) on ``make_synthetic_mosei`` data up to
+   300/128 frames, 21 steps: losses finite, the reported lr on the warmup
+   and cosine; (c) train steps of the full-width fusion model at B=2,
+   dropout 0, audio at 1499 and 2249 frames with padding, fp32 and bf16:
+   the one-pass or streaming kernel forward launched twice a step, and
+   against the plain route (``use_kernels=False``) the loss within
+   ``LOSS_RTOL``, the gradients within ``GRAD_TOL`` in relative norm (each
+   leaf in fp32, the whole gradient in bf16), and a lower peak step memory;
+   the gradient tolerance must reject a flash backward that drops its last,
+   partial 512-key block. Each prints step ms (wall and CUDA events), steps
+   per second and peak memory;
+7. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
+   phases 4-6); then the last line ``{"ok": true, "device": {...}}``.
 
 Full per-shape results go to ``chip_smoke_out/chip_smoke.json``. With
-``--profile`` it also traces one pass of each serving run with
-torch.profiler (``chip_smoke_out/profile_<run>.txt``).
+``--profile`` it also traces one pass of each serving run and one train step
+of each phase-6c configuration with torch.profiler
+(``chip_smoke_out/profile_<run>.txt``).
 """
 
 from __future__ import annotations
@@ -89,7 +107,8 @@ from hriemo_torch.data import load_feature
 from hriemo_torch.dataprep import extract_iemocap as EX
 from hriemo_torch.dataprep import iemocap_index as II
 from hriemo_torch.dataprep.integrity import check_integrity
-from hriemo_torch.nn.layers import Linear, MLP2, gelu, init_torch_defaults, layer_norm
+from hriemo_torch.nn.layers import (Linear, MLP2, gelu, init_torch_defaults, layer_norm,
+                                    set_use_kernels)
 from hriemo_torch.nn.attention import MultiheadAttention
 from hriemo_torch.ops import _cuda
 from hriemo_torch.ops import attention_block as AB
@@ -99,6 +118,10 @@ from hriemo_torch.ops import fused_ffn as FF
 from hriemo_torch.ops import quant as Q
 from hriemo_torch.ops import wavlm_attention as WA
 from hriemo_torch.ops.quant import quantize_for_serving
+from hriemo_torch.data.synthetic import make_synthetic_iemocap, make_synthetic_mosei
+from hriemo_torch.parallel import train_step as TS
+from hriemo_torch.train import train_fusion_seq_level_decoder as TRAIN_IEMOCAP
+from hriemo_torch.train import train_mosei_fusion_seq_level_decoder as TRAIN_MOSEI
 
 SEED = 0
 B = 4                     # requests per flush on the serving path below
@@ -135,6 +158,7 @@ EPS = 1e-5                # WavLM's layer_norm_eps (GroupNorm)
 ONEPASS_KEY_TILE = 64     # keys per tile of csrc/wavlm_attention.cu's bf16 kernel
 TF32_KEY_TILE = 32        # keys per tile of the fp32 kernels (csrc/attention_tf32.cuh)
 OUT = pathlib.Path("chip_smoke_out")
+_MAKE_TRAIN_STEP = TS.make_train_step   # the trainers' step, before run_trainer wraps it
 
 # (wrapper, TPU kernel it replaces, CUDA sources) for the kernels line
 KERNELS = {
@@ -184,6 +208,18 @@ PER_FORWARD_LONG = {30.0: {"wavlm_fused_attention": 12, "onepass_attention": 2},
 PER_FORWARD_EXTRACT = {"wavlm_fused_attention": 12}
 PER_FORWARD_FORCED = {"wavlm_fused_attention": 12, "ffn_block_bf16": 12,
                       "conv_stack_stats": 1, "conv_stack_k1": 1, "conv_stack_k2": 1}
+# training: the gradient of the fusion step, kernel route against the plain
+# one, in relative norm |g - r| <= tol |r|: in fp32 each leaf within 1e-4,
+# in bf16 the whole gradient (all leaves together) within 5e-2. Element by
+# element the routes are not comparable at these limits: a ReLU
+# pre-activation within a rounding step of zero is on in one route and off
+# in the other, and adds or drops one row's term of the FFN weight's
+# gradient. The card read 4.1e-4 of max |g| at the first fusion FFN's W1 at
+# L=1499 in fp32 (2.5e-5 in norm), and in bf16 5.0e-2 in norm at the
+# decoder's last linear1, whose ReLU sees only B x E = 8 rows (PERF.md §6).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+TRAIN_AUDIO = (1499, 2249)   # one-pass and streaming audio self-attention (30 s, 45 s)
 EXTRACT_ENVELOPE = dict(atol=0.15, rtol=0.15)  # tests/test_conv_stack.py bf16 vs fp32
 # Extracted features: fp32 at the encoders' 1e-4 (tests/test_torch_frontends.py).
 # bf16 hidden states are 12 layers deep, not one sublayer as TOL is: one
@@ -1003,6 +1039,298 @@ def _extraction(gen, smi, root):
     return rec, total
 
 
+def timed_steps(record, tag=None):
+    """Wrap ``TS.make_train_step`` so that each step of a trainer is timed:
+    the host clock between two synchronisations (wall) and CUDA events.
+    ``record`` gets ``(wall_ms, start_event, end_event, metrics)`` per step.
+    With ``--profile`` and a ``tag``, the second step is traced instead and
+    recorded without times."""
+    def make_timed(model, cfg):
+        step = _MAKE_TRAIN_STEP(model, cfg)
+        traced = []
+
+        def timed(state, batch, generator=None):
+            if tag and len(record) == 1 and not traced and "--profile" in sys.argv[1:]:
+                profile_call(tag, lambda: timed_wall(
+                    lambda: traced.append(step(state, batch, generator))))
+                record.append((None, None, None, traced[0][1]))
+                return traced[0]
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            e0.record()
+            state, metrics = step(state, batch, generator)
+            e1.record()
+            torch.cuda.synchronize()
+            record.append(((time.perf_counter() - t) * 1e3, e0, e1, metrics))
+            return state, metrics
+        return timed
+    return make_timed
+
+
+def step_stats(record):
+    """Per-step readings of a trainer run: wall and event ms (the median
+    without the first step, which meets cold caches), steps per second over
+    all steps, and the step's metrics as floats."""
+    timed = [r for r in record if r[0] is not None]
+    wall = [r[0] for r in timed]
+    ev = [r[1].elapsed_time(r[2]) for r in timed]
+    metrics = [{k: float(v) for k, v in r[3].items()} for r in record]
+    rest = slice(1, None) if len(timed) > 1 else slice(None)
+    return dict(steps=len(record), wall_ms=wall, event_ms=ev,
+                median_wall_ms=float(np.median(wall[rest])),
+                median_event_ms=float(np.median(ev[rest])),
+                steps_per_s=len(timed) / (sum(wall) / 1e3), metrics=metrics)
+
+
+def run_trainer(cli, argv, tag):
+    """One trainer's ``main(argv)`` with its steps timed. Returns its result,
+    the step readings, peak device memory and the launches of the run."""
+    record = []
+    TS.make_train_step = timed_steps(record, tag)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        best = cli.main(argv)
+    finally:
+        TS.make_train_step = _MAKE_TRAIN_STEP
+    launches = read_launches()
+    torch.cuda.synchronize()
+    st = step_stats(record)
+    st.update(best=best, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    for m in st["metrics"]:
+        if not math.isfinite(m["loss"]):
+            raise AssertionError(f"{cli.__name__}: non-finite loss {st['metrics']}")
+    return st, launches
+
+
+def expected_lr(i, lr, warm, total):
+    """optax.warmup_cosine_decay_schedule at step ``i``, in float64."""
+    warm, decay = max(1, warm), max(2, total) - max(1, warm)
+    if i < warm:
+        return lr * i / warm
+    return lr * 0.5 * (1 + math.cos(math.pi * min(i - warm, decay) / decay))
+
+
+def fusion_batch(gen, la, b=2, lt=128, emotions=4):
+    """A padded full-width batch on the card: element 0 full length, element
+    1 shorter in both modalities; multi-label targets."""
+    dev = torch.device("cuda")
+    mask = lambda l, short: (torch.arange(l)[None, :] >= torch.tensor([l, short])[:, None])  # noqa: E731
+    return {"h_a": torch.randn(b, la, 768, generator=gen).to(dev),
+            "h_t": torch.randn(b, lt, 768, generator=gen).to(dev),
+            "mask_a": mask(la, la - 311).to(dev), "mask_t": mask(lt, 77).to(dev),
+            "y": (torch.rand(b, emotions, generator=gen) > 0.5).float().to(dev)}
+
+
+def grad_check(tag, dt, got, ref):
+    """Kernel-route gradients against the plain route's within
+    ``GRAD_TOL[dt]`` in relative norm: each leaf in fp32, all leaves
+    together in bf16. Returns the readings: the whole gradient's relative
+    norm, the worst leaf's, and the worst max |d| / max |g| (reported, not
+    held)."""
+    worst_elem = worst_norm = 0.0
+    d2 = r2 = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = g.float(), r.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{tag}: gradient leaf {i} is not finite")
+        d_norm, r_norm = (g - r).norm().item(), r.norm().item()
+        d2, r2 = d2 + d_norm ** 2, r2 + r_norm ** 2
+        elem = (g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+        norm = d_norm / max(r_norm, 1e-30)
+        if norm > worst_norm:
+            worst_norm, worst_leaf = norm, i
+        worst_elem = max(worst_elem, elem)
+    whole = math.sqrt(d2 / r2)
+    reading = dict(rel_norm=whole, worst_leaf_rel_norm=worst_norm, worst_leaf=worst_leaf,
+                   max_over_max=worst_elem)
+    if (worst_norm if dt == torch.float32 else whole) > GRAD_TOL[dt]:
+        raise AssertionError(f"{tag}: gradients kernel vs plain outside {GRAD_TOL[dt]} in "
+                             f"relative norm: {reading}")
+    return reading
+
+
+def dropped_block_check(gen, dt, la=2249, h=8, hd=96):
+    """The flash backward's limit check: gradients of q, k and v from
+    ``streaming_reference`` over all keys against a backward that drops the
+    last, partial 512-key block (keys 2048..2248) must fail the gradient
+    tolerance of ``grad_check``. Returns that wrong backward's readings."""
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(2, h, la, hd, generator=gen).to(dev, dt) for _ in range(3))
+    g = torch.randn(2, h, la, hd, generator=gen).to(dev, dt)
+    bias = FA.key_bias(torch.arange(la)[None, :].to(dev) >= torch.tensor([[la], [la - 311]],
+                                                                          device=dev), 2, la, dev)
+    kept = (la - 1) // FA.REF_BLOCK * FA.REF_BLOCK
+
+    def grads(n):
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = FA.streaming_reference(ins[0], ins[1][:, :, :n], ins[2][:, :, :n], bias[:, :n])
+        return torch.autograd.grad(out, ins, g)
+    ref, wrong = grads(la), grads(kept)
+    try:
+        grad_check(f"flash backward {str(dt)[6:]} without its last key block", dt, wrong, ref)
+    except AssertionError as e:
+        print(f"  limit check: rejected, as it must be: {e}", flush=True)
+        return dict(keys=f"{kept} of {la}", **{n: dict(
+            max_over_max=((w - r).abs().max() / r.abs().max()).item(),
+            rel_norm=((w - r).norm() / r.norm()).item()) for n, w, r in zip("qkv", wrong, ref)})
+    raise AssertionError("the gradient tolerance passes a flash backward without its last "
+                         "key block")
+
+
+def fusion_step(gen, smi):
+    """Phase 6c: train steps of the full-width fusion model at B=2, dropout 0,
+    audio at 1499 and 2249 frames with padding, fp32 and bf16: the one-pass
+    and the streaming kernel forward with the recompute backward. The first
+    step's loss and gradients are held against the plain route
+    (``use_kernels=False``) at the initial parameters; then timed steps (the
+    main path), peak step memory of both routes and the plain route's steps.
+    Returns its record and the launches of its main-path steps."""
+    rec, total = {}, {name: 0 for name in KERNELS}
+    for la in TRAIN_AUDIO:
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"L={la} {str(dt)[6:]}"
+            model = FusionWithEmotionDecoder(768, 4, 8, 2, 2, 256, dropout=0.0)
+            model.init_weights(torch.Generator().manual_seed(SEED + 6))
+            model = model.to("cuda")
+            cfg = TS.TrainConfig(loss_type="multi_label", beta_degeneracy=0.01,
+                                 schedule="constant", compute_dtype=dt)
+            batch = fusion_batch(gen, la)
+
+            out = {}
+            for route in ("kernel", "plain"):
+                set_use_kernels(model, route == "kernel")
+                out[route] = TS.compute_grads(model, cfg, batch)
+            (loss_k, grads_k, _), (loss_p, grads_p, _) = out["kernel"], out["plain"]
+            loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+            if not (math.isfinite(loss_k.item()) and loss_err <= LOSS_RTOL[dt]):
+                raise AssertionError(f"train step {tag}: loss {loss_k.item()} kernel route, "
+                                     f"{loss_p.item()} plain (relative {loss_err:.3g})")
+            grads = grad_check(f"train step {tag}", dt, grads_k, grads_p)
+            del out, grads_k, grads_p
+
+            set_use_kernels(model, True)
+            state = TS.create_train_state(model, cfg)
+            step = TS.make_train_step(model, cfg)
+            record = []
+            timed_step = timed_steps(record)(model, cfg)
+            reset_launches()
+            for _ in range(3):
+                state, _ = timed_step(state, batch)
+            ll = read_launches()
+            want = {"onepass_attention" if la <= FA.ONEPASS_MAX_LK else "streaming_attention": 6}
+            check_launches(f"train step {tag}", ll, want)
+            for name, n in ll.items():
+                total[name] += n
+            st = step_stats(record)
+            profile_call(f"train_step_{la}_{str(dt)[6:]}", lambda: timed_wall(
+                lambda: step(state, batch)))
+
+            peaks, plain_rec = {}, []
+            for route in ("kernel", "plain"):
+                set_use_kernels(model, route == "kernel")
+                step(state, batch)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                step(state, batch)
+                torch.cuda.synchronize()
+                peaks[route] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            plain_step = timed_steps(plain_rec)(model, cfg)
+            for _ in range(3):
+                plain_step(state, batch)
+            plain = step_stats(plain_rec)
+            if not peaks["kernel"] < peaks["plain"]:
+                raise AssertionError(f"train step {tag}: peak memory {peaks['kernel']:.3f} GiB "
+                                     f"on the kernel route, {peaks['plain']:.3f} on the plain one")
+            rec[tag] = dict(launches=ll, step=st, plain_step=plain, peak_step_gib=peaks,
+                            loss=loss_k.item(), loss_rel_err=loss_err, grads=grads)
+            print(f"train step {tag} B=2 ({smi}): step {st['median_wall_ms']:.3f} ms wall, "
+                  f"{st['median_event_ms']:.3f} ms events, {st['steps_per_s']:.2f} steps/s "
+                  f"(plain route {plain['median_wall_ms']:.3f} ms); peak step memory "
+                  f"{peaks['kernel']:.3f} GiB (plain {peaks['plain']:.3f}); first step vs plain: "
+                  f"loss rel err {loss_err:.3g}, gradients {grads}; launches {ll}", flush=True)
+            del model, state, step, timed_step, plain_step
+            torch.cuda.empty_cache()
+    rec["backward_last_block"] = {str(dt)[6:]: dropped_block_check(gen, dt)
+                                  for dt in (torch.float32, torch.bfloat16)}
+    return rec, total
+
+
+def timed_wall(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def training(gen, smi):
+    """Phase 6. Returns its record and the launches of its main-path runs."""
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        return _training(gen, smi, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _training(gen, smi, root):
+    rec, total = {}, {name: 0 for name in KERNELS}
+
+    # (a) the IEMOCAP decoder trainer at its full width, fp32 and bf16
+    csv_path, audio_dir, text_dir = make_synthetic_iemocap(
+        root / "iemocap", n=48, d=768, seq_level=True, max_la=500, max_lt=128, seed=SEED)
+    for dtype in ("float32", "bfloat16"):
+        out = root / f"iemocap_{dtype}"
+        st, ll = run_trainer(TRAIN_IEMOCAP, [
+            "--index_csv", str(csv_path), "--audio_dir", str(audio_dir), "--text_dir",
+            str(text_dir), "--out_dir", str(out), "--epochs", "2", "--batch_size", "16",
+            "--compute_dtype", dtype, "--seed", str(SEED)], f"train_iemocap_{dtype}")
+        check_launches(f"IEMOCAP trainer {dtype}", ll, {})
+        ckpt = torch.load(out / "best_fusion_seq_decoder.pt", map_location="cpu",
+                          weights_only=False)
+        FusionWithEmotionDecoder(768, 6, 8, 2, 2, 256).load_state_dict(
+            ckpt["model_state_dict"], strict=True)
+        rec[f"iemocap_{dtype}"] = st
+        print(f"IEMOCAP trainer {dtype} (d=768, B=16, 500/128 frames; {smi}): {st['steps']} "
+              f"steps, step {st['median_wall_ms']:.3f} ms wall, {st['median_event_ms']:.3f} ms "
+              f"events, {st['steps_per_s']:.2f} steps/s, peak {st['peak_mem_gib']:.3f} GiB; "
+              f"losses {[round(m['loss'], 4) for m in st['metrics']]}; best val acc "
+              f"{st['best']:.4f}; checkpoint loads strictly", flush=True)
+
+    # (b) the MOSEI trainer at its defaults (d=256, bf16, grad_accum 4,
+    # warmup-cosine): 144 utterances, 100 in train, 3 steps an epoch
+    csv_path, audio_dir, text_dir = make_synthetic_mosei(
+        root / "mosei", n=144, max_la=300, max_lt=128, seed=SEED)
+    epochs = 7
+    st, ll = run_trainer(TRAIN_MOSEI, [
+        "--index_csv", str(csv_path), "--audio_dir", str(audio_dir), "--text_dir",
+        str(text_dir), "--out_dir", str(root / "mosei_run"), "--epochs", str(epochs)],
+        "train_mosei")
+    check_launches("MOSEI trainer", ll, {})
+    total_steps = st["steps"]
+    if total_steps != 3 * epochs:
+        raise AssertionError(f"MOSEI trainer: {total_steps} steps, want {3 * epochs}")
+    lrs = [m["lr"] for m in st["metrics"]]
+    want = [expected_lr(i, 1e-4, int(0.1 * total_steps), total_steps) for i in range(total_steps)]
+    if not np.allclose(lrs, want, rtol=1e-5, atol=1e-11):
+        raise AssertionError(f"MOSEI trainer: lr {lrs}, want the warmup-cosine {want}")
+    rec["mosei_bfloat16"] = st
+    print(f"MOSEI trainer (defaults: d=256, bf16, B=8 x accum 4, 300/128 frames; {smi}): "
+          f"{st['steps']} steps, step {st['median_wall_ms']:.3f} ms wall, "
+          f"{st['median_event_ms']:.3f} ms events, {st['steps_per_s']:.2f} steps/s, peak "
+          f"{st['peak_mem_gib']:.3f} GiB; lr {[f'{x:.3g}' for x in lrs[:5]]}...; losses "
+          f"{[round(m['loss'], 4) for m in st['metrics'][:5]]}...; best macro AUC "
+          f"{st['best']:.4f}", flush=True)
+
+    # (c) the fusion step through the flash kernels
+    rec["fusion_step"], ll = fusion_step(gen, smi)
+    for name, n in ll.items():
+        total[name] += n
+    return rec, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1177,6 +1505,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     # phase 5: the feature-extraction entry point
     phases["extract"], ll = extraction(torch.Generator().manual_seed(SEED + 4), smi)
+    for name, n in ll.items():
+        total[name] += n
+    # phase 6: training
+    phases["train"], ll = training(torch.Generator().manual_seed(SEED + 5), smi)
     for name, n in ll.items():
         total[name] += n
     for name, n in total.items():

@@ -1,0 +1,110 @@
+"""Fixed-shape batching and a one-ahead device feed (port of
+``hriemo/data/batching.py``, seq level, one host).
+
+Every batch is padded to a fixed bucket (the training caps), with True in
+the pad mask at padded positions, so masking gives the same numbers as
+per-batch padding. ``BucketBatcher`` shuffles with the same numpy stream as
+JAX's, so the same seed gives the same batches, ``grad_accum`` layout
+included. The C++ batch assembler (``native=True``) waits for ROADMAP.md
+queue 1 item 7.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def pad_batch(items: list[dict], la: int, lt: int, label_dtype=None) -> dict:
+    """Stack seq-level items into fixed ``[B, la]`` / ``[B, lt]`` arrays
+    (True = PAD)."""
+    b = len(items)
+    d_a, d_t = items[0]["h_a"].shape[-1], items[0]["h_t"].shape[-1]
+    h_a = np.zeros((b, la, d_a), np.float32)
+    h_t = np.zeros((b, lt, d_t), np.float32)
+    mask_a = np.ones((b, la), bool)
+    mask_t = np.ones((b, lt), bool)
+    for i, it in enumerate(items):
+        na, nt = min(it["h_a"].shape[0], la), min(it["h_t"].shape[0], lt)
+        h_a[i, :na] = it["h_a"][:na]
+        h_t[i, :nt] = it["h_t"][:nt]
+        mask_a[i, :na] = it["mask_a"][:na]
+        mask_t[i, :nt] = it["mask_t"][:nt]
+    out = {"h_a": h_a, "h_t": h_t, "mask_a": mask_a, "mask_t": mask_t}
+    if "y" in items[0]:
+        out["y"] = np.stack([np.asarray(it["y"]) for it in items]).astype(
+            label_dtype or np.asarray(items[0]["y"]).dtype)
+    return out
+
+
+class BucketBatcher:
+    """Iterates a dataset in fixed-shape batches.
+
+    * ``drop_last=True`` (training): the partial tail batch is dropped;
+    * ``drop_last=False`` (eval): the tail batch repeats its last item and
+      ``n_valid`` says how many rows are real;
+    * ``grad_accum > 1``: batches have the leading layout ``[accum, micro,
+      ...]`` of the train step.
+    """
+
+    def __init__(self, dataset, batch_size: int, la: int = 0, lt: int = 0,
+                 shuffle: bool = False, seed: int = 0, drop_last: bool = True,
+                 grad_accum: int = 1, native: bool = False):
+        if native:
+            raise NotImplementedError("BucketBatcher(native=True): the C++ batch assembler "
+                                      "waits for ROADMAP.md queue 1 item 7")
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.la, self.lt = la, lt
+        self.shuffle, self.seed = shuffle, seed
+        self.drop_last = drop_last
+        self.grad_accum = grad_accum
+        self.epoch = 0
+
+    def __len__(self):
+        full = self.batch_size * self.grad_accum
+        n = len(self.ds)
+        return n // full if self.drop_last else -(-n // full)
+
+    def __iter__(self):
+        order = np.arange(len(self.ds))
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        n = len(order)
+        self.epoch += 1
+        full = self.batch_size * self.grad_accum
+        stop = (n // full) * full if self.drop_last else n
+        for start in range(0, stop, full):
+            idx = order[start: start + full]
+            n_valid = len(idx)
+            if n_valid < full:  # eval tail: repeat the last item
+                idx = np.concatenate([idx, np.full(full - n_valid, idx[-1])])
+            items = [self.ds[int(i)] for i in idx]
+            batch = pad_batch(items, self.la, self.lt)
+            if self.grad_accum > 1:
+                batch = {k: v.reshape((self.grad_accum, self.batch_size) + v.shape[1:])
+                         for k, v in batch.items()}
+            batch["n_valid"] = n_valid
+            batch["uids"] = [it.get("uid") for it in items[:n_valid]]
+            yield batch
+
+
+def prefetch_to_device(iterator, device):
+    """Keep one batch in flight: each batch's arrays go to ``device`` as
+    tensors (pinned host copies and non-blocking copies to a card) before
+    the previous batch is yielded. ``n_valid`` and ``uids`` pass through."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+
+    def put(x):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        return t.pin_memory().to(device, non_blocking=True) if pin else t.to(device)
+
+    pending = None
+    for batch in iterator:
+        nxt = {k: (v if k in ("n_valid", "uids") else put(v)) for k, v in batch.items()}
+        if pending is not None:
+            yield pending
+        pending = nxt
+    if pending is not None:
+        yield pending

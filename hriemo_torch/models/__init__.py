@@ -1,5 +1,6 @@
-"""The serving path's fusion model and its parts."""
+"""The fusion models: the served IEMOCAP model and the MOSEI wrapper."""
 
 from .fusion_with_emotion_decoder import FusionWithEmotionDecoder
+from .mosei_fusion_with_emotion_decoder import MoseiFusionWithEmotionDecoder
 
-__all__ = ["FusionWithEmotionDecoder"]
+__all__ = ["FusionWithEmotionDecoder", "MoseiFusionWithEmotionDecoder"]

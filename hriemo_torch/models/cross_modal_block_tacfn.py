@@ -1,10 +1,11 @@
 """TACFN-style cross-modal transformer (port of
-``hriemo/models/cross_modal_block_tacfn.py``, eval path).
+``hriemo/models/cross_modal_block_tacfn.py``, without attention export).
 
 Per layer: intra-modal self-attention per modality (+ residual + LN),
 then audio-queries-text and text-queries-audio cross-attention, each
-followed by residual + LN and a ReLU FFN(4d) + residual + LN. The
-slice serves without attention export.
+followed by residual + LN and a ReLU FFN(4d) + residual + LN. In training,
+dropout at JAX's sites (``:64-107``): on each attention's probabilities
+and on each sublayer output before its residual.
 """
 
 from __future__ import annotations
@@ -12,41 +13,49 @@ from __future__ import annotations
 from torch import nn
 
 from ..nn.attention import MultiheadAttention
-from ..nn.layers import MLP2, LayerNorm
+from ..nn.layers import MLP2, LayerNorm, derive, dropout
+from ._common import RngStream
 
 
 class CrossModalBlock(nn.Module):
-    def __init__(self, d_model: int = 768, n_heads: int = 8):
+    def __init__(self, d_model: int = 768, n_heads: int = 8, dropout: float = 0.1):
         super().__init__()
         d = d_model
+        self.dropout = dropout
         for name in ("self_attn_a", "self_attn_t", "attn_a2t", "attn_t2a"):
-            self.add_module(name, MultiheadAttention(d, n_heads))
+            self.add_module(name, MultiheadAttention(d, n_heads, dropout=dropout))
         for name in ("self_norm_a", "self_norm_t", "norm_a1", "norm_a2", "norm_t1", "norm_t2"):
             self.add_module(name, LayerNorm(d))
         self.ffn_a = MLP2(d, 4 * d, d)
         self.ffn_t = MLP2(d, 4 * d, d)
 
-    def forward(self, h_a, h_t, mask_a=None, mask_t=None):
-        h_a_self = self.self_norm_a(h_a + self.self_attn_a(h_a, h_a, h_a, mask_a))
-        h_t_self = self.self_norm_t(h_t + self.self_attn_t(h_t, h_t, h_t, mask_t))
+    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None):
+        rs = RngStream(generator)
+        drop = lambda x: dropout(x, self.dropout, rs(), self.training)  # noqa: E731
 
-        a2t = self.attn_a2t(h_a_self, h_t_self, h_t_self, mask_t)
-        h_a_cm = self.norm_a1(h_a_self + a2t)
-        h_a_cm = self.norm_a2(h_a_cm + self.ffn_a(h_a_cm))
+        a_sa = self.self_attn_a(h_a, h_a, h_a, mask_a, rs())
+        h_a_self = self.self_norm_a(h_a + drop(a_sa))
+        t_sa = self.self_attn_t(h_t, h_t, h_t, mask_t, rs())
+        h_t_self = self.self_norm_t(h_t + drop(t_sa))
 
-        t2a = self.attn_t2a(h_t_self, h_a_self, h_a_self, mask_a)
-        h_t_cm = self.norm_t1(h_t_self + t2a)
-        h_t_cm = self.norm_t2(h_t_cm + self.ffn_t(h_t_cm))
+        a2t = self.attn_a2t(h_a_self, h_t_self, h_t_self, mask_t, rs())
+        h_a_cm = self.norm_a1(h_a_self + drop(a2t))
+        h_a_cm = self.norm_a2(h_a_cm + drop(self.ffn_a(h_a_cm)))
+
+        t2a = self.attn_t2a(h_t_self, h_a_self, h_a_self, mask_a, rs())
+        h_t_cm = self.norm_t1(h_t_self + drop(t2a))
+        h_t_cm = self.norm_t2(h_t_cm + drop(self.ffn_t(h_t_cm)))
         return h_a_cm, h_t_cm
 
 
 class CrossModalTransformer(nn.Module):
-    def __init__(self, num_layers: int = 2, d_model: int = 768, n_heads: int = 8):
+    def __init__(self, num_layers: int = 2, d_model: int = 768, n_heads: int = 8,
+                 dropout: float = 0.1):
         super().__init__()
-        self.layers = nn.ModuleList(CrossModalBlock(d_model, n_heads)
+        self.layers = nn.ModuleList(CrossModalBlock(d_model, n_heads, dropout)
                                     for _ in range(num_layers))
 
-    def forward(self, h_a, h_t, mask_a=None, mask_t=None):
-        for layer in self.layers:
-            h_a, h_t = layer(h_a, h_t, mask_a, mask_t)
+    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None):
+        for i, layer in enumerate(self.layers):
+            h_a, h_t = layer(h_a, h_t, mask_a, mask_t, derive(generator, i))
         return h_a, h_t

@@ -1,11 +1,14 @@
 """Emotion-query transformer decoder (port of
-``hriemo/models/emotion_decoder.py``, eval path, no attention export).
+``hriemo/models/emotion_decoder.py``, without attention export).
 
 Learnable ``emotion_queries [E, d]``; each layer: self-attention over the
 E queries, cross-attention to the fused memory with its pad mask, ReLU
 FFN (``linear1``/``linear2``), each post-norm; ``out_proj = Linear(d, 1)``
 gives per-emotion logits ``[B, E]``. With E = 4 queries the attention
-fails ``use_mha_block``'s ``8 <= lq`` and runs per op, as in JAX.
+fails ``use_mha_block``'s ``8 <= lq`` and runs per op, as in JAX. In
+training, dropout at JAX's sites (``:68-90``): both attentions'
+probabilities, each sublayer output before its residual, and the FFN's
+hidden activation.
 """
 
 from __future__ import annotations
@@ -14,43 +17,51 @@ import torch
 from torch import nn
 
 from ..nn.attention import MultiheadAttention
-from ..nn.layers import LayerNorm, Linear
+from ..nn.layers import LayerNorm, Linear, derive, dropout
+from ._common import RngStream
 
 
 class ExplainableDecoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.1):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout=dropout)
         self.norm1 = LayerNorm(d_model)
-        self.cross_attn = MultiheadAttention(d_model, nhead)
+        self.cross_attn = MultiheadAttention(d_model, nhead, dropout=dropout)
         self.norm2 = LayerNorm(d_model)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
         self.norm3 = LayerNorm(d_model)
 
-    def forward(self, tgt, memory, memory_key_padding_mask=None):
-        tgt = self.norm1(tgt + self.self_attn(tgt, tgt, tgt))
-        tgt = self.norm2(tgt + self.cross_attn(tgt, memory, memory, memory_key_padding_mask))
-        return self.norm3(tgt + self.linear2(torch.relu(self.linear1(tgt))))
+    def forward(self, tgt, memory, memory_key_padding_mask=None, generator=None):
+        rs = RngStream(generator)
+        drop = lambda x: dropout(x, self.dropout, rs(), self.training)  # noqa: E731
+        tgt = self.norm1(tgt + drop(self.self_attn(tgt, tgt, tgt, None, rs())))
+        tgt = self.norm2(tgt + drop(self.cross_attn(tgt, memory, memory,
+                                                    memory_key_padding_mask, rs())))
+        hidden = drop(torch.relu(self.linear1(tgt)))
+        return self.norm3(tgt + drop(self.linear2(hidden)))
 
 
 class EmotionDecoder(nn.Module):
     def __init__(self, d_model: int = 768, num_emotions: int = 4, n_heads: int = 8,
-                 num_layers: int = 2, dim_feedforward: int = 2048):
+                 num_layers: int = 2, dim_feedforward: int = 2048, dropout: float = 0.1):
         super().__init__()
         self.emotion_queries = nn.Parameter(torch.empty(num_emotions, d_model))
-        self.layers = nn.ModuleList(ExplainableDecoderLayer(d_model, n_heads, dim_feedforward)
-                                    for _ in range(num_layers))
+        self.layers = nn.ModuleList(
+            ExplainableDecoderLayer(d_model, n_heads, dim_feedforward, dropout)
+            for _ in range(num_layers))
         self.out_proj = Linear(d_model, 1)
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
         self.emotion_queries.normal_(generator=gen)
 
-    def forward(self, memory, memory_key_padding_mask=None):
+    def forward(self, memory, memory_key_padding_mask=None, generator=None):
         """Returns ``(z [B, E, d], logits [B, E])``."""
         b = memory.shape[0]
         out = self.emotion_queries[None].expand(b, -1, -1).to(memory.dtype)
-        for layer in self.layers:
-            out = layer(out, memory, memory_key_padding_mask)
+        for i, layer in enumerate(self.layers):
+            out = layer(out, memory, memory_key_padding_mask, derive(generator, i))
         return out, self.out_proj(out)[..., 0]

@@ -1,9 +1,13 @@
 """Cross-modal transformer + vector beta gate + emotion decoder (port of
-``hriemo/models/fusion_with_emotion_decoder.py``, eval path).
+``hriemo/models/fusion_with_emotion_decoder.py``, without attention
+export).
 
 2-D inputs are lifted to ``[B, 1, d]``; the decoder's key-padding mask is
 the OR of both modality masks aligned (pad with True / truncate) to the
 fused length. Returns ``(logits [B, E], beta [B, 1], z [B, E, d])``.
+``dropout`` (JAX's default 0.1) acts in training mode (``model.train()``),
+where ``forward`` needs a ``generator`` on the inputs' device; the model
+reads only its seed, so a recompute draws the same masks.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from torch import nn
 
 from ..core.masking import build_fused_mask
 from ..nn.layers import init_torch_defaults
-from ._common import ensure_3d
+from ._common import RngStream, ensure_3d
 from .beta_gate_tacfn import BetaGate
 from .cross_modal_block_tacfn import CrossModalTransformer
 from .emotion_decoder import EmotionDecoder
@@ -22,12 +26,12 @@ from .emotion_decoder import EmotionDecoder
 class FusionWithEmotionDecoder(nn.Module):
     def __init__(self, d_model: int = 768, num_emotions: int = 4, n_heads: int = 8,
                  num_layers_fusion: int = 2, num_layers_decoder: int = 2,
-                 beta_hidden: int = 256):
+                 beta_hidden: int = 256, dropout: float = 0.1):
         super().__init__()
-        self.cross_modal = CrossModalTransformer(num_layers_fusion, d_model, n_heads)
+        self.cross_modal = CrossModalTransformer(num_layers_fusion, d_model, n_heads, dropout)
         self.beta_gate = BetaGate(d_model, beta_hidden)
         self.emotion_decoder = EmotionDecoder(d_model, num_emotions, n_heads,
-                                              num_layers_decoder)
+                                              num_layers_decoder, dropout=dropout)
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> None:
@@ -35,10 +39,11 @@ class FusionWithEmotionDecoder(nn.Module):
         init_torch_defaults(self, gen)
         self.emotion_decoder.init_weights(gen)
 
-    def forward(self, h_a, h_t, mask_a=None, mask_t=None):
+    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None):
+        rs = RngStream(generator)
         h_a, h_t = ensure_3d(h_a), ensure_3d(h_t)
-        h_a, h_t = self.cross_modal(h_a, h_t, mask_a, mask_t)
+        h_a, h_t = self.cross_modal(h_a, h_t, mask_a, mask_t, rs())
         h_fusion, beta = self.beta_gate(h_a, h_t, mask_a, mask_t)
         fused_mask = build_fused_mask(mask_a, mask_t, h_fusion.shape[1])
-        z, logits = self.emotion_decoder(h_fusion, fused_mask)
+        z, logits = self.emotion_decoder(h_fusion, fused_mask, rs())
         return logits, beta, z

@@ -1,14 +1,16 @@
 """Multi-head attention with ``nn.MultiheadAttention`` parameters
-(port of ``hriemo/nn/attention.py:39-170``, eval path).
+(port of ``hriemo/nn/attention.py:39-170``).
 
 Packed ``in_proj_weight [3d, d]`` / ``in_proj_bias [3d]`` and an
 ``out_proj`` Linear, ``key_padding_mask`` True = PAD as an additive NEG_INF
-bias. A quantized MHA (``in_proj_w_int8``) whose shapes pass
+bias. A quantized MHA (``in_proj_w_int8``, serving only) whose shapes pass
 ``use_mha_block`` goes to the MHA kernel (``hriemo/nn/attention.py:85-98``).
 Every other call projects per op (int8 or plain), then runs its core
 through ``ops.flash_attention.flash_mha`` when ``use_flash`` holds
-(Lq, Lk >= 1024: ``hriemo/nn/attention.py:131-148``), else per op: fp32
-softmax, probabilities in the compute dtype.
+(Lq, Lk >= 1024) and no attention dropout is active
+(``hriemo/nn/attention.py:128-148``: the fused core never holds the
+probabilities), else per op: fp32 softmax, probabilities in the compute
+dtype, then, in training, dropout on them (``:159-164``).
 """
 
 from __future__ import annotations
@@ -23,15 +25,16 @@ from ..ops.attention_block import (MhaOperands, mha_block_int8, mha_block_int8_p
                                    mha_operands, use_mha_block)
 from ..ops.flash_attention import flash_mha, flash_mha_plain, use_flash
 from ..ops.quant import int8_linear, int8_linear_plain, quantize_linear_params
-from .layers import Linear
+from .layers import Linear, dropout as _dropout
 
 
 class MultiheadAttention(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, bias: bool = True):
+    def __init__(self, d_model: int, n_heads: int, bias: bool = True, dropout: float = 0.0):
         super().__init__()
         if d_model % n_heads:
             raise ValueError("d_model must divide into n_heads")
         self.n_heads = n_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model)) if bias else None
         self.out_proj = Linear(d_model, d_model, bias)
@@ -51,8 +54,9 @@ class MultiheadAttention(nn.Module):
             self.ops = mha_operands(self.in_proj_w_int8, self.in_proj_w_scale,
                                     self.in_proj_bias, self.out_proj, self.n_heads)
 
-    def forward(self, query, key, value, key_padding_mask=None):
-        """Returns the attention output ``[B, Lq, d]``."""
+    def forward(self, query, key, value, key_padding_mask=None, generator=None):
+        """Returns the attention output ``[B, Lq, d]``. In training with
+        ``dropout > 0``, ``generator`` draws the probabilities' mask."""
         d = query.shape[-1]
         h = self.n_heads
         if (self.ops is not None and key is value
@@ -76,10 +80,10 @@ class MultiheadAttention(nn.Module):
         def heads(t):
             return t.reshape(t.shape[0], t.shape[1], h, d // h).transpose(1, 2)
 
-        if use_flash(heads(q).shape, heads(k).shape):
-            # The port exports no attention weights and runs no attention
-            # dropout (eval only), so the JAX need_weights and dropout
-            # exclusions of this route have nothing to guard here.
+        attn_dropout = self.training and self.dropout > 0.0
+        if not attn_dropout and use_flash(heads(q).shape, heads(k).shape):
+            # The port exports no attention weights, so the JAX need_weights
+            # exclusion of this route has nothing to guard here.
             fn = flash_mha if self.use_kernels else flash_mha_plain
             out = fn(heads(q), heads(k), heads(v), key_padding_mask)
         else:
@@ -89,6 +93,7 @@ class MultiheadAttention(nn.Module):
             if bias is not None:
                 scores = scores + bias
             probs = torch.softmax(scores, dim=-1).to(query.dtype)
+            probs = _dropout(probs, self.dropout, generator, attn_dropout)
             out = (probs.float() @ heads(v).float()).to(query.dtype)
         out = out.transpose(1, 2).reshape(query.shape[0], query.shape[1], d)
         return self.out_proj(out)

@@ -10,7 +10,12 @@ buffers in place of ``weight`` and routes to ``ops.quant.int8_linear``
 
 ``use_kernels`` (a plain attribute, True by default) selects, for a module
 that owns a kernel call, the kernel wrapper or its plain PyTorch version;
-``set_use_kernels`` sets it on a whole tree. Eval only: no dropout.
+``set_use_kernels`` sets it on a whole tree.
+
+Dropout draws every mask from an explicit ``torch.Generator`` on x's
+device (:func:`dropout`); :func:`fold_in` and :func:`derive` give each
+layer, call site and step a generator of its own from one seed, as the JAX
+package's ``fold_in`` gives each its key.
 """
 
 from __future__ import annotations
@@ -59,6 +64,45 @@ def init_torch_defaults(module: nn.Module, gen: torch.Generator) -> None:
             for b in (m.in_proj_bias, m.out_proj.bias):
                 if b is not None:
                     b.zero_()
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``data`` (splitmix64 of the pair):
+    the host-side counterpart of ``jax.random.fold_in``. No device work."""
+    z = (seed ^ ((data + 1) * 0x9E3779B97F4A7C15)) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def derive(generator: torch.Generator | None, data: int) -> torch.Generator | None:
+    """A fresh generator on ``generator``'s device, seeded from its initial
+    seed and ``data``; None for None. Only the seed of ``generator`` is read,
+    never its state, so the same call gives the same generator however often
+    it is made (a recompute under ``torch.utils.checkpoint`` draws the same
+    masks)."""
+    if generator is None:
+        return None
+    return torch.Generator(generator.device).manual_seed(fold_in(generator.initial_seed(), data))
+
+
+def dropout(x, p: float, generator: torch.Generator | None, training: bool):
+    """Inverted dropout (``hriemo/nn/layers.py:54-70``): keep each element
+    with probability ``1 - p`` and divide the kept ones by ``1 - p`` in x's
+    dtype; the identity in eval or at ``p = 0``. A training call with
+    ``p > 0`` must pass a generator on x's device: silently skipping dropout
+    would leave the recipe without a warning."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout: training with p > 0 needs a torch.Generator; pass "
+                         "generator=... to forward() (or call model.eval())")
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def gelu(x, approximate: bool):

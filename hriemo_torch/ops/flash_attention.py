@@ -22,6 +22,15 @@ scales q first. The caller routes here when :func:`use_flash` holds
 (``nn/attention.py``). The TPU wrappers pad the keys to 128 with NEG_INF;
 the port runs at the true length, which gives the same rows except where
 every key is masked (finite output all the same).
+
+:func:`flash_mha` is differentiable as ``_pallas_mha``'s custom VJP is
+(``flash_attention_pallas.py:280-299``): the kernel forward, and a backward
+that recomputes through :func:`streaming_reference`, an online softmax over
+``REF_BLOCK``-key blocks with each block under ``torch.utils.checkpoint``
+(``_streaming_reference``, ``:226-271``). Neither direction builds the
+``[B, H, Lq, Lk]`` panel, which is why the route exists at L >= 1024.
+Gradients flow to q, k and v; the key bias comes from the mask and takes
+none.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.masking import NEG_INF
 from . import _cuda
@@ -38,6 +48,7 @@ from .wavlm_attention import onepass_launch, scaled_scores
 # one-pass path while K/V and the fp32 score panel fit (flash_attention_pallas.py:107)
 ONEPASS_MAX_LK = 2048
 BK = 128  # keys per step of the streaming softmax (flash_attention_pallas.py:35)
+REF_BLOCK = 512  # keys per recomputed block of the backward (flash_attention_pallas.py:226)
 
 
 def onepass_attention_plain(q, k, v, bias):
@@ -100,11 +111,64 @@ def key_bias(key_padding_mask, b: int, lk: int, device) -> torch.Tensor:
     return torch.where(key_padding_mask, NEG_INF, 0.0).float()
 
 
+def _reference_block(qs, kb, vb, bb, out, m, l):
+    """One key block of :func:`streaming_reference` (the scan body of
+    ``_streaming_reference``): fp32 scores of the pre-scaled q, the running
+    max, ``p`` cast to v's dtype before PV, fp32 sums."""
+    s = qs.float() @ kb.float().transpose(-1, -2) + bb[:, None, None, :]
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new)
+    l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+    pv = p.to(vb.dtype).float() @ vb.float()
+    return out * alpha + pv, m_new, l_new
+
+
+def streaming_reference(q, k, v, bias, blk: int = REF_BLOCK):
+    """Online-softmax attention over ``blk``-key blocks, each block under
+    ``torch.utils.checkpoint`` (``flash_attention_pallas.py:226-271``):
+    differentiating it keeps one block's ``[B, H, Lq, blk]`` scores at a
+    time. q ``[B, H, Lq, hd]``, k/v ``[B, H, Lk, hd]``, bias ``[B, Lk]``
+    fp32. The last block may be partial: JAX pads it with NEG_INF keys,
+    whose weights are exactly 0."""
+    b, h, lq, hd = q.shape
+    qs = q * (1.0 / math.sqrt(hd))
+    out = torch.zeros((b, h, lq, hd), device=q.device)
+    m = torch.full((b, h, lq, 1), -math.inf, device=q.device)
+    l = torch.zeros((b, h, lq, 1), device=q.device)
+    for j0 in range(0, k.shape[2], blk):
+        out, m, l = checkpoint(_reference_block, qs, k[:, :, j0:j0 + blk],
+                               v[:, :, j0:j0 + blk], bias[:, j0:j0 + blk], out, m, l,
+                               use_reentrant=False, preserve_rng_state=False)
+    return (out / l).to(q.dtype)
+
+
+class _FlashMha(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        fn = onepass_attention if k.shape[2] <= ONEPASS_MAX_LK else streaming_attention
+        return fn(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip((q, k, v), ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = streaming_reference(*ins, bias)
+            want = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, want, g))
+        return (*(next(grads) if t.requires_grad else None for t in ins), None)
+
+
 def flash_mha(q, k, v, key_padding_mask=None):
     """Fused attention over ``[B, H, L, hd]`` q/k/v: the one-pass kernel up
-    to ``ONEPASS_MAX_LK`` keys, the streaming kernel beyond."""
-    fn = onepass_attention if k.shape[2] <= ONEPASS_MAX_LK else streaming_attention
-    return fn(q, k, v, key_bias(key_padding_mask, q.shape[0], k.shape[2], q.device))
+    to ``ONEPASS_MAX_LK`` keys, the streaming kernel beyond (their plain
+    versions for CPU tensors). Differentiable in q, k and v; the backward
+    recomputes through :func:`streaming_reference`."""
+    return _FlashMha.apply(q, k, v, key_bias(key_padding_mask, q.shape[0], k.shape[2],
+                                              q.device))
 
 
 def flash_mha_plain(q, k, v, key_padding_mask=None):

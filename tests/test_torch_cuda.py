@@ -443,6 +443,29 @@ def test_ffn_block_bf16_backward(gen):
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("lk", [1024, 2049])   # one-pass; streaming, a 1-key last block
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_mha_backward(gen, lk, dtype):
+    """flash_mha on the card (the kernel forward, the backward recomputed
+    over 512-key blocks) gives the gradients of autograd through its plain
+    version, with padding: fp32 at 1e-4, bf16 within 5e-2 in relative norm."""
+    def heads():
+        return _randn(gen, 2, lk, 4 * 96, dtype=dtype).view(2, lk, 4, 96).transpose(1, 2)
+    q, k, v, g = heads(), heads(), heads(), heads()
+    mask = _pad_mask([lk, lk - 300], lk)
+    grads = []
+    for fn in (FA.flash_mha, FA.flash_mha_plain):
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        fn(*ins, mask).backward(g)
+        grads.append([t.grad for t in ins])
+    for got, ref in zip(*grads):
+        assert torch.isfinite(got).all() and got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        else:
+            assert ((got - ref).float().norm() / ref.float().norm()).item() < 5e-2
+
+
 def _stack_operands(gen, dtype):
     enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1))
     enc.init_weights(gen)

@@ -1,0 +1,159 @@
+"""PyTorch port: the training data layer, metrics and checkpoints
+(hriemo_torch/data, hriemo_torch/utils) against the JAX package's (CPU)."""
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from hriemo.data import BucketBatcher as JBatcher
+from hriemo.data import SeqLevelDataset as JDataset
+from hriemo.data import synthetic as JSyn
+from hriemo.models import FusionWithEmotionDecoder, MoseiFusionWithEmotionDecoder
+from hriemo.utils import checkpoint as JC
+from hriemo.utils import metrics as JM
+import hriemo_torch.models as TM
+from hriemo_torch.data import BucketBatcher as TBatcher
+from hriemo_torch.data import SeqLevelDataset as TDataset
+from hriemo_torch.data import batching as TB
+from hriemo_torch.data import read_index_csv
+from hriemo_torch.data import synthetic as TSyn
+from hriemo_torch.utils import checkpoint as TC
+from hriemo_torch.utils import metrics as TMet
+
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
+
+def _corpus(tmp_path, kind):
+    if kind == "mosei":
+        return (JSyn.make_synthetic_mosei(tmp_path / "jax", n=30, seed=4),
+                TSyn.make_synthetic_mosei(tmp_path / "port", n=30, seed=4))
+    return (JSyn.make_synthetic_iemocap(tmp_path / "jax", n=30, d=8, seq_level=True, seed=4),
+            TSyn.make_synthetic_iemocap(tmp_path / "port", n=30, d=8, seq_level=True, seed=4))
+
+
+@pytest.mark.parametrize("kind", ["mosei", "iemocap"])
+def test_synthetic_corpora_match_jax(tmp_path, kind):
+    (jcsv, jaud, jtxt), (tcsv, taud, ttxt) = _corpus(tmp_path, kind)
+    assert tcsv.read_text() == jcsv.read_text()
+    for jd, td in ((jaud, taud), (jtxt, ttxt)):
+        assert (td / "meta.json").read_text() == (jd / "meta.json").read_text()
+        names = sorted(p.name for p in jd.glob("*.npz"))
+        assert names == sorted(p.name for p in td.glob("*.npz")) and names
+        for name in names:
+            with np.load(jd / name) as a, np.load(td / name) as b:
+                assert sorted(a.files) == sorted(b.files)
+                for k in a.files:
+                    np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_bucket_batcher_matches_jax(tmp_path, accum):
+    """Same corpus and seed: the same batches, uids, n_valid and
+    ``[accum, micro, ...]`` layout, over two shuffled epochs and the padded
+    eval tail. The crop caps are below some lengths (center crop, mask
+    reset) and above others (padding)."""
+    (jcsv, jaud, jtxt), _ = _corpus(tmp_path, "mosei")
+    emo = JSyn.MOSEI_EMO_COLS
+    df = pd.read_csv(jcsv)
+    rows, cols = read_index_csv(jcsv)
+    kw = dict(uid_col="uid", emo_cols=emo, max_len_audio=30, max_len_text=12)
+    jds, tds = JDataset(df, jaud, jtxt, **kw), TDataset(rows, jaud, jtxt, columns=cols, **kw)
+    for shuffle, drop_last in ((True, True), (False, False)):
+        bkw = dict(batch_size=4, la=36, lt=12, shuffle=shuffle, seed=9, drop_last=drop_last,
+                   grad_accum=accum if drop_last else 1)
+        jb, tb = JBatcher(jds, **bkw), TBatcher(tds, **bkw)
+        assert len(jb) == len(tb)
+        for _ in range(2):
+            got, ref = list(tb), list(jb)
+            assert len(got) == len(ref) > 0
+            for g, r in zip(got, ref):
+                assert sorted(g) == sorted(r)
+                assert g["n_valid"] == r["n_valid"] and g["uids"] == r["uids"]
+                for k in ("h_a", "h_t", "mask_a", "mask_t", "y"):
+                    assert g[k].dtype == r[k].dtype and g[k].shape == r[k].shape, k
+                    np.testing.assert_array_equal(g[k], r[k], err_msg=k)
+
+
+def test_seq_dataset_labels_and_filtering_match_jax(tmp_path):
+    (jcsv, jaud, jtxt), _ = _corpus(tmp_path, "iemocap")
+    df = pd.read_csv(jcsv)
+    (jaud / f"{df.utter_id[3]}.npz").unlink()  # one row loses its audio
+    rows, cols = read_index_csv(jcsv)
+    label2id = {lab: i for i, lab in enumerate(sorted(set(df.label)))}
+    kw = dict(label_col="label", label2id=label2id, max_len_audio=25, max_len_text=0)
+    jds, tds = JDataset(df, jaud, jtxt, **kw), TDataset(rows, jaud, jtxt, **kw)
+    assert len(tds) == len(jds) == 29 and tds.uid_col == jds.uid_col == "utter_id"
+    for i in range(len(jds)):
+        g, r = tds[i], jds[i]
+        assert g["uid"] == r["uid"] and g["y"] == r["y"] and g["y"].dtype == r["y"].dtype
+        for k in ("h_a", "h_t", "mask_a", "mask_t"):
+            np.testing.assert_array_equal(g[k], r[k])
+
+
+def test_prefetch_to_device_keeps_batches_and_order():
+    batches = [{"h_a": np.full((2, 3), i, np.float32), "n_valid": 2, "uids": [f"u{i}"]}
+               for i in range(3)]
+    out = list(TB.prefetch_to_device(iter(batches), "cpu"))
+    assert [b["uids"] for b in out] == [["u0"], ["u1"], ["u2"]]
+    for i, b in enumerate(out):
+        assert isinstance(b["h_a"], torch.Tensor) and float(b["h_a"][0, 0]) == i
+        assert b["n_valid"] == 2
+
+
+def test_native_loader_raises_naming_its_roadmap_item():
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        TBatcher([], 2, native=True)
+
+
+def test_metrics_equal_jax():
+    rng = np.random.default_rng(5)
+    y_raw = rng.uniform(-1, 3, (40, 6))
+    y_raw[:, 5] = -1.0                 # a degenerate column: AUC skips it
+    probs = rng.uniform(0, 1, (40, 6))
+    probs[:4, 0] = probs[4:8, 0] = 0.25  # ties
+    yb = JM.binarize_truth(y_raw)
+    np.testing.assert_array_equal(TMet.binarize_truth(y_raw), yb)
+    pred = (probs >= 0.5).astype(int)
+    for fn in ("micro_f1", "macro_f1"):
+        assert getattr(TMet, fn)(yb, pred) == getattr(JM, fn)(yb, pred)
+    assert TMet.macro_auc(yb, probs) == JM.macro_auc(yb, probs)
+    assert TMet.average_precision(yb[:, 0], probs[:, 0]) == \
+        JM.average_precision(yb[:, 0], probs[:, 0])
+    for got, ref in zip(TMet.calibrate_thresholds(yb, probs), JM.calibrate_thresholds(yb, probs)):
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(TMet.pos_weights(yb), JM.pos_weights(yb))
+    assert TMet.summary_metrics(y_raw, probs) == JM.summary_metrics(y_raw, probs)
+
+
+TINY = dict(d_model=32, n_heads=4, num_layers_fusion=1, num_layers_decoder=1, beta_hidden=16)
+
+
+@pytest.mark.parametrize("kind", ["iemocap", "mosei"])
+def test_checkpoints_load_strictly_across(tmp_path, kind):
+    """Each side's best_*.pt (the reference layout) loads strictly into the
+    other side's model, with the same tensors."""
+    if kind == "mosei":
+        kw = dict(d_audio=10, d_text=12, num_emotions=6, **TINY)
+        jm, tm = MoseiFusionWithEmotionDecoder(**kw), TM.MoseiFusionWithEmotionDecoder(**kw)
+    else:
+        kw = dict(num_emotions=4, **TINY)
+        jm, tm = FusionWithEmotionDecoder(**kw), TM.FusionWithEmotionDecoder(**kw)
+    tm.init_weights(torch.Generator().manual_seed(3))
+    meta = {"args": {"d_model": 32}, "epoch": 2}
+
+    port_path = str(tmp_path / "port.pt")
+    TC.save_torch_checkpoint(port_path, {"model_state_dict": TC.state_dict_cpu(tm), **meta})
+    ckpt = JC.load_model_from_torch_checkpoint(jm, port_path)
+    assert ckpt["epoch"] == 2
+    ref = JC.state_dict_from_params(jm.params)
+    for name, t in tm.state_dict().items():
+        np.testing.assert_array_equal(ref[name], t.numpy())
+
+    jax_path = str(tmp_path / "jax.pt")
+    JC.save_torch_checkpoint(jax_path, {"model_state_dict":
+                                        JC.state_dict_from_params(jm.params), **meta})
+    fresh = type(tm)(**kw)
+    assert TC.load_model_from_torch_checkpoint(fresh, jax_path)["args"] == {"d_model": 32}
+    for (name, a), b in zip(tm.state_dict().items(), fresh.state_dict().values()):
+        assert torch.equal(a, b), name
