@@ -30,7 +30,10 @@ Phases, any failure exits non-zero:
    with its own limit check (a gated B=4 L=499 result without its last key
    tile), and the shared int8 GEMM at the 10 s bucket's rows, bit-equal to its
    plain version, against ``torch._int_mm``; phase 4 then gives each of these
-   rows its launches per forward;
+   rows its launches per forward. The one-pass and streaming cores are also
+   held at phase 7d's shapes (4 heads of 64, a long split padded to
+   ``mosei_eval_infer``'s batch), where ``ATTN_TOL`` must reject each
+   without its last, partial key tile;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -75,8 +78,24 @@ Phases, any failure exits non-zero:
    the gradient tolerance must reject a flash backward that drops its last,
    partial 512-key block. Each prints step ms (wall and CUDA events), steps
    per second and peak memory;
-7. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
-   phases 4-6); then the last line ``{"ok": true, "device": {...}}``.
+7. evaluation and inference on phase 5's tree and phase 6's checkpoints,
+   each entry point's ``main`` called in this process: (a) HF-layout state
+   dicts of phase 5's encoders (prefixed names, the positional conv as
+   weight norm's g and v, a pooler and ``position_ids`` to skip) and a
+   WordPiece vocabulary of the transcripts load through the bridges: BERT
+   bit-equal to its source, WavLM within the fp32 feature limit; (b)
+   ``e2e_infer`` on the index's test split with those files and phase 6a's
+   checkpoint, W8A8 and bf16, each against the same CLI on the plain
+   versions within 0.006, rows 1-4 launched on W8A8 and the WavLM core on
+   bf16, utterances per second of the whole call; (c) ``extract_iemocap``
+   with the local files, fp32, one batch, kernels vs plain at 1e-4; (d)
+   ``mosei_eval_infer`` on phase 6b's checkpoint with ``--dump_beta
+   --dump_attn`` (artifact shapes, ``y_prob`` unchanged without the dump),
+   ``mosei_summary_metrics``, then uncapped over a one-pass and a streaming
+   split (1100-2300 audio frames) against the plain versions at phase 6c's
+   bf16 limit, launching both flash kernels;
+8. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
+   phases 4-7); then the last line ``{"ok": true, "device": {...}}``.
 
 Full per-shape results go to ``chip_smoke_out/chip_smoke.json``. With
 ``--profile`` it also traces one pass of each serving run and one train step
@@ -87,6 +106,7 @@ of each phase-6c configuration with torch.profiler
 from __future__ import annotations
 
 import copy
+import csv
 import functools
 import json
 import math
@@ -103,7 +123,7 @@ import torch
 from hriemo_torch.frontends import BertConfig, BertEncoder, WavLMConfig, WavLMEncoder
 from hriemo_torch.infer import HashTokenizer, StreamingPipeline
 from hriemo_torch.models import FusionWithEmotionDecoder
-from hriemo_torch.data import load_feature
+from hriemo_torch.data import load_feature, save_feature, write_meta
 from hriemo_torch.dataprep import extract_iemocap as EX
 from hriemo_torch.dataprep import iemocap_index as II
 from hriemo_torch.dataprep.integrity import check_integrity
@@ -118,10 +138,15 @@ from hriemo_torch.ops import fused_ffn as FF
 from hriemo_torch.ops import quant as Q
 from hriemo_torch.ops import wavlm_attention as WA
 from hriemo_torch.ops.quant import quantize_for_serving
-from hriemo_torch.data.synthetic import make_synthetic_iemocap, make_synthetic_mosei
+from hriemo_torch.data.synthetic import MOSEI_EMO_COLS, make_synthetic_iemocap, make_synthetic_mosei
 from hriemo_torch.parallel import train_step as TS
 from hriemo_torch.train import train_fusion_seq_level_decoder as TRAIN_IEMOCAP
 from hriemo_torch.train import train_mosei_fusion_seq_level_decoder as TRAIN_MOSEI
+from hriemo_torch.dataprep.tokenization import WordPieceTokenizer
+from hriemo_torch.infer import e2e_infer as E2E
+from hriemo_torch.infer import mosei_eval_infer as MEVAL
+from hriemo_torch.infer import mosei_summary_metrics as MSUM
+from hriemo_torch.utils.checkpoint import load_torch_checkpoint, save_torch_checkpoint
 
 SEED = 0
 B = 4                     # requests per flush on the serving path below
@@ -155,7 +180,7 @@ PEAK_TF32 = 495e12
 TF32_PRODUCTS = 3
 TEXT_BUCKETS = (8, 12, 16, 20, 24, 32, 64)   # bench.py:172
 EPS = 1e-5                # WavLM's layer_norm_eps (GroupNorm)
-ONEPASS_KEY_TILE = 64     # keys per tile of csrc/wavlm_attention.cu's bf16 kernel
+ONEPASS_KEY_TILE = 64     # keys per tile of the bf16 one-pass kernels (csrc/onepass_mma.cuh)
 TF32_KEY_TILE = 32        # keys per tile of the fp32 kernels (csrc/attention_tf32.cuh)
 OUT = pathlib.Path("chip_smoke_out")
 _MAKE_TRAIN_STEP = TS.make_train_step   # the trainers' step, before run_trainer wraps it
@@ -219,6 +244,17 @@ PER_FORWARD_FORCED = {"wavlm_fused_attention": 12, "ffn_block_bf16": 12,
 # decoder's last linear1, whose ReLU sees only B x E = 8 rows (PERF.md §6).
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# evaluation and inference: the kernels each e2e_infer tree must launch, the
+# uncapped MOSEI splits (audio frames: one-pass up to 2048 keys, streaming
+# beyond; d=256 and 4 heads, so the audio self-attention of both fusion
+# layers, 2 launches a split), and their kernel-vs-plain limit on
+# probabilities, phase 6c's bf16 forward limit. A limit on probabilities
+# cannot show a wrong core, so phase 3 holds both cores at these shapes at
+# ATTN_TOL, which rejects each without its last key tile.
+E2E_KERNELS = {"int8": ("attention_block_int8", "mha_block_int8", "ffn_block_int8", "mlp2_int8"),
+               "bf16": ("wavlm_fused_attention",)}
+LONG_MOSEI = {"long_onepass": (1100, 2000), "long_streaming": (2100, 2300)}
+EVAL_TOL = LOSS_RTOL[torch.bfloat16]
 TRAIN_AUDIO = (1499, 2249)   # one-pass and streaming audio self-attention (30 s, 45 s)
 EXTRACT_ENVELOPE = dict(atol=0.15, rtol=0.15)  # tests/test_conv_stack.py bf16 vs fp32
 # Extracted features: fp32 at the encoders' 1e-4 (tests/test_torch_frontends.py).
@@ -405,9 +441,10 @@ def check_kernels(gen):
         lambda: Q.int8_linear_plain(x, lin.w_int8, lin.w_scale, lin.bias_f32), None,
         nbytes(x) + m * d * 2 + 512 * d + 8 * d, 2 * m * 512 * d, 0)
 
-    def heads(b, l, h, hd, dtype=torch.bfloat16):
+    def heads(b, l, h, hd, dtype=torch.bfloat16, generator=None):
         """q/k/v as the routes pass them: head views of a [B, L, H*hd] projection."""
-        return randn(b, l, h * hd, dtype=dtype).view(b, l, h, hd).transpose(1, 2)
+        return randn(b, l, h * hd, dtype=dtype, generator=generator).view(b, l, h, hd) \
+            .transpose(1, 2)
 
     def attn_ops(dtype, b, h, lq, lk, hd):
         """(bf16, fp32, tf32) operations of an attention core: fp32 at head
@@ -468,6 +505,31 @@ def check_kernels(gen):
                 limit_check[str(dt)[6:]] = dropped_tile(
                     name, FA.BK if dt == torch.bfloat16 else TF32_KEY_TILE, l, dt,
                     lambda n: plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
+
+    # the same cores on phase 7d's uncapped MOSEI eval: d=256 in 4 heads of
+    # 64 (the audio self-attention), each long split's clips padded to the
+    # CLI's batch by repeating the last, keys masked at each clip's length;
+    # bf16, the eval's compute dtype. Inputs from a generator of their own,
+    # so that later rows keep theirs; the limit checks run after the timings.
+    own = torch.Generator().manual_seed(SEED + 8)
+    h, hd, eb = 4, 64, MEVAL.parse_args(["--ckpt", "unused"]).batch_size
+    eval_upto = {}
+    for name, split in (("onepass_attention", "long_onepass"),
+                        ("streaming_attention", "long_streaming")):
+        fn, plain = getattr(FA, name), getattr(FA, name + "_plain")
+        la = [a for a, _ in long_lengths(np.random.default_rng(SEED + 7))[split]]
+        l, lens = max(la), la + la[-1:] * (eb - len(la))
+        q, k, v = (heads(eb, l, h, hd, generator=own) for _ in range(3))
+        kpm = (torch.arange(l)[None, :] >= torch.tensor(lens)[:, None]).to(dev)
+        bias = FA.key_bias(kpm, eb, l, dev)
+        amask = ~kpm[:, None, None, :]
+        run(name, f"B={eb} {l}x{l} H={h} hd={hd} bfloat16",
+            lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
+            nbytes(q, k, v, bias, q), 0, *attn_ops(torch.bfloat16, eb, h, l, l, hd),
+            tol=ATTN_TOL[torch.bfloat16])
+        eval_upto[name] = (l, lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
+                           plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
 
     # float FFN block (off the routed paths): WavLM's widths at the
     # extraction batch (8 x 499 rows), the 10 s serving batch's rows (4 x
@@ -649,6 +711,11 @@ def check_kernels(gen):
     # twice on the same input, after every timing
     core_check = dropped_tile("attention_core_int8", ONEPASS_KEY_TILE, 499, torch.bfloat16,
                               core_upto)
+    eval_check = {name: dropped_tile(f"{name} hd=64", tile, eval_upto[name][0],
+                                     torch.bfloat16, eval_upto[name][1])
+                  for name, tile in (("onepass_attention", ONEPASS_KEY_TILE),
+                                     ("streaming_attention", FA.BK))}
+    del eval_upto
     edge_check, k2_edge_check, chunk_check, stats_bits = {}, {}, {}, {}
     for dt, (wave, stats, w0, gn_w, gn_b, taps, x3) in edge_inputs.items():
         name = str(dt)[6:]
@@ -658,7 +725,8 @@ def check_kernels(gen):
         chunk_check[name] = dropped_chunk(wave, w0)
         stats_bits[name] = same_bits(wave, w0)
     return rows, dict(streaming_last_block=limit_check, onepass_gated_last_tile=gated_check,
-                      int8_core_last_tile=core_check, conv_k1_tile_edge=edge_check,
+                      int8_core_last_tile=core_check, mosei_eval_last_tile=eval_check,
+                      conv_k1_tile_edge=edge_check,
                       conv_k2_tile_edge=k2_edge_check, stats_last_chunk=chunk_check,
                       stats_same_bits=stats_bits, ffn_backward=ffn_grad)
 
@@ -948,16 +1016,11 @@ def compare_features(what, got_dir, ref_dir, uids, tol):
     return reading
 
 
-def extraction(gen, smi: str):
-    """Phase 5. Returns its record and the launches of its main-path runs."""
-    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_extract_"))
-    try:
-        return _extraction(gen, smi, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
-
-def _extraction(gen, smi, root):
+def extraction(gen, smi: str, root: pathlib.Path):
+    """Phase 5, in ``root``. Returns its record, the launches of its
+    main-path runs, and the index and the two encoders, which phase 7
+    reuses."""
+    root.mkdir()
     fake_iemocap(root / "IEMOCAP", np.random.default_rng(SEED + 2))
     idx = II.main(["--base", str(root / "IEMOCAP"), "--out_dir", str(root / "data")])
     rows = II.read_csv(idx)
@@ -1036,7 +1099,7 @@ def _extraction(gen, smi, root):
                 root / f"audio_seq_{dtype}", uids[:8], tol))
     finally:
         CS.use_conv_stack, FF.use_ffn_bf16 = gates
-    return rec, total
+    return rec, total, (idx, wavlm, bert)
 
 
 def timed_steps(record, tag=None):
@@ -1266,16 +1329,11 @@ def timed_wall(fn):
     return time.perf_counter() - t
 
 
-def training(gen, smi):
-    """Phase 6. Returns its record and the launches of its main-path runs."""
-    root = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
-    try:
-        return _training(gen, smi, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
-
-def _training(gen, smi, root):
+def training(gen, smi, root: pathlib.Path):
+    """Phase 6, in ``root``, where phase 7 finds its checkpoints and its
+    MOSEI corpus. Returns its record and the launches of its main-path
+    runs."""
+    root.mkdir()
     rec, total = {}, {name: 0 for name in KERNELS}
 
     # (a) the IEMOCAP decoder trainer at its full width, fp32 and bf16
@@ -1328,6 +1386,244 @@ def _training(gen, smi, root):
     rec["fusion_step"], ll = fusion_step(gen, smi)
     for name, n in ll.items():
         total[name] += n
+    return rec, total
+
+
+def hf_state_dict(module: torch.nn.Module, prefix: str) -> dict:
+    """``module``'s weights (a port ``WavLMEncoder`` or ``BertEncoder``) as an
+    HF checkpoint lays them out, the input of ``from_torch_state_dict``:
+    names under ``prefix`` (``"wavlm."`` or ``"bert."``), WavLM's positional
+    conv as weight norm's ``original0`` (g, the norm over dims (0, 1)) and
+    ``original1`` (v, the weight), and the entries the bridges skip
+    (``masked_spec_embed``; ``pooler.*`` and ``embeddings.position_ids``).
+    Proves a bridge at full width, where no HF model can be built (the
+    card's machine has no ``transformers``)."""
+    sd = {}
+    for name, t in module.state_dict().items():
+        t = t.detach().float().cpu().clone()
+        if name == "encoder.pos_conv_embed.conv.weight":
+            base = prefix + name.removesuffix("weight") + "parametrizations.weight."
+            sd[base + "original0"] = t.norm(dim=(0, 1), keepdim=True)
+            sd[base + "original1"] = t
+        else:
+            sd[prefix + name] = t
+    d = module.config.hidden_size
+    if prefix == "wavlm.":
+        sd[prefix + "masked_spec_embed"] = torch.zeros(d)
+    else:
+        sd[prefix + "pooler.dense.weight"] = torch.zeros(d, d)
+        sd[prefix + "pooler.dense.bias"] = torch.zeros(d)
+        sd[prefix + "embeddings.position_ids"] = torch.arange(
+            module.config.max_position_embeddings)[None]
+    return sd
+
+
+def vocab_of(texts) -> list[str]:
+    """A WordPiece vocabulary for the synthetic transcripts: the special
+    tokens, every other word whole, and the rest as a two-letter head and
+    single-letter ``##`` pieces, so that both kinds of match run."""
+    words = sorted({w for t in texts for w in t.lower().split()})
+    toks = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words[::2]
+    for w in words[1::2]:
+        toks += [w[:2]] + ["##" + c for c in w[2:]]
+    return list(dict.fromkeys(toks))
+
+
+def long_lengths(rng) -> dict:
+    """Per split of ``LONG_MOSEI``, three utterances' (audio, text) frame
+    counts: audio in the split's range, text in 64-128."""
+    return {split: [(int(rng.integers(lo, hi + 1)), int(rng.integers(64, 129)))
+                    for _ in range(3)] for split, (lo, hi) in LONG_MOSEI.items()}
+
+
+def long_mosei(root: pathlib.Path, rng):
+    """Uncapped MOSEI splits for the flash kernels: the utterances of
+    ``long_lengths(rng)`` with 74-d audio and 300-d text features from
+    ``rng``, labels in [-1, 3]. Returns ``(csv_path, audio_dir, text_dir)``."""
+    audio_dir, text_dir = root / "features" / "audio", root / "features" / "text"
+    rows = []
+    for split, lengths in long_lengths(rng).items():
+        for i, (la, lt) in enumerate(lengths):
+            uid = f"{split}_{i}"
+            save_feature(audio_dir / f"{uid}.npz",
+                         rng.standard_normal((la, 74)).astype(np.float32), np.ones(la, np.int64))
+            save_feature(text_dir / f"{uid}.npz",
+                         rng.standard_normal((lt, 300)).astype(np.float32), np.ones(lt, np.int64))
+            rows.append([uid, uid, split, *rng.uniform(-1, 3, len(MOSEI_EMO_COLS))])
+    write_meta(audio_dir, hidden_dim=74, level="seq")
+    write_meta(text_dir, hidden_dim=300, level="seq")
+    csv_path = root / "mosei_index_splits.csv"
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerows([["uid", "video_id", "split", *MOSEI_EMO_COLS], *rows])
+    return csv_path, audio_dir, text_dir
+
+
+def by_uid(out_dir: pathlib.Path, split: str) -> dict:
+    uids = (out_dir / f"{split}_uids.txt").read_text().split("\n")
+    return dict(zip(uids, np.load(out_dir / f"{split}_y_prob.npy")))
+
+
+def evaluation(smi, work: pathlib.Path, idx, wavlm, bert):
+    """Phase 7: the HF bridges at full width, ``e2e_infer`` (int8 and bf16)
+    and ``extract_iemocap`` with local weights on phase 5's tree, and
+    ``mosei_eval_infer`` with ``mosei_summary_metrics`` on phase 6b's
+    checkpoint, each entry point called in this process so that the launch
+    counters count. Returns its record and the launches of its main-path
+    runs (the kernel runs; the plain runs are references)."""
+    rec, total = {}, {name: 0 for name in KERNELS}
+    root = work / "eval"
+    root.mkdir()
+
+    def add(ll):
+        for name, n in ll.items():
+            total[name] += n
+
+    # (a) the bridges at full width: HF-layout files of phase 5's encoders
+    rows = II.read_csv(idx)
+    (root / "vocab.txt").write_text("\n".join(vocab_of(r["text"] for r in rows)) + "\n")
+    for name, module in (("wavlm", wavlm), ("bert", bert)):
+        torch.save(hf_state_dict(module, f"{name}."), root / f"{name}.pt")
+    wavlm2 = WavLMEncoder(wavlm.config).from_torch_state_dict(
+        EX.load_state_dict_file(root / "wavlm.pt"))
+    bert2 = BertEncoder(bert.config).from_torch_state_dict(
+        EX.load_state_dict_file(root / "bert.pt"))
+    tok = WordPieceTokenizer(root / "vocab.txt")
+    enc = tok([r["text"] for r in rows[:8]], max_length=128)
+    if (enc["input_ids"] == tok.unk).any() or enc["attention_mask"].sum(1).min() <= 2:
+        raise AssertionError("WordPiece: [UNK] or no tokens in the synthetic transcripts")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    wav = torch.randn(2, 160000, generator=gen).cuda() * 0.1
+    wmask = (torch.arange(160000)[None, :] < torch.tensor([[160000], [97000]])).int().cuda()
+    ids = torch.from_numpy(enc["input_ids"]).cuda()
+    tmask = torch.from_numpy(enc["attention_mask"]).cuda()
+    with torch.inference_mode():
+        outs = {}
+        for tag, w, b in (("source", wavlm, bert), ("bridged", wavlm2, bert2)):
+            w, b = copy.deepcopy(w).cuda().eval(), copy.deepcopy(b).cuda().eval()
+            outs[tag] = (w(wav, wmask)[0], b(ids, tmask)[0])
+            del w, b
+    err = compare("bridged WavLM vs source, fp32", outs["bridged"][0], outs["source"][0],
+                  FEATURE_TOL["float32"])
+    if not torch.equal(outs["bridged"][1], outs["source"][1]):
+        raise AssertionError("bridged BERT: not bit-equal to the source module")
+    rec["bridges"] = dict(wavlm_max_abs_err=err[0], bert="bit-equal")
+    print(f"bridges (WavLM base-plus, BERT-base, HF layout, weight norm folded): WavLM max "
+          f"|d| {err[0]:.3g} (limit {FEATURE_TOL['float32']}), BERT bit-equal", flush=True)
+    del outs, wavlm2, bert2
+    torch.cuda.empty_cache()
+
+    # (b) e2e_infer on the test split, int8 and bf16, each against its plain run
+    fusion_ckpt = work / "train" / "iemocap_bfloat16" / "best_fusion_seq_decoder.pt"
+    argv = ["--index_csv", str(idx), "--split", "test", "--num_emotions", "6",
+            "--wavlm_state_dict", str(root / "wavlm.pt"), "--bert_state_dict",
+            str(root / "bert.pt"), "--vocab_file", str(root / "vocab.txt"),
+            "--fusion_ckpt", str(fusion_ckpt)]
+    for tree, extra in (("int8", ["--int8"]), ("bf16", [])):
+        out, plain = root / f"e2e_{tree}", root / f"e2e_{tree}_plain"
+        reset_launches()
+        secs = timed_wall(lambda: E2E.main(argv + extra + ["--out_dir", str(out)]))
+        ll = read_launches()
+        E2E.main(argv + extra + ["--out_dir", str(plain)], use_kernels=False)
+        got, ref = by_uid(out, "test"), by_uid(plain, "test")
+        probs = np.stack([got[u] for u in sorted(ref)])
+        delta = float(np.abs(probs - np.stack([ref[u] for u in sorted(ref)])).max())
+        if set(got) != set(ref) or probs.shape[1] != 6 or not np.isfinite(probs).all() \
+                or np.abs(probs.sum(1) - 1).max() > 1e-3:
+            raise AssertionError(f"e2e {tree}: bad probabilities {probs}")
+        print(f"e2e_infer {tree}: {len(got)} utterances in {secs:.3f} s (the whole CLI call, "
+              f"weights loaded from disk), {len(got) / secs:.2f} utt/s ({smi}); kernel vs "
+              f"plain max prob delta {delta:.3g} (gate {PROB_GATE}); launches {ll}", flush=True)
+        if not delta <= PROB_GATE:
+            raise AssertionError(f"e2e {tree}: prob delta {delta} > {PROB_GATE}")
+        for name in E2E_KERNELS[tree]:
+            if not ll[name]:
+                raise AssertionError(f"e2e {tree}: {name} was not launched")
+        add(ll)
+        rec[f"e2e_{tree}"] = dict(utterances=len(got), seconds=secs, prob_delta=delta,
+                                  launches=ll)
+
+    # (c) extract_iemocap with the local weights and vocabulary, fp32, one batch
+    def eargs(modality):
+        return EX.parse_args(["--modality", modality, "--index_csv", str(idx),
+                              "--out_dir", "unused", "--batch_size", "8",
+                              "--wavlm_state_dict", str(root / "wavlm.pt"),
+                              "--bert_state_dict", str(root / "bert.pt"),
+                              "--vocab_file", str(root / "vocab.txt")])
+
+    few = rows[:8]
+    for d in ("x_audio", "x_audio_plain", "x_text"):
+        (root / d).mkdir()
+    reset_launches()
+    st = EX.extract_audio(eargs("audio"), few, root / "x_audio")
+    ll = read_launches()
+    check_launches("extract with local weights", ll,
+                   {n: k * st["forwards"] for n, k in PER_FORWARD_EXTRACT.items()})
+    add(ll)
+    EX.extract_audio(eargs("audio"), few, root / "x_audio_plain", use_kernels=False)
+    reading = compare_features("extract with local weights, kernels vs plain",
+                               root / "x_audio", root / "x_audio_plain",
+                               [r["utter_id"] for r in few], FEATURE_TOL["float32"])
+    EX.extract_text(eargs("text"), few, root / "x_text")
+    for r in few:
+        if load_feature(root / "x_text" / f"{r['utter_id']}.npz")[1].sum() <= 2:
+            raise AssertionError("extract text: the WordPiece ids did not reach BERT")
+    rec["extract_local"] = dict(reading, launches=ll)
+
+    # (d) mosei_eval_infer on phase 6b's checkpoint: capped at its 300 frames
+    # with every dump, then uncapped over long splits through the flash kernels
+    train = work / "train"
+    ckpt = train / "mosei_run" / "best_mosei_fusion_decoder.pt"
+    data = ["--index_csv", str(train / "mosei" / "mosei_index_splits.csv"),
+            "--audio_dir", str(train / "mosei" / "features" / "audio"),
+            "--text_dir", str(train / "mosei" / "features" / "text")]
+    dump = root / "mosei_dump"
+    reset_launches()
+    MEVAL.main(["--ckpt", str(ckpt), *data, "--splits", "val", "--dump_beta", "--dump_attn",
+                "--out_dir", str(dump)])
+    add(read_launches())
+    MEVAL.main(["--ckpt", str(ckpt), *data, "--splits", "val", "--out_dir", str(root / "bare")])
+    probs = np.load(dump / "val_y_prob.npy")
+    n = len(probs)
+    attn = torch.load(dump / "val_attentions.pt", weights_only=False)
+    layer = attn["encoder"][0][0]
+    shapes_ok = (probs.shape == (n, 6) and np.load(dump / "val_y_true.npy").shape == (n, 6)
+                 and np.load(dump / "val_beta_mean.npy").shape == (n,)
+                 and len(attn["encoder"][0]) == 2 and len(attn["decoder"][0]) == 2
+                 and layer["audio_self"].shape[1:] == (300, 300)
+                 and attn["decoder"][0][0].shape[1] == 6
+                 and sum(len(b[0]["text_self"]) for b in attn["encoder"]) == min(n, 16))
+    if not shapes_ok or not np.isfinite(probs).all():
+        raise AssertionError(f"mosei_eval_infer: artifacts of the wrong shape: {probs.shape}, "
+                             f"{ {k: tuple(v.shape) for k, v in layer.items()} }")
+    if not np.array_equal(probs, np.load(root / "bare" / "val_y_prob.npy")):
+        raise AssertionError("mosei_eval_infer: y_prob differs with --dump_attn")
+    summary = MSUM.main(["--pred_dir", str(dump), "--split", "val", "--ckpt", str(ckpt)])
+
+    ck = load_torch_checkpoint(str(ckpt))
+    ck["args"].update(max_len_audio=0, max_len_text=0)
+    save_torch_checkpoint(str(root / "mosei_uncapped.pt"), ck)
+    csv_path, audio_dir, text_dir = long_mosei(root / "long", np.random.default_rng(SEED + 7))
+    argv = ["--ckpt", str(root / "mosei_uncapped.pt"), "--index_csv", str(csv_path),
+            "--audio_dir", str(audio_dir), "--text_dir", str(text_dir),
+            "--splits", *LONG_MOSEI]
+    reset_launches()
+    MEVAL.main(argv + ["--out_dir", str(root / "long_out")])
+    ll = read_launches()
+    MEVAL.main(argv + ["--out_dir", str(root / "long_plain")], use_kernels=False)
+    delta = max(float(np.abs(np.load(root / "long_out" / f"{sp}_y_prob.npy")
+                             - np.load(root / "long_plain" / f"{sp}_y_prob.npy")).max())
+                for sp in LONG_MOSEI)
+    print(f"mosei_eval_infer (phase 6b's checkpoint, bf16): capped {n} utterances, artifacts "
+          f"and attention dumps of the right shapes, y_prob unchanged by --dump_attn, summary "
+          f"{summary}; uncapped {list(LONG_MOSEI.values())} frames: kernel vs plain max prob "
+          f"delta {delta:.3g} (limit {EVAL_TOL}); launches {ll}", flush=True)
+    if not delta <= EVAL_TOL:
+        raise AssertionError(f"mosei_eval_infer uncapped: prob delta {delta} > {EVAL_TOL}")
+    check_launches("mosei_eval_infer uncapped", ll,
+                   {"onepass_attention": 2, "streaming_attention": 2})
+    add(ll)
+    rec["mosei"] = dict(utterances=n, summary=summary, uncapped_prob_delta=delta, launches=ll)
     return rec, total
 
 
@@ -1503,14 +1799,27 @@ def main() -> int:
                 total[name] += n
         del pk, pp
         torch.cuda.empty_cache()
-    # phase 5: the feature-extraction entry point
-    phases["extract"], ll = extraction(torch.Generator().manual_seed(SEED + 4), smi)
-    for name, n in ll.items():
-        total[name] += n
-    # phase 6: training
-    phases["train"], ll = training(torch.Generator().manual_seed(SEED + 5), smi)
-    for name, n in ll.items():
-        total[name] += n
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        # phase 5: the feature-extraction entry point
+        phases["extract"], ll, (idx, wavlm5, bert5) = extraction(
+            torch.Generator().manual_seed(SEED + 4), smi, work / "extract")
+        for name, n in ll.items():
+            total[name] += n
+        # phase 6: training
+        phases["train"], ll = training(torch.Generator().manual_seed(SEED + 5), smi,
+                                       work / "train")
+        for name, n in ll.items():
+            total[name] += n
+        # phase 7: evaluation and inference on phase 5's tree and phase 6's checkpoints
+        t7 = time.perf_counter()
+        phases["eval"], ll = evaluation(smi, work, idx, wavlm5, bert5)
+        phases["eval"]["seconds"] = time.perf_counter() - t7
+        print(f"phase 7: {phases['eval']['seconds']:.1f} s wall", flush=True)
+        for name, n in ll.items():
+            total[name] += n
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"{name}: launched on no main path")

@@ -23,11 +23,13 @@ written while the next one runs. ``--device`` is the card unless ``cpu``
 is asked for; ``--compute_dtype float32`` keeps matmuls and cuDNN convs in
 full fp32 (no TF32).
 
-Weights: ``--random_init`` (random weights from a fixed seed; features are
-meaningless). Pretrained weights (``--wavlm_state_dict``,
-``--bert_state_dict``) and a WordPiece vocabulary (``--vocab_file``) wait
-for the HF bridges (ROADMAP.md queue 1 item 14); until then these flags
-are refused, and text goes through the validation-only hash tokenizer.
+Weights: ``--wavlm_state_dict`` / ``--bert_state_dict`` (local HF state
+dict files, through the frontends' ``from_torch_state_dict``) or
+``--random_init`` (random weights from a fixed seed; features are
+meaningless). Text goes through ``--vocab_file`` (a local WordPiece
+``vocab.txt``, ``dataprep.tokenization``), else through the
+validation-only hash tokenizer, which pretrained BERT weights refuse
+unless ``--allow_hash_tokenizer`` is given.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..frontends import BertConfig, BertEncoder, WavLMConfig, WavLMEncoder
 from ..nn.layers import set_use_kernels
 from .audio import TARGET_SR, prepare_waveform
 from .iemocap_index import read_csv
+from .tokenization import WordPieceTokenizer
 
 SEED = 0  # --random_init weights
 
@@ -78,13 +81,12 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def refuse_unported_flags(args) -> None:
-    for flag in ("wavlm_state_dict", "bert_state_dict", "vocab_file"):
-        if getattr(args, flag):
-            raise SystemExit(
-                f"[extract] --{flag} is not supported yet: pretrained weights, the HF "
-                "state-dict bridges and a WordPiece vocabulary wait for ROADMAP.md queue 1 "
-                "item 14; use --random_init")
+def load_state_dict_file(path) -> dict:
+    """A torch state dict file, or a checkpoint holding one under
+    ``model_state_dict`` (``hriemo/dataprep/extract_iemocap.py:70-74``)."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    return obj["model_state_dict"] if isinstance(obj, dict) and "model_state_dict" in obj \
+        else obj
 
 
 def _batched(seq, n):
@@ -92,11 +94,30 @@ def _batched(seq, n):
         yield seq[i: i + n]
 
 
-def _random_model(args, module):
-    if not args.random_init:
-        raise SystemExit("need --random_init (pretrained weights: ROADMAP.md queue 1 item 14)")
+def load_frontend(module, state_dict_path, random_init: bool, flag: str):
+    """``module`` with the weights of ``state_dict_path`` (an HF state dict)
+    or, with ``random_init``, random weights from ``SEED``."""
+    if state_dict_path:
+        return module.from_torch_state_dict(load_state_dict_file(state_dict_path))
+    if not random_init:
+        raise SystemExit(f"need --{flag} (or --random_init for validation)")
     module.init_weights(torch.Generator().manual_seed(SEED))
     return module
+
+
+def text_tokenizer(args, vocab_size: int, tag: str, pretrained: bool):
+    """The WordPiece tokenizer of ``--vocab_file``, else the hash tokenizer,
+    which pretrained weights refuse unless ``--allow_hash_tokenizer`` is
+    given (the JAX CLIs' quality gate: real weights with the hash tokenizer
+    write features that look right and are not)."""
+    if args.vocab_file:
+        return WordPieceTokenizer(args.vocab_file)
+    if pretrained and not args.allow_hash_tokenizer:
+        raise SystemExit(
+            f"[{tag}] refusing to run pretrained BERT weights with the hash tokenizer: pass "
+            "--vocab_file (the real BERT vocab) or --allow_hash_tokenizer to override")
+    print(f"[{tag}] WARNING: no --vocab_file; using a hash tokenizer (pipeline validation only)")
+    return _HashTokenizer(vocab_size)
 
 
 def _on_device(model, args, use_kernels: bool):
@@ -118,12 +139,13 @@ def _to_device(arr, device):
 
 def extract_audio(args, rows, out_dir: Path, model=None, use_kernels: bool = True) -> dict:
     """WavLM features of ``rows`` (index CSV rows: ``utter_id``,
-    ``audio_path``). ``model``: a port ``WavLMEncoder`` (default: random
-    weights from ``--random_init``). Returns ``count``, ``forwards`` and
-    ``seconds`` (wall time of the batch loop)."""
+    ``audio_path``). ``model``: a port ``WavLMEncoder`` (default: the
+    weights of ``--wavlm_state_dict`` or ``--random_init``). Returns
+    ``count``, ``forwards`` and ``seconds`` (wall time of the batch loop)."""
     if model is None:
-        model = _random_model(args, WavLMEncoder(WavLMConfig.tiny() if args.tiny
-                                                 else WavLMConfig.base_plus()))
+        model = load_frontend(WavLMEncoder(WavLMConfig.tiny() if args.tiny
+                                           else WavLMConfig.base_plus()),
+                              args.wavlm_state_dict, args.random_init, "wavlm_state_dict")
     model, device, dtype = _on_device(model, args, use_kernels)
     t_max = int(args.max_seconds * TARGET_SR)
     n_done = forwards = 0
@@ -196,15 +218,16 @@ class _HashTokenizer:
 
 def extract_text(args, rows, out_dir: Path, model=None, use_kernels: bool = True) -> dict:
     """BERT features of ``rows`` (``utter_id``, ``text``). ``model``: a port
-    ``BertEncoder`` (default: random weights from ``--random_init``)."""
+    ``BertEncoder`` (default: the weights of ``--bert_state_dict`` or
+    ``--random_init``)."""
     if model is None:
-        model = _random_model(args, BertEncoder(BertConfig.tiny() if args.tiny
-                                                else BertConfig.base_uncased()))
+        model = load_frontend(BertEncoder(BertConfig.tiny() if args.tiny
+                                          else BertConfig.base_uncased()),
+                              args.bert_state_dict, args.random_init, "bert_state_dict")
+    tokenizer = text_tokenizer(args, model.config.vocab_size, "extract",
+                               bool(args.bert_state_dict))
     model, device, _ = _on_device(model, args, use_kernels)
     cfg = model.config
-    tokenizer = _HashTokenizer(cfg.vocab_size)
-    print("[extract] WARNING: no --vocab_file; using a hash tokenizer "
-          "(pipeline validation only)")
     max_len = args.max_len_text
     n_done = 0
     t0 = time.perf_counter()
@@ -236,7 +259,6 @@ def extract_text(args, rows, out_dir: Path, model=None, use_kernels: bool = True
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_unported_flags(args)
     resolve_device(args.device)
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)

@@ -21,6 +21,7 @@ from ..nn.layers import LayerNorm, Linear, layer_norm
 from ..ops.attention_block import (MhaOperands, mha_block_int8, mha_block_int8_plain,
                                    mha_operands, use_mha_block)
 from ..ops.fused_ffn import FfnOperands, ffn_operands, route_ffn_block, use_fused_ffn
+from ..utils.convert import load_flat_params, to_numpy
 
 
 @dataclasses.dataclass
@@ -155,3 +156,14 @@ class BertEncoder(nn.Module):
         for layer in self.encoder.layer:
             x = layer(x, kpm)
         return x, masked_mean(x, kpm)
+
+    def from_torch_state_dict(self, sd: dict) -> "BertEncoder":
+        """Load an HF ``BertModel`` state dict (port of
+        ``hriemo/frontends/bert.py:186-215``): the ``bert.`` prefix is
+        stripped, and ``pooler.*`` (the port pools by masked mean) and the
+        ``position_ids`` buffer are skipped. The load is strict. Returns
+        ``self``."""
+        flat = {name.removeprefix("bert."): to_numpy(t) for name, t in sd.items()}
+        return load_flat_params(self, {k: v for k, v in flat.items()
+                                       if not k.startswith("pooler.")
+                                       and "position_ids" not in k})

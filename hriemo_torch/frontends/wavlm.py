@@ -23,11 +23,13 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.masking import NEG_INF
 from ..nn.layers import LayerNorm, Linear, gelu
+from ..utils.convert import load_flat_params, to_numpy
 from ..ops.attention_block import (WavLMAttnOperands, attention_block_int8,
                                    attention_block_int8_plain, use_attention_block,
                                    wavlm_attn_operands)
@@ -296,3 +298,31 @@ class WavLMEncoder(nn.Module):
         for layer in layers:
             x = layer(x, kbias, position_bias, fused)
         return x, frame_mask
+
+    def from_torch_state_dict(self, sd: dict) -> "WavLMEncoder":
+        """Load an HF ``WavLMModel`` state dict (port of
+        ``hriemo/frontends/wavlm.py:377-428``): the ``wavlm.`` prefix is
+        stripped, pretraining-only tensors (``masked_spec_embed``,
+        ``adapter*``) are skipped, and the positional conv's weight norm is
+        folded into its plain weight, from either naming
+        (``parametrizations.weight.original0/1`` or ``weight_g/weight_v``).
+        The load is strict (``utils.convert.load_flat_params``). Returns
+        ``self``."""
+        flat, pos_g, pos_v = {}, None, None
+        for name, tensor in sd.items():
+            name = name.removeprefix("wavlm.")
+            if name == "masked_spec_embed" or "adapter" in name:
+                continue
+            if "pos_conv_embed.conv." in name and name.endswith(
+                    ("parametrizations.weight.original0", "weight_g")):
+                pos_g = to_numpy(tensor)
+            elif "pos_conv_embed.conv." in name and name.endswith(
+                    ("parametrizations.weight.original1", "weight_v")):
+                pos_v = to_numpy(tensor)
+            else:
+                flat[name] = to_numpy(tensor)
+        if pos_g is not None and pos_v is not None:
+            # torch weight_norm(dim=2): one norm per kernel tap, over (out, in)
+            norm = np.sqrt((pos_v ** 2).sum(axis=(0, 1), keepdims=True))
+            flat["encoder.pos_conv_embed.conv.weight"] = pos_g * pos_v / norm
+        return load_flat_params(self, flat)

@@ -1,11 +1,14 @@
 """TACFN-style cross-modal transformer (port of
-``hriemo/models/cross_modal_block_tacfn.py``, without attention export).
+``hriemo/models/cross_modal_block_tacfn.py``).
 
 Per layer: intra-modal self-attention per modality (+ residual + LN),
 then audio-queries-text and text-queries-audio cross-attention, each
 followed by residual + LN and a ReLU FFN(4d) + residual + LN. In training,
 dropout at JAX's sites (``:64-107``): on each attention's probabilities
-and on each sublayer output before its residual.
+and on each sublayer output before its residual. ``return_attention``
+adds, per layer, a dict of the four head-averaged ``[B, Lq, Lk]`` maps
+``audio_self``, ``text_self``, ``audio_queries_text`` and
+``text_queries_audio``.
 """
 
 from __future__ import annotations
@@ -29,23 +32,31 @@ class CrossModalBlock(nn.Module):
         self.ffn_a = MLP2(d, 4 * d, d)
         self.ffn_t = MLP2(d, 4 * d, d)
 
-    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None):
+    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None,
+                return_attention: bool = False):
         rs = RngStream(generator)
         drop = lambda x: dropout(x, self.dropout, rs(), self.training)  # noqa: E731
+        maps = {}
 
-        a_sa = self.self_attn_a(h_a, h_a, h_a, mask_a, rs())
+        def attend(name, mha, q, kv, mask):
+            out = mha(q, kv, kv, mask, rs(), need_weights=return_attention)
+            if return_attention:
+                out, maps[name] = out
+            return out
+
+        a_sa = attend("audio_self", self.self_attn_a, h_a, h_a, mask_a)
         h_a_self = self.self_norm_a(h_a + drop(a_sa))
-        t_sa = self.self_attn_t(h_t, h_t, h_t, mask_t, rs())
+        t_sa = attend("text_self", self.self_attn_t, h_t, h_t, mask_t)
         h_t_self = self.self_norm_t(h_t + drop(t_sa))
 
-        a2t = self.attn_a2t(h_a_self, h_t_self, h_t_self, mask_t, rs())
+        a2t = attend("audio_queries_text", self.attn_a2t, h_a_self, h_t_self, mask_t)
         h_a_cm = self.norm_a1(h_a_self + drop(a2t))
         h_a_cm = self.norm_a2(h_a_cm + drop(self.ffn_a(h_a_cm)))
 
-        t2a = self.attn_t2a(h_t_self, h_a_self, h_a_self, mask_a, rs())
+        t2a = attend("text_queries_audio", self.attn_t2a, h_t_self, h_a_self, mask_a)
         h_t_cm = self.norm_t1(h_t_self + drop(t2a))
         h_t_cm = self.norm_t2(h_t_cm + drop(self.ffn_t(h_t_cm)))
-        return h_a_cm, h_t_cm
+        return (h_a_cm, h_t_cm, maps) if return_attention else (h_a_cm, h_t_cm)
 
 
 class CrossModalTransformer(nn.Module):
@@ -55,7 +66,13 @@ class CrossModalTransformer(nn.Module):
         self.layers = nn.ModuleList(CrossModalBlock(d_model, n_heads, dropout)
                                     for _ in range(num_layers))
 
-    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None):
+    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None,
+                return_attention: bool = False):
+        """``(h_a, h_t)``, or with ``return_attention`` also the list of
+        per-layer map dicts."""
+        maps = []
         for i, layer in enumerate(self.layers):
-            h_a, h_t = layer(h_a, h_t, mask_a, mask_t, derive(generator, i))
-        return h_a, h_t
+            out = layer(h_a, h_t, mask_a, mask_t, derive(generator, i), return_attention)
+            h_a, h_t = out[:2]
+            maps += out[2:]
+        return (h_a, h_t, maps) if return_attention else (h_a, h_t)

@@ -1,10 +1,11 @@
 """Cross-modal transformer + vector beta gate + emotion decoder (port of
-``hriemo/models/fusion_with_emotion_decoder.py``, without attention
-export).
+``hriemo/models/fusion_with_emotion_decoder.py``).
 
 2-D inputs are lifted to ``[B, 1, d]``; the decoder's key-padding mask is
 the OR of both modality masks aligned (pad with True / truncate) to the
-fused length. Returns ``(logits [B, E], beta [B, 1], z [B, E, d])``.
+fused length. Returns ``(logits [B, E], beta [B, 1], z [B, E, d])``; with
+``return_attention`` also ``{"encoder": [per-layer dicts of four maps],
+"decoder": [per-layer [B, E, L]]}`` (``:62-94``).
 ``dropout`` (JAX's default 0.1) acts in training mode (``model.train()``),
 where ``forward`` needs a ``generator`` on the inputs' device; the model
 reads only its seed, so a recompute draws the same masks.
@@ -39,11 +40,14 @@ class FusionWithEmotionDecoder(nn.Module):
         init_torch_defaults(self, gen)
         self.emotion_decoder.init_weights(gen)
 
-    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None):
+    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None,
+                return_attention: bool = False):
         rs = RngStream(generator)
         h_a, h_t = ensure_3d(h_a), ensure_3d(h_t)
-        h_a, h_t = self.cross_modal(h_a, h_t, mask_a, mask_t, rs())
+        h_a, h_t, *enc = self.cross_modal(h_a, h_t, mask_a, mask_t, rs(), return_attention)
         h_fusion, beta = self.beta_gate(h_a, h_t, mask_a, mask_t)
         fused_mask = build_fused_mask(mask_a, mask_t, h_fusion.shape[1])
-        z, logits = self.emotion_decoder(h_fusion, fused_mask, rs())
+        z, logits, *dec = self.emotion_decoder(h_fusion, fused_mask, rs(), return_attention)
+        if return_attention:
+            return logits, beta, z, {"encoder": enc[0], "decoder": dec[0]}
         return logits, beta, z

@@ -2,7 +2,8 @@
 ``audio_proj: Linear(d_audio -> d_model)`` and ``text_proj: Linear(d_text
 -> d_model)`` (MOSEI: 74 COVAREP, 300 GloVe), then the fusion backbone.
 Defaults: d_model 256, 6 emotions, 4 heads, dropout 0.2, beta hidden 128.
-Returns the backbone's ``(logits, beta, z)``.
+Returns the backbone's ``(logits, beta, z)``, and with
+``return_attention`` its attention maps too.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class MoseiFusionWithEmotionDecoder(nn.Module):
         init_torch_defaults(self, gen)
         self.backbone.emotion_decoder.init_weights(gen)
 
-    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None):
+    def forward(self, h_a, h_t, mask_a=None, mask_t=None, generator=None,
+                return_attention: bool = False):
         return self.backbone(self.audio_proj(h_a), self.text_proj(h_t), mask_a, mask_t,
-                             generator)
+                             generator, return_attention)

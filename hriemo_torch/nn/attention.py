@@ -11,6 +11,11 @@ through ``ops.flash_attention.flash_mha`` when ``use_flash`` holds
 (``hriemo/nn/attention.py:128-148``: the fused core never holds the
 probabilities), else per op: fp32 softmax, probabilities in the compute
 dtype, then, in training, dropout on them (``:159-164``).
+
+``need_weights=True`` also returns the head-averaged probabilities ``[B,
+Lq, Lk]``, taken before dropout and cast to the query's dtype
+(``:158-160``); such a call takes neither the MHA kernel nor ``flash_mha``,
+since neither holds the probabilities (``:85``, ``:131-143``).
 """
 
 from __future__ import annotations
@@ -54,12 +59,15 @@ class MultiheadAttention(nn.Module):
             self.ops = mha_operands(self.in_proj_w_int8, self.in_proj_w_scale,
                                     self.in_proj_bias, self.out_proj, self.n_heads)
 
-    def forward(self, query, key, value, key_padding_mask=None, generator=None):
-        """Returns the attention output ``[B, Lq, d]``. In training with
-        ``dropout > 0``, ``generator`` draws the probabilities' mask."""
+    def forward(self, query, key, value, key_padding_mask=None, generator=None,
+                need_weights: bool = False):
+        """Returns the attention output ``[B, Lq, d]``, or with
+        ``need_weights`` the pair ``(output, weights [B, Lq, Lk])``. In
+        training with ``dropout > 0``, ``generator`` draws the
+        probabilities' mask."""
         d = query.shape[-1]
         h = self.n_heads
-        if (self.ops is not None and key is value
+        if (self.ops is not None and key is value and not need_weights
                 and use_mha_block(True, query.shape[1], key.shape[1], d, h)):
             fn = mha_block_int8 if self.use_kernels else mha_block_int8_plain
             return fn(query, key, self.ops, key_padding_mask)
@@ -81,9 +89,8 @@ class MultiheadAttention(nn.Module):
             return t.reshape(t.shape[0], t.shape[1], h, d // h).transpose(1, 2)
 
         attn_dropout = self.training and self.dropout > 0.0
-        if not attn_dropout and use_flash(heads(q).shape, heads(k).shape):
-            # The port exports no attention weights, so the JAX need_weights
-            # exclusion of this route has nothing to guard here.
+        weights = None
+        if not attn_dropout and not need_weights and use_flash(heads(q).shape, heads(k).shape):
             fn = flash_mha if self.use_kernels else flash_mha_plain
             out = fn(heads(q), heads(k), heads(v), key_padding_mask)
         else:
@@ -92,8 +99,11 @@ class MultiheadAttention(nn.Module):
             bias = mask_to_bias(key_padding_mask, scores.dtype)
             if bias is not None:
                 scores = scores + bias
-            probs = torch.softmax(scores, dim=-1).to(query.dtype)
-            probs = _dropout(probs, self.dropout, generator, attn_dropout)
+            probs = torch.softmax(scores, dim=-1)
+            if need_weights:
+                weights = probs.mean(dim=1).to(query.dtype)
+            probs = _dropout(probs.to(query.dtype), self.dropout, generator, attn_dropout)
             out = (probs.float() @ heads(v).float()).to(query.dtype)
         out = out.transpose(1, 2).reshape(query.shape[0], query.shape[1], d)
-        return self.out_proj(out)
+        out = self.out_proj(out)
+        return (out, weights) if need_weights else out

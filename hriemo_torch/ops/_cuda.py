@@ -205,7 +205,8 @@ def attention_operands(q, k, v, kbias, what: str):
     lk = k.shape[2]
     dev = q.device
     if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{what}: dtype {q.dtype}, needs bf16 or fp32")
+        raise TypeError(f"{what}: dtype {q.dtype}, needs bf16 or fp32 (fp16 kernels: "
+                        "ROADMAP.md queue 1 item 9)")
     if hd % 8 or hd > 256 or lk < 1:
         raise ValueError(f"{what}: head dim {hd} or key length {lk} not taken")
     args = [int(q.dtype == torch.float32)]

@@ -5,13 +5,19 @@ to ``{name: array}`` with torch ``state_dict`` names, and the port's
 modules use the same names, so loading is a strict copy: every name must
 be present on both sides, with the same shape. The port never imports JAX;
 callers (the tests) produce the dict, e.g. ``{k: np.asarray(v) for k, v in
-flatten_params(jax_model.params).items()}``.
+flatten_params(jax_model.params).items()}``. The frontends' HF bridges
+(``from_torch_state_dict``) load through the same strict copy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def to_numpy(t) -> np.ndarray:
+    """A torch tensor (any device) or array-like as a numpy array."""
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def load_flat_params(module: torch.nn.Module, flat: dict) -> torch.nn.Module:

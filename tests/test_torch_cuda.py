@@ -613,3 +613,108 @@ def test_new_kernels_raise_instead_of_falling_back(gen):
         CS.conv_stack_k2(x3.transpose(0, 1), *taps[3:], True)
     with pytest.raises(ValueError):
         CS.conv_stack_k2(x3, taps[3].cpu(), *taps[4:], True)
+
+
+# ------------------------------------------- evaluation and inference paths
+
+def test_bridges_on_the_card(gen):
+    """HF-layout state dicts of the tiny frontends (``chip_smoke.
+    hf_state_dict``) load through the bridges; on the card the loaded
+    encoders give the source modules' outputs, within the rounding of the
+    weight-norm fold (WavLM) or bit for bit (BERT)."""
+    from hriemo_torch.frontends import BertConfig, BertEncoder
+    from chip_smoke import hf_state_dict
+
+    wavlm = WavLMEncoder(WavLMConfig.tiny())
+    wavlm.init_weights(gen)
+    bert = BertEncoder(BertConfig.tiny())
+    bert.init_weights(gen)
+    w2 = WavLMEncoder(WavLMConfig.tiny()).from_torch_state_dict(hf_state_dict(wavlm, "wavlm."))
+    b2 = BertEncoder(BertConfig.tiny()).from_torch_state_dict(hf_state_dict(bert, "bert."))
+    wav = _randn(gen, 2, 4000, dtype=torch.float32)
+    wmask = _pad_mask([4000, 2500], 4000).logical_not().int()
+    ids = torch.randint(0, 99, (2, 16), generator=gen).cuda()
+    tmask = _pad_mask([16, 9], 16).logical_not().int()
+    with torch.no_grad():
+        ref_a, ref_m = wavlm.cuda().eval()(wav, wmask)
+        got_a, got_m = w2.cuda().eval()(wav, wmask)
+        ref_t = bert.cuda().eval()(ids, tmask)
+        got_t = b2.cuda().eval()(ids, tmask)
+    torch.testing.assert_close(got_m, ref_m, atol=0, rtol=0)
+    torch.testing.assert_close(got_a, ref_a, atol=1e-5, rtol=1e-5)
+    for g, r in zip(got_t, ref_t):
+        torch.testing.assert_close(g, r, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_need_weights_launches_no_fused_kernel(gen, int8):
+    """A call that takes ``flash_mha`` (float, 1024 keys) or the int8 MHA
+    kernel (int8, 499 keys) launches neither with ``need_weights``: the
+    weights come from the per-op route."""
+    mha = MultiheadAttention(768, 8)
+    init_torch_defaults(mha, gen)
+    mha = mha.to("cuda", torch.bfloat16).eval()
+    if int8:
+        quantize_for_serving(mha, min_dim=128)
+    x = _randn(gen, 2, 499 if int8 else 1024, 768)
+    counters = (AB.mha_block_int8, FA.onepass_attention, FA.streaming_attention)
+    with torch.no_grad():
+        for fn in counters:
+            fn.launches = 0
+        out, w = mha(x, x, x, need_weights=True)
+        assert [fn.launches for fn in counters] == [0, 0, 0]
+        fused = mha(x, x, x)
+        assert (AB.mha_block_int8 if int8 else FA.onepass_attention).launches == 1
+    assert w.shape == (2, x.shape[1], x.shape[1]) and w.dtype == torch.bfloat16
+    torch.testing.assert_close(w.float().sum(-1), torch.ones(2, x.shape[1], device="cuda"),
+                               atol=2e-2, rtol=0)
+    _close(out, fused)
+
+
+def _mosei_checkpoint(tmp_path, gen, max_la, cap, n=24):
+    """A random-weight MOSEI checkpoint at the trainer's defaults, trained
+    (its ``args`` say) at the audio cap ``cap``, and a synthetic corpus up
+    to ``max_la`` audio frames."""
+    from hriemo_torch.data.synthetic import make_synthetic_mosei
+    from hriemo_torch.models import MoseiFusionWithEmotionDecoder
+    from hriemo_torch.utils.checkpoint import save_torch_checkpoint
+
+    csv_path, audio_dir, text_dir = make_synthetic_mosei(tmp_path / "data", n=n,
+                                                         max_la=max_la, max_lt=64)
+    model = MoseiFusionWithEmotionDecoder(74, 300)
+    model.init_weights(gen)
+    ckpt = tmp_path / "ckpt.pt"
+    save_torch_checkpoint(str(ckpt), {"model_state_dict": model.state_dict(), "args": {
+        "d_model": 256, "n_heads": 4, "max_len_audio": cap, "max_len_text": 0}})
+    return ["--ckpt", str(ckpt), "--index_csv", str(csv_path), "--audio_dir", str(audio_dir),
+            "--text_dir", str(text_dir), "--splits", "val", "test", "--batch_size", "4",
+            "--out_dir", str(tmp_path / "out")]
+
+
+def test_mosei_eval_fp16_at_300_frames(gen, tmp_path):
+    """``--amp_dtype fp16`` at the default cap of 300 frames runs per op."""
+    import numpy as np
+
+    from hriemo_torch.infer import mosei_eval_infer as EVAL
+
+    argv = _mosei_checkpoint(tmp_path, gen, 600, cap=300)
+    EVAL.main(argv + ["--amp_dtype", "fp16", "--dump_beta", "--dump_attn"])
+    probs = np.load(tmp_path / "out" / "val_y_prob.npy")
+    assert probs.shape[1] == 6 and np.isfinite(probs).all()
+
+
+def test_mosei_eval_fp16_refuses_flash_lengths(gen, tmp_path):
+    """Uncapped at 1100-2200 frames the audio self-attention takes
+    ``flash_mha``, whose kernels refuse fp16: their error, which names the
+    ROADMAP item, reaches the CLI's caller; bf16 runs there."""
+    from hriemo_torch.infer import mosei_eval_infer as EVAL
+
+    q = _randn(gen, 1, 4, 1024, 64).half()
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        FA.flash_mha(q, q, q)
+    argv = _mosei_checkpoint(tmp_path, gen, 2200, cap=0, n=8)
+    with pytest.raises(TypeError, match="ROADMAP.md queue 1 item 9"):
+        EVAL.main(argv + ["--amp_dtype", "fp16"])
+    FA.onepass_attention.launches = FA.streaming_attention.launches = 0
+    EVAL.main(argv)
+    assert FA.onepass_attention.launches + FA.streaming_attention.launches > 0

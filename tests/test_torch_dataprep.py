@@ -98,7 +98,57 @@ def test_cli_chain_and_integrity(corpus, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TE.main(argv)
-    with pytest.raises(SystemExit, match="item 14"):
-        TE.main(argv + ["--device", "cpu", "--bert_state_dict", "bert.pt"])
+    # pretrained BERT weights without --vocab_file: the hash-tokenizer quality gate
+    torch.save(TF.BertEncoder(TF.BertConfig.tiny()).state_dict(), tmp_path / "bert.pt")
+    text_argv, _ = _args("text", "seq", tmp_path / "gate", idx)
+    with pytest.raises(SystemExit, match="allow_hash_tokenizer"):
+        TE.main([a for a in text_argv if a != "--random_init"]
+                + ["--device", "cpu", "--bert_state_dict", str(tmp_path / "bert.pt")])
     with pytest.raises(SystemExit, match="random_init"):
-        TE.extract_text(types.SimpleNamespace(tiny=True, random_init=False), [], tmp_path)
+        TE.extract_text(types.SimpleNamespace(tiny=True, random_init=False,
+                                              bert_state_dict=None), [], tmp_path)
+
+
+@pytest.fixture(scope="module")
+def local_weights(tmp_path_factory):
+    """HF state dicts of the tiny frontends at random init and a WordPiece
+    vocabulary of the fake corpus's transcripts, as local files."""
+    from transformers import BertConfig as HFBertConfig, BertModel
+    from transformers import WavLMConfig as HFWavLMConfig, WavLMModel
+
+    from test_pretrained_golden import TINY_BERT, TINY_WAVLM
+
+    root = tmp_path_factory.mktemp("weights")
+    torch.manual_seed(2)
+    torch.save(WavLMModel(HFWavLMConfig(
+        **TINY_WAVLM, feat_extract_norm="group", do_stable_layer_norm=False, conv_bias=False,
+        mask_time_prob=0.0)).state_dict(), root / "wavlm.pt")
+    torch.save({"model_state_dict": BertModel(HFBertConfig(**TINY_BERT)).state_dict()},
+               root / "bert.pt")
+    (root / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "hi", "there", "friend", "hello", "world",
+         "<", ">", "(", ")", "2", "no", "##ise"]) + "\n")
+    return root
+
+
+@pytest.mark.parametrize("modality", ["audio", "text"])
+def test_extraction_with_local_weights_matches_jax_cli(corpus, local_weights, tmp_path,
+                                                       modality):
+    """Both CLIs with the same local HF state dicts (the BERT one inside a
+    checkpoint's ``model_state_dict``) and vocabulary: the same features."""
+    _, _, idx = corpus
+    flag = "--wavlm_state_dict" if modality == "audio" else "--bert_state_dict"
+    name = "wavlm.pt" if modality == "audio" else "bert.pt"
+    argv, _ = _args(modality, "seq", tmp_path / "port_seq", idx)
+    argv = [a for a in argv if a != "--random_init"] + [
+        flag, str(local_weights / name), "--vocab_file", str(local_weights / "vocab.txt")]
+    JE.main([a.replace("port_", "jax_") for a in argv])
+    TE.main(argv + ["--device", "cpu"])
+    for r in TI.read_csv(idx):
+        (got, got_mask), (ref, ref_mask) = (load_feature(tmp_path / d / f"{r['utter_id']}.npz")
+                                            for d in ("port_seq", "jax_seq"))
+        np.testing.assert_array_equal(got_mask, ref_mask)
+        assert got.shape == ref.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, **TOL)
+    if modality == "text":  # the WordPiece ids reached BERT: more than [CLS] and [SEP]
+        assert got_mask.sum() > 2
