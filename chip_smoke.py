@@ -33,7 +33,12 @@ Phases, any failure exits non-zero:
    rows its launches per forward. The one-pass and streaming cores are also
    held at phase 7d's shapes (4 heads of 64, a long split padded to
    ``mosei_eval_infer``'s batch), where ``ATTN_TOL`` must reject each
-   without its last, partial key tile;
+   without its last, partial key tile; then in fp16 (the gated core at B=2
+   L=1499, the one-pass and streaming cores at phase 7d's shapes and at the
+   long clips' 8 heads of 96, SDPA in fp16 beside each, each held at
+   ``ATTN_TOL[fp16]``, which must reject each without its last key tile),
+   and the CUDA-core fallbacks at head dim 32 (d=256 in 8 heads, phase 7d's
+   lengths) in bf16, fp16 and fp32;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -76,8 +81,18 @@ Phases, any failure exits non-zero:
    ``LOSS_RTOL``, the gradients within ``GRAD_TOL`` in relative norm (each
    leaf in fp32, the whole gradient in bf16), and a lower peak step memory;
    the gradient tolerance must reject a flash backward that drops its last,
-   partial 512-key block. Each prints step ms (wall and CUDA events), steps
-   per second and peak memory;
+   partial 512-key block; then ``wavlm_fused_attention``'s gradient at B=2
+   L=499, 12 heads of 64, bf16 and fp32: the forward within ``ATTN_TOL``,
+   the gradients bit-equal to the plain route's; (d) ``train_fusion_seq_level``
+   at its full width (``FusionClassifier``, d=768, dropout 0.2) on (a)'s
+   corpus, fp32 and bf16, two epochs, then ``FusionClassifier`` train steps
+   at 1499 and 2249 frames against the plain route as in (c); (e)
+   ``train_fusion_utter_level`` at full width (batch 32) on a synthetic
+   utter-level corpus of 160, both baselines on it, and the MOSEI trainer at
+   its defaults for 2 epochs with ``--resume``, resumed to 4 with
+   ``--trace_dir``: the restored train state equal to the saved one leaf by
+   leaf, the log going on at epoch 3, one trace written. Each prints step
+   ms (wall and CUDA events), steps per second and peak memory;
 7. evaluation and inference on phase 5's tree and phase 6's checkpoints,
    each entry point's ``main`` called in this process: (a) HF-layout state
    dicts of phase 5's encoders (prefixed names, the positional conv as
@@ -93,7 +108,7 @@ Phases, any failure exits non-zero:
    --dump_attn`` (artifact shapes, ``y_prob`` unchanged without the dump),
    ``mosei_summary_metrics``, then uncapped over a one-pass and a streaming
    split (1100-2300 audio frames) against the plain versions at phase 6c's
-   bf16 limit, launching both flash kernels;
+   bf16 limit, launching both flash kernels, in bf16 and again in fp16;
 8. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
    phases 4-7); then the last line ``{"ok": true, "device": {...}}``.
 
@@ -122,7 +137,7 @@ import torch
 
 from hriemo_torch.frontends import BertConfig, BertEncoder, WavLMConfig, WavLMEncoder
 from hriemo_torch.infer import HashTokenizer, StreamingPipeline
-from hriemo_torch.models import FusionWithEmotionDecoder
+from hriemo_torch.models import FusionClassifier, FusionWithEmotionDecoder
 from hriemo_torch.data import load_feature, save_feature, write_meta
 from hriemo_torch.dataprep import extract_iemocap as EX
 from hriemo_torch.dataprep import iemocap_index as II
@@ -140,8 +155,13 @@ from hriemo_torch.ops import wavlm_attention as WA
 from hriemo_torch.ops.quant import quantize_for_serving
 from hriemo_torch.data.synthetic import MOSEI_EMO_COLS, make_synthetic_iemocap, make_synthetic_mosei
 from hriemo_torch.parallel import train_step as TS
+from hriemo_torch.train import linear_probe_baseline as TRAIN_PROBE
+from hriemo_torch.train import train_fusion_seq_level as TRAIN_SEQ
 from hriemo_torch.train import train_fusion_seq_level_decoder as TRAIN_IEMOCAP
+from hriemo_torch.train import train_fusion_utter_level as TRAIN_UTT
 from hriemo_torch.train import train_mosei_fusion_seq_level_decoder as TRAIN_MOSEI
+from hriemo_torch.train import train_text_baseline as TRAIN_TEXT
+from hriemo_torch.utils import checkpoint as CK
 from hriemo_torch.dataprep.tokenization import WordPieceTokenizer
 from hriemo_torch.infer import e2e_infer as E2E
 from hriemo_torch.infer import mosei_eval_infer as MEVAL
@@ -156,7 +176,8 @@ TOL = dict(atol=5e-2, rtol=5e-2, median=5e-3)  # tests/test_attention_block.py:1
 # max |error| 0.00098-0.00195 and median 0, fp32 max 9.5e-7. The median is
 # taken per batch element, so an error confined to one element's rows fails.
 ATTN_TOL = {torch.bfloat16: dict(atol=8e-3, rtol=1e-2, median=1e-3, per_batch=True),
-            torch.float32: dict(atol=1e-4, rtol=1e-4, median=1e-5, per_batch=True)}
+            torch.float32: dict(atol=1e-4, rtol=1e-4, median=1e-5, per_batch=True),
+            torch.float16: dict(atol=1e-3, rtol=1e-3, median=1.25e-4, per_batch=True)}
 # Conv-stack stage outputs (GELU activations of O(1)) get their own limits,
 # set from the card's readings (PERF.md §6): bf16 max |error| 0.0156 (one
 # bf16 step below 4) and median 0; fp32 max 1.2e-5, median 2.4e-7. A K1
@@ -242,7 +263,16 @@ PER_FORWARD_FORCED = {"wavlm_fused_attention": 12, "ffn_block_bf16": 12,
 # gradient. The card read 4.1e-4 of max |g| at the first fusion FFN's W1 at
 # L=1499 in fp32 (2.5e-5 in norm), and in bf16 5.0e-2 in norm at the
 # decoder's last linear1, whose ReLU sees only B x E = 8 rows (PERF.md §6).
+# The FusionClassifier step (phase 6d) is held on its whole gradient in fp32
+# too: its loss reaches the audio rows mostly through the 128 fused rows (the
+# text's length), so the row a ReLU flip changes is a large share of some
+# leaves (the card read 8.1e-4 in norm at layer 1's audio FFN W1 and 3.0e-4
+# at layer 0's self_norm_a weight, 4.4e-5 and 2.2e-5 for the whole
+# gradient); the flips are counted: 5 in fp32 on the card, where a wrong
+# forward would flip thousands of the step's 20-30M FFN pre-activations
+# (bf16 flips thousands by its own rounding: 4541 at 1499 frames).
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+MAX_RELU_FLIPS = 100
 LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # evaluation and inference: the kernels each e2e_infer tree must launch, the
 # uncapped MOSEI splits (audio frames: one-pass up to 2048 keys, streaming
@@ -338,8 +368,8 @@ def check_kernels(gen):
     def randn(*shape, scale=1.0, dtype=torch.bfloat16, generator=None):
         return (torch.randn(*shape, generator=generator or gen) * scale).to(dev, dtype)
 
-    def mask(b, l):
-        lens = torch.randint(l // 2, l + 1, (b,), generator=gen)
+    def mask(b, l, generator=None):
+        lens = torch.randint(l // 2, l + 1, (b,), generator=generator or gen)
         lens[0] = l
         return (torch.arange(l)[None, :] >= lens[:, None]).to(dev)
 
@@ -450,7 +480,7 @@ def check_kernels(gen):
         """(bf16, fp32, tf32) operations of an attention core: fp32 at head
         dims 64 and 96 runs 3xTF32."""
         ops = 4 * b * h * lq * lk * hd
-        if dtype == torch.bfloat16:
+        if dtype in (torch.bfloat16, torch.float16):
             return ops, 0, 0
         return (0, 0, TF32_PRODUCTS * ops) if hd in (64, 96) else (0, ops, 0)
 
@@ -700,6 +730,61 @@ def check_kernels(gen):
             for c, name in enumerate(_cuda.GEMM_CONFIGS)}
         print(f"    by configuration: {rows[-1]['config_ms']}", flush=True)
 
+    # fp16 on the flash route (and the gated WavLM core, the same launch):
+    # the one-pass and streaming cores at phase 7d's shapes (B=16, 4 heads of
+    # 64, keys masked at each clip's length) and at the long clips' 8 x 96,
+    # SDPA in fp16 beside each; then the CUDA-core fallbacks at head dim 32
+    # (the MOSEI model's d=256 in 8 heads, uncapped) in bf16, fp16 and fp32.
+    # Inputs from a generator of their own, after every earlier row, so that
+    # those keep their inputs; none of these rows feeds the kernels line.
+    own = torch.Generator().manual_seed(SEED + 9)
+    f16_upto, first_new = {}, len(rows)
+    h, hd = 12, 64
+    q, k, v = (heads(2, 1499, h, hd, torch.float16, own) for _ in range(3))
+    gate = (torch.rand(2, h, 1499, generator=own) * 1.5 + 0.5).to(dev, torch.float16)
+    pos = randn(h, 1499, 1499, scale=0.3, dtype=torch.float16, generator=own)
+    kb = torch.where(mask(2, 1499, own), AB.NEG_INF, 0.0).float()
+    amask = (gate.float()[..., None] * pos.float()[None] + kb[:, None, None, :]).half()
+    run("wavlm_fused_attention", "B=2 L=1499 float16",
+        lambda: WA.wavlm_fused_attention(q, k, v, gate, pos, kb),
+        lambda: WA.wavlm_fused_attention_plain(q, k, v, gate, pos, kb),
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
+        nbytes(q, k, v, gate, pos, kb, q), 0, *attn_ops(torch.float16, 2, h, 1499, 1499, hd),
+        tol=ATTN_TOL[torch.float16])
+    f16_upto["wavlm_fused_attention"] = (1499, ONEPASS_KEY_TILE, lambda n, q=q, k=k, v=v,
+                                         gate=gate, pos=pos, kb=kb:
+                                         WA.wavlm_fused_attention_plain(
+                                             q, k[:, :, :n], v[:, :, :n], gate,
+                                             pos[:, :, :n], kb[:, :n]))
+    lens7d = {split: [a for a, _ in long_lengths(np.random.default_rng(SEED + 7))[split]]
+              for split in LONG_MOSEI}
+    for name, split, long_l in (("onepass_attention", "long_onepass", 1499),
+                                ("streaming_attention", "long_streaming", 2249)):
+        fn, plain = getattr(FA, name), getattr(FA, name + "_plain")
+        la = lens7d[split]
+        cases = [(eb, max(la), 4, 64, la + la[-1:] * (eb - len(la)), torch.float16),
+                 (2, long_l, 8, 96, None, torch.float16)]
+        cases += [(eb, max(la), 8, 32, la + la[-1:] * (eb - len(la)), dt)
+                  for dt in (torch.bfloat16, torch.float16, torch.float32)]
+        for bb, l, h, hd, lens, dt in cases:
+            q, k, v = (heads(bb, l, h, hd, dt, own) for _ in range(3))
+            kpm = (mask(bb, l, own) if lens is None else
+                   (torch.arange(l)[None, :] >= torch.tensor(lens)[:, None]).to(dev))
+            bias = FA.key_bias(kpm, bb, l, dev)
+            amask = ~kpm[:, None, None, :]
+            run(name, f"B={bb} {l}x{l} H={h} hd={hd} {str(dt)[6:]}",
+                lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                         attn_mask=amask),
+                nbytes(q, k, v, bias, q), 0, *attn_ops(dt, bb, h, l, l, hd), tol=ATTN_TOL[dt])
+            if hd != 32:
+                f16_upto[f"{name} {h}x{hd}"] = (
+                    l, ONEPASS_KEY_TILE if name == "onepass_attention" else FA.BK,
+                    lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
+                    plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
+    for r in rows[first_new:]:
+        r["kernels_line"] = False
+
     # the conv stack's routes, after the other timings
     for rec, make_route in late_routes:
         rec["route_ms"] = cuda_ms(make_route())
@@ -716,6 +801,9 @@ def check_kernels(gen):
                   for name, tile in (("onepass_attention", ONEPASS_KEY_TILE),
                                      ("streaming_attention", FA.BK))}
     del eval_upto
+    fp16_check = {name: dropped_tile(f"{name} float16", tile, lk, torch.float16, upto)
+                  for name, (lk, tile, upto) in f16_upto.items()}
+    del f16_upto
     edge_check, k2_edge_check, chunk_check, stats_bits = {}, {}, {}, {}
     for dt, (wave, stats, w0, gn_w, gn_b, taps, x3) in edge_inputs.items():
         name = str(dt)[6:]
@@ -726,6 +814,7 @@ def check_kernels(gen):
         stats_bits[name] = same_bits(wave, w0)
     return rows, dict(streaming_last_block=limit_check, onepass_gated_last_tile=gated_check,
                       int8_core_last_tile=core_check, mosei_eval_last_tile=eval_check,
+                      fp16_last_tile=fp16_check,
                       conv_k1_tile_edge=edge_check,
                       conv_k2_tile_edge=k2_edge_check, stats_last_chunk=chunk_check,
                       stats_same_bits=stats_bits, ffn_backward=ffn_grad)
@@ -1186,14 +1275,15 @@ def fusion_batch(gen, la, b=2, lt=128, emotions=4):
             "y": (torch.rand(b, emotions, generator=gen) > 0.5).float().to(dev)}
 
 
-def grad_check(tag, dt, got, ref):
+def grad_check(tag, dt, got, ref, whole=False):
     """Kernel-route gradients against the plain route's within
     ``GRAD_TOL[dt]`` in relative norm: each leaf in fp32, all leaves
-    together in bf16. Returns the readings: the whole gradient's relative
-    norm, the worst leaf's, and the worst max |d| / max |g| (reported, not
-    held)."""
+    together in bf16 (and in fp32 with ``whole``). Returns the readings: the
+    whole gradient's relative norm, the worst leaf's, and the worst max |d|
+    / max |g| (reported, not held)."""
     worst_elem = worst_norm = 0.0
     d2 = r2 = 0.0
+    worst_leaf = None
     for i, (g, r) in enumerate(zip(got, ref)):
         g, r = g.float(), r.float()
         if not torch.isfinite(g).all():
@@ -1205,13 +1295,31 @@ def grad_check(tag, dt, got, ref):
         if norm > worst_norm:
             worst_norm, worst_leaf = norm, i
         worst_elem = max(worst_elem, elem)
-    whole = math.sqrt(d2 / r2)
-    reading = dict(rel_norm=whole, worst_leaf_rel_norm=worst_norm, worst_leaf=worst_leaf,
+    whole_norm = math.sqrt(d2 / r2)
+    reading = dict(rel_norm=whole_norm, worst_leaf_rel_norm=worst_norm, worst_leaf=worst_leaf,
                    max_over_max=worst_elem)
-    if (worst_norm if dt == torch.float32 else whole) > GRAD_TOL[dt]:
+    if (worst_norm if dt == torch.float32 and not whole else whole_norm) > GRAD_TOL[dt]:
         raise AssertionError(f"{tag}: gradients kernel vs plain outside {GRAD_TOL[dt]} in "
                              f"relative norm: {reading}")
     return reading
+
+
+def ffn_preactivations(model):
+    """Forward hooks that keep each FFN's ReLU pre-activations (the first
+    Linear's output of every ``MLP2``) of the forwards that follow, by
+    module name. Returns ``(store, handles)``."""
+    store, handles = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, MLP2):
+            handles.append(m._modules["0"].register_forward_hook(
+                lambda mod, inp, out, n=name: store.__setitem__(n, out.detach())))
+    return store, handles
+
+
+def relu_flips(pre_k, pre_p) -> int:
+    """The number of FFN ReLU pre-activations that are positive in one route
+    and not in the other, from each route's ``ffn_preactivations``."""
+    return sum(int(((pre_k[n] > 0) != (pre_p[n] > 0)).sum()) for n in pre_k)
 
 
 def dropped_block_check(gen, dt, la=2249, h=8, hd=96):
@@ -1242,8 +1350,9 @@ def dropped_block_check(gen, dt, la=2249, h=8, hd=96):
                          "key block")
 
 
-def fusion_step(gen, smi):
-    """Phase 6c: train steps of the full-width fusion model at B=2, dropout 0,
+def fusion_step(gen, smi, classifier: bool = False):
+    """Phase 6c (6d with ``classifier``): train steps of the full-width
+    fusion model (``FusionClassifier``, single-label) at B=2, dropout 0,
     audio at 1499 and 2249 frames with padding, fp32 and bf16: the one-pass
     and the streaming kernel forward with the recompute backward. The first
     step's loss and gradients are held against the plain route
@@ -1251,26 +1360,49 @@ def fusion_step(gen, smi):
     main path), peak step memory of both routes and the plain route's steps.
     Returns its record and the launches of its main-path steps."""
     rec, total = {}, {name: 0 for name in KERNELS}
+    what = "classifier step" if classifier else "train step"
     for la in TRAIN_AUDIO:
         for dt in (torch.float32, torch.bfloat16):
             tag = f"L={la} {str(dt)[6:]}"
-            model = FusionWithEmotionDecoder(768, 4, 8, 2, 2, 256, dropout=0.0)
+            if classifier:
+                model = FusionClassifier(768, 4, 8, 2, 256, dropout=0.0)
+                cfg = TS.TrainConfig(loss_type="single_label", schedule="constant",
+                                     compute_dtype=dt)
+            else:
+                model = FusionWithEmotionDecoder(768, 4, 8, 2, 2, 256, dropout=0.0)
+                cfg = TS.TrainConfig(loss_type="multi_label", beta_degeneracy=0.01,
+                                     schedule="constant", compute_dtype=dt)
             model.init_weights(torch.Generator().manual_seed(SEED + 6))
             model = model.to("cuda")
-            cfg = TS.TrainConfig(loss_type="multi_label", beta_degeneracy=0.01,
-                                 schedule="constant", compute_dtype=dt)
             batch = fusion_batch(gen, la)
+            if classifier:
+                batch["y"] = torch.randint(0, 4, (2,), generator=gen).cuda()
 
-            out = {}
+            out, pre = {}, {}
             for route in ("kernel", "plain"):
                 set_use_kernels(model, route == "kernel")
+                store, hooks = ffn_preactivations(model) if classifier else ({}, [])
                 out[route] = TS.compute_grads(model, cfg, batch)
+                pre[route] = store
+                for hk in hooks:
+                    hk.remove()
             (loss_k, grads_k, _), (loss_p, grads_p, _) = out["kernel"], out["plain"]
             loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
             if not (math.isfinite(loss_k.item()) and loss_err <= LOSS_RTOL[dt]):
-                raise AssertionError(f"train step {tag}: loss {loss_k.item()} kernel route, "
+                raise AssertionError(f"{what} {tag}: loss {loss_k.item()} kernel route, "
                                      f"{loss_p.item()} plain (relative {loss_err:.3g})")
-            grads = grad_check(f"train step {tag}", dt, grads_k, grads_p)
+            # the classifier's loss reaches the audio rows mostly through the
+            # 128 fused (text-length) rows, so a ReLU flip's changed row is a
+            # large share of some leaves' gradients: in fp32 the whole
+            # gradient is held at GRAD_TOL, each leaf read (PERF.md §6, PR 11),
+            # and the flips are counted
+            grads = grad_check(f"{what} {tag}", dt, grads_k, grads_p, whole=classifier)
+            if classifier:
+                grads["relu_flips"] = relu_flips(pre["kernel"], pre["plain"])
+                if dt == torch.float32 and grads["relu_flips"] > MAX_RELU_FLIPS:
+                    raise AssertionError(f"{what} {tag}: {grads['relu_flips']} ReLU decisions "
+                                         f"differ between the routes (at most {MAX_RELU_FLIPS})")
+            del pre
             del out, grads_k, grads_p
 
             set_use_kernels(model, True)
@@ -1283,11 +1415,11 @@ def fusion_step(gen, smi):
                 state, _ = timed_step(state, batch)
             ll = read_launches()
             want = {"onepass_attention" if la <= FA.ONEPASS_MAX_LK else "streaming_attention": 6}
-            check_launches(f"train step {tag}", ll, want)
+            check_launches(f"{what} {tag}", ll, want)
             for name, n in ll.items():
                 total[name] += n
             st = step_stats(record)
-            profile_call(f"train_step_{la}_{str(dt)[6:]}", lambda: timed_wall(
+            profile_call(f"{what.replace(' ', '_')}_{la}_{str(dt)[6:]}", lambda: timed_wall(
                 lambda: step(state, batch)))
 
             peaks, plain_rec = {}, []
@@ -1305,19 +1437,20 @@ def fusion_step(gen, smi):
                 plain_step(state, batch)
             plain = step_stats(plain_rec)
             if not peaks["kernel"] < peaks["plain"]:
-                raise AssertionError(f"train step {tag}: peak memory {peaks['kernel']:.3f} GiB "
+                raise AssertionError(f"{what} {tag}: peak memory {peaks['kernel']:.3f} GiB "
                                      f"on the kernel route, {peaks['plain']:.3f} on the plain one")
             rec[tag] = dict(launches=ll, step=st, plain_step=plain, peak_step_gib=peaks,
                             loss=loss_k.item(), loss_rel_err=loss_err, grads=grads)
-            print(f"train step {tag} B=2 ({smi}): step {st['median_wall_ms']:.3f} ms wall, "
+            print(f"{what} {tag} B=2 ({smi}): step {st['median_wall_ms']:.3f} ms wall, "
                   f"{st['median_event_ms']:.3f} ms events, {st['steps_per_s']:.2f} steps/s "
                   f"(plain route {plain['median_wall_ms']:.3f} ms); peak step memory "
                   f"{peaks['kernel']:.3f} GiB (plain {peaks['plain']:.3f}); first step vs plain: "
                   f"loss rel err {loss_err:.3g}, gradients {grads}; launches {ll}", flush=True)
             del model, state, step, timed_step, plain_step
             torch.cuda.empty_cache()
-    rec["backward_last_block"] = {str(dt)[6:]: dropped_block_check(gen, dt)
-                                  for dt in (torch.float32, torch.bfloat16)}
+    if not classifier:
+        rec["backward_last_block"] = {str(dt)[6:]: dropped_block_check(gen, dt)
+                                      for dt in (torch.float32, torch.bfloat16)}
     return rec, total
 
 
@@ -1387,6 +1520,168 @@ def training(gen, smi, root: pathlib.Path):
     for name, n in ll.items():
         total[name] += n
     return rec, total
+
+
+def wavlm_gradient(gen):
+    """Phase 6c, the WavLM core's gradient: ``wavlm_fused_attention`` (the
+    kernel forward, the backward recomputed through the plain version) at
+    B=2 L=499, 12 heads of 64, element 1 padded by 77 keys, bf16 and fp32,
+    against autograd through the plain version on the same inputs and
+    upstream gradient: the forward within ``ATTN_TOL``, the gradients of q,
+    k, v, gate, position_bias and the key bias bit-equal. Returns the
+    readings."""
+    rec, dev = {}, torch.device("cuda")
+    b, h, l, hd = 2, 12, 499, 64
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(b, l, h * hd, generator=gen).to(dev, dt).view(b, l, h, hd)
+                   .transpose(1, 2) for _ in range(3))
+        gate = (torch.rand(b, h, l, generator=gen) * 1.5 + 0.5).to(dev, dt)
+        pos = (torch.randn(h, l, l, generator=gen) * 0.3).to(dev, dt)
+        kb = torch.where(torch.arange(l)[None, :] >= torch.tensor([[l], [l - 77]]),
+                         AB.NEG_INF, 0.0).float().to(dev)
+        g = torch.randn(b, h, l, hd, generator=gen).to(dev, dt)
+        outs, grads = [], []
+        for fn in (WA.wavlm_fused_attention, WA.wavlm_fused_attention_plain):
+            ins = [t.detach().requires_grad_(True) for t in (q, k, v, gate, pos, kb)]
+            out = fn(*ins)
+            grads.append(torch.autograd.grad(out, ins, g))
+            outs.append(out.detach())
+        torch.cuda.synchronize()
+        tag = f"B={b} L={l} {str(dt)[6:]}"
+        err, med = compare(f"wavlm_fused_attention forward {tag}", outs[0], outs[1], ATTN_TOL[dt])
+        unequal = [n for n, a, r in zip(("q", "k", "v", "gate", "position_bias", "key_bias"),
+                                        *grads) if not torch.equal(a, r)]
+        if unequal:
+            raise AssertionError(f"wavlm_fused_attention {tag}: kernel-route gradients of "
+                                 f"{unequal} differ from the plain route's")
+        rec[str(dt)[6:]] = dict(forward_max_abs_err=err, forward_median=med,
+                                gradients="bit-equal")
+        print(f"wavlm_fused_attention gradient {tag}: forward max |d| {err:.3g} (median "
+              f"{med:.2g}), the six gradients bit-equal to the plain route's", flush=True)
+    return rec
+
+
+def classifier_training(gen, smi, root: pathlib.Path):
+    """Phase 6d: ``train_fusion_seq_level`` at its full width (d=768, 8
+    heads, 2 layers, beta hidden 256, dropout 0.2, batch 16) on phase 6a's
+    seq-level corpus, fp32 and bf16, two epochs; then ``FusionClassifier``
+    train steps through the flash kernels against the plain route
+    (``fusion_step``). Returns its record and the launches of its main-path
+    runs."""
+    rec, total = {}, {name: 0 for name in KERNELS}
+    data = ["--index_csv", str(root / "iemocap" / "iemocap_index_splits.csv"),
+            "--audio_dir", str(root / "iemocap" / "features" / "audio"),
+            "--text_dir", str(root / "iemocap" / "features" / "text")]
+    for dtype in ("float32", "bfloat16"):
+        out = root / f"fusion_seq_{dtype}"
+        st, ll = run_trainer(TRAIN_SEQ, data + [
+            "--out_dir", str(out), "--epochs", "2", "--compute_dtype", dtype, "--seed",
+            str(SEED)], f"train_fusion_seq_{dtype}")
+        check_launches(f"seq-level trainer {dtype}", ll, {})
+        ckpt = torch.load(out / "best_fusion_seq.pt", map_location="cpu", weights_only=False)
+        FusionClassifier(768, 6, 8, 2, 256).load_state_dict(ckpt["model_state_dict"],
+                                                            strict=True)
+        rec[f"fusion_seq_{dtype}"] = st
+        print(f"seq-level trainer {dtype} (FusionClassifier d=768, B=16, 500/128 frames; "
+              f"{smi}): {st['steps']} steps, step {st['median_wall_ms']:.3f} ms wall, "
+              f"{st['median_event_ms']:.3f} ms events, {st['steps_per_s']:.2f} steps/s, peak "
+              f"{st['peak_mem_gib']:.3f} GiB; losses "
+              f"{[round(m['loss'], 4) for m in st['metrics']]}; best val acc "
+              f"{st['best']:.4f}; checkpoint loads strictly", flush=True)
+    rec["classifier_step"], ll = fusion_step(gen, smi, classifier=True)
+    for name, n in ll.items():
+        total[name] += n
+    return rec, total
+
+
+def remaining_trainers(smi, root: pathlib.Path):
+    """Phase 6e: ``train_fusion_utter_level`` at its full width (d=768,
+    batch 32) on a synthetic utter-level corpus, both baselines on it, and
+    the MOSEI trainer at its defaults on phase 6b's corpus for 2 epochs with
+    ``--resume``, then resumed to 4 with ``--trace_dir``: the restored train
+    state must equal the saved one leaf by leaf, the log go on at epoch 3,
+    the first resumed epoch leave a trace. Returns its record."""
+    rec = {}
+    csv_path, audio_dir, text_dir = make_synthetic_iemocap(
+        root / "iemocap_utter", n=160, d=768, seq_level=False, seed=SEED)
+    data = ["--index_csv", str(csv_path), "--audio_dir", str(audio_dir),
+            "--text_dir", str(text_dir)]
+    out = root / "fusion_utter"
+    st, ll = run_trainer(TRAIN_UTT, data + ["--out_dir", str(out), "--epochs", "2",
+                                            "--seed", str(SEED)], "train_fusion_utter")
+    check_launches("utter-level trainer", ll, {})
+    ckpt = torch.load(out / "best_fusion_utt.pt", map_location="cpu", weights_only=False)
+    FusionClassifier(768, 6, 8, 2, 256).load_state_dict(ckpt["model_state_dict"], strict=True)
+    rec["fusion_utter"] = st
+    print(f"utter-level trainer (FusionClassifier d=768, B=32; {smi}): {st['steps']} steps, "
+          f"step {st['median_wall_ms']:.3f} ms wall, {st['median_event_ms']:.3f} ms events, "
+          f"{st['steps_per_s']:.2f} steps/s, peak {st['peak_mem_gib']:.3f} GiB; best val acc "
+          f"{st['best']:.4f}", flush=True)
+
+    for name, cli, keys in (("linear_probe", TRAIN_PROBE, {"modality"}),
+                            ("text_baseline", TRAIN_TEXT, {"head", "best_val_macro_f1"})):
+        out = root / name
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        secs = timed_wall(lambda: cli.main(data + ["--out_dir", str(out)]))
+        metrics = json.loads((out / "metrics.json").read_text())
+        splits = {"train", "val", "test"}
+        if set(metrics) != keys | {"label2id"} | splits or not all(
+                math.isfinite(metrics[sp]["acc"]) and metrics[sp]["n"] > 0 for sp in splits):
+            raise AssertionError(f"{name}: metrics.json {metrics}")
+        rec[name] = dict(seconds=secs, **{sp: metrics[sp] for sp in splits},
+                         peak_gib_above_start=(torch.cuda.max_memory_allocated() - base) / 2**30)
+        print(f"{name} (d=768 features, 160 utterances; {smi}): the whole call {secs:.3f} s, "
+              f"peak {rec[name]['peak_gib_above_start']:.4f} GiB above its start; train acc "
+              f"{metrics['train']['acc']:.4f}, val macro-F1 {metrics['val']['macro_f1']:.4f}",
+              flush=True)
+
+    mosei = root / "mosei"
+    argv = ["--index_csv", str(mosei / "mosei_index_splits.csv"), "--audio_dir",
+            str(mosei / "features" / "audio"), "--text_dir", str(mosei / "features" / "text"),
+            "--out_dir", str(root / "mosei_resume"), "--resume"]
+    first, _ = run_trainer(TRAIN_MOSEI, argv + ["--epochs", "2"], None)
+    saved = torch.load(root / "mosei_resume" / "resume" / "state", weights_only=True)
+    restored, restore = [], CK.restore_native
+
+    def snapshot(path, like):  # the state as restored, before any step moves it
+        out = restore(path, like)
+        if not isinstance(like, dict):
+            restored.append(CK.native_tree(out))
+        return out
+    CK.restore_native = snapshot
+    try:
+        second, _ = run_trainer(TRAIN_MOSEI, argv + ["--epochs", "4", "--trace_dir",
+                                                     str(root / "trace")], None)
+    finally:
+        CK.restore_native = restore
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            yield from (leaves(v, f"{prefix}{k}.") if isinstance(v, dict) else
+                        [(prefix + k, v)])
+    got, want = dict(leaves(restored[0])), dict(leaves(saved))
+    unequal = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+    if len(restored) != 1 or set(got) != set(want) or unequal:
+        raise AssertionError(f"MOSEI resume: the restored state differs from the saved one "
+                             f"at {unequal[:5]} ({len(unequal)} leaves)")
+    with open(root / "mosei_resume" / "outputs" / "train_log.csv", newline="") as f:
+        epochs = [int(r["epoch"]) for r in csv.DictReader(f)]
+    meta = json.loads((root / "mosei_resume" / "resume" / "meta.json").read_text())
+    traces = sorted((root / "trace").glob("*.pt.trace.json"))
+    if epochs != [3, 4] or meta["epoch"] != 4 or len(traces) != 1:
+        raise AssertionError(f"MOSEI resume: log epochs {epochs}, meta epoch {meta['epoch']}, "
+                             f"traces {traces}")
+    rec["mosei_resume"] = dict(first=first, second=second, leaves=len(want),
+                               step_restored=int(saved["step"]), log_epochs=epochs,
+                               trace_bytes=traces[0].stat().st_size)
+    print(f"MOSEI trainer --resume (defaults; {smi}): 2 epochs ({first['steps']} steps), then "
+          f"resumed to 4 ({second['steps']} steps): {len(want)} leaves of the train state "
+          f"restored bit-equal (step {int(saved['step'])}), log epochs {epochs}, trace "
+          f"{traces[0].name} ({traces[0].stat().st_size} bytes); resumed step "
+          f"{second['median_wall_ms']:.3f} ms wall (the traced epoch included)", flush=True)
+    return rec
 
 
 def hf_state_dict(module: torch.nn.Module, prefix: str) -> dict:
@@ -1623,7 +1918,29 @@ def evaluation(smi, work: pathlib.Path, idx, wavlm, bert):
     check_launches("mosei_eval_infer uncapped", ll,
                    {"onepass_attention": 2, "streaming_attention": 2})
     add(ll)
-    rec["mosei"] = dict(utterances=n, summary=summary, uncapped_prob_delta=delta, launches=ll)
+    # the same uncapped splits in fp16 through the fp16 kernels
+    reset_launches()
+    MEVAL.main(argv + ["--amp_dtype", "fp16", "--out_dir", str(root / "long_fp16")])
+    ll16 = read_launches()
+    MEVAL.main(argv + ["--amp_dtype", "fp16", "--out_dir", str(root / "long_fp16_plain")],
+               use_kernels=False)
+    delta16 = max(float(np.abs(np.load(root / "long_fp16" / f"{sp}_y_prob.npy")
+                               - np.load(root / "long_fp16_plain" / f"{sp}_y_prob.npy")).max())
+                  for sp in LONG_MOSEI)
+    vs_bf16 = max(float(np.abs(np.load(root / "long_fp16" / f"{sp}_y_prob.npy")
+                               - np.load(root / "long_out" / f"{sp}_y_prob.npy")).max())
+                  for sp in LONG_MOSEI)
+    print(f"mosei_eval_infer --amp_dtype fp16 uncapped: kernel vs plain max prob delta "
+          f"{delta16:.3g} (limit {EVAL_TOL}), fp16 vs bf16 kernels {vs_bf16:.3g}; launches "
+          f"{ll16}", flush=True)
+    if not delta16 <= EVAL_TOL:
+        raise AssertionError(f"mosei_eval_infer fp16 uncapped: prob delta {delta16} > {EVAL_TOL}")
+    check_launches("mosei_eval_infer fp16 uncapped", ll16,
+                   {"onepass_attention": 2, "streaming_attention": 2})
+    add(ll16)
+    rec["mosei"] = dict(utterances=n, summary=summary, uncapped_prob_delta=delta, launches=ll,
+                        uncapped_fp16_prob_delta=delta16, fp16_vs_bf16=vs_bf16,
+                        fp16_launches=ll16)
     return rec, total
 
 
@@ -1811,6 +2128,17 @@ def main() -> int:
                                        work / "train")
         for name, n in ll.items():
             total[name] += n
+        # phase 6c: the WavLM core's gradient; 6d: the seq-level trainer and
+        # the FusionClassifier step through the flash kernels; 6e: the
+        # utter-level trainer, the baselines, the MOSEI trainer's resume
+        t6 = time.perf_counter()
+        gen6 = torch.Generator().manual_seed(SEED + 10)
+        phases["train"]["wavlm_gradient"] = wavlm_gradient(gen6)
+        phases["train_classifier"], ll = classifier_training(gen6, smi, work / "train")
+        for name, n in ll.items():
+            total[name] += n
+        phases["train_rest"] = remaining_trainers(smi, work / "train")
+        print(f"phases 6c-6e (new): {time.perf_counter() - t6:.1f} s wall", flush=True)
         # phase 7: evaluation and inference on phase 5's tree and phase 6's checkpoints
         t7 = time.perf_counter()
         phases["eval"], ll = evaluation(smi, work, idx, wavlm5, bert5)
@@ -1827,7 +2155,9 @@ def main() -> int:
     kernels = []
     for name, (fn, replaces, source) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        served = [r for r in mine if not r["shape"].endswith("float32")]  # bf16, the default
+        # bf16, the default (the fp16 and head-dim-32 rows stand beside them)
+        served = [r for r in mine if not r["shape"].endswith("float32")
+                  and r.get("kernels_line", True)]
         main_row = max(served, key=lambda r: r["ms"])  # the costliest call on the paths
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=total[name],

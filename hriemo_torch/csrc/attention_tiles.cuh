@@ -1,6 +1,8 @@
-// Tensor-core tile machinery shared by the bf16 float attention kernels
+// Tensor-core tile machinery shared by the 16-bit float attention kernels
 // (csrc/wavlm_attention.cu, csrc/flash_attention.cu), FlashAttention-2
-// style on mma.sync.m16n8k16 (bf16 in, fp32 accumulate); the fp32 kernels
+// style on mma.sync.m16n8k16 (bf16 or fp16 in, fp32 accumulate; the element
+// type T picks the instruction's type suffix, and ldmatrix moves 16-bit
+// elements of either type alike); the fp32 kernels
 // of csrc/attention_tf32.cuh share its block shape, key masking and row
 // reductions:
 //
@@ -12,7 +14,7 @@
 //   ldmatrix reads on distinct banks); rows past the key length are zeroed
 //   by the copy itself (src-size 0), so p = 0 never meets garbage in V;
 // - QK^T takes its B fragments from K by ldmatrix, PV from V by
-//   ldmatrix.trans; the scores' C fragments, rounded to bf16, are PV's A
+//   ldmatrix.trans; the scores' C fragments, rounded to T, are PV's A
 //   fragments without leaving registers;
 // - each lane holds two rows of a score tile (g = lane / 4 and g + 8), and
 //   a row's four lanes are adjacent, so row max and row sum are two xor
@@ -44,20 +46,45 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// c += a . b on one m16n8k16 tile: bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+// c += a . b on one m16n8k16 tile: T (bf16 or fp16) in, fp32 accumulate.
+// The two forms differ only in their type suffix: read with the other
+// suffix, the operands give wrong numbers and no error.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                      uint32_t a3, uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16<__nv_bfloat16>(float (&c)[4], uint32_t a0, uint32_t a1,
+                                                     uint32_t a2, uint32_t a3, uint32_t b0,
+                                                     uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma16<__half>(float (&c)[4], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint32_t b0,
+                                              uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
-// Two values rounded to bf16, the first in the low half (the lower k index
-// of an mma operand pair).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two values rounded to T (to nearest even), the first in the low half (the
+// lower k index of an mma operand pair).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -94,8 +121,8 @@ __device__ __forceinline__ void mask_keys(float (&s)[NT][4], int nk, int lane) {
 
 // This warp's 16 query rows (row0 = its first) as A fragments, zeros for
 // rows at or past Lq. q: the head's row 0, rows sl elements apart.
-template <int HD>
-__device__ __forceinline__ void load_q(uint32_t (&qf)[HD / 16][4], const __nv_bfloat16* q, int sl,
+template <int HD, typename T>
+__device__ __forceinline__ void load_q(uint32_t (&qf)[HD / 16][4], const T* q, int sl,
                                        int row0, int Lq, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int ra = row0 + g, rb = ra + 8;
@@ -112,8 +139,8 @@ __device__ __forceinline__ void load_q(uint32_t (&qf)[HD / 16][4], const __nv_bf
 
 // Rows j0 .. j0+R-1 of a [L, HD] head (rows sl elements apart) into R
 // shared rows of HD + 8 elements; rows at or past L are zeroed.
-template <int HD, int R>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int sl,
+template <int HD, int R, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int sl,
                                           int j0, int L, int tid) {
   constexpr int kChunks = HD / 8;
   for (int idx = tid; idx < R * kChunks; idx += kTcThreads) {
@@ -135,9 +162,9 @@ __device__ __forceinline__ void load_bias(float* dst, const float* src, int j0, 
 
 // s[n] = this warp's 16 query rows . keys 8n .. 8n+7 of the tile, fp32
 // sums over HD. ks: the K tile in shared memory, rows of HD + 8.
-template <int HD, int NT>
+template <int HD, int NT, typename T>
 __device__ __forceinline__ void qk_tile(float (&s)[NT][4], const uint32_t (&qf)[HD / 16][4],
-                                        const __nv_bfloat16* ks, int lane) {
+                                        const T* ks, int lane) {
   // ldmatrix.x4 matrices: keys +0..7 at k +0..7 and +8..15 (b0, b1 of
   // n-tile 2m), keys +8..15 at the same k (b0, b1 of n-tile 2m + 1)
   const int kr = (lane & 7) + ((lane >> 4) << 3), kc = ((lane >> 3) & 1) << 3;
@@ -149,17 +176,17 @@ __device__ __forceinline__ void qk_tile(float (&s)[NT][4], const uint32_t (&qf)[
     for (int m = 0; m < NT / 2; ++m) {
       uint32_t b[4];
       ldsm_x4(b, ks + (m * 16 + kr) * (HD + 8) + k * 16 + kc);
-      mma_bf16(s[2 * m], qf[k][0], qf[k][1], qf[k][2], qf[k][3], b[0], b[1]);
-      mma_bf16(s[2 * m + 1], qf[k][0], qf[k][1], qf[k][2], qf[k][3], b[2], b[3]);
+      mma16<T>(s[2 * m], qf[k][0], qf[k][1], qf[k][2], qf[k][3], b[0], b[1]);
+      mma16<T>(s[2 * m + 1], qf[k][0], qf[k][1], qf[k][2], qf[k][3], b[2], b[3]);
     }
   }
 }
 
 // o += P . V over the tile's NT * 8 keys: pa[m] holds keys 16m .. 16m+15 of
 // this warp's 16 rows as an A fragment; vs: the V tile, rows of HD + 8.
-template <int HD, int NT>
+template <int HD, int NT, typename T>
 __device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const uint32_t (&pa)[NT / 2][4],
-                                        const __nv_bfloat16* vs, int lane) {
+                                        const T* vs, int lane) {
   // ldmatrix.x4.trans matrices: keys +0..7 and +8..15 at columns +0..7 (b0,
   // b1 of column tile 2d), the same keys at columns +8..15 (tile 2d + 1)
   const int vr = (lane & 7) + (((lane >> 3) & 1) << 3), vc = (lane >> 4) << 3;
@@ -169,14 +196,14 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const uint32_t (&
     for (int d = 0; d < HD / 16; ++d) {
       uint32_t b[4];
       ldsm_x4_trans(b, vs + (m * 16 + vr) * (HD + 8) + d * 16 + vc);
-      mma_bf16(o[2 * d], pa[m][0], pa[m][1], pa[m][2], pa[m][3], b[0], b[1]);
-      mma_bf16(o[2 * d + 1], pa[m][0], pa[m][1], pa[m][2], pa[m][3], b[2], b[3]);
+      mma16<T>(o[2 * d], pa[m][0], pa[m][1], pa[m][2], pa[m][3], b[0], b[1]);
+      mma16<T>(o[2 * d + 1], pa[m][0], pa[m][1], pa[m][2], pa[m][3], b[2], b[3]);
     }
   }
 }
 
 // The warp's output rows (row0 + g and row0 + g + 8, those below Lq) as T
-// (bf16, or fp32 for csrc/attention_tf32.cuh). o: the head's row 0, rows sl
+// (bf16 or fp16, or fp32 for csrc/attention_tf32.cuh). o: the head's row 0, rows sl
 // elements apart.
 template <int HD, typename T>
 __device__ __forceinline__ void store_rows(T* o, int sl, int row0, int Lq,

@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -16,20 +17,29 @@ namespace hr {
 // The reference's additive mask logit (hriemo/core/masking.py NEG_INF).
 constexpr float kNegInf = -1e9f;
 
+// Element type of the float attention kernels' q/k/v/out, as the C entry
+// points take it (hriemo_torch/ops/_cuda.py DTYPE_CODES).
+enum DType : int { kDtBf16 = 0, kDtF32 = 1, kDtF16 = 2 };
+
 __device__ __forceinline__ float bf2f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ __nv_bfloat16 f2bf(float v) { return __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return bf2f(*p); }
+__device__ __forceinline__ float load_f(const __half* p) { return __half2float(*p); }
 
-// x stored as T (bf16: round to nearest even; fp32: x itself)
+// x stored as T (bf16, fp16: round to nearest even; fp32: x itself)
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) { return f2bf(x); }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 // x rounded to T and widened back, as a cast to T and back in the reference
 template <typename T> __device__ __forceinline__ float round_as(float x);
 template <> __device__ __forceinline__ float round_as<__nv_bfloat16>(float x) { return bf2f(f2bf(x)); }
+template <> __device__ __forceinline__ float round_as<__half>(float x) {
+  return __half2float(__float2half_rn(x));
+}
 template <> __device__ __forceinline__ float round_as<float>(float x) { return x; }
 
 // Eight consecutive elements of a row as fp32; p must be 16-byte aligned.
@@ -39,6 +49,16 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const float2 f = __bfloat1622float2(h[e]);
+    out[2 * e] = f.x;
+    out[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const __half* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __half22float2(h[e]);
     out[2 * e] = f.x;
     out[2 * e + 1] = f.y;
   }
@@ -127,6 +147,9 @@ __device__ __forceinline__ float gelu(float x, int fast) { return fast ? gelu_ta
 // Two adjacent columns, rounded to T.
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store2(__half* p, float v0, float v1) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v0, v1);
 }
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);

@@ -8,8 +8,8 @@
 //     acc   = acc * alpha + (p -> T) . v                      (fp32 sums)
 //   out = (acc / l) -> T
 //
-// over q/k/v of type T (bf16 or fp32) read in place through their batch,
-// head and row strides.
+// over q/k/v of type T (bf16, fp16 or fp32) read in place through their
+// batch, head and row strides.
 //
 // Replaces the Pallas kernel hriemo/ops/flash_attention_pallas.py::
 // _flash_kernel, routed for Lk > 2048 (the dispatch at :274-277). The TPU
@@ -21,12 +21,13 @@
 // past Lk are simply absent (the TPU wrapper pads them with NEG_INF, which
 // adds exact zeros unless a row's keys are all masked).
 //
-// bf16 at head dim 64 or 96: streaming_mma_kernel, on the tensor cores
-// (csrc/attention_tiles.cuh). A block takes 64 query rows, 16 per warp,
-// with q in registers as mma A fragments and m, l and acc in registers
+// bf16 or fp16 at head dim 64 or 96: streaming_mma_kernel, on the tensor
+// cores (csrc/attention_tiles.cuh; fp16 on the f16 form of the same
+// mma.sync, p rounded to fp16 before PV). A block takes 64 query rows, 16
+// per warp, with q in registers as mma A fragments and m, l and acc in registers
 // (two rows a lane); per 128-key block: s = QK^T on mma.sync, scale and
 // key bias (__fmul_rn/__fadd_rn), row max and sum by quad shuffles, the
-// unnormalized p rounded to bf16 as PV's A fragments, pv = PV on mma.sync
+// unnormalized p rounded to T as PV's A fragments, pv = PV on mma.sync
 // into its own fp32 fragment, then acc = acc * alpha + pv as the TPU kernel
 // orders it. K, V and the key biases arrive through a two-stage cp.async
 // ring (107 KB at hd 96, 73 KB at hd 64); the only block barrier per key
@@ -50,7 +51,7 @@
 // 0.66 ms against SDPA's 1.10 (chip_smoke.py), where the CUDA-core kernel
 // below took 3.60.
 //
-// Other head dims, bf16 or fp32: streaming_attn_kernel on CUDA cores, one
+// Other head dims, bf16, fp16 or fp32: streaming_attn_kernel on CUDA cores, one
 // block per (tile of kQT = 16 query rows, head, batch element), 4*hd
 // threads; 8 KB of scores and 16*hd floats of queries in shared memory; m
 // and l in shared memory, three block barriers per key block.
@@ -184,13 +185,13 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
 
 __host__ __device__ constexpr int mma_stage_bytes(int hd) { return 2 * kBK * (hd + 8) * 2 + kBK * 4; }
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kTcThreads)
-    streaming_mma_kernel(const __nv_bfloat16* __restrict__ q, int q_sb, int q_sh, int q_sl,
-                         const __nv_bfloat16* __restrict__ k, int k_sb, int k_sh, int k_sl,
-                         const __nv_bfloat16* __restrict__ v, int v_sb, int v_sh, int v_sl,
+    streaming_mma_kernel(const T* __restrict__ q, int q_sb, int q_sh, int q_sl,
+                         const T* __restrict__ k, int k_sb, int k_sh, int k_sl,
+                         const T* __restrict__ v, int v_sb, int v_sh, int v_sl,
                          int Lq, int Lk, float scale, const float* __restrict__ kbias,
-                         __nv_bfloat16* __restrict__ out, int o_sb, int o_sh, int o_sl) {
+                         T* __restrict__ out, int o_sb, int o_sh, int o_sl) {
   constexpr int NT = kBK / 8;  // n-tiles of a score block
   constexpr int kStage = mma_stage_bytes(HD);
   extern __shared__ __align__(16) unsigned char ring[];
@@ -198,11 +199,11 @@ __global__ void __launch_bounds__(kTcThreads)
   const int t = lane & 3;
   const int b = blockIdx.x, h = blockIdx.z;
   const int row0 = blockIdx.y * kTcRows + warp * 16;  // this warp's first query row
-  const __nv_bfloat16* kh = k + (size_t)b * k_sb + (size_t)h * k_sh;
-  const __nv_bfloat16* vh = v + (size_t)b * v_sb + (size_t)h * v_sh;
+  const T* kh = k + (size_t)b * k_sb + (size_t)h * k_sh;
+  const T* vh = v + (size_t)b * v_sb + (size_t)h * v_sh;
   const float* kb = kbias + (size_t)b * Lk;
 
-  auto Ks = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(ring + st * kStage); };
+  auto Ks = [&](int st) { return reinterpret_cast<T*>(ring + st * kStage); };
   auto Vs = [&](int st) { return Ks(st) + kBK * (HD + 8); };
   auto Bs = [&](int st) { return reinterpret_cast<float*>(Vs(st) + kBK * (HD + 8)); };
   const int nblocks = (Lk + kBK - 1) / kBK;
@@ -262,8 +263,8 @@ __global__ void __launch_bounds__(kTcThreads)
     uint32_t pa[NT / 2][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      pa[n >> 1][2 * (n & 1)] = pack_bf16(s[n][0], s[n][1]);
-      pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(s[n][2], s[n][3]);
+      pa[n >> 1][2 * (n & 1)] = pack2<T>(s[n][0], s[n][1]);
+      pa[n >> 1][2 * (n & 1) + 1] = pack2<T>(s[n][2], s[n][3]);
     }
     float pv[HD / 8][4];
 #pragma unroll
@@ -282,7 +283,7 @@ __global__ void __launch_bounds__(kTcThreads)
   store_rows<HD>(out + (size_t)b * o_sb + (size_t)h * o_sh, o_sl, row0, Lq, acc, lane);
 }
 
-template <int HD>
+template <int HD, typename T>
 void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
                 int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq,
                 int Lk, float scale, const void* kbias, void* out, int o_sb, int o_sh, int o_sl,
@@ -290,16 +291,29 @@ void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int 
   constexpr int smem = 2 * mma_stage_bytes(HD);
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
-    cudaFuncSetAttribute(streaming_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
+    cudaFuncSetAttribute(streaming_mma_kernel<HD, T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     attr_set = true;
   }
   dim3 grid(B, (Lq + kTcRows - 1) / kTcRows, H);
-  using bf = __nv_bfloat16;
-  streaming_mma_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf*>(q), q_sb, q_sh, q_sl, static_cast<const bf*>(k), k_sb, k_sh, k_sl,
-      static_cast<const bf*>(v), v_sb, v_sh, v_sl, Lq, Lk, scale,
-      static_cast<const float*>(kbias), static_cast<bf*>(out), o_sb, o_sh, o_sl);
+  streaming_mma_kernel<HD, T><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
+      static_cast<const T*>(v), v_sb, v_sh, v_sl, Lq, Lk, scale,
+      static_cast<const float*>(kbias), static_cast<T*>(out), o_sb, o_sh, o_sl);
+}
+
+// The tensor-core launch at head dim 64 or 96 on 16-bit q/k/v/out of type T.
+template <typename T>
+void launch_mma_hd(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb,
+                   int k_sh, int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H,
+                   int Lq, int Lk, int hd, float scale, const void* kbias, void* out, int o_sb,
+                   int o_sh, int o_sl, cudaStream_t s) {
+  if (hd == 64)
+    launch_mma<64, T>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq,
+                      Lk, scale, kbias, out, o_sb, o_sh, o_sl, s);
+  else
+    launch_mma<96, T>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq,
+                      Lk, scale, kbias, out, o_sb, o_sh, o_sl, s);
 }
 
 }  // namespace hr
@@ -311,16 +325,17 @@ extern "C" {
 // Operands as in hr_onepass_attention (csrc/wavlm_attention.cu), without a
 // gate. Needs Lk >= 1, hd % 8 == 0 and hd <= 256 (blockDim 4*hd of the
 // CUDA-core kernel, whose shared memory stays under 48 KB). hd 64/96:
-// streaming_mma_kernel (bf16) or attn_tf32_kernel (fp32); other head dims:
-// streaming_attn_kernel.
-int hr_streaming_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
+// streaming_mma_kernel (bf16, fp16) or attn_tf32_kernel (fp32); other head
+// dims: streaming_attn_kernel. dtype: kDtBf16, kDtF32 or kDtF16.
+int hr_streaming_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                            int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                            int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
                            const void* kbias, void* out, int o_sb, int o_sh, int o_sl,
                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  if (fp32 && (hd == 64 || hd == 96)) {
+  const bool tc = hd == 64 || hd == 96;
+  if (dtype == kDtF32 && tc) {
     Tf32Args a{};
     a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);
     a.v = static_cast<const float*>(v);
@@ -332,15 +347,18 @@ int hr_streaming_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl
     else launch_attn_tf32<96, false, true>(a, B, s);
     return (int)cudaGetLastError();
   }
-  if (!fp32 && hd == 64)
-    launch_mma<64>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
-                   scale, kbias, out, o_sb, o_sh, o_sl, s);
-  else if (!fp32 && hd == 96)
-    launch_mma<96>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
-                   scale, kbias, out, o_sb, o_sh, o_sl, s);
-  else if (fp32)
+  if (tc && dtype == kDtF16)
+    launch_mma_hd<__half>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
+                          Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
+  else if (tc)
+    launch_mma_hd<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl,
+                                 B, H, Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
+  else if (dtype == kDtF32)
     launch<float>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
                   hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
+  else if (dtype == kDtF16)
+    launch<__half>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
+                   hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
   else
     launch<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
                           Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);

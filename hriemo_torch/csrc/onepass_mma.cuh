@@ -1,12 +1,16 @@
-// The one-pass bf16 attention core on the tensor cores, shared by the
+// The one-pass 16-bit attention core on the tensor cores, shared by the
 // float route (csrc/wavlm_attention.cu: wavlm_fused_attention,
-// onepass_attention) and the int8 sublayers' core (csrc/attention.cu:
-// attention_block_int8, mha_block_int8):
+// onepass_attention; bf16 or fp16) and the int8 sublayers' core
+// (csrc/attention.cu: attention_block_int8, mha_block_int8; bf16):
 //
 //   s   = (q . k^T) * scale  [+ gate[i] * pos[h,i,j]]  + key bias[b,j]   (fp32)
-//   out = ((exp(s - max s) / sum) -> bf16) . v                       (fp32 sums -> bf16)
+//   out = ((exp(s - max s) / sum) -> T) . v                          (fp32 sums -> T)
 //
-// over bf16 q/k/v read in place through their batch, head and row strides.
+// over q/k/v of type T (bf16 or fp16) read in place through their batch,
+// head and row strides; pos and out are T too. fp16 keeps the bf16
+// numerics, as the TPU kernels cast p / l to v's dtype whatever it is: fp32
+// scores and sums, p / l rounded to fp16 before PV on the f16 form of the
+// same mma.sync.
 // The int8 route's q/k/v are column blocks of the projection GEMM's packed
 // [B*L, 3D] (or [B*Lq, D] and [B*Lk, 2D]) output, its 1/sqrt(hd) already in
 // q (scale 1, exact), and its ctx [B*Lq, D].
@@ -17,7 +21,7 @@
 //     key bias in the TPU kernels' order, __fmul_rn/__fadd_rn), the running
 //     row max m and the running sum l = l * exp(m_old - m) + sum exp(s - m);
 //   sweep 2: s again, p = exp(s - m) / l (rounded to nearest: the
-//     reciprocal of l and two remainder corrections, div_rn), rounded to bf16 as
+//     reciprocal of l and two remainder corrections, div_rn), rounded to T as
 //     the TPU kernels cast p / l to v's dtype before PV, then PV on mma.sync
 //     with fp32 sums.
 // The contract rounds p / l, so l must be known before PV: the price of
@@ -58,8 +62,9 @@ constexpr int kPosLd = kOneBK + 8;      // a realigned pos row: the tile's keys 
 enum GateFrom : int { kNoGate = 0, kGateArray = 1, kGateFromX = 2 };
 enum KeyMask : int { kKeysBias = 0, kKeysPad = 1 };
 
-struct OnepassArgs {
-  const __nv_bfloat16 *q, *k, *v;           // element (b, h, i, d) at b*sb + h*sh + i*sl + d
+template <typename T>
+struct OnepassArgsT {
+  const T *q, *k, *v;                       // element (b, h, i, d) at b*sb + h*sh + i*sl + d
   int q_sb, q_sh, q_sl, k_sb, k_sh, k_sl, v_sb, v_sh, v_sl;
   int H, Lq, Lk;
   float scale;
@@ -69,10 +74,11 @@ struct OnepassArgs {
   const void* x;                            // kGateFromX: [B*Lq, x_ld], head h at column h*HD,
   int x_ld, x_f32;                          //   bf16, or fp32 when x_f32
   const float *wg, *bg, *gconst;            // [8, HD], [8], [H]
-  const __nv_bfloat16* pos;                 // gated: [H, Lq, Lk]
-  __nv_bfloat16* out;
+  const T* pos;                             // gated: [H, Lq, Lk]
+  T* out;
   int o_sb, o_sh, o_sl;
 };
+using OnepassArgs = OnepassArgsT<__nv_bfloat16>;  // the int8 route's
 
 // Bytes of one ring stage: K and V tiles, the key biases and, gated, the
 // realigned pos tile.
@@ -104,8 +110,8 @@ __device__ __forceinline__ float wavlm_gate(const T* xr, const float* wg, const 
   return __fadd_rn(__fmul_rn(ga, __fadd_rn(__fmul_rn(gb, c_h), -1.0f)), 2.0f);
 }
 
-template <int HD, int GATE, int KEYS>
-__global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassArgs a) {
+template <typename T, int HD, int GATE, int KEYS>
+__global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassArgsT<T> a) {
   constexpr int NT = kOneBK / 8;  // n-tiles of a score tile
   constexpr bool kGated = GATE != kNoGate;
   constexpr int kStage = mma_stage_bytes(HD, kGated);
@@ -115,18 +121,18 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
   const int b = blockIdx.x, i0 = blockIdx.y * kTcRows, h = blockIdx.z;
   const int Lq = a.Lq, Lk = a.Lk;
   const int row0 = i0 + warp * 16;  // this warp's first query row
-  const __nv_bfloat16* qh = a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh;
-  const __nv_bfloat16* kh = a.k + (size_t)b * a.k_sb + (size_t)h * a.k_sh;
-  const __nv_bfloat16* vh = a.v + (size_t)b * a.v_sb + (size_t)h * a.v_sh;
+  const T* qh = a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh;
+  const T* kh = a.k + (size_t)b * a.k_sb + (size_t)h * a.k_sh;
+  const T* vh = a.v + (size_t)b * a.v_sb + (size_t)h * a.v_sh;
   const size_t krow0 = (size_t)b * Lk;  // this element's key 0 in kbias / kpm
   // pos element (i0, 0) of this head; the tensor's length bounds every copy
   const size_t pos_i0 = ((size_t)h * Lq + i0) * Lk, pos_len = (size_t)a.H * Lq * Lk;
   const int nq = min(kTcRows, Lq - i0);
 
-  auto Ks = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(ring + st * kStage); };
+  auto Ks = [&](int st) { return reinterpret_cast<T*>(ring + st * kStage); };
   auto Vs = [&](int st) { return Ks(st) + kOneBK * (HD + 8); };
   auto Bs = [&](int st) { return reinterpret_cast<float*>(Vs(st) + kOneBK * (HD + 8)); };
-  auto Ps = [&](int st) { return reinterpret_cast<__nv_bfloat16*>(Bs(st) + kOneBK); };
+  auto Ps = [&](int st) { return reinterpret_cast<T*>(Bs(st) + kOneBK); };
 
   const int ntiles = (Lk + kOneBK - 1) / kOneBK, steps = 2 * ntiles;
   // step it: tile it % ntiles of sweep it / ntiles (V only in sweep 2)
@@ -198,7 +204,7 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
     if (it + 1 < steps) issue(it + 1);
     const int st = it & 1, j0 = (it % ntiles) * kOneBK;
     const float* bs = Bs(st);
-    const __nv_bfloat16* ps = Ps(st) + (warp * 16 + g) * kPosLd;
+    const T* ps = Ps(st) + (warp * 16 + g) * kPosLd;
 
     float s[NT][4];
     qk_tile<HD, NT>(s, qf, Ks(st), lane);
@@ -211,7 +217,7 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
         const int rr = e >> 1;
         float x = __fmul_rn(s[n][e], a.scale);
         if (kGated)
-          x = __fadd_rn(x, __fmul_rn(gt[rr], bf2f(ps[rr * 8 * kPosLd + psh[rr] + c + (e & 1)])));
+          x = __fadd_rn(x, __fmul_rn(gt[rr], load_f(ps + rr * 8 * kPosLd + psh[rr] + c + (e & 1))));
         s[n][e] = __fadd_rn(x, (e & 1) ? kb2.y : kb2.x);
       }
     }
@@ -231,7 +237,7 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
         l[rr] = __fadd_rn(__fmul_rn(l[rr], expf(__fadd_rn(m[rr], -mn))), quad_sum(sum));
         m[rr] = mn;
       }
-    } else {  // sweep 2: p / l rounded to bf16, then PV
+    } else {  // sweep 2: p / l rounded to T, then PV
       if (it == ntiles) rl[0] = __frcp_rn(l[0]), rl[1] = __frcp_rn(l[1]);
       uint32_t pa[NT / 2][4];
 #pragma unroll
@@ -240,8 +246,8 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           p[e] = div_rn(expf(__fadd_rn(s[n][e], -m[e >> 1])), l[e >> 1], rl[e >> 1]);
-        pa[n >> 1][2 * (n & 1)] = pack_bf16(p[0], p[1]);
-        pa[n >> 1][2 * (n & 1) + 1] = pack_bf16(p[2], p[3]);
+        pa[n >> 1][2 * (n & 1)] = pack2<T>(p[0], p[1]);
+        pa[n >> 1][2 * (n & 1) + 1] = pack2<T>(p[2], p[3]);
       }
       pv_tile<HD, NT>(o, pa, Vs(st), lane);
     }
@@ -255,18 +261,18 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
 // and the second library's kernel would never opt in.
 namespace {
 
-template <int HD, int GATE, int KEYS>
-void launch_onepass_mma(const OnepassArgs& a, int B, cudaStream_t stream) {
+template <int HD, int GATE, int KEYS, typename T>
+void launch_onepass_mma(const OnepassArgsT<T>& a, int B, cudaStream_t stream) {
   constexpr int smem = 2 * mma_stage_bytes(HD, GATE != kNoGate);
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
-    cudaFuncSetAttribute(onepass_mma_kernel<HD, GATE, KEYS>,
+    cudaFuncSetAttribute(onepass_mma_kernel<T, HD, GATE, KEYS>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     attr_set = true;
   }
   // batch element fastest: the blocks that read one pos tile run together
   dim3 grid(B, (a.Lq + kTcRows - 1) / kTcRows, a.H);
-  onepass_mma_kernel<HD, GATE, KEYS><<<grid, kTcThreads, smem, stream>>>(a);
+  onepass_mma_kernel<T, HD, GATE, KEYS><<<grid, kTcThreads, smem, stream>>>(a);
 }
 
 // The launch for head dim hd (64 or 96, the caller checks) and the gate

@@ -4,8 +4,9 @@
 //   s   = (q . k^T) * scale  [+ gate[b,h,i] * pos[h,i,j]]  + kbias[b,j]   (fp32)
 //   out = ((exp(s - max s) / sum) -> T) . v                               (fp32 sums -> T)
 //
-// over q/k/v of type T (bf16 or fp32), read in place through their batch,
-// head and row strides (the projections' [B, L, H*hd] outputs, no copy).
+// over q/k/v of type T (bf16, fp16 or fp32), read in place through their
+// batch, head and row strides (the projections' [B, L, H*hd] outputs, no
+// copy).
 //
 // Replaces the two Pallas kernels that compute this one-pass softmax with
 // K/V resident in VMEM:
@@ -14,9 +15,10 @@
 //   hriemo/ops/flash_attention_pallas.py::_onepass_kernel, gate = pos = NULL,
 //     routed for 1024 <= Lq and 1024 <= Lk <= 2048.
 //
-// bf16 at head dim 64 (WavLM) or 96 (fusion): onepass_mma_kernel on the
-// tensor cores, the two-sweep kernel of csrc/onepass_mma.cuh, with the gate
-// read from its [B, H, Lq] array. What bounds it (NVIDIA H100 80GB HBM3 at
+// bf16 or fp16 at head dim 64 (WavLM) or 96 (fusion): onepass_mma_kernel
+// on the tensor cores, the two-sweep kernel of csrc/onepass_mma.cuh, with
+// the gate read from its [B, H, Lq] array; fp16 on the f16 form of the same
+// mma.sync, with the bf16 numerics (p / l rounded to fp16 before PV). What bounds it (NVIDIA H100 80GB HBM3 at
 // 700 W, chip_smoke.py): the per-score work on the FMA and MUFU pipes, about
 // 35 instructions a score, so a 16x8 block of scores costs some 140 warp
 // instructions beside its 12 mma.sync at hd 64. At B=2 L=1499 the gated
@@ -35,7 +37,7 @@
 // B=2 1499^2 8x96 it takes about 0.42 ms against SDPA's 0.45 (chip_smoke.py),
 // where the CUDA-core kernel below took 1.85.
 //
-// Other head dims (hd % 8 == 0, hd <= 256), bf16 or fp32:
+// Other head dims (hd % 8 == 0, hd <= 256), bf16, fp16 or fp32:
 // onepass_attn_kernel on CUDA cores, one block per 16 query rows with the
 // fp32 score panel [16, Lk] in up to 227 KB of shared memory:
 //   1. the query tile goes to shared memory as fp32, with its 16 gates;
@@ -167,6 +169,25 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
 
 bool on_tensor_cores(int hd) { return hd == 64 || hd == 96; }
 
+// The tensor-core launch on 16-bit q/k/v/pos/out of type T.
+template <typename T>
+void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
+                int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq,
+                int Lk, int hd, float scale, const void* kbias, const void* gate,
+                const void* pos, void* out, int o_sb, int o_sh, int o_sl, cudaStream_t s) {
+  OnepassArgsT<T> a{};
+  a.q = static_cast<const T*>(q), a.k = static_cast<const T*>(k), a.v = static_cast<const T*>(v);
+  a.q_sb = q_sb, a.q_sh = q_sh, a.q_sl = q_sl, a.k_sb = k_sb, a.k_sh = k_sh, a.k_sl = k_sl;
+  a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = scale;
+  a.kbias = static_cast<const float*>(kbias), a.gate = static_cast<const float*>(gate);
+  a.pos = static_cast<const T*>(pos), a.out = static_cast<T*>(out);
+  a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
+  if (hd == 64 && gate != nullptr) launch_onepass_mma<64, kGateArray, kKeysBias>(a, B, s);
+  else if (hd == 64) launch_onepass_mma<64, kNoGate, kKeysBias>(a, B, s);
+  else if (gate != nullptr) launch_onepass_mma<96, kGateArray, kKeysBias>(a, B, s);
+  else launch_onepass_mma<96, kNoGate, kKeysBias>(a, B, s);
+}
+
 }  // namespace hr
 
 using namespace hr;
@@ -175,28 +196,29 @@ extern "C" {
 
 // Shared memory one block needs (the gated launch's, the larger); the
 // caller refuses shapes above kMaxSmem, which only the CUDA-core kernel's
-// score panel can reach.
-int hr_onepass_smem_bytes(int fp32, int Lk, int hd) {
-  if (on_tensor_cores(hd)) return fp32 ? tf32_smem_bytes(hd, true) : 2 * mma_stage_bytes(hd, true);
+// score panel can reach. dtype: kDtBf16, kDtF32 or kDtF16.
+int hr_onepass_smem_bytes(int dtype, int Lk, int hd) {
+  if (on_tensor_cores(hd))
+    return dtype == kDtF32 ? tf32_smem_bytes(hd, true) : 2 * mma_stage_bytes(hd, true);
   return (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
 }
 
 int hr_onepass_max_smem_bytes() { return kMaxSmem; }
 
 // q/k/v/out: element (b, h, i, d) at b*sb + h*sh + i*sl + d, each row 16-byte
-// aligned; fp32 != 0 for fp32 q/k/v/out/pos, else bf16. kbias [B, Lk] fp32
-// additive. gate [B, H, Lq] fp32 and pos [H, Lq, Lk], or both NULL for no
-// gate. Needs hd % 8 == 0 and hd <= 256 (blockDim 4*hd of the CUDA-core
-// kernel). bf16 at hd 64/96: onepass_mma_kernel; fp32 there:
-// attn_tf32_kernel; other head dims: onepass_attn_kernel.
-int hr_onepass_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
+// aligned; dtype (kDtBf16, kDtF32, kDtF16) is the type of q/k/v/out/pos.
+// kbias [B, Lk] fp32 additive. gate [B, H, Lq] fp32 and pos [H, Lq, Lk], or
+// both NULL for no gate. Needs hd % 8 == 0 and hd <= 256 (blockDim 4*hd of
+// the CUDA-core kernel). bf16 and fp16 at hd 64/96: onepass_mma_kernel;
+// fp32 there: attn_tf32_kernel; other head dims: onepass_attn_kernel.
+int hr_onepass_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                          int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                          int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
                          const void* kbias, const void* gate, const void* pos, void* out,
                          int o_sb, int o_sh, int o_sl, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  if (on_tensor_cores(hd) && fp32) {
+  if (on_tensor_cores(hd) && dtype == kDtF32) {
     Tf32Args a{};
     a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);
     a.v = static_cast<const float*>(v);
@@ -212,24 +234,22 @@ int hr_onepass_attention(int fp32, const void* q, int q_sb, int q_sh, int q_sl, 
     return (int)cudaGetLastError();
   }
   if (on_tensor_cores(hd)) {
-    using bf = __nv_bfloat16;
-    OnepassArgs a{};
-    a.q = static_cast<const bf*>(q), a.k = static_cast<const bf*>(k), a.v = static_cast<const bf*>(v);
-    a.q_sb = q_sb, a.q_sh = q_sh, a.q_sl = q_sl, a.k_sb = k_sb, a.k_sh = k_sh, a.k_sl = k_sl;
-    a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = scale;
-    a.kbias = static_cast<const float*>(kbias), a.gate = static_cast<const float*>(gate);
-    a.pos = static_cast<const bf*>(pos), a.out = static_cast<bf*>(out);
-    a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
-    if (hd == 64 && gate != nullptr) launch_onepass_mma<64, kGateArray, kKeysBias>(a, B, s);
-    else if (hd == 64) launch_onepass_mma<64, kNoGate, kKeysBias>(a, B, s);
-    else if (gate != nullptr) launch_onepass_mma<96, kGateArray, kKeysBias>(a, B, s);
-    else launch_onepass_mma<96, kNoGate, kKeysBias>(a, B, s);
+    if (dtype == kDtF16)
+      launch_mma<__half>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
+                         Lq, Lk, hd, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, s);
+    else
+      launch_mma<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl,
+                                B, H, Lq, Lk, hd, scale, kbias, gate, pos, out, o_sb, o_sh,
+                                o_sl, s);
     return (int)cudaGetLastError();
   }
-  const int smem = hr_onepass_smem_bytes(fp32, Lk, hd);
-  if (fp32)
+  const int smem = hr_onepass_smem_bytes(dtype, Lk, hd);
+  if (dtype == kDtF32)
     launch<float>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
                   hd, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, smem, s);
+  else if (dtype == kDtF16)
+    launch<__half>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
+                   hd, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, smem, s);
   else
     launch<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
                           Lq, Lk, hd, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, smem, s);

@@ -1,5 +1,5 @@
 """Fixed-shape batching and a one-ahead device feed (port of
-``hriemo/data/batching.py``, seq level, one host).
+``hriemo/data/batching.py``, one host).
 
 Every batch is padded to a fixed bucket (the training caps), with True in
 the pad mask at padded positions, so masking gives the same numbers as
@@ -37,6 +37,14 @@ def pad_batch(items: list[dict], la: int, lt: int, label_dtype=None) -> dict:
     return out
 
 
+def stack_utter_batch(items: list[dict]) -> dict:
+    """Stack utter-level items: ``h_a [B, d_a]``, ``h_t [B, d_t]`` fp32 and
+    ``y [B]`` int64."""
+    return {"h_a": np.stack([it["h_a"] for it in items]).astype(np.float32),
+            "h_t": np.stack([it["h_t"] for it in items]).astype(np.float32),
+            "y": np.asarray([it["y"] for it in items], np.int64)}
+
+
 class BucketBatcher:
     """Iterates a dataset in fixed-shape batches.
 
@@ -44,12 +52,14 @@ class BucketBatcher:
     * ``drop_last=False`` (eval): the tail batch repeats its last item and
       ``n_valid`` says how many rows are real;
     * ``grad_accum > 1``: batches have the leading layout ``[accum, micro,
-      ...]`` of the train step.
+      ...]`` of the train step;
+    * ``utter_level``: items are ``[d]`` vectors, stacked as ``[B, 1, d]``
+      with all-valid ``[B, 1]`` masks.
     """
 
     def __init__(self, dataset, batch_size: int, la: int = 0, lt: int = 0,
                  shuffle: bool = False, seed: int = 0, drop_last: bool = True,
-                 grad_accum: int = 1, native: bool = False):
+                 grad_accum: int = 1, utter_level: bool = False, native: bool = False):
         if native:
             raise NotImplementedError("BucketBatcher(native=True): the C++ batch assembler "
                                       "waits for ROADMAP.md queue 1 item 7")
@@ -59,6 +69,7 @@ class BucketBatcher:
         self.shuffle, self.seed = shuffle, seed
         self.drop_last = drop_last
         self.grad_accum = grad_accum
+        self.utter_level = utter_level
         self.epoch = 0
 
     def __len__(self):
@@ -80,7 +91,14 @@ class BucketBatcher:
             if n_valid < full:  # eval tail: repeat the last item
                 idx = np.concatenate([idx, np.full(full - n_valid, idx[-1])])
             items = [self.ds[int(i)] for i in idx]
-            batch = pad_batch(items, self.la, self.lt)
+            if self.utter_level:
+                batch = stack_utter_batch(items)
+                batch["mask_a"] = np.zeros((full, 1), bool)
+                batch["mask_t"] = np.zeros((full, 1), bool)
+                batch["h_a"] = batch["h_a"][:, None, :]
+                batch["h_t"] = batch["h_t"][:, None, :]
+            else:
+                batch = pad_batch(items, self.la, self.lt)
             if self.grad_accum > 1:
                 batch = {k: v.reshape((self.grad_accum, self.batch_size) + v.shape[1:])
                          for k, v in batch.items()}

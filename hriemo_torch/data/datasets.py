@@ -1,5 +1,5 @@
 """Index-CSV datasets on the host (port of ``hriemo/data/datasets.py``,
-seq level, over CSV rows instead of a dataframe).
+seq and utter level, over CSV rows instead of a dataframe).
 
 Reference semantics: rows missing either modality's feature file are
 dropped with a count; the uid column is ``utter_id`` or ``uid``;
@@ -16,7 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
-from .feature_store import load_feature
+from .feature_store import load_feature, load_utter_feature
 
 
 def read_index_csv(path) -> tuple[list[dict], list[str]]:
@@ -60,6 +60,23 @@ def _find_feat(feat_dir: Path, uid: str) -> Path | None:
     return None
 
 
+def _keep_rows_with_both(rows, uid_col, audio_dir: Path, text_dir: Path, verbose: bool):
+    """The rows whose uid has a feature file in both directories, and their
+    ``(audio, text)`` paths; the count of the others is printed."""
+    kept, paths, missing = [], [], 0
+    for row in rows:
+        uid = str(row[uid_col])
+        pa, pt = _find_feat(audio_dir, uid), _find_feat(text_dir, uid)
+        if pa is not None and pt is not None:
+            kept.append(row)
+            paths.append((pa, pt))
+        else:
+            missing += 1
+    if missing > 0 and verbose:
+        print(f"[Dataset] Filtered out {missing} rows without both modalities.")
+    return kept, paths
+
+
 class SeqLevelDataset:
     """Two-modality sequence dataset over index rows. ``__getitem__`` returns
     numpy arrays: ``h_a [L_a, d_a]``, ``mask_a [L_a]`` bool (True = PAD),
@@ -76,17 +93,8 @@ class SeqLevelDataset:
                                        else (list(rows[0]) if rows else []), uid_col)
         self.emo_cols, self.label_col, self.label2id = emo_cols, label_col, label2id
         self.max_len_audio, self.max_len_text = max_len_audio, max_len_text
-        self.rows, self._paths, missing = [], [], 0
-        for row in rows:
-            uid = str(row[self.uid_col])
-            pa, pt = _find_feat(self.audio_dir, uid), _find_feat(self.text_dir, uid)
-            if pa is not None and pt is not None:
-                self.rows.append(row)
-                self._paths.append((pa, pt))
-            else:
-                missing += 1
-        if missing > 0 and verbose:
-            print(f"[Dataset] Filtered out {missing} rows without both modalities.")
+        self.rows, self._paths = _keep_rows_with_both(rows, self.uid_col, self.audio_dir,
+                                                      self.text_dir, verbose)
         if verbose:
             print(f"[Dataset] Final size: {len(self.rows)} samples")
 
@@ -120,3 +128,31 @@ class SeqLevelDataset:
             out["y"] = y
         out["uid"] = str(row[self.uid_col])
         return out
+
+
+class UtterLevelDataset:
+    """Utterance-level dataset: one ``[d]`` vector per modality and uid
+    (reference: train_fusion_utter_level.py:164-198). ``__getitem__``
+    returns ``h_a``, ``h_t``, ``y`` (the label's id) and ``uid``;
+    ``label2id`` defaults to the sorted labels of the kept rows."""
+
+    def __init__(self, rows: list[dict], audio_dir, text_dir, uid_col: str | None = None,
+                 label_col: str = "label", label2id: dict | None = None,
+                 verbose: bool = True, columns=None):
+        self.audio_dir, self.text_dir = Path(audio_dir), Path(text_dir)
+        self.uid_col = resolve_uid_col(columns if columns is not None
+                                       else (list(rows[0]) if rows else []), uid_col)
+        self.label_col = label_col
+        self.rows, self._paths = _keep_rows_with_both(rows, self.uid_col, self.audio_dir,
+                                                      self.text_dir, verbose)
+        self.label2id = label2id or build_label2id(r[label_col] for r in self.rows)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, idx: int) -> dict:
+        row = self.rows[idx]
+        pa, pt = self._paths[idx]
+        return {"h_a": load_utter_feature(pa), "h_t": load_utter_feature(pt),
+                "y": np.int64(self.label2id[str(row[self.label_col])]),
+                "uid": str(row[self.uid_col])}

@@ -23,10 +23,9 @@ dtype, so ``y_prob.npy`` is the same with and without ``--dump_attn``; the
 attention dump runs a second forward on the uncast fp32 weights, with TF32
 off on the card. ``--max_len_audio 0`` (uncapped) buckets each split at its
 longest utterance, which from 1024 frames routes the audio self-attention
-through ``flash_mha``, whose kernels take bf16 and fp32: on the card
-``--amp_dtype fp16`` there raises their ``TypeError``, which names
-ROADMAP.md queue 1 item 9. ``--device``
-is the card unless ``cpu`` is asked for.
+through ``flash_mha``, whose kernels take bf16, fp16 and fp32 (fp16 with the
+bf16 numerics, as the TPU kernels run it). ``--device`` is the card unless
+``cpu`` is asked for.
 """
 
 from __future__ import annotations

@@ -194,22 +194,26 @@ def heads_operand(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
     return [t.data_ptr(), *strides]
 
 
+# Element types of the float attention kernels' q/k/v/out, by the code the C
+# entry points take (csrc/common.cuh DType)
+DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+
 def attention_operands(q, k, v, kbias, what: str):
     """Checks the operands of the float attention kernels (q ``[B, H, Lq,
-    hd]``, k/v ``[B, H, Lk, hd]`` bf16 or fp32 read in place, kbias ``[B,
-    Lk]`` fp32) and allocates the output. Returns the leading C arguments,
-    ``(fp32, q, k, v, B, H, Lq, Lk, hd, scale, kbias)`` with each of q/k/v
-    as pointer and strides, and the output ``[B, H, Lq, hd]``, a head view of
-    a contiguous ``[B, Lq, H*hd]`` tensor."""
+    hd]``, k/v ``[B, H, Lk, hd]`` bf16, fp16 or fp32 read in place, kbias
+    ``[B, Lk]`` fp32) and allocates the output. Returns the leading C
+    arguments, ``(dtype code, q, k, v, B, H, Lq, Lk, hd, scale, kbias)`` with
+    each of q/k/v as pointer and strides, and the output ``[B, H, Lq, hd]``,
+    a head view of a contiguous ``[B, Lq, H*hd]`` tensor."""
     b, h, lq, hd = q.shape
     lk = k.shape[2]
     dev = q.device
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{what}: dtype {q.dtype}, needs bf16 or fp32 (fp16 kernels: "
-                        "ROADMAP.md queue 1 item 9)")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {q.dtype}, needs bf16, fp16 or fp32")
     if hd % 8 or hd > 256 or lk < 1:
         raise ValueError(f"{what}: head dim {hd} or key length {lk} not taken")
-    args = [int(q.dtype == torch.float32)]
+    args = [DTYPE_CODES[q.dtype]]
     for t, name, l in ((q, "q", lq), (k, "k", lk), (v, "v", lk)):
         args += heads_operand(t, name, q.dtype, (b, h, l, hd), dev)
     require(kbias, "key_padding_bias", torch.float32, (b, lk), dev)

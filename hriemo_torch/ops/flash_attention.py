@@ -57,7 +57,7 @@ def onepass_attention_plain(q, k, v, bias):
 
 
 def onepass_attention(q, k, v, bias):
-    """q ``[B, H, Lq, hd]``, k/v ``[B, H, Lk, hd]`` (bf16 or fp32, views read in
+    """q ``[B, H, Lq, hd]``, k/v ``[B, H, Lk, hd]`` (bf16, fp16 or fp32, views read in
     place), bias ``[B, Lk]`` fp32 additive. Returns ``[B, H, Lq, hd]``."""
     if q.device.type == "cpu":
         return onepass_attention_plain(q, k, v, bias)

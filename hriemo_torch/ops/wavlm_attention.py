@@ -18,6 +18,12 @@ launch without a gate is the one-pass kernel of ``ops/flash_attention``.
 The TPU wrapper pads L to its 128-row tiles; the port runs at the true
 length, which gives the same rows except where every key is masked (TPU
 tiling then decides the average; the port's output is finite there too).
+
+It is differentiable as the JAX ``custom_vjp`` is (``:118-142``): the
+kernel forward, and a backward that recomputes through
+:func:`wavlm_fused_attention_plain` on the saved inputs. The backward never
+reads the kernel's output, so on one device the kernel route's gradients
+are the plain route's, bit for bit.
 """
 
 from __future__ import annotations
@@ -65,17 +71,36 @@ def onepass_launch(q, k, v, kbias, gate=None, pos=None):
     return o
 
 
+class _WavlmFusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, gate, position_bias, key_padding_bias):
+        ctx.save_for_backward(q, k, v, gate, position_bias, key_padding_bias)
+        if q.device.type == "cpu":
+            return wavlm_fused_attention_plain(q, k, v, gate, position_bias, key_padding_bias)
+        out = onepass_launch(q, k, v, key_padding_bias, gate.to(torch.float32).contiguous(),
+                             position_bias)
+        wavlm_fused_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = [t.detach().requires_grad_(need)
+               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = wavlm_fused_attention_plain(*ins)
+            want = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, want, g))
+        return tuple(next(grads) if t.requires_grad else None for t in ins)
+
+
 def wavlm_fused_attention(q, k, v, gate, position_bias, key_padding_bias):
-    """q/k/v ``[B, H, L, hd]`` (bf16 or fp32; views with any strides are read
-    in place); gate ``[B, H, L]``; position_bias ``[H, L, L]`` of q's dtype;
-    key_padding_bias ``[B, L]`` fp32 additive. Returns ``[B, H, L, hd]`` in
-    q's dtype. The gate is widened to fp32 first, as the TPU wrapper does."""
-    if q.device.type == "cpu":
-        return wavlm_fused_attention_plain(q, k, v, gate, position_bias, key_padding_bias)
-    out = onepass_launch(q, k, v, key_padding_bias, gate.to(torch.float32).contiguous(),
-                         position_bias)
-    wavlm_fused_attention.launches += 1
-    return out
+    """q/k/v ``[B, H, L, hd]`` (bf16, fp16 or fp32; views with any strides are
+    read in place); gate ``[B, H, L]``; position_bias ``[H, L, L]`` of q's
+    dtype; key_padding_bias ``[B, L]`` fp32 additive. Returns ``[B, H, L,
+    hd]`` in q's dtype. The gate is widened to fp32 first, as the TPU wrapper
+    does. Differentiable in every input; the backward recomputes through
+    :func:`wavlm_fused_attention_plain`."""
+    return _WavlmFusedAttention.apply(q, k, v, gate, position_bias, key_padding_bias)
 
 
 wavlm_fused_attention.launches = 0

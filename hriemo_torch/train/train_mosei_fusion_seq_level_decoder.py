@@ -14,9 +14,15 @@ layout (state dict, args, emo_cols, metrics, optional calibrated
 thresholds), ``meta.json`` and ``outputs/train_log.csv``. bf16 compute over
 fp32 master parameters by default.
 
+``--resume`` and ``--native_ckpt`` keep ``out_dir/resume/{state,
+best_params, meta.json}`` after every epoch (``utils/checkpoint.py``); a
+``--resume`` run restores them and goes on at the next epoch with the best
+metric and its pack carried across. As in JAX, the batcher's shuffle epoch
+starts at 0 again, so a resumed run does not replay an uninterrupted one.
+``--native_ckpt`` also writes the final parameters to ``out_dir/native_state``.
+``--trace_dir`` traces the first epoch the run trains (``utils/profiling.py``).
 Flags of the JAX CLI that the port does not take yet raise and name their
-ROADMAP.md item: ``--resume`` and ``--native_ckpt`` (queue 1 item 5),
-``--trace_dir`` (item 5), ``--native_loader`` (item 7), ``--n_data`` and
+ROADMAP.md item: ``--native_loader`` (queue 1 item 7), ``--n_data`` and
 ``--n_model > 1`` (item 8).
 
     python -m hriemo_torch.train.train_mosei_fusion_seq_level_decoder --synthetic 64
@@ -25,6 +31,7 @@ ROADMAP.md item: ``--resume`` and ``--native_ckpt`` (queue 1 item 5),
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from pathlib import Path
 
@@ -81,7 +88,7 @@ def parse_args(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from out_dir/resume (params+optimizer+epoch)")
     ap.add_argument("--trace_dir", type=str, default=None,
-                    help="write a device trace of epoch 1 here")
+                    help="write a device trace of the first epoch run here")
     ap.add_argument("--native_loader", action="store_true",
                     help="use the C++ threaded batch assembler")
     ap.add_argument("--device", type=str, default="cuda",
@@ -91,10 +98,7 @@ def parse_args(argv=None):
 
 def refuse_unported_flags(args) -> None:
     """Flags of the JAX CLI the port does not take yet: raise, never ignore."""
-    waiting = [(args.resume or args.native_ckpt, "--resume / --native_ckpt",
-                "mid-run resume with optimizer state", 5),
-               (args.trace_dir is not None, "--trace_dir", "a torch.profiler trace", 5),
-               (args.native_loader, "--native_loader", "the C++ batch assembler", 7),
+    waiting = [(args.native_loader, "--native_loader", "the C++ batch assembler", 7),
                (args.n_data is not None or args.n_model > 1, "--n_data / --n_model",
                 "the (data x model) mesh", 8)]
     for on, flag, what, item in waiting:
@@ -129,6 +133,7 @@ def main(argv=None):
                                        make_train_step)
     from ..utils import checkpoint as C
     from ..utils import metrics as M
+    from ..utils.profiling import trace as profiler_trace
     from .common import (TrainLogWriter, dropout_seed, maybe_synthetic_mosei, set_seed,
                          step_generator)
     from ..data.batching import prefetch_to_device
@@ -195,19 +200,33 @@ def main(argv=None):
     eval_step = make_eval_step(model, cfg)
     base_seed = dropout_seed(args.seed)
 
+    start_epoch, resume_meta = 1, {}
+    resume_dir = out_dir / "resume"
+    keep_resume = args.resume or args.native_ckpt
+    if args.resume and (resume_dir / "state").exists():
+        state = C.restore_native(str(resume_dir / "state"), like=state)
+        resume_meta = json.loads((resume_dir / "meta.json").read_text())
+        start_epoch = int(resume_meta.get("epoch", 0)) + 1
+        print(f"[resume] restored step={int(state.step)}, continuing at epoch {start_epoch}")
+
     log = TrainLogWriter(out_dir / "outputs" / "train_log.csv",
                          ["epoch", "train_loss", "val_loss", "val_auc", "mean_beta",
                           "val_macro_f1", "val_cal_macro_f1", "epoch_time_s"])
 
-    best_metric, best_state, best_pack = -1.0, None, {}
-    for epoch in range(1, args.epochs + 1):
+    best_metric = resume_meta.get("best_metric", -1.0)
+    best_state, best_pack = None, resume_meta.get("best_pack", {})
+    if args.resume and (resume_dir / "best_params").exists():
+        best_state = C.restore_native(str(resume_dir / "best_params"),
+                                      like=C.state_dict_cpu(model))
+    for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
         tr_losses, tr_betas = [], []
-        for i, batch in enumerate(prefetch_to_device(iter(train_loader), device)):
-            state, metrics = train_step(
-                state, batch, step_generator(base_seed, epoch * 100000 + i, device))
-            tr_losses.append(metrics["loss"])
-            tr_betas.append(metrics["mean_beta"])
+        with profiler_trace(args.trace_dir if epoch == start_epoch else None):
+            for i, batch in enumerate(prefetch_to_device(iter(train_loader), device)):
+                state, metrics = train_step(
+                    state, batch, step_generator(base_seed, epoch * 100000 + i, device))
+                tr_losses.append(metrics["loss"])
+                tr_betas.append(metrics["mean_beta"])
         mean = lambda ts: float(np.mean(torch.stack(ts).double().cpu().numpy())) if ts else 0.0  # noqa: E731
         tr_loss, tr_beta = mean(tr_losses), mean(tr_betas)
 
@@ -240,7 +259,13 @@ def main(argv=None):
                 "val_calibrated_macro_f1": va_cal_macro,
                 "val_calibrated_thresholds": cal_ths.tolist(),
             }
-    if best_state is None:  # no epoch ran
+            if keep_resume:
+                C.save_native(str(resume_dir / "best_params"), best_state)
+        if keep_resume:
+            C.save_native(str(resume_dir / "state"), state)
+            (resume_dir / "meta.json").write_text(json.dumps({
+                "epoch": epoch, "best_metric": best_metric, "best_pack": best_pack}))
+    if best_state is None:  # no epoch ran, or resumed past --epochs with no stored best
         best_state = C.state_dict_cpu(model)
 
     # checkpoint in the reference layout (reference :616-642)
@@ -258,6 +283,8 @@ def main(argv=None):
         "model": "MoseiFusionWithEmotionDecoder",
         "select_by": args.select_by, "best_metric": best_metric, **best_pack,
     })
+    if args.native_ckpt:
+        C.save_native(str(out_dir / "native_state"), C.state_dict_cpu(model))
     print(f"[Saved] {ckpt_path} (best {args.select_by}={best_metric:.4f})")
     return best_metric
 

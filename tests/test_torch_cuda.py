@@ -1,9 +1,9 @@
 """PyTorch port: every CUDA kernel against its plain PyTorch version on the
 card, at edge shapes the serving and extraction paths can give (ragged row
 counts, short and long keys, keys and queries that cut the attention
-tiles, hd=96 and 40, a fully padded key row, fp32 inputs, the int8
-wrappers at fp32 activations, Lq != Lk, clips shorter than one conv-stack
-tile or ending on a tile).
+tiles, hd=96, 40 and 32, a fully padded key row, fp32 and fp16 inputs,
+the int8 wrappers at fp32 activations, Lq != Lk, clips shorter than one
+conv-stack tile or ending on a tile), and the WavLM core's gradient.
 
 Needs an NVIDIA GPU: marked ``cuda`` and skipped without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -271,18 +271,24 @@ def _heads_view(gen, b, l, h, hd, dtype):
     return _randn(gen, b, l, h * hd, dtype=dtype).view(b, l, h, hd).transpose(1, 2)
 
 
+# chip_smoke.py's ATTN_TOL: (atol, rtol, median per batch element)
+ATTN_TOL = {torch.float32: (1e-4, 1e-4, 1e-5), torch.bfloat16: (8e-3, 1e-2, 1e-3),
+            torch.float16: (1e-3, 1e-3, 1.25e-4)}
+
+
 def _close_attention(got, ref):
     """An attention core's raw output (|values| of a few hundredths to a few
     tenths) against its plain version, at chip_smoke.py's ATTN_TOL: fp32
-    sums in another order only, or one bf16 rounding of the same p and
-    output; the median is taken per batch element, so an error confined to
-    one element's rows still fails."""
+    sums in another order only, or one bf16 (fp16) rounding of the same p
+    and output; the median is taken per batch element, so an error confined
+    to one element's rows still fails."""
+    atol, rtol, median = ATTN_TOL[got.dtype]
     if got.dtype == torch.float32:
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
         return
     got, ref = got.float(), ref.float()
-    torch.testing.assert_close(got, ref, atol=8e-3, rtol=1e-2)
-    assert (got - ref).abs().flatten(1).median(dim=1).values.max().item() < 1e-3
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    assert (got - ref).abs().flatten(1).median(dim=1).values.max().item() < median
 
 
 # (Lq, Lk) that cut the tensor-core kernels' tiles (64 query rows; 64 keys
@@ -291,13 +297,14 @@ def _close_attention(got, ref):
 # other non-multiples of 8 leave the gated pos rows off 16-byte alignment.
 ATTN_SHAPES = [(128, 128), (130, 130), (2048, 2048), (1, 1), (63, 63), (65, 65),
                (1499, 1499), (2249, 2249), (1, 65), (63, 1499), (1499, 63), (2249, 130)]
-# 64 and 96 run on the tensor cores in bf16; 40 on the CUDA-core kernels
+# 64 and 96 run on the tensor cores in bf16 and fp16; 40 on the CUDA-core kernels
 ATTN_HEAD_DIMS = [64, 96, 40]
+ATTN_DTYPES = [torch.bfloat16, torch.float32, torch.float16]
 
 
 @pytest.mark.parametrize("lq,lk", ATTN_SHAPES)
 @pytest.mark.parametrize("hd", ATTN_HEAD_DIMS)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 def test_wavlm_fused_attention(gen, lq, lk, hd, dtype):
     """Element 1 has every key masked (a pad_flush filler clip)."""
     b, h = 3, 4
@@ -318,7 +325,7 @@ def test_wavlm_fused_attention(gen, lq, lk, hd, dtype):
                                    (2049, 130), (33, 2249), (1, 1), (63, 65), (65, 63),
                                    (1499, 1499), (2249, 2249), (1, 2249), (2249, 1)])
 @pytest.mark.parametrize("hd", ATTN_HEAD_DIMS)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 def test_flash_kernels(gen, lq, lk, hd, dtype):
     """Both kernels at every shape (the one-pass one up to 2048 keys), with
     one element whose keys are all masked; flash_mha's dispatch."""
@@ -346,8 +353,8 @@ def test_flash_kernels(gen, lq, lk, hd, dtype):
 def test_attention_kernels_raise_instead_of_falling_back(gen):
     q = _heads_view(gen, 1, 64, 2, 64, torch.bfloat16)
     kb = torch.zeros(1, 64, device="cuda")
-    with pytest.raises(TypeError):      # half precision is not a dtype of the kernels
-        FA.onepass_attention(q.half(), q.half(), q.half(), kb)
+    with pytest.raises(TypeError):      # float64 is not a dtype of the kernels
+        FA.onepass_attention(q.double(), q.double(), q.double(), kb)
     with pytest.raises(ValueError):     # rows must be contiguous
         FA.streaming_attention(q.transpose(-1, -2), q, q, kb)
     with pytest.raises(TypeError):      # the position bias has q's dtype
@@ -357,7 +364,7 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
     # panel, so 8192 keys run; at hd 40 the CUDA-core kernel's panel [16,
     # 8192] must fit shared memory and does not
     kb_long = torch.zeros(1, 8192, device="cuda")
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float32, torch.float16):
         long = _heads_view(gen, 1, 8192, 2, 64, dt)
         assert torch.isfinite(FA.onepass_attention(q.to(dt), long, long, kb_long)).all()
     q40 = _heads_view(gen, 1, 64, 2, 40, torch.float32)
@@ -703,18 +710,62 @@ def test_mosei_eval_fp16_at_300_frames(gen, tmp_path):
     assert probs.shape[1] == 6 and np.isfinite(probs).all()
 
 
-def test_mosei_eval_fp16_refuses_flash_lengths(gen, tmp_path):
+def test_mosei_eval_fp16_at_flash_lengths(gen, tmp_path):
     """Uncapped at 1100-2200 frames the audio self-attention takes
-    ``flash_mha``, whose kernels refuse fp16: their error, which names the
-    ROADMAP item, reaches the CLI's caller; bf16 runs there."""
+    ``flash_mha``, whose one-pass and streaming kernels run fp16 as JAX runs
+    it: probabilities within 0.01 of the same CLI on the plain versions."""
+    import numpy as np
+
     from hriemo_torch.infer import mosei_eval_infer as EVAL
 
-    q = _randn(gen, 1, 4, 1024, 64).half()
-    with pytest.raises(TypeError, match="bf16 or fp32"):
-        FA.flash_mha(q, q, q)
     argv = _mosei_checkpoint(tmp_path, gen, 2200, cap=0, n=8)
-    with pytest.raises(TypeError, match="ROADMAP.md queue 1 item 9"):
-        EVAL.main(argv + ["--amp_dtype", "fp16"])
     FA.onepass_attention.launches = FA.streaming_attention.launches = 0
-    EVAL.main(argv)
+    EVAL.main(argv + ["--amp_dtype", "fp16"])
     assert FA.onepass_attention.launches + FA.streaming_attention.launches > 0
+    plain = [a if a != str(tmp_path / "out") else str(tmp_path / "plain") for a in argv]
+    EVAL.main(plain + ["--amp_dtype", "fp16"], use_kernels=False)
+    for split in ("val", "test"):
+        got = np.load(tmp_path / "out" / f"{split}_y_prob.npy")
+        ref = np.load(tmp_path / "plain" / f"{split}_y_prob.npy")
+        assert np.isfinite(got).all() and np.abs(got - ref).max() <= 1e-2
+
+
+# the CUDA-core fallbacks at the MOSEI model's d=256 in 8 heads (hd 32),
+# uncapped: one-pass up to 2048 keys, streaming beyond, with padding
+@pytest.mark.parametrize("lk", [1951, 2267])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+def test_flash_fallbacks_at_head_dim_32(gen, lk, dtype):
+    b, h, hd = 4, 8, 32
+    q, k, v = (_heads_view(gen, b, lk, h, hd, dtype) for _ in range(3))
+    bias = FA.key_bias(_pad_mask([lk, lk - 235, lk - 330, 1], lk), b, lk, q.device)
+    fn = FA.onepass_attention if lk <= FA.ONEPASS_MAX_LK else FA.streaming_attention
+    plain = getattr(FA, fn.__name__ + "_plain")
+    got = fn(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close_attention(got, plain(q, k, v, bias))
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("l", [499, 130])
+def test_wavlm_fused_attention_gradient_bit_equal(gen, dtype, l):
+    """The kernel forward's backward recomputes through the plain version
+    and never reads the kernel's output: every gradient (q, k, v, gate,
+    position_bias, key_padding_bias) equals autograd through the plain
+    version bit for bit."""
+    b, h, hd = 2, 12, 64
+    q, k, v = (_heads_view(gen, b, l, h, hd, dtype) for _ in range(3))
+    gate = (torch.rand(b, h, l, generator=gen) * 1.5 + 0.5).to("cuda", dtype)
+    pos = _randn(gen, h, l, l, scale=0.3, dtype=dtype)
+    kb = torch.where(_pad_mask([l, l - 77], l), AB.NEG_INF, 0.0).float()
+    g = _randn(gen, b, h, l, hd, dtype=dtype)
+    grads = []
+    for fn in (WA.wavlm_fused_attention, WA.wavlm_fused_attention_plain):
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v, gate, pos, kb)]
+        before = WA.wavlm_fused_attention.launches
+        out = fn(*ins)
+        assert WA.wavlm_fused_attention.launches == before + (fn is WA.wavlm_fused_attention)
+        grads.append(torch.autograd.grad(out, ins, g))
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype and torch.isfinite(got).all()
+        assert torch.equal(got, ref)

@@ -1,9 +1,12 @@
-"""PyTorch port: the two trainer CLIs (hriemo_torch/train) at
+"""PyTorch port: the trainer CLIs (hriemo_torch/train) at
 tests/test_train_pipelines.py's tiny flags on the CPU. They write the
 artifacts and keys that the JAX trainers write (hriemo/train/
-train_fusion_seq_level_decoder.py:168-181 and
-train_mosei_fusion_seq_level_decoder.py:264-285), default to the card, and
-refuse the JAX flags that the port does not take yet."""
+train_fusion_seq_level_decoder.py:168-181,
+train_mosei_fusion_seq_level_decoder.py:264-285, train_fusion_seq_level.py
+and train_fusion_utter_level.py:151-161, linear_probe_baseline.py:128-130,
+train_text_baseline.py:136-139), default to the card, resume the MOSEI
+trainer mid-run as tests/test_resume.py resumes the JAX one, and refuse the
+JAX flags that the port does not take yet."""
 
 import csv
 import json
@@ -12,8 +15,14 @@ import pytest
 import torch
 
 import hriemo_torch.models as TM
+from hriemo_torch.parallel.train_step import TrainConfig, create_train_state
+from hriemo_torch.train import linear_probe_baseline as PROBE
+from hriemo_torch.train import train_fusion_seq_level as SEQ
 from hriemo_torch.train import train_fusion_seq_level_decoder as IEMO
+from hriemo_torch.train import train_fusion_utter_level as UTT
 from hriemo_torch.train import train_mosei_fusion_seq_level_decoder as MOSEI
+from hriemo_torch.train import train_text_baseline as TEXT
+from hriemo_torch.utils import checkpoint as C
 
 from test_train_pipelines import TINY
 from torch_port_helpers import one_torch_thread  # noqa: F401
@@ -80,16 +89,134 @@ def test_mosei_cli(tmp_path):
     assert len(log) == 3
 
 
-@pytest.mark.parametrize("cli", [IEMO, MOSEI])
+@pytest.mark.parametrize("level", ["seq", "utter"])
+def test_fusion_classifier_clis(tmp_path, level):
+    out = tmp_path / "run"
+    if level == "seq":
+        best = SEQ.main(["--synthetic", "48", "--num_layers", "1", "--max_len_audio", "24",
+                         "--max_len_text", "12", "--out_dir", str(out)] + TINY + CPU)
+    else:
+        best = UTT.main(["--synthetic", "64", "--num_layers", "1", "--out_dir", str(out)]
+                        + TINY + CPU)
+    assert best > 0.3   # six synthetic classes around separable centroids
+    ckpt = torch.load(out / f"best_fusion_{'seq' if level == 'seq' else 'utt'}.pt",
+                      map_location="cpu", weights_only=False)
+    assert set(ckpt) == {"model_state_dict", "args", "label2id", "epoch", "val_acc"}
+    assert len(ckpt["label2id"]) == 6 and ckpt["val_acc"] == best
+    model = TM.FusionClassifier(d_model=32, num_classes=6, n_heads=4, num_layers=1,
+                                beta_hidden=16)
+    model.load_state_dict(ckpt["model_state_dict"], strict=True)
+    meta = json.loads((out / "meta.json").read_text())
+    assert set(meta) == {"model", "level", "best_val_acc", "epoch", "label2id"}
+    assert meta["model"] == "FusionClassifier" and meta["level"] == level
+    log = _log(out / "outputs" / "train_log.csv")
+    assert list(log[0]) == ["epoch", "train_loss", "val_loss", "val_acc", "mean_beta",
+                            "epoch_time_s"]
+    assert len(log) == 3
+
+
+@pytest.mark.parametrize("cli,flags", [(PROBE, []), (PROBE, ["--modality", "audio"]),
+                                       (TEXT, ["--head", "linear"]), (TEXT, [])])
+def test_baseline_clis(tmp_path, cli, flags):
+    out = tmp_path / "run"
+    results = cli.main(["--synthetic", "64", "--d_model", "16", "--epochs", "8",
+                        "--batch_size", "8", "--lr", "1e-2", "--out_dir", str(out)]
+                       + flags + CPU)
+    metrics = json.loads((out / "metrics.json").read_text())
+    splits = {"train", "val", "test"}
+    if cli is PROBE:
+        assert set(metrics) == {"modality", "label2id"} | splits
+        assert metrics["modality"] == (flags[1] if flags else "concat")
+    else:
+        assert set(metrics) == {"head", "best_val_macro_f1", "label2id"} | splits
+        assert metrics["best_val_macro_f1"] == metrics["val"]["macro_f1"]
+    assert len(metrics["label2id"]) == 6   # "frustrated" normalised to "frustration"
+    assert "frustration" in metrics["label2id"]
+    for split in splits:
+        assert set(metrics[split]) == {"acc", "macro_f1", "n"} and metrics[split]["n"] > 0
+        assert metrics[split] == results[split]
+    assert metrics["train"]["acc"] > 0.5   # planted signal, six classes
+
+
+RESUME = ["--batch_size", "4", "--grad_accum", "1", "--d_model", "32", "--n_heads", "4",
+          "--num_layers_fusion", "1", "--num_layers_decoder", "1", "--beta_hidden", "16",
+          "--max_len_audio", "24", "--max_len_text", "12", "--compute_dtype", "float32",
+          "--lr", "1e-3", "--resume"]
+
+
+def test_mosei_resume_continues_training(tmp_path):
+    """tests/test_resume.py on the port: 2 epochs, then resumed to 4."""
+    out = str(tmp_path / "run")
+    MOSEI.main(["--synthetic", "32", "--out_dir", out, "--epochs", "2"] + RESUME + CPU)
+    meta1 = json.loads((tmp_path / "run" / "resume" / "meta.json").read_text())
+    assert meta1["epoch"] == 2
+    saved = C.restore_native(str(tmp_path / "run" / "resume" / "state"),
+                             like=_mosei_state())
+
+    MOSEI.main(["--synthetic", "32", "--out_dir", out, "--epochs", "4"] + RESUME + CPU)
+    meta2 = json.loads((tmp_path / "run" / "resume" / "meta.json").read_text())
+    assert meta2["epoch"] == 4 and meta2["best_metric"] >= meta1["best_metric"]
+    assert [int(r["epoch"]) for r in _log(tmp_path / "run" / "outputs" / "train_log.csv")] \
+        == [3, 4]
+    steps = int(saved.step)
+    final = C.restore_native(str(tmp_path / "run" / "resume" / "state"), like=_mosei_state())
+    assert steps > 0 and int(final.step) == 2 * steps and int(final.count) == 2 * steps
+    ckpt = torch.load(f"{out}/best_mosei_fusion_decoder.pt", map_location="cpu",
+                      weights_only=False)
+    assert ckpt["args"]["epochs"] == 4
+
+
+def _mosei_state():
+    model = TM.MoseiFusionWithEmotionDecoder(d_audio=74, d_text=300, d_model=32, n_heads=4,
+                                             num_layers_fusion=1, num_layers_decoder=1,
+                                             beta_hidden=16)
+    return create_train_state(model, TrainConfig())
+
+
+def test_native_checkpoint_round_trip_is_exact(tmp_path):
+    """A TrainState with count and step 7 and moments of random values: every
+    leaf comes back bit-equal, in place; a parameter dict too."""
+    st = _mosei_state()
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for t in [*st.model.parameters(), *st.mu, *st.nu]:
+            t.copy_(torch.randn(t.shape, generator=g))
+    st.count.fill_(7)
+    st.step.fill_(7)
+    st.total_notfinite.fill_(2)
+    C.save_native(str(tmp_path / "resume" / "state"), st)
+    fresh = _mosei_state()
+    got = C.restore_native(str(tmp_path / "resume" / "state"), like=fresh)
+    assert got is fresh and int(got.count) == 7 and int(got.step) == 7
+    assert int(got.total_notfinite) == 2
+    for a, b in zip([*st.model.parameters(), *st.mu, *st.nu],
+                    [*got.model.parameters(), *got.mu, *got.nu]):
+        assert torch.equal(a, b)
+    params = C.state_dict_cpu(st.model)
+    C.save_native(str(tmp_path / "best_params"), params)
+    back = C.restore_native(str(tmp_path / "best_params"), like=C.state_dict_cpu(fresh.model))
+    assert set(back) == set(params) and all(torch.equal(back[k], params[k]) for k in params)
+
+
+def test_mosei_trace_dir_writes_a_trace(tmp_path):
+    out, trace = tmp_path / "run", tmp_path / "trace"
+    MOSEI.main(["--synthetic", "16", "--out_dir", str(out), "--trace_dir", str(trace),
+                "--epochs", "2", "--native_ckpt"] + RESUME[:-1] + CPU)
+    files = list(trace.glob("*.pt.trace.json"))
+    assert len(files) == 1   # the first epoch only
+    assert '"traceEvents"' in files[0].read_text()
+    assert (out / "native_state").is_file() and (out / "resume" / "state").is_file()
+
+
+@pytest.mark.parametrize("cli", [IEMO, MOSEI, SEQ, UTT, PROBE, TEXT])
 def test_trainers_default_to_the_card_and_raise_without_one(tmp_path, monkeypatch, cli):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--synthetic", "8", "--out_dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flags,item", [(["--resume"], 5), (["--native_ckpt"], 5),
-                                        (["--trace_dir", "t"], 5), (["--native_loader"], 7),
-                                        (["--n_data", "2"], 8), (["--n_model", "2"], 8)])
+@pytest.mark.parametrize("flags,item", [(["--native_loader"], 7), (["--n_data", "2"], 8),
+                                        (["--n_model", "2"], 8)])
 def test_mosei_refuses_flags_it_does_not_take_yet(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"queue 1 item {item}"):
         MOSEI.main(["--synthetic", "8", "--out_dir", str(tmp_path)] + flags + CPU)
