@@ -109,9 +109,25 @@ Phases, any failure exits non-zero:
    ``mosei_summary_metrics``, then uncapped over a one-pass and a streaming
    split (1100-2300 audio frames) against the plain versions at phase 6c's
    bf16 limit, launching both flash kernels, in bf16 and again in fp16;
-8. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
-   phases 4-7); then the last line ``{"ok": true, "device": {...}}``.
+8. (a) every serving kernel against its plain version at every audio bucket
+   (``hriemo_torch.tools.kernel_numerics``: 45 rows, B=8, full width, the
+   JAX tool's limits; ``chip_smoke_out/kernel_numerics_h100.json``); (b)
+   ``int8_numerics_report`` on WavLM base-plus, BERT-base and the fusion
+   model (d=768, fp32, seed 0) with 4 requests through the kernels, on clean
+   weights and with an outlier channel in one WavLM FFN: the envelope must be
+   blown, the layer downstream of the outlier reverted first and the result
+   end within it; the reverted tree then serves through the kernels, its
+   split FFN per op and every whole block on its kernel (launch counts), and
+   within 0.006 of its plain route, as do trees with one Linear of a BERT
+   MHA and of a WavLM attention sublayer kept in full precision; (c) the C++ feature loader built from
+   the checkout, ``BucketBatcher(native=True)`` bit-equal to the Python
+   loader on phase 6b's corpus, and one epoch of the MOSEI trainer with
+   ``--native_loader`` on the C++ loader;
+9. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
+   phases 4-8); then the last line ``{"ok": true, "device": {...}}``.
 
+``--outlier-sweep`` instead runs only phase 8b's outlier over layers and
+scales (the readings its constants were chosen from) after the build.
 Full per-shape results go to ``chip_smoke_out/chip_smoke.json``. With
 ``--profile`` it also traces one pass of each serving run and one train step
 of each phase-6c configuration with torch.profiler
@@ -1944,6 +1960,285 @@ def evaluation(smi, work: pathlib.Path, idx, wavlm, bert):
     return rec, total
 
 
+# phase 8b: the int8 numerics report at full width. The outlier goes into one
+# WavLM layer's FFN: intermediate_dense's output row OUTLIER_ROW scaled up by
+# OUTLIER_SCALE and output_dense's input column OUTLIER_ROW scaled down by it,
+# so that the float model is nearly unchanged while output_dense sees one
+# channel dominate its input rows and its per-row int8 scales crush every
+# other channel. The card's readings (``--outlier-sweep``; PERF.md §6;
+# NVIDIA H100 80GB HBM3, 700 W): clean, max |d prob| 0.0017; the row alone
+# stays inside the envelope (0.0012-0.0046 at scales 3-1000, layers 0, 5, 7,
+# 11), since the outlier then dominates the float output as much as the int8
+# one; row and column at scale 1000 blow it clearly at layer 7 alone (0.0188;
+# 0.0017 with its output_dense reverted; 0.0016-0.0051 at the other layers).
+REPORT_ENVELOPE = 0.005      # the runbook's default (--int8-envelope)
+OUTLIER_LAYER, OUTLIER_ROW, OUTLIER_SCALE = 7, 7, 1000.0
+
+
+def kernel_numerics(smi: str):
+    """Phase 8a: every serving kernel against its plain version at every
+    audio bucket (``hriemo_torch.tools.kernel_numerics``), B=8, full width;
+    the rows go to ``chip_smoke_out/kernel_numerics_h100.json``."""
+    from hriemo_torch.tools import kernel_numerics as KN
+
+    reset_launches()
+    results = KN.Checks("cuda", SEED).run_all(lambda line: print("  " + line, flush=True))
+    rep = KN.report(results, smi, SEED)
+    (OUT / "kernel_numerics_h100.json").write_text(json.dumps(rep, indent=1))
+    missing = set(KN.expected_rows()) - {(r["kernel"], r["shape"]) for r in rep["rows"]}
+    bad = [r for r in rep["rows"] if not r["max_delta"] <= r["threshold"]]
+    if missing or bad:
+        raise AssertionError(f"kernel numerics: missing {sorted(missing)}, over their limit {bad}")
+    worst = {}
+    for r in rep["rows"]:
+        if r["max_delta"] >= worst.get(r["kernel"], {"max_delta": -1})["max_delta"]:
+            worst[r["kernel"]] = r
+    print("kernel numerics (B=8, every bucket): largest delta per kernel "
+          + "; ".join(f"{k} {r['max_delta']:.3g} at {r['shape']} (limit {r['threshold']})"
+                      for k, r in worst.items()), flush=True)
+    return {"rows": len(rep["rows"]), "worst": worst}
+
+
+def report_inputs(rng, dev):
+    """Four requests of 10 s (499 WavLM frames) and their texts, 24-64
+    tokens padded to 64: waveform, its mask, ids and their mask, as the
+    report's ``apply_fn`` takes them. The clips fill their bucket: at random
+    weights (LayerNorm biases 0, positional conv bias 0) a padded frame is an
+    all-zero row at WavLM layer 0, whose crest reads 1e4 (the amax floor 1e-8
+    over the rms floor 1e-12, in both packages) and would outrank any real
+    outlier."""
+    wav = (rng.standard_normal((4, 160000)) * 0.1).astype(np.float32)
+    wmask = np.ones((4, 160000), np.int32)
+    ntok = [64, int(rng.integers(24, 64)), int(rng.integers(24, 64)), 24]
+    ids = rng.integers(1000, 30000, (4, 64))
+    tmask = (np.arange(64)[None, :] < np.array(ntok)[:, None]).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (wav, wmask, ids, tmask))
+
+
+@functools.lru_cache(maxsize=1)
+def _report_base():
+    from hriemo_torch.tools.validate_pretrained_bridges import serving_stack
+
+    return serving_stack(*serving_models(torch.Generator().manual_seed(SEED)))
+
+
+def report_stack(outlier_scale: float | None, layer: int = OUTLIER_LAYER,
+                 compensate: bool = True):
+    """WavLM base-plus, BERT-base and the fusion model (d=768) from seed 0 on
+    the card in fp32, under the runbook's names; with ``outlier_scale`` the
+    WavLM FFN of ``layer`` with its channel ``OUTLIER_ROW`` scaled up by it
+    going in and (``compensate``) down by it going out."""
+    stack = copy.deepcopy(_report_base())
+    if outlier_scale is not None:
+        with torch.no_grad():
+            ff = stack["w"].encoder.layers[layer].feed_forward
+            ff["intermediate_dense"].weight[OUTLIER_ROW] *= outlier_scale
+            ff["intermediate_dense"].bias[OUTLIER_ROW] *= outlier_scale
+            if compensate:
+                ff["output_dense"].weight[:, OUTLIER_ROW] /= outlier_scale
+    return stack.to("cuda", torch.float32).eval()
+
+
+def int8_report(smi: str):
+    """Phase 8b: ``int8_numerics_report`` on the full-width stack and 4
+    requests through the kernels, on clean weights, then with the outlier.
+    The outlier run must blow the envelope, revert the layer downstream of
+    the outlier first and end within it; the reverted tree must serve through
+    the kernels, its split FFN per op and every whole block on its kernel;
+    so must the clean trees of SPLIT_TREES (a BERT MHA and a WavLM attention
+    sublayer split). Returns its record and the launches of the split trees'
+    forwards."""
+    from hriemo_torch.tools.validate_pretrained_bridges import stack_apply
+
+    apply_fn = stack_apply(multi_label=True)
+    args = report_inputs(np.random.default_rng(SEED + 12), torch.device("cuda"))
+    rec = {}
+    for tag, scale in (("clean", None), ("outlier", OUTLIER_SCALE)):
+        stack = report_stack(scale)
+        t = time.perf_counter()
+        rep = Q.int8_numerics_report(apply_fn, stack, args, envelope=REPORT_ENVELOPE)
+        secs = time.perf_counter() - t
+        top = sorted(rep["activation_amax"].items(), key=lambda kv: -kv[1]["crest_p90"])[:3]
+        print(f"int8 report {tag} (WavLM base-plus, BERT-base, fusion d=768, fp32, 4 requests, "
+              f"kernels; {smi}): {rep['n_quantized_layers']} int8 layers; full int8 deltas "
+              f"{rep['deltas_full_int8']}; reverted {rep['reverted_layers']}; final "
+              f"{rep['deltas_final']}; within_envelope {rep['within_envelope']} "
+              f"(envelope {REPORT_ENVELOPE}); top crest_p90 "
+              f"{[(n, round(v['crest_p90'], 2)) for n, v in top]}; {secs:.1f} s", flush=True)
+        rec[tag] = dict(seconds=secs, **{k: v for k, v in rep.items() if k != "activation_amax"},
+                        top_crest=[(n, v) for n, v in top])
+        if tag == "clean":
+            continue
+        want = f"w/encoder/layers/{OUTLIER_LAYER}/feed_forward/output_dense"
+        if not rep["deltas_full_int8"]["probs"] > REPORT_ENVELOPE:
+            raise AssertionError(f"int8 report: the outlier left the envelope whole: {rep}")
+        if not rep["reverted_layers"] or rep["reverted_layers"][0] != want:
+            raise AssertionError(f"int8 report: reverted {rep['reverted_layers']}, {want} first "
+                                 "expected")
+        if not rep["within_envelope"]:
+            raise AssertionError(f"int8 report: still outside the envelope: {rep['deltas_final']}")
+        rec["served"], launches = serve_split(stack, apply_fn, args, rep["reverted_layers"])
+        del stack
+        torch.cuda.empty_cache()
+    # one Linear of a BERT MHA and of a WavLM attention sublayer kept in full
+    # precision, on the clean weights
+    stack = report_stack(None)
+    for path in SPLIT_TREES:
+        rec[path], ll = serve_split(stack, apply_fn, args, [path])
+        for name, n in ll.items():
+            launches[name] += n
+    return rec, launches
+
+
+# trees with one Linear of a fused block kept in full precision: the block
+# runs per op, so its kernel launches once fewer a forward and its int8
+# Linears that stay int8 go through int8_linear (the WavLM attention's core
+# through the fused float core at 499 frames); every other block as before
+SPLIT_BLOCKS = {
+    "feed_forward/output_dense": {"ffn_block_int8": -1, "int8_linear": 1},
+    "attention/self/key": {"mha_block_int8": -1, "int8_linear": 3},
+    "attention/k_proj": {"attention_block_int8": -1, "int8_linear": 3,
+                         "wavlm_fused_attention": 1},
+}
+SPLIT_TREES = ("b/encoder/layer/0/attention/self/key", "w/encoder/layers/3/attention/k_proj")
+
+
+def serve_split(stack, apply_fn, args, exclude):
+    """The int8 tree with ``exclude`` (paths ending in a key of
+    SPLIT_BLOCKS) kept in full precision, through the kernels, against the
+    whole int8 tree: launch counts moved by SPLIT_BLOCKS and no more, and
+    probabilities within the gate of the tree's plain route. Returns the
+    readings and the tree's launches."""
+    counts, outs = {}, {}
+    for tag, paths in (("whole", frozenset()), ("split", frozenset(exclude))):
+        q = quantize_for_serving(copy.deepcopy(stack), exclude=paths)
+        with torch.no_grad():
+            apply_fn(q, *args)      # first calls of each shape
+            reset_launches()
+            outs[tag] = apply_fn(q, *args)
+            torch.cuda.synchronize()
+            counts[tag] = read_launches()
+            if tag == "split":
+                ref = apply_fn(set_use_kernels(q, False), *args)
+        del q
+    want = dict(counts["whole"])
+    for p in exclude:
+        moves = next(m for suffix, m in SPLIT_BLOCKS.items() if p.endswith(suffix))
+        for name, n in moves.items():
+            want[name] += n
+    check_launches(f"tree without {sorted(exclude)}", counts["split"], want)
+    delta = float((outs["split"]["probs"] - ref["probs"]).abs().max())
+    print(f"int8 tree without {sorted(exclude)} through the kernels: launches "
+          f"{counts['split']} (whole int8 tree {counts['whole']}); kernel vs plain max prob "
+          f"delta {delta:.3g} (gate {PROB_GATE})", flush=True)
+    if not delta <= PROB_GATE:
+        raise AssertionError(f"tree without {sorted(exclude)}: prob delta {delta} > {PROB_GATE}")
+    return dict(launches=counts["split"], whole=counts["whole"], prob_delta=delta), \
+        counts["split"]
+
+
+def outlier_sweep(smi: str) -> int:
+    """``--outlier-sweep``: the readings OUTLIER_* were chosen from. The
+    report's full-int8 probability delta (kernels, 4 requests) with the
+    outlier channel scaled in only (3-1000 at layers 0, 5, 7, 11), and in and
+    out at 1000 at every WavLM layer, each with the layers it reverts."""
+    from hriemo_torch.tools.validate_pretrained_bridges import stack_apply
+
+    apply_fn = stack_apply(multi_label=True)
+    args = report_inputs(np.random.default_rng(SEED + 12), torch.device("cuda"))
+    runs = [(None, OUTLIER_LAYER, True)]
+    runs += [(sc, layer, False) for layer in (0, 5, 7, 11) for sc in (3.0, 30.0, 300.0, 1000.0)]
+    runs += [(1000.0, layer, True) for layer in range(12)]
+    for scale, layer, compensate in runs:
+        rep = Q.int8_numerics_report(apply_fn, report_stack(scale, layer, compensate), args,
+                                     envelope=REPORT_ENVELOPE, max_reverts=1)
+        print(f"outlier sweep ({smi}): scale {scale} layer {layer} "
+              f"{'in and out' if compensate else 'in only'}: full int8 |d prob| "
+              f"{rep['deltas_full_int8']['probs']:.6f}, reverted {rep['reverted_layers']}, "
+              f"final {rep['deltas_final']['probs']:.6f}", flush=True)
+        torch.cuda.empty_cache()
+    return 0
+
+
+def feature_loader(smi: str, root: pathlib.Path):
+    """Phase 8c: the C++ feature loader (``hriemo_torch/native.py``) built
+    from the checkout; ``BucketBatcher(native=True)`` batches bit-equal to
+    the Python loader's on phase 6b's corpus (its caps, batch 8 x accum 4,
+    shuffled, then the eval layout); then the MOSEI trainer at 6b's settings
+    for one epoch with ``--native_loader``, which must run the C++ loader,
+    against the same epoch on the Python loader."""
+    from hriemo_torch import native
+    from hriemo_torch import data as D
+
+    t = time.perf_counter()
+    if not native.is_available():
+        raise AssertionError("feature loader: the C++ library did not build or load")
+    build_s = time.perf_counter() - t
+    mosei = root / "mosei"
+    rows, cols = D.read_index_csv(mosei / "mosei_index_splits.csv")
+    ds = D.SeqLevelDataset(rows, mosei / "features" / "audio", mosei / "features" / "text",
+                           emo_cols=list(MOSEI_EMO_COLS), max_len_audio=300, max_len_text=128,
+                           verbose=False, columns=cols)
+    rec = dict(build_s=build_s, items=len(ds))
+    for tag, kw in (("train", dict(shuffle=True, seed=SEED, grad_accum=4, drop_last=True)),
+                    ("eval", dict(drop_last=False))):
+        secs, batches = {}, {}
+        for native_on in (False, True):
+            bb = D.BucketBatcher(ds, 8, la=300, lt=128, native=native_on, **kw)
+            if bb.native != native_on:
+                raise AssertionError(f"feature loader: BucketBatcher(native={native_on}) ran "
+                                     f"the {'C++' if bb.native else 'Python'} loader")
+            t = time.perf_counter()
+            batches[native_on] = list(bb)
+            secs[native_on] = time.perf_counter() - t
+        for bp, bn in zip(batches[False], batches[True], strict=True):
+            if bp.keys() != bn.keys() or bp["uids"] != bn["uids"] \
+                    or bp["n_valid"] != bn["n_valid"] or any(
+                        bp[k].dtype != bn[k].dtype or not np.array_equal(bp[k], bn[k])
+                        for k in bp if k not in ("uids", "n_valid")):
+                raise AssertionError(f"feature loader: {tag} batches differ from the Python "
+                                     "loader's")
+        rec[tag] = dict(batches=len(batches[True]), python_s=secs[False], native_s=secs[True])
+        print(f"feature loader {tag} ({len(batches[True])} batches of phase 6b's corpus): "
+              f"bit-equal to the Python loader; assembly {secs[True] * 1e3:.1f} ms native, "
+              f"{secs[False] * 1e3:.1f} ms Python (host)", flush=True)
+
+    made = []
+
+    class Recorded(D.BucketBatcher):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    argv = ["--index_csv", str(mosei / "mosei_index_splits.csv"), "--audio_dir",
+            str(mosei / "features" / "audio"), "--text_dir", str(mosei / "features" / "text"),
+            "--epochs", "1"]
+    runs, python_batcher = {}, D.BucketBatcher
+    D.BucketBatcher = Recorded
+    try:
+        for native_on in (False, True):
+            made.clear()
+            flags = ["--native_loader"] if native_on else []
+            runs[native_on], ll = run_trainer(TRAIN_MOSEI, argv + flags + [
+                "--out_dir", str(root / f"mosei_loader_{int(native_on)}")], None)
+            check_launches("MOSEI trainer --native_loader", ll, {})
+            if len(made) != 2 or any(b.native != native_on for b in made):
+                raise AssertionError(f"MOSEI trainer: loaders {[b.native for b in made]}, "
+                                     f"native={native_on} expected")
+    finally:
+        D.BucketBatcher = python_batcher
+    losses = {k: [m["loss"] for m in r["metrics"]] for k, r in runs.items()}
+    if not np.allclose(losses[True], losses[False], rtol=LOSS_RTOL[torch.bfloat16]):
+        raise AssertionError(f"MOSEI trainer --native_loader: losses {losses[True]} against "
+                             f"{losses[False]} on the Python loader")
+    rec["trainer"] = dict(steps=runs[True]["steps"], losses=losses[True],
+                          python_losses=losses[False], best=runs[True]["best"])
+    print(f"MOSEI trainer --native_loader (6b's settings, 1 epoch; {smi}): the C++ loader ran "
+          f"for train and val, {runs[True]['steps']} steps, losses {losses[True]} (Python "
+          f"loader {losses[False]})", flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1962,6 +2257,8 @@ def main() -> int:
     build_s = time.perf_counter() - t
     print(f"build: {build_s:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})",
           flush=True)
+    if "--outlier-sweep" in sys.argv[1:]:
+        return outlier_sweep(smi)
 
     gen = torch.Generator().manual_seed(SEED)
     print("kernels vs plain versions:", flush=True)
@@ -2146,6 +2443,16 @@ def main() -> int:
         print(f"phase 7: {phases['eval']['seconds']:.1f} s wall", flush=True)
         for name, n in ll.items():
             total[name] += n
+        # phase 8: per-bucket kernel numerics, the int8 report with its
+        # revert, the C++ feature loader
+        t8 = time.perf_counter()
+        rec8 = phases["numerics"] = {"kernel_numerics": kernel_numerics(smi)}
+        rec8["int8_report"], ll = int8_report(smi)
+        for name, n in ll.items():
+            total[name] += n
+        rec8["feature_loader"] = feature_loader(smi, work / "train")
+        rec8["seconds"] = time.perf_counter() - t8
+        print(f"phase 8: {rec8['seconds']:.1f} s wall", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for name, n in total.items():

@@ -5,8 +5,11 @@ Every batch is padded to a fixed bucket (the training caps), with True in
 the pad mask at padded positions, so masking gives the same numbers as
 per-batch padding. ``BucketBatcher`` shuffles with the same numpy stream as
 JAX's, so the same seed gives the same batches, ``grad_accum`` layout
-included. The C++ batch assembler (``native=True``) waits for ROADMAP.md
-queue 1 item 7.
+included. ``native=True`` assembles seq-level batches of ``.npy``/``.npz``
+files with the port's C++ loader (``hriemo_torch/native.py``), bit-equal to
+the Python loader's; where it cannot (another file format, utter-level
+items, no g++), the Python loader runs, and ``BucketBatcher.native`` says
+which ran.
 """
 
 from __future__ import annotations
@@ -60,9 +63,6 @@ class BucketBatcher:
     def __init__(self, dataset, batch_size: int, la: int = 0, lt: int = 0,
                  shuffle: bool = False, seed: int = 0, drop_last: bool = True,
                  grad_accum: int = 1, utter_level: bool = False, native: bool = False):
-        if native:
-            raise NotImplementedError("BucketBatcher(native=True): the C++ batch assembler "
-                                      "waits for ROADMAP.md queue 1 item 7")
         self.ds = dataset
         self.batch_size = batch_size
         self.la, self.lt = la, lt
@@ -71,6 +71,45 @@ class BucketBatcher:
         self.grad_accum = grad_accum
         self.utter_level = utter_level
         self.epoch = 0
+        # the C++ loader reads .npy/.npz files of a path-backed seq-level dataset
+        self.native = False
+        if native and not utter_level and len(dataset) > 0 and hasattr(dataset, "_paths"):
+            from .. import native as native_mod
+
+            self.native = all(str(p).endswith((".npy", ".npz"))
+                              for pair in dataset._paths for p in pair) \
+                and native_mod.is_available()
+            if self.native:
+                item0 = dataset[0]
+                self._native_dims = (item0["h_a"].shape[-1], item0["h_t"].shape[-1])
+
+    def _native_batch(self, idx) -> dict:
+        """The batch of items ``idx`` from the C++ loader, with
+        :func:`pad_batch`'s keys and dtypes."""
+        from .. import native as native_mod
+
+        ds = self.ds
+        d_a, d_t = self._native_dims
+        h_a, mask_a = native_mod.assemble_modality(
+            [str(ds._paths[int(i)][0]) for i in idx], self.la, d_a, max_len=ds.max_len_audio)
+        h_t, mask_t = native_mod.assemble_modality(
+            [str(ds._paths[int(i)][1]) for i in idx], self.lt, d_t, max_len=ds.max_len_text)
+        out = {"h_a": h_a, "h_t": h_t, "mask_a": mask_a, "mask_t": mask_t}
+        ys = [ds._labels(ds.rows[int(i)]) for i in idx]
+        if ys[0] is not None:
+            out["y"] = np.stack([np.asarray(y) for y in ys])
+        return out
+
+    def _python_batch(self, items) -> dict:
+        if not self.utter_level:
+            return pad_batch(items, self.la, self.lt)
+        batch = stack_utter_batch(items)
+        n = len(items)
+        batch["mask_a"] = np.zeros((n, 1), bool)
+        batch["mask_t"] = np.zeros((n, 1), bool)
+        batch["h_a"] = batch["h_a"][:, None, :]
+        batch["h_t"] = batch["h_t"][:, None, :]
+        return batch
 
     def __len__(self):
         full = self.batch_size * self.grad_accum
@@ -90,20 +129,18 @@ class BucketBatcher:
             n_valid = len(idx)
             if n_valid < full:  # eval tail: repeat the last item
                 idx = np.concatenate([idx, np.full(full - n_valid, idx[-1])])
-            items = [self.ds[int(i)] for i in idx]
-            if self.utter_level:
-                batch = stack_utter_batch(items)
-                batch["mask_a"] = np.zeros((full, 1), bool)
-                batch["mask_t"] = np.zeros((full, 1), bool)
-                batch["h_a"] = batch["h_a"][:, None, :]
-                batch["h_t"] = batch["h_t"][:, None, :]
+            if self.native:
+                batch = self._native_batch(idx)
+                uids = [str(self.ds.rows[int(i)][self.ds.uid_col]) for i in idx[:n_valid]]
             else:
-                batch = pad_batch(items, self.la, self.lt)
+                items = [self.ds[int(i)] for i in idx]
+                batch = self._python_batch(items)
+                uids = [it.get("uid") for it in items[:n_valid]]
             if self.grad_accum > 1:
                 batch = {k: v.reshape((self.grad_accum, self.batch_size) + v.shape[1:])
                          for k, v in batch.items()}
             batch["n_valid"] = n_valid
-            batch["uids"] = [it.get("uid") for it in items[:n_valid]]
+            batch["uids"] = uids
             yield batch
 
 

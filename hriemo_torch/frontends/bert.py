@@ -66,18 +66,22 @@ class BertLayer(nn.Module):
         self.ffn_ops: FfnOperands | None = None
         self.use_kernels = True
 
-    def prepare_kernels(self) -> None:
+    def prepare_kernels(self, fuse_blocks: bool = True) -> None:
+        """The sublayer kernels' operands, for a block only when every
+        Linear it packs is int8 (query, key, value and output; both FFN
+        Linears): a block with one Linear kept in full precision runs per
+        op."""
         sq, out = self.attention["self"], self.attention["output"]["dense"]
         qkv = [sq[n] for n in ("query", "key", "value")]
         self.mha_ops = None
-        if qkv[0].w_int8 is not None and out.w_int8 is not None:
+        if fuse_blocks and all(p.w_int8 is not None for p in (*qkv, out)):
             self.mha_ops = mha_operands(torch.cat([p.w_int8 for p in qkv], 0),
                                         torch.cat([p.w_scale for p in qkv], 0),
                                         torch.cat([p.bias for p in qkv], 0),
                                         out, self.n_heads)
-        p_in = self.intermediate["dense"]
-        self.ffn_ops = (ffn_operands(p_in, self.output["dense"], self.output["LayerNorm"])
-                        if p_in.w_int8 is not None
+        p_in, p_out = self.intermediate["dense"], self.output["dense"]
+        self.ffn_ops = (ffn_operands(p_in, p_out, self.output["LayerNorm"])
+                        if fuse_blocks and p_in.w_int8 is not None and p_out.w_int8 is not None
                         and use_fused_ffn(p_in.w_int8.shape[1], p_in.w_int8.shape[0])
                         else None)
 

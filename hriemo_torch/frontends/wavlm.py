@@ -158,19 +158,23 @@ class WavLMEncoderLayer(nn.Module):
         self.ffn_ops: FfnOperands | None = None
         self.use_kernels = True
 
-    def prepare_kernels(self) -> None:
+    def prepare_kernels(self, fuse_blocks: bool = True) -> None:
+        """The sublayer kernels' operands, for a block only when every
+        Linear it packs is int8 (q, k, v and out; both FFN Linears): a
+        block with one Linear kept in full precision runs per op."""
         a, ff = self.attention, self.feed_forward
+        projs = (a.q_proj, a.k_proj, a.v_proj, a.out_proj)
         self.attn_ops = (wavlm_attn_operands(a, self.layer_norm)
-                         if a.q_proj.w_int8 is not None and a.out_proj.w_int8 is not None
+                         if fuse_blocks and all(p.w_int8 is not None for p in projs)
                          else None)
-        p_in = ff["intermediate_dense"]
-        self.ffn_ops = (ffn_operands(p_in, ff["output_dense"], self.final_layer_norm)
-                        if p_in.w_int8 is not None
+        p_in, p_out = ff["intermediate_dense"], ff["output_dense"]
+        self.ffn_ops = (ffn_operands(p_in, p_out, self.final_layer_norm)
+                        if fuse_blocks and p_in.w_int8 is not None and p_out.w_int8 is not None
                         and use_fused_ffn(p_in.w_int8.shape[1], p_in.w_int8.shape[0])
                         else None)
 
-    def forward(self, x, kbias, position_bias, fused_attention: bool):
-        if fused_attention:
+    def forward(self, x, kbias, position_bias):
+        if self.attn_ops is not None and use_attention_block(True, x.shape[1], x.shape[2]):
             fn = attention_block_int8 if self.use_kernels else attention_block_int8_plain
             x = fn(x, self.attn_ops, position_bias, kbias, self.eps)
         else:
@@ -292,11 +296,11 @@ class WavLMEncoder(nn.Module):
         position_bias = layers[0].attention.rel_attn_embed.weight[buckets]
         position_bias = position_bias.permute(2, 0, 1).contiguous()  # [H, L, L]
 
-        fused = use_attention_block(layers[0].attn_ops is not None, t_out, cfg.hidden_size)
-        if fused and kbias is None:
+        if kbias is None and any(layer.attn_ops is not None for layer in layers) \
+                and use_attention_block(True, t_out, cfg.hidden_size):
             kbias = torch.zeros((b, t_out), device=x.device)
         for layer in layers:
-            x = layer(x, kbias, position_bias, fused)
+            x = layer(x, kbias, position_bias)
         return x, frame_mask
 
     def from_torch_state_dict(self, sd: dict) -> "WavLMEncoder":

@@ -54,10 +54,12 @@ class MultiheadAttention(nn.Module):
                 self.in_proj_weight)
             self.in_proj_weight = None
 
-    def prepare_kernels(self) -> None:
-        if self.in_proj_w_int8 is not None and self.out_proj.w_int8 is not None:
-            self.ops = mha_operands(self.in_proj_w_int8, self.in_proj_w_scale,
-                                    self.in_proj_bias, self.out_proj, self.n_heads)
+    def prepare_kernels(self, fuse_blocks: bool = True) -> None:
+        """The MHA kernel's operands when both projections are int8."""
+        self.ops = (mha_operands(self.in_proj_w_int8, self.in_proj_w_scale,
+                                 self.in_proj_bias, self.out_proj, self.n_heads)
+                    if fuse_blocks and self.in_proj_w_int8 is not None
+                    and self.out_proj.w_int8 is not None else None)
 
     def forward(self, query, key, value, key_padding_mask=None, generator=None,
                 need_weights: bool = False):

@@ -151,7 +151,7 @@ class Linear(nn.Module):
             self.w_int8, self.w_scale = quantize_linear_params(self.weight)
             self.weight = None
 
-    def prepare_kernels(self) -> None:
+    def prepare_kernels(self, fuse_blocks: bool = True) -> None:
         if self.w_int8 is not None and self.bias is not None:
             self.bias_f32 = self.bias.detach().float()
 
@@ -173,9 +173,9 @@ class MLP2(nn.Module):
         self.ops: Mlp2Operands | None = None
         self.use_kernels = True
 
-    def prepare_kernels(self) -> None:
+    def prepare_kernels(self, fuse_blocks: bool = True) -> None:
         l0, l2 = self._modules["0"], self._modules["2"]
-        self.ops = mlp2_operands(l0, l2) if use_mlp2_int8(l0, l2) else None
+        self.ops = mlp2_operands(l0, l2) if fuse_blocks and use_mlp2_int8(l0, l2) else None
 
     def forward(self, x):
         if self.ops is not None:

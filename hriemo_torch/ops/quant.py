@@ -1,4 +1,4 @@
-"""int8 serving quantization, W8A8 (port of ``hriemo/ops/quant.py:56-199``).
+"""int8 serving quantization, W8A8 (port of ``hriemo/ops/quant.py``).
 
 * :func:`quantize_linear_params`: one-time symmetric per-output-channel
   weight quantization of a torch-layout ``[out, in]`` weight.
@@ -10,7 +10,12 @@
   MHA ``in_proj`` becomes int8; nothing under ``embeddings`` or
   ``rel_attn_embed`` is touched. Quantize after the bf16 cast, as the
   serving pipeline does: the int8 weights and scales are then bit-equal to
-  the JAX package's.
+  the JAX package's. ``exclude`` keeps named layers in full precision.
+* :func:`int8_numerics_report`: per-layer activation statistics, output
+  deltas against the float module, and the greedy selective revert of the
+  worst outlier layers (``hriemo/ops/quant.py:230-427``), with
+  :func:`collect_activation_amax`, :func:`quantized_layer_names` and
+  :func:`quantized_layer_paths`.
 
 Both scale formulas of the reference are kept where they are used: this
 module's ``max(amax, eps) / 127`` and the kernels' ``max(amax, eps) * (1/127)``
@@ -19,6 +24,10 @@ module's ``max(amax, eps) / 127`` and the kernels' ``max(amax, eps) * (1/127)``
 
 from __future__ import annotations
 
+import contextlib
+import copy
+
+import numpy as np
 import torch
 
 from . import _cuda
@@ -27,6 +36,10 @@ from . import _cuda
 # WavLM's 8-wide gate head) stay in the compute dtype.
 DEFAULT_MIN_DIM = 256
 SKIP = ("embeddings", "rel_attn_embed")
+
+# The active activation-amax collector (collect_activation_amax); None in
+# production.
+_AMAX_COLLECTOR = None
 
 
 def _div127(m: torch.Tensor) -> torch.Tensor:
@@ -70,6 +83,8 @@ def int8_linear_plain(x, w_int8, w_scale, bias=None):
     """Plain PyTorch version of :func:`int8_linear` (same arguments)."""
     shape = x.shape
     xq, xs = quantize_rowwise(x.reshape(-1, shape[-1]))
+    if _AMAX_COLLECTOR is not None:
+        _AMAX_COLLECTOR.record(w_int8, xs, x)
     y = int8_matmul_exact(xq, w_int8) * xs * w_scale[:, 0]
     if bias is not None:
         y = y + bias
@@ -107,24 +122,40 @@ def int8_linear(x, w_int8, w_scale, bias=None):
 int8_linear.launches = 0
 
 
+def _excluded(name: str, exclude) -> bool:
+    """True when ``name`` (dotted) or one of its ancestors is in ``exclude``
+    ("a/b/c" paths, as the JAX package names tree nodes)."""
+    parts = name.split(".") if name else []
+    return any("/".join(parts[:i]) in exclude for i in range(1, len(parts) + 1))
+
+
 def quantize_for_serving(module: torch.nn.Module, min_dim: int = DEFAULT_MIN_DIM,
-                         skip=SKIP) -> torch.nn.Module:
+                         skip=SKIP, exclude=frozenset(),
+                         fuse_blocks: bool = True) -> torch.nn.Module:
     """Quantize ``module`` in place by the ``quantize_tree_for_serving`` rule
     and derive every kernel's operands. Returns ``module``.
 
+    ``exclude``: "a/b/c" paths (module names with ``/`` for ``.``, which are
+    the JAX tree's node paths) kept in full precision with everything under
+    them: the selective revert of :func:`int8_numerics_report`. A block
+    whose Linears are int8 only in part runs per op.
+
     Modules that can be quantized define ``quantize_(min_dim)``; modules
-    that hand operands to a kernel define ``prepare_kernels()``, which runs
-    once all weights are int8. Move the module to its device first: the
-    derived operands are plain tensors that ``.to()`` does not move.
+    that hand operands to a kernel define ``prepare_kernels(fuse_blocks)``,
+    which runs once all weights are int8. ``fuse_blocks=False`` derives no
+    fused-block operands, so every int8 Linear runs alone through
+    :func:`int8_linear`: the route the JAX package takes off the TPU. Move
+    the module to its device first: the derived operands are plain tensors
+    that ``.to()`` does not move.
     """
     mods = [(name, m) for name, m in module.named_modules()
-            if not any(s in name.split(".") for s in skip)]
+            if not any(s in name.split(".") for s in skip) and not _excluded(name, exclude)]
     for _, m in mods:
         if hasattr(m, "quantize_"):
             m.quantize_(min_dim)
     for _, m in module.named_modules():
         if hasattr(m, "prepare_kernels"):
-            m.prepare_kernels()
+            m.prepare_kernels(fuse_blocks)
     return module
 
 
@@ -133,3 +164,207 @@ def count_quantized(module: torch.nn.Module) -> int:
     return sum(getattr(m, "w_int8", None) is not None
                or getattr(m, "in_proj_w_int8", None) is not None
                for m in module.modules())
+
+
+# ---------------------------------------------------------------------------
+# int8 numerics report and outlier mitigation (hriemo/ops/quant.py:230-427)
+#
+# A few high-magnitude activation channels inflate a row's dynamic scale and
+# crush the resolution of every other channel in that row. The report gives
+# per-layer activation statistics and a measured mitigation: the worst
+# layers go back to full precision, one at a time, until the output delta is
+# within an envelope.
+# ---------------------------------------------------------------------------
+
+
+def _weight_key(w: torch.Tensor) -> tuple:
+    """A layer's identity in the collector: where its int8 weight lies and
+    its shape. The q/k/v slices of a packed ``in_proj`` lie a third apart,
+    so each resolves to its own name, as the JAX package's content hashes
+    do (``hriemo/ops/quant.py::_weight_key``)."""
+    return (w.data_ptr(), tuple(w.shape))
+
+
+class AmaxCollector:
+    """Per-layer activation amax and crest (amax / rms per row) of the
+    inputs of every int8 Linear that runs through :func:`int8_linear_plain`
+    while it is active."""
+
+    def __init__(self, names_by_key: dict):
+        self.names_by_key = names_by_key
+        self.raw = {}
+
+    @torch.no_grad()
+    def record(self, w_int8, row_scales, x):
+        name = self.names_by_key.get(_weight_key(w_int8))
+        if name is None:
+            name = f"unnamed_{tuple(w_int8.shape)}"
+        amax = row_scales.double().reshape(-1) * 127.0
+        xf = x.double()
+        rms = torch.sqrt(torch.mean(xf * xf, dim=-1)).reshape(-1)
+        # crest: how far a few channels dominate a row. Gaussian rows sit near
+        # sqrt(2 ln n), ~3.6-3.8; one dominating channel pushes it toward sqrt(n)
+        crest = amax / rms.clamp_min(1e-12)
+        self.raw.setdefault(name, []).append((amax.cpu().numpy(), crest.cpu().numpy()))
+
+    def stats(self) -> dict:
+        out = {}
+        for name, chunks in self.raw.items():
+            a = np.concatenate([c[0] for c in chunks])
+            cr = np.concatenate([c[1] for c in chunks])
+            med = float(np.median(a))
+            out[name] = {
+                "rows": int(a.size),
+                "amax_p50": med,
+                "amax_p99": float(np.percentile(a, 99)),
+                "amax_max": float(a.max()),
+                "outlier_ratio": float(a.max() / max(med, 1e-12)),
+                # p90, not the median: a ReLU can zero the dominating channel
+                # in a share of the rows
+                "crest_p50": float(np.median(cr)),
+                "crest_p90": float(np.percentile(cr, 90)),
+                "crest_max": float(cr.max()),
+            }
+        return out
+
+
+@contextlib.contextmanager
+def collect_activation_amax(module: torch.nn.Module):
+    """Collect per-layer activation amax while int8 Linears of ``module``
+    run through the plain route::
+
+        with collect_activation_amax(qmodule) as col:
+            apply_fn(qmodule, *probe)   # per op, use_kernels=False
+        stats = col.stats()
+
+    Only :func:`int8_linear_plain` records: fused blocks and the kernels
+    never hold each Linear's input (the FFN's hidden activations stay inside
+    the block), so quantize with ``fuse_blocks=False`` and run with
+    ``use_kernels=False`` (``nn.layers.set_use_kernels``).
+    """
+    global _AMAX_COLLECTOR
+    col = AmaxCollector(quantized_layer_names(module))
+    prev, _AMAX_COLLECTOR = _AMAX_COLLECTOR, col
+    try:
+        yield col
+    finally:
+        _AMAX_COLLECTOR = prev
+
+
+def _path(name: str) -> str:
+    return name.replace(".", "/")
+
+
+def quantized_layer_names(module: torch.nn.Module) -> dict:
+    """Map each int8 weight's collector key to its "a/b/c" path, the q/k/v
+    slices of a packed MHA ``in_proj`` as ``.../in_proj_q`` (``_k``,
+    ``_v``), as the JAX package names them."""
+    names = {}
+    for name, m in module.named_modules():
+        if getattr(m, "w_int8", None) is not None:
+            names[_weight_key(m.w_int8)] = _path(name)
+        w = getattr(m, "in_proj_w_int8", None)
+        if w is not None:
+            d = w.shape[0] // 3
+            for i, nm in enumerate("qkv"):
+                names[_weight_key(w[i * d:(i + 1) * d])] = _path(f"{name}.in_proj_{nm}")
+    return names
+
+
+def quantized_layer_paths(module: torch.nn.Module) -> list:
+    """The "a/b/c" paths of every int8 layer of ``module``; a packed MHA
+    counts once (its in_proj; excluding its path reverts its out_proj too)."""
+    return [_path(name) for name, m in module.named_modules()
+            if getattr(m, "w_int8", None) is not None
+            or getattr(m, "in_proj_w_int8", None) is not None]
+
+
+def _outputs(apply_fn, module, args) -> dict:
+    with torch.no_grad():
+        return {k: v.detach().double().cpu().numpy() for k, v in apply_fn(module, *args).items()}
+
+
+def int8_numerics_report(apply_fn, module: torch.nn.Module, args, envelope: float = 0.005,
+                         min_dim: int = DEFAULT_MIN_DIM, max_reverts: int = 8,
+                         collect_amax: bool = True) -> dict:
+    """int8 against full-precision output deltas, and the selective revert
+    of outlier layers (``hriemo/ops/quant.py::int8_numerics_report``).
+
+    ``apply_fn(module, *args) -> dict[str, tensor]`` (e.g. ``{"probs": ...,
+    "beta": ...}``); its first key gates the envelope. ``module`` is the
+    float model on its device; it is never changed: each attempt quantizes
+    a fresh ``copy.deepcopy`` of it.
+
+    Two routes, on purpose:
+
+    * the statistics come from a pass of their own on a copy quantized with
+      ``fuse_blocks=False`` and run with ``use_kernels=False``, so that every
+      int8 Linear runs alone through :func:`int8_linear_plain`, where the
+      collector records (the JAX package records in ``int8_linear``, its
+      per-op route);
+    * the deltas come from passes through the route the caller chose: the
+      copies keep ``module``'s ``use_kernels`` and its fused blocks, so on
+      the card they run the kernels.
+
+    Mitigation: revert the worst layers to full precision greedily, ranked
+    by ``crest_p90`` and then ``outlier_ratio``, until the gated delta is
+    within ``envelope`` or ``max_reverts`` layers are reverted. Returns the
+    JAX report's keys.
+    """
+    from ..nn.layers import set_use_kernels
+
+    ref = _outputs(apply_fn, module, args)
+    gate_key = next(iter(ref))
+
+    def quantized_copy(exclude=frozenset(), fuse_blocks=True):
+        return quantize_for_serving(copy.deepcopy(module), min_dim=min_dim, exclude=exclude,
+                                    fuse_blocks=fuse_blocks)
+
+    def deltas(q) -> dict:
+        out = _outputs(apply_fn, q, args)
+        return {k: float(np.abs(v - ref[k]).max()) for k, v in out.items()}
+
+    act_stats = {}
+    if collect_amax:
+        q_stats = set_use_kernels(quantized_copy(fuse_blocks=False), False)
+        with collect_activation_amax(q_stats) as col:
+            _outputs(apply_fn, q_stats, args)
+        act_stats = col.stats()
+        del q_stats
+    q_full = quantized_copy()
+    n_quantized = count_quantized(q_full)
+    d_full = deltas(q_full)
+    del q_full
+
+    report = {
+        "envelope": envelope,
+        "gate_output": gate_key,
+        "n_quantized_layers": n_quantized,
+        "deltas_full_int8": d_full,
+        "activation_amax": act_stats,
+        "reverted_layers": [],
+        "deltas_final": d_full,
+        "within_envelope": d_full[gate_key] <= envelope,
+    }
+    if report["within_envelope"] or not act_stats:
+        return report
+
+    def node_path(act_name):  # a packed MHA's q/k/v revert as their MHA
+        parts = act_name.split("/")
+        if parts[-1].startswith("in_proj_"):
+            parts = parts[:-1]
+        return "/".join(parts)
+
+    ranked = sorted(act_stats, key=lambda n: (-act_stats[n]["crest_p90"],
+                                              -act_stats[n]["outlier_ratio"]))
+    order = list(dict.fromkeys(node_path(n) for n in ranked))
+    d, reverted = d_full, []
+    for p in order[:max_reverts]:
+        reverted.append(p)
+        d = deltas(quantized_copy(frozenset(reverted)))
+        if d[gate_key] <= envelope:
+            break
+    report["reverted_layers"] = reverted
+    report["deltas_final"] = d
+    report["within_envelope"] = d[gate_key] <= envelope
+    return report

@@ -21,9 +21,10 @@ metric and its pack carried across. As in JAX, the batcher's shuffle epoch
 starts at 0 again, so a resumed run does not replay an uninterrupted one.
 ``--native_ckpt`` also writes the final parameters to ``out_dir/native_state``.
 ``--trace_dir`` traces the first epoch the run trains (``utils/profiling.py``).
-Flags of the JAX CLI that the port does not take yet raise and name their
-ROADMAP.md item: ``--native_loader`` (queue 1 item 7), ``--n_data`` and
-``--n_model > 1`` (item 8).
+``--native_loader`` assembles batches with the port's C++ loader
+(``hriemo_torch/native.py``) and prints which loader ran. Flags of the JAX
+CLI that the port does not take yet raise and name their ROADMAP.md item:
+``--n_data`` and ``--n_model > 1`` (queue 1 item 8).
 
     python -m hriemo_torch.train.train_mosei_fusion_seq_level_decoder --synthetic 64
 """
@@ -98,8 +99,7 @@ def parse_args(argv=None):
 
 def refuse_unported_flags(args) -> None:
     """Flags of the JAX CLI the port does not take yet: raise, never ignore."""
-    waiting = [(args.native_loader, "--native_loader", "the C++ batch assembler", 7),
-               (args.n_data is not None or args.n_model > 1, "--n_data / --n_model",
+    waiting = [(args.n_data is not None or args.n_model > 1, "--n_data / --n_model",
                 "the (data x model) mesh", 8)]
     for on, flag, what, item in waiting:
         if on:
@@ -184,8 +184,13 @@ def main(argv=None):
                          for it in (train_ds[i] for i in range(len(train_ds)))))
         la, lt = la or max(las), lt or max(lts)
     train_loader = BucketBatcher(train_ds, args.batch_size, la=la, lt=lt, shuffle=True,
-                                 seed=args.seed, grad_accum=args.grad_accum, drop_last=True)
-    val_loader = BucketBatcher(val_ds, args.batch_size, la=la, lt=lt, drop_last=False)
+                                 seed=args.seed, grad_accum=args.grad_accum, drop_last=True,
+                                 native=args.native_loader)
+    val_loader = BucketBatcher(val_ds, args.batch_size, la=la, lt=lt, drop_last=False,
+                               native=args.native_loader)
+    if args.native_loader:
+        ran = "the C++ loader" if train_loader.native and val_loader.native else "the Python loader"
+        print(f"[mosei] --native_loader: batches from {ran}")
 
     steps_per_epoch = max(1, len(train_loader))
     total_steps = steps_per_epoch * args.epochs

@@ -101,9 +101,35 @@ def test_prefetch_to_device_keeps_batches_and_order():
         assert b["n_valid"] == 2
 
 
-def test_native_loader_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TBatcher([], 2, native=True)
+@pytest.mark.parametrize("layout", ["train", "eval"])
+def test_native_batcher_matches_python_batcher(tmp_path, layout):
+    """``BucketBatcher(native=True)`` assembles with the C++ loader, and its
+    batches equal the Python loader's bit for bit (keys, dtypes, uids,
+    ``n_valid``), under the audio cap's crop and mask reset, the shuffle and
+    the ``grad_accum`` layout, or the eval tail; a ``.pt`` corpus and
+    utter-level items fall back to the Python loader."""
+    tcsv, taud, ttxt = TSyn.make_synthetic_mosei(tmp_path, n=30, max_la=20, max_lt=10, seed=4)
+    rows, cols = read_index_csv(tcsv)
+    emo = [c for c in cols if c.startswith("emo_")]
+    ds = TDataset(rows, taud, ttxt, emo_cols=emo, max_len_audio=12, max_len_text=0,
+                  verbose=False)
+    kw = (dict(shuffle=True, seed=3, grad_accum=2, drop_last=True) if layout == "train"
+          else dict(drop_last=False))
+    py, nat = (TBatcher(ds, 4, la=16, lt=12, native=n, **kw) for n in (False, True))
+    assert nat.native and not py.native
+    got, ref = list(nat), list(py)
+    assert len(got) == len(ref) == len(py) > 0
+    for bn, bp in zip(got, ref):
+        assert bn.keys() == bp.keys() and bn["uids"] == bp["uids"]
+        assert bn["n_valid"] == bp["n_valid"]
+        for k in ("h_a", "h_t", "mask_a", "mask_t", "y"):
+            assert bn[k].dtype == bp[k].dtype and bn[k].shape == bp[k].shape, k
+            np.testing.assert_array_equal(bn[k], bp[k], err_msg=k)
+    pcsv, paud, ptxt = TSyn.make_synthetic_mosei(tmp_path / "pt", n=8, seed=4, fmt="pt")
+    prow, pcols = read_index_csv(pcsv)
+    assert not TBatcher(TDataset(prow, paud, ptxt, emo_cols=emo, verbose=False), 4, la=16,
+                        lt=12, native=True).native
+    assert not TBatcher(ds, 4, utter_level=True, native=True).native
 
 
 def test_metrics_equal_jax():

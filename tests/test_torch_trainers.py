@@ -215,8 +215,24 @@ def test_trainers_default_to_the_card_and_raise_without_one(tmp_path, monkeypatc
         cli.main(["--synthetic", "8", "--out_dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flags,item", [(["--native_loader"], 7), (["--n_data", "2"], 8),
-                                        (["--n_model", "2"], 8)])
+def test_mosei_native_loader_matches_python_loader(tmp_path, capsys):
+    """``--native_loader`` runs the C++ batch assembler (bit-equal batches),
+    says so, and trains exactly as the same run on the Python loader: the
+    same log and the same checkpoint."""
+    argv = ["--synthetic", "48", "--grad_accum", "2"] + SMALL + TINY + CPU
+    MOSEI.main(argv + ["--out_dir", str(tmp_path / "py")])
+    assert "--native_loader" not in capsys.readouterr().out
+    MOSEI.main(argv + ["--out_dir", str(tmp_path / "native"), "--native_loader"])
+    assert "[mosei] --native_loader: batches from the C++ loader" in capsys.readouterr().out
+    logs = [_log(tmp_path / d / "outputs" / "train_log.csv") for d in ("py", "native")]
+    assert [{k: v for k, v in r.items() if k != "epoch_time_s"} for r in logs[0]] == \
+        [{k: v for k, v in r.items() if k != "epoch_time_s"} for r in logs[1]]
+    sds = [torch.load(tmp_path / d / "best_mosei_fusion_decoder.pt", map_location="cpu",
+                      weights_only=False)["model_state_dict"] for d in ("py", "native")]
+    assert all(torch.equal(sds[0][k], sds[1][k]) for k in sds[0])
+
+
+@pytest.mark.parametrize("flags,item", [(["--n_data", "2"], 8), (["--n_model", "2"], 8)])
 def test_mosei_refuses_flags_it_does_not_take_yet(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=f"queue 1 item {item}"):
         MOSEI.main(["--synthetic", "8", "--out_dir", str(tmp_path)] + flags + CPU)
