@@ -123,8 +123,30 @@ Phases, any failure exits non-zero:
    the checkout, ``BucketBatcher(native=True)`` bit-equal to the Python
    loader on phase 6b's corpus, and one epoch of the MOSEI trainer with
    ``--native_loader`` on the C++ loader;
-9. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
-   phases 4-8); then the last line ``{"ok": true, "device": {...}}``.
+9. the (data x model) mesh at full width (``hriemo_torch/parallel``), two
+   ranks sharing the card over gloo with CUDA tensors (NCCL puts no two
+   ranks on one device; this measures correctness, not scaling): (a) train
+   steps of phase 6c's fusion model (dropout 0, B=4, 2 rows a rank, audio
+   at 1499 and 2249 frames, fp32 and bf16, the flash kernels forward and
+   their recompute backward on each rank) over the data axis against the
+   single-process step on the whole batch: loss within ``LOSS_RTOL``,
+   gradients (averaged over the data group) within ``GRAD_TOL`` as in 6c,
+   parameters after the step within ``PARAM_TOL``; then the same at dropout
+   0.1; (b) the same steps over the model axis (the FFNs tensor-parallel);
+   (c) the MOSEI trainer at phase 6b's corpus and defaults with ``--n_data
+   1`` (one NCCL rank), its losses bit-equal to 6b's, and ``--n_data 2``
+   (two gloo ranks), within ``LOSS_RTOL[bf16]``; (d) each data rank serving its
+   half of phase 4's 16 requests on the W8A8 and the bf16 trees through
+   the kernels, then gathering every request's probabilities over the data
+   group: all 16 on each rank within 5e-3 of phase 4's
+   (``__graft_entry__.py:322-331``); (e) ring attention at one rank on the
+   card against full attention at [2, 8, 2249, 96] bf16 within
+   ``ATTN_TOL`` (across ranks it waits for a card per rank: gloo moves no
+   CUDA tensors point to point). The ranks send their launches back;
+   each sub-phase prints its wall time, and the steps their ms over the
+   mesh and in one process;
+10. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
+   phases 4-9); then the last line ``{"ok": true, "device": {...}}``.
 
 ``--outlier-sweep`` instead runs only phase 8b's outlier over layers and
 scales (the readings its constants were chosen from) after the build.
@@ -1213,8 +1235,8 @@ def timed_steps(record, tag=None):
     ``record`` gets ``(wall_ms, start_event, end_event, metrics)`` per step.
     With ``--profile`` and a ``tag``, the second step is traced instead and
     recorded without times."""
-    def make_timed(model, cfg):
-        step = _MAKE_TRAIN_STEP(model, cfg)
+    def make_timed(model, cfg, mesh=None):
+        step = _MAKE_TRAIN_STEP(model, cfg, mesh)
         traced = []
 
         def timed(state, batch, generator=None):
@@ -2239,6 +2261,338 @@ def feature_loader(smi: str, root: pathlib.Path):
     return rec
 
 
+# phase 9: the (data x model) mesh at full width on the one card. Two ranks
+# share it over gloo with CUDA tensors (NCCL puts no two ranks on one device;
+# gloo takes CUDA tensors for all_reduce and broadcast, which is all the
+# train and eval steps use). Two ranks on one card measure correctness, not
+# scaling. The ring across ranks waits for a card per rank: gloo refuses
+# CUDA tensors point to point (PERF.md §6), and the rotation is
+# never staged through the host.
+MESH_SHAPES = {"dp": (2, 1), "tp": (1, 2)}
+MESH_B = 4                 # the whole batch of the mesh steps, 2 rows per data rank
+MESH_LR = 1e-4             # TrainConfig's default, the steps' lr
+# the parameters after one step, mesh against one process: the difference of
+# the two updates in relative norm of the single-process update (all leaves
+# together). Adam's first step is about lr sign(g), so a gradient element
+# within rounding noise of 0 steps either way and adds 2 lr to the
+# difference; a block in the wrong place would differ by the whole update
+# (relative norm ~1.4). The card read at most 9.7e-4 in fp32 and 0.162 in
+# bf16 (TP at 1499 frames: bf16 partial sums; PERF.md §6).
+PARAM_TOL = {torch.float32: 1e-2, torch.bfloat16: 0.5}
+DP_SERVE_TOL = 5e-3        # __graft_entry__.py:322-331, JAX's sharded-vs-single limit
+RING_SHAPE = (2, 8, 2249, 96)
+SPAWN_TIMEOUT = 900
+
+
+def serving_kwargs():
+    """The StreamingPipeline settings of phases 4 and 9d."""
+    return dict(tokenizer=HashTokenizer(30522), max_seconds=10.0, max_tokens=128,
+                multi_label=False, bucket_seconds=(2.5,), int8_frontends=True,
+                wav_transport="pcm16", text_bucket_tokens=TEXT_BUCKETS)
+
+
+def mesh_batch(la):
+    """The full-width batch of phase 9's steps (B=4, audio ``la`` frames,
+    each element padded differently), the same on every rank."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    lens = lambda l, cuts: torch.tensor([l - c for c in cuts])  # noqa: E731
+    mask = lambda l, cuts: torch.arange(l)[None, :] >= lens(l, cuts)[:, None]  # noqa: E731
+    return {"h_a": torch.randn(MESH_B, la, 768, generator=gen).cuda(),
+            "h_t": torch.randn(MESH_B, 128, 768, generator=gen).cuda(),
+            "mask_a": mask(la, (0, 311, 97, 640)).cuda(),
+            "mask_t": mask(128, (0, 51, 13, 77)).cuda(),
+            "y": (torch.rand(MESH_B, 4, generator=gen) > 0.5).float().cuda()}
+
+
+def mesh_model(dropout):
+    model = FusionWithEmotionDecoder(768, 4, 8, 2, 2, 256, dropout=dropout)
+    model.init_weights(torch.Generator().manual_seed(SEED + 6))
+    return model.to("cuda")
+
+
+def timed_mesh_steps(step, state, batch, gen_fn, n=2):
+    """Median wall ms of ``n`` steps, each closed by a synchronisation."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, batch, gen_fn())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ms))
+
+
+def mesh_step_case(meshes, kind, la, dt, dropout, lead):
+    """One phase 9a/9b case on this rank: the mesh step (every rank) and, on
+    rank 0, the single-process step on the whole batch, each from the same
+    parameters; their gradients (the mesh's averaged over the data group,
+    made whole), losses and updated parameters held against each other.
+    Returns its readings (rank 0) and this rank's launches."""
+    from hriemo_torch.parallel import mesh as PM
+
+    mesh = meshes[kind]
+    tag = f"{kind} L={la} {str(dt)[6:]} dropout {dropout}"
+    cfg = TS.TrainConfig(loss_type="multi_label", beta_degeneracy=0.01, schedule="constant",
+                         lr=MESH_LR, compute_dtype=dt)
+    batch = mesh_batch(la)
+    dev = batch["h_a"].device
+    gen_fn = (lambda: torch.Generator(dev).manual_seed(SEED + 11)) if dropout else (  # noqa: E731
+        lambda: None)
+    seen, apply_update = [], TS.apply_update
+
+    def recording(state, grads, *a, **k):
+        seen.append([g.detach().clone() for g in grads])
+        return apply_update(state, grads, *a, **k)
+
+    TS.apply_update = recording
+    try:
+        rec = {}
+        if lead:  # the single-process reference: not the main path, not counted
+            single = mesh_model(dropout)
+            before = [p.detach().clone() for p in single.parameters()]
+            state = TS.create_train_state(single, cfg)
+            step = TS.make_train_step(single, cfg)
+            _, m1 = step(state, batch, gen_fn())
+            ref_grads, ref_after = seen.pop(), [p.detach().clone() for p in single.parameters()]
+            rec["single_ms"] = timed_mesh_steps(step, state, batch, gen_fn)
+            seen.clear()
+            del single, state, step
+        model = mesh_model(dropout)
+        state = TS.create_train_state(model, cfg, mesh)
+        step = TS.make_train_step(model, cfg, mesh)
+        local = PM.shard_batch(batch, mesh)
+        reset_launches()
+        _, m2 = step(state, local, gen_fn())
+        specs = list(PM.param_shardings(mesh, model).values())
+        grads = [PM.full_tensor(g, s, mesh) for g, s in zip(seen.pop(), specs)]
+        after = [PM.full_tensor(p.detach(), s, mesh).clone()
+                 for p, s in zip(model.parameters(), specs)]
+        rec["mesh_ms"] = timed_mesh_steps(step, state, local, gen_fn)
+        launches = read_launches()
+        seen.clear()
+    finally:
+        TS.apply_update = apply_update
+    want = {} if dropout else {  # the audio self-attention of both fusion layers, 3 steps
+        "onepass_attention" if la <= FA.ONEPASS_MAX_LK else "streaming_attention": 2 * 3}
+    check_launches(f"mesh step {tag}", launches, want)
+    if lead:
+        loss_err = abs(m2["loss"].item() - m1["loss"].item()) / abs(m1["loss"].item())
+        if not (math.isfinite(m2["loss"].item()) and loss_err <= LOSS_RTOL[dt]):
+            raise AssertionError(f"mesh step {tag}: loss {m2['loss'].item()} over the mesh, "
+                                 f"{m1['loss'].item()} in one process")
+        rec["loss_rel_err"] = loss_err
+        rec["grad_norm_rel_err"] = abs(m2["grad_norm"].item() - m1["grad_norm"].item()) \
+            / m1["grad_norm"].item()
+        # held on the whole gradient, as 6d's classifier step: the ranks' GEMMs
+        # at 2 rows round otherwise than one process's at 4, and a text-FFN
+        # ReLU within a rounding step of 0 flips (the card read 3.2e-4 in
+        # norm at layer 0's ffn_t W1 in fp32, 4.0e-6 for the whole gradient)
+        rec["grads"] = grad_check(f"mesh step {tag}", dt, grads, ref_grads, whole=True)
+        d2 = sum(((a - r).float().norm() ** 2).item() for a, r in zip(after, ref_after))
+        u2 = sum(((r - b).float().norm() ** 2).item() for r, b in zip(ref_after, before))
+        worst = max(((a - r).abs().max().item() for a, r in zip(after, ref_after)))
+        rec["params"] = dict(update_rel_norm=math.sqrt(d2 / u2), max_abs=worst,
+                             max_abs_over_lr=worst / MESH_LR)
+        if not rec["params"]["update_rel_norm"] <= PARAM_TOL[dt]:
+            raise AssertionError(f"mesh step {tag}: parameters after the step {rec['params']} "
+                                 f"(limit {PARAM_TOL[dt]} in relative norm of the update)")
+        print(f"  mesh step {tag} B={MESH_B}: {rec['mesh_ms']:.1f} ms over the mesh "
+              f"(single process {rec['single_ms']:.1f} ms); loss rel err {loss_err:.3g}, "
+              f"grad norm rel err {rec['grad_norm_rel_err']:.3g}, gradients {rec['grads']}, "
+              f"parameters {rec['params']}; launches {launches}", flush=True)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def mesh_serving(mesh, clips):
+    """Phase 9d on this rank: its data block of phase 4's requests on the
+    W8A8 and the bf16 trees at full width through the kernels, then every
+    request's probabilities and beta gathered over the data group
+    (``mesh.gather_rows``). Returns ``{tree: (probabilities by uid of every
+    request, this rank's launches, seconds)}``."""
+    from hriemo_torch.parallel import mesh as PM
+
+    wavlm, bert, fusion = serving_models(torch.Generator().manual_seed(SEED + 3))
+    kw = serving_kwargs()
+    per = len(clips) // mesh.n_data
+    mine = clips[mesh.data_rank * per:(mesh.data_rank + 1) * per]
+    out = {}
+    for tree, extra in (("int8", {}), ("bf16", dict(int8_frontends=False))):
+        pipe = StreamingPipeline(wavlm, bert, fusion, **dict(kw, **extra))
+        reset_launches()
+        t = time.perf_counter()
+        got, _ = serve(pipe, mine)
+        launches = read_launches()
+        probs, beta = (torch.from_numpy(np.stack([got[c[2]][i] for c in mine])).cuda()
+                       for i in (0, 1))
+        probs, beta = PM.gather_rows([probs, beta], mesh)
+        if probs.shape[0] != len(clips) or not torch.isfinite(beta).all():
+            raise AssertionError(f"mesh serving {tree}: gathered {tuple(probs.shape)} "
+                                 f"probabilities for {len(clips)} requests")
+        out[tree] = ({c[2]: p for c, p in zip(clips, probs.cpu().numpy())}, launches,
+                     time.perf_counter() - t)
+        del pipe
+    return out
+
+
+def mesh_ring(meshes):
+    """Phase 9e: ring attention at one rank (the data mesh's model groups
+    have one rank each) on the card against full softmax attention, bf16
+    at ``ATTN_TOL``, element 1 with 311 padded keys."""
+    from hriemo_torch.parallel.sequence_parallel import sp_self_attention
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    q, k, v = (torch.randn(*RING_SHAPE, generator=gen).to("cuda", torch.bfloat16)
+               for _ in range(3))
+    lk = RING_SHAPE[2]
+    mask = (torch.arange(lk)[None, :] >= torch.tensor([lk, lk - 311])[:, None]).cuda()
+    ring = sp_self_attention(meshes["dp"])
+    got = ring(q, k, v, mask)
+    ref = FA.onepass_attention_plain(q, k, v, FA.key_bias(mask, 2, lk, q.device))
+    err, med = compare("ring attention (one rank)", got, ref, ATTN_TOL[torch.bfloat16])
+    ms = cuda_event_ms(lambda: ring(q, k, v, mask))
+    plain_ms = cuda_event_ms(lambda: FA.onepass_attention_plain(
+        q, k, v, FA.key_bias(mask, 2, lk, q.device)))
+    return dict(shape=list(RING_SHAPE), max_abs_err=err, median_err=med, ms=ms,
+                full_attention_ms=plain_ms,
+                across_ranks="waits for a card per rank: gloo takes no CUDA tensors "
+                             "point to point")
+
+
+def cuda_event_ms(fn, iters: int = 5) -> float:
+    """Device ms of one call of ``fn`` by CUDA events over ``iters`` calls
+    after one warm-up (host work between launches included)."""
+    fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def mesh_rank(dev, clips):
+    """One of phase 9's two ranks (both on the card): 9a and 9b, 9d over
+    the data mesh, 9e on rank 0. Returns rank 0's readings and this
+    rank's launches of the main-path runs (the mesh steps and serving)."""
+    import torch.distributed as dist
+    from hriemo_torch.parallel import mesh as PM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lead = dist.get_rank() == 0
+    meshes = {k: PM.make_mesh(*s) for k, s in MESH_SHAPES.items()}
+    total = {name: 0 for name in KERNELS}
+    rec = {"steps": {}}
+    t = time.perf_counter()
+    cases = [(kind, la, dt, 0.0) for kind in ("dp", "tp") for la in TRAIN_AUDIO
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [("dp", la, dt, 0.1) for la in TRAIN_AUDIO for dt in (torch.float32, torch.bfloat16)]
+    for kind, la, dt, p in cases:
+        r, ll = mesh_step_case(meshes, kind, la, dt, p, lead)
+        rec["steps"][f"{kind} L={la} {str(dt)[6:]} dropout {p}"] = r
+        for name, n in ll.items():
+            total[name] += n
+    rec["steps_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    served = mesh_serving(meshes["dp"], clips)
+    for _, ll, _ in served.values():
+        for name, n in ll.items():
+            total[name] += n
+    rec["serving"] = served
+    rec["serving_s"] = time.perf_counter() - t
+    if lead:
+        t = time.perf_counter()
+        rec["ring"] = mesh_ring(meshes)
+        rec["ring_s"] = time.perf_counter() - t
+    dist.barrier()
+    return rec, total
+
+
+def mesh_trainer_runs(smi, root: pathlib.Path):
+    """Phase 9c: the MOSEI trainer at phase 6b's corpus and defaults with
+    ``--n_data 1`` (one NCCL rank, the card its own) and ``--n_data 2``
+    (two gloo ranks sharing it), each spawned by the CLI. The first must
+    log phase 6b's losses bit for bit, the second within
+    ``LOSS_RTOL[bf16]``."""
+    mosei = root / "mosei"
+    argv = ["--index_csv", str(mosei / "mosei_index_splits.csv"), "--audio_dir",
+            str(mosei / "features" / "audio"), "--text_dir", str(mosei / "features" / "text"),
+            "--epochs", "7"]
+
+    def losses(out):
+        with open(out / "outputs" / "train_log.csv", newline="") as f:
+            return [(r["train_loss"], r["val_loss"]) for r in csv.DictReader(f)]
+    ref = losses(root / "mosei_run")
+    rec = {}
+    for n_data in (1, 2):
+        out = root / f"mosei_mesh_{n_data}"
+        t = time.perf_counter()
+        best = TRAIN_MOSEI.main(argv + ["--n_data", str(n_data), "--out_dir", str(out)])
+        secs = time.perf_counter() - t
+        got = losses(out)
+        if n_data == 1 and got != ref:
+            raise AssertionError(f"MOSEI trainer --n_data 1: losses {got} differ from phase "
+                                 f"6b's {ref}")
+        if n_data == 2 and not (len(got) == len(ref) and np.allclose(
+                np.asarray(got, float), np.asarray(ref, float), rtol=LOSS_RTOL[torch.bfloat16])):
+            raise AssertionError(f"MOSEI trainer --n_data 2: losses {got} against phase 6b's "
+                                 f"{ref} (rtol {LOSS_RTOL[torch.bfloat16]})")
+        gap = float(np.max(np.abs(np.asarray(got, float) / np.asarray(ref, float) - 1)))
+        rec[f"n_data_{n_data}"] = dict(seconds=secs, best=best, max_rel_gap=gap, losses=got)
+        print(f"MOSEI trainer --n_data {n_data} (6b's corpus and defaults, 7 epochs; {smi}): "
+              f"{'bit-equal to' if gap == 0 else f'max relative gap {gap:.3g} from'} phase 6b's "
+              f"losses; {secs:.1f} s wall with the ranks' start", flush=True)
+    return rec
+
+
+def mesh_phase(smi, root: pathlib.Path, clips, int8_ref, bf16_ref):
+    """Phase 9. Returns its record and the launches of its main-path runs
+    on both ranks."""
+    from hriemo_torch.parallel.launch import spawn
+
+    t = time.perf_counter()
+    ranks = spawn(mesh_rank, 2, "cuda", clips, timeout=SPAWN_TIMEOUT)
+    spawn_s = time.perf_counter() - t
+    rec = ranks[0][0]
+    total = {name: sum(r[1][name] for r in ranks) for name in KERNELS}
+    forwards = {}
+    for tree, ref in (("int8", int8_ref), ("bf16", bf16_ref)):
+        delta = 0.0
+        for rank, (rr, _) in enumerate(ranks):  # each rank holds every request
+            probs, ll, secs = rr["serving"][tree]
+            if sorted(probs) != sorted(ref):
+                raise AssertionError(f"mesh serving {tree} rank {rank}: requests "
+                                     f"{sorted(probs)}, phase 4 served {sorted(ref)}")
+            delta = max(delta, max(float(np.abs(p - ref[u][0]).max()) for u, p in probs.items()))
+            want = ({n: 2 * k for n, k in PER_FORWARD.items()} if tree == "int8"
+                    else {n: k for per in PER_FORWARD_BF16.values() for n, k in per.items()})
+            check_launches(f"mesh serving {tree} rank {rank}", ll, want)
+        if not delta <= DP_SERVE_TOL:
+            raise AssertionError(f"mesh serving {tree}: max |p - single-process p| {delta} > "
+                                 f"{DP_SERVE_TOL}")
+        forwards[tree] = delta
+        print(f"mesh serving {tree} (16 requests, 8 a data rank, gathered over the data "
+              f"group on both of its 2 ranks on one card; {smi}): max |prob - single-process "
+              f"prob| {delta:.3g} (limit {DP_SERVE_TOL})", flush=True)
+    rec["serving"] = {tree: dict(max_prob_delta=d) for tree, d in forwards.items()}
+    ring = rec["ring"]
+    print(f"ring attention at one rank {ring['shape']} bf16 ({smi}): max |err| "
+          f"{ring['max_abs_err']:.4g}, median {ring['median_err']:.3g} (ATTN_TOL); {ring['ms']:.3f} "
+          f"ms against full attention's {ring['full_attention_ms']:.3f} ms; across ranks: "
+          f"{ring['across_ranks']}", flush=True)
+    print(f"phase 9a/9b steps {rec['steps_s']:.1f} s, 9d serving {rec['serving_s']:.1f} s, "
+          f"9e ring {rec['ring_s']:.1f} s; the two ranks {spawn_s:.1f} s wall with their start",
+          flush=True)
+    t = time.perf_counter()
+    rec["trainer"] = mesh_trainer_runs(smi, root)
+    rec["trainer_s"] = time.perf_counter() - t
+    rec["spawn_s"] = spawn_s
+    return rec, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2267,9 +2621,7 @@ def main() -> int:
     # the served and the extracted weights draw from generators of their own,
     # so that rows added to phase 3 do not change them
     wavlm, bert, fusion = serving_models(torch.Generator().manual_seed(SEED + 3))
-    kw = dict(tokenizer=HashTokenizer(30522), max_seconds=10.0, max_tokens=128,
-              multi_label=False, bucket_seconds=(2.5,), int8_frontends=True,
-              wav_transport="pcm16", text_bucket_tokens=TEXT_BUCKETS)
+    kw = serving_kwargs()
     clips = requests(np.random.default_rng(SEED))
     phases = {}
 
@@ -2453,6 +2805,14 @@ def main() -> int:
         rec8["feature_loader"] = feature_loader(smi, work / "train")
         rec8["seconds"] = time.perf_counter() - t8
         print(f"phase 8: {rec8['seconds']:.1f} s wall", flush=True)
+        # phase 9: the mesh on the one card, whose memory the ranks share
+        torch.cuda.empty_cache()
+        t9 = time.perf_counter()
+        phases["mesh"], ll = mesh_phase(smi, work / "train", clips, got, got16)
+        for name, n in ll.items():
+            total[name] += n
+        phases["mesh"]["seconds"] = time.perf_counter() - t9
+        print(f"phase 9: {phases['mesh']['seconds']:.1f} s wall", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for name, n in total.items():

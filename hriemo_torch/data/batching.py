@@ -9,7 +9,8 @@ included. ``native=True`` assembles seq-level batches of ``.npy``/``.npz``
 files with the port's C++ loader (``hriemo_torch/native.py``), bit-equal to
 the Python loader's; where it cannot (another file format, utter-level
 items, no g++), the Python loader runs, and ``BucketBatcher.native`` says
-which ran.
+which ran. ``host_shard=(index, count)`` gives each of ``count`` hosts a
+disjoint, equally long slice of the one shuffled order, as JAX's does.
 """
 
 from __future__ import annotations
@@ -57,12 +58,19 @@ class BucketBatcher:
     * ``grad_accum > 1``: batches have the leading layout ``[accum, micro,
       ...]`` of the train step;
     * ``utter_level``: items are ``[d]`` vectors, stacked as ``[B, 1, d]``
-      with all-valid ``[B, 1]`` masks.
+      with all-valid ``[B, 1]`` masks;
+    * ``host_shard=(index, count)``: multi-host input
+      (``hriemo/data/batching.py:93-137``). Host ``index`` iterates items
+      ``index::count`` of the shuffled order, after the order is truncated
+      to a multiple of ``count`` (``drop_last``) or wrapped cyclically up
+      to one: every host yields the same number of batches, since unequal
+      counts would deadlock a collective step.
     """
 
     def __init__(self, dataset, batch_size: int, la: int = 0, lt: int = 0,
                  shuffle: bool = False, seed: int = 0, drop_last: bool = True,
-                 grad_accum: int = 1, utter_level: bool = False, native: bool = False):
+                 grad_accum: int = 1, utter_level: bool = False, native: bool = False,
+                 host_shard: tuple[int, int] | None = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.la, self.lt = la, lt
@@ -70,6 +78,12 @@ class BucketBatcher:
         self.drop_last = drop_last
         self.grad_accum = grad_accum
         self.utter_level = utter_level
+        if host_shard is not None:
+            index, count = host_shard
+            if not (isinstance(index, int) and isinstance(count, int) and 0 <= index < count):
+                raise ValueError(f"host_shard must be (index, count) with 0 <= index < count, "
+                                 f"got {host_shard}")
+        self.host_shard = host_shard
         self.epoch = 0
         # the C++ loader reads .npy/.npz files of a path-backed seq-level dataset
         self.native = False
@@ -111,15 +125,32 @@ class BucketBatcher:
         batch["h_t"] = batch["h_t"][:, None, :]
         return batch
 
+    def _host_n(self) -> int:
+        """Items per host, equal on every host."""
+        n = len(self.ds)
+        if self.host_shard is None:
+            return n
+        count = self.host_shard[1]
+        return n // count if self.drop_last else -(-n // count)
+
+    def _host_order(self, order: np.ndarray) -> np.ndarray:
+        if self.host_shard is None:
+            return order
+        index, count = self.host_shard
+        target = self._host_n() * count
+        order = order[:target] if self.drop_last else np.resize(order, target)
+        return order[index::count]
+
     def __len__(self):
         full = self.batch_size * self.grad_accum
-        n = len(self.ds)
+        n = self._host_n()
         return n // full if self.drop_last else -(-n // full)
 
     def __iter__(self):
         order = np.arange(len(self.ds))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        order = self._host_order(order)
         n = len(order)
         self.epoch += 1
         full = self.batch_size * self.grad_accum

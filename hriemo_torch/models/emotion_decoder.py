@@ -47,7 +47,8 @@ class ExplainableDecoderLayer(nn.Module):
                               need_weights=return_attention)
         out, weights = out if return_attention else (out, None)
         tgt = self.norm2(tgt + drop(out))
-        hidden = drop(torch.relu(self.linear1(tgt)))
+        hidden = dropout(torch.relu(self.linear1(tgt)), self.dropout, rs(), self.training,
+                         self.linear1.out_block)
         return self.norm3(tgt + drop(self.linear2(hidden))), weights
 
 

@@ -15,11 +15,21 @@ that owns a kernel call, the kernel wrapper or its plain PyTorch version;
 Dropout draws every mask from an explicit ``torch.Generator`` on x's
 device (:func:`dropout`); :func:`fold_in` and :func:`derive` give each
 layer, call site and step a generator of its own from one seed, as the JAX
-package's ``fold_in`` gives each its key.
+package's ``fold_in`` gives each its key. Each row (dim 0) of a mask comes
+from a generator of its own, derived from the call's seed and the row's
+index in the whole batch, so a data rank draws just its rows
+(:func:`dropout_rows`) and a sharded step masks as the unsharded one does,
+as JAX's partitionable threefry does. A column-sharded activation draws its
+rows whole and keeps its feature block (``Linear.out_block``).
+
+A sharded Linear (``parallel/mesh.py::shard_params``) holds its block of the
+weight and runs through ``Linear.tp``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -89,19 +99,51 @@ def derive(generator: torch.Generator | None, data: int) -> torch.Generator | No
     return torch.Generator(generator.device).manual_seed(fold_in(generator.initial_seed(), data))
 
 
-def dropout(x, p: float, generator: torch.Generator | None, training: bool):
+_ROW0 = contextvars.ContextVar("dropout_rows", default=0)
+
+
+@contextlib.contextmanager
+def dropout_rows(offset: int):
+    """Inside, dim 0 of every tensor that :func:`dropout` masks holds rows
+    ``[offset, offset + len(x))`` of the whole batch, and their masks are
+    those rows of the whole batch's: a data rank's block."""
+    token = _ROW0.set(offset)
+    try:
+        yield
+    finally:
+        _ROW0.reset(token)
+
+
+def dropout(x, p: float, generator: torch.Generator | None, training: bool,
+            features: tuple[int, int] | None = None):
     """Inverted dropout (``hriemo/nn/layers.py:54-70``): keep each element
     with probability ``1 - p`` and divide the kept ones by ``1 - p`` in x's
     dtype; the identity in eval or at ``p = 0``. A training call with
     ``p > 0`` must pass a generator on x's device: silently skipping dropout
-    would leave the recipe without a warning."""
+    would leave the recipe without a warning. Only the generator's seed is
+    read (as :func:`derive` does): row ``r`` of the mask (a vector is one
+    row) is drawn by a generator seeded from it and ``r``'s index in the
+    whole batch (:func:`dropout_rows`), so a rank's rows cost what they
+    hold. ``features=(offset, total)``: x holds features ``[offset, offset +
+    x.shape[-1])`` of ``total`` (a column-sharded activation), and the mask
+    is that block of the whole one's."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout: training with p > 0 needs a torch.Generator; pass "
                          "generator=... to forward() (or call model.eval())")
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    rows = x.reshape(1, -1) if x.ndim == 1 else x
+    shape, cols = list(rows.shape), slice(None)
+    if features is not None:
+        shape[-1] = features[1]
+        cols = slice(features[0], features[0] + x.shape[-1])
+    u = torch.empty(shape, device=x.device)
+    seed, row0 = generator.initial_seed(), _ROW0.get()
+    for i in range(shape[0]):
+        gen = torch.Generator(generator.device).manual_seed(fold_in(seed, row0 + i))
+        u[i].uniform_(generator=gen)
+    mask = (u[..., cols] < keep).reshape(x.shape)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -145,8 +187,21 @@ class Linear(nn.Module):
         self.register_buffer("w_scale", None)
         self.bias_f32 = None
         self.use_kernels = True
+        self.tp = None  # a parallel.mesh.ParallelLinear once sharded
+
+    @property
+    def out_block(self) -> tuple[int, int] | None:
+        """``(offset, total)`` of the output features this Linear computes
+        when column-sharded (its output is that block of the whole one's),
+        else None."""
+        if self.tp is None or self.tp.kind != "column":
+            return None
+        return self.tp.offset, self.tp.total
 
     def quantize_(self, min_dim: int) -> None:
+        if self.tp is not None:
+            raise ValueError("a tensor-parallel Linear does not quantize: int8 serving "
+                             "runs unsharded")
         if self.w_int8 is None and min(self.weight.shape) >= min_dim:
             self.w_int8, self.w_scale = quantize_linear_params(self.weight)
             self.weight = None
@@ -159,6 +214,8 @@ class Linear(nn.Module):
         if self.w_int8 is not None:
             fn = int8_linear if self.use_kernels else int8_linear_plain
             return fn(x, self.w_int8, self.w_scale, self.bias_f32)
+        if self.tp is not None:
+            return self.tp(x, self.weight, self.bias)
         y = torch.matmul(x, self.weight.t())
         return y if self.bias is None else y + self.bias
 
@@ -175,6 +232,9 @@ class MLP2(nn.Module):
 
     def prepare_kernels(self, fuse_blocks: bool = True) -> None:
         l0, l2 = self._modules["0"], self._modules["2"]
+        if l0.tp is not None or l2.tp is not None:
+            raise ValueError("a tensor-parallel MLP2 has no int8 route: JAX never serves "
+                             "int8 under TP")
         self.ops = mlp2_operands(l0, l2) if fuse_blocks and use_mlp2_int8(l0, l2) else None
 
     def forward(self, x):

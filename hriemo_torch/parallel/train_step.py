@@ -1,5 +1,5 @@
-"""Train and eval steps on one device (port of
-``hriemo/parallel/train_step.py:43-228``, without the mesh).
+"""Train and eval steps, on one device or over a mesh (port of
+``hriemo/parallel/train_step.py:43-228``).
 
 One step covers both trainers: loss type, beta regularizers, label
 normalisation, ``pos_weight``, gradient accumulation, clipping and the
@@ -26,22 +26,39 @@ The step makes no host sync: its metrics (``loss``, ``mean_beta``,
 ``grad_norm``, ``lr``) stay device tensors until the caller reads them.
 Dropout masks come from the step's generator, one derived per micro-batch
 (the model derives one per call site from its seed).
+
+With ``mesh`` (``parallel/mesh.py``) a step over an ``n_data x n_model``
+mesh equals the single-device step on the whole batch, as JAX's GSPMD step
+does. Every rank builds the model from one seed; ``create_train_state``
+checks that with one checksum and shards the FFNs. Each rank's batch is its
+data block (``mesh.shard_batch``), and its dropout masks are its blocks of
+the whole batch's. Gradients, loss and mean beta are averaged over the data
+group in one flattened fp32 bucket (the shards are equal, so the mean of the
+shard means is the global mean). The global norm counts replicated leaves
+once and adds the sharded leaves' squared norms of every model rank, and
+the non-finite skip is decided on a flag: both in one all-reduce over the
+world, so every rank skips the same steps. The eval step returns the whole
+batch's logits and beta on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..nn.layers import derive
+from ..nn.layers import derive, dropout_rows
 from ..train.losses import (bce_with_logits, beta_degeneracy_reward, beta_entropy_loss,
                             normalize_mosei_emotions, softmax_cross_entropy)
+from .mesh import (Mesh, REPLICATED, all_reduce_flat, check_replicas, gather_rows,
+                   param_shardings, shard_params, shard_tensor)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 BATCH_KEYS = ("h_a", "h_t", "mask_a", "mask_t", "y")
@@ -103,14 +120,30 @@ class TrainState:
     total_notfinite: torch.Tensor  # steps skipped for a non-finite gradient
 
 
-def create_train_state(model: nn.Module, cfg: TrainConfig) -> TrainState:
+def create_train_state(model: nn.Module, cfg: TrainConfig, mesh: Mesh | None = None) -> TrainState:
+    """A fresh state of ``model``; with ``mesh``, sharded by
+    :func:`shard_train_state` (the model too, in place)."""
     params = list(model.parameters())
     dev = params[0].device
     if any(p.dtype != torch.float32 for p in params):
         raise TypeError("create_train_state: the master parameters must be fp32")
     zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
-    return TrainState(model, [torch.zeros_like(p) for p in params],
-                      [torch.zeros_like(p) for p in params], zero(), zero(), zero())
+    state = TrainState(model, [torch.zeros_like(p) for p in params],
+                       [torch.zeros_like(p) for p in params], zero(), zero(), zero())
+    return state if mesh is None else shard_train_state(state, mesh)
+
+
+def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """Shard an unsharded state in place (a fresh one, or one restored
+    whole from a checkpoint): after one checksum that every rank holds the
+    same parameters, the model's FFNs and their moments keep this rank's
+    blocks. Returns ``state``."""
+    check_replicas(state.model, mesh)
+    specs = param_shardings(mesh, state.model)
+    state.mu = [shard_tensor(t, s, mesh) for t, s in zip(state.mu, specs.values())]
+    state.nu = [shard_tensor(t, s, mesh) for t, s in zip(state.nu, specs.values())]
+    shard_params(state.model, mesh)
+    return state
 
 
 def compute_loss(model: nn.Module, cfg: TrainConfig, batch: dict, generator=None,
@@ -208,7 +241,7 @@ def _leaf_chunks(tensors):
         yield slice(start, len(tensors))
 
 
-def apply_update(state: TrainState, grads, cfg: TrainConfig, sched):
+def apply_update(state: TrainState, grads, cfg: TrainConfig, sched, global_norm=None):
     """One optimizer update of ``state`` in place: optax's
     ``apply_if_finite(chain(clip_by_global_norm, adamw))``, each step in its
     order of fp32 operations, as multi-tensor (``torch._foreach_*``) ops
@@ -220,12 +253,18 @@ def apply_update(state: TrainState, grads, cfg: TrainConfig, sched):
     A leaf with a NaN or an infinity has a non-finite norm, so the step is
     skipped; so is one whose norm overflows fp32 (elements beyond ~1e19),
     where optax's own global norm is infinite and its clip zeroes the
-    update."""
+    update.
+
+    ``global_norm`` (a mesh's, :func:`mesh_norm`) maps the leaf norms to
+    ``(norm, finite)`` in place of the single-device ones."""
     lr = sched(state.step - state.total_notfinite)
     params = list(state.model.parameters())
     norms = torch.stack(torch._foreach_norm(grads))
-    g_norm = torch.linalg.vector_norm(norms)
-    finite = torch.isfinite(norms).all()
+    if global_norm is None:
+        g_norm = torch.linalg.vector_norm(norms)
+        finite = torch.isfinite(norms).all()
+    else:
+        g_norm, finite = global_norm(norms)
     scale = torch.where(g_norm < cfg.grad_clip, 1.0, cfg.grad_clip / g_norm)
     count_inc = state.count + 1
     bc1 = 1 - torch.pow(torch.tensor(B1, device=lr.device), count_inc.float())
@@ -256,28 +295,74 @@ def apply_update(state: TrainState, grads, cfg: TrainConfig, sched):
     return g_norm, lr
 
 
-def make_train_step(model: nn.Module, cfg: TrainConfig):
+def mesh_norm(model: nn.Module, mesh: Mesh):
+    """``norms -> (global norm, finite)`` of a sharded ``model``'s gradients
+    (averaged over the data group) from this rank's leaf norms: one world
+    all-reduce of the sharded leaves' squared norms (summed over the data
+    ranks too, hence the division by ``n_data``) and of the non-finite flag.
+    At one model rank the norm is the single-device one, bit for bit."""
+    sharded = torch.tensor([s != REPLICATED for s in param_shardings(mesh, model).values()],
+                           device=next(model.parameters()).device)
+
+    def global_norm(norms):
+        sq = norms.square()
+        both = torch.stack([torch.where(sharded, sq, 0.0).sum(),
+                            (~torch.isfinite(norms)).any().float()])
+        dist.all_reduce(both)
+        if mesh.n_model == 1:
+            g_norm = torch.linalg.vector_norm(norms)
+        else:
+            g_norm = torch.sqrt(torch.where(sharded, 0.0, sq).sum() + both[0] / mesh.n_data)
+        return g_norm, both[1] == 0
+    return global_norm
+
+
+def _rows_of(mesh: Mesh | None, batch: dict, cfg: TrainConfig):
+    """Dropout draws this data rank's rows of the whole batch's masks."""
+    if mesh is None or mesh.n_data == 1:
+        return contextlib.nullcontext()
+    return dropout_rows(mesh.data_rank * batch["h_a"].shape[1 if cfg.grad_accum > 1 else 0])
+
+
+def make_train_step(model: nn.Module, cfg: TrainConfig, mesh: Mesh | None = None):
     """Returns ``step(state, batch, generator) -> (state, metrics)``: one
     update of ``state`` in place, on the device of the model's parameters;
     ``batch`` holds device tensors under ``BATCH_KEYS`` (``[accum, micro,
     ...]`` when ``cfg.grad_accum > 1``), ``generator`` draws the dropout
-    masks (None only when no dropout is active)."""
+    masks (None only when no dropout is active). Under ``mesh`` the state
+    is sharded (``create_train_state(..., mesh)``), ``batch`` is this rank's
+    data block, ``generator`` is the same on every rank, and the metrics
+    are the whole batch's."""
     sched = make_schedule(cfg)
     pos_weight = _pos_weight(cfg, next(model.parameters()).device)
+    global_norm = None if mesh is None else mesh_norm(model, mesh)
 
     def step(state: TrainState, batch: dict, generator=None):
-        loss, grads, mean_beta = compute_grads(state.model, cfg, batch, generator, pos_weight)
-        g_norm, lr = apply_update(state, grads, cfg, sched)
+        with _rows_of(mesh, batch, cfg):
+            loss, grads, mean_beta = compute_grads(state.model, cfg, batch, generator,
+                                                   pos_weight)
+        if mesh is not None and mesh.n_data > 1:
+            *grads, loss, mean_beta = all_reduce_flat([*grads, loss, mean_beta],
+                                                      mesh.data_group)
+            inv = 1.0 / mesh.n_data
+            grads, loss, mean_beta = torch._foreach_mul(grads, inv), loss * inv, mean_beta * inv
+        g_norm, lr = apply_update(state, grads, cfg, sched, global_norm)
         return state, {"loss": loss, "mean_beta": mean_beta, "grad_norm": g_norm, "lr": lr}
     return step
 
 
-def make_eval_step(model: nn.Module, cfg: TrainConfig):
-    """Returns ``eval(batch) -> (loss, logits, beta)`` in eval mode, no grad."""
+def make_eval_step(model: nn.Module, cfg: TrainConfig, mesh: Mesh | None = None):
+    """Returns ``eval(batch) -> (loss, logits, beta)`` in eval mode, no grad.
+    Under ``mesh``, ``batch`` is this rank's data block and every rank gets
+    the whole batch's loss, logits and beta."""
     pos_weight = _pos_weight(cfg, next(model.parameters()).device)
 
     @torch.no_grad()
     def eval_step(batch: dict):
         model.eval()
-        return compute_loss(model, cfg, batch, None, pos_weight)
+        loss, logits, beta = compute_loss(model, cfg, batch, None, pos_weight)
+        if mesh is None:
+            return loss, logits, beta
+        logits, beta, loss = gather_rows([logits, beta], mesh, means=[loss])
+        return loss, logits, beta
     return eval_step

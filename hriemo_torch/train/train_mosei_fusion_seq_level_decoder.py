@@ -22,11 +22,24 @@ starts at 0 again, so a resumed run does not replay an uninterrupted one.
 ``--native_ckpt`` also writes the final parameters to ``out_dir/native_state``.
 ``--trace_dir`` traces the first epoch the run trains (``utils/profiling.py``).
 ``--native_loader`` assembles batches with the port's C++ loader
-(``hriemo_torch/native.py``) and prints which loader ran. Flags of the JAX
-CLI that the port does not take yet raise and name their ROADMAP.md item:
-``--n_data`` and ``--n_model > 1`` (queue 1 item 8).
+(``hriemo_torch/native.py``) and prints which loader ran.
+
+``--n_data`` / ``--n_model`` train over the ``(data, model)`` mesh, as JAX
+does whenever ``--n_data`` is given (even 1) or ``--n_model > 1``
+(``hriemo_torch/parallel``). Outside torchrun the CLI starts the
+``n_data x n_model`` ranks itself (``parallel/launch.py``; ``--n_data``
+defaults to the cards per model group, 1 on the CPU); under torchrun it is
+one of the launcher's ranks and ``--n_data`` defaults to ``world //
+n_model``. Every rank builds the same global batch from the same shuffle and
+keeps its block, so the run trains as the single-device one on the same
+batches. Rank 0 alone prints, writes the log, the checkpoints, ``meta.json``
+and the trace; checkpoints and the ``--resume`` state are saved whole, in
+the single-device format, and a resumed mesh run restores whole, then
+shards.
 
     python -m hriemo_torch.train.train_mosei_fusion_seq_level_decoder --synthetic 64
+    python -m hriemo_torch.train.train_mosei_fusion_seq_level_decoder --synthetic 64 \
+        --n_data 2 --n_model 2 --device cpu
 """
 
 from __future__ import annotations
@@ -97,40 +110,65 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def refuse_unported_flags(args) -> None:
-    """Flags of the JAX CLI the port does not take yet: raise, never ignore."""
-    waiting = [(args.n_data is not None or args.n_model > 1, "--n_data / --n_model",
-                "the (data x model) mesh", 8)]
-    for on, flag, what, item in waiting:
-        if on:
-            raise SystemExit(f"[mosei] {flag} is not supported by the port yet: {what} "
-                             f"waits for ROADMAP.md queue 1 item {item}")
-
-
-def evaluate(eval_step, loader, device):
-    """Returns ``(loss, probs [N, C], y_raw [N, C], mean_beta)``."""
+def evaluate(eval_step, loader, device, mesh=None):
+    """Returns ``(loss, probs [N, C], y_raw [N, C], mean_beta)``. Under
+    ``mesh`` each rank feeds its data block and gets the whole batch's
+    outputs."""
     from ..data.batching import prefetch_to_device
+    from ..parallel.mesh import shard_batch
 
-    losses, probs, ys, betas = [], [], [], []
-    for batch in prefetch_to_device(iter(loader), device):
+    ys = []
+
+    def feed():
+        for batch in loader:
+            ys.append(batch["y"][:batch["n_valid"]])
+            yield batch if mesh is None else shard_batch(batch, mesh)
+
+    losses, probs, betas = [], [], []
+    for batch in prefetch_to_device(feed(), device):
         n_valid = batch["n_valid"]
         loss, logits, beta = eval_step(batch)
         losses.append(float(loss))
         probs.append(torch.sigmoid(logits).cpu().numpy()[:n_valid])
-        ys.append(batch["y"].cpu().numpy()[:n_valid])
         betas.append(beta.cpu().numpy()[:n_valid])
     probs, ys = np.concatenate(probs), np.concatenate(ys)
     return float(np.mean(losses)), probs, ys, float(np.concatenate(betas).mean())
 
 
 def main(argv=None):
+    from ..device import resolve_device
+    from ..parallel.launch import spawn, under_torchrun
+
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    if not (args.n_data or args.n_model > 1):
+        return train(args, device)
+    world = 1  # under torchrun the launcher's world size holds
+    if not under_torchrun():
+        cards = torch.cuda.device_count() if device.type == "cuda" else 1
+        world = (args.n_data or max(1, cards // args.n_model)) * args.n_model
+    return spawn(_train_rank, world, device, args)[0]
+
+
+def _train_rank(device, args):
+    """One rank of a mesh run."""
+    from ..parallel.mesh import make_mesh
+
+    return train(args, device, make_mesh(args.n_data, args.n_model))
+
+
+def train(args, device, mesh=None):
+    """The run on ``device``; under ``mesh`` this rank's part of it.
+    Returns the best value of ``--select_by``."""
+    import torch.distributed as dist
+
     from ..data import BucketBatcher, SeqLevelDataset, read_index_csv
     from ..data.datasets import to_float
     from ..data.feature_store import hidden_dim_from_meta, read_meta
-    from ..device import resolve_device
     from ..models import MoseiFusionWithEmotionDecoder
+    from ..parallel.mesh import shard_batch
     from ..parallel.train_step import (TrainConfig, create_train_state, make_eval_step,
-                                       make_train_step)
+                                       make_train_step, shard_train_state)
     from ..utils import checkpoint as C
     from ..utils import metrics as M
     from ..utils.profiling import trace as profiler_trace
@@ -138,11 +176,16 @@ def main(argv=None):
                          step_generator)
     from ..data.batching import prefetch_to_device
 
-    args = parse_args(argv)
-    refuse_unported_flags(args)
-    device = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)  # noqa: E731
     set_seed(args.seed)
-    args = maybe_synthetic_mosei(args)
+    if lead:
+        args = maybe_synthetic_mosei(args)
+    if mesh is not None:  # the corpus rank 0 wrote
+        shared = [args]
+        dist.broadcast_object_list(shared, src=0)
+        args = shared[0]
+        say(f"[mesh] {mesh.shape}")
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     compute_dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
@@ -164,7 +207,7 @@ def main(argv=None):
     y_train = np.asarray([[to_float(r[c]) for c in args.emo_cols] for r in train_ds.rows],
                          np.float32).reshape(-1, len(args.emo_cols))
     pos_weight = M.pos_weights(M.binarize_truth(y_train))
-    print("[pos_weight]", dict(zip(args.emo_cols, np.round(pos_weight, 2))))
+    say("[pos_weight]", dict(zip(args.emo_cols, np.round(pos_weight, 2))))
 
     # feature dims from meta.json (reference :544-561)
     d_audio = hidden_dim_from_meta(read_meta(args.audio_dir))
@@ -190,7 +233,7 @@ def main(argv=None):
                                native=args.native_loader)
     if args.native_loader:
         ran = "the C++ loader" if train_loader.native and val_loader.native else "the Python loader"
-        print(f"[mosei] --native_loader: batches from {ran}")
+        say(f"[mosei] --native_loader: batches from {ran}")
 
     steps_per_epoch = max(1, len(train_loader))
     total_steps = steps_per_epoch * args.epochs
@@ -201,8 +244,6 @@ def main(argv=None):
         grad_accum=args.grad_accum, warmup_steps=int(args.warmup_ratio * total_steps),
         total_steps=total_steps, compute_dtype=compute_dtype)
     state = create_train_state(model, cfg)
-    train_step = make_train_step(model, cfg)
-    eval_step = make_eval_step(model, cfg)
     base_seed = dropout_seed(args.seed)
 
     start_epoch, resume_meta = 1, {}
@@ -212,22 +253,28 @@ def main(argv=None):
         state = C.restore_native(str(resume_dir / "state"), like=state)
         resume_meta = json.loads((resume_dir / "meta.json").read_text())
         start_epoch = int(resume_meta.get("epoch", 0)) + 1
-        print(f"[resume] restored step={int(state.step)}, continuing at epoch {start_epoch}")
-
-    log = TrainLogWriter(out_dir / "outputs" / "train_log.csv",
-                         ["epoch", "train_loss", "val_loss", "val_auc", "mean_beta",
-                          "val_macro_f1", "val_cal_macro_f1", "epoch_time_s"])
-
+        say(f"[resume] restored step={int(state.step)}, continuing at epoch {start_epoch}")
     best_metric = resume_meta.get("best_metric", -1.0)
     best_state, best_pack = None, resume_meta.get("best_pack", {})
     if args.resume and (resume_dir / "best_params").exists():
         best_state = C.restore_native(str(resume_dir / "best_params"),
                                       like=C.state_dict_cpu(model))
+    if mesh is not None:  # restored whole, now sharded
+        state = shard_train_state(state, mesh)
+    train_step = make_train_step(model, cfg, mesh)
+    eval_step = make_eval_step(model, cfg, mesh)
+
+    log = TrainLogWriter(out_dir / "outputs" / "train_log.csv",
+                         ["epoch", "train_loss", "val_loss", "val_auc", "mean_beta",
+                          "val_macro_f1", "val_cal_macro_f1", "epoch_time_s"]) if lead else None
+    shard = (lambda b: b) if mesh is None else (  # noqa: E731
+        lambda b: shard_batch(b, mesh, args.grad_accum))
     for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
         tr_losses, tr_betas = [], []
-        with profiler_trace(args.trace_dir if epoch == start_epoch else None):
-            for i, batch in enumerate(prefetch_to_device(iter(train_loader), device)):
+        trace_dir = args.trace_dir if epoch == start_epoch and lead else None
+        with profiler_trace(trace_dir):
+            for i, batch in enumerate(prefetch_to_device(map(shard, train_loader), device)):
                 state, metrics = train_step(
                     state, batch, step_generator(base_seed, epoch * 100000 + i, device))
                 tr_losses.append(metrics["loss"])
@@ -235,7 +282,7 @@ def main(argv=None):
         mean = lambda ts: float(np.mean(torch.stack(ts).double().cpu().numpy())) if ts else 0.0  # noqa: E731
         tr_loss, tr_beta = mean(tr_losses), mean(tr_betas)
 
-        va_loss, probs, ys, va_beta = evaluate(eval_step, val_loader, device)
+        va_loss, probs, ys, va_beta = evaluate(eval_step, val_loader, device, mesh)
         y_bin = M.binarize_truth(ys)
         va_micro = M.micro_f1(y_bin, (probs >= 0.5).astype(int))
         va_macro = M.macro_f1(y_bin, (probs >= 0.5).astype(int))
@@ -244,34 +291,40 @@ def main(argv=None):
         va_cal_macro = float(np.mean(cal_f1))
         dt = time.time() - t0
 
-        print(f"=== Epoch {epoch}/{args.epochs} ({dt:.1f}s) ===")
-        print(f"Train Loss: {tr_loss:.4f} | Mean β: {tr_beta:.3f}  ||  "
-              f"Val Loss: {va_loss:.4f} | F1 micro/macro: {va_micro:.3f}/{va_macro:.3f} | "
-              f"AUC macro: {va_auc:.3f} | cal-F1 macro: {va_cal_macro:.3f} | Mean β: {va_beta:.3f}")
-        log.append(epoch=epoch, train_loss=tr_loss, val_loss=va_loss,
-                   val_auc=va_auc, mean_beta=va_beta, val_macro_f1=va_macro,
-                   val_cal_macro_f1=va_cal_macro, epoch_time_s=round(dt, 2))
+        say(f"=== Epoch {epoch}/{args.epochs} ({dt:.1f}s) ===")
+        say(f"Train Loss: {tr_loss:.4f} | Mean β: {tr_beta:.3f}  ||  "
+            f"Val Loss: {va_loss:.4f} | F1 micro/macro: {va_micro:.3f}/{va_macro:.3f} | "
+            f"AUC macro: {va_auc:.3f} | cal-F1 macro: {va_cal_macro:.3f} | Mean β: {va_beta:.3f}")
+        if lead:
+            log.append(epoch=epoch, train_loss=tr_loss, val_loss=va_loss,
+                       val_auc=va_auc, mean_beta=va_beta, val_macro_f1=va_macro,
+                       val_cal_macro_f1=va_cal_macro, epoch_time_s=round(dt, 2))
 
         current = {"macro_auc": va_auc, "macro_f1": va_macro,
                    "calibrated_macro_f1": va_cal_macro}[args.select_by]
         if np.isnan(current):
             current = -1.0
+        # every rank reads the same gathered outputs, so takes the same branch
         if current > best_metric:
             best_metric = current
-            best_state = C.state_dict_cpu(model)
+            best_state = C.state_dict_cpu(model, mesh)
             best_pack = {
                 "epoch": epoch, "val_macro_auc": va_auc, "val_macro_f1": va_macro,
                 "val_calibrated_macro_f1": va_cal_macro,
                 "val_calibrated_thresholds": cal_ths.tolist(),
             }
             if keep_resume:
-                C.save_native(str(resume_dir / "best_params"), best_state)
+                C.save_native(str(resume_dir / "best_params"), best_state, mesh)
         if keep_resume:
-            C.save_native(str(resume_dir / "state"), state)
-            (resume_dir / "meta.json").write_text(json.dumps({
-                "epoch": epoch, "best_metric": best_metric, "best_pack": best_pack}))
+            C.save_native(str(resume_dir / "state"), state, mesh)
+            if lead:
+                (resume_dir / "meta.json").write_text(json.dumps({
+                    "epoch": epoch, "best_metric": best_metric, "best_pack": best_pack}))
     if best_state is None:  # no epoch ran, or resumed past --epochs with no stored best
-        best_state = C.state_dict_cpu(model)
+        best_state = C.state_dict_cpu(model, mesh)
+    final_state = C.state_dict_cpu(model, mesh) if args.native_ckpt else None
+    if not lead:
+        return best_metric
 
     # checkpoint in the reference layout (reference :616-642)
     ckpt = {
@@ -289,7 +342,7 @@ def main(argv=None):
         "select_by": args.select_by, "best_metric": best_metric, **best_pack,
     })
     if args.native_ckpt:
-        C.save_native(str(out_dir / "native_state"), C.state_dict_cpu(model))
+        C.save_native(str(out_dir / "native_state"), final_state)
     print(f"[Saved] {ckpt_path} (best {args.select_by}={best_metric:.4f})")
     return best_metric
 

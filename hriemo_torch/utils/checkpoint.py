@@ -12,6 +12,10 @@ read a train state (parameters, AdamW's moments, the counts) or a parameter
 dict where the JAX package writes orbax checkpoints (``out_dir/resume/state``,
 ``resume/best_params``, ``out_dir/native_state``). The port's are torch
 files at those paths: orbax's format is JAX's own.
+
+Under a mesh (``parallel/mesh.py``) a sharded model's state is saved whole,
+in the format of a single-device run: every rank takes part in making the
+leaves whole, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -25,9 +29,12 @@ import torch
 from torch import nn
 
 
-def state_dict_cpu(model: nn.Module) -> dict:
-    """``{name: tensor}`` copies on the CPU (fp32 masters in training)."""
-    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+def state_dict_cpu(model: nn.Module, mesh=None) -> dict:
+    """``{name: tensor}`` copies on the CPU (fp32 masters in training); a
+    sharded model's leaves made whole under ``mesh`` (a collective)."""
+    from ..parallel.mesh import full_state_dict
+
+    return {k: v.detach().to("cpu", copy=True) for k, v in full_state_dict(model, mesh).items()}
 
 
 def save_torch_checkpoint(path: str, ckpt: dict) -> None:
@@ -59,25 +66,35 @@ def load_model_from_torch_checkpoint(model: nn.Module, path: str) -> dict:
     return ckpt
 
 
-def native_tree(obj: Any) -> dict:
-    """A train state or a parameter dict as one dict of CPU tensors."""
+def native_tree(obj: Any, mesh=None) -> dict:
+    """A train state or a parameter dict as one dict of CPU tensors; a
+    sharded state's leaves made whole under ``mesh`` (a collective)."""
     if isinstance(obj, dict):
         return {"params": {k: v.detach().to("cpu", copy=True) for k, v in obj.items()}}
+    from ..parallel.mesh import full_tensor, param_shardings
+
+    specs = {} if mesh is None else param_shardings(mesh, obj.model)
     names = [n for n, _ in obj.model.named_parameters()]
-    cpu = lambda ts: {n: t.detach().to("cpu", copy=True) for n, t in zip(names, ts)}  # noqa: E731
-    return {"params": state_dict_cpu(obj.model), "mu": cpu(obj.mu), "nu": cpu(obj.nu),
+    cpu = lambda ts: {n: (t if mesh is None else full_tensor(t, specs[n], mesh))  # noqa: E731
+                      .detach().to("cpu", copy=True) for n, t in zip(names, ts)}
+    return {"params": state_dict_cpu(obj.model, mesh), "mu": cpu(obj.mu), "nu": cpu(obj.nu),
             **{k: getattr(obj, k).detach().to("cpu", copy=True)
                for k in ("count", "step", "total_notfinite")}}
 
 
-def save_native(path: str, tree: Any) -> None:
+def save_native(path: str, tree: Any, mesh=None) -> None:
     """Write a ``TrainState`` (``parallel/train_step.py``: parameters, mu,
     nu, count, step, total_notfinite) or a ``{name: tensor}`` parameter dict
-    to ``path``, a torch file, replaced whole (written beside it first)."""
+    to ``path``, a torch file, replaced whole (written beside it first).
+    Under ``mesh`` every rank calls it, a sharded state is saved whole, and
+    rank 0 writes."""
+    tree = native_tree(tree, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(native_tree(tree), tmp)
+    torch.save(tree, tmp)
     os.replace(tmp, path)
 
 

@@ -91,6 +91,68 @@ def test_seq_dataset_labels_and_filtering_match_jax(tmp_path):
             np.testing.assert_array_equal(g[k], r[k])
 
 
+@pytest.mark.parametrize("n,drop_last", [(24, False), (22, True), (22, False)])
+def test_host_shards_match_jax(tmp_path, n, drop_last):
+    """``host_shard=(i, 3)``: uid for uid the JAX batcher's shards (the port
+    of tests/test_data.py:146-186) over two shuffled epochs, every host the
+    same batch count; on an even corpus the shards are disjoint and cover
+    it, on an uneven one ``drop_last`` truncates and otherwise the order
+    wraps."""
+    jcsv, jaud, jtxt = JSyn.make_synthetic_mosei(tmp_path, n=n, max_la=10, max_lt=6, seed=4)
+    rows, cols = read_index_csv(jcsv)
+    kw = dict(uid_col="uid", emo_cols=JSyn.MOSEI_EMO_COLS)
+    jds = JDataset(pd.read_csv(jcsv), jaud, jtxt, verbose=False, **kw)
+    tds = TDataset(rows, jaud, jtxt, columns=cols, verbose=False, **kw)
+    bkw = dict(batch_size=4, la=12, lt=8, shuffle=True, seed=7, drop_last=drop_last)
+    shards, counts = [], set()
+    for host in range(3):
+        jb = JBatcher(jds, host_shard=(host, 3), **bkw)
+        tb = TBatcher(tds, host_shard=(host, 3), **bkw)
+        assert len(tb) == len(jb)
+        for _ in range(2):
+            got, ref = list(tb), list(jb)
+            assert len(got) == len(ref) == len(tb)
+            assert [b["uids"] for b in got] == [b["uids"] for b in ref]
+            assert [b["n_valid"] for b in got] == [b["n_valid"] for b in ref]
+            np.testing.assert_array_equal(np.concatenate([b["h_a"] for b in got]),
+                                          np.concatenate([b["h_a"] for b in ref]))
+        shards.append([u for b in got for u in b["uids"]])
+        counts.add(len(got))
+    flat = [u for uids in shards for u in uids]
+    assert len(counts) == 1
+    if n % 3 == 0:
+        assert len(flat) == len(set(flat)) == n
+
+
+def test_native_host_shards_match_python_loader(tmp_path):
+    """The C++ loader honours ``host_shard``: its shards equal the Python
+    loader's bit for bit."""
+    tcsv, taud, ttxt = TSyn.make_synthetic_mosei(tmp_path, n=22, max_la=20, max_lt=10, seed=4)
+    rows, cols = read_index_csv(tcsv)
+    ds = TDataset(rows, taud, ttxt, emo_cols=[c for c in cols if c.startswith("emo_")],
+                  max_len_audio=12, verbose=False)
+    for host in range(2):
+        kw = dict(shuffle=True, seed=3, drop_last=False, host_shard=(host, 2))
+        py, nat = (TBatcher(ds, 4, la=16, lt=12, native=n, **kw) for n in (False, True))
+        assert nat.native and not py.native
+        got, ref = list(nat), list(py)
+        assert len(got) == len(ref) == len(py) > 0
+        for bn, bp in zip(got, ref):
+            assert bn["uids"] == bp["uids"] and bn["n_valid"] == bp["n_valid"]
+            for k in ("h_a", "h_t", "mask_a", "mask_t", "y"):
+                np.testing.assert_array_equal(bn[k], bp[k], err_msg=k)
+
+
+@pytest.mark.parametrize("bad", [(-1, 3), (3, 3), (0, 0)])
+def test_malformed_host_shard_is_refused(tmp_path, bad):
+    tcsv, taud, ttxt = TSyn.make_synthetic_mosei(tmp_path, n=4, seed=4)
+    rows, cols = read_index_csv(tcsv)
+    ds = TDataset(rows, taud, ttxt, columns=cols, verbose=False)
+    for batcher in (TBatcher, JBatcher):  # the port refuses what JAX refuses
+        with pytest.raises(ValueError, match="host_shard"):
+            batcher(ds, 4, la=12, lt=8, host_shard=bad)
+
+
 def test_prefetch_to_device_keeps_batches_and_order():
     batches = [{"h_a": np.full((2, 3), i, np.float32), "n_valid": 2, "uids": [f"u{i}"]}
                for i in range(3)]

@@ -5,12 +5,13 @@ train_fusion_seq_level_decoder.py:168-181,
 train_mosei_fusion_seq_level_decoder.py:264-285, train_fusion_seq_level.py
 and train_fusion_utter_level.py:151-161, linear_probe_baseline.py:128-130,
 train_text_baseline.py:136-139), default to the card, resume the MOSEI
-trainer mid-run as tests/test_resume.py resumes the JAX one, and refuse the
-JAX flags that the port does not take yet."""
+trainer mid-run as tests/test_resume.py resumes the JAX one, and run the
+MOSEI trainer over the (data x model) mesh as the single-process run."""
 
 import csv
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -232,7 +233,81 @@ def test_mosei_native_loader_matches_python_loader(tmp_path, capsys):
     assert all(torch.equal(sds[0][k], sds[1][k]) for k in sds[0])
 
 
-@pytest.mark.parametrize("flags,item", [(["--n_data", "2"], 8), (["--n_model", "2"], 8)])
-def test_mosei_refuses_flags_it_does_not_take_yet(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=f"queue 1 item {item}"):
-        MOSEI.main(["--synthetic", "8", "--out_dir", str(tmp_path)] + flags + CPU)
+MESH_ARGV = ["--synthetic", "48", "--grad_accum", "2"] + SMALL + TINY + CPU
+MESHES = {"dp": ["--n_data", "2"], "tp": ["--n_model", "2"],
+          "2x2": ["--n_data", "2", "--n_model", "2"]}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """The MOSEI CLI at tests/test_train_pipelines.py's tiny flags (fp32,
+    dropout 0.1), in this process and over each mesh (gloo ranks the CLI
+    spawns): ``{run: out_dir}``."""
+    root = tmp_path_factory.mktemp("mesh_runs")
+    MOSEI.main(MESH_ARGV + ["--out_dir", str(root / "single")])
+    for name, flags in MESHES.items():
+        MOSEI.main(MESH_ARGV + flags + ["--out_dir", str(root / name)])
+    return {name: root / name for name in ("single", *MESHES)}
+
+
+def _losses(out):
+    return [(float(r["train_loss"]), float(r["val_loss"]))
+            for r in _log(out / "outputs" / "train_log.csv")]
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_mosei_mesh_run_matches_single_process(mesh_runs, mesh):
+    """``--n_data 2``, ``--n_model 2`` and both: every rank keeps its block
+    of the same global batch and its block of the same dropout masks, so
+    the log's train and val losses are the single-process run's at rtol
+    1e-5; rank 0 alone wrote the artifacts."""
+    got, ref = _losses(mesh_runs[mesh]), _losses(mesh_runs["single"])
+    assert len(got) == len(ref) == 3
+    np.testing.assert_allclose(got, ref, rtol=1e-5)
+    out = mesh_runs[mesh]
+    assert (out / "best_mosei_fusion_decoder.pt").is_file() and (out / "meta.json").is_file()
+
+
+def test_mosei_mesh_checkpoint_loads_unsharded(mesh_runs):
+    """The 2 x 2 run's checkpoint is saved whole: it loads strictly into an
+    unsharded model, with the single-process run's names and shapes."""
+    ckpt = torch.load(mesh_runs["2x2"] / "best_mosei_fusion_decoder.pt", map_location="cpu",
+                      weights_only=False)
+    ref = torch.load(mesh_runs["single"] / "best_mosei_fusion_decoder.pt", map_location="cpu",
+                     weights_only=False)
+    assert ckpt["args"]["n_data"] == 2 and ckpt["args"]["n_model"] == 2
+    sd = ckpt["model_state_dict"]
+    assert {k: v.shape for k, v in sd.items()} == \
+        {k: v.shape for k, v in ref["model_state_dict"].items()}
+    model = TM.MoseiFusionWithEmotionDecoder(d_audio=74, d_text=300, d_model=32, n_heads=4,
+                                             num_layers_fusion=1, num_layers_decoder=1,
+                                             beta_hidden=16)
+    model.load_state_dict(sd, strict=True)
+
+
+def test_mosei_mesh_run_against_jax_cli(mesh_runs, tmp_path):
+    """The JAX CLI's ``--n_data 2`` (a 2 x 1 mesh of its CPU devices) on the
+    same corpus and flags: both logs have the same epochs and columns,
+    finite falling train losses, and both runs clear test_mosei_cli's bar
+    on the best calibrated metric."""
+    from hriemo.train.train_mosei_fusion_seq_level_decoder import main as jax_main
+
+    jbest = jax_main(["--synthetic", "48", "--grad_accum", "2", "--n_data", "2",
+                      "--out_dir", str(tmp_path / "jax")] + SMALL + TINY)
+    jlog = _log(tmp_path / "jax" / "outputs" / "train_log.csv")
+    log = _log(mesh_runs["dp"] / "outputs" / "train_log.csv")
+    assert [list(r) for r in log] == [list(r) for r in jlog]
+    assert [r["epoch"] for r in log] == [r["epoch"] for r in jlog] == ["1", "2", "3"]
+    for rows in (log, jlog):
+        losses = [float(r["train_loss"]) for r in rows]
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    meta = json.loads((mesh_runs["dp"] / "meta.json").read_text())
+    assert jbest > 0.3 and meta["best_metric"] > 0.3
+
+
+def test_mosei_mesh_flags_default_to_the_card(tmp_path, monkeypatch):
+    """A mesh run resolves its device before it starts a rank: without
+    ``--device cpu`` and without a card it raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MOSEI.main(["--synthetic", "8", "--out_dir", str(tmp_path), "--n_data", "2"])
