@@ -37,8 +37,13 @@ Phases, any failure exits non-zero:
    L=1499, the one-pass and streaming cores at phase 7d's shapes and at the
    long clips' 8 heads of 96, SDPA in fp16 beside each, each held at
    ``ATTN_TOL[fp16]``, which must reject each without its last key tile),
-   and the CUDA-core fallbacks at head dim 32 (d=256 in 8 heads, phase 7d's
-   lengths) in bf16, fp16 and fp32;
+   and the flash cores at head dims beside 64 and 96 at phase 7d's lengths:
+   32 (d=256 in 8 heads) in bf16, fp16 and fp32, 2 heads of 128 in bf16 and
+   fp32, 8 heads of 40 in bf16, each on the tile instance that the C
+   dispatch names (the kernel read by torch.profiler: never a CUDA-core
+   one), held at ``ATTN_TOL``, which must reject each without its last key
+   tile, and timed beside the CUDA-core kernel that served it before and
+   SDPA;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -81,8 +86,10 @@ Phases, any failure exits non-zero:
    ``LOSS_RTOL``, the gradients within ``GRAD_TOL`` in relative norm (each
    leaf in fp32, the whole gradient in bf16), and a lower peak step memory;
    the gradient tolerance must reject a flash backward that drops its last,
-   partial 512-key block; then ``wavlm_fused_attention``'s gradient at B=2
-   L=499, 12 heads of 64, bf16 and fp32: the forward within ``ATTN_TOL``,
+   partial 512-key block; the same steps of ``MoseiFusionWithEmotionDecoder``
+   at the MOSEI trainer's d=256 in 8 heads (hd 32, 6 emotions); then
+   ``wavlm_fused_attention``'s gradient at B=2 L=499, 12 heads of 64, bf16
+   and fp32: the forward within ``ATTN_TOL``,
    the gradients bit-equal to the plain route's; (d) ``train_fusion_seq_level``
    at its full width (``FusionClassifier``, d=768, dropout 0.2) on (a)'s
    corpus, fp32 and bf16, two epochs, then ``FusionClassifier`` train steps
@@ -108,7 +115,8 @@ Phases, any failure exits non-zero:
    --dump_attn`` (artifact shapes, ``y_prob`` unchanged without the dump),
    ``mosei_summary_metrics``, then uncapped over a one-pass and a streaming
    split (1100-2300 audio frames) against the plain versions at phase 6c's
-   bf16 limit, launching both flash kernels, in bf16 and again in fp16;
+   bf16 limit, launching both flash kernels, in bf16, again in fp16, and in
+   bf16 with the checkpoint at ``--n_heads 8`` (hd 32);
 8. (a) every serving kernel against its plain version at every audio bucket
    (``hriemo_torch.tools.kernel_numerics``: 45 rows, B=8, full width, the
    JAX tool's limits; ``chip_smoke_out/kernel_numerics_h100.json``); (b)
@@ -175,7 +183,8 @@ import torch
 
 from hriemo_torch.frontends import BertConfig, BertEncoder, WavLMConfig, WavLMEncoder
 from hriemo_torch.infer import HashTokenizer, StreamingPipeline
-from hriemo_torch.models import FusionClassifier, FusionWithEmotionDecoder
+from hriemo_torch.models import (FusionClassifier, FusionWithEmotionDecoder,
+                                  MoseiFusionWithEmotionDecoder)
 from hriemo_torch.data import load_feature, save_feature, write_meta
 from hriemo_torch.dataprep import extract_iemocap as EX
 from hriemo_torch.dataprep import iemocap_index as II
@@ -515,12 +524,12 @@ def check_kernels(gen):
             .transpose(1, 2)
 
     def attn_ops(dtype, b, h, lq, lk, hd):
-        """(bf16, fp32, tf32) operations of an attention core: fp32 at head
-        dims 64 and 96 runs 3xTF32."""
+        """(bf16, fp32, tf32) operations of an attention core at its head dim
+        (not the tile's): fp32 up to head dim 128 runs 3xTF32."""
         ops = 4 * b * h * lq * lk * hd
         if dtype in (torch.bfloat16, torch.float16):
             return ops, 0, 0
-        return (0, 0, TF32_PRODUCTS * ops) if hd in (64, 96) else (0, ops, 0)
+        return (0, 0, TF32_PRODUCTS * ops) if hd <= 128 else (0, ops, 0)
 
     # WavLM gated-bias attention core, float trees: the 5 s and 10 s buckets
     # at B=4, 30 s at B=2; fp32: the 10 s bucket at B=4, the long fp32 30 s
@@ -771,12 +780,15 @@ def check_kernels(gen):
     # fp16 on the flash route (and the gated WavLM core, the same launch):
     # the one-pass and streaming cores at phase 7d's shapes (B=16, 4 heads of
     # 64, keys masked at each clip's length) and at the long clips' 8 x 96,
-    # SDPA in fp16 beside each; then the CUDA-core fallbacks at head dim 32
-    # (the MOSEI model's d=256 in 8 heads, uncapped) in bf16, fp16 and fp32.
-    # Inputs from a generator of their own, after every earlier row, so that
-    # those keep their inputs; none of these rows feeds the kernels line.
+    # SDPA in fp16 beside each; then the head dims beside 64 and 96 at phase
+    # 7d's shapes: the MOSEI model's d=256 in 8 heads (hd 32) in bf16, fp16
+    # and fp32, 2 heads of 128 in bf16 and fp32, and 8 heads of 40 (run on
+    # the hd-64 instance, zero-padded) in bf16, each beside the CUDA-core
+    # kernel that served it before (``cuda_cores=True``) and SDPA. Inputs
+    # from a generator of their own, after every earlier row, so that those
+    # keep their inputs; none of these rows feeds the kernels line.
     own = torch.Generator().manual_seed(SEED + 9)
-    f16_upto, first_new = {}, len(rows)
+    flash_upto, first_new = {}, len(rows)
     h, hd = 12, 64
     q, k, v = (heads(2, 1499, h, hd, torch.float16, own) for _ in range(3))
     gate = (torch.rand(2, h, 1499, generator=own) * 1.5 + 0.5).to(dev, torch.float16)
@@ -789,37 +801,52 @@ def check_kernels(gen):
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
         nbytes(q, k, v, gate, pos, kb, q), 0, *attn_ops(torch.float16, 2, h, 1499, 1499, hd),
         tol=ATTN_TOL[torch.float16])
-    f16_upto["wavlm_fused_attention"] = (1499, ONEPASS_KEY_TILE, lambda n, q=q, k=k, v=v,
-                                         gate=gate, pos=pos, kb=kb:
-                                         WA.wavlm_fused_attention_plain(
-                                             q, k[:, :, :n], v[:, :, :n], gate,
-                                             pos[:, :, :n], kb[:, :n]))
+    flash_upto["wavlm_fused_attention float16"] = (
+        1499, ONEPASS_KEY_TILE, torch.float16,
+        lambda n, q=q, k=k, v=v, gate=gate, pos=pos, kb=kb: WA.wavlm_fused_attention_plain(
+            q, k[:, :, :n], v[:, :, :n], gate, pos[:, :, :n], kb[:, :n]))
     lens7d = {split: [a for a, _ in long_lengths(np.random.default_rng(SEED + 7))[split]]
               for split in LONG_MOSEI}
     for name, split, long_l in (("onepass_attention", "long_onepass", 1499),
                                 ("streaming_attention", "long_streaming", 2249)):
         fn, plain = getattr(FA, name), getattr(FA, name + "_plain")
+        parent = WA.onepass_launch if name == "onepass_attention" else FA.streaming_launch
         la = lens7d[split]
-        cases = [(eb, max(la), 4, 64, la + la[-1:] * (eb - len(la)), torch.float16),
+        lens = la + la[-1:] * (eb - len(la))
+        cases = [(eb, max(la), 4, 64, lens, torch.float16),
                  (2, long_l, 8, 96, None, torch.float16)]
-        cases += [(eb, max(la), 8, 32, la + la[-1:] * (eb - len(la)), dt)
-                  for dt in (torch.bfloat16, torch.float16, torch.float32)]
+        cases += [(eb, max(la), h, hd, lens, dt)
+                  for h, hd, dts in ((8, 32, (torch.bfloat16, torch.float16, torch.float32)),
+                                     (2, 128, (torch.bfloat16, torch.float32)),
+                                     (8, 40, (torch.bfloat16,)))
+                  for dt in dts]
         for bb, l, h, hd, lens, dt in cases:
             q, k, v = (heads(bb, l, h, hd, dt, own) for _ in range(3))
             kpm = (mask(bb, l, own) if lens is None else
                    (torch.arange(l)[None, :] >= torch.tensor(lens)[:, None]).to(dev))
             bias = FA.key_bias(kpm, bb, l, dev)
             amask = ~kpm[:, None, None, :]
-            run(name, f"B={bb} {l}x{l} H={h} hd={hd} {str(dt)[6:]}",
-                lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
-                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
-                                                                         attn_mask=amask),
-                nbytes(q, k, v, bias, q), 0, *attn_ops(dt, bb, h, l, l, hd), tol=ATTN_TOL[dt])
-            if hd != 32:
-                f16_upto[f"{name} {h}x{hd}"] = (
-                    l, ONEPASS_KEY_TILE if name == "onepass_attention" else FA.BK,
-                    lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
-                    plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
+            shape = f"B={bb} {l}x{l} H={h} hd={hd} {str(dt)[6:]}"
+            got, ref = run(name, shape, lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
+                           lambda: torch.nn.functional.scaled_dot_product_attention(
+                               q, k, v, attn_mask=amask),
+                           nbytes(q, k, v, bias, q), 0, *attn_ops(dt, bb, h, l, l, hd),
+                           tol=ATTN_TOL[dt])
+            if hd not in (64, 96):
+                rows[-1].update(tile_instance(name, hd, lambda: fn(q, k, v, bias)))
+                err, _ = compare(f"{name} {shape} on CUDA cores",
+                                 parent(q, k, v, bias, cuda_cores=True), ref, ATTN_TOL[dt])
+                rows[-1]["parent_ms"] = cuda_ms(lambda: parent(q, k, v, bias, cuda_cores=True))
+                print(f"    on {rows[-1]['kernel_name']} (instance hd {rows[-1]['instance']}); "
+                      f"parent (CUDA cores) {rows[-1]['parent_ms']:.4f} ms, max|d| {err:.3g}; "
+                      f"kernel {rows[-1]['ms']:.4f} ms; SDPA {rows[-1]['library_ms']:.4f} ms",
+                      flush=True)
+            del got, ref
+            tile = (TF32_KEY_TILE if dt == torch.float32 else
+                    ONEPASS_KEY_TILE if name == "onepass_attention" else FA.BK)
+            flash_upto[f"{name} {h}x{hd} {str(dt)[6:]}"] = (
+                l, tile, dt, lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
+                plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
     for r in rows[first_new:]:
         r["kernels_line"] = False
 
@@ -839,9 +866,9 @@ def check_kernels(gen):
                   for name, tile in (("onepass_attention", ONEPASS_KEY_TILE),
                                      ("streaming_attention", FA.BK))}
     del eval_upto
-    fp16_check = {name: dropped_tile(f"{name} float16", tile, lk, torch.float16, upto)
-                  for name, (lk, tile, upto) in f16_upto.items()}
-    del f16_upto
+    flash_check = {name: dropped_tile(name, tile, lk, dt, upto)
+                   for name, (lk, tile, dt, upto) in flash_upto.items()}
+    del flash_upto
     edge_check, k2_edge_check, chunk_check, stats_bits = {}, {}, {}, {}
     for dt, (wave, stats, w0, gn_w, gn_b, taps, x3) in edge_inputs.items():
         name = str(dt)[6:]
@@ -852,7 +879,7 @@ def check_kernels(gen):
         stats_bits[name] = same_bits(wave, w0)
     return rows, dict(streaming_last_block=limit_check, onepass_gated_last_tile=gated_check,
                       int8_core_last_tile=core_check, mosei_eval_last_tile=eval_check,
-                      fp16_last_tile=fp16_check,
+                      flash_last_tile=flash_check,
                       conv_k1_tile_edge=edge_check,
                       conv_k2_tile_edge=k2_edge_check, stats_last_chunk=chunk_check,
                       stats_same_bits=stats_bits, ffn_backward=ffn_grad)
@@ -950,6 +977,34 @@ def same_bits(wave, w0):
                              f"|d| {(first - second).abs().max().item():.4g}")
     print(f"  conv_stack_stats {str(wave.dtype)[6:]}: the same bits on two calls", flush=True)
     return True
+
+
+# the flash cores' kernels by the profiler's name: the tile instances, and
+# the CUDA-core kernels that head dims up to 128 must no longer reach
+TILE_KERNELS = {"onepass_attention": ("onepass_mma_kernel", "attn_tf32_kernel"),
+                "streaming_attention": ("streaming_mma_kernel", "attn_tf32_kernel")}
+CUDA_CORE_KERNELS = ("onepass_attn_kernel", "streaming_attn_kernel")
+
+
+def tile_instance(name, hd, fn) -> dict:
+    """The instance that the C dispatch names for ``hd`` and the kernel that
+    one call of ``fn`` ran, read by torch.profiler: it must be a tile
+    kernel of ``name``'s and not a CUDA-core one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    instance = (_cuda.lib("wavlm_attention").hr_onepass_instance(hd, 0)
+                if name == "onepass_attention"
+                else _cuda.lib("flash_attention").hr_streaming_instance(hd))
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ran = [n for n in names if any(t in n for t in TILE_KERNELS[name] + CUDA_CORE_KERNELS)]
+    if (instance == 0 or len(ran) != 1 or not any(t in ran[0] for t in TILE_KERNELS[name])):
+        raise AssertionError(f"{name} at head dim {hd}: instance {instance}, kernels {names}: "
+                             f"not one tile kernel of {TILE_KERNELS[name]}")
+    return dict(instance=instance, kernel_name=ran[0])
 
 
 def dropped_tile(name, tile, lk, dtype, plain_upto):
@@ -1388,17 +1443,20 @@ def dropped_block_check(gen, dt, la=2249, h=8, hd=96):
                          "key block")
 
 
-def fusion_step(gen, smi, classifier: bool = False):
+def fusion_step(gen, smi, classifier: bool = False, mosei: bool = False):
     """Phase 6c (6d with ``classifier``): train steps of the full-width
-    fusion model (``FusionClassifier``, single-label) at B=2, dropout 0,
-    audio at 1499 and 2249 frames with padding, fp32 and bf16: the one-pass
-    and the streaming kernel forward with the recompute backward. The first
+    fusion model (``FusionClassifier``, single-label; with ``mosei``
+    ``MoseiFusionWithEmotionDecoder`` at the MOSEI trainer's d=256 in 8
+    heads, hd 32, 6 emotions) at B=2, dropout 0, audio at 1499 and 2249
+    frames with padding, fp32 and bf16: the one-pass and the streaming
+    kernel forward with the recompute backward. The first
     step's loss and gradients are held against the plain route
     (``use_kernels=False``) at the initial parameters; then timed steps (the
     main path), peak step memory of both routes and the plain route's steps.
     Returns its record and the launches of its main-path steps."""
     rec, total = {}, {name: 0 for name in KERNELS}
-    what = "classifier step" if classifier else "train step"
+    what = ("classifier step" if classifier else
+            "MOSEI 8-head train step" if mosei else "train step")
     for la in TRAIN_AUDIO:
         for dt in (torch.float32, torch.bfloat16):
             tag = f"L={la} {str(dt)[6:]}"
@@ -1407,12 +1465,14 @@ def fusion_step(gen, smi, classifier: bool = False):
                 cfg = TS.TrainConfig(loss_type="single_label", schedule="constant",
                                      compute_dtype=dt)
             else:
-                model = FusionWithEmotionDecoder(768, 4, 8, 2, 2, 256, dropout=0.0)
+                model = (MoseiFusionWithEmotionDecoder(768, 768, 256, 6, 8, 2, 2, 128,
+                                                       dropout=0.0) if mosei else
+                         FusionWithEmotionDecoder(768, 4, 8, 2, 2, 256, dropout=0.0))
                 cfg = TS.TrainConfig(loss_type="multi_label", beta_degeneracy=0.01,
                                      schedule="constant", compute_dtype=dt)
             model.init_weights(torch.Generator().manual_seed(SEED + 6))
             model = model.to("cuda")
-            batch = fusion_batch(gen, la)
+            batch = fusion_batch(gen, la, emotions=6 if mosei else 4)
             if classifier:
                 batch["y"] = torch.randint(0, 4, (2,), generator=gen).cuda()
 
@@ -1457,8 +1517,8 @@ def fusion_step(gen, smi, classifier: bool = False):
             for name, n in ll.items():
                 total[name] += n
             st = step_stats(record)
-            profile_call(f"{what.replace(' ', '_')}_{la}_{str(dt)[6:]}", lambda: timed_wall(
-                lambda: step(state, batch)))
+            profile_call(f"{what.replace(' ', '_').replace('-', '_')}_{la}_{str(dt)[6:]}",
+                         lambda: timed_wall(lambda: step(state, batch)))
 
             peaks, plain_rec = {}, []
             for route in ("kernel", "plain"):
@@ -1486,7 +1546,7 @@ def fusion_step(gen, smi, classifier: bool = False):
                   f"loss rel err {loss_err:.3g}, gradients {grads}; launches {ll}", flush=True)
             del model, state, step, timed_step, plain_step
             torch.cuda.empty_cache()
-    if not classifier:
+    if not (classifier or mosei):
         rec["backward_last_block"] = {str(dt)[6:]: dropped_block_check(gen, dt)
                                       for dt in (torch.float32, torch.bfloat16)}
     return rec, total
@@ -1553,10 +1613,13 @@ def training(gen, smi, root: pathlib.Path):
           f"{[round(m['loss'], 4) for m in st['metrics'][:5]]}...; best macro AUC "
           f"{st['best']:.4f}", flush=True)
 
-    # (c) the fusion step through the flash kernels
+    # (c) the fusion step through the flash kernels: the IEMOCAP decoder's
+    # 8 heads of 96, and the MOSEI model's 8 heads of 32 (the tile instance
+    # at 32)
     rec["fusion_step"], ll = fusion_step(gen, smi)
-    for name, n in ll.items():
-        total[name] += n
+    rec["mosei_8_heads_step"], ll8 = fusion_step(gen, smi, mosei=True)
+    for name in total:
+        total[name] += ll[name] + ll8[name]
     return rec, total
 
 
@@ -1976,9 +2039,31 @@ def evaluation(smi, work: pathlib.Path, idx, wavlm, bert):
     check_launches("mosei_eval_infer fp16 uncapped", ll16,
                    {"onepass_attention": 2, "streaming_attention": 2})
     add(ll16)
+    # the MOSEI model at --n_heads 8 (d=256 in heads of 32, the tile instance
+    # at 32): phase 6b's weights under an 8-head checkpoint (the head count
+    # changes no parameter's shape), the same uncapped splits, bf16
+    ck["args"]["n_heads"] = 8
+    save_torch_checkpoint(str(root / "mosei_uncapped_8h.pt"), ck)
+    argv8 = ["--ckpt", str(root / "mosei_uncapped_8h.pt"), *argv[2:], "--n_heads", "8"]
+    reset_launches()
+    MEVAL.main(argv8 + ["--out_dir", str(root / "long_8h")])
+    ll8 = read_launches()
+    MEVAL.main(argv8 + ["--out_dir", str(root / "long_8h_plain")], use_kernels=False)
+    delta8 = max(float(np.abs(np.load(root / "long_8h" / f"{sp}_y_prob.npy")
+                              - np.load(root / "long_8h_plain" / f"{sp}_y_prob.npy")).max())
+                 for sp in LONG_MOSEI)
+    print(f"mosei_eval_infer --n_heads 8 uncapped: kernel vs plain max prob delta {delta8:.3g} "
+          f"(limit {EVAL_TOL}); launches {ll8}", flush=True)
+    if not delta8 <= EVAL_TOL:
+        raise AssertionError(f"mosei_eval_infer 8 heads uncapped: prob delta {delta8} > "
+                             f"{EVAL_TOL}")
+    check_launches("mosei_eval_infer 8 heads uncapped", ll8,
+                   {"onepass_attention": 2, "streaming_attention": 2})
+    add(ll8)
     rec["mosei"] = dict(utterances=n, summary=summary, uncapped_prob_delta=delta, launches=ll,
                         uncapped_fp16_prob_delta=delta16, fp16_vs_bf16=vs_bf16,
-                        fp16_launches=ll16)
+                        fp16_launches=ll16, uncapped_8_heads_prob_delta=delta8,
+                        launches_8_heads=ll8)
     return rec, total
 
 

@@ -51,12 +51,13 @@ COPIES = {
 
 
 def registers(log: str) -> dict:
-    """attn_tf32_kernel<HD, GATED, STREAM> -> ptxas's registers and spill bytes."""
+    """attn_tf32_kernel<HD, GATED, STREAM, PAD> -> ptxas's registers and spill bytes."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*attn_tf32_kernelILi(\d+)ELb(\d)ELb(\d)", line)
+        m = re.search(r"Compiling entry function '\S*attn_tf32_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)",
+                      line)
         if m:
-            name = "<{},{},{}>".format(*m.groups())
+            name = "<{},{},{},{}>".format(*m.groups())
         elif name and "spill stores" in line:
             out[name] = line.split(",")[1].strip()
         elif name and "Used" in line:

@@ -172,7 +172,7 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
     a.q_sb = Lq * q_ld, a.q_sh = hd, a.q_sl = q_ld;
     a.k_sb = Lk * k_ld, a.k_sh = hd, a.k_sl = k_ld;
     a.v_sb = Lk * v_ld, a.v_sh = hd, a.v_sl = v_ld;
-    a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = 1.0f;  // 1/sqrt(hd) is in q already
+    a.H = H, a.Lq = Lq, a.Lk = Lk, a.hd = hd, a.scale = 1.0f;  // 1/sqrt(hd) is in q already
     a.kbias = static_cast<const float*>(kbias), a.kpm = static_cast<const uint8_t*>(kpm);
     a.x = x, a.x_ld = x_ld, a.x_f32 = x_f32, a.wg = static_cast<const float*>(wg);
     a.bg = static_cast<const float*>(bg), a.gconst = static_cast<const float*>(gconst);

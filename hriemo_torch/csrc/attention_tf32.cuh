@@ -1,5 +1,7 @@
-// The fp32 float attention cores on the tensor cores, in 3xTF32, at head
-// dims 64 (WavLM) and 96 (fusion): the one-pass kernel of
+// The fp32 float attention cores on the tensor cores, in 3xTF32, at the
+// tile head dims of csrc/attention_tiles.cuh (32, 64, 96 and 128; a head
+// dim below one is zero-padded to it in the tile, the gated core runs at 64
+// and 96 only): the one-pass kernel of
 // csrc/wavlm_attention.cu (wavlm_fused_attention, onepass_attention) and
 // the streaming kernel of csrc/flash_attention.cu (streaming_attention).
 // They replace, for fp32 q/k/v, the Pallas kernels
@@ -21,10 +23,11 @@
 // (csrc/attention_tiles.cuh). Each lane keeps its q A-fragment values in
 // its own slots of shared memory, read by one float4 load per 8-dim step and
 // split there, so that q takes no registers: 123-168 a thread, three blocks
-// an SM at hd 64 and 96. K, V and the key biases (and, gated, the pos tile
-// from the 16-byte boundary below its first key, read at its offset) arrive
-// as fp32 through a two-stage cp.async ring of kTf32BK-key tiles, and each
-// warp splits the K and V elements it loads, once per fragment load. The
+// an SM at HD 64 and 96 (two at HD 128, by shared memory). K, V and the key
+// biases (and, gated, the pos tile from the 16-byte boundary below its first
+// key, read at its offset) arrive as fp32 through a two-stage cp.async ring
+// of kTf32BK-key tiles, and each warp splits the K and V elements it loads,
+// once per fragment load. The
 // contraction index of an m16n8k8 step holds dims (or keys) 2t at index t
 // and 2t + 1 at index t + 4 (a permutation of the eight summed terms), so a
 // K fragment is one float2 load and the scores' C fragment of 8 keys is,
@@ -91,6 +94,7 @@ struct Tf32Args {
   const float* pos;                         // gated: [H, Lq, Lk]
   float* out;
   int o_sb, o_sh, o_sl;
+  int hd;                                   // the head dim (padded instances: below HD)
 };
 
 // x = big + small: big is x with its 13 low mantissa bits cleared (a TF32
@@ -123,35 +127,38 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4
 // This warp's 16 query rows (row0 = its first) into the lane's own slots
 // of qs: for each 8-dim step ks, the A-fragment values {q[g][8ks+2t],
 // q[g+8][8ks+2t], q[g][8ks+2t+1], q[g+8][8ks+2t+1]} as one float4 at
-// qs[(32 ks + lane) * 4]; zeros for rows at or past Lq. q: the head's row 0,
-// rows sl elements apart.
-template <int HD>
+// qs[(32 ks + lane) * 4]; zeros for rows at or past Lq and, PAD, for the
+// 8-dim steps at or past hd. q: the head's row 0, rows sl elements apart.
+template <int HD, bool PAD>
 __device__ __forceinline__ void stage_q_f32(float* qs, const float* q, int sl, int row0, int Lq,
-                                            int lane) {
+                                            int hd, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int ra = row0 + g, rb = ra + 8;
   const float2 zero = make_float2(0.f, 0.f);
 #pragma unroll 4
   for (int ks = 0; ks < HD / 8; ++ks) {
     const int d = 8 * ks + 2 * t;
-    const float2 x = ra < Lq ? *reinterpret_cast<const float2*>(q + (size_t)ra * sl + d) : zero;
-    const float2 y = rb < Lq ? *reinterpret_cast<const float2*>(q + (size_t)rb * sl + d) : zero;
+    const bool in = !PAD || 8 * ks < hd;
+    const float2 x =
+        ra < Lq && in ? *reinterpret_cast<const float2*>(q + (size_t)ra * sl + d) : zero;
+    const float2 y =
+        rb < Lq && in ? *reinterpret_cast<const float2*>(q + (size_t)rb * sl + d) : zero;
     *reinterpret_cast<float4*>(qs + (32 * ks + lane) * 4) = make_float4(x.x, y.x, x.y, y.y);
   }
 }
 
-// Rows j0 .. j0+R-1 of a [L, HD] fp32 head (rows sl elements apart) into R
+// Rows j0 .. j0+R-1 of a [L, hd] fp32 head (rows sl elements apart) into R
 // shared rows of LD floats, K's (SWZ) with their 8-float groups swizzled by
-// tf32_kcol; rows at or past L are zeroed.
-template <int HD, int R, int LD, bool SWZ>
+// tf32_kcol; rows at or past L and, PAD, columns at or past hd are zeroed.
+template <int HD, int R, int LD, bool SWZ, bool PAD>
 __device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int sl, int j0, int L,
-                                              int tid) {
+                                              int hd, int tid) {
   constexpr int kChunks = HD / 4;
   for (int idx = tid; idx < R * kChunks; idx += kTcThreads) {
     const int r = idx / kChunks, c = idx - r * kChunks;
-    const bool ok = j0 + r < L;
+    const bool ok = j0 + r < L && (!PAD || c * 4 < hd);
     cp_async16(dst + r * LD + (SWZ ? tf32_kcol(r, 4 * c) : 4 * c),
-               src + (size_t)(ok ? j0 + r : 0) * sl + c * 4, ok ? 16 : 0);
+               src + (size_t)(ok ? j0 + r : 0) * sl + (PAD && !ok ? 0 : c * 4), ok ? 16 : 0);
   }
 }
 
@@ -213,11 +220,12 @@ __device__ __forceinline__ void pv_tile_tf32(float (&o)[HD / 8][4], const float 
 }
 
 // One-pass (two sweeps) or, STREAM, online-softmax attention over fp32
-// q/k/v; GATED adds gate[b,h,i] * pos[h,i,j] to the scores. Three blocks an
-// SM: 168 registers a thread.
-template <int HD, bool GATED, bool STREAM>
+// q/k/v; GATED adds gate[b,h,i] * pos[h,i,j] to the scores; PAD: the head
+// dim a.hd is below HD. Three blocks an SM: 168 registers a thread.
+template <int HD, bool GATED, bool STREAM, bool PAD>
 __global__ void __launch_bounds__(kTcThreads, 3) attn_tf32_kernel(const Tf32Args a) {
   constexpr int NT = kTf32BK / 8;  // n-tiles of a score tile
+  const int hd = PAD ? a.hd : HD;
   constexpr int kStage = tf32_stage_bytes(HD, GATED);
   extern __shared__ __align__(16) unsigned char ring[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -241,9 +249,9 @@ __global__ void __launch_bounds__(kTcThreads, 3) attn_tf32_kernel(const Tf32Args
   // step it: tile it % ntiles of sweep it / ntiles (one-pass: V only in sweep 2)
   auto issue = [&](int it) {
     const int st = it & 1, j0 = (it % ntiles) * kTf32BK;
-    load_rows_f32<HD, kTf32BK, HD, true>(Ks(st), kh, a.k_sl, j0, Lk, tid);
+    load_rows_f32<HD, kTf32BK, HD, true, PAD>(Ks(st), kh, a.k_sl, j0, Lk, hd, tid);
     if (STREAM || it >= ntiles)
-      load_rows_f32<HD, kTf32BK, tf32_ldv(HD), false>(Vs(st), vh, a.v_sl, j0, Lk, tid);
+      load_rows_f32<HD, kTf32BK, tf32_ldv(HD), false, PAD>(Vs(st), vh, a.v_sl, j0, Lk, hd, tid);
     load_bias<kTf32BK>(Bs(st), a.kbias + krow0, j0, Lk, tid);
     if (GATED) {
       // row r from the 16-byte boundary at or below its key j0
@@ -261,7 +269,8 @@ __global__ void __launch_bounds__(kTcThreads, 3) attn_tf32_kernel(const Tf32Args
   issue(0);
 
   float* qs = reinterpret_cast<float*>(ring + 2 * kStage) + warp * 16 * HD;  // this lane's slots
-  stage_q_f32<HD>(qs, a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh, a.q_sl, row0, Lq, lane);
+  stage_q_f32<HD, PAD>(qs, a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh, a.q_sl, row0, Lq, hd,
+                  lane);
   // this lane's rows g and g + 8: gate, and the column of key 0 in its
   // realigned pos row
   float gt[2] = {0.f, 0.f};
@@ -358,23 +367,32 @@ __global__ void __launch_bounds__(kTcThreads, 3) attn_tf32_kernel(const Tf32Args
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] = __fdiv_rn(o[n][e], l[e >> 1]);
   }
-  store_rows<HD>(a.out + (size_t)b * a.o_sb + (size_t)h * a.o_sh, a.o_sl, row0, Lq, o, lane);
+  store_rows<HD>(a.out + (size_t)b * a.o_sb + (size_t)h * a.o_sh, a.o_sl, row0, Lq, hd, o,
+                 lane);
 }
 
 namespace {  // per-library opt-in flags (see csrc/onepass_mma.cuh)
 
-template <int HD, bool GATED, bool STREAM>
+template <int HD, bool GATED, bool STREAM, bool PAD = false>
 void launch_attn_tf32(const Tf32Args& a, int B, cudaStream_t stream) {
   constexpr int smem = tf32_smem_bytes(HD, GATED);
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
-    cudaFuncSetAttribute(attn_tf32_kernel<HD, GATED, STREAM>,
+    cudaFuncSetAttribute(attn_tf32_kernel<HD, GATED, STREAM, PAD>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     attr_set = true;
   }
   // batch element fastest: the blocks that read one pos tile run together
   dim3 grid(B, (a.Lq + kTcRows - 1) / kTcRows, a.H);
-  attn_tf32_kernel<HD, GATED, STREAM><<<grid, kTcThreads, smem, stream>>>(a);
+  attn_tf32_kernel<HD, GATED, STREAM, PAD><<<grid, kTcThreads, smem, stream>>>(a);
+}
+
+// The ungated launch at the instance that serves head dim a.hd (<= 128).
+template <bool STREAM>
+void launch_attn_tf32_tile(const Tf32Args& a, int B, cudaStream_t s) {
+  with_tile(a.hd, [&](auto HD, auto PAD) {
+    launch_attn_tf32<decltype(HD)::value, false, STREAM, decltype(PAD)::value>(a, B, s);
+  });
 }
 
 }  // namespace

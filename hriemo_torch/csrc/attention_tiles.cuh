@@ -9,6 +9,14 @@
 // - a block is kTcWarps = 4 warps and kTcRows = 64 query rows, 16 a warp;
 //   each warp keeps its 16 rows of q in registers as A fragments for the
 //   whole key loop, and its slice of the output in fp32 C fragments;
+// - the kernels are instantiated at the tile head dims HD = 32, 64, 96 and
+//   128; a head dim hd (a multiple of 8) runs on the smallest HD >= hd
+//   (tile_head_dim), its columns zero-padded to HD inside the tile and never
+//   in device memory: load_q fills zeros past hd, load_rows' copies past hd
+//   read nothing (src-size 0), store_rows stores no column past hd. Zero
+//   columns add exact zeros to every q.k sum and give zero output columns.
+//   Each HD has an unpadded instance (PAD false), whose hd is the constant
+//   HD, so that none of these tests is left in its code, and a padded one;
 // - K and V tiles arrive in shared memory by cp.async 16-byte copies into
 //   rows of HD + 8 elements (the 16-byte pad puts the eight rows that one
 //   ldmatrix reads on distinct banks); rows past the key length are zeroed
@@ -25,6 +33,8 @@
 // c[n][2], c[n][3] at row g + 8, the same columns.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace hr {
@@ -34,6 +44,32 @@ constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcRows = 16 * kTcWarps;   // query rows per block
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// The tile head dim HD of the instance that serves head dim hd (hd % 8 ==
+// 0): the smallest of 32, 64, 96 and 128 at or above hd; 0 above 128, which
+// the CUDA-core kernels serve (at HD 128 the streaming kernel already takes
+// all 255 registers, its acc fragments alone 64 a lane).
+inline int tile_head_dim(int hd) { return hd > 128 ? 0 : (hd + 31) / 32 * 32; }
+
+// f(std::integral_constant<int, HD>(), std::bool_constant<PAD>()) for the
+// instance that serves head dim hd (hd <= 128): HD = tile_head_dim(hd),
+// PAD = hd < HD.
+template <typename F>
+void with_tile(int hd, F&& f) {
+  using P = std::true_type;
+  using U = std::false_type;
+  const bool pad = hd != tile_head_dim(hd);
+  switch (tile_head_dim(hd)) {
+    case 32: return pad ? f(std::integral_constant<int, 32>(), P())
+                        : f(std::integral_constant<int, 32>(), U());
+    case 64: return pad ? f(std::integral_constant<int, 64>(), P())
+                        : f(std::integral_constant<int, 64>(), U());
+    case 96: return pad ? f(std::integral_constant<int, 96>(), P())
+                        : f(std::integral_constant<int, 96>(), U());
+    default: return pad ? f(std::integral_constant<int, 128>(), P())
+                        : f(std::integral_constant<int, 128>(), U());
+  }
+}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -119,35 +155,39 @@ __device__ __forceinline__ void mask_keys(float (&s)[NT][4], int nk, int lane) {
       if (n * 8 + 2 * t + (e & 1) >= nk) s[n][e] = neg_inf();
 }
 
-// This warp's 16 query rows (row0 = its first) as A fragments, zeros for
-// rows at or past Lq. q: the head's row 0, rows sl elements apart.
+// This warp's 16 query rows (row0 = its first) as A fragments of HD
+// columns, zeros for rows at or past Lq and columns at or past hd (hd % 8
+// == 0, so each 8-column half of a k step is all in or all out). q: the
+// head's row 0, rows sl elements apart.
 template <int HD, typename T>
 __device__ __forceinline__ void load_q(uint32_t (&qf)[HD / 16][4], const T* q, int sl,
-                                       int row0, int Lq, int lane) {
+                                       int row0, int Lq, int hd, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int ra = row0 + g, rb = ra + 8;
   const uint32_t* pa = reinterpret_cast<const uint32_t*>(q + (size_t)ra * sl);
   const uint32_t* pb = reinterpret_cast<const uint32_t*>(q + (size_t)rb * sl);
 #pragma unroll
   for (int ks = 0; ks < HD / 16; ++ks) {
-    qf[ks][0] = ra < Lq ? pa[ks * 8 + t] : 0u;       // row g,     k 2t, 2t+1
-    qf[ks][1] = rb < Lq ? pb[ks * 8 + t] : 0u;       // row g + 8, k 2t, 2t+1
-    qf[ks][2] = ra < Lq ? pa[ks * 8 + 4 + t] : 0u;   // row g,     k 2t+8, 2t+9
-    qf[ks][3] = rb < Lq ? pb[ks * 8 + 4 + t] : 0u;   // row g + 8, k 2t+8, 2t+9
+    const bool lo = ks * 16 < hd, hi = ks * 16 + 8 < hd;
+    qf[ks][0] = ra < Lq && lo ? pa[ks * 8 + t] : 0u;       // row g,     k 2t, 2t+1
+    qf[ks][1] = rb < Lq && lo ? pb[ks * 8 + t] : 0u;       // row g + 8, k 2t, 2t+1
+    qf[ks][2] = ra < Lq && hi ? pa[ks * 8 + 4 + t] : 0u;   // row g,     k 2t+8, 2t+9
+    qf[ks][3] = rb < Lq && hi ? pb[ks * 8 + 4 + t] : 0u;   // row g + 8, k 2t+8, 2t+9
   }
 }
 
-// Rows j0 .. j0+R-1 of a [L, HD] head (rows sl elements apart) into R
-// shared rows of HD + 8 elements; rows at or past L are zeroed.
-template <int HD, int R, typename T>
+// Rows j0 .. j0+R-1 of a [L, hd] head (rows sl elements apart) into R
+// shared rows of HD + 8 elements; rows at or past L and, PAD, columns at or
+// past hd are zeroed by the copy (src-size 0, nothing read).
+template <int HD, int R, bool PAD, typename T>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int sl,
-                                          int j0, int L, int tid) {
+                                          int j0, int L, int hd, int tid) {
   constexpr int kChunks = HD / 8;
   for (int idx = tid; idx < R * kChunks; idx += kTcThreads) {
     const int r = idx / kChunks, c = idx - r * kChunks;
-    const bool ok = j0 + r < L;
-    cp_async16(dst + r * (HD + 8) + c * 8, src + (size_t)(ok ? j0 + r : 0) * sl + c * 8,
-               ok ? 16 : 0);
+    const bool ok = j0 + r < L && (!PAD || c * 8 < hd);
+    cp_async16(dst + r * (HD + 8) + c * 8,
+               src + (size_t)(ok ? j0 + r : 0) * sl + (PAD && !ok ? 0 : c * 8), ok ? 16 : 0);
   }
 }
 
@@ -182,10 +222,11 @@ __device__ __forceinline__ void qk_tile(float (&s)[NT][4], const uint32_t (&qf)[
   }
 }
 
-// o += P . V over the tile's NT * 8 keys: pa[m] holds keys 16m .. 16m+15 of
-// this warp's 16 rows as an A fragment; vs: the V tile, rows of HD + 8.
-template <int HD, int NT, typename T>
-__device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const uint32_t (&pa)[NT / 2][4],
+// o += P . V over the tile's NT * 8 keys, for COLS columns of V: pa[m]
+// holds keys 16m .. 16m+15 of this warp's 16 rows as an A fragment; vs: the
+// V tile's first column of the COLS, rows of HD + 8.
+template <int HD, int NT, typename T, int COLS = HD>
+__device__ __forceinline__ void pv_tile(float (&o)[COLS / 8][4], const uint32_t (&pa)[NT / 2][4],
                                         const T* vs, int lane) {
   // ldmatrix.x4.trans matrices: keys +0..7 and +8..15 at columns +0..7 (b0,
   // b1 of column tile 2d), the same keys at columns +8..15 (tile 2d + 1)
@@ -193,7 +234,7 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const uint32_t (&
 #pragma unroll
   for (int m = 0; m < NT / 2; ++m) {
 #pragma unroll
-    for (int d = 0; d < HD / 16; ++d) {
+    for (int d = 0; d < COLS / 16; ++d) {
       uint32_t b[4];
       ldsm_x4_trans(b, vs + (m * 16 + vr) * (HD + 8) + d * 16 + vc);
       mma16<T>(o[2 * d], pa[m][0], pa[m][1], pa[m][2], pa[m][3], b[0], b[1]);
@@ -203,15 +244,16 @@ __device__ __forceinline__ void pv_tile(float (&o)[HD / 8][4], const uint32_t (&
 }
 
 // The warp's output rows (row0 + g and row0 + g + 8, those below Lq) as T
-// (bf16 or fp16, or fp32 for csrc/attention_tf32.cuh). o: the head's row 0, rows sl
-// elements apart.
+// (bf16 or fp16, or fp32 for csrc/attention_tf32.cuh), columns below hd
+// only. o: the head's row 0, rows sl elements apart.
 template <int HD, typename T>
-__device__ __forceinline__ void store_rows(T* o, int sl, int row0, int Lq,
+__device__ __forceinline__ void store_rows(T* o, int sl, int row0, int Lq, int hd,
                                            const float (&acc)[HD / 8][4], int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int ra = row0 + g, rb = ra + 8;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) {
+    if (n * 8 >= hd) break;
     if (ra < Lq) store2(o + (size_t)ra * sl + n * 8 + 2 * t, acc[n][0], acc[n][1]);
     if (rb < Lq) store2(o + (size_t)rb * sl + n * 8 + 2 * t, acc[n][2], acc[n][3]);
   }

@@ -21,40 +21,50 @@
 // past Lk are simply absent (the TPU wrapper pads them with NEG_INF, which
 // adds exact zeros unless a row's keys are all masked).
 //
-// bf16 or fp16 at head dim 64 or 96: streaming_mma_kernel, on the tensor
-// cores (csrc/attention_tiles.cuh; fp16 on the f16 form of the same
-// mma.sync, p rounded to fp16 before PV). A block takes 64 query rows, 16
-// per warp, with q in registers as mma A fragments and m, l and acc in registers
-// (two rows a lane); per 128-key block: s = QK^T on mma.sync, scale and
-// key bias (__fmul_rn/__fadd_rn), row max and sum by quad shuffles, the
-// unnormalized p rounded to T as PV's A fragments, pv = PV on mma.sync
-// into its own fp32 fragment, then acc = acc * alpha + pv as the TPU kernel
-// orders it. K, V and the key biases arrive through a two-stage cp.async
-// ring (107 KB at hd 96, 73 KB at hd 64); the only block barrier per key
-// block is the ring's. Keys past Lk get s = -inf (exact zeros after the
-// exp) and zeroed K/V rows; query rows past Lq read zeros and are never
-// stored.
+// Which kernel runs is decided by tile_head_dim alone (csrc/
+// attention_tiles.cuh, exported as hr_streaming_instance): every head dim
+// up to 128 runs on the tensor cores at the tile instance HD, the smallest
+// of 32, 64, 96 and 128 at or above hd (hd 8-32 at 32, 40-64 at 64, 72-96
+// at 96, 104-128 at 128). A head dim below its instance runs on the
+// instance's padded form (with_tile), zero-padded to HD inside the tile,
+// never in device memory: load_q and the cp.async copies of K and V fill
+// zeros past hd, and store_rows stores no column past hd; the unpadded form
+// takes hd as the constant HD.
+//
+// bf16 or fp16: streaming_mma_kernel, on the tensor cores
+// (csrc/attention_tiles.cuh; fp16 on the f16 form of the same mma.sync, p
+// rounded to fp16 before PV). A block takes 64 query rows, 16 per warp,
+// with q in registers as mma A fragments and m, l and acc in registers
+// (two rows a lane); per 128-key block: s = QK^T on mma.sync, scale and key
+// bias (__fmul_rn/__fadd_rn), row max and sum by quad shuffles, the
+// unnormalized p rounded to T as PV's A fragments, pv = PV on mma.sync into
+// its own fp32 fragment, then acc = acc * alpha + pv as the TPU kernel
+// orders it; at HD 128 PV runs in two passes of 64 columns, each into its
+// own fragment, so that pv, acc, q and p fit 255 registers. K, V and the key
+// biases arrive through a two-stage cp.async ring (41 KB at HD 32, 73 KB at
+// 64, 105 KB at 96, 137 KB at 128); the only block barrier per key block is
+// the ring's. Keys past Lk get s = -inf (exact zeros after the exp) and
+// zeroed K/V rows; query rows past Lq read zeros and are never stored.
 // What bounds it (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py): the
-// softmax's work per score on the FMA and MUFU pipes, with two blocks an
-// SM (255 registers at hd 96) to hide it. At B=2 2249^2 8x96 it takes 0.23
+// softmax's work per score on the FMA and MUFU pipes, with two or three
+// blocks an SM (168 registers at HD 96, 255 at 128) to hide it. At B=2 2249^2 8x96 it takes 0.23
 // ms against a 0.031 ms bound (the bf16 operations) and 0.26 ms for SDPA.
 // The CUDA-core kernel that this replaces took 2.70 ms.
 //
-// fp32 at head dim 64 or 96: attn_tf32_kernel<HD, false, true>
-// (csrc/attention_tf32.cuh), the same online softmax on mma.sync.m16n8k8 in
-// 3xTF32: each fp32 operand is split into two TF32 parts and a product
-// takes three mma, which keeps about 2^-20 of each product. One TF32
-// product (2^-11) does not hold the fp32 trees' 1e-4 at large scores
-// (chip_tf32_terms.py), and fp32 FMAs run at a seventh of the TF32 rate. It
-// steps every 32 keys: nothing is rounded to a narrower type between fp32
-// steps, so only fp32 rounding moves. At B=2 2249^2 8x96 it takes about
-// 0.66 ms against SDPA's 1.10 (chip_smoke.py), where the CUDA-core kernel
-// below took 3.60.
+// fp32: attn_tf32_kernel<HD, false, true> (csrc/attention_tf32.cuh) at the
+// same instances, the same online softmax on mma.sync.m16n8k8 in 3xTF32:
+// each fp32 operand is split into two TF32 parts and a product takes three
+// mma, which keeps about 2^-20 of each product. One TF32 product (2^-11)
+// does not hold the fp32 trees' 1e-4 at large scores (chip_tf32_terms.py),
+// and fp32 FMAs run at a seventh of the TF32 rate. It steps every 32 keys:
+// nothing is rounded to a narrower type between fp32 steps, so only fp32
+// rounding moves. At B=2 2249^2 8x96 it takes about 0.66 ms against SDPA's
+// 1.10 (chip_smoke.py), where the CUDA-core kernel below took 3.60.
 //
-// Other head dims, bf16, fp16 or fp32: streaming_attn_kernel on CUDA cores, one
-// block per (tile of kQT = 16 query rows, head, batch element), 4*hd
-// threads; 8 KB of scores and 16*hd floats of queries in shared memory; m
-// and l in shared memory, three block barriers per key block.
+// Head dims 136-256, bf16, fp16 or fp32: streaming_attn_kernel on CUDA
+// cores, one block per (tile of kQT = 16 query rows, head, batch element),
+// 4*hd threads; 8 KB of scores and 16*hd floats of queries in shared
+// memory; m and l in shared memory, three block barriers per key block.
 #include "attention_tf32.cuh"
 
 namespace hr {
@@ -185,14 +195,20 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
 
 __host__ __device__ constexpr int mma_stage_bytes(int hd) { return 2 * kBK * (hd + 8) * 2 + kBK * 4; }
 
-template <int HD, typename T>
-__global__ void __launch_bounds__(kTcThreads)
+// PAD: the head dim head_dim is below HD (csrc/attention_tiles.cuh); without
+// it the head dim is HD. At HD 32 ptxas left alone takes 128 registers and
+// spills; two blocks an SM let it take 204 and spill nothing (0 leaves the
+// other instances to ptxas, as they were).
+template <int HD, bool PAD, typename T>
+__global__ void __launch_bounds__(kTcThreads, HD == 32 ? 2 : 0)
     streaming_mma_kernel(const T* __restrict__ q, int q_sb, int q_sh, int q_sl,
                          const T* __restrict__ k, int k_sb, int k_sh, int k_sl,
                          const T* __restrict__ v, int v_sb, int v_sh, int v_sl,
                          int Lq, int Lk, float scale, const float* __restrict__ kbias,
-                         T* __restrict__ out, int o_sb, int o_sh, int o_sl) {
+                         T* __restrict__ out, int o_sb, int o_sh, int o_sl, int head_dim) {
   constexpr int NT = kBK / 8;  // n-tiles of a score block
+  const int hd = PAD ? head_dim : HD;
+  constexpr int kPvCols = HD > 96 ? 64 : HD;  // columns of one PV pass
   constexpr int kStage = mma_stage_bytes(HD);
   extern __shared__ __align__(16) unsigned char ring[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -209,15 +225,15 @@ __global__ void __launch_bounds__(kTcThreads)
   const int nblocks = (Lk + kBK - 1) / kBK;
   auto issue = [&](int it) {
     const int st = it & 1, j0 = it * kBK;
-    load_rows<HD, kBK>(Ks(st), kh, k_sl, j0, Lk, tid);
-    load_rows<HD, kBK>(Vs(st), vh, v_sl, j0, Lk, tid);
+    load_rows<HD, kBK, PAD>(Ks(st), kh, k_sl, j0, Lk, hd, tid);
+    load_rows<HD, kBK, PAD>(Vs(st), vh, v_sl, j0, Lk, hd, tid);
     load_bias<kBK>(Bs(st), kb, j0, Lk, tid);
     cp_async_commit();
   };
   issue(0);
 
   uint32_t qf[HD / 16][4];
-  load_q<HD>(qf, q + (size_t)b * q_sb + (size_t)h * q_sh, q_sl, row0, Lq, lane);
+  load_q<HD>(qf, q + (size_t)b * q_sb + (size_t)h * q_sh, q_sl, row0, Lq, hd, lane);
   float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
   float acc[HD / 8][4];
 #pragma unroll
@@ -266,54 +282,57 @@ __global__ void __launch_bounds__(kTcThreads)
       pa[n >> 1][2 * (n & 1)] = pack2<T>(s[n][0], s[n][1]);
       pa[n >> 1][2 * (n & 1) + 1] = pack2<T>(s[n][2], s[n][3]);
     }
-    float pv[HD / 8][4];
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
-    pv_tile<HD, NT>(pv, pa, Vs(st), lane);
+    for (int c0 = 0; c0 < HD; c0 += kPvCols) {
+      float pv[kPvCols / 8][4];
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+      for (int n = 0; n < kPvCols / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+      pv_tile<HD, NT, T, kPvCols>(pv, pa, Vs(st) + c0, lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], alpha[e >> 1]), pv[n][e]);
+      for (int n = 0; n < kPvCols / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[c0 / 8 + n][e] = __fadd_rn(__fmul_rn(acc[c0 / 8 + n][e], alpha[e >> 1]), pv[n][e]);
+    }
   }
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = __fdiv_rn(acc[n][e], l[e >> 1]);
-  store_rows<HD>(out + (size_t)b * o_sb + (size_t)h * o_sh, o_sl, row0, Lq, acc, lane);
+  store_rows<HD>(out + (size_t)b * o_sb + (size_t)h * o_sh, o_sl, row0, Lq, hd, acc, lane);
 }
 
-template <int HD, typename T>
+template <int HD, bool PAD, typename T>
 void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
                 int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq,
-                int Lk, float scale, const void* kbias, void* out, int o_sb, int o_sh, int o_sl,
-                cudaStream_t stream) {
+                int Lk, int hd, float scale, const void* kbias, void* out, int o_sb, int o_sh,
+                int o_sl, cudaStream_t stream) {
   constexpr int smem = 2 * mma_stage_bytes(HD);
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
-    cudaFuncSetAttribute(streaming_mma_kernel<HD, T>,
+    cudaFuncSetAttribute(streaming_mma_kernel<HD, PAD, T>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     attr_set = true;
   }
   dim3 grid(B, (Lq + kTcRows - 1) / kTcRows, H);
-  streaming_mma_kernel<HD, T><<<grid, kTcThreads, smem, stream>>>(
+  streaming_mma_kernel<HD, PAD, T><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
       static_cast<const T*>(v), v_sb, v_sh, v_sl, Lq, Lk, scale,
-      static_cast<const float*>(kbias), static_cast<T*>(out), o_sb, o_sh, o_sl);
+      static_cast<const float*>(kbias), static_cast<T*>(out), o_sb, o_sh, o_sl, hd);
 }
 
-// The tensor-core launch at head dim 64 or 96 on 16-bit q/k/v/out of type T.
+// The tensor-core launch at the instance that serves head dim hd (<= 128)
+// on 16-bit q/k/v/out of type T.
 template <typename T>
-void launch_mma_hd(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb,
-                   int k_sh, int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H,
-                   int Lq, int Lk, int hd, float scale, const void* kbias, void* out, int o_sb,
-                   int o_sh, int o_sl, cudaStream_t s) {
-  if (hd == 64)
-    launch_mma<64, T>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq,
-                      Lk, scale, kbias, out, o_sb, o_sh, o_sl, s);
-  else
-    launch_mma<96, T>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq,
-                      Lk, scale, kbias, out, o_sb, o_sh, o_sl, s);
+void launch_mma_tile(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb,
+                     int k_sh, int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B,
+                     int H, int Lq, int Lk, int hd, float scale, const void* kbias, void* out,
+                     int o_sb, int o_sh, int o_sl, cudaStream_t s) {
+  with_tile(hd, [&](auto HD, auto PAD) {
+    launch_mma<decltype(HD)::value, decltype(PAD)::value, T>(
+        q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk, hd, scale,
+        kbias, out, o_sb, o_sh, o_sl, s);
+  });
 }
 
 }  // namespace hr
@@ -322,37 +341,43 @@ using namespace hr;
 
 extern "C" {
 
+// The tile head dim of the instance that serves head dim hd, or 0 for the
+// CUDA-core kernel.
+int hr_streaming_instance(int hd) { return tile_head_dim(hd); }
+
 // Operands as in hr_onepass_attention (csrc/wavlm_attention.cu), without a
 // gate. Needs Lk >= 1, hd % 8 == 0 and hd <= 256 (blockDim 4*hd of the
-// CUDA-core kernel, whose shared memory stays under 48 KB). hd 64/96:
-// streaming_mma_kernel (bf16, fp16) or attn_tf32_kernel (fp32); other head
-// dims: streaming_attn_kernel. dtype: kDtBf16, kDtF32 or kDtF16.
+// CUDA-core kernel, whose shared memory stays under 48 KB). Runs the
+// instance of hr_streaming_instance: streaming_mma_kernel (bf16, fp16) or
+// attn_tf32_kernel (fp32), or streaming_attn_kernel on CUDA cores, which
+// cuda_cores = 1 takes at any head dim (to time it beside the tile
+// kernels). dtype: kDtBf16, kDtF32 or kDtF16.
 int hr_streaming_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                            int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                            int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
                            const void* kbias, void* out, int o_sb, int o_sh, int o_sl,
-                           void* stream) {
+                           int cuda_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  const bool tc = hd == 64 || hd == 96;
-  if (dtype == kDtF32 && tc) {
+  const int inst = cuda_cores ? 0 : tile_head_dim(hd);
+  if (inst && dtype == kDtF32) {
     Tf32Args a{};
     a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);
     a.v = static_cast<const float*>(v);
     a.q_sb = q_sb, a.q_sh = q_sh, a.q_sl = q_sl, a.k_sb = k_sb, a.k_sh = k_sh, a.k_sl = k_sl;
-    a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = scale;
-    a.kbias = static_cast<const float*>(kbias), a.out = static_cast<float*>(out);
-    a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
-    if (hd == 64) launch_attn_tf32<64, false, true>(a, B, s);
-    else launch_attn_tf32<96, false, true>(a, B, s);
+    a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.hd = hd;
+    a.scale = scale, a.kbias = static_cast<const float*>(kbias);
+    a.out = static_cast<float*>(out), a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
+    launch_attn_tf32_tile<true>(a, B, s);
     return (int)cudaGetLastError();
   }
-  if (tc && dtype == kDtF16)
-    launch_mma_hd<__half>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
-                          Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
-  else if (tc)
-    launch_mma_hd<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl,
-                                 B, H, Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
+  if (inst && dtype == kDtF16)
+    launch_mma_tile<__half>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B,
+                            H, Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl, s);
+  else if (inst)
+    launch_mma_tile<__nv_bfloat16>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh,
+                                   v_sl, B, H, Lq, Lk, hd, scale, kbias, out, o_sb, o_sh, o_sl,
+                                   s);
   else if (dtype == kDtF32)
     launch<float>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
                   hd, scale, kbias, out, o_sb, o_sh, o_sl, s);

@@ -31,8 +31,9 @@
 // past Lq read zeros and are never stored; a row whose keys are all masked
 // (every key bias -1e9) comes out as a finite average of v.
 // Shared memory does not grow with Lk: a two-stage cp.async ring of K, V,
-// the key biases and (gated) the [64, 64] pos tile, 55 KB at hd 64 and
-// 72 KB at hd 96, so three or four blocks share an SM. pos rows are only
+// the key biases and (gated) the [64, 64] pos tile: gated 55 KB at HD 64
+// and 72 KB at HD 96, ungated 21 KB at HD 32 and 69 KB at HD 128, so three
+// or more blocks share an SM. pos rows are only
 // 2-byte aligned at odd Lk, so each row is copied from the 16-byte boundary
 // below its first key and read at its offset (e & 7) in shared memory,
 // without a padded copy in device memory. Blocks run batch element
@@ -71,12 +72,13 @@ struct OnepassArgsT {
   const float* kbias;                       // kKeysBias: [B, Lk] fp32 additive
   const uint8_t* kpm;                       // kKeysPad: [B, Lk] bool or NULL
   const float* gate;                        // kGateArray: [B, H, Lq] fp32
-  const void* x;                            // kGateFromX: [B*Lq, x_ld], head h at column h*HD,
+  const void* x;                            // kGateFromX: [B*Lq, x_ld], head h at column h*hd,
   int x_ld, x_f32;                          //   bf16, or fp32 when x_f32
-  const float *wg, *bg, *gconst;            // [8, HD], [8], [H]
+  const float *wg, *bg, *gconst;            // [8, hd], [8], [H]
   const T* pos;                             // gated: [H, Lq, Lk]
   T* out;
   int o_sb, o_sh, o_sl;
+  int hd;                                   // the head dim (padded instances: below HD)
 };
 using OnepassArgs = OnepassArgsT<__nv_bfloat16>;  // the int8 route's
 
@@ -110,9 +112,12 @@ __device__ __forceinline__ float wavlm_gate(const T* xr, const float* wg, const 
   return __fadd_rn(__fmul_rn(ga, __fadd_rn(__fmul_rn(gb, c_h), -1.0f)), 2.0f);
 }
 
-template <typename T, int HD, int GATE, int KEYS>
+// PAD: the head dim a.hd is below HD (csrc/attention_tiles.cuh); without it
+// the head dim is HD.
+template <typename T, int HD, int GATE, int KEYS, bool PAD>
 __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassArgsT<T> a) {
   constexpr int NT = kOneBK / 8;  // n-tiles of a score tile
+  const int hd = PAD ? a.hd : HD;
   constexpr bool kGated = GATE != kNoGate;
   constexpr int kStage = mma_stage_bytes(HD, kGated);
   extern __shared__ __align__(16) unsigned char ring[];
@@ -138,8 +143,8 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
   // step it: tile it % ntiles of sweep it / ntiles (V only in sweep 2)
   auto issue = [&](int it) {
     const int st = it & 1, j0 = (it % ntiles) * kOneBK;
-    load_rows<HD, kOneBK>(Ks(st), kh, a.k_sl, j0, Lk, tid);
-    if (it >= ntiles) load_rows<HD, kOneBK>(Vs(st), vh, a.v_sl, j0, Lk, tid);
+    load_rows<HD, kOneBK, PAD>(Ks(st), kh, a.k_sl, j0, Lk, hd, tid);
+    if (it >= ntiles) load_rows<HD, kOneBK, PAD>(Vs(st), vh, a.v_sl, j0, Lk, hd, tid);
     if (KEYS == kKeysBias) load_bias<kOneBK>(Bs(st), a.kbias + krow0, j0, Lk, tid);
     if (kGated) {
       // row r from the 16-byte boundary at or below its key j0
@@ -164,7 +169,7 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
   issue(0);
 
   uint32_t qf[HD / 16][4];
-  load_q<HD>(qf, qh, a.q_sl, row0, Lq, lane);
+  load_q<HD>(qf, qh, a.q_sl, row0, Lq, hd, lane);
   // this lane's rows g and g + 8: gate, and the column of key 0 in its
   // realigned pos row
   float gt[2] = {0.f, 0.f};
@@ -179,11 +184,11 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
   if (GATE == kGateFromX) {
 #pragma unroll 1
     for (int r = 0; r < 16 && row0 + r < Lq; ++r) {  // warp-uniform
-      const size_t xo = ((size_t)b * Lq + row0 + r) * a.x_ld + h * HD;
+      const size_t xo = ((size_t)b * Lq + row0 + r) * a.x_ld + h * hd;
       const float gr = a.x_f32 ? wavlm_gate(static_cast<const float*>(a.x) + xo, a.wg, a.bg,
-                                            a.gconst[h], HD, lane)
+                                            a.gconst[h], hd, lane)
                                : wavlm_gate(static_cast<const __nv_bfloat16*>(a.x) + xo, a.wg,
-                                            a.bg, a.gconst[h], HD, lane);
+                                            a.bg, a.gconst[h], hd, lane);
       if (r == g) gt[0] = gr;
       if (r == g + 8) gt[1] = gr;
     }
@@ -252,7 +257,8 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
       pv_tile<HD, NT>(o, pa, Vs(st), lane);
     }
   }
-  store_rows<HD>(a.out + (size_t)b * a.o_sb + (size_t)h * a.o_sh, a.o_sl, row0, Lq, o, lane);
+  store_rows<HD>(a.out + (size_t)b * a.o_sb + (size_t)h * a.o_sh, a.o_sl, row0, Lq, hd, o,
+                 lane);
 }
 
 // The launch helpers keep a per-library flag for the shared-memory opt-in:
@@ -261,18 +267,18 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
 // and the second library's kernel would never opt in.
 namespace {
 
-template <int HD, int GATE, int KEYS, typename T>
+template <int HD, int GATE, int KEYS, bool PAD = false, typename T>
 void launch_onepass_mma(const OnepassArgsT<T>& a, int B, cudaStream_t stream) {
   constexpr int smem = 2 * mma_stage_bytes(HD, GATE != kNoGate);
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
-    cudaFuncSetAttribute(onepass_mma_kernel<T, HD, GATE, KEYS>,
+    cudaFuncSetAttribute(onepass_mma_kernel<T, HD, GATE, KEYS, PAD>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     attr_set = true;
   }
   // batch element fastest: the blocks that read one pos tile run together
   dim3 grid(B, (a.Lq + kTcRows - 1) / kTcRows, a.H);
-  onepass_mma_kernel<T, HD, GATE, KEYS><<<grid, kTcThreads, smem, stream>>>(a);
+  onepass_mma_kernel<T, HD, GATE, KEYS, PAD><<<grid, kTcThreads, smem, stream>>>(a);
 }
 
 // The launch for head dim hd (64 or 96, the caller checks) and the gate

@@ -15,12 +15,23 @@
 //   hriemo/ops/flash_attention_pallas.py::_onepass_kernel, gate = pos = NULL,
 //     routed for 1024 <= Lq and 1024 <= Lk <= 2048.
 //
-// bf16 or fp16 at head dim 64 (WavLM) or 96 (fusion): onepass_mma_kernel
-// on the tensor cores, the two-sweep kernel of csrc/onepass_mma.cuh, with
-// the gate read from its [B, H, Lq] array; fp16 on the f16 form of the same
-// mma.sync, with the bf16 numerics (p / l rounded to fp16 before PV). What bounds it (NVIDIA H100 80GB HBM3 at
-// 700 W, chip_smoke.py): the per-score work on the FMA and MUFU pipes, about
-// 35 instructions a score, so a 16x8 block of scores costs some 140 warp
+// Which kernel runs is decided by onepass_instance alone (exported as
+// hr_onepass_instance): without a gate, every head dim up to 128 runs on
+// the tensor cores at the tile instance HD = tile_head_dim(hd), the
+// smallest of 32, 64, 96 and 128 at or above hd (hd 8-32 at 32, 40-64 at
+// 64, 72-96 at 96, 104-128 at 128); the gate runs there only at its own
+// instances' head dims, 64 (WavLM) and 96. A head dim below its instance
+// runs on the instance's padded form (with_tile), zero-padded to HD inside
+// the tile, never in device memory: load_q and the cp.async copies of K
+// and V fill zeros past hd, and store_rows stores no column past hd
+// (csrc/attention_tiles.cuh); the unpadded form takes hd as the constant HD.
+//
+// bf16 or fp16: onepass_mma_kernel on the tensor cores, the two-sweep kernel
+// of csrc/onepass_mma.cuh, with the gate read from its [B, H, Lq] array;
+// fp16 on the f16 form of the same mma.sync, with the bf16 numerics (p / l
+// rounded to fp16 before PV). What bounds it (NVIDIA H100 80GB HBM3 at 700
+// W, chip_smoke.py): the per-score work on the FMA and MUFU pipes, about 35
+// instructions a score, so a 16x8 block of scores costs some 140 warp
 // instructions beside its 12 mma.sync at hd 64. At B=2 L=1499 the gated
 // launch takes 0.26 ms against a 0.022 ms bound (the bytes). It took 0.35 ms
 // with __fdiv_rn, which branches to a slow path after every division, and
@@ -28,7 +39,7 @@
 // registers at hd 64, so four fit on an SM, and 576 blocks make 1.1 waves
 // there.
 //
-// fp32 at head dim 64 or 96: attn_tf32_kernel (csrc/attention_tf32.cuh),
+// fp32: attn_tf32_kernel (csrc/attention_tf32.cuh) at the same instances,
 // the same two sweeps on mma.sync.m16n8k8 in 3xTF32: each fp32 operand is
 // split into two TF32 parts and a product takes three mma, which keeps
 // about 2^-20 of each product. One TF32 product (2^-11) does not hold the
@@ -37,9 +48,12 @@
 // B=2 1499^2 8x96 it takes about 0.42 ms against SDPA's 0.45 (chip_smoke.py),
 // where the CUDA-core kernel below took 1.85.
 //
-// Other head dims (hd % 8 == 0, hd <= 256), bf16, fp16 or fp32:
-// onepass_attn_kernel on CUDA cores, one block per 16 query rows with the
-// fp32 score panel [16, Lk] in up to 227 KB of shared memory:
+// Head dims 136-256 without a gate, and the gate at head dims other than 64
+// and 96 (hd % 8 == 0, hd <= 256), bf16, fp16 or fp32: onepass_attn_kernel
+// on CUDA cores, one block per 16 query rows with the fp32 score panel
+// [16, Lk] in up to 227 KB of shared memory, RG * hd threads (RG = 4 row
+// groups up to hd 128, 2 beyond: 1024 threads at its 103 registers do not
+// fit an SM's 65536):
 //   1. the query tile goes to shared memory as fp32, with its 16 gates;
 //   2. scores: each thread owns one key at a time and dots it with all 16
 //      query rows (fp32 sums of the products), multiplies by scale, then
@@ -52,10 +66,11 @@
 namespace hr {
 
 constexpr int kQT = 16;                 // query rows per block (CUDA cores)
-constexpr int kRG = 4;                  // row groups in PV: blockDim = kRG * hd
 constexpr int kMaxSmem = 227 * 1024;    // H100 dynamic shared memory per block
 
-template <typename T>
+// RG: row groups in PV, RG * hd threads of the block (rounded up to whole
+// warps; the rest take no part in PV).
+template <typename T, int RG>
 __global__ void onepass_attn_kernel(const T* __restrict__ q, int q_sb, int q_sh, int q_sl,
                                     const T* __restrict__ k, int k_sb, int k_sh, int k_sl,
                                     const T* __restrict__ v, int v_sb, int v_sh, int v_sl,
@@ -128,8 +143,9 @@ __global__ void onepass_attn_kernel(const T* __restrict__ q, int q_sb, int q_sh,
   }
   __syncthreads();
 
-  constexpr int kRPT = kQT / kRG;  // rows per thread
+  constexpr int kRPT = kQT / RG;  // rows per thread
   const int d = tid % hd, rg = tid / hd;
+  if (rg >= RG) return;
   float acc[kRPT];
 #pragma unroll
   for (int i = 0; i < kRPT; ++i) acc[i] = 0.f;
@@ -138,14 +154,33 @@ __global__ void onepass_attn_kernel(const T* __restrict__ q, int q_sb, int q_sh,
   for (int j = 0; j < Lk; ++j) {
     const float vv = load_f(vc + (size_t)j * v_sl);
 #pragma unroll
-    for (int i = 0; i < kRPT; ++i) acc[i] += S[(rg + kRG * i) * Lk + j] * vv;
+    for (int i = 0; i < kRPT; ++i) acc[i] += S[(rg + RG * i) * Lk + j] * vv;
   }
   T* oh = out + (size_t)b * o_sb + (size_t)h * o_sh + d;
 #pragma unroll
   for (int i = 0; i < kRPT; ++i) {
-    const int r = rg + kRG * i;
+    const int r = rg + RG * i;
     if (r < nq) oh[(size_t)(i0 + r) * o_sl] = from_f<T>(acc[i]);
   }
+}
+
+template <typename T, int RG>
+void launch_rg(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
+               int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq,
+               int Lk, int hd, float scale, const void* kbias, const void* gate, const void* pos,
+               void* out, int o_sb, int o_sh, int o_sl, int smem, cudaStream_t stream) {
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaFuncSetAttribute(onepass_attn_kernel<T, RG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMaxSmem);
+    attr_set = true;
+  }
+  dim3 grid((Lq + kQT - 1) / kQT, H, B);
+  onepass_attn_kernel<T, RG><<<grid, (RG * hd + 31) / 32 * 32, smem, stream>>>(
+      static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
+      static_cast<const T*>(v), v_sb, v_sh, v_sl, H, Lq, Lk, hd, scale,
+      static_cast<const float*>(kbias), static_cast<const float*>(gate),
+      static_cast<const T*>(pos), static_cast<T*>(out), o_sb, o_sh, o_sl);
 }
 
 template <typename T>
@@ -153,23 +188,19 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
             int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq, int Lk,
             int hd, float scale, const void* kbias, const void* gate, const void* pos, void* out,
             int o_sb, int o_sh, int o_sl, int smem, cudaStream_t stream) {
-  static bool attr_set = false;  // one per instantiation
-  if (!attr_set) {
-    cudaFuncSetAttribute(onepass_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kMaxSmem);
-    attr_set = true;
-  }
-  dim3 grid((Lq + kQT - 1) / kQT, H, B);
-  onepass_attn_kernel<T><<<grid, kRG * hd, smem, stream>>>(
-      static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
-      static_cast<const T*>(v), v_sb, v_sh, v_sl, H, Lq, Lk, hd, scale,
-      static_cast<const float*>(kbias), static_cast<const float*>(gate),
-      static_cast<const T*>(pos), static_cast<T*>(out), o_sb, o_sh, o_sl);
+  const auto fn = hd <= 128 ? &launch_rg<T, 4> : &launch_rg<T, 2>;
+  fn(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk, hd, scale, kbias,
+     gate, pos, out, o_sb, o_sh, o_sl, smem, stream);
 }
 
-bool on_tensor_cores(int hd) { return hd == 64 || hd == 96; }
+// The tile instance (its head dim HD) that serves head dim hd, or 0 for the
+// CUDA-core kernel: the gated core is instantiated at 64 and 96 only.
+int onepass_instance(int hd, bool gated) {
+  return gated && hd != 64 && hd != 96 ? 0 : tile_head_dim(hd);
+}
 
-// The tensor-core launch on 16-bit q/k/v/pos/out of type T.
+// The tensor-core launch on 16-bit q/k/v/pos/out of type T: the gated core
+// at hd 64 or 96, the ungated one at the instance that serves hd.
 template <typename T>
 void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
                 int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq,
@@ -178,14 +209,17 @@ void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int 
   OnepassArgsT<T> a{};
   a.q = static_cast<const T*>(q), a.k = static_cast<const T*>(k), a.v = static_cast<const T*>(v);
   a.q_sb = q_sb, a.q_sh = q_sh, a.q_sl = q_sl, a.k_sb = k_sb, a.k_sh = k_sh, a.k_sl = k_sl;
-  a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = scale;
-  a.kbias = static_cast<const float*>(kbias), a.gate = static_cast<const float*>(gate);
+  a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.hd = hd;
+  a.scale = scale, a.kbias = static_cast<const float*>(kbias);
+  a.gate = static_cast<const float*>(gate);
   a.pos = static_cast<const T*>(pos), a.out = static_cast<T*>(out);
   a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
-  if (hd == 64 && gate != nullptr) launch_onepass_mma<64, kGateArray, kKeysBias>(a, B, s);
-  else if (hd == 64) launch_onepass_mma<64, kNoGate, kKeysBias>(a, B, s);
+  if (gate != nullptr && hd == 64) launch_onepass_mma<64, kGateArray, kKeysBias>(a, B, s);
   else if (gate != nullptr) launch_onepass_mma<96, kGateArray, kKeysBias>(a, B, s);
-  else launch_onepass_mma<96, kNoGate, kKeysBias>(a, B, s);
+  else
+    with_tile(hd, [&](auto HD, auto PAD) {
+      launch_onepass_mma<decltype(HD)::value, kNoGate, kKeysBias, decltype(PAD)::value>(a, B, s);
+    });
 }
 
 }  // namespace hr
@@ -194,12 +228,17 @@ using namespace hr;
 
 extern "C" {
 
-// Shared memory one block needs (the gated launch's, the larger); the
-// caller refuses shapes above kMaxSmem, which only the CUDA-core kernel's
-// score panel can reach. dtype: kDtBf16, kDtF32 or kDtF16.
-int hr_onepass_smem_bytes(int dtype, int Lk, int hd) {
-  if (on_tensor_cores(hd))
-    return dtype == kDtF32 ? tf32_smem_bytes(hd, true) : 2 * mma_stage_bytes(hd, true);
+// The tile head dim of the instance that serves head dim hd with (gated =
+// 1) or without a gate, or 0 for the CUDA-core kernel.
+int hr_onepass_instance(int hd, int gated) { return onepass_instance(hd, gated != 0); }
+
+// Shared memory one block of hr_onepass_attention needs, with the same
+// cuda_cores; the caller refuses shapes above kMaxSmem, which only the
+// CUDA-core kernel's score panel can reach. dtype: kDtBf16, kDtF32 or kDtF16.
+int hr_onepass_smem_bytes(int dtype, int Lk, int hd, int gated, int cuda_cores) {
+  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated != 0);
+  if (inst)
+    return dtype == kDtF32 ? tf32_smem_bytes(inst, gated) : 2 * mma_stage_bytes(inst, gated);
   return (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
 }
 
@@ -208,32 +247,36 @@ int hr_onepass_max_smem_bytes() { return kMaxSmem; }
 // q/k/v/out: element (b, h, i, d) at b*sb + h*sh + i*sl + d, each row 16-byte
 // aligned; dtype (kDtBf16, kDtF32, kDtF16) is the type of q/k/v/out/pos.
 // kbias [B, Lk] fp32 additive. gate [B, H, Lq] fp32 and pos [H, Lq, Lk], or
-// both NULL for no gate. Needs hd % 8 == 0 and hd <= 256 (blockDim 4*hd of
-// the CUDA-core kernel). bf16 and fp16 at hd 64/96: onepass_mma_kernel;
-// fp32 there: attn_tf32_kernel; other head dims: onepass_attn_kernel.
+// both NULL for no gate. Needs hd % 8 == 0 and hd <= 256 (the CUDA-core
+// kernel's block of 4*hd or 2*hd threads). Runs the instance of
+// hr_onepass_instance: bf16 and fp16 onepass_mma_kernel, fp32
+// attn_tf32_kernel, or onepass_attn_kernel on CUDA cores, which cuda_cores =
+// 1 takes at any head dim (to time it beside the tile kernels).
 int hr_onepass_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                          int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                          int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
                          const void* kbias, const void* gate, const void* pos, void* out,
-                         int o_sb, int o_sh, int o_sl, void* stream) {
+                         int o_sb, int o_sh, int o_sl, int cuda_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  if (on_tensor_cores(hd) && dtype == kDtF32) {
+  const bool gated = gate != nullptr;
+  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated);
+  if (inst && dtype == kDtF32) {
     Tf32Args a{};
     a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);
     a.v = static_cast<const float*>(v);
     a.q_sb = q_sb, a.q_sh = q_sh, a.q_sl = q_sl, a.k_sb = k_sb, a.k_sh = k_sh, a.k_sl = k_sl;
-    a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.scale = scale;
-    a.kbias = static_cast<const float*>(kbias), a.gate = static_cast<const float*>(gate);
+    a.v_sb = v_sb, a.v_sh = v_sh, a.v_sl = v_sl, a.H = H, a.Lq = Lq, a.Lk = Lk, a.hd = hd;
+    a.scale = scale, a.kbias = static_cast<const float*>(kbias);
+    a.gate = static_cast<const float*>(gate);
     a.pos = static_cast<const float*>(pos), a.out = static_cast<float*>(out);
     a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
-    if (hd == 64 && gate != nullptr) launch_attn_tf32<64, true, false>(a, B, s);
-    else if (hd == 64) launch_attn_tf32<64, false, false>(a, B, s);
-    else if (gate != nullptr) launch_attn_tf32<96, true, false>(a, B, s);
-    else launch_attn_tf32<96, false, false>(a, B, s);
+    if (gated && hd == 64) launch_attn_tf32<64, true, false>(a, B, s);
+    else if (gated) launch_attn_tf32<96, true, false>(a, B, s);
+    else launch_attn_tf32_tile<false>(a, B, s);
     return (int)cudaGetLastError();
   }
-  if (on_tensor_cores(hd)) {
+  if (inst) {
     if (dtype == kDtF16)
       launch_mma<__half>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H,
                          Lq, Lk, hd, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, s);
@@ -243,7 +286,7 @@ int hr_onepass_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl,
                                 o_sl, s);
     return (int)cudaGetLastError();
   }
-  const int smem = hr_onepass_smem_bytes(dtype, Lk, hd);
+  const int smem = hr_onepass_smem_bytes(dtype, Lk, hd, gated, 1);
   if (dtype == kDtF32)
     launch<float>(q, q_sb, q_sh, q_sl, k, k_sb, k_sh, k_sl, v, v_sb, v_sh, v_sl, B, H, Lq, Lk,
                   hd, scale, kbias, gate, pos, out, o_sb, o_sh, o_sl, smem, s);

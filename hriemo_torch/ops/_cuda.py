@@ -50,14 +50,16 @@ SIGNATURES = {
                               P, I, I, P, P, P, P, P, I, P],
     },
     "wavlm_attention": {
-        "hr_onepass_smem_bytes": [I, I, I],
+        "hr_onepass_instance": [I, I],
+        "hr_onepass_smem_bytes": [I, I, I, I, I],
         "hr_onepass_max_smem_bytes": [],
         "hr_onepass_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
-                                 P, P, P, P, I, I, I, P],
+                                 P, P, P, P, I, I, I, I, P],
     },
     "flash_attention": {
+        "hr_streaming_instance": [I],
         "hr_streaming_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
-                                   P, P, I, I, I, P],
+                                   P, P, I, I, I, I, P],
     },
     "ffn_bf16": {
         "hr_ffn_gemms": [I, P, P, P, P, P, I, I, I, I, P, P, P],

@@ -16,6 +16,10 @@ as ``flash_attention_pallas.py:274-277`` does:
   the unnormalized p block cast to v's dtype before PV, ``acc / l`` at the
   end. On the card it is ``csrc/flash_attention.cu``.
 
+On the card both run on the tensor cores at every head dim up to 128 (the
+head dim zero-padded inside the kernel to the next of 32, 64, 96 and 128),
+and on CUDA-core kernels at 136-256.
+
 The two keep their own numerics, each its TPU kernel's. Both scale the fp32
 dot after the product, where the per-op branch of ``nn/attention.py``
 scales q first. The caller routes here when :func:`use_flash` holds
@@ -90,13 +94,22 @@ def streaming_attention_plain(q, k, v, bias):
     return (acc / l).to(q.dtype)
 
 
+def streaming_launch(q, k, v, bias, cuda_cores: bool = False):
+    """Launch ``csrc/flash_attention.cu`` on CUDA tensors: the kernel that
+    ``hr_streaming_instance`` names for the head dim, or with ``cuda_cores``
+    the CUDA-core kernel at any head dim (a yardstick)."""
+    args, o = _cuda.attention_operands(q, k, v, bias, "streaming attention kernel")
+    _cuda.check(_cuda.lib("flash_attention").hr_streaming_attention(
+        *args, o.data_ptr(), *o.stride()[:3], cuda_cores, _cuda.stream()),
+        "hr_streaming_attention")
+    return o
+
+
 def streaming_attention(q, k, v, bias):
     """Same arguments as :func:`onepass_attention`; any key length."""
     if q.device.type == "cpu":
         return streaming_attention_plain(q, k, v, bias)
-    args, o = _cuda.attention_operands(q, k, v, bias, "streaming attention kernel")
-    _cuda.check(_cuda.lib("flash_attention").hr_streaming_attention(
-        *args, o.data_ptr(), *o.stride()[:3], _cuda.stream()), "hr_streaming_attention")
+    o = streaming_launch(q, k, v, bias)
     streaming_attention.launches += 1
     return o
 

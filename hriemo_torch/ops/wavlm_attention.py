@@ -50,23 +50,27 @@ def wavlm_fused_attention_plain(q, k, v, gate, position_bias, key_padding_bias):
     return softmax_pv(s, v)
 
 
-def onepass_launch(q, k, v, kbias, gate=None, pos=None):
+def onepass_launch(q, k, v, kbias, gate=None, pos=None, cuda_cores: bool = False):
     """Launch ``csrc/wavlm_attention.cu`` on ``[B, H, L, hd]`` q/k/v views
     (any batch, head and row strides). ``gate [B, H, Lq]`` fp32 and ``pos
     [H, Lq, Lk]`` of q's dtype, or both None. Returns ``[B, H, Lq, hd]``, a
-    head view of a contiguous ``[B, Lq, H*hd]`` tensor."""
+    head view of a contiguous ``[B, Lq, H*hd]`` tensor. The kernel is the
+    one ``hr_onepass_instance`` names for the head dim, or with
+    ``cuda_cores`` the CUDA-core kernel at any head dim (a yardstick)."""
     args, o = _cuda.attention_operands(q, k, v, kbias, "one-pass attention kernel")
     b, h, lq, hd = q.shape
     lk = k.shape[2]
     lib = _cuda.lib("wavlm_attention")
-    if lib.hr_onepass_smem_bytes(args[0], lk, hd) > lib.hr_onepass_max_smem_bytes():
+    gated = gate is not None
+    if (lib.hr_onepass_smem_bytes(args[0], lk, hd, gated, cuda_cores)
+            > lib.hr_onepass_max_smem_bytes()):
         raise ValueError(f"one-pass attention kernel: the score panel of key length {lk} "
                          f"at head dim {hd} in {q.dtype} does not fit shared memory")
-    if gate is not None:
+    if gated:
         _cuda.require(gate, "gate", torch.float32, (b, h, lq), q.device)
         _cuda.require(pos, "position_bias", q.dtype, (h, lq, lk), q.device)
     _cuda.check(lib.hr_onepass_attention(*args, _cuda.ptr(gate), _cuda.ptr(pos), o.data_ptr(),
-                                         *o.stride()[:3], _cuda.stream()),
+                                         *o.stride()[:3], cuda_cores, _cuda.stream()),
                 "hr_onepass_attention")
     return o
 

@@ -1,7 +1,7 @@
 """PyTorch port: every CUDA kernel against its plain PyTorch version on the
 card, at edge shapes the serving and extraction paths can give (ragged row
 counts, short and long keys, keys and queries that cut the attention
-tiles, hd=96, 40 and 32, a fully padded key row, fp32 and fp16 inputs,
+tiles, hd=96, 40, 32, 128 and 256, a fully padded key row, fp32 and fp16 inputs,
 the int8 wrappers at fp32 activations, Lq != Lk, clips shorter than one
 conv-stack tile or ending on a tile), and the WavLM core's gradient.
 
@@ -297,8 +297,10 @@ def _close_attention(got, ref):
 # other non-multiples of 8 leave the gated pos rows off 16-byte alignment.
 ATTN_SHAPES = [(128, 128), (130, 130), (2048, 2048), (1, 1), (63, 63), (65, 65),
                (1499, 1499), (2249, 2249), (1, 65), (63, 1499), (1499, 63), (2249, 130)]
-# 64 and 96 run on the tensor cores in bf16 and fp16; 40 on the CUDA-core kernels
-ATTN_HEAD_DIMS = [64, 96, 40]
+# Without a gate, 32, 64, 96 and 128 run on their tensor-core instances, 40
+# zero-padded on the 64 one, 256 on the CUDA-core kernels; the gated core
+# runs 64 and 96 on the tensor cores and the others on CUDA cores
+ATTN_HEAD_DIMS = [64, 96, 40, 32, 128, 256]
 ATTN_DTYPES = [torch.bfloat16, torch.float32, torch.float16]
 
 
@@ -360,17 +362,36 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
     with pytest.raises(TypeError):      # the position bias has q's dtype
         WA.wavlm_fused_attention(q, q, q, torch.ones(1, 2, 64, device="cuda"),
                                  torch.zeros(2, 64, 64, device="cuda"), kb)
-    # the tensor-core kernels (hd 64 and 96, bf16 and fp32) keep no score
-    # panel, so 8192 keys run; at hd 40 the CUDA-core kernel's panel [16,
-    # 8192] must fit shared memory and does not
+    # the tensor-core kernels (every head dim up to 128 without a gate) keep
+    # no score panel, so 8192 keys run; at hd 256, and gated at hd 40, the
+    # CUDA-core kernel's panel [16, 8192] must fit shared memory and does not
     kb_long = torch.zeros(1, 8192, device="cuda")
     for dt in (torch.bfloat16, torch.float32, torch.float16):
-        long = _heads_view(gen, 1, 8192, 2, 64, dt)
-        assert torch.isfinite(FA.onepass_attention(q.to(dt), long, long, kb_long)).all()
+        for hd in (64, 40, 128):
+            long = _heads_view(gen, 1, 8192, 2, hd, dt)
+            q_hd = _heads_view(gen, 1, 64, 2, hd, dt)
+            assert torch.isfinite(FA.onepass_attention(q_hd, long, long, kb_long)).all()
+    q256 = _heads_view(gen, 1, 64, 2, 256, torch.float32)
+    with pytest.raises(ValueError):
+        long = _heads_view(gen, 1, 8192, 2, 256, torch.float32)
+        FA.onepass_attention(q256, long, long, kb_long)
     q40 = _heads_view(gen, 1, 64, 2, 40, torch.float32)
     with pytest.raises(ValueError):
         long = _heads_view(gen, 1, 8192, 2, 40, torch.float32)
-        FA.onepass_attention(q40, long, long, kb_long)
+        WA.wavlm_fused_attention(q40, long, long, torch.ones(1, 2, 64, device="cuda"),
+                                 torch.zeros(2, 64, 8192, device="cuda"), kb_long)
+
+
+def test_attention_instances(gen):
+    """The one dispatch of the flash cores: each head dim up to 128 on the
+    smallest tile instance at or above it, the CUDA-core kernel (0) beyond;
+    the gated core on its instances 64 and 96 only."""
+    onepass = _cuda.lib("wavlm_attention").hr_onepass_instance
+    streaming = _cuda.lib("flash_attention").hr_streaming_instance
+    for hd in range(8, 257, 8):
+        want = next((t for t in (32, 64, 96, 128) if t >= hd), 0)
+        assert streaming(hd) == onepass(hd, 0) == want
+        assert onepass(hd, 1) == (hd if hd in (64, 96) else 0)
 
 
 @pytest.mark.parametrize("kernel", ["gated", "onepass", "streaming"])
@@ -730,8 +751,9 @@ def test_mosei_eval_fp16_at_flash_lengths(gen, tmp_path):
         assert np.isfinite(got).all() and np.abs(got - ref).max() <= 1e-2
 
 
-# the CUDA-core fallbacks at the MOSEI model's d=256 in 8 heads (hd 32),
-# uncapped: one-pass up to 2048 keys, streaming beyond, with padding
+# the MOSEI model's d=256 in 8 heads (hd 32), uncapped: one-pass up to 2048
+# keys, streaming beyond, with padding; the tile instance at 32 and, as a
+# yardstick, the CUDA-core kernel that served hd 32 before it
 @pytest.mark.parametrize("lk", [1951, 2267])
 @pytest.mark.parametrize("dtype", ATTN_DTYPES)
 def test_flash_fallbacks_at_head_dim_32(gen, lk, dtype):
@@ -740,10 +762,12 @@ def test_flash_fallbacks_at_head_dim_32(gen, lk, dtype):
     bias = FA.key_bias(_pad_mask([lk, lk - 235, lk - 330, 1], lk), b, lk, q.device)
     fn = FA.onepass_attention if lk <= FA.ONEPASS_MAX_LK else FA.streaming_attention
     plain = getattr(FA, fn.__name__ + "_plain")
-    got = fn(q, k, v, bias)
-    torch.cuda.synchronize()
-    assert got.dtype == dtype and torch.isfinite(got).all()
-    _close_attention(got, plain(q, k, v, bias))
+    cuda_cores = WA.onepass_launch if fn is FA.onepass_attention else FA.streaming_launch
+    ref = plain(q, k, v, bias)
+    for got in (fn(q, k, v, bias), cuda_cores(q, k, v, bias, cuda_cores=True)):
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        _close_attention(got, ref)
 
 
 @pytest.mark.parametrize("dtype", ATTN_DTYPES)

@@ -35,14 +35,20 @@ KERNELS = {"onepass": (JP._onepass_impl, TF.onepass_attention),
            "streaming": (JP._pallas_mha_fwd_impl, TF.streaming_attention)}
 
 
+# head dims beside 64: the tile instances 32 and 128 of the card's kernels,
+# and 40, which they zero-pad to 64
+SHAPES = [pytest.param(lq, lk, 64, id=f"{lq}-{lk}") for lq, lk in ((140, 130), (130, 300))] + [
+    pytest.param(130, 300, hd, id=f"130-300-hd{hd}") for hd in (32, 40, 128)]
+
+
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
-@pytest.mark.parametrize("lq,lk", [(140, 130), (130, 300)])
+@pytest.mark.parametrize("lq,lk,hd", SHAPES)
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_plain_matches_pallas_kernel(kernel, lq, lk, masked, dtype):
+def test_plain_matches_pallas_kernel(kernel, lq, lk, hd, masked, dtype):
     jax_fn, torch_fn = KERNELS[kernel]
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
-    q, k, v = _qkv(lq=lq, lk=lk, seed=lq + lk + masked)
+    q, k, v = _qkv(lq=lq, lk=lk, hd=hd, seed=lq + lk + masked + (hd != 64) * hd)
     bias = _bias(lk, masked)
     ref = np.asarray(jax_fn(*(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bias)),
                      np.float32)
@@ -54,9 +60,12 @@ def test_plain_matches_pallas_kernel(kernel, lq, lk, masked, dtype):
         assert_kernel_close(got, ref, atol=3e-2, rtol=0)
 
 
-@pytest.mark.parametrize("kernel", sorted(KERNELS))
-def test_fully_masked_rows_finite(kernel):
-    q, k, v = (torch.from_numpy(a) for a in _qkv(seed=3))
+@pytest.mark.parametrize("kernel,hd", [pytest.param(kernel, 64, id=kernel)
+                                       for kernel in sorted(KERNELS)] + [
+    pytest.param(kernel, hd, id=f"{kernel}-hd{hd}")
+    for kernel in sorted(KERNELS) for hd in (32, 40, 128)])
+def test_fully_masked_rows_finite(kernel, hd):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(hd=hd, seed=3))
     out = KERNELS[kernel][1](q, k, v, torch.full((2, 130), NEG_INF))
     assert torch.isfinite(out).all()
 
