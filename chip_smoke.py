@@ -39,11 +39,17 @@ Phases, any failure exits non-zero:
    ``ATTN_TOL[fp16]``, which must reject each without its last key tile),
    and the flash cores at head dims beside 64 and 96 at phase 7d's lengths:
    32 (d=256 in 8 heads) in bf16, fp16 and fp32, 2 heads of 128 in bf16 and
-   fp32, 8 heads of 40 in bf16, each on the tile instance that the C
+   fp32, 8 heads of 40 in bf16, and on the wide tiles in bf16 and fp16 one
+   head of 256 (the MOSEI model at ``--n_heads 1``, phase 7d's shapes) and
+   4 heads of 192 (the IEMOCAP decoder at ``--n_heads 4``, the long clips'
+   lengths), each on the tile instance that the C
    dispatch names (the kernel read by torch.profiler: never a CUDA-core
    one), held at ``ATTN_TOL``, which must reject each without its last key
    tile, and timed beside the CUDA-core kernel that served it before and
-   SDPA;
+   SDPA (a wide row must beat its CUDA-core kernel); then the int8 core
+   alone at B=4 self 499² on the tiles at d=256 in 8 heads and d=768 in 6
+   and 4 (hd 32, 128, 192), against SDPA, the hd-192 one also held without
+   its last key tile;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -62,6 +68,10 @@ Phases, any failure exits non-zero:
    counts per forward (WavLM attention 1499 frames on the fused gated-bias
    kernel, 2249 per op; fusion self-attention on the one-pass and the
    streaming kernel) and kernel vs plain within 0.006;
+4d. the int8 tree with the fusion model at d=768 in 4 heads (hd 192) on
+   phase 4's 16 requests: the fusion stack's 8 MHA sublayers a forward run
+   their core on the wide tile instance (launch counts), kernel vs plain
+   within 0.006;
 5. the feature-extraction entry point at full width (WavLM base-plus and
    BERT-base, random weights from a seed): a synthetic IEMOCAP tree of 24
    utterances, the port's index builder, ``extract_iemocap`` audio (seq and
@@ -87,7 +97,9 @@ Phases, any failure exits non-zero:
    leaf in fp32, the whole gradient in bf16), and a lower peak step memory;
    the gradient tolerance must reject a flash backward that drops its last,
    partial 512-key block; the same steps of ``MoseiFusionWithEmotionDecoder``
-   at the MOSEI trainer's d=256 in 8 heads (hd 32, 6 emotions); then
+   at the MOSEI trainer's d=256 in 8 heads (hd 32, 6 emotions) and of the
+   IEMOCAP decoder at d=768 in 4 heads (hd 192, the wide tiles; bf16, the
+   loss within ``WIDE_LOSS_RTOL``); then
    ``wavlm_fused_attention``'s gradient at B=2 L=499, 12 heads of 64, bf16
    and fp32: the forward within ``ATTN_TOL``,
    the gradients bit-equal to the plain route's; (d) ``train_fusion_seq_level``
@@ -116,7 +128,8 @@ Phases, any failure exits non-zero:
    ``mosei_summary_metrics``, then uncapped over a one-pass and a streaming
    split (1100-2300 audio frames) against the plain versions at phase 6c's
    bf16 limit, launching both flash kernels, in bf16, again in fp16, and in
-   bf16 with the checkpoint at ``--n_heads 8`` (hd 32);
+   bf16 with the checkpoint at ``--n_heads 8`` (hd 32) and ``--n_heads 1``
+   (hd 256, the wide tiles);
 8. (a) every serving kernel against its plain version at every audio bucket
    (``hriemo_torch.tools.kernel_numerics``: 45 rows, B=8, full width, the
    JAX tool's limits; ``chip_smoke_out/kernel_numerics_h100.json``); (b)
@@ -154,7 +167,8 @@ Phases, any failure exits non-zero:
    each sub-phase prints its wall time, and the steps their ms over the
    mesh and in one process;
 10. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
-   phases 4-9); then the last line ``{"ok": true, "device": {...}}``.
+   phases 4-9; the wide tile instances as entries of their own); then the
+   last line ``{"ok": true, "device": {...}}``.
 
 ``--outlier-sweep`` instead runs only phase 8b's outlier over layers and
 scales (the readings its constants were chosen from) after the build.
@@ -282,12 +296,29 @@ KERNELS = {
     "conv_stack_k2": (CS.conv_stack_k2, "hriemo/ops/conv_stack.py:152",
                       "hriemo_torch/csrc/conv_stack.cu"),
 }
+# the wide tile instances (HD 192 and 256, csrc/attention_tiles.cuh) as
+# entries of their own in the kernels line: (TPU kernel, CUDA source). Their
+# launches are the wrappers' at head dims above 128 in bf16 or fp16, by the
+# head-dim and shape counters (every int8 core launch above 128 on these
+# paths is an MHA sublayer's, ungated).
+WIDE_KERNELS = {
+    "onepass_attention (wide tiles)": ("hriemo/ops/flash_attention_pallas.py:81",
+                                       "hriemo_torch/csrc/onepass_mma.cuh"),
+    "streaming_attention (wide tiles)": ("hriemo/ops/flash_attention_pallas.py:38",
+                                         "hriemo_torch/csrc/flash_attention.cu"),
+    "attention_core_int8 (wide tiles)": ("hriemo/ops/attention_block.py:508",
+                                         "hriemo_torch/csrc/onepass_mma.cuh"),
+}
+LAUNCH_NAMES = (*KERNELS, *WIDE_KERNELS)
 # the two kernels under the int8 wrappers, counted by shape too
 COUNTED_BY_SHAPE = (AB.attention_core_int8, _cuda.int8_gemm)
+COUNTED_BY_HEAD_DIM = (FA.onepass_attention, FA.streaming_attention)
 # launches of each wrapper in one forward of the int8 serving path (2.5 s
 # and 10 s buckets); every wrapper not named launches 0 times
 PER_FORWARD = {"attention_block_int8": 12, "mha_block_int8": 20, "ffn_block_int8": 24,
                "mlp2_int8": 5, "int8_linear": 21}
+# of the 20 MHA sublayers, the fusion stack's (the other 12 are BERT's)
+FUSION_MHA_PER_FORWARD = 8
 # the bf16 tree: WavLM attention on the fused kernel at 499 frames (10 s),
 # per op at 124 (2.5 s, below its 128-frame gate)
 PER_FORWARD_BF16 = {10.0: {"wavlm_fused_attention": 12}, 2.5: {}}
@@ -319,6 +350,9 @@ PER_FORWARD_FORCED = {"wavlm_fused_attention": 12, "ffn_block_bf16": 12,
 # forward would flip thousands of the step's 20-30M FFN pre-activations
 # (bf16 flips thousands by its own rounding: 4541 at 1499 frames).
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# the bf16 step of the decoder at 4 heads of 192 (the wide tiles): its loss
+# is held at a tenth of LOSS_RTOL[bf16]
+WIDE_LOSS_RTOL = 1e-3
 MAX_RELU_FLIPS = 100
 LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # evaluation and inference: the kernels each e2e_infer tree must launch, the
@@ -807,10 +841,45 @@ def check_kernels(gen):
             q, k[:, :, :n], v[:, :, :n], gate, pos[:, :, :n], kb[:, :n]))
     lens7d = {split: [a for a, _ in long_lengths(np.random.default_rng(SEED + 7))[split]]
               for split in LONG_MOSEI}
-    for name, split, long_l in (("onepass_attention", "long_onepass", 1499),
-                                ("streaming_attention", "long_streaming", 2249)):
+    def flash_row(name, bb, l, h, hd, lens, dt, generator, faster=False):
+        """One flash-core row (keys masked at ``lens``, or at random
+        lengths), with, off head dims 64 and 96, the instance that ran and
+        the CUDA-core kernel that served it before (``faster``: the row
+        must beat it); its limit check goes to ``flash_upto``."""
         fn, plain = getattr(FA, name), getattr(FA, name + "_plain")
         parent = WA.onepass_launch if name == "onepass_attention" else FA.streaming_launch
+        q, k, v = (heads(bb, l, h, hd, dt, generator) for _ in range(3))
+        kpm = (mask(bb, l, generator) if lens is None else
+               (torch.arange(l)[None, :] >= torch.tensor(lens)[:, None]).to(dev))
+        bias = FA.key_bias(kpm, bb, l, dev)
+        amask = ~kpm[:, None, None, :]
+        shape = f"B={bb} {l}x{l} H={h} hd={hd} {str(dt)[6:]}"
+        got, ref = run(name, shape, lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           q, k, v, attn_mask=amask),
+                       nbytes(q, k, v, bias, q), 0, *attn_ops(dt, bb, h, l, l, hd),
+                       tol=ATTN_TOL[dt])
+        if hd not in (64, 96):
+            rows[-1].update(tile_instance(name, hd, lambda: fn(q, k, v, bias)))
+            err, _ = compare(f"{name} {shape} on CUDA cores",
+                             parent(q, k, v, bias, cuda_cores=True), ref, ATTN_TOL[dt])
+            rows[-1]["parent_ms"] = cuda_ms(lambda: parent(q, k, v, bias, cuda_cores=True))
+            print(f"    on {rows[-1]['kernel_name']} (instance hd {rows[-1]['instance']}); "
+                  f"parent (CUDA cores) {rows[-1]['parent_ms']:.4f} ms, max|d| {err:.3g}; "
+                  f"kernel {rows[-1]['ms']:.4f} ms; SDPA {rows[-1]['library_ms']:.4f} ms",
+                  flush=True)
+            if faster and not rows[-1]["ms"] < rows[-1]["parent_ms"]:
+                raise AssertionError(f"{name} {shape}: {rows[-1]['ms']:.4f} ms on the tile "
+                                     f"instance, {rows[-1]['parent_ms']:.4f} on CUDA cores")
+        del got, ref
+        tile = (TF32_KEY_TILE if dt == torch.float32 else
+                ONEPASS_KEY_TILE if name == "onepass_attention" else FA.BK)
+        flash_upto[f"{name} {h}x{hd} {str(dt)[6:]}"] = (
+            l, tile, dt, lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
+            plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
+
+    for name, split, long_l in (("onepass_attention", "long_onepass", 1499),
+                                ("streaming_attention", "long_streaming", 2249)):
         la = lens7d[split]
         lens = la + la[-1:] * (eb - len(la))
         cases = [(eb, max(la), 4, 64, lens, torch.float16),
@@ -820,33 +889,57 @@ def check_kernels(gen):
                                      (2, 128, (torch.bfloat16, torch.float32)),
                                      (8, 40, (torch.bfloat16,)))
                   for dt in dts]
-        for bb, l, h, hd, lens, dt in cases:
-            q, k, v = (heads(bb, l, h, hd, dt, own) for _ in range(3))
-            kpm = (mask(bb, l, own) if lens is None else
-                   (torch.arange(l)[None, :] >= torch.tensor(lens)[:, None]).to(dev))
-            bias = FA.key_bias(kpm, bb, l, dev)
-            amask = ~kpm[:, None, None, :]
-            shape = f"B={bb} {l}x{l} H={h} hd={hd} {str(dt)[6:]}"
-            got, ref = run(name, shape, lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
-                           lambda: torch.nn.functional.scaled_dot_product_attention(
-                               q, k, v, attn_mask=amask),
-                           nbytes(q, k, v, bias, q), 0, *attn_ops(dt, bb, h, l, l, hd),
-                           tol=ATTN_TOL[dt])
-            if hd not in (64, 96):
-                rows[-1].update(tile_instance(name, hd, lambda: fn(q, k, v, bias)))
-                err, _ = compare(f"{name} {shape} on CUDA cores",
-                                 parent(q, k, v, bias, cuda_cores=True), ref, ATTN_TOL[dt])
-                rows[-1]["parent_ms"] = cuda_ms(lambda: parent(q, k, v, bias, cuda_cores=True))
-                print(f"    on {rows[-1]['kernel_name']} (instance hd {rows[-1]['instance']}); "
-                      f"parent (CUDA cores) {rows[-1]['parent_ms']:.4f} ms, max|d| {err:.3g}; "
-                      f"kernel {rows[-1]['ms']:.4f} ms; SDPA {rows[-1]['library_ms']:.4f} ms",
-                      flush=True)
-            del got, ref
-            tile = (TF32_KEY_TILE if dt == torch.float32 else
-                    ONEPASS_KEY_TILE if name == "onepass_attention" else FA.BK)
-            flash_upto[f"{name} {h}x{hd} {str(dt)[6:]}"] = (
-                l, tile, dt, lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
-                plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
+        for case in cases:
+            flash_row(name, *case, own)
+    # the wide tiles (HD 192 and 256), bf16 and fp16: the MOSEI model at
+    # --n_heads 1 (d=256 in one head of 256) at phase 7d's uncapped shapes,
+    # and the IEMOCAP decoder at d=768 in 4 heads of 192 at the long clips'
+    # lengths; each must beat the CUDA-core kernel it replaces. Inputs from a
+    # generator of their own, after every earlier row.
+    own = torch.Generator().manual_seed(SEED + 11)
+    first_wide = len(rows)
+    for name, split, long_l in (("onepass_attention", "long_onepass", 1499),
+                                ("streaming_attention", "long_streaming", 2249)):
+        la = lens7d[split]
+        lens = la + la[-1:] * (eb - len(la))
+        for bb, l, h, hd, ll_ in ((eb, max(la), 1, 256, lens), (2, long_l, 4, 192, None)):
+            for dt in (torch.bfloat16, torch.float16):
+                flash_row(name, bb, l, h, hd, ll_, dt, own, faster=True)
+    for r in rows[first_wide:]:
+        r["wide_entry"] = f"{r['kernel']} (wide tiles)"
+    # the int8 core alone at the head dims beside 64 and 96, on the tile
+    # instances (32; 128; 192 on the wide one): B=4 self 499^2 (the 10 s
+    # bucket) at d=256 in 8 heads and d=768 in 6 and 4, against SDPA; the
+    # CUDA-core kernel that served them before is the parent tree's
+    # (hriemo_torch/utils/phase3_ab.py)
+    own = torch.Generator().manual_seed(SEED + 12)
+    for d_, h in ((256, 8), (768, 6), (768, 4)):
+        hd = d_ // h
+        qkv = randn(B * 499, 3 * d_, generator=own)
+        qkv[:, :d_] *= hd ** -0.5
+        q, k, v = qkv.split(d_, dim=1)
+        pad = mask(B, 499, own)
+        qh, kh, vh = (t.view(B, -1, h, hd).transpose(1, 2) for t in (q, k, v))
+        amask = ~pad[:, None, None, :]
+        run("attention_core_int8", f"B={B} self 499x499 H={h} hd={hd}",
+            lambda: AB.attention_core_int8(q, k, v, B, h, kpm=pad).view(B, 499, d_),
+            lambda: AB.attention_core_int8_plain(q, k, v, B, h, kpm=pad).view(B, 499, d_),
+            lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask,
+                                                                     scale=1.0),
+            nbytes(q, k, v, q, pad), 0, 4 * B * h * 499 * 499 * hd,
+            tol=ATTN_TOL[torch.bfloat16])
+        rows[-1].update(tile_instance("attention_core_int8", hd, lambda: AB.attention_core_int8(
+            q, k, v, B, h, kpm=pad)))
+        print(f"    on {rows[-1]['kernel_name']} (instance hd {rows[-1]['instance']})",
+              flush=True)
+        if hd > 128:
+            rows[-1]["wide_entry"] = "attention_core_int8 (wide tiles)"
+            cut = lambda t, n, d_=d_: t.view(B, 499, d_)[:, :n].reshape(B * n, d_)
+            flash_upto[f"attention_core_int8 {h}x{hd} bfloat16"] = (
+                499, ONEPASS_KEY_TILE, torch.bfloat16,
+                lambda n, q=q, k=k, v=v, pad=pad, h=h, d_=d_, cut=cut:
+                AB.attention_core_int8_plain(q, cut(k, n), cut(v, n), B, h,
+                                             kpm=pad[:, :n]).view(B, 499, d_))
     for r in rows[first_new:]:
         r["kernels_line"] = False
 
@@ -979,27 +1072,38 @@ def same_bits(wave, w0):
     return True
 
 
-# the flash cores' kernels by the profiler's name: the tile instances, and
-# the CUDA-core kernels that head dims up to 128 must no longer reach
-TILE_KERNELS = {"onepass_attention": ("onepass_mma_kernel", "attn_tf32_kernel"),
-                "streaming_attention": ("streaming_mma_kernel", "attn_tf32_kernel")}
-CUDA_CORE_KERNELS = ("onepass_attn_kernel", "streaming_attn_kernel")
+# the attention cores' kernels by the profiler's name: the tile instances,
+# and the CUDA-core kernels that the head dims on the tiles must no longer
+# reach
+TILE_KERNELS = {"onepass_attention": ("onepass_mma_kernel", "onepass_wide_kernel",
+                                      "attn_tf32_kernel"),
+                "streaming_attention": ("streaming_mma_kernel", "streaming_wide_kernel",
+                                        "attn_tf32_kernel"),
+                "attention_core_int8": ("onepass_mma_kernel", "onepass_wide_kernel")}
+CUDA_CORE_KERNELS = ("onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel")
 
 
 def tile_instance(name, hd, fn) -> dict:
     """The instance that the C dispatch names for ``hd`` and the kernel that
     one call of ``fn`` ran, read by torch.profiler: it must be a tile
-    kernel of ``name``'s and not a CUDA-core one."""
+    kernel of ``name``'s and not a CUDA-core one. A trace that recorded no
+    device kernel at all (the card's profiler has returned one now and
+    then) is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    instance = (_cuda.lib("wavlm_attention").hr_onepass_instance(hd, 0)
-                if name == "onepass_attention"
-                else _cuda.lib("flash_attention").hr_streaming_instance(hd))
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    instance = (_cuda.lib("flash_attention").hr_streaming_instance(hd)
+                if name == "streaming_attention"
+                else _cuda.lib("wavlm_attention").hr_onepass_instance(hd, 0))
+    for _ in range(3):
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+        print(f"    {name} at head dim {hd}: the trace recorded no device kernel; again",
+              flush=True)
     ran = [n for n in names if any(t in n for t in TILE_KERNELS[name] + CUDA_CORE_KERNELS)]
     if (instance == 0 or len(ran) != 1 or not any(t in ran[0] for t in TILE_KERNELS[name])):
         raise AssertionError(f"{name} at head dim {hd}: instance {instance}, kernels {names}: "
@@ -1070,10 +1174,18 @@ def reset_launches():
     for fn in COUNTED_BY_SHAPE:
         fn.launches = 0
         fn.shapes.clear()
+    for fn in COUNTED_BY_HEAD_DIM:
+        fn.head_dims.clear()
 
 
 def read_launches():
-    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    out = {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+    for fn in COUNTED_BY_HEAD_DIM:
+        out[f"{fn.__name__} (wide tiles)"] = sum(
+            n for (hd, dt), n in fn.head_dims.items() if hd > 128 and dt != torch.float32)
+    out["attention_core_int8 (wide tiles)"] = sum(
+        n for key, n in AB.attention_core_int8.shapes.items() if key[-1] > 128)
+    return out
 
 
 def check_launches(what, got, want):
@@ -1224,7 +1336,7 @@ def extraction(gen, smi: str, root: pathlib.Path):
         d.mkdir()
         return d
 
-    rec, total = {}, {name: 0 for name in KERNELS}
+    rec, total = {}, dict.fromkeys(LAUNCH_NAMES, 0)
     uids = [r["utter_id"] for r in rows]
     for dtype in ("float32", "bfloat16"):
         EX.extract_audio(args("audio", dtype), rows[:8], out(f"warm_{dtype}"), model=wavlm)
@@ -1443,22 +1555,28 @@ def dropped_block_check(gen, dt, la=2249, h=8, hd=96):
                          "key block")
 
 
-def fusion_step(gen, smi, classifier: bool = False, mosei: bool = False):
+def fusion_step(gen, smi, classifier: bool = False, mosei: bool = False, heads: int = 8,
+                dtypes=(torch.float32, torch.bfloat16)):
     """Phase 6c (6d with ``classifier``): train steps of the full-width
-    fusion model (``FusionClassifier``, single-label; with ``mosei``
+    fusion model (``FusionWithEmotionDecoder`` at d=768 in ``heads`` heads;
+    ``FusionClassifier``, single-label; with ``mosei``
     ``MoseiFusionWithEmotionDecoder`` at the MOSEI trainer's d=256 in 8
     heads, hd 32, 6 emotions) at B=2, dropout 0, audio at 1499 and 2249
-    frames with padding, fp32 and bf16: the one-pass and the streaming
-    kernel forward with the recompute backward. The first
+    frames with padding, in ``dtypes``: the one-pass and the streaming
+    kernel forward with the recompute backward (at 4 heads, hd 192, on the
+    wide tile instances). The first
     step's loss and gradients are held against the plain route
-    (``use_kernels=False``) at the initial parameters; then timed steps (the
-    main path), peak step memory of both routes and the plain route's steps.
+    (``use_kernels=False``) at the initial parameters (the loss at 4 heads
+    within ``WIDE_LOSS_RTOL``); then timed steps (the main path), peak step
+    memory of both routes and the plain route's steps.
     Returns its record and the launches of its main-path steps."""
-    rec, total = {}, {name: 0 for name in KERNELS}
+    rec, total = {}, dict.fromkeys(LAUNCH_NAMES, 0)
     what = ("classifier step" if classifier else
-            "MOSEI 8-head train step" if mosei else "train step")
+            "MOSEI 8-head train step" if mosei else
+            "train step" if heads == 8 else f"{heads}-head train step")
+    wide = 768 // heads > 128
     for la in TRAIN_AUDIO:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             tag = f"L={la} {str(dt)[6:]}"
             if classifier:
                 model = FusionClassifier(768, 4, 8, 2, 256, dropout=0.0)
@@ -1467,7 +1585,7 @@ def fusion_step(gen, smi, classifier: bool = False, mosei: bool = False):
             else:
                 model = (MoseiFusionWithEmotionDecoder(768, 768, 256, 6, 8, 2, 2, 128,
                                                        dropout=0.0) if mosei else
-                         FusionWithEmotionDecoder(768, 4, 8, 2, 2, 256, dropout=0.0))
+                         FusionWithEmotionDecoder(768, 4, heads, 2, 2, 256, dropout=0.0))
                 cfg = TS.TrainConfig(loss_type="multi_label", beta_degeneracy=0.01,
                                      schedule="constant", compute_dtype=dt)
             model.init_weights(torch.Generator().manual_seed(SEED + 6))
@@ -1486,7 +1604,8 @@ def fusion_step(gen, smi, classifier: bool = False, mosei: bool = False):
                     hk.remove()
             (loss_k, grads_k, _), (loss_p, grads_p, _) = out["kernel"], out["plain"]
             loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-            if not (math.isfinite(loss_k.item()) and loss_err <= LOSS_RTOL[dt]):
+            if not (math.isfinite(loss_k.item())
+                    and loss_err <= (WIDE_LOSS_RTOL if wide else LOSS_RTOL[dt])):
                 raise AssertionError(f"{what} {tag}: loss {loss_k.item()} kernel route, "
                                      f"{loss_p.item()} plain (relative {loss_err:.3g})")
             # the classifier's loss reaches the audio rows mostly through the
@@ -1512,7 +1631,8 @@ def fusion_step(gen, smi, classifier: bool = False, mosei: bool = False):
             for _ in range(3):
                 state, _ = timed_step(state, batch)
             ll = read_launches()
-            want = {"onepass_attention" if la <= FA.ONEPASS_MAX_LK else "streaming_attention": 6}
+            route = "onepass_attention" if la <= FA.ONEPASS_MAX_LK else "streaming_attention"
+            want = {route: 6, f"{route} (wide tiles)": 6 if wide and dt != torch.float32 else 0}
             check_launches(f"{what} {tag}", ll, want)
             for name, n in ll.items():
                 total[name] += n
@@ -1546,7 +1666,7 @@ def fusion_step(gen, smi, classifier: bool = False, mosei: bool = False):
                   f"loss rel err {loss_err:.3g}, gradients {grads}; launches {ll}", flush=True)
             del model, state, step, timed_step, plain_step
             torch.cuda.empty_cache()
-    if not (classifier or mosei):
+    if not (classifier or mosei or heads != 8):
         rec["backward_last_block"] = {str(dt)[6:]: dropped_block_check(gen, dt)
                                       for dt in (torch.float32, torch.bfloat16)}
     return rec, total
@@ -1565,7 +1685,7 @@ def training(gen, smi, root: pathlib.Path):
     MOSEI corpus. Returns its record and the launches of its main-path
     runs."""
     root.mkdir()
-    rec, total = {}, {name: 0 for name in KERNELS}
+    rec, total = {}, dict.fromkeys(LAUNCH_NAMES, 0)
 
     # (a) the IEMOCAP decoder trainer at its full width, fp32 and bf16
     csv_path, audio_dir, text_dir = make_synthetic_iemocap(
@@ -1614,12 +1734,14 @@ def training(gen, smi, root: pathlib.Path):
           f"{st['best']:.4f}", flush=True)
 
     # (c) the fusion step through the flash kernels: the IEMOCAP decoder's
-    # 8 heads of 96, and the MOSEI model's 8 heads of 32 (the tile instance
-    # at 32)
+    # 8 heads of 96, the MOSEI model's 8 heads of 32 (the tile instance at
+    # 32), and the IEMOCAP decoder at --n_heads 4 (hd 192, the wide tile
+    # instance) in bf16
     rec["fusion_step"], ll = fusion_step(gen, smi)
     rec["mosei_8_heads_step"], ll8 = fusion_step(gen, smi, mosei=True)
+    rec["fusion_4_heads_step"], ll4 = fusion_step(gen, smi, heads=4, dtypes=(torch.bfloat16,))
     for name in total:
-        total[name] += ll[name] + ll8[name]
+        total[name] += ll[name] + ll8[name] + ll4[name]
     return rec, total
 
 
@@ -1669,7 +1791,7 @@ def classifier_training(gen, smi, root: pathlib.Path):
     train steps through the flash kernels against the plain route
     (``fusion_step``). Returns its record and the launches of its main-path
     runs."""
-    rec, total = {}, {name: 0 for name in KERNELS}
+    rec, total = {}, dict.fromkeys(LAUNCH_NAMES, 0)
     data = ["--index_csv", str(root / "iemocap" / "iemocap_index_splits.csv"),
             "--audio_dir", str(root / "iemocap" / "features" / "audio"),
             "--text_dir", str(root / "iemocap" / "features" / "text")]
@@ -1867,7 +1989,7 @@ def evaluation(smi, work: pathlib.Path, idx, wavlm, bert):
     checkpoint, each entry point called in this process so that the launch
     counters count. Returns its record and the launches of its main-path
     runs (the kernel runs; the plain runs are references)."""
-    rec, total = {}, {name: 0 for name in KERNELS}
+    rec, total = {}, dict.fromkeys(LAUNCH_NAMES, 0)
     root = work / "eval"
     root.mkdir()
 
@@ -2040,30 +2162,40 @@ def evaluation(smi, work: pathlib.Path, idx, wavlm, bert):
                    {"onepass_attention": 2, "streaming_attention": 2})
     add(ll16)
     # the MOSEI model at --n_heads 8 (d=256 in heads of 32, the tile instance
-    # at 32): phase 6b's weights under an 8-head checkpoint (the head count
+    # at 32) and at --n_heads 1 (one head of 256, the wide tile instance):
+    # phase 6b's weights under a checkpoint of that head count (the head count
     # changes no parameter's shape), the same uncapped splits, bf16
-    ck["args"]["n_heads"] = 8
-    save_torch_checkpoint(str(root / "mosei_uncapped_8h.pt"), ck)
-    argv8 = ["--ckpt", str(root / "mosei_uncapped_8h.pt"), *argv[2:], "--n_heads", "8"]
-    reset_launches()
-    MEVAL.main(argv8 + ["--out_dir", str(root / "long_8h")])
-    ll8 = read_launches()
-    MEVAL.main(argv8 + ["--out_dir", str(root / "long_8h_plain")], use_kernels=False)
-    delta8 = max(float(np.abs(np.load(root / "long_8h" / f"{sp}_y_prob.npy")
-                              - np.load(root / "long_8h_plain" / f"{sp}_y_prob.npy")).max())
-                 for sp in LONG_MOSEI)
-    print(f"mosei_eval_infer --n_heads 8 uncapped: kernel vs plain max prob delta {delta8:.3g} "
-          f"(limit {EVAL_TOL}); launches {ll8}", flush=True)
-    if not delta8 <= EVAL_TOL:
-        raise AssertionError(f"mosei_eval_infer 8 heads uncapped: prob delta {delta8} > "
-                             f"{EVAL_TOL}")
-    check_launches("mosei_eval_infer 8 heads uncapped", ll8,
-                   {"onepass_attention": 2, "streaming_attention": 2})
-    add(ll8)
+    by_heads = {}
+    for nh in (8, 1):
+        ck["args"]["n_heads"] = nh
+        save_torch_checkpoint(str(root / f"mosei_uncapped_{nh}h.pt"), ck)
+        argv_h = ["--ckpt", str(root / f"mosei_uncapped_{nh}h.pt"), *argv[2:],
+                  "--n_heads", str(nh)]
+        reset_launches()
+        MEVAL.main(argv_h + ["--out_dir", str(root / f"long_{nh}h")])
+        ll_h = read_launches()
+        MEVAL.main(argv_h + ["--out_dir", str(root / f"long_{nh}h_plain")], use_kernels=False)
+        delta_h = max(float(np.abs(np.load(root / f"long_{nh}h" / f"{sp}_y_prob.npy")
+                                   - np.load(root / f"long_{nh}h_plain" / f"{sp}_y_prob.npy"))
+                            .max()) for sp in LONG_MOSEI)
+        print(f"mosei_eval_infer --n_heads {nh} uncapped: kernel vs plain max prob delta "
+              f"{delta_h:.3g} (limit {EVAL_TOL}); launches {ll_h}", flush=True)
+        if not delta_h <= EVAL_TOL:
+            raise AssertionError(f"mosei_eval_infer {nh} heads uncapped: prob delta {delta_h} > "
+                                 f"{EVAL_TOL}")
+        wide = 2 if 256 // nh > 128 else 0
+        check_launches(f"mosei_eval_infer {nh} heads uncapped", ll_h,
+                       {"onepass_attention": 2, "streaming_attention": 2,
+                        "onepass_attention (wide tiles)": wide,
+                        "streaming_attention (wide tiles)": wide})
+        add(ll_h)
+        by_heads[nh] = (delta_h, ll_h)
+    (delta8, ll8), (delta1, ll1) = by_heads[8], by_heads[1]
     rec["mosei"] = dict(utterances=n, summary=summary, uncapped_prob_delta=delta, launches=ll,
                         uncapped_fp16_prob_delta=delta16, fp16_vs_bf16=vs_bf16,
                         fp16_launches=ll16, uncapped_8_heads_prob_delta=delta8,
-                        launches_8_heads=ll8)
+                        launches_8_heads=ll8, uncapped_1_head_prob_delta=delta1,
+                        launches_1_head=ll1)
     return rec, total
 
 
@@ -2569,7 +2701,7 @@ def mesh_rank(dev, clips):
     torch.backends.cudnn.allow_tf32 = False
     lead = dist.get_rank() == 0
     meshes = {k: PM.make_mesh(*s) for k, s in MESH_SHAPES.items()}
-    total = {name: 0 for name in KERNELS}
+    total = dict.fromkeys(LAUNCH_NAMES, 0)
     rec = {"steps": {}}
     t = time.perf_counter()
     cases = [(kind, la, dt, 0.0) for kind in ("dp", "tp") for la in TRAIN_AUDIO
@@ -2642,7 +2774,7 @@ def mesh_phase(smi, root: pathlib.Path, clips, int8_ref, bf16_ref):
     ranks = spawn(mesh_rank, 2, "cuda", clips, timeout=SPAWN_TIMEOUT)
     spawn_s = time.perf_counter() - t
     rec = ranks[0][0]
-    total = {name: sum(r[1][name] for r in ranks) for name in KERNELS}
+    total = {name: sum(r[1][name] for r in ranks) for name in LAUNCH_NAMES}
     forwards = {}
     for tree, ref in (("int8", int8_ref), ("bf16", bf16_ref)):
         delta = 0.0
@@ -2850,6 +2982,38 @@ def main() -> int:
                 total[name] += n
         del pk, pp
         torch.cuda.empty_cache()
+    # phase 4d: the int8 tree with the fusion model at d=768 in 4 heads of
+    # 192 (a decoder trained at --n_heads 4), phase 4's 16 requests: the
+    # fusion stack's MHA sublayers run their core on the wide tile instance
+    fusion4 = FusionWithEmotionDecoder(d_model=768, num_emotions=4, n_heads=4,
+                                       num_layers_fusion=2, num_layers_decoder=2,
+                                       beta_hidden=256)
+    fusion4.init_weights(torch.Generator().manual_seed(SEED + 13))
+    pipe4 = StreamingPipeline(wavlm, bert, fusion4, **kw)
+    plain4 = StreamingPipeline(wavlm, bert, fusion4, use_kernels=False, **kw)
+    serve(pipe4, clips)
+    reset_launches()
+    got4, secs4 = serve(pipe4, clips)
+    launches4 = read_launches()
+    print(f"int8, fusion in 4 heads: served {len(got4)} requests in {secs4:.3f} s; launches "
+          f"{launches4}", flush=True)
+    check_launches("int8 serving, fusion in 4 heads", launches4,
+                   {**{n: k * forwards for n, k in PER_FORWARD.items()},
+                    "attention_core_int8 (wide tiles)": FUSION_MHA_PER_FORWARD * forwards})
+    check_probs("int8 serving, fusion in 4 heads", got4, clips)
+    ref4, plain4_secs = serve(plain4, clips)
+    delta4 = prob_delta(got4, ref4, clips)
+    print(f"int8, fusion in 4 heads, kernel vs plain: max prob delta {delta4:.3g} (gate "
+          f"{PROB_GATE}); plain served in {plain4_secs:.3f} s", flush=True)
+    if not delta4 <= PROB_GATE:
+        raise AssertionError(f"int8, fusion in 4 heads: prob delta {delta4} > {PROB_GATE}")
+    phases["int8_fusion_4_heads"] = dict(launches=launches4, serve_s=secs4,
+                                         plain_serve_s=plain4_secs, prob_delta=delta4)
+    for name, n in launches4.items():
+        total[name] += n
+    del pipe4, plain4, fusion4
+    torch.cuda.empty_cache()
+
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         # phase 5: the feature-extraction entry point
@@ -2911,6 +3075,18 @@ def main() -> int:
         served = [r for r in mine if not r["shape"].endswith("float32")
                   and r.get("kernels_line", True)]
         main_row = max(served, key=lambda r: r["ms"])  # the costliest call on the paths
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=total[name],
+                            max_abs_err=max(r["max_abs_err"] for r in mine),
+                            ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+                            bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+                            library_ms=main_row["library_ms"], route_ms=main_row["route_ms"],
+                            shape=main_row["shape"]))
+    for name, (replaces, source) in WIDE_KERNELS.items():
+        mine = [r for r in rows if r.get("wide_entry") == name]
+        # bf16 (the int8 core's rows are bf16 and name no dtype)
+        main_row = max((r for r in mine if r["shape"].split()[-1] not in ("float32", "float16")),
+                       key=lambda r: r["ms"])
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=total[name],
                             max_abs_err=max(r["max_abs_err"] for r in mine),

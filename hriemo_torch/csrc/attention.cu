@@ -7,37 +7,39 @@
 // hriemo/ops/attention_block.py::_kernel (WavLM: gated relative position
 // bias, :218-260) and ::_mha_kernel (plain key-padding bias, :576-605).
 //
-// Head dims 64 (WavLM, BERT) and 96 (fusion): the tensor-core kernel of
-// csrc/onepass_mma.cuh, 64 query rows a block on mma.sync.m16n8k16, a
-// cp.async ring of 64-key K/V tiles and no score panel, the gate computed
-// in the block's prologue from x, the key bias an fp32 array (WavLM) or a
-// bool padding mask (MHA). What bounds it on the card: the per-score FMA
+// Without the gate (mha_block_int8: BERT, the fusion stack's self and
+// cross attention), every head dim up to 256 runs on the tensor-core
+// kernels of csrc/onepass_mma.cuh at the tile instance that serves it
+// (csrc/attention_tiles.cuh: 32, 64, 96, 128, 192, 256, a head dim between
+// them zero-padded inside the tile): onepass_mma_kernel up to 128, 64
+// query rows a block on mma.sync.m16n8k16 with q in registers, and
+// onepass_wide_kernel at 192 and 256, a pair of warps on each 16 rows, each
+// with half the output columns and q in shared memory (registers bound
+// those: see csrc/attention_tiles.cuh). Both keep no score panel: a
+// cp.async ring of 64-key K/V tiles walked twice. The key bias is a bool
+// padding mask (or an fp32 array). The gated core (attention_block_int8:
+// WavLM) runs there at its head dims 64 and 96, the gate computed in the
+// block's prologue from x. What bounds them on the card: the per-score FMA
 // and MUFU work of the exact-p/l contract (two sweeps, accurate expf, a
-// rounded division per score), as in the float route. The CUDA-core
-// kernel below, which this replaces at those head dims, did QK^T and PV as
-// fp32 FMAs with the tensor cores idle and read the head's K and V again
-// for every 16 query rows.
+// rounded division per score), as in the float route.
 //
-// Other head dims (hd % 8 == 0, 4*hd <= 1024): attn_core_kernel on CUDA
-// cores, one block per (query tile of kQT rows, head, batch element). The
-// whole key row of scores stays in shared memory (Lk <= 1024 on every
-// routed shape), so softmax is exact and one-pass, as in the TPU kernel:
-//   1. the query tile goes to shared memory as fp32 (bf16 values);
-//      WavLM: each warp computes its rows' gate from x and the shared
-//      hd->8 gate Linear: sigmoid(sum g[0:4]) * (sigmoid(sum g[4:8]) * c_h - 1) + 2;
-//   2. scores: each thread owns one key at a time and dots it with every
-//      query row of the tile (fp32 sums of exact bf16 products), then adds
-//      gate * pos (pos stored bf16) and the key-padding bias;
-//   3. softmax per row (one warp per row): m = max, p = exp(s - m),
-//      l = sum p, p / l (div_rn) rounded to bf16, as the reference casts p/l;
-//   4. PV: thread (d, row group) accumulates sum_j p[r][j] * v[j][d] in fp32
-//      and stores bf16.
+// The gated core at other head dims (hd % 8 == 0, hd <= 256), which no
+// WavLM has: attn_core_kernel on CUDA cores. It stays because the gate-from-x
+// prologue has no wide form and its narrow instances at 32 and 128 would add
+// eight instances to this file's build for no model of the repo. One block
+// per (query tile of kQT rows, head, batch element). The whole key row of
+// scores stays in shared memory (Lk <= 1024 on every routed shape), so
+// softmax is exact and one-pass, as in the TPU kernel:
 #include "onepass_mma.cuh"
 
 namespace hr {
 
 constexpr int kQT = 16;  // query rows per block
 
+// RG: row groups in PV, RG * hd threads (rounded up to whole warps; the rest
+// take no part in PV): 4 up to hd 128, 2 beyond, where 4 * hd threads at the
+// kernel's registers do not fit an SM's 65536.
+template <int RG>
 __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
                                  const __nv_bfloat16* __restrict__ k, int k_ld,
                                  const __nv_bfloat16* __restrict__ v, int v_ld, int Lq, int Lk,
@@ -126,8 +128,9 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
   }
   __syncthreads();
 
-  constexpr int kRG = 4, kRPT = kQT / kRG;  // row groups, rows per thread
+  constexpr int kRPT = kQT / RG;  // rows per thread
   const int d = tid % hd, rg = tid / hd;
+  if (rg >= RG) return;
   float acc[kRPT];
 #pragma unroll
   for (int i = 0; i < kRPT; ++i) acc[i] = 0.f;
@@ -135,11 +138,11 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
   for (int j = 0; j < Lk; ++j) {
     const float vv = bf2f(vc[(size_t)j * v_ld]);
 #pragma unroll
-    for (int i = 0; i < kRPT; ++i) acc[i] += S[(rg + kRG * i) * Lk + j] * vv;
+    for (int i = 0; i < kRPT; ++i) acc[i] += S[(rg + RG * i) * Lk + j] * vv;
   }
 #pragma unroll
   for (int i = 0; i < kRPT; ++i) {
-    const int r = rg + kRG * i;
+    const int r = rg + RG * i;
     if (r < nq) ctx[(qrow0 + r) * ctx_ld + h * hd + d] = f2bf(acc[i]);
   }
 }
@@ -156,8 +159,8 @@ extern "C" {
 // NULL for plain MHA): x [B*Lq, x_ld] bf16 (x_f32 = 0) or fp32 (1), read as
 // bf16 by the gate; wg [8, hd] fp32, bg [8] fp32, gconst [H] fp32, pos [H,
 // Lq, Lk] bf16. ctx: [B*Lq, ctx_ld] bf16, head h at column h*hd. Needs
-// hd % 8 == 0 and 4*hd <= 1024; Lk <= 1024 at head dims other than 64 and
-// 96 (the score panel).
+// hd % 8 == 0 and hd <= 256; gated at head dims other than 64 and 96, Lk <=
+// 1024 (the CUDA-core kernel's score panel).
 int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const void* v,
                       int v_ld, int B, int Lq, int Lk, int H, int hd, const void* kbias,
                       const void* kpm, const void* x, int x_ld, int x_f32, const void* wg,
@@ -166,7 +169,7 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
   using bf = __nv_bfloat16;
-  if (hd == 64 || hd == 96) {
+  if (pos == nullptr || hd == 64 || hd == 96) {
     OnepassArgs a{};
     a.q = static_cast<const bf*>(q), a.k = static_cast<const bf*>(k), a.v = static_cast<const bf*>(v);
     a.q_sb = Lq * q_ld, a.q_sh = hd, a.q_sl = q_ld;
@@ -181,25 +184,34 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
     const int keys = kbias != nullptr ? kKeysBias : kKeysPad;
     if (pos != nullptr)
       launch_onepass_mma_keys<kGateFromX>(a, B, hd, keys, s);
+    else if (keys == kKeysBias)
+      launch_onepass_tile<kKeysBias>(a, B, s);
     else
-      launch_onepass_mma_keys<kNoGate>(a, B, hd, keys, s);
+      launch_onepass_tile<kKeysPad>(a, B, s);
     return (int)cudaGetLastError();
-  }
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         200 * 1024);
-    attr_set = true;
   }
   const int smem = (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
   dim3 grid((Lq + kQT - 1) / kQT, H, B);
-  attn_core_kernel<<<grid, 4 * hd, smem, s>>>(
-      static_cast<const bf*>(q), q_ld, static_cast<const bf*>(k), k_ld,
-      static_cast<const bf*>(v), v_ld, Lq, Lk, hd, static_cast<const float*>(kbias),
-      static_cast<const uint8_t*>(kpm), x, x_ld, x_f32,
-      static_cast<const float*>(wg), static_cast<const float*>(bg),
-      static_cast<const float*>(gconst), static_cast<const bf*>(pos), static_cast<bf*>(ctx),
-      ctx_ld);
+  auto go = [&](auto RG) {
+    constexpr int rg = decltype(RG)::value;
+    static bool attr_set = false;  // one per row-group count
+    if (!attr_set) {
+      cudaFuncSetAttribute(attn_core_kernel<rg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           200 * 1024);
+      attr_set = true;
+    }
+    attn_core_kernel<rg><<<grid, (rg * hd + 31) / 32 * 32, smem, s>>>(
+        static_cast<const bf*>(q), q_ld, static_cast<const bf*>(k), k_ld,
+        static_cast<const bf*>(v), v_ld, Lq, Lk, hd, static_cast<const float*>(kbias),
+        static_cast<const uint8_t*>(kpm), x, x_ld, x_f32,
+        static_cast<const float*>(wg), static_cast<const float*>(bg),
+        static_cast<const float*>(gconst), static_cast<const bf*>(pos), static_cast<bf*>(ctx),
+        ctx_ld);
+  };
+  if (hd <= 128)
+    go(std::integral_constant<int, 4>());
+  else
+    go(std::integral_constant<int, 2>());
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // The fp32 float attention cores on the tensor cores, in 3xTF32, at the
-// tile head dims of csrc/attention_tiles.cuh (32, 64, 96 and 128; a head
-// dim below one is zero-padded to it in the tile, the gated core runs at 64
-// and 96 only): the one-pass kernel of
+// narrow tile head dims of csrc/attention_tiles.cuh (32, 64, 96 and 128; a
+// head dim below one is zero-padded to it in the tile, the gated core runs
+// at 64 and 96 only; fp32 above 128 stays on the CUDA-core kernels): the
+// one-pass kernel of
 // csrc/wavlm_attention.cu (wavlm_fused_attention, onepass_attention) and
 // the streaming kernel of csrc/flash_attention.cu (streaming_attention).
 // They replace, for fp32 q/k/v, the Pallas kernels
@@ -390,7 +391,7 @@ void launch_attn_tf32(const Tf32Args& a, int B, cudaStream_t stream) {
 // The ungated launch at the instance that serves head dim a.hd (<= 128).
 template <bool STREAM>
 void launch_attn_tf32_tile(const Tf32Args& a, int B, cudaStream_t s) {
-  with_tile(a.hd, [&](auto HD, auto PAD) {
+  with_tile<128>(a.hd, [&](auto HD, auto PAD) {
     launch_attn_tf32<decltype(HD)::value, false, STREAM, decltype(PAD)::value>(a, B, s);
   });
 }

@@ -1,29 +1,52 @@
 // Tensor-core tile machinery shared by the 16-bit float attention kernels
-// (csrc/wavlm_attention.cu, csrc/flash_attention.cu), FlashAttention-2
-// style on mma.sync.m16n8k16 (bf16 or fp16 in, fp32 accumulate; the element
-// type T picks the instruction's type suffix, and ldmatrix moves 16-bit
-// elements of either type alike); the fp32 kernels
-// of csrc/attention_tf32.cuh share its block shape, key masking and row
-// reductions:
+// (csrc/wavlm_attention.cu, csrc/flash_attention.cu, and the int8 route's
+// core in csrc/attention.cu), FlashAttention-2 style on mma.sync.m16n8k16
+// (bf16 or fp16 in, fp32 accumulate; the element type T picks the
+// instruction's type suffix, and ldmatrix moves 16-bit elements of either
+// type alike); the fp32 kernels of csrc/attention_tf32.cuh share its block
+// shape, key masking and row reductions at the tile head dims up to 128.
 //
-// - a block is kTcWarps = 4 warps and kTcRows = 64 query rows, 16 a warp;
-//   each warp keeps its 16 rows of q in registers as A fragments for the
-//   whole key loop, and its slice of the output in fp32 C fragments;
-// - the kernels are instantiated at the tile head dims HD = 32, 64, 96 and
-//   128; a head dim hd (a multiple of 8) runs on the smallest HD >= hd
-//   (tile_head_dim), its columns zero-padded to HD inside the tile and never
-//   in device memory: load_q fills zeros past hd, load_rows' copies past hd
-//   read nothing (src-size 0), store_rows stores no column past hd. Zero
-//   columns add exact zeros to every q.k sum and give zero output columns.
-//   Each HD has an unpadded instance (PAD false), whose hd is the constant
-//   HD, so that none of these tests is left in its code, and a padded one;
+// Which kernel serves which head dim (hd % 8 == 0, hd <= 256): the smallest
+// tile head dim HD of 32, 64, 96, 128, 192 and 256 at or above hd
+// (tile_head_dim). hd 8-32 runs at 32, 40-64 at 64, 72-96 at 96, 104-128
+// at 128 (the narrow tiles), 136-192 at 192 and 200-256 at 256 (the wide
+// tiles). A head dim below its HD is zero-padded to HD inside the tile and
+// never in device memory: the q, K and V copies fill zeros past hd (src-size
+// 0, nothing read), and no column past hd is stored. Zero columns add exact
+// zeros to every q.k sum and give zero output columns. Each HD has an
+// unpadded instance (PAD false), whose hd is the constant HD, so that none
+// of these tests is left in its code, and a padded one.
+//
+// Narrow tiles (HD <= 128): a block is kTcWarps = 4 warps and kTcRows = 64
+// query rows, 16 a warp; each warp keeps its 16 rows of q in registers as A
+// fragments for the whole key loop (load_q), and its slice of the output,
+// all HD columns, in fp32 C fragments.
+//
+// Wide tiles (HD 192, 256): a block is kWideWarps = 8 warps and the same 64
+// query rows, two warps (a pair) on each 16 rows. What forces the split is
+// registers: at HD 256 one warp's q as A fragments is 64 registers a lane
+// and its fp32 output slice 128, beside a 64-key score tile's 32, where the
+// narrow streaming kernel already takes all 255 at HD 128. So q stays in
+// shared memory and its A fragments come by ldmatrix at each k step
+// (qk_tile_smem), and each warp of a pair owns half the output columns
+// (HD / 2) and half of each key tile's scores: QK^T and the softmax over
+// its half of the keys, PV over all the tile's keys for its columns. The
+// pair shares the tile's p (rounded to T, store_p / load_pa) and its row
+// maxima and sums through shared memory, behind a named barrier of the
+// pair's 64 threads (pair_sync), so that neither QK^T nor the softmax is
+// done twice. (The other route, wgmma with a warpgroup's 64 x HD
+// accumulator over 128 threads, would need the scores in a layout of its
+// own and a second softmax code path; mma.sync keeps the narrow tiles'
+// fragments, helpers and numerics.)
+//
+// Both shapes:
 // - K and V tiles arrive in shared memory by cp.async 16-byte copies into
 //   rows of HD + 8 elements (the 16-byte pad puts the eight rows that one
 //   ldmatrix reads on distinct banks); rows past the key length are zeroed
 //   by the copy itself (src-size 0), so p = 0 never meets garbage in V;
 // - QK^T takes its B fragments from K by ldmatrix, PV from V by
-//   ldmatrix.trans; the scores' C fragments, rounded to T, are PV's A
-//   fragments without leaving registers;
+//   ldmatrix.trans; in the narrow tiles the scores' C fragments, rounded to
+//   T, are PV's A fragments without leaving registers;
 // - each lane holds two rows of a score tile (g = lane / 4 and g + 8), and
 //   a row's four lanes are adjacent, so row max and row sum are two xor
 //   shuffles.
@@ -42,32 +65,39 @@ namespace hr {
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kTcRows = 16 * kTcWarps;   // query rows per block
+constexpr int kWideWarps = 2 * kTcWarps;  // wide tiles: a pair of warps per 16 rows
+constexpr int kWideThreads = 32 * kWideWarps;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // The tile head dim HD of the instance that serves head dim hd (hd % 8 ==
-// 0): the smallest of 32, 64, 96 and 128 at or above hd; 0 above 128, which
-// the CUDA-core kernels serve (at HD 128 the streaming kernel already takes
-// all 255 registers, its acc fragments alone 64 a lane).
-inline int tile_head_dim(int hd) { return hd > 128 ? 0 : (hd + 31) / 32 * 32; }
+// 0): the smallest of 32, 64, 96, 128, 192 and 256 at or above hd; 0 above
+// 256, which no kernel takes.
+inline int tile_head_dim(int hd) {
+  return hd > 256 ? 0 : hd > 192 ? 256 : hd > 128 ? 192 : (hd + 31) / 32 * 32;
+}
 
 // f(std::integral_constant<int, HD>(), std::bool_constant<PAD>()) for the
-// instance that serves head dim hd (hd <= 128): HD = tile_head_dim(hd),
-// PAD = hd < HD.
-template <typename F>
+// instance that serves head dim hd (hd <= kMaxHD): HD = tile_head_dim(hd),
+// PAD = hd < HD. kMaxHD 128 instantiates the narrow tiles only (the fp32
+// kernels of csrc/attention_tf32.cuh have no wide instance).
+template <int kMaxHD = 256, typename F>
 void with_tile(int hd, F&& f) {
-  using P = std::true_type;
-  using U = std::false_type;
-  const bool pad = hd != tile_head_dim(hd);
-  switch (tile_head_dim(hd)) {
-    case 32: return pad ? f(std::integral_constant<int, 32>(), P())
-                        : f(std::integral_constant<int, 32>(), U());
-    case 64: return pad ? f(std::integral_constant<int, 64>(), P())
-                        : f(std::integral_constant<int, 64>(), U());
-    case 96: return pad ? f(std::integral_constant<int, 96>(), P())
-                        : f(std::integral_constant<int, 96>(), U());
-    default: return pad ? f(std::integral_constant<int, 128>(), P())
-                        : f(std::integral_constant<int, 128>(), U());
+  const int inst = tile_head_dim(hd);
+  const bool pad = hd != inst;
+  auto at = [&](auto HD) {
+    if (pad) f(HD, std::true_type());
+    else f(HD, std::false_type());
+  };
+  if constexpr (kMaxHD > 128) {
+    if (inst == 256) return at(std::integral_constant<int, 256>());
+    if (inst == 192) return at(std::integral_constant<int, 192>());
+  }
+  switch (inst) {
+    case 32: return at(std::integral_constant<int, 32>());
+    case 64: return at(std::integral_constant<int, 64>());
+    case 96: return at(std::integral_constant<int, 96>());
+    default: return at(std::integral_constant<int, 128>());
   }
 }
 
@@ -177,13 +207,14 @@ __device__ __forceinline__ void load_q(uint32_t (&qf)[HD / 16][4], const T* q, i
 }
 
 // Rows j0 .. j0+R-1 of a [L, hd] head (rows sl elements apart) into R
-// shared rows of HD + 8 elements; rows at or past L and, PAD, columns at or
-// past hd are zeroed by the copy (src-size 0, nothing read).
-template <int HD, int R, bool PAD, typename T>
+// shared rows of HD + 8 elements, by the block's NTHR threads; rows at or
+// past L and, PAD, columns at or past hd are zeroed by the copy (src-size 0,
+// nothing read).
+template <int HD, int R, bool PAD, int NTHR = kTcThreads, typename T>
 __device__ __forceinline__ void load_rows(T* dst, const T* src, int sl,
                                           int j0, int L, int hd, int tid) {
   constexpr int kChunks = HD / 8;
-  for (int idx = tid; idx < R * kChunks; idx += kTcThreads) {
+  for (int idx = tid; idx < R * kChunks; idx += NTHR) {
     const int r = idx / kChunks, c = idx - r * kChunks;
     const bool ok = j0 + r < L && (!PAD || c * 8 < hd);
     cp_async16(dst + r * (HD + 8) + c * 8,
@@ -192,9 +223,9 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int sl,
 }
 
 // R fp32 key biases from j0 on; zeros past L.
-template <int R>
+template <int R, int NTHR = kTcThreads>
 __device__ __forceinline__ void load_bias(float* dst, const float* src, int j0, int L, int tid) {
-  for (int idx = tid; idx < R; idx += kTcThreads) {
+  for (int idx = tid; idx < R; idx += NTHR) {
     const bool ok = j0 + idx < L;
     cp_async4(dst + idx, src + (ok ? j0 + idx : 0), ok ? 4 : 0);
   }
@@ -241,6 +272,63 @@ __device__ __forceinline__ void pv_tile(float (&o)[COLS / 8][4], const uint32_t 
       mma16<T>(o[2 * d + 1], pa[m][0], pa[m][1], pa[m][2], pa[m][3], b[2], b[3]);
     }
   }
+}
+
+// Wide tiles. The lane's row and column of a 16 x 16 A operand for
+// ldmatrix.x4 (matrices: rows 0-7 and 8-15 at columns 0-7, then the same
+// rows at columns 8-15: a0..a3 of mma.m16n8k16), and of a V tile's 16 keys
+// for ldmatrix.x4.trans (pv_tile).
+__device__ __forceinline__ int a_row(int lane) { return (lane & 7) + (((lane >> 3) & 1) << 3); }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
+
+// s[n] = the 16 query rows at qs (shared, rows of HD + 8) . keys 8n .. 8n+7
+// of ks, fp32 sums over HD; q's A fragments by ldmatrix at each k step.
+template <int HD, int NT, typename T>
+__device__ __forceinline__ void qk_tile_smem(float (&s)[NT][4], const T* qs, const T* ks,
+                                             int lane) {
+  const int kr = (lane & 7) + ((lane >> 4) << 3), kc = ((lane >> 3) & 1) << 3;
+  const T* qa = qs + a_row(lane) * (HD + 8) + a_col(lane);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int k = 0; k < HD / 16; ++k) {
+    uint32_t a[4];
+    ldsm_x4(a, qa + k * 16);
+#pragma unroll
+    for (int m = 0; m < NT / 2; ++m) {
+      uint32_t b[4];
+      ldsm_x4(b, ks + (m * 16 + kr) * (HD + 8) + k * 16 + kc);
+      mma16<T>(s[2 * m], a[0], a[1], a[2], a[3], b[0], b[1]);
+      mma16<T>(s[2 * m + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
+    }
+  }
+}
+
+// The named barrier of pair pr's 64 threads (ids 1-4; __syncthreads is 0):
+// orders their shared-memory accesses as __syncthreads does the block's.
+__device__ __forceinline__ void pair_sync(int pr) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + pr), "r"(64) : "memory");
+}
+
+// p of this warp's 16 rows and NT * 8 keys, rounded to T, into shared rows
+// of ld elements (ps: the column of key 0).
+template <int NT, typename T>
+__device__ __forceinline__ void store_p(T* ps, int ld, const float (&p)[NT][4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(ps + g * ld + 8 * n + 2 * t) = pack2<T>(p[n][0], p[n][1]);
+    *reinterpret_cast<uint32_t*>(ps + (g + 8) * ld + 8 * n + 2 * t) = pack2<T>(p[n][2], p[n][3]);
+  }
+}
+
+// PV's A fragments of KS 16-key steps from shared p rows of ld elements
+// (ps: the column of the first key).
+template <int KS, typename T>
+__device__ __forceinline__ void load_pa(uint32_t (&pa)[KS][4], const T* ps, int ld, int lane) {
+  const T* pr = ps + a_row(lane) * ld + a_col(lane);
+#pragma unroll
+  for (int m = 0; m < KS; ++m) ldsm_x4(pa[m], pr + m * 16);
 }
 
 // The warp's output rows (row0 + g and row0 + g + 8, those below Lq) as T

@@ -22,16 +22,17 @@
 // adds exact zeros unless a row's keys are all masked).
 //
 // Which kernel runs is decided by tile_head_dim alone (csrc/
-// attention_tiles.cuh, exported as hr_streaming_instance): every head dim
-// up to 128 runs on the tensor cores at the tile instance HD, the smallest
-// of 32, 64, 96 and 128 at or above hd (hd 8-32 at 32, 40-64 at 64, 72-96
-// at 96, 104-128 at 128). A head dim below its instance runs on the
-// instance's padded form (with_tile), zero-padded to HD inside the tile,
-// never in device memory: load_q and the cp.async copies of K and V fill
-// zeros past hd, and store_rows stores no column past hd; the unpadded form
-// takes hd as the constant HD.
+// attention_tiles.cuh, exported as hr_streaming_instance): bf16 and fp16
+// run every head dim up to 256 on the tensor cores at the tile instance HD,
+// the smallest of 32, 64, 96, 128, 192 and 256 at or above hd (hd 8-32 at
+// 32, 40-64 at 64, 72-96 at 96, 104-128 at 128, 136-192 at 192, 200-256 at
+// 256), and fp32 every head dim up to 128. A head dim below its instance
+// runs on the instance's padded form (with_tile), zero-padded to HD inside
+// the tile, never in device memory: the copies of q, K and V fill zeros
+// past hd, and no column past hd is stored; the unpadded form takes hd as
+// the constant HD.
 //
-// bf16 or fp16: streaming_mma_kernel, on the tensor cores
+// bf16 or fp16 up to HD 128: streaming_mma_kernel, on the tensor cores
 // (csrc/attention_tiles.cuh; fp16 on the f16 form of the same mma.sync, p
 // rounded to fp16 before PV). A block takes 64 query rows, 16 per warp,
 // with q in registers as mma A fragments and m, l and acc in registers
@@ -51,6 +52,13 @@
 // ms against a 0.031 ms bound (the bf16 operations) and 0.26 ms for SDPA.
 // The CUDA-core kernel that this replaces took 2.70 ms.
 //
+// bf16 or fp16 at HD 192 and 256: streaming_wide_kernel (below), a pair of
+// warps on each 16 query rows, each owning half the output columns, q in
+// shared memory, the 128-key softmax step streamed as 64-key halves
+// through a four-tile ring. At HD 256 q as A fragments (64 registers a
+// lane) and the output slice of all 256 columns (128) would not fit
+// beside the scores, pv and p in the 255 a thread may take.
+//
 // fp32: attn_tf32_kernel<HD, false, true> (csrc/attention_tf32.cuh) at the
 // same instances, the same online softmax on mma.sync.m16n8k8 in 3xTF32:
 // each fp32 operand is split into two TF32 parts and a product takes three
@@ -61,10 +69,12 @@
 // rounding moves. At B=2 2249^2 8x96 it takes about 0.66 ms against SDPA's
 // 1.10 (chip_smoke.py), where the CUDA-core kernel below took 3.60.
 //
-// Head dims 136-256, bf16, fp16 or fp32: streaming_attn_kernel on CUDA
-// cores, one block per (tile of kQT = 16 query rows, head, batch element),
-// 4*hd threads; 8 KB of scores and 16*hd floats of queries in shared
-// memory; m and l in shared memory, three block barriers per key block.
+// fp32 at head dims 136-256: streaming_attn_kernel on CUDA cores (any
+// type with cuda_cores = 1, the yardstick chip_smoke.py times beside each
+// tile row), one block per (tile of kQT = 16 query rows, head, batch
+// element), 4*hd threads; 8 KB of scores and 16*hd floats of queries in
+// shared memory; m and l in shared memory, three block barriers per key
+// block.
 #include "attention_tf32.cuh"
 
 namespace hr {
@@ -302,26 +312,221 @@ __global__ void __launch_bounds__(kTcThreads, HD == 32 ? 2 : 0)
   store_rows<HD>(out + (size_t)b * o_sb + (size_t)h * o_sh, o_sl, row0, Lq, hd, acc, lane);
 }
 
+// The wide tiles (HD 192, 256; csrc/attention_tiles.cuh): the same online
+// softmax over 128-key blocks, in the same order of operations, with a pair
+// of warps on each 16 query rows, q in shared memory, and each warp owning
+// half the output columns (HD / 2) and half of each block's scores. K and V
+// of a 128-key block take 101 KB at HD 192 and 135 KB at 256, so a
+// two-stage ring of whole blocks does not fit shared memory; the ring holds
+// four 64-key tiles instead and walks them in the order they are used, K of
+// the block's first and second half, then V of its first and second half
+// (kWideSlots, three tiles in flight behind the one in use). Per block:
+//   1-2. each warp's 32 keys of each K half: s = QK^T, scale, key bias,
+//        keys past Lk -> -inf (32 scores a row, two halves kept);
+//   3. the row max over the warp's 64 scores, exchanged with the other warp
+//      of the pair: m_new = max(m, max over all 128 scores) before any p is
+//      rounded, as the TPU kernel takes it;
+//   4. alpha = exp(m - m_new), p = exp(s - m_new), rounded to T into the
+//      pair's [16, 128] p tile; the two warps' sums of p (each over its 64
+//      keys) added half 0's first, l = l * alpha + sum;
+//   5-6. pv = P . V over the two V halves (fp32 sums of the 128 keys, this
+//      warp's columns), then acc = acc * alpha + pv, as the narrow kernel
+//      and the TPU kernel order it; out = acc / l at the end.
+// The sum of p is formed in two halves, so l differs from the narrow
+// kernel's in fp32 order only. Shared memory (wide_streaming_smem_bytes):
+// the ring (4 x 25.3 KB at HD 192, 4 x 33.3 KB at 256), q (25.6 KB, 33.8
+// KB), the pairs' p tiles (17.4 KB) and the exchanged maxima and sums (1
+// KB): 144 KB at HD 192 and 184 KB at 256, one block of 8 warps an SM;
+// ptxas gives 186 registers at HD 192 and 224 at 256 (pv and acc, 64 a
+// lane each at 256, live across the two V halves), no spill. What bounds
+// it (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py): the softmax's work
+// per score, as the narrow kernel: B=2 2249^2 4x192 takes 0.283 ms against
+// a 0.031 ms bound (the bf16 operations) and SDPA's 0.242; B=16 2267^2
+// 1x256 0.586 against 0.085 and 0.530. The CUDA-core kernel took 3.212 and
+// 9.120.
+constexpr int kWideHalf = kBK / 2;  // keys of a ring tile
+constexpr int kWideSlots = 4;
+constexpr int kWidePLd = kBK + 8;   // a shared p row
+__host__ __device__ constexpr int wide_slot_bytes(int hd) {
+  return kWideHalf * (hd + 8) * 2 + kWideHalf * 4;
+}
+__host__ __device__ constexpr int wide_streaming_smem_bytes(int hd) {
+  return kWideSlots * wide_slot_bytes(hd) + kTcRows * (hd + 8) * 2 +
+         kTcWarps * 16 * kWidePLd * 2 + kWideWarps * 2 * 16 * 4;
+}
+
+template <int HD, bool PAD, typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    streaming_wide_kernel(const T* __restrict__ q, int q_sb, int q_sh, int q_sl,
+                          const T* __restrict__ k, int k_sb, int k_sh, int k_sl,
+                          const T* __restrict__ v, int v_sb, int v_sh, int v_sl,
+                          int Lq, int Lk, float scale, const float* __restrict__ kbias,
+                          T* __restrict__ out, int o_sb, int o_sh, int o_sl, int head_dim) {
+  constexpr int kKeys = kWideHalf / 2;  // keys of a ring tile per warp
+  constexpr int NT = kKeys / 8;         // n-tiles of a warp's scores in one tile
+  constexpr int kCols = HD / 2;         // output columns per warp
+  constexpr int kSlot = wide_slot_bytes(HD);
+  const int hd = PAD ? head_dim : HD;
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pr = warp >> 1, half = warp & 1;  // pair (16 query rows), half (keys, columns)
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x, i0 = blockIdx.y * kTcRows, h = blockIdx.z;
+  const T* kh = k + (size_t)b * k_sb + (size_t)h * k_sh;
+  const T* vh = v + (size_t)b * v_sb + (size_t)h * v_sh;
+  const float* kb = kbias + (size_t)b * Lk;
+
+  auto Ts = [&](int j) { return reinterpret_cast<T*>(ring + (j % kWideSlots) * kSlot); };
+  auto Bs = [&](int j) { return reinterpret_cast<float*>(Ts(j) + kWideHalf * (HD + 8)); };
+  T* const qs = reinterpret_cast<T*>(ring + kWideSlots * kSlot);  // [64][HD + 8]
+  T* const ps = qs + kTcRows * (HD + 8) + pr * 16 * kWidePLd;     // this pair's [16][kWidePLd]
+  float* const xs = reinterpret_cast<float*>(qs + kTcRows * (HD + 8) + kTcWarps * 16 * kWidePLd);
+  float* const mx_w = xs + warp * 32, *const sum_w = mx_w + 16;   // this warp's rows' max, sum
+  float* const mx_o = xs + (warp ^ 1) * 32, *const sum_o = mx_o + 16;  // the other warp's
+  float* const sum_0 = xs + (pr * 2) * 32 + 16, *const sum_1 = sum_0 + 32;  // half 0's, 1's
+
+  const int nblocks = (Lk + kBK - 1) / kBK, steps = 4 * nblocks;
+  // ring tile j: block j / 4; K of half j % 2 (with its key biases) for j % 4
+  // < 2, else V of half j % 2. Every step commits a group, empty past the
+  // end, so that "all but the two newest" is always tile j's.
+  auto issue = [&](int j) {
+    if (j < steps) {
+      const int j0 = (j >> 2) * kBK + (j & 1) * kWideHalf;
+      if ((j & 2) == 0) {
+        load_rows<HD, kWideHalf, PAD, kWideThreads>(Ts(j), kh, k_sl, j0, Lk, hd, tid);
+        load_bias<kWideHalf, kWideThreads>(Bs(j), kb, j0, Lk, tid);
+      } else {
+        load_rows<HD, kWideHalf, PAD, kWideThreads>(Ts(j), vh, v_sl, j0, Lk, hd, tid);
+      }
+    }
+    cp_async_commit();
+  };
+  // q's rows (zeros past Lq and, PAD, past hd) in the same group as tile 0
+  load_rows<HD, kTcRows, PAD, kWideThreads>(qs, q + (size_t)b * q_sb + (size_t)h * q_sh, q_sl,
+                                            i0, Lq, hd, tid);
+  issue(0);
+  issue(1);
+  issue(2);
+  auto next = [&](int j) {  // wait for tile j, free the slot of j - 1, refill it with j + 3
+    cp_async_wait<2>();
+    __syncthreads();
+    issue(j + 3);
+  };
+
+  const T* qw = qs + pr * 16 * (HD + 8);
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  float acc[kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < nblocks; ++it) {
+    float s[2][NT][4];  // this warp's 32 keys of each half
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = 4 * it + hf, jw = it * kBK + hf * kWideHalf + half * kKeys;
+      next(j);
+      const float* bs = Bs(j) + half * kKeys;
+      qk_tile_smem<HD, NT>(s[hf], qw, Ts(j) + half * kKeys * (HD + 8), lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 kb2 = *reinterpret_cast<const float2*>(bs + n * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[hf][n][e] = __fadd_rn(__fmul_rn(s[hf][n][e], scale), (e & 1) ? kb2.y : kb2.x);
+      }
+      if (jw + kKeys > Lk) mask_keys<NT>(s[hf], Lk - jw, lane);  // all of them when jw >= Lk
+    }
+
+    float alpha[2], m_cur[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = neg_inf();
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          mx = fmaxf(mx, fmaxf(s[hf][n][2 * rr], s[hf][n][2 * rr + 1]));
+      m_cur[rr] = quad_max(mx);
+      if (t == 0) mx_w[g + 8 * rr] = m_cur[rr];
+    }
+    pair_sync(pr);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      // the block's first key is in half 0, so m_cur is finite from the first block on
+      m_cur[rr] = fmaxf(fmaxf(m_cur[rr], mx_o[g + 8 * rr]), m[rr]);
+      float psum = 0.f;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          s[hf][n][2 * rr] = expf(__fadd_rn(s[hf][n][2 * rr], -m_cur[rr]));
+          s[hf][n][2 * rr + 1] = expf(__fadd_rn(s[hf][n][2 * rr + 1], -m_cur[rr]));
+          psum += s[hf][n][2 * rr] + s[hf][n][2 * rr + 1];
+        }
+      psum = quad_sum(psum);
+      if (t == 0) sum_w[g + 8 * rr] = psum;
+      alpha[rr] = expf(__fadd_rn(m[rr], -m_cur[rr]));  // exp(-inf) = 0 at the first block
+      m[rr] = m_cur[rr];
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) store_p<NT>(ps + hf * kWideHalf + half * kKeys, kWidePLd,
+                                               s[hf], lane);
+    pair_sync(pr);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = g + 8 * rr;
+      l[rr] = __fadd_rn(__fmul_rn(l[rr], alpha[rr]), __fadd_rn(sum_0[r], sum_1[r]));
+    }
+
+    float pv[kCols / 8][4];
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n) pv[n][0] = pv[n][1] = pv[n][2] = pv[n][3] = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = 4 * it + 2 + hf;
+      next(j);
+      uint32_t pa[kWideHalf / 16][4];
+      load_pa<kWideHalf / 16>(pa, ps + hf * kWideHalf, kWidePLd, lane);
+      pv_tile<HD, kWideHalf / 8, T, kCols>(pv, pa, Ts(j) + half * kCols, lane);
+    }
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = __fadd_rn(__fmul_rn(acc[n][e], alpha[e >> 1]), pv[n][e]);
+  }
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = __fdiv_rn(acc[n][e], l[e >> 1]);
+  store_rows<kCols>(out + (size_t)b * o_sb + (size_t)h * o_sh + half * kCols, o_sl,
+                    i0 + pr * 16, Lq, hd - half * kCols, acc, lane);
+}
+
 template <int HD, bool PAD, typename T>
 void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb, int k_sh,
                 int k_sl, const void* v, int v_sb, int v_sh, int v_sl, int B, int H, int Lq,
                 int Lk, int hd, float scale, const void* kbias, void* out, int o_sb, int o_sh,
                 int o_sl, cudaStream_t stream) {
-  constexpr int smem = 2 * mma_stage_bytes(HD);
-  static bool attr_set = false;  // one per instantiation
-  if (!attr_set) {
-    cudaFuncSetAttribute(streaming_mma_kernel<HD, PAD, T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    attr_set = true;
-  }
   dim3 grid(B, (Lq + kTcRows - 1) / kTcRows, H);
-  streaming_mma_kernel<HD, PAD, T><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
-      static_cast<const T*>(v), v_sb, v_sh, v_sl, Lq, Lk, scale,
-      static_cast<const float*>(kbias), static_cast<T*>(out), o_sb, o_sh, o_sl, hd);
+  auto go = [&](auto kernel, int threads, int smem) {
+    static bool attr_set = false;  // one per instantiation
+    if (!attr_set) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attr_set = true;
+    }
+    kernel<<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
+        static_cast<const T*>(v), v_sb, v_sh, v_sl, Lq, Lk, scale,
+        static_cast<const float*>(kbias), static_cast<T*>(out), o_sb, o_sh, o_sl, hd);
+  };
+  if constexpr (HD > 128)
+    go(streaming_wide_kernel<HD, PAD, T>, kWideThreads, wide_streaming_smem_bytes(HD));
+  else
+    go(streaming_mma_kernel<HD, PAD, T>, kTcThreads, 2 * mma_stage_bytes(HD));
 }
 
-// The tensor-core launch at the instance that serves head dim hd (<= 128)
+// The tensor-core launch at the instance that serves head dim hd (<= 256)
 // on 16-bit q/k/v/out of type T.
 template <typename T>
 void launch_mma_tile(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb,
@@ -341,16 +546,17 @@ using namespace hr;
 
 extern "C" {
 
-// The tile head dim of the instance that serves head dim hd, or 0 for the
-// CUDA-core kernel.
+// The tile head dim of the bf16 and fp16 instance that serves head dim hd
+// (fp32 takes the same instance up to 128 and the CUDA-core kernel beyond).
 int hr_streaming_instance(int hd) { return tile_head_dim(hd); }
 
 // Operands as in hr_onepass_attention (csrc/wavlm_attention.cu), without a
 // gate. Needs Lk >= 1, hd % 8 == 0 and hd <= 256 (blockDim 4*hd of the
 // CUDA-core kernel, whose shared memory stays under 48 KB). Runs the
-// instance of hr_streaming_instance: streaming_mma_kernel (bf16, fp16) or
-// attn_tf32_kernel (fp32), or streaming_attn_kernel on CUDA cores, which
-// cuda_cores = 1 takes at any head dim (to time it beside the tile
+// instance of hr_streaming_instance: streaming_mma_kernel or
+// streaming_wide_kernel (bf16, fp16) or attn_tf32_kernel (fp32 up to hd
+// 128), or streaming_attn_kernel on CUDA cores (fp32 beyond), which
+// cuda_cores = 1 takes at any head dim and type (to time it beside the tile
 // kernels). dtype: kDtBf16, kDtF32 or kDtF16.
 int hr_streaming_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                            int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
@@ -359,7 +565,7 @@ int hr_streaming_attention(int dtype, const void* q, int q_sb, int q_sh, int q_s
                            int cuda_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  const int inst = cuda_cores ? 0 : tile_head_dim(hd);
+  const int inst = cuda_cores || (dtype == kDtF32 && hd > 128) ? 0 : tile_head_dim(hd);
   if (inst && dtype == kDtF32) {
     Tf32Args a{};
     a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);

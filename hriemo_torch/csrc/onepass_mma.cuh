@@ -15,7 +15,16 @@
 // [B*L, 3D] (or [B*Lq, D] and [B*Lk, 2D]) output, its 1/sqrt(hd) already in
 // q (scale 1, exact), and its ctx [B*Lq, D].
 //
-// A block takes 64 query rows, 16 per warp (csrc/attention_tiles.cuh), and
+// Two kernels, by the tile head dim HD that serves hd (csrc/
+// attention_tiles.cuh): onepass_mma_kernel at HD 32, 64, 96 and 128 (4
+// warps, q in registers; gated at 64 and 96 only) and onepass_wide_kernel
+// at HD 192 and 256 (8 warps, a pair of warps on each 16 query rows, q in
+// shared memory, each warp with half the keys of a tile and half the output
+// columns; ungated). Registers decide the split: at HD 256 q's A fragments
+// (64 a lane) and an output slice of all 256 columns (128) leave too little
+// beside the scores and p; the pair keeps 64 output registers a lane, as
+// HD 128 does. Both go through the same steps in the same order.
+// A block takes 64 query rows, 16 per warp or per pair, and
 // walks the keys in tiles of 64 twice:
 //   sweep 1: s for each tile (mma.sync QK^T, then scale, gate * pos and the
 //     key bias in the TPU kernels' order, __fmul_rn/__fadd_rn), the running
@@ -33,7 +42,8 @@
 // Shared memory does not grow with Lk: a two-stage cp.async ring of K, V,
 // the key biases and (gated) the [64, 64] pos tile: gated 55 KB at HD 64
 // and 72 KB at HD 96, ungated 21 KB at HD 32 and 69 KB at HD 128, so three
-// or more blocks share an SM. pos rows are only
+// or more blocks share an SM; the wide kernel adds q and the pairs' p tiles
+// to its ring, 139 KB at HD 192 and 180 KB at 256, one block an SM. pos rows are only
 // 2-byte aligned at odd Lk, so each row is copied from the 16-byte boundary
 // below its first key and read at its offset (e & 7) in shared memory,
 // without a padded copy in device memory. Blocks run batch element
@@ -261,6 +271,162 @@ __global__ void __launch_bounds__(kTcThreads) onepass_mma_kernel(const OnepassAr
                  lane);
 }
 
+// The wide tiles (HD 192, 256; csrc/attention_tiles.cuh), ungated: the same
+// two sweeps, scores, masks and roundings as onepass_mma_kernel, with a pair
+// of warps on each 16 query rows. Warp `half` of a pair takes keys
+// half * 32 .. half * 32 + 31 of each 64-key tile for QK^T and the softmax,
+// and output columns half * HD/2 .. for PV over all 64 keys. In sweep 1
+// each warp keeps the running max and sum of its own keys; at the start of
+// sweep 2 the pair merges them through shared memory, in the same order in
+// both warps (half 0's first), so both hold the same m and l:
+//   m = max(m0, m1),  l = l0 * exp(m0 - m) + l1 * exp(m1 - m)
+// (l differs from the narrow kernel's in fp32 order and rescaling only,
+// before p / l is rounded). In sweep 2 each warp forms p / l of its keys,
+// rounded to T, into the pair's [16, 64] p tile in shared memory, and after
+// the pair's barrier reads the whole tile back as PV's A fragments. The
+// block barrier of the ring, at the top of each step, keeps the p tile from
+// being overwritten while the other warp still reads it.
+// Shared memory (wide_onepass_smem_bytes): the two-stage ring of K, V and
+// the key biases (2 x 51.5 KB at HD 192, 2 x 67.8 KB at 256), q (25.6 KB,
+// 33.8 KB), the four pairs' p tiles (9.2 KB) and the merge's m and l (1
+// KB): 138.8 KB at HD 192 and 179.7 KB at 256, one block of 8 warps an SM;
+// ptxas gives 124 registers at HD 192 and 148 at 256, no spill. What bounds
+// it (NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py): as the narrow kernel,
+// the per-score softmax work, here with one block an SM to hide it and a
+// second wave of blocks at small grids: B=2 1499^2 4x192 takes 0.218 ms
+// against a 0.014 ms bound (the bf16 operations) and SDPA's 0.091; B=16
+// 1951^2 1x256 0.649 against 0.063 and 0.332. The CUDA-core kernel took
+// 1.013 and 4.150.
+__host__ __device__ constexpr int wide_onepass_smem_bytes(int hd) {
+  return 2 * mma_stage_bytes(hd, false) + kTcRows * (hd + 8) * 2 +
+         kTcWarps * 16 * (kOneBK + 8) * 2 + kWideWarps * 2 * 16 * 4;
+}
+
+template <typename T, int HD, int KEYS, bool PAD>
+__global__ void __launch_bounds__(kWideThreads, 1) onepass_wide_kernel(const OnepassArgsT<T> a) {
+  constexpr int kHalf = kOneBK / 2;     // keys of a tile per warp
+  constexpr int NT = kHalf / 8;         // n-tiles of a warp's scores
+  constexpr int kCols = HD / 2;         // output columns per warp
+  constexpr int kPLd = kOneBK + 8;      // a shared p row
+  constexpr int kStage = mma_stage_bytes(HD, false);
+  const int hd = PAD ? a.hd : HD;
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pr = warp >> 1, half = warp & 1;  // pair (16 query rows), half (keys, columns)
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x, i0 = blockIdx.y * kTcRows, h = blockIdx.z;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const T* qh = a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh;
+  const T* kh = a.k + (size_t)b * a.k_sb + (size_t)h * a.k_sh;
+  const T* vh = a.v + (size_t)b * a.v_sb + (size_t)h * a.v_sh;
+  const size_t krow0 = (size_t)b * Lk;  // this element's key 0 in kbias / kpm
+
+  auto Ks = [&](int st) { return reinterpret_cast<T*>(ring + st * kStage); };
+  auto Vs = [&](int st) { return Ks(st) + kOneBK * (HD + 8); };
+  auto Bs = [&](int st) { return reinterpret_cast<float*>(Vs(st) + kOneBK * (HD + 8)); };
+  T* const qs = reinterpret_cast<T*>(ring + 2 * kStage);        // [64][HD + 8]
+  T* const ps = qs + kTcRows * (HD + 8) + pr * 16 * kPLd;       // this pair's [16][kPLd]
+  float* const ml = reinterpret_cast<float*>(qs + kTcRows * (HD + 8) + kTcWarps * 16 * kPLd);
+
+  const int ntiles = (Lk + kOneBK - 1) / kOneBK, steps = 2 * ntiles;
+  // step it: tile it % ntiles of sweep it / ntiles (V only in sweep 2)
+  auto issue = [&](int it) {
+    const int st = it & 1, j0 = (it % ntiles) * kOneBK;
+    load_rows<HD, kOneBK, PAD, kWideThreads>(Ks(st), kh, a.k_sl, j0, Lk, hd, tid);
+    if (it >= ntiles) load_rows<HD, kOneBK, PAD, kWideThreads>(Vs(st), vh, a.v_sl, j0, Lk, hd, tid);
+    if (KEYS == kKeysBias) load_bias<kOneBK, kWideThreads>(Bs(st), a.kbias + krow0, j0, Lk, tid);
+    cp_async_commit();
+    if (KEYS == kKeysPad) {
+      // bytes at any alignment: plain loads; the stage is free (see the loop)
+      for (int idx = tid; idx < kOneBK; idx += kWideThreads) {
+        const int j = j0 + idx;
+        Bs(st)[idx] = j < Lk && a.kpm != nullptr && a.kpm[krow0 + j] ? kNegInf : 0.f;
+      }
+    }
+  };
+  // q's rows (zeros past Lq and, PAD, past hd) in the same group as tile 0
+  load_rows<HD, kTcRows, PAD, kWideThreads>(qs, qh, a.q_sl, i0, Lq, hd, tid);
+  issue(0);
+
+  const T* qw = qs + pr * 16 * (HD + 8);
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f}, rl[2];  // rl = 1 / l
+  float o[kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // step it's tiles are in; step it - 1 is done with the other stage
+    if (it + 1 < steps) issue(it + 1);
+    const int st = it & 1, jw = (it % ntiles) * kOneBK + half * kHalf;  // this warp's key 0
+    const float* bs = Bs(st) + half * kHalf;
+
+    float s[NT][4];
+    qk_tile_smem<HD, NT>(s, qw, Ks(st) + half * kHalf * (HD + 8), lane);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = n * 8 + 2 * t;
+      const float2 kb2 = *reinterpret_cast<const float2*>(bs + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = __fadd_rn(__fmul_rn(s[n][e], a.scale), (e & 1) ? kb2.y : kb2.x);
+    }
+    if (jw + kHalf > Lk) mask_keys<NT>(s, Lk - jw, lane);  // all of them when jw >= Lk
+
+    if (it < ntiles) {  // sweep 1: running max and rescaled running sum of this warp's keys
+      if (jw < Lk) {    // warp-uniform; a warp with no key yet keeps m = -inf, l = 0
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float mx = neg_inf();
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * rr], s[n][2 * rr + 1]));
+          const float mn = fmaxf(m[rr], quad_max(mx));
+          float sum = 0.f;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            sum += expf(__fadd_rn(s[n][2 * rr], -mn)) + expf(__fadd_rn(s[n][2 * rr + 1], -mn));
+          l[rr] = __fadd_rn(__fmul_rn(l[rr], expf(__fadd_rn(m[rr], -mn))), quad_sum(sum));
+          m[rr] = mn;
+        }
+      }
+    } else {  // sweep 2: p / l rounded to T into the pair's p tile, then PV
+      if (it == ntiles) {  // merge the pair's m and l; half 0 holds key 0, so m0 is finite
+        if (t == 0) {
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            ml[(warp * 2 + 0) * 16 + g + 8 * rr] = m[rr];
+            ml[(warp * 2 + 1) * 16 + g + 8 * rr] = l[rr];
+          }
+        }
+        pair_sync(pr);
+        const float* m0 = ml + (pr * 2 + 0) * 32;  // half 0's m, then its l
+        const float* m1 = ml + (pr * 2 + 1) * 32;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = g + 8 * rr;
+          const float mn = fmaxf(m0[r], m1[r]);
+          l[rr] = __fadd_rn(__fmul_rn(m0[16 + r], expf(__fadd_rn(m0[r], -mn))),
+                            __fmul_rn(m1[16 + r], expf(__fadd_rn(m1[r], -mn))));
+          m[rr] = mn;
+          rl[rr] = __frcp_rn(l[rr]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = div_rn(expf(__fadd_rn(s[n][e], -m[e >> 1])), l[e >> 1], rl[e >> 1]);
+      store_p<NT>(ps + half * kHalf, kPLd, s, lane);
+      pair_sync(pr);
+      uint32_t pa[kOneBK / 16][4];
+      load_pa<kOneBK / 16>(pa, ps, kPLd, lane);
+      pv_tile<HD, kOneBK / 8, T, kCols>(o, pa, Vs(st) + half * kCols, lane);
+    }
+  }
+  store_rows<kCols>(a.out + (size_t)b * a.o_sb + (size_t)h * a.o_sh + half * kCols, a.o_sl,
+                    i0 + pr * 16, Lq, hd - half * kCols, o, lane);
+}
+
 // The launch helpers keep a per-library flag for the shared-memory opt-in:
 // internal linkage, or the flag of a template instantiated in two libraries
 // (csrc/attention.cu, csrc/wavlm_attention.cu) would be one process-wide symbol
@@ -269,26 +435,52 @@ namespace {
 
 template <int HD, int GATE, int KEYS, bool PAD = false, typename T>
 void launch_onepass_mma(const OnepassArgsT<T>& a, int B, cudaStream_t stream) {
-  constexpr int smem = 2 * mma_stage_bytes(HD, GATE != kNoGate);
-  static bool attr_set = false;  // one per instantiation
-  if (!attr_set) {
-    cudaFuncSetAttribute(onepass_mma_kernel<T, HD, GATE, KEYS, PAD>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    attr_set = true;
-  }
   // batch element fastest: the blocks that read one pos tile run together
   dim3 grid(B, (a.Lq + kTcRows - 1) / kTcRows, a.H);
-  onepass_mma_kernel<T, HD, GATE, KEYS, PAD><<<grid, kTcThreads, smem, stream>>>(a);
+  static bool attr_set = false;  // one per instantiation
+  if constexpr (HD > 128) {
+    static_assert(GATE == kNoGate, "the wide tiles have no gated instance");
+    constexpr int smem = wide_onepass_smem_bytes(HD);
+    if (!attr_set) {
+      cudaFuncSetAttribute(onepass_wide_kernel<T, HD, KEYS, PAD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attr_set = true;
+    }
+    onepass_wide_kernel<T, HD, KEYS, PAD><<<grid, kWideThreads, smem, stream>>>(a);
+  } else {
+    constexpr int smem = 2 * mma_stage_bytes(HD, GATE != kNoGate);
+    if (!attr_set) {
+      cudaFuncSetAttribute(onepass_mma_kernel<T, HD, GATE, KEYS, PAD>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attr_set = true;
+    }
+    onepass_mma_kernel<T, HD, GATE, KEYS, PAD><<<grid, kTcThreads, smem, stream>>>(a);
+  }
 }
 
-// The launch for head dim hd (64 or 96, the caller checks) and the gate
-// and key-mask kinds chosen at run time.
+// Shared memory of the tile instance HD (gated: 64 or 96 only).
+inline int onepass_tile_smem_bytes(int HD, bool gated) {
+  return HD > 128 ? wide_onepass_smem_bytes(HD) : 2 * mma_stage_bytes(HD, gated);
+}
+
+// The gated launch for head dim hd (64 or 96, the caller checks) and the
+// key-mask kind chosen at run time. A template, so that only the library
+// that calls it (csrc/attention.cu) builds its instances.
 template <int GATE>
 void launch_onepass_mma_keys(const OnepassArgs& a, int B, int hd, int keys, cudaStream_t s) {
   if (hd == 64 && keys == kKeysBias) launch_onepass_mma<64, GATE, kKeysBias>(a, B, s);
   else if (hd == 64) launch_onepass_mma<64, GATE, kKeysPad>(a, B, s);
   else if (keys == kKeysBias) launch_onepass_mma<96, GATE, kKeysBias>(a, B, s);
   else launch_onepass_mma<96, GATE, kKeysPad>(a, B, s);
+}
+
+// The ungated launch at the tile instance that serves head dim a.hd (<=
+// 256), key-mask kind KEYS.
+template <int KEYS, typename T>
+void launch_onepass_tile(const OnepassArgsT<T>& a, int B, cudaStream_t s) {
+  with_tile(a.hd, [&](auto HD, auto PAD) {
+    launch_onepass_mma<decltype(HD)::value, kNoGate, KEYS, decltype(PAD)::value>(a, B, s);
+  });
 }
 
 }  // namespace

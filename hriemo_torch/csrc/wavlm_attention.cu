@@ -15,21 +15,23 @@
 //   hriemo/ops/flash_attention_pallas.py::_onepass_kernel, gate = pos = NULL,
 //     routed for 1024 <= Lq and 1024 <= Lk <= 2048.
 //
-// Which kernel runs is decided by onepass_instance alone (exported as
-// hr_onepass_instance): without a gate, every head dim up to 128 runs on
-// the tensor cores at the tile instance HD = tile_head_dim(hd), the
-// smallest of 32, 64, 96 and 128 at or above hd (hd 8-32 at 32, 40-64 at
-// 64, 72-96 at 96, 104-128 at 128); the gate runs there only at its own
-// instances' head dims, 64 (WavLM) and 96. A head dim below its instance
-// runs on the instance's padded form (with_tile), zero-padded to HD inside
-// the tile, never in device memory: load_q and the cp.async copies of K
-// and V fill zeros past hd, and store_rows stores no column past hd
+// Which kernel runs is decided by onepass_instance alone (its 16-bit form
+// exported as hr_onepass_instance): without a gate, bf16 and fp16 run every
+// head dim up to 256 on the tensor cores at the tile instance HD =
+// tile_head_dim(hd), the smallest of 32, 64, 96, 128, 192 and 256 at or
+// above hd (hd 8-32 at 32, 40-64 at 64, 72-96 at 96, 104-128 at 128,
+// 136-192 at 192, 200-256 at 256), and fp32 every head dim up to 128; the
+// gate runs there only at its own instances' head dims, 64 (WavLM) and 96.
+// A head dim below its instance runs on the instance's padded form
+// (with_tile), zero-padded to HD inside the tile, never in device memory
 // (csrc/attention_tiles.cuh); the unpadded form takes hd as the constant HD.
 //
-// bf16 or fp16: onepass_mma_kernel on the tensor cores, the two-sweep kernel
-// of csrc/onepass_mma.cuh, with the gate read from its [B, H, Lq] array;
-// fp16 on the f16 form of the same mma.sync, with the bf16 numerics (p / l
-// rounded to fp16 before PV). What bounds it (NVIDIA H100 80GB HBM3 at 700
+// bf16 or fp16: the two-sweep kernels of csrc/onepass_mma.cuh, with the gate
+// read from its [B, H, Lq] array: onepass_mma_kernel at HD <= 128 (4 warps,
+// q in registers), onepass_wide_kernel at HD 192 and 256 (8 warps, a pair
+// on each 16 query rows, q in shared memory; see there); fp16 on the f16
+// form of the same mma.sync, with the bf16 numerics (p / l rounded to fp16
+// before PV). What bounds it (NVIDIA H100 80GB HBM3 at 700
 // W, chip_smoke.py): the per-score work on the FMA and MUFU pipes, about 35
 // instructions a score, so a 16x8 block of scores costs some 140 warp
 // instructions beside its 12 mma.sync at hd 64. At B=2 L=1499 the gated
@@ -37,9 +39,11 @@
 // with __fdiv_rn, which branches to a slow path after every division, and
 // 1.84 ms on the CUDA-core kernel that this replaces. Blocks take 128
 // registers at hd 64, so four fit on an SM, and 576 blocks make 1.1 waves
-// there.
+// there. At HD 192 and 256 the QK^T and PV products per score grow with hd
+// while the softmax's work does not, and one 8-warp block an SM (by shared
+// memory) has to hide both.
 //
-// fp32: attn_tf32_kernel (csrc/attention_tf32.cuh) at the same instances,
+// fp32: attn_tf32_kernel (csrc/attention_tf32.cuh) at the narrow instances,
 // the same two sweeps on mma.sync.m16n8k8 in 3xTF32: each fp32 operand is
 // split into two TF32 parts and a product takes three mma, which keeps
 // about 2^-20 of each product. One TF32 product (2^-11) does not hold the
@@ -48,9 +52,9 @@
 // B=2 1499^2 8x96 it takes about 0.42 ms against SDPA's 0.45 (chip_smoke.py),
 // where the CUDA-core kernel below took 1.85.
 //
-// Head dims 136-256 without a gate, and the gate at head dims other than 64
-// and 96 (hd % 8 == 0, hd <= 256), bf16, fp16 or fp32: onepass_attn_kernel
-// on CUDA cores, one block per 16 query rows with the fp32 score panel
+// fp32 at head dims 136-256, and the gate at head dims other than 64 and 96
+// (hd % 8 == 0, hd <= 256) in any type: onepass_attn_kernel on CUDA cores,
+// one block per 16 query rows with the fp32 score panel
 // [16, Lk] in up to 227 KB of shared memory, RG * hd threads (RG = 4 row
 // groups up to hd 128, 2 beyond: 1024 threads at its 103 registers do not
 // fit an SM's 65536):
@@ -60,6 +64,8 @@
 //      adds gate * pos and the key bias, in the TPU kernels' order;
 //   3. softmax per row, one warp per row; p / l is rounded to T;
 //   4. PV: thread (d, row group) sums p[r][j] * v[j][d] in fp32, stores T.
+// cuda_cores = 1 takes it at any head dim and type (the yardstick that
+// chip_smoke.py times beside each tile row).
 #include "attention_tf32.cuh"
 #include "onepass_mma.cuh"
 
@@ -193,10 +199,12 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
      gate, pos, out, o_sb, o_sh, o_sl, smem, stream);
 }
 
-// The tile instance (its head dim HD) that serves head dim hd, or 0 for the
-// CUDA-core kernel: the gated core is instantiated at 64 and 96 only.
-int onepass_instance(int hd, bool gated) {
-  return gated && hd != 64 && hd != 96 ? 0 : tile_head_dim(hd);
+// The tile instance (its head dim HD) that serves head dim hd in dtype, or
+// 0 for the CUDA-core kernel: the gated core is instantiated at 64 and 96
+// only, the fp32 kernels at the narrow tiles only.
+int onepass_instance(int hd, bool gated, int dtype) {
+  if (gated && hd != 64 && hd != 96) return 0;
+  return dtype == kDtF32 && hd > 128 ? 0 : tile_head_dim(hd);
 }
 
 // The tensor-core launch on 16-bit q/k/v/pos/out of type T: the gated core
@@ -216,10 +224,7 @@ void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int 
   a.o_sb = o_sb, a.o_sh = o_sh, a.o_sl = o_sl;
   if (gate != nullptr && hd == 64) launch_onepass_mma<64, kGateArray, kKeysBias>(a, B, s);
   else if (gate != nullptr) launch_onepass_mma<96, kGateArray, kKeysBias>(a, B, s);
-  else
-    with_tile(hd, [&](auto HD, auto PAD) {
-      launch_onepass_mma<decltype(HD)::value, kNoGate, kKeysBias, decltype(PAD)::value>(a, B, s);
-    });
+  else launch_onepass_tile<kKeysBias>(a, B, s);
 }
 
 }  // namespace hr
@@ -228,17 +233,18 @@ using namespace hr;
 
 extern "C" {
 
-// The tile head dim of the instance that serves head dim hd with (gated =
-// 1) or without a gate, or 0 for the CUDA-core kernel.
-int hr_onepass_instance(int hd, int gated) { return onepass_instance(hd, gated != 0); }
+// The tile head dim of the bf16 and fp16 instance that serves head dim hd
+// with (gated = 1) or without a gate, or 0 for the CUDA-core kernel (fp32
+// takes the same instance up to 128 and the CUDA-core kernel beyond).
+int hr_onepass_instance(int hd, int gated) { return onepass_instance(hd, gated != 0, kDtBf16); }
 
 // Shared memory one block of hr_onepass_attention needs, with the same
 // cuda_cores; the caller refuses shapes above kMaxSmem, which only the
 // CUDA-core kernel's score panel can reach. dtype: kDtBf16, kDtF32 or kDtF16.
 int hr_onepass_smem_bytes(int dtype, int Lk, int hd, int gated, int cuda_cores) {
-  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated != 0);
+  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated != 0, dtype);
   if (inst)
-    return dtype == kDtF32 ? tf32_smem_bytes(inst, gated) : 2 * mma_stage_bytes(inst, gated);
+    return dtype == kDtF32 ? tf32_smem_bytes(inst, gated) : onepass_tile_smem_bytes(inst, gated);
   return (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
 }
 
@@ -249,9 +255,9 @@ int hr_onepass_max_smem_bytes() { return kMaxSmem; }
 // kbias [B, Lk] fp32 additive. gate [B, H, Lq] fp32 and pos [H, Lq, Lk], or
 // both NULL for no gate. Needs hd % 8 == 0 and hd <= 256 (the CUDA-core
 // kernel's block of 4*hd or 2*hd threads). Runs the instance of
-// hr_onepass_instance: bf16 and fp16 onepass_mma_kernel, fp32
-// attn_tf32_kernel, or onepass_attn_kernel on CUDA cores, which cuda_cores =
-// 1 takes at any head dim (to time it beside the tile kernels).
+// onepass_instance: bf16 and fp16 onepass_mma_kernel or onepass_wide_kernel,
+// fp32 attn_tf32_kernel, or onepass_attn_kernel on CUDA cores, which
+// cuda_cores = 1 takes at any head dim (to time it beside the tile kernels).
 int hr_onepass_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                          int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                          int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
@@ -260,7 +266,7 @@ int hr_onepass_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
   const bool gated = gate != nullptr;
-  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated);
+  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated, dtype);
   if (inst && dtype == kDtF32) {
     Tf32Args a{};
     a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);

@@ -172,7 +172,8 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
     same by ``(B, Lq, Lk, H, hd)``.
 
     On the CPU the plain version runs; on the card one launch of
-    ``csrc/attention.cu`` (tensor cores at head dims 64 and 96), or a raise.
+    ``csrc/attention.cu`` (tensor cores at every head dim without the gate,
+    at 64 and 96 with it), or a raise.
     """
     if q.device.type == "cpu":
         return attention_core_int8_plain(q, k, v, b, n_heads, kbias, kpm, gate)

@@ -16,9 +16,11 @@ as ``flash_attention_pallas.py:274-277`` does:
   the unnormalized p block cast to v's dtype before PV, ``acc / l`` at the
   end. On the card it is ``csrc/flash_attention.cu``.
 
-On the card both run on the tensor cores at every head dim up to 128 (the
-head dim zero-padded inside the kernel to the next of 32, 64, 96 and 128),
-and on CUDA-core kernels at 136-256.
+On the card both run on the tensor cores at every head dim up to 256 in
+bf16 and fp16 (the head dim zero-padded inside the kernel to the next of 32,
+64, 96, 128, 192 and 256) and up to 128 in fp32, and on CUDA-core kernels in
+fp32 at 136-256. ``.launches`` of each counts its launches, ``.head_dims``
+the same by ``(head dim, dtype)``.
 
 The two keep their own numerics, each its TPU kernel's. Both scale the fp32
 dot after the product, where the per-op branch of ``nn/attention.py``
@@ -39,6 +41,7 @@ none.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -67,10 +70,12 @@ def onepass_attention(q, k, v, bias):
         return onepass_attention_plain(q, k, v, bias)
     out = onepass_launch(q, k, v, bias)
     onepass_attention.launches += 1
+    onepass_attention.head_dims[(q.shape[-1], q.dtype)] += 1
     return out
 
 
 onepass_attention.launches = 0
+onepass_attention.head_dims = collections.Counter()
 
 
 def streaming_attention_plain(q, k, v, bias):
@@ -111,10 +116,12 @@ def streaming_attention(q, k, v, bias):
         return streaming_attention_plain(q, k, v, bias)
     o = streaming_launch(q, k, v, bias)
     streaming_attention.launches += 1
+    streaming_attention.head_dims[(q.shape[-1], q.dtype)] += 1
     return o
 
 
 streaming_attention.launches = 0
+streaming_attention.head_dims = collections.Counter()
 
 
 def key_bias(key_padding_mask, b: int, lk: int, device) -> torch.Tensor:

@@ -89,6 +89,9 @@ def _mha_pair(d, h, seed):
     (256, 4, 5, 10, 50, False),     # packed cross, sub=64
     (256, 4, 9, 16, 16, True),      # sub=16 with element padding
     (256, 4, 3, 11, 14, False),
+    (256, 8, 2, 96, 96, True),      # hd=32 and 128: the card's tile instances
+    (256, 2, 2, 96, 40, False),     #   beside 64 and 96
+    (384, 2, 2, 50, 50, True),      # hd=192: the wide tile instance
 ])
 def test_mha_block_matches_pallas_kernel(d, h, b, lq, lk, self_attn):
     jp, mod = _mha_pair(d, h, seed=d + lq + lk)

@@ -228,7 +228,10 @@ CORE_SHAPES = [(8, 8), (16, 16), (63, 63), (64, 64), (65, 65), (499, 499), (1024
 
 
 @pytest.mark.parametrize("lq,lk", CORE_SHAPES)
-@pytest.mark.parametrize("hd", [64, 96, 32])   # 32: the CUDA-core kernel
+# every head dim on the tile instances without the gate (40 zero-padded on
+# 64, 192 and 256 on the wide tiles); gated, 64 and 96 on the tiles and the
+# others on the CUDA-core kernel
+@pytest.mark.parametrize("hd", [64, 96, 32, 40, 128, 192, 256])
 @pytest.mark.parametrize("mode", ["gated", "kpm", "none", "gated_fp32_x"])
 def test_attention_core_int8(gen, lq, lk, hd, mode):
     """q/k/v read in place as column blocks of packed projections; element
@@ -297,10 +300,12 @@ def _close_attention(got, ref):
 # other non-multiples of 8 leave the gated pos rows off 16-byte alignment.
 ATTN_SHAPES = [(128, 128), (130, 130), (2048, 2048), (1, 1), (63, 63), (65, 65),
                (1499, 1499), (2249, 2249), (1, 65), (63, 1499), (1499, 63), (2249, 130)]
-# Without a gate, 32, 64, 96 and 128 run on their tensor-core instances, 40
-# zero-padded on the 64 one, 256 on the CUDA-core kernels; the gated core
-# runs 64 and 96 on the tensor cores and the others on CUDA cores
-ATTN_HEAD_DIMS = [64, 96, 40, 32, 128, 256]
+# Without a gate, bf16 and fp16 run 32, 64, 96, 128, 192 and 256 on their
+# tensor-core instances, 40 zero-padded on the 64 one and 136 on the 192
+# one; fp32 runs up to 128 on the tensor cores and 136-256 on the CUDA-core
+# kernels; the gated core runs 64 and 96 on the tensor cores and the others
+# on CUDA cores
+ATTN_HEAD_DIMS = [64, 96, 40, 32, 128, 256, 136, 192]
 ATTN_DTYPES = [torch.bfloat16, torch.float32, torch.float16]
 
 
@@ -362,12 +367,13 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
     with pytest.raises(TypeError):      # the position bias has q's dtype
         WA.wavlm_fused_attention(q, q, q, torch.ones(1, 2, 64, device="cuda"),
                                  torch.zeros(2, 64, 64, device="cuda"), kb)
-    # the tensor-core kernels (every head dim up to 128 without a gate) keep
-    # no score panel, so 8192 keys run; at hd 256, and gated at hd 40, the
-    # CUDA-core kernel's panel [16, 8192] must fit shared memory and does not
+    # the tensor-core kernels (without a gate every head dim up to 256 in
+    # bf16 and fp16, up to 128 in fp32) keep no score panel, so 8192 keys
+    # run; in fp32 at hd 256, and gated at hd 40, the CUDA-core kernel's
+    # panel [16, 8192] must fit shared memory and does not
     kb_long = torch.zeros(1, 8192, device="cuda")
     for dt in (torch.bfloat16, torch.float32, torch.float16):
-        for hd in (64, 40, 128):
+        for hd in (64, 40, 128) + (() if dt == torch.float32 else (256,)):
             long = _heads_view(gen, 1, 8192, 2, hd, dt)
             q_hd = _heads_view(gen, 1, 64, 2, hd, dt)
             assert torch.isfinite(FA.onepass_attention(q_hd, long, long, kb_long)).all()
@@ -383,13 +389,13 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
 
 
 def test_attention_instances(gen):
-    """The one dispatch of the flash cores: each head dim up to 128 on the
-    smallest tile instance at or above it, the CUDA-core kernel (0) beyond;
-    the gated core on its instances 64 and 96 only."""
+    """The one dispatch of the flash cores in bf16 and fp16: each head dim
+    up to 256 on the smallest tile instance at or above it; the gated core
+    on its instances 64 and 96 only (0: the CUDA-core kernel)."""
     onepass = _cuda.lib("wavlm_attention").hr_onepass_instance
     streaming = _cuda.lib("flash_attention").hr_streaming_instance
     for hd in range(8, 257, 8):
-        want = next((t for t in (32, 64, 96, 128) if t >= hd), 0)
+        want = next(t for t in (32, 64, 96, 128, 192, 256) if t >= hd)
         assert streaming(hd) == onepass(hd, 0) == want
         assert onepass(hd, 1) == (hd if hd in (64, 96) else 0)
 

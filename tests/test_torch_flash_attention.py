@@ -35,10 +35,11 @@ KERNELS = {"onepass": (JP._onepass_impl, TF.onepass_attention),
            "streaming": (JP._pallas_mha_fwd_impl, TF.streaming_attention)}
 
 
-# head dims beside 64: the tile instances 32 and 128 of the card's kernels,
-# and 40, which they zero-pad to 64
+# head dims beside 64: the tile instances 32, 128, 192 and 256 of the
+# card's kernels, and 40 and 136, which they zero-pad to 64 and 192
+WIDE_HEAD_DIMS = (32, 40, 128, 136, 192, 256)
 SHAPES = [pytest.param(lq, lk, 64, id=f"{lq}-{lk}") for lq, lk in ((140, 130), (130, 300))] + [
-    pytest.param(130, 300, hd, id=f"130-300-hd{hd}") for hd in (32, 40, 128)]
+    pytest.param(130, 300, hd, id=f"130-300-hd{hd}") for hd in WIDE_HEAD_DIMS]
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
@@ -63,7 +64,7 @@ def test_plain_matches_pallas_kernel(kernel, lq, lk, hd, masked, dtype):
 @pytest.mark.parametrize("kernel,hd", [pytest.param(kernel, 64, id=kernel)
                                        for kernel in sorted(KERNELS)] + [
     pytest.param(kernel, hd, id=f"{kernel}-hd{hd}")
-    for kernel in sorted(KERNELS) for hd in (32, 40, 128)])
+    for kernel in sorted(KERNELS) for hd in WIDE_HEAD_DIMS])
 def test_fully_masked_rows_finite(kernel, hd):
     q, k, v = (torch.from_numpy(a) for a in _qkv(hd=hd, seed=3))
     out = KERNELS[kernel][1](q, k, v, torch.full((2, 130), NEG_INF))
