@@ -46,7 +46,9 @@ Phases, any failure exits non-zero:
    dispatch names (the kernel read by torch.profiler: never a CUDA-core
    one), held at ``ATTN_TOL``, which must reject each without its last key
    tile, and timed beside the CUDA-core kernel that served it before and
-   SDPA (a wide row must beat its CUDA-core kernel); then the int8 core
+   SDPA (a wide row must beat its CUDA-core kernel), and the same four
+   shapes in fp32, which run on CUDA cores, timed beside SDPA in fp32 and
+   bound at three TF32 products; then the int8 core
    alone at B=4 self 499² on the tiles at d=256 in 8 heads and d=768 in 6
    and 4 (hd 32, 128, 192), against SDPA, the hd-192 one also held without
    its last key tile;
@@ -166,7 +168,17 @@ Phases, any failure exits non-zero:
    CUDA tensors point to point). The ranks send their launches back;
    each sub-phase prints its wall time, and the steps their ms over the
    mesh and in one process;
-10. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
+10. the serving bench's path (``hriemo_torch.bench``): ``StreamingPipeline``
+   replaying one CUDA graph per input signature against the same pipeline
+   eager (``cuda_graphs=False``, as phases 4-9 serve, so that the launch
+   counters count every forward) on the W8A8 and the bf16 trees at the 2.5 s
+   and 10 s buckets, probabilities and beta bit-equal, twice; three
+   back-to-back flushes of the 10 s bucket through ``stream_bucketed(
+   pad_flush=True)``, one graph, each flush bit-equal to its eager result;
+   then the bench's bucket measurement at those two buckets at their
+   ``MEASURED_BUCKET_BATCH`` (three repeats; ``mfu`` in (0, 1]) and its
+   scheduler block on 256 clips of its stream, each printed as a JSON line;
+11. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
    phases 4-9; the wide tile instances as entries of their own); then the
    last line ``{"ok": true, "device": {...}}``.
 
@@ -907,6 +919,27 @@ def check_kernels(gen):
                 flash_row(name, bb, l, h, hd, ll_, dt, own, faster=True)
     for r in rows[first_wide:]:
         r["wide_entry"] = f"{r['kernel']} (wide tiles)"
+    # fp32 at those shapes, which still runs on CUDA cores (the CLIs at
+    # --compute_dtype float32 / --amp_dtype off reach it), beside SDPA in
+    # fp32; bound at three TF32 products (the tiles' fp32 arithmetic)
+    own = torch.Generator().manual_seed(SEED + 14)
+    for name, split, long_l in (("onepass_attention", "long_onepass", 1499),
+                                ("streaming_attention", "long_streaming", 2249)):
+        la = lens7d[split]
+        lens = la + la[-1:] * (eb - len(la))
+        fn, plain = getattr(FA, name), getattr(FA, name + "_plain")
+        for bb, l, h, hd, ll_ in ((eb, max(la), 1, 256, lens), (2, long_l, 4, 192, None)):
+            q, k, v = (heads(bb, l, h, hd, torch.float32, own) for _ in range(3))
+            kpm = (mask(bb, l, own) if ll_ is None else
+                   (torch.arange(l)[None, :] >= torch.tensor(ll_)[:, None]).to(dev))
+            bias = FA.key_bias(kpm, bb, l, dev)
+            amask = ~kpm[:, None, None, :]
+            run(name, f"B={bb} {l}x{l} H={h} hd={hd} float32 (CUDA cores)",
+                lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                                         attn_mask=amask),
+                nbytes(q, k, v, bias, q), 0, 0, 0,
+                TF32_PRODUCTS * 4 * bb * h * l * l * hd, tol=ATTN_TOL[torch.float32])
     # the int8 core alone at the head dims beside 64 and 96, on the tile
     # instances (32; 128; 192 on the wide one): B=4 self 499^2 (the 10 s
     # bucket) at d=256 in 8 heads and d=768 in 6 and 4, against SDPA; the
@@ -1212,7 +1245,7 @@ def check_probs(what, got, clips):
 def serve(pipe, clips, batch: int = B):
     res = {}
     t = time.perf_counter()
-    for probs, beta, uids in pipe.stream_bucketed(clips, default_batch=batch):
+    for probs, beta, uids in pipe.stream_bucketed(clips, bucket_batch={}, default_batch=batch):
         for u, p, b in zip(uids, probs, beta):
             res[u] = (p, b)
     torch.cuda.synchronize()
@@ -2040,9 +2073,10 @@ def evaluation(smi, work: pathlib.Path, idx, wavlm, bert):
     for tree, extra in (("int8", ["--int8"]), ("bf16", [])):
         out, plain = root / f"e2e_{tree}", root / f"e2e_{tree}_plain"
         reset_launches()
-        secs = timed_wall(lambda: E2E.main(argv + extra + ["--out_dir", str(out)]))
+        secs = timed_wall(lambda: E2E.main(argv + extra + ["--out_dir", str(out)],
+                                           cuda_graphs=False))
         ll = read_launches()
-        E2E.main(argv + extra + ["--out_dir", str(plain)], use_kernels=False)
+        E2E.main(argv + extra + ["--out_dir", str(plain)], use_kernels=False, cuda_graphs=False)
         got, ref = by_uid(out, "test"), by_uid(plain, "test")
         probs = np.stack([got[u] for u in sorted(ref)])
         delta = float(np.abs(probs - np.stack([ref[u] for u in sorted(ref)])).max())
@@ -2502,10 +2536,12 @@ SPAWN_TIMEOUT = 900
 
 
 def serving_kwargs():
-    """The StreamingPipeline settings of phases 4 and 9d."""
+    """The StreamingPipeline settings of phases 4 and 9d: eager, so that the
+    kernels' launch counters count every forward (a graph replay launches
+    without Python; phase 10 holds the graphs to these pipelines)."""
     return dict(tokenizer=HashTokenizer(30522), max_seconds=10.0, max_tokens=128,
                 multi_label=False, bucket_seconds=(2.5,), int8_frontends=True,
-                wav_transport="pcm16", text_bucket_tokens=TEXT_BUCKETS)
+                wav_transport="pcm16", text_bucket_tokens=TEXT_BUCKETS, cuda_graphs=False)
 
 
 def mesh_batch(la):
@@ -2810,6 +2846,91 @@ def mesh_phase(smi, root: pathlib.Path, clips, int8_ref, bf16_ref):
     return rec, total
 
 
+# phase 10: the serving bench's path. Graph replay against the eager forward
+# at the 2.5 s and 10 s buckets on the W8A8 and the bf16 trees, bit for bit;
+# three back-to-back flushes of one bucket (one graph, replayed while the
+# previous flush's result waits to be read); then the bench's own functions
+# at two buckets and on a short clip stream.
+GRAPH_BUCKETS = (2.5, 10.0)
+BENCH_REPEATS = 3
+BENCH_CLIPS = 256
+
+
+def graph_phase(smi, wavlm, bert, fusion):
+    """Phase 10. Returns its record."""
+    from hriemo_torch import bench
+    from hriemo_torch.infer.streaming import MEASURED_BUCKET_BATCH
+
+    t0 = time.perf_counter()
+    rec = {}
+    clips = requests(np.random.default_rng(SEED + 15))
+    models = (wavlm, bert, fusion)
+    for tree, int8 in (("int8", True), ("bf16", False)):
+        graphed = bench.serving_pipeline(models, "cuda", int8=int8, buckets=GRAPH_BUCKETS)
+        eager = bench.serving_pipeline(models, "cuda", int8=int8, buckets=GRAPH_BUCKETS,
+                                       cuda_graphs=False)
+        for sec in GRAPH_BUCKETS:
+            mine = [c for c in clips if graphed._bucket_for([c[0]], 16000) == sec]
+            waves, texts = [c[0] for c in mine], [c[1] for c in mine]
+            want = eager.infer(waves, texts)
+            for i in range(2):  # the replay right after the capture, then a later one
+                got = graphed.infer(waves, texts)
+                for what, g, w in zip(("probabilities", "beta"), got, want):
+                    if g.shape != w.shape or not np.array_equal(g, w):
+                        raise AssertionError(
+                            f"graph replay {tree} {sec:g} s ({len(mine)} clips), replay {i}: "
+                            f"{what} differ from the eager forward by "
+                            f"{np.abs(g - w).max() if g.shape == w.shape else g.shape}")
+            rec[f"replay_{tree}_{sec:g}s"] = dict(clips=len(mine), bit_equal=True)
+        print(f"graph replay {tree}: probabilities and beta bit-equal to the eager forward at "
+              f"{GRAPH_BUCKETS} s ({len(graphed._graphs)} graphs)", flush=True)
+        del graphed, eager
+    # three flushes of four 10 s clips, one text bucket: one graph, replayed
+    # back to back, each flush's result read one flush later
+    rng = np.random.default_rng(SEED + 16)
+    words = np.array("happy sad angry neutral really very today fine so not".split())
+    same = [((rng.standard_normal(int(rng.uniform(7.6, 10.0) * 16000)) * 3000).astype(np.int16),
+             " ".join(rng.choice(words, 50)), f"b{i}") for i in range(12)]
+    runs = {}
+    for graphs in (True, False):
+        pipe = bench.serving_pipeline(models, "cuda", buckets=GRAPH_BUCKETS, cuda_graphs=graphs)
+        runs[graphs] = {u: (p, b) for ps, bs, us in pipe.stream_bucketed(
+            same, bucket_batch={10.0: 4}, pad_flush=True) for u, p, b in zip(us, ps, bs)}
+        if graphs and len(pipe._graphs) != 1:
+            raise AssertionError(f"back-to-back flushes: {len(pipe._graphs)} graphs, one expected")
+        del pipe
+    for u, (p, b) in runs[False].items():
+        if not (np.array_equal(runs[True][u][0], p) and np.array_equal(runs[True][u][1], b)):
+            raise AssertionError(f"back-to-back flushes: {u}'s result differs from the eager "
+                                 "forward's (a later replay overwrote it?)")
+    rec["back_to_back"] = dict(flushes=3, bit_equal=True)
+    print("three back-to-back flushes of the 10 s bucket through one graph: each bit-equal to "
+          "the eager forward", flush=True)
+    torch.cuda.empty_cache()
+
+    # the bench's functions: two buckets at their measured batches, three
+    # repeats; the scheduler on a stream of 256 clips over all 14 buckets
+    pipe = bench.serving_pipeline(models, "cuda")
+    rng = np.random.default_rng(SEED + 17)
+    batches = {sec: MEASURED_BUCKET_BATCH[sec] for sec in GRAPH_BUCKETS}
+    head = bench.headline(pipe, rng, GRAPH_BUCKETS, batches, repeats=BENCH_REPEATS)
+    buckets = {str(sec): {k: v for k, v in st.items() if k != "ops"}
+               for sec, st in head["stats"].items()}
+    print(json.dumps({"bench_buckets": buckets, "card": smi}), flush=True)
+    for sec, st in buckets.items():
+        if not 0 < st["mfu"] <= 1:
+            raise AssertionError(f"bench bucket {sec} s: mfu {st['mfu']} outside (0, 1]")
+    sched = bench.bench_scheduler(pipe, head["stats"],
+                                  clips=bench.scheduler_clips()[:BENCH_CLIPS])
+    print(json.dumps({"bench_scheduler": {k: v for k, v in sched.items() if k != "note"},
+                      "card": smi}), flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    rec.update(bench_buckets=buckets, bench_scheduler=sched, seconds=time.perf_counter() - t0)
+    print(f"phase 10: {rec['seconds']:.1f} s wall", flush=True)
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3064,6 +3185,8 @@ def main() -> int:
         print(f"phase 9: {phases['mesh']['seconds']:.1f} s wall", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # phase 10: graph replay against eager, back-to-back flushes, the bench
+    phases["bench"] = graph_phase(smi, wavlm, bert, fusion)
     for name, n in total.items():
         if n == 0:
             raise AssertionError(f"{name}: launched on no main path")

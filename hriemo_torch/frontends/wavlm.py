@@ -265,6 +265,21 @@ class WavLMEncoder(nn.Module):
             x = gelu(x, cfg.fast_gelu)
         return x.transpose(1, 2).contiguous()  # [B, T', C]
 
+    def _embed(self, feats, frame_mask=None):
+        """Feature projection of the conv features ``[B, T', C]`` (pad frames
+        zeroed), plus the GELU of the convolutional positional embedding,
+        then the encoder's LayerNorm: the first layer's input."""
+        cfg = self.config
+        fp = self.feature_projection
+        x = fp.projection(fp.layer_norm(feats))
+        if frame_mask is not None:
+            x = x * frame_mask[:, :, None].to(x.dtype)
+        pos = self.encoder.pos_conv_embed.conv(x.transpose(1, 2))
+        if cfg.num_conv_pos_embeddings % 2 == 0:
+            pos = pos[:, :, :-1]
+        x = x + gelu(pos, cfg.fast_gelu).transpose(1, 2)
+        return self.encoder.layer_norm(x)
+
     def forward(self, input_values, attention_mask=None):
         """``input_values [B, T]`` waveform; ``attention_mask [B, T]`` 1 = valid.
 
@@ -280,17 +295,7 @@ class WavLMEncoder(nn.Module):
                           < out_lengths[:, None]).int()
             kbias = torch.where(frame_mask == 0, NEG_INF, 0.0).float()
 
-        fp = self.feature_projection
-        x = fp.projection(fp.layer_norm(feats))
-        if frame_mask is not None:
-            x = x * frame_mask[:, :, None].to(x.dtype)
-
-        pos = self.encoder.pos_conv_embed.conv(x.transpose(1, 2))
-        if cfg.num_conv_pos_embeddings % 2 == 0:
-            pos = pos[:, :, :-1]
-        x = x + gelu(pos, cfg.fast_gelu).transpose(1, 2)
-        x = self.encoder.layer_norm(x)
-
+        x = self._embed(feats, frame_mask)
         layers = self.encoder.layers
         buckets = relative_position_buckets(cfg, t_out, feats.device)
         position_bias = layers[0].attention.rel_attn_embed.weight[buckets]

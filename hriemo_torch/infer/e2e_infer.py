@@ -43,10 +43,10 @@ def parse_args(argv=None):
     ap.add_argument("--text_col", type=str, default="text")
     ap.add_argument("--uid_col", type=str, default=None)
     ap.add_argument("--batch_size", type=int, default=None,
-                    help="host batch size. Default: the bucket scheduler flushes every "
-                         "bucket at StreamingPipeline.stream_bucketed's default_batch (no "
-                         "per-bucket batch has been measured on the card yet); the 'batch' "
-                         f"scheduler uses {DEFAULT_HOST_BATCH}. Pass explicitly to set both.")
+                    help="host batch size. Default: the bucket scheduler uses each "
+                         "bucket's batch measured on the card (streaming."
+                         "MEASURED_BUCKET_BATCH) uncapped; the 'batch' scheduler uses "
+                         f"{DEFAULT_HOST_BATCH}. Pass explicitly to cap both.")
     ap.add_argument("--max_seconds", type=float, default=10.0)
     ap.add_argument("--bucket_seconds", type=float, nargs="+",
                     default=[1.25, 1.875, 2.5, 3.125, 3.75, 4.375, 5.0,
@@ -111,16 +111,17 @@ def fusion_model(args, d_model: int):
     return model
 
 
-def main(argv=None, use_kernels: bool = True):
+def main(argv=None, use_kernels: bool = True, cuda_graphs: bool | None = None):
     """Runs the CLI; ``use_kernels=False`` serves through every kernel's plain
-    PyTorch version instead (the reference a kernel run is held against).
-    Returns the output directory."""
+    PyTorch version instead (the reference a kernel run is held against);
+    ``cuda_graphs=False`` serves eagerly on the card, where the kernels'
+    launch counters count every forward. Returns the output directory."""
     from ..data.datasets import read_index_csv, resolve_uid_col
     from ..dataprep.audio import prepare_waveform
     from ..dataprep.extract_iemocap import load_frontend, text_tokenizer
     from ..device import resolve_device
     from ..frontends import BertConfig, BertEncoder, WavLMConfig, WavLMEncoder
-    from .streaming import StreamingPipeline
+    from .streaming import MEASURED_BUCKET_BATCH, StreamingPipeline
 
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -146,7 +147,7 @@ def main(argv=None, use_kernels: bool = True):
         compute_dtype=torch.bfloat16 if args.amp_dtype == "bf16" else torch.float32,
         multi_label=args.multi_label, bucket_seconds=tuple(args.bucket_seconds),
         int8_frontends=args.int8, text_bucket_tokens=tuple(args.text_bucket_tokens),
-        device=device, use_kernels=use_kernels)
+        device=device, use_kernels=use_kernels, cuda_graphs=cuda_graphs)
 
     rows, columns = read_index_csv(args.index_csv)
     if args.split and "split" in columns:
@@ -158,7 +159,10 @@ def main(argv=None, use_kernels: bool = True):
         return wav, str(r[args.text_col]), str(r[uid_col])
 
     if args.scheduler == "bucket":
-        batch = {} if not args.batch_size else dict(default_batch=args.batch_size)
+        # an explicit --batch_size caps the measured batches, as in JAX
+        batch = {} if not args.batch_size else dict(
+            bucket_batch={sec: min(b, args.batch_size) for sec, b in MEASURED_BUCKET_BATCH.items()},
+            default_batch=args.batch_size)
         stream = pipe.stream_bucketed(map(clip, rows), **batch)
     else:
         host_bs = args.batch_size or DEFAULT_HOST_BATCH

@@ -14,6 +14,14 @@ is output-exact (BERT is mask-exact and the fused mask ORs the text mask).
 The host feed overlaps the device: inputs go through pinned host memory
 with a non-blocking copy, a flush only enqueues its forward, and its
 result is read back one flush later, after the next batch is prepared.
+
+On the card the forward of each input signature (shapes, dtypes; the
+transport and the tree are the pipeline's) is captured once as a
+``torch.cuda.CUDAGraph`` and replayed for every later flush of that shape,
+the counterpart of the JAX package's one ``jax.jit`` compile per bucket
+(``hriemo/infer/streaming.py:146-165``). ``cuda_graphs=False`` runs it
+eagerly, as ``jax.disable_jit`` would: profiling and the kernels' launch
+counters need that, since a replay launches without Python.
 """
 
 from __future__ import annotations
@@ -27,6 +35,36 @@ import torch
 from ..device import resolve_device
 from ..nn.layers import set_use_kernels
 from ..ops.quant import quantize_for_serving
+
+# Per-bucket flush batches measured on an NVIDIA H100 80GB HBM3 at 700 W:
+# the int8 W8A8 forward at each audio bucket and its text bucket
+# (``hriemo_torch.bench.BUCKET_LT``) replayed as a CUDA graph, batches
+# 32-1024 ranked by device ms per utterance, the smaller batch kept where
+# two come within 1% (flush latency). ``python3 -m
+# hriemo_torch.tools.bucket_batch_sweep`` takes the readings (PERF.md).
+MEASURED_BUCKET_BATCH = {1.25: 384, 1.875: 256, 2.5: 192, 3.125: 128, 3.75: 128,
+                         4.375: 64, 5.0: 64, 5.625: 64, 6.25: 64, 6.875: 64, 7.5: 64,
+                         8.125: 32, 8.75: 32, 10.0: 32}
+
+
+def capture_graph(fn, static_in, pool):
+    """Capture ``fn(*static_in)`` as a ``torch.cuda.CUDAGraph`` in memory
+    pool ``pool``; returns ``(graph, static outputs)``. One eager call on a
+    side stream warms up first: it builds the kernels' libraries, sets their
+    shared-memory attributes, loads their modules and plans cuDNN's
+    convolutions, none of which a capture may do. Graphs may share a pool
+    when their replays run one at a time on one stream. A capture that
+    fails raises."""
+    device = static_in[0].device
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn(*static_in)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        static_out = fn(*static_in)
+    return graph, static_out
 
 
 class HashTokenizer:
@@ -57,6 +95,8 @@ class StreamingPipeline:
     ``device`` (the card unless ``device="cpu"``), quantized when
     ``int8_frontends``/``int8_fusion``. ``use_kernels=False`` runs every
     kernel's plain PyTorch version instead, on the same device.
+    ``cuda_graphs`` (default: on the card) replays one captured CUDA graph
+    per input signature; False runs the forward eagerly.
     """
 
     def __init__(self, wavlm, bert, fusion, tokenizer=None, max_seconds: float = 10.0,
@@ -64,10 +104,17 @@ class StreamingPipeline:
                  multi_label: bool = True, bucket_seconds: tuple = (),
                  int8_frontends: bool = False, int8_fusion: bool | None = None,
                  wav_transport: str = "f32", text_bucket_tokens: tuple = (),
-                 device=None, use_kernels: bool = True):
+                 device=None, use_kernels: bool = True, cuda_graphs: bool | None = None):
         if wav_transport not in ("f32", "pcm16"):
             raise ValueError(f"wav_transport must be 'f32' or 'pcm16', got {wav_transport!r}")
         self.device = resolve_device(device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        elif cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs needs a CUDA device, the pipeline is on {self.device}")
+        self.cuda_graphs = cuda_graphs
+        self._graphs: dict[tuple, tuple] = {}
+        self._pool = None
         self.tokenizer = tokenizer
         self.max_seconds = max_seconds
         self.max_tokens = max_tokens
@@ -93,6 +140,38 @@ class StreamingPipeline:
 
     @torch.inference_mode()
     def _forward(self, wavs, wav_arg, ids, tok_mask):
+        """``(probs fp32 [B, E], beta fp32)`` on the device, enqueued: the
+        captured graph of this input signature (inputs on the device or in
+        pinned host memory), or the eager forward."""
+        if not self.cuda_graphs:
+            return self._eager(wavs, wav_arg, ids, tok_mask)
+        args = (wavs, wav_arg, ids, tok_mask)
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        if key not in self._graphs:
+            static_in = [torch.empty_like(a, device=self.device).copy_(a, non_blocking=True)
+                         for a in args]
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            self._graphs[key] = (*capture_graph(self._eager, static_in, self._pool), static_in)
+        graph, static_out, static_in = self._graphs[key]
+        for s, a in zip(static_in, args):
+            s.copy_(a, non_blocking=True)
+        return self._replay(graph, static_out)
+
+    def release_graphs(self) -> None:
+        """Drop every captured graph and their memory pool; the next flush
+        of each shape captures again."""
+        self._graphs.clear()
+        self._pool = None
+
+    @staticmethod
+    def _replay(graph, static_out):
+        graph.replay()
+        # the next replay of this graph (or of one sharing its pool)
+        # overwrites static_out: the result is copied out on the stream
+        return tuple(o.clone() for o in static_out)
+
+    def _eager(self, wavs, wav_arg, ids, tok_mask):
         dt = self._dt
         if self.wav_transport == "pcm16":
             # the mask is built on the device from per-clip lengths
@@ -160,11 +239,14 @@ class StreamingPipeline:
     # -------------------------------------------------------------- device
 
     def _dispatch(self, arrs):
-        """Copy a host batch to the device (pinned, non-blocking) and enqueue
-        its forward. Returns device tensors; nothing waits for the device."""
+        """Copy a host batch to the device (pinned, non-blocking; with graphs
+        straight into the graph's input buffers) and enqueue its forward.
+        Returns device tensors; nothing waits for the device."""
         ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
         if self.device.type == "cuda":
-            ts = [t.pin_memory().to(self.device, non_blocking=True) for t in ts]
+            ts = [t.pin_memory() for t in ts]
+            if not self.cuda_graphs:
+                ts = [t.to(self.device, non_blocking=True) for t in ts]
         return self._forward(*ts)
 
     @staticmethod
@@ -192,17 +274,16 @@ class StreamingPipeline:
                         bucket_batch: dict | None = None, default_batch: int = 64,
                         pad_flush: bool = False):
         """One queue per audio bucket, flushed when it reaches that bucket's
-        batch size (``bucket_batch``, else ``default_batch``); partial queues
-        flush at the end. ``clips`` yields ``(waveform, text[, uid])``; yields
-        ``(probs, beta, uids)`` per flush, not in arrival order.
-
-        No per-bucket batch has been measured on the card yet, so every
-        bucket without an entry in ``bucket_batch`` uses ``default_batch``
-        (the JAX package's table was measured on a TPU and is not carried
-        over). ``pad_flush`` pads partial flushes to the batch size with
-        silent 10 ms clips, so each bucket keeps one batch shape.
+        batch size (``bucket_batch``, by default :data:`MEASURED_BUCKET_BATCH`,
+        the batches measured on the card; ``default_batch`` for a bucket it
+        does not list); partial queues flush at the end. ``clips`` yields
+        ``(waveform, text[, uid])``; yields ``(probs, beta, uids)`` per
+        flush, not in arrival order. ``pad_flush`` pads partial flushes to
+        the batch size with silent 10 ms clips, so each bucket keeps one
+        batch shape (one graph).
         """
-        bucket_batch = bucket_batch or {}
+        if bucket_batch is None:
+            bucket_batch = MEASURED_BUCKET_BATCH
         queues: dict[float, list] = {sec: [] for sec in self.bucket_seconds}
         pending = None
 

@@ -799,3 +799,80 @@ def test_wavlm_fused_attention_gradient_bit_equal(gen, dtype, l):
     for got, ref in zip(*grads):
         assert got.dtype == ref.dtype and torch.isfinite(got).all()
         assert torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------- CUDA graphs
+# StreamingPipeline replays one captured graph per input signature; a
+# replay must give the eager forward's bits, and a flush's result must
+# survive the next replay of its graph (d=256, 2 layers: the int8 kernels
+# and the bf16 fused WavLM core at 199 frames).
+
+def _graph_models(gen):
+    from hriemo_torch import bench
+    from hriemo_torch.frontends.bert import BertConfig
+
+    wc = WavLMConfig.tiny(hidden_size=256, num_attention_heads=4, intermediate_size=512,
+                          num_hidden_layers=2, fast_gelu=True)
+    bc = BertConfig.tiny(vocab_size=30522, hidden_size=256, num_attention_heads=4,
+                         intermediate_size=512, num_hidden_layers=2, fast_gelu=True)
+    fusion = dict(d_model=256, num_emotions=4, n_heads=8, num_layers_fusion=1,
+                  num_layers_decoder=1, beta_hidden=128)
+    return bench.build_serving_models(int(torch.randint(0, 1 << 30, (1,), generator=gen)),
+                                      (wc, bc, fusion))
+
+
+def _graph_pipe(models, int8, graphs):
+    from hriemo_torch import bench
+
+    return bench.serving_pipeline(models, "cuda", int8=int8, buckets=(0.125, 0.25),
+                                  max_tokens=64, cuda_graphs=graphs)
+
+
+def _graph_clips(gen, n):
+    import numpy as np
+
+    rng = np.random.default_rng(int(torch.randint(0, 1 << 30, (1,), generator=gen)))
+    return [((rng.standard_normal(int(rng.uniform(0.13, 0.25) * 16000)) * 3000)
+             .astype(np.int16), "happy sad angry neutral really very", f"c{i}")
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_graph_replay_matches_eager(gen, int8):
+    models = _graph_models(gen)
+    graphed, eager = _graph_pipe(models, int8, True), _graph_pipe(models, int8, False)
+    clips = _graph_clips(gen, 6)
+    waves, texts = [c[0] for c in clips], [c[1] for c in clips]
+    want = eager.infer(waves, texts)
+    for _ in range(2):  # the capture's first replay, then a later one
+        got = graphed.infer(waves, texts)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and (g == w).all()
+    assert len(graphed._graphs) == 1 and not eager._graphs
+
+
+def test_back_to_back_flushes_keep_their_results(gen):
+    """Three flushes of one bucket and one text bucket replay one graph back
+    to back; each flush's probabilities and beta (read one flush later) are
+    its own."""
+    models = _graph_models(gen)
+    graphed, eager = _graph_pipe(models, True, True), _graph_pipe(models, True, False)
+    clips = _graph_clips(gen, 12)
+    batch = {0.125: 4, 0.25: 4}
+    got = {u: (p, b) for ps, bs, us in graphed.stream_bucketed(clips, bucket_batch=batch,
+                                                               pad_flush=True)
+           for u, p, b in zip(us, ps, bs)}
+    want = {u: (p, b) for ps, bs, us in eager.stream_bucketed(clips, bucket_batch=batch,
+                                                              pad_flush=True)
+            for u, p, b in zip(us, ps, bs)}
+    assert len(graphed._graphs) == 1 and sorted(got) == sorted(want)
+    for u in want:
+        assert (got[u][0] == want[u][0]).all() and (got[u][1] == want[u][1]).all(), u
+
+
+def test_a_capture_that_syncs_raises(gen):
+    from hriemo_torch.infer.streaming import capture_graph
+
+    x = _randn(gen, 8, dtype=torch.float32)
+    with pytest.raises(RuntimeError):
+        capture_graph(lambda t: t * float(t.sum()), [x], torch.cuda.graph_pool_handle())
