@@ -51,13 +51,14 @@ COPIES = {
 
 
 def registers(log: str) -> dict:
-    """attn_tf32_kernel<HD, GATED, STREAM, PAD> -> ptxas's registers and spill bytes."""
+    """attn_tf32_kernel<HD, GATED, STREAM, PAD> and attn_tf32_wide_kernel<HD,
+    STREAM, PAD> -> ptxas's registers and spill bytes."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*attn_tf32_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)",
+        m = re.search(r"Compiling entry function '\S*(attn_tf32_\w*kernel)ILi(\d+)E((?:Lb\dE)+)",
                       line)
         if m:
-            name = "<{},{},{},{}>".format(*m.groups())
+            name = f"{m[1]}<{m[2]},{','.join(m[3][2::4])}>"
         elif name and "spill stores" in line:
             out[name] = line.split(",")[1].strip()
         elif name and "Used" in line:
@@ -66,16 +67,19 @@ def registers(log: str) -> dict:
     return out
 
 
-def build_copy(tmp: pathlib.Path, old: str, new: str) -> tuple[dict, dict]:
-    """The two libraries from a copy of csrc with ``old`` replaced by ``new``
-    in attention_tf32.cuh; returns them and their registers."""
+def build_copy(tmp: pathlib.Path, edits) -> tuple[dict, dict]:
+    """The two libraries from a copy of csrc with each ``(old, new)`` of
+    ``edits`` replaced in attention_tf32.cuh; returns them and their
+    registers."""
     src = tmp / "csrc"
     shutil.copytree(_cuda.CSRC, src)
     header = src / "attention_tf32.cuh"
     text = header.read_text()
-    if text.count(old) != 1:
-        raise RuntimeError("attention_tf32.cuh: the replaced lines are not where they were")
-    header.write_text(text.replace(old, new))
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError("attention_tf32.cuh: the replaced lines are not where they were")
+        text = text.replace(old, new)
+    header.write_text(text)
     procs = {name: subprocess.Popen(
         [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(src), "-o",
          str(tmp / f"lib{name}.so"), str(src / f"{name}.cu")],
@@ -148,7 +152,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="tf32_terms_") as tmp:
         for i, (copy, (old, new)) in enumerate(COPIES.items()):
             (pathlib.Path(tmp) / str(i)).mkdir()
-            builds[copy], regs[copy] = build_copy(pathlib.Path(tmp) / str(i), old, new)
+            builds[copy], regs[copy] = build_copy(pathlib.Path(tmp) / str(i), [(old, new)])
         for copy, r in regs.items():
             print(f"  {copy}: registers, spills {r}", flush=True)
         gen = torch.Generator().manual_seed(0)

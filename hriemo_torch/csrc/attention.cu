@@ -200,6 +200,7 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
                            200 * 1024);
       attr_set = true;
     }
+    note_launch(kAttnCoreKernel, hd);
     attn_core_kernel<rg><<<grid, (rg * hd + 31) / 32 * 32, smem, s>>>(
         static_cast<const bf*>(q), q_ld, static_cast<const bf*>(k), k_ld,
         static_cast<const bf*>(v), v_ld, Lq, Lk, hd, static_cast<const float*>(kbias),

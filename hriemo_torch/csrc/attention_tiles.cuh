@@ -4,7 +4,7 @@
 // (bf16 or fp16 in, fp32 accumulate; the element type T picks the
 // instruction's type suffix, and ldmatrix moves 16-bit elements of either
 // type alike); the fp32 kernels of csrc/attention_tf32.cuh share its block
-// shape, key masking and row reductions at the tile head dims up to 128.
+// shapes, key masking, row reductions and pair barrier.
 //
 // Which kernel serves which head dim (hd % 8 == 0, hd <= 256): the smallest
 // tile head dim HD of 32, 64, 96, 128, 192 and 256 at or above hd
@@ -56,6 +56,7 @@
 // c[n][2], c[n][3] at row g + 8, the same columns.
 #pragma once
 
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
@@ -68,6 +69,30 @@ constexpr int kTcRows = 16 * kTcWarps;   // query rows per block
 constexpr int kWideWarps = 2 * kTcWarps;  // wide tiles: a pair of warps per 16 rows
 constexpr int kWideThreads = 32 * kWideWarps;
 
+// The attention kernel that this library launched last, as (kernel << 16) |
+// head dim (the tile instance's HD, or hd for a CUDA-core kernel), set on
+// the host where each kernel is launched and read (and cleared) by
+// hr_last_kernel: a check names the kernel that a call ran without a
+// device trace. Inside a CUDA graph capture it records the captured launch.
+enum LaunchedKernel : int {
+  kOnepassAttnKernel = 1,
+  kStreamingAttnKernel,
+  kAttnCoreKernel,
+  kOnepassMmaKernel,
+  kOnepassWideKernel,
+  kStreamingMmaKernel,
+  kStreamingWideKernel,
+  kAttnTf32Kernel,
+  kAttnTf32WideKernel,
+};
+
+inline std::atomic<int>& last_launch() {
+  static std::atomic<int> code{0};
+  return code;
+}
+
+inline void note_launch(LaunchedKernel kernel, int hd) { last_launch() = kernel << 16 | hd; }
+
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // The tile head dim HD of the instance that serves head dim hd (hd % 8 ==
@@ -78,10 +103,9 @@ inline int tile_head_dim(int hd) {
 }
 
 // f(std::integral_constant<int, HD>(), std::bool_constant<PAD>()) for the
-// instance that serves head dim hd (hd <= kMaxHD): HD = tile_head_dim(hd),
-// PAD = hd < HD. kMaxHD 128 instantiates the narrow tiles only (the fp32
-// kernels of csrc/attention_tf32.cuh have no wide instance).
-template <int kMaxHD = 256, typename F>
+// instance that serves head dim hd (hd <= 256): HD = tile_head_dim(hd),
+// PAD = hd < HD.
+template <typename F>
 void with_tile(int hd, F&& f) {
   const int inst = tile_head_dim(hd);
   const bool pad = hd != inst;
@@ -89,15 +113,13 @@ void with_tile(int hd, F&& f) {
     if (pad) f(HD, std::true_type());
     else f(HD, std::false_type());
   };
-  if constexpr (kMaxHD > 128) {
-    if (inst == 256) return at(std::integral_constant<int, 256>());
-    if (inst == 192) return at(std::integral_constant<int, 192>());
-  }
   switch (inst) {
     case 32: return at(std::integral_constant<int, 32>());
     case 64: return at(std::integral_constant<int, 64>());
     case 96: return at(std::integral_constant<int, 96>());
-    default: return at(std::integral_constant<int, 128>());
+    case 128: return at(std::integral_constant<int, 128>());
+    case 192: return at(std::integral_constant<int, 192>());
+    default: return at(std::integral_constant<int, 256>());
   }
 }
 
@@ -348,3 +370,7 @@ __device__ __forceinline__ void store_rows(T* o, int sl, int row0, int Lq, int h
 }
 
 }  // namespace hr
+
+// Each library that includes this header is one translation unit, so each
+// exports its own record.
+extern "C" int hr_last_kernel() { return hr::last_launch().exchange(0); }

@@ -26,7 +26,7 @@
 // run every head dim up to 256 on the tensor cores at the tile instance HD,
 // the smallest of 32, 64, 96, 128, 192 and 256 at or above hd (hd 8-32 at
 // 32, 40-64 at 64, 72-96 at 96, 104-128 at 128, 136-192 at 192, 200-256 at
-// 256), and fp32 every head dim up to 128. A head dim below its instance
+// 256), and so does fp32. A head dim below its instance
 // runs on the instance's padded form (with_tile), zero-padded to HD inside
 // the tile, never in device memory: the copies of q, K and V fill zeros
 // past hd, and no column past hd is stored; the unpadded form takes hd as
@@ -60,7 +60,9 @@
 // beside the scores, pv and p in the 255 a thread may take.
 //
 // fp32: attn_tf32_kernel<HD, false, true> (csrc/attention_tf32.cuh) at the
-// same instances, the same online softmax on mma.sync.m16n8k8 in 3xTF32:
+// narrow instances and attn_tf32_wide_kernel<HD, true> at HD 192 and 256 (a
+// pair of warps on each 16 query rows, as streaming_wide_kernel), the same
+// online softmax on mma.sync.m16n8k8 in 3xTF32:
 // each fp32 operand is split into two TF32 parts and a product takes three
 // mma, which keeps about 2^-20 of each product. One TF32 product (2^-11)
 // does not hold the fp32 trees' 1e-4 at large scores (chip_tf32_terms.py),
@@ -69,11 +71,11 @@
 // rounding moves. At B=2 2249^2 8x96 it takes about 0.66 ms against SDPA's
 // 1.10 (chip_smoke.py), where the CUDA-core kernel below took 3.60.
 //
-// fp32 at head dims 136-256: streaming_attn_kernel on CUDA cores (any
-// type with cuda_cores = 1, the yardstick chip_smoke.py times beside each
-// tile row), one block per (tile of kQT = 16 query rows, head, batch
-// element), 4*hd threads; 8 KB of scores and 16*hd floats of queries in
-// shared memory; m and l in shared memory, three block barriers per key
+// cuda_cores = 1: streaming_attn_kernel on CUDA cores in any type and at
+// any head dim, the yardstick chip_smoke.py times beside each tile row; no
+// path runs it otherwise. One block per (tile of kQT = 16 query rows, head,
+// batch element), 4*hd threads; 8 KB of scores and 16*hd floats of queries
+// in shared memory; m and l in shared memory, three block barriers per key
 // block.
 #include "attention_tf32.cuh"
 
@@ -197,6 +199,7 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
             cudaStream_t stream) {
   const int smem = (int)sizeof(float) * (kQT * hd + kQT * kBK + 3 * kQT);
   dim3 grid((Lq + kQT - 1) / kQT, H, B);
+  note_launch(kStreamingAttnKernel, hd);
   streaming_attn_kernel<T><<<grid, kRG * hd, smem, stream>>>(
       static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
       static_cast<const T*>(v), v_sb, v_sh, v_sl, Lq, Lk, hd, scale,
@@ -509,21 +512,22 @@ void launch_mma(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int 
                 int Lk, int hd, float scale, const void* kbias, void* out, int o_sb, int o_sh,
                 int o_sl, cudaStream_t stream) {
   dim3 grid(B, (Lq + kTcRows - 1) / kTcRows, H);
-  auto go = [&](auto kernel, int threads, int smem) {
+  auto go = [&](auto kernel, LaunchedKernel name, int threads, int smem) {
     static bool attr_set = false;  // one per instantiation
     if (!attr_set) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       attr_set = true;
     }
+    note_launch(name, HD);
     kernel<<<grid, threads, smem, stream>>>(
         static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
         static_cast<const T*>(v), v_sb, v_sh, v_sl, Lq, Lk, scale,
         static_cast<const float*>(kbias), static_cast<T*>(out), o_sb, o_sh, o_sl, hd);
   };
   if constexpr (HD > 128)
-    go(streaming_wide_kernel<HD, PAD, T>, kWideThreads, wide_streaming_smem_bytes(HD));
+    go(streaming_wide_kernel<HD, PAD, T>, kStreamingWideKernel, kWideThreads, wide_streaming_smem_bytes(HD));
   else
-    go(streaming_mma_kernel<HD, PAD, T>, kTcThreads, 2 * mma_stage_bytes(HD));
+    go(streaming_mma_kernel<HD, PAD, T>, kStreamingMmaKernel, kTcThreads, 2 * mma_stage_bytes(HD));
 }
 
 // The tensor-core launch at the instance that serves head dim hd (<= 256)
@@ -546,17 +550,19 @@ using namespace hr;
 
 extern "C" {
 
-// The tile head dim of the bf16 and fp16 instance that serves head dim hd
-// (fp32 takes the same instance up to 128 and the CUDA-core kernel beyond).
-int hr_streaming_instance(int hd) { return tile_head_dim(hd); }
+// The tile head dim of the instance that serves head dim hd in dtype
+// (kDtBf16, kDtF32 or kDtF16; 0 for another code).
+int hr_streaming_instance(int hd, int dtype) {
+  return dtype == kDtBf16 || dtype == kDtF32 || dtype == kDtF16 ? tile_head_dim(hd) : 0;
+}
 
 // Operands as in hr_onepass_attention (csrc/wavlm_attention.cu), without a
 // gate. Needs Lk >= 1, hd % 8 == 0 and hd <= 256 (blockDim 4*hd of the
 // CUDA-core kernel, whose shared memory stays under 48 KB). Runs the
 // instance of hr_streaming_instance: streaming_mma_kernel or
-// streaming_wide_kernel (bf16, fp16) or attn_tf32_kernel (fp32 up to hd
-// 128), or streaming_attn_kernel on CUDA cores (fp32 beyond), which
-// cuda_cores = 1 takes at any head dim and type (to time it beside the tile
+// streaming_wide_kernel (bf16, fp16), attn_tf32_kernel or
+// attn_tf32_wide_kernel (fp32), or with cuda_cores = 1 streaming_attn_kernel
+// on CUDA cores at any head dim and type (to time it beside the tile
 // kernels). dtype: kDtBf16, kDtF32 or kDtF16.
 int hr_streaming_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                            int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
@@ -565,7 +571,7 @@ int hr_streaming_attention(int dtype, const void* q, int q_sb, int q_sh, int q_s
                            int cuda_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
-  const int inst = cuda_cores || (dtype == kDtF32 && hd > 128) ? 0 : tile_head_dim(hd);
+  const int inst = cuda_cores ? 0 : tile_head_dim(hd);
   if (inst && dtype == kDtF32) {
     Tf32Args a{};
     a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);

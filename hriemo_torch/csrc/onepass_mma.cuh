@@ -446,6 +446,7 @@ void launch_onepass_mma(const OnepassArgsT<T>& a, int B, cudaStream_t stream) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       attr_set = true;
     }
+    note_launch(kOnepassWideKernel, HD);
     onepass_wide_kernel<T, HD, KEYS, PAD><<<grid, kWideThreads, smem, stream>>>(a);
   } else {
     constexpr int smem = 2 * mma_stage_bytes(HD, GATE != kNoGate);
@@ -454,6 +455,7 @@ void launch_onepass_mma(const OnepassArgsT<T>& a, int B, cudaStream_t stream) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       attr_set = true;
     }
+    note_launch(kOnepassMmaKernel, HD);
     onepass_mma_kernel<T, HD, GATE, KEYS, PAD><<<grid, kTcThreads, smem, stream>>>(a);
   }
 }

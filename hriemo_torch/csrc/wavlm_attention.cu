@@ -15,13 +15,13 @@
 //   hriemo/ops/flash_attention_pallas.py::_onepass_kernel, gate = pos = NULL,
 //     routed for 1024 <= Lq and 1024 <= Lk <= 2048.
 //
-// Which kernel runs is decided by onepass_instance alone (its 16-bit form
-// exported as hr_onepass_instance): without a gate, bf16 and fp16 run every
-// head dim up to 256 on the tensor cores at the tile instance HD =
+// Which kernel runs is decided by onepass_instance alone (exported as
+// hr_onepass_instance): without a gate, bf16, fp16 and fp32 run every head
+// dim up to 256 on the tensor cores at the tile instance HD =
 // tile_head_dim(hd), the smallest of 32, 64, 96, 128, 192 and 256 at or
 // above hd (hd 8-32 at 32, 40-64 at 64, 72-96 at 96, 104-128 at 128,
-// 136-192 at 192, 200-256 at 256), and fp32 every head dim up to 128; the
-// gate runs there only at its own instances' head dims, 64 (WavLM) and 96.
+// 136-192 at 192, 200-256 at 256); the gate runs there only at its own
+// instances' head dims, 64 (WavLM) and 96.
 // A head dim below its instance runs on the instance's padded form
 // (with_tile), zero-padded to HD inside the tile, never in device memory
 // (csrc/attention_tiles.cuh); the unpadded form takes hd as the constant HD.
@@ -43,8 +43,10 @@
 // while the softmax's work does not, and one 8-warp block an SM (by shared
 // memory) has to hide both.
 //
-// fp32: attn_tf32_kernel (csrc/attention_tf32.cuh) at the narrow instances,
-// the same two sweeps on mma.sync.m16n8k8 in 3xTF32: each fp32 operand is
+// fp32: attn_tf32_kernel (csrc/attention_tf32.cuh) at the narrow instances
+// and attn_tf32_wide_kernel at HD 192 and 256 (a pair of warps on each 16
+// query rows, as onepass_wide_kernel), the same two sweeps on
+// mma.sync.m16n8k8 in 3xTF32: each fp32 operand is
 // split into two TF32 parts and a product takes three mma, which keeps
 // about 2^-20 of each product. One TF32 product (2^-11) does not hold the
 // fp32 trees' 1e-4 at large scores (chip_tf32_terms.py), and fp32 FMAs run
@@ -52,8 +54,8 @@
 // B=2 1499^2 8x96 it takes about 0.42 ms against SDPA's 0.45 (chip_smoke.py),
 // where the CUDA-core kernel below took 1.85.
 //
-// fp32 at head dims 136-256, and the gate at head dims other than 64 and 96
-// (hd % 8 == 0, hd <= 256) in any type: onepass_attn_kernel on CUDA cores,
+// The gate at head dims other than 64 and 96 (hd % 8 == 0, hd <= 256) in
+// any type, which no model reaches: onepass_attn_kernel on CUDA cores,
 // one block per 16 query rows with the fp32 score panel
 // [16, Lk] in up to 227 KB of shared memory, RG * hd threads (RG = 4 row
 // groups up to hd 128, 2 beyond: 1024 threads at its 103 registers do not
@@ -182,6 +184,7 @@ void launch_rg(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k
     attr_set = true;
   }
   dim3 grid((Lq + kQT - 1) / kQT, H, B);
+  note_launch(kOnepassAttnKernel, hd);
   onepass_attn_kernel<T, RG><<<grid, (RG * hd + 31) / 32 * 32, smem, stream>>>(
       static_cast<const T*>(q), q_sb, q_sh, q_sl, static_cast<const T*>(k), k_sb, k_sh, k_sl,
       static_cast<const T*>(v), v_sb, v_sh, v_sl, H, Lq, Lk, hd, scale,
@@ -199,12 +202,11 @@ void launch(const void* q, int q_sb, int q_sh, int q_sl, const void* k, int k_sb
      gate, pos, out, o_sb, o_sh, o_sl, smem, stream);
 }
 
-// The tile instance (its head dim HD) that serves head dim hd in dtype, or
-// 0 for the CUDA-core kernel: the gated core is instantiated at 64 and 96
-// only, the fp32 kernels at the narrow tiles only.
-int onepass_instance(int hd, bool gated, int dtype) {
-  if (gated && hd != 64 && hd != 96) return 0;
-  return dtype == kDtF32 && hd > 128 ? 0 : tile_head_dim(hd);
+// The tile instance (its head dim HD) that serves head dim hd, or 0 for the
+// CUDA-core kernel, in every float dtype: the gated core is instantiated at
+// 64 and 96 only.
+int onepass_instance(int hd, bool gated) {
+  return gated && hd != 64 && hd != 96 ? 0 : tile_head_dim(hd);
 }
 
 // The tensor-core launch on 16-bit q/k/v/pos/out of type T: the gated core
@@ -233,18 +235,22 @@ using namespace hr;
 
 extern "C" {
 
-// The tile head dim of the bf16 and fp16 instance that serves head dim hd
-// with (gated = 1) or without a gate, or 0 for the CUDA-core kernel (fp32
-// takes the same instance up to 128 and the CUDA-core kernel beyond).
-int hr_onepass_instance(int hd, int gated) { return onepass_instance(hd, gated != 0, kDtBf16); }
+// The tile head dim of the instance that serves head dim hd in dtype
+// (kDtBf16, kDtF32 or kDtF16; 0 for another code) with (gated = 1) or
+// without a gate, or 0 for the CUDA-core kernel.
+int hr_onepass_instance(int hd, int gated, int dtype) {
+  return dtype == kDtBf16 || dtype == kDtF32 || dtype == kDtF16 ? onepass_instance(hd, gated != 0)
+                                                                 : 0;
+}
 
 // Shared memory one block of hr_onepass_attention needs, with the same
 // cuda_cores; the caller refuses shapes above kMaxSmem, which only the
 // CUDA-core kernel's score panel can reach. dtype: kDtBf16, kDtF32 or kDtF16.
 int hr_onepass_smem_bytes(int dtype, int Lk, int hd, int gated, int cuda_cores) {
-  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated != 0, dtype);
+  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated != 0);
   if (inst)
-    return dtype == kDtF32 ? tf32_smem_bytes(inst, gated) : onepass_tile_smem_bytes(inst, gated);
+    return dtype == kDtF32 ? tf32_tile_smem_bytes(inst, gated)
+                           : onepass_tile_smem_bytes(inst, gated);
   return (int)sizeof(float) * (kQT * hd + kQT + kQT * Lk);
 }
 
@@ -256,8 +262,9 @@ int hr_onepass_max_smem_bytes() { return kMaxSmem; }
 // both NULL for no gate. Needs hd % 8 == 0 and hd <= 256 (the CUDA-core
 // kernel's block of 4*hd or 2*hd threads). Runs the instance of
 // onepass_instance: bf16 and fp16 onepass_mma_kernel or onepass_wide_kernel,
-// fp32 attn_tf32_kernel, or onepass_attn_kernel on CUDA cores, which
-// cuda_cores = 1 takes at any head dim (to time it beside the tile kernels).
+// fp32 attn_tf32_kernel or attn_tf32_wide_kernel, or onepass_attn_kernel on
+// CUDA cores (the gate off 64 and 96), which cuda_cores = 1 takes at any
+// head dim (to time it beside the tile kernels).
 int hr_onepass_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl, const void* k,
                          int k_sb, int k_sh, int k_sl, const void* v, int v_sb, int v_sh,
                          int v_sl, int B, int H, int Lq, int Lk, int hd, float scale,
@@ -266,7 +273,7 @@ int hr_onepass_attention(int dtype, const void* q, int q_sb, int q_sh, int q_sl,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
   const bool gated = gate != nullptr;
-  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated, dtype);
+  const int inst = cuda_cores ? 0 : onepass_instance(hd, gated);
   if (inst && dtype == kDtF32) {
     Tf32Args a{};
     a.q = static_cast<const float*>(q), a.k = static_cast<const float*>(k);

@@ -46,18 +46,21 @@ SIGNATURES = {
         "hr_layernorm": [P, P, P, I, I, F, I, P, P],
     },
     "attention": {
+        "hr_last_kernel": [],
         "hr_attention_core": [P, I, P, I, P, I, I, I, I, I, I, P, P,
                               P, I, I, P, P, P, P, P, I, P],
     },
     "wavlm_attention": {
-        "hr_onepass_instance": [I, I],
+        "hr_last_kernel": [],
+        "hr_onepass_instance": [I, I, I],
         "hr_onepass_smem_bytes": [I, I, I, I, I],
         "hr_onepass_max_smem_bytes": [],
         "hr_onepass_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
                                  P, P, P, P, I, I, I, I, P],
     },
     "flash_attention": {
-        "hr_streaming_instance": [I],
+        "hr_last_kernel": [],
+        "hr_streaming_instance": [I, I],
         "hr_streaming_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
                                    P, P, I, I, I, I, P],
     },
@@ -199,6 +202,21 @@ def heads_operand(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
 # Element types of the float attention kernels' q/k/v/out, by the code the C
 # entry points take (csrc/common.cuh DType)
 DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
+
+
+# The attention kernels by the number that csrc/attention_tiles.cuh's
+# LaunchedKernel gives them (0: none launched)
+LAUNCHED_KERNELS = (None, "onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel",
+                    "onepass_mma_kernel", "onepass_wide_kernel", "streaming_mma_kernel",
+                    "streaming_wide_kernel", "attn_tf32_kernel", "attn_tf32_wide_kernel")
+
+
+def last_kernel(name: str) -> tuple[str | None, int]:
+    """The attention kernel that library ``name`` launched last since this
+    was last asked, by its name in the source, and its head dim (the tile
+    instance's HD, or hd for a CUDA-core kernel); ``(None, 0)`` for none."""
+    code = lib(name).hr_last_kernel()
+    return LAUNCHED_KERNELS[code >> 16], code & 0xFFFF
 
 
 def attention_operands(q, k, v, kbias, what: str):

@@ -17,10 +17,9 @@ as ``flash_attention_pallas.py:274-277`` does:
   end. On the card it is ``csrc/flash_attention.cu``.
 
 On the card both run on the tensor cores at every head dim up to 256 in
-bf16 and fp16 (the head dim zero-padded inside the kernel to the next of 32,
-64, 96, 128, 192 and 256) and up to 128 in fp32, and on CUDA-core kernels in
-fp32 at 136-256. ``.launches`` of each counts its launches, ``.head_dims``
-the same by ``(head dim, dtype)``.
+bf16, fp16 and fp32 (3xTF32), the head dim zero-padded inside the kernel to
+the next of 32, 64, 96, 128, 192 and 256. ``.launches`` of each counts its
+launches, ``.head_dims`` the same by ``(head dim, dtype)``.
 
 The two keep their own numerics, each its TPU kernel's. Both scale the fp32
 dot after the product, where the per-op branch of ``nn/attention.py``

@@ -300,10 +300,9 @@ def _close_attention(got, ref):
 # other non-multiples of 8 leave the gated pos rows off 16-byte alignment.
 ATTN_SHAPES = [(128, 128), (130, 130), (2048, 2048), (1, 1), (63, 63), (65, 65),
                (1499, 1499), (2249, 2249), (1, 65), (63, 1499), (1499, 63), (2249, 130)]
-# Without a gate, bf16 and fp16 run 32, 64, 96, 128, 192 and 256 on their
-# tensor-core instances, 40 zero-padded on the 64 one and 136 on the 192
-# one; fp32 runs up to 128 on the tensor cores and 136-256 on the CUDA-core
-# kernels; the gated core runs 64 and 96 on the tensor cores and the others
+# Without a gate, bf16, fp16 and fp32 run 32, 64, 96, 128, 192 and 256 on
+# their tensor-core instances, 40 zero-padded on the 64 one and 136 on the
+# 192 one; the gated core runs 64 and 96 on the tensor cores and the others
 # on CUDA cores
 ATTN_HEAD_DIMS = [64, 96, 40, 32, 128, 256, 136, 192]
 ATTN_DTYPES = [torch.bfloat16, torch.float32, torch.float16]
@@ -368,19 +367,15 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
         WA.wavlm_fused_attention(q, q, q, torch.ones(1, 2, 64, device="cuda"),
                                  torch.zeros(2, 64, 64, device="cuda"), kb)
     # the tensor-core kernels (without a gate every head dim up to 256 in
-    # bf16 and fp16, up to 128 in fp32) keep no score panel, so 8192 keys
-    # run; in fp32 at hd 256, and gated at hd 40, the CUDA-core kernel's
-    # panel [16, 8192] must fit shared memory and does not
+    # bf16, fp16 and fp32) keep no score panel, so 8192 keys run; gated at
+    # hd 40, the CUDA-core kernel's panel [16, 8192] must fit shared memory
+    # and does not
     kb_long = torch.zeros(1, 8192, device="cuda")
     for dt in (torch.bfloat16, torch.float32, torch.float16):
-        for hd in (64, 40, 128) + (() if dt == torch.float32 else (256,)):
+        for hd in (64, 40, 128, 256):
             long = _heads_view(gen, 1, 8192, 2, hd, dt)
             q_hd = _heads_view(gen, 1, 64, 2, hd, dt)
             assert torch.isfinite(FA.onepass_attention(q_hd, long, long, kb_long)).all()
-    q256 = _heads_view(gen, 1, 64, 2, 256, torch.float32)
-    with pytest.raises(ValueError):
-        long = _heads_view(gen, 1, 8192, 2, 256, torch.float32)
-        FA.onepass_attention(q256, long, long, kb_long)
     q40 = _heads_view(gen, 1, 64, 2, 40, torch.float32)
     with pytest.raises(ValueError):
         long = _heads_view(gen, 1, 8192, 2, 40, torch.float32)
@@ -389,24 +384,50 @@ def test_attention_kernels_raise_instead_of_falling_back(gen):
 
 
 def test_attention_instances(gen):
-    """The one dispatch of the flash cores in bf16 and fp16: each head dim
-    up to 256 on the smallest tile instance at or above it; the gated core
-    on its instances 64 and 96 only (0: the CUDA-core kernel)."""
+    """The one dispatch of the flash cores in each dtype (fp32 included):
+    each head dim up to 256 on the smallest tile instance at or above it;
+    the gated core on its instances 64 and 96 only (0: the CUDA-core
+    kernel)."""
     onepass = _cuda.lib("wavlm_attention").hr_onepass_instance
     streaming = _cuda.lib("flash_attention").hr_streaming_instance
-    for hd in range(8, 257, 8):
-        want = next(t for t in (32, 64, 96, 128, 192, 256) if t >= hd)
-        assert streaming(hd) == onepass(hd, 0) == want
-        assert onepass(hd, 1) == (hd if hd in (64, 96) else 0)
+    for code in (_cuda.DTYPE_CODES[dt] for dt in ATTN_DTYPES):
+        for hd in range(8, 257, 8):
+            want = next(t for t in (32, 64, 96, 128, 192, 256) if t >= hd)
+            assert streaming(hd, code) == onepass(hd, 0, code) == want
+            assert onepass(hd, 1, code) == (hd if hd in (64, 96) else 0)
+    assert streaming(64, 7) == onepass(64, 0, 7) == 0  # no kernel takes dtype code 7
 
 
-@pytest.mark.parametrize("kernel", ["gated", "onepass", "streaming"])
-@pytest.mark.parametrize("hd", [64, 96])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+def test_attention_launch_record(gen, dtype):
+    """Each library records the attention kernel it launched last and its
+    head dim (``_cuda.last_kernel``): the tile kernel of the dispatched
+    instance, narrow or wide, and with ``cuda_cores`` the CUDA-core kernel
+    at hd; reading the record clears it."""
+    b, h, l = 2, 2, 80
+    wide, narrow = ("attn_tf32_wide_kernel", "attn_tf32_kernel") if dtype == torch.float32 \
+        else ("streaming_wide_kernel", "streaming_mma_kernel")
+    for hd, inst in ((40, 64), (128, 128), (136, 192), (256, 256)):
+        q, k, v = (_heads_view(gen, b, l, h, hd, dtype) for _ in range(3))
+        kb = torch.zeros(b, l, device="cuda")
+        _cuda.last_kernel("flash_attention")
+        FA.streaming_attention(q, k, v, kb)
+        assert _cuda.last_kernel("flash_attention") == (wide if inst > 128 else narrow, inst)
+        assert _cuda.last_kernel("flash_attention") == (None, 0)
+        FA.streaming_launch(q, k, v, kb, cuda_cores=True)
+        assert _cuda.last_kernel("flash_attention") == ("streaming_attn_kernel", hd)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("hd, kernel", [
+    (hd, kernel) for hd in (64, 96, 192, 256) for kernel in ("gated", "onepass", "streaming")
+    if hd <= 128 or kernel != "gated"])  # no gated instance on the wide tiles
 def test_fp32_attention_at_large_scores(gen, kernel, hd):
     """q and k scaled so that the scores reach about +-30: the fp32
-    kernels' 3xTF32 products hold ATTN_TOL[fp32], where the same plain
-    version with its two products in TF32 (one TF32 product each, as
-    cuBLAS runs them with TF32 allowed) does not."""
+    kernels' 3xTF32 products hold ATTN_TOL[fp32], on the narrow tiles and
+    the wide ones, where the same plain version with its two products in
+    TF32 (one TF32 product each, as cuBLAS runs them with TF32 allowed)
+    does not."""
     b, h = 2, 4
     lq = lk = 2249 if kernel == "streaming" else 499
     q, k = (_heads_view(gen, b, lq, h, hd, torch.float32) * 2.5 for _ in range(2))

@@ -100,3 +100,25 @@ def test_gate_matches_jax_shape_conditions(monkeypatch, lq, lk, hd):
     q_shape, k_shape = (2, 8, lq, hd), (2, 8, lk, hd)
     assert TF.use_flash(q_shape, k_shape) == JF._use_pallas(q_shape, k_shape)
 
+
+
+# fp32 at the wide tiles' head dims with q and k scaled so that the scores
+# reach about +-30 (the regime of the card's fp32 test), at ONEPASS_MAX_LK
+# keys on the one-pass kernel and one past it on the streaming one: the
+# plain versions that the card holds its 3xTF32 kernels to, against the
+# Pallas kernels at the card's fp32 limit (chip_smoke.py ATTN_TOL[fp32]:
+# 1e-4, fp32 sums in another order)
+@pytest.mark.parametrize("kernel,lk", [("onepass", JP.ONEPASS_MAX_LK),
+                                       ("streaming", JP.ONEPASS_MAX_LK + 1)])
+@pytest.mark.parametrize("hd", [192, 256])
+def test_fp32_wide_head_dims_at_large_scores(kernel, lk, hd):
+    jax_fn, torch_fn = KERNELS[kernel]
+    q, k, v = _qkv(h=1, lq=70, lk=lk, hd=hd, seed=hd + lk)
+    q, k = q * 2.5, k * 2.5
+    bias = _bias(lk, masked=True)
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    assert TF.scaled_scores(qt, kt).abs().max().item() > 25
+    ref = np.asarray(jax_fn(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias)))
+    got = torch_fn(qt, kt, vt, torch.from_numpy(bias))
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
