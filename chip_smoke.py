@@ -25,8 +25,28 @@ Phases, any failure exits non-zero:
    float FFN and the conv stack, the routed path's time (``route_ms``: cuBLAS
    and LayerNorm; the Gram-matrix GroupNorm statistics for the stats, cuDNN
    conv4..6 for K2, cuDNN ``_feature_encoder`` for the fused stack) instead;
-   then the two kernels under the int8 wrappers alone, beside their own
-   yardsticks: the int8 attention core (``attention_core_int8``) against SDPA,
+   the W8A8 FFN pair (``ffn_block_int8``, ``mlp2_int8``) at the 10 s
+   bucket's 1996 rows and the beta gate's 4, and after every other timing
+   at the bench's served rows (WavLM/BERT FFN over 384 x 62 and 32 x 499
+   frames, the fusion FFN over 384 x 62 audio and 384 x 8 text rows and
+   over phase 4's 4 x 64 text rows, the beta gate over 384): the fused route
+   (``route="fused"``) bit-equal to
+   the chain it replaced (``route="chain"``, its time as ``route_ms``) in
+   bf16 and fp32 x, with ``torch._int_mm`` on its two products as
+   ``library_ms``, its launches a call (at most 3 and 2), its cluster, and
+   the route the wrapper picks for the shape, which must not be the slower
+   by more than ``ROUTE_NOISE`` (2%) and ``ROUTE_NOISE_MS`` (1 us): the
+   chain for the FFN at 1996 rows and the fusion FFN at 256, the fused
+   route at the served WavLM and fusion rows and for mlp2 at 1996 (the beta
+   gate's 256 columns over 3072 inputs, which no cluster spans, are timed
+   on the chain alone); then
+   the first GEMM by block shape (8 x 384, 12 x 256) and the second by the
+   shared GEMM's configurations at 1996 and 23,808 rows, the clusters the
+   card runs at once, the peak memory of one FFN call at 23,808 rows (below
+   the M * 3072 * 4 bytes of an fp32 h), and a limit check: a result
+   quantized by each block's own maximum must differ from the chain; then
+   the two kernels under the int8 wrappers
+   alone, beside their own yardsticks: the int8 attention core (``attention_core_int8``) against SDPA,
    with its own limit check (a gated B=4 L=499 result without its last key
    tile), and the shared int8 GEMM at the 10 s bucket's rows, bit-equal to its
    plain version, against ``torch._int_mm``; phase 4 then gives each of these
@@ -54,7 +74,9 @@ Phases, any failure exits non-zero:
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
-   2.5 s and 10 s audio buckets, launch counts per forward, probabilities
+   2.5 s and 10 s audio buckets, launch counts per forward (every call of
+   the W8A8 FFN pair on the route ``_cuda.ffn_route`` picks for its rows),
+   probabilities
    finite and in [0, 1], and the same requests through the plain versions
    (``use_kernels=False``) within the int8 gate of 0.006; then the same on
    the int8 tree at fp32 compute (``compute_dtype=torch.float32``), whose
@@ -73,6 +95,12 @@ Phases, any failure exits non-zero:
    phase 4's 16 requests: the fusion stack's 8 MHA sublayers a forward run
    their core on the wide tile instance (launch counts), kernel vs plain
    within 0.006;
+4e. the int8 tree at the 10 s bucket's served batch (32 clips, the
+   H100's ``MEASURED_BUCKET_BATCH``): launch counts for one forward, every
+   W8A8 FFN pair call on its picked route, WavLM's 12 FFNs over 32 x 499
+   rows on the fused route (the first product of ``csrc/ffn_int8.cu``,
+   which phase 4's batch of 4 leaves to the chain), kernel vs plain within
+   0.006;
 5. the feature-extraction entry point at full width (WavLM base-plus and
    BERT-base, random weights from a seed): a synthetic IEMOCAP tree of 24
    utterances, the port's index builder, ``extract_iemocap`` audio (seq and
@@ -211,6 +239,7 @@ import torch
 
 from hriemo_torch.frontends import BertConfig, BertEncoder, WavLMConfig, WavLMEncoder
 from hriemo_torch.infer import HashTokenizer, StreamingPipeline
+from hriemo_torch.infer.streaming import MEASURED_BUCKET_BATCH
 from hriemo_torch.models import (FusionClassifier, FusionWithEmotionDecoder,
                                   MoseiFusionWithEmotionDecoder)
 from hriemo_torch.data import load_feature, save_feature, write_meta
@@ -289,9 +318,9 @@ KERNELS = {
     "mha_block_int8": (AB.mha_block_int8, "hriemo/ops/attention_block.py:508",
                        "hriemo_torch/csrc/attention.cu"),
     "ffn_block_int8": (FF.ffn_block_int8, "hriemo/ops/fused_ffn.py:94",
-                       "hriemo_torch/csrc/quant_gemm.cu"),
+                       "hriemo_torch/csrc/ffn_int8.cu"),
     "mlp2_int8": (FF.mlp2_int8, "hriemo/ops/fused_ffn.py:71",
-                  "hriemo_torch/csrc/quant_gemm.cu"),
+                  "hriemo_torch/csrc/ffn_int8.cu"),
     # int8_linear is XLA's int8 dot in the JAX package, not a Pallas kernel
     "int8_linear": (Q.int8_linear, "hriemo/ops/quant.py:85",
                     "hriemo_torch/csrc/quant_gemm.cu"),
@@ -397,11 +426,22 @@ FEATURE_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
                "bfloat16": dict(EXTRACT_ENVELOPE, median=2e-2)}
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# the W8A8 FFN pair's route check (phase 3): the route the wrapper picks for
+# a shape may be slower than the other by at most this share and a
+# microsecond (a launch's jitter: the beta gate's 4 rows take 0.021 ms on
+# either route), each timed as the median of ROUTE_REPEATS replays; phase
+# 3's timings repeat within 1.5%
+ROUTE_NOISE = 0.02
+ROUTE_NOISE_MS = 0.001
+ROUTE_REPEATS = 5
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 1) -> float:
     """Device ms of one call of ``fn``: ``iters`` calls are captured in one
     CUDA graph and the graph's replay is timed with CUDA events, so the
     host's Python and ctypes overhead between launches is not counted
-    (timed call by call, it dominates the smaller shapes)."""
+    (timed call by call, it dominates the smaller shapes); the median of
+    ``repeats`` replays."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -413,12 +453,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
     graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
 
 
 def bound(nbytes: int, int8_ops: int = 0, bf16_ops: int = 0, fp32_ops: int = 0,
@@ -494,6 +537,69 @@ def check_kernels(gen):
               flush=True)
         return got, ref
 
+    def pair_row(kernel, shape, x, ops, main=True):
+        """One row of the W8A8 FFN pair (``ops``: FfnOperands for the FFN,
+        Mlp2Operands for mlp2) on ``x``: the fused route against plain at
+        TOL (timed beside the chain, ``route_ms``, and ``_int_mm`` on its two
+        products, ``library_ms``), bit-equal to the chain in bf16 and fp32
+        x, with each route's launches a call; the route the wrapper picks
+        for the shape (``_cuda.ffn_route``) must not be the slower by more
+        than ROUTE_NOISE and ROUTE_NOISE_MS (medians of ROUTE_REPEATS replays
+        each). Where no cluster spans the widths (the beta gate's 256
+        columns over 3072 inputs) the chain is the kernel, and the row holds
+        that it is picked. ``main``: the row may feed the kernels line."""
+        ffn = kernel == "ffn_block_int8"
+        p = ops.pair if ffn else ops
+        fused = (lambda x_: FF.ffn_block_int8(x_, ops, 1e-5, True, route="fused")) if ffn \
+            else (lambda x_: FF.mlp2_int8(x_, ops, route="fused"))
+        chain = (lambda x_: FF.ffn_block_int8(x_, ops, 1e-5, True, route="chain")) if ffn \
+            else (lambda x_: FF.mlp2_int8(x_, ops, route="chain"))
+        plain = (lambda: FF.ffn_block_int8_plain(x, ops, 1e-5, True)) if ffn else \
+            (lambda: FF.mlp2_int8_plain(x, ops))
+        mm, (fh, din), dout = x.shape[0], p.w1.shape, p.w2.shape[0]
+        epi = _cuda.EPI_GELU_F32 if ffn else _cuda.EPI_RELU_F32
+        cluster = _cuda.ffn_cluster(fh, din)
+        routes = {"chain": chain} if cluster is None else {"fused": fused, "chain": chain}
+        xq, xs = _cuda.rowquant(x, div127=False)
+        hq, _ = _cuda.rowquant(_cuda.int8_gemm(xq, xs, p.w1, p.s1, p.b1, epi), div127=False)
+        library = None if mm <= 16 else (  # _int_mm takes more than 16 rows
+            lambda: (torch._int_mm(xq, p.w1.t()), torch._int_mm(hq, p.w2.t())))
+        run(kernel, shape, lambda: next(iter(routes.values()))(x), plain, library,
+            nbytes(x) + mm * dout * x.element_size() + (din + dout) * fh
+            + 8 * (fh + dout) + (8 * dout if ffn else 0),
+            2 * mm * fh * (din + dout), 0, route=None if cluster is None else lambda: chain(x))
+        rec = rows[-1]
+        rec["kernels_line"] = main
+        rec["cluster"] = cluster
+        if cluster is not None:
+            for x_ in (x, x.float()):
+                got_, ref_ = fused(x_), chain(x_)
+                if not torch.equal(got_, ref_):
+                    raise AssertionError(f"{kernel} {shape} {x_.dtype}: fused route differs "
+                                         f"from the chain by "
+                                         f"{(got_.float() - ref_.float()).abs().max()}")
+        counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.ffn_gemm1, _cuda.layernorm)
+        rec["launches_per_call"] = {}
+        for route, fn in routes.items():
+            before = sum(c.launches for c in counters)
+            fn(x)
+            rec["launches_per_call"][route] = sum(c.launches for c in counters) - before
+        most = 3 if ffn else 2
+        if rec["launches_per_call"].get("fused", 0) > most:
+            raise AssertionError(f"{kernel} {shape}: {rec['launches_per_call']} launches a call")
+        rec["picked"] = _cuda.ffn_route(fh, mm, din, epi, _cuda.sm_count())
+        rec["route_check_ms"] = {r: cuda_ms(lambda fn=fn: fn(x), repeats=ROUTE_REPEATS)
+                                 for r, fn in routes.items()}
+        torch.cuda.synchronize()
+        print(f"    {'no cluster spans it' if cluster is None else 'bit-equal to the chain'} "
+              f"in bf16 and fp32 x; cluster (config, blocks) {cluster}; launches a call "
+              f"{rec['launches_per_call']}; picks {rec['picked']}: {rec['route_check_ms']}",
+              flush=True)
+        for other, t in rec["route_check_ms"].items():
+            if rec["route_check_ms"][rec["picked"]] > (1 + ROUTE_NOISE) * t + ROUTE_NOISE_MS:
+                raise AssertionError(f"{kernel} {shape}: the {rec['picked']} route it picks "
+                                     f"is slower than the {other}: {rec['route_check_ms']}")
+
     # WavLM attention sublayer, the 10 s bucket
     d, h, hd = 768, 12, 64
     enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1))
@@ -538,7 +644,11 @@ def check_kernels(gen):
             nbytes(xq, kpm, xq) + (0 if self_attn else nbytes(xkv)) + 4 * d * d + 4 * 4 * d * 2,
             2 * mq * d * d * 2 + 2 * mk * d * 2 * d, 4 * B * h * lq * lk * hd)
 
-    # FFN block (WavLM 10 s bucket rows), mlp2 (fusion FFN and beta gate)
+    # FFN block (WavLM 10 s bucket rows), mlp2 (fusion FFN and beta gate):
+    # the fused route (csrc/ffn_int8.cu, then the shared GEMM) against plain
+    # at TOL and bit for bit against the chain it replaced (route="chain":
+    # the parent's five and four launches, route_ms), in bf16 and in fp32 x;
+    # library_ms is torch._int_mm on the two products' own int8 operands
     f = 3072
     ff = MLP2(d, f, d)
     init_torch_defaults(ff, gen)
@@ -547,19 +657,14 @@ def check_kernels(gen):
     fops = FF.FfnOperands(ff.ops, ln_w, ln_b)
     m = B * 499
     x = randn(m, d)
-    run("ffn_block_int8", f"M={m} {d}->{f}->{d}",
-        lambda: FF.ffn_block_int8(x, fops, 1e-5, True),
-        lambda: FF.ffn_block_int8_plain(x, fops, 1e-5, True), None,
-        nbytes(x, x) + 2 * d * f + 4 * (2 * f + 4 * d), 4 * m * d * f, 0)
+    pair_row("ffn_block_int8", f"M={m} {d}->{f}->{d}", x, fops)
+    mlp2_ops = {}
     for din, fh, dout, mm in ((d, f, d, m), (4 * d, 256, d, B)):
         mod = MLP2(din, fh, dout)
         init_torch_defaults(mod, gen)
-        ops = quantized(mod).ops
+        ops = mlp2_ops[din, fh] = quantized(mod).ops
         x = randn(mm, din)
-        run("mlp2_int8", f"M={mm} {din}->{fh}->{dout}",
-            lambda: FF.mlp2_int8(x, ops), lambda: FF.mlp2_int8_plain(x, ops), None,
-            nbytes(x) + mm * dout * 2 + (din + dout) * fh + 8 * (fh + dout),
-            2 * mm * fh * (din + dout), 0)
+        pair_row("mlp2_int8", f"M={mm} {din}->{fh}->{dout}", x, ops)
 
     # int8_linear: WavLM's feature projection on the 10 s bucket
     lin = Linear(512, d)
@@ -972,6 +1077,10 @@ def check_kernels(gen):
         print(f"  {rec['kernel']:22s} {rec['shape']:28s} route {rec['route_ms']:.4f} ms "
               f"(kernel {rec['ms']:.4f} ms)", flush=True)
     del late_routes
+    # the W8A8 FFN pair at the served rows and its own checks, after the
+    # other timings (its large buffers would move their allocations)
+    ffn_extra = served_pair_rows(pair_row, fops, mlp2_ops)
+    torch.cuda.empty_cache()
     # the int8 core without its last key tile, K1 and K2 without one
     # tile-edge row's third tap, the stats without their last chunk and
     # twice on the same input, after every timing
@@ -993,12 +1102,110 @@ def check_kernels(gen):
         k2_edge_check[name] = dropped_tap("conv_stack_k2", "conv4", x3[:1], taps[3:])
         chunk_check[name] = dropped_chunk(wave, w0)
         stats_bits[name] = same_bits(wave, w0)
-    return rows, dict(streaming_last_block=limit_check, onepass_gated_last_tile=gated_check,
+    return rows, dict(ffn_pair=ffn_extra, streaming_last_block=limit_check,
+                      onepass_gated_last_tile=gated_check,
                       int8_core_last_tile=core_check, mosei_eval_last_tile=eval_check,
                       flash_last_tile=flash_check,
                       conv_k1_tile_edge=edge_check,
                       conv_k2_tile_edge=k2_edge_check, stats_last_chunk=chunk_check,
                       stats_same_bits=stats_bits, ffn_backward=ffn_grad)
+
+
+# the W8A8 FFN pair at the bench's served rows (hriemo_torch/infer/streaming.py
+# MEASURED_BUCKET_BATCH, hriemo_torch/bench.py BUCKET_LT): WavLM's and BERT's
+# FFN over B x L frames at 1.25 s (384 x 62) and 10 s (32 x 499); the fusion
+# FFN over the audio frames at 1.25 s and the text rows there (384 x 8), the
+# beta gate over the batch (384), and the fusion FFN over phase 4's text rows
+# (4 x 64), where it takes the chain
+SERVED_FFN_ROWS = (384 * 62, 32 * 499)
+SERVED_MLP2_ROWS = ((768, 3072, 384 * 62), (768, 3072, 384 * 8), (3072, 256, 384),
+                    (768, 3072, 4 * 64))
+
+
+def own_max_ffn(x, fops):
+    """What a fused FFN whose blocks quantized h by their own columns' |max|
+    would give: the fused first GEMM on each block's 384 columns alone (a
+    cluster of one), the codes side by side with block 0's row scales, then
+    the second GEMM and the LayerNorm. It must differ from the chain."""
+    p = fops.pair
+    bn = _cuda.FFN_CONFIGS[0][0]
+    parts = [_cuda.ffn_gemm1(x, p.w1[c:c + bn], p.s1[c:c + bn], p.b1[c:c + bn],
+                             _cuda.EPI_GELU_F32, config=0) for c in range(0, p.w1.shape[0], bn)]
+    y = _cuda.int8_gemm(torch.cat([q for q, _ in parts], dim=1), parts[0][1], p.w2, p.s2, p.b2,
+                        _cuda.EPI_RESID_FIRST, resid=x)
+    return _cuda.layernorm(y, fops.ln_w, fops.ln_b, 1e-5, x.dtype)
+
+
+def served_pair_rows(pair_row, fops, mlp2_ops):
+    """Phase 3's W8A8 FFN pair at the served rows (inputs from a generator of
+    their own), then at the 10 s bucket's 1996 rows and at 23,808: the first
+    GEMM by each block shape (12 x 256 beside 8 x 384), the second by each
+    block configuration of the shared GEMM, the clusters the card runs at
+    once, the peak memory of one FFN call on each route against M * F * 4
+    bytes (the fp32 h that the fused route never allocates), and the limit
+    check: a result quantized by each block's own maximum must differ from
+    the chain."""
+    own = torch.Generator().manual_seed(SEED + 15)
+    xs = {}
+    for mm in SERVED_FFN_ROWS:
+        x = xs[mm, 768] = (torch.randn(mm, 768, generator=own)).to("cuda", torch.bfloat16)
+        pair_row("ffn_block_int8", f"M={mm} 768->3072->768 (served)", x, fops, main=False)
+    for din, fh, mm in SERVED_MLP2_ROWS:
+        x = (torch.randn(mm, din, generator=own)).to("cuda", torch.bfloat16)
+        pair_row("mlp2_int8", f"M={mm} {din}->{fh}->768 (served)", x, mlp2_ops[din, fh],
+                 main=False)
+    out = dict(gemm1_ms={}, gemm2_ms={}, clusters={}, peak_memory={})
+    p = fops.pair
+    for mm in (B * 499, SERVED_FFN_ROWS[0]):
+        x = xs.get((mm, 768))
+        if x is None:
+            x = xs[mm, 768] = (torch.randn(mm, 768, generator=own)).to("cuda", torch.bfloat16)
+        times = {f"{_cuda.FFN_CONFIGS[c][0]} columns": cuda_ms(
+            lambda c=c: _cuda.ffn_gemm1(x, p.w1, p.s1, p.b1, _cuda.EPI_GELU_F32, config=c))
+            for c in (0, 1)}
+        times["chain's first three launches"] = cuda_ms(lambda: _cuda.rowquant(
+            _cuda.int8_gemm(*_cuda.rowquant(x, div127=False), p.w1, p.s1, p.b1,
+                            _cuda.EPI_GELU_F32), div127=False))
+        out["gemm1_ms"][mm] = times
+        hq, hs = _cuda.ffn_gemm1(x, p.w1, p.s1, p.b1, _cuda.EPI_GELU_F32)
+        out["gemm2_ms"][mm] = {name: cuda_ms(lambda c=c: _cuda.int8_gemm(
+            hq, hs, p.w2, p.s2, p.b2, _cuda.EPI_RESID_FIRST, resid=x, config=c))
+            for c, name in enumerate(_cuda.GEMM_CONFIGS)}
+        print(f"  ffn_block_int8 M={mm}: first GEMM by block {times}; second GEMM by "
+              f"configuration {out['gemm2_ms'][mm]}", flush=True)
+    for f_, mm, k_, c in ((3072, B * 499, 768, 0), (3072, B * 499, 768, 1),
+                          (1024, 15968, 256, 1), (256, 384, 1024, 1)):
+        n = _cuda.ffn_gemm1_clusters(f_, mm, k_, _cuda.EPI_GELU_F32, config=c)
+        cn = f_ // _cuda.FFN_CONFIGS[c][0]
+        out["clusters"][f"F={f_} {cn} x {_cuda.FFN_CONFIGS[c][0]}"] = n
+        print(f"  fused first GEMM, F={f_} in {cn} blocks of {_cuda.FFN_CONFIGS[c][0]} "
+              f"columns: {n} clusters at once ({n * cn} blocks)", flush=True)
+    mm = SERVED_FFN_ROWS[0]
+    x = xs[mm, 768]
+    for route in ("fused", "chain"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = FF.ffn_block_int8(x, fops, 1e-5, True, route=route)
+        torch.cuda.synchronize()
+        out["peak_memory"][route] = torch.cuda.max_memory_allocated() - base
+        del y
+    limit = mm * 3072 * 4
+    print(f"  ffn_block_int8 M={mm}: peak memory growth of one call {out['peak_memory']} "
+          f"bytes (fp32 h: {limit})", flush=True)
+    if not out["peak_memory"]["fused"] < limit:
+        raise AssertionError(f"fused FFN at M={mm}: peak memory growth "
+                             f"{out['peak_memory']['fused']} >= {limit}")
+    x = xs[B * 499, 768]
+    wrong = own_max_ffn(x, fops)
+    ref = FF.ffn_block_int8(x, fops, 1e-5, True, route="chain")
+    diff = (wrong.float() - ref.float()).abs()
+    out["own_block_max"] = dict(max_abs_diff=diff.max().item(), differing=int((diff > 0).sum()))
+    print(f"  limit check, h quantized by each block's own maximum: {out['own_block_max']}",
+          flush=True)
+    if torch.equal(wrong, ref):
+        raise AssertionError("the atol=0 check cannot tell a per-block maximum from the chain")
+    return out
 
 
 def ffn_backward_check(x, w1, b1, w2, b2, g, b):
@@ -1204,6 +1411,9 @@ def long_requests(rng):
 def reset_launches():
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    for fn in (FF.ffn_block_int8, FF.mlp2_int8):
+        fn.routes.clear()
+        fn.shapes.clear()
     for fn in COUNTED_BY_SHAPE:
         fn.launches = 0
         fn.shapes.clear()
@@ -1218,6 +1428,25 @@ def read_launches():
             n for (hd, _), n in fn.head_dims.items() if hd > 128)
     out["attention_core_int8 (wide tiles)"] = sum(
         n for key, n in AB.attention_core_int8.shapes.items() if key[-1] > 128)
+    return out
+
+
+def check_pair_routes(what):
+    """Every call of the W8A8 FFN pair since ``reset_launches`` took the
+    route that ``_cuda.ffn_route`` picks for its shape; returns the calls
+    by (kernel, route)."""
+    sms = _cuda.sm_count()
+    out = {}
+    for fn in (FF.ffn_block_int8, FF.mlp2_int8):
+        for (route, m, k, f, epi), n in fn.shapes.items():
+            if route != _cuda.ffn_route(f, m, k, epi, sms):
+                raise AssertionError(f"{what}: {fn.__name__} at M={m} {k}->{f} took the "
+                                     f"{route} route {n} times")
+            out[f"{fn.__name__} {route}"] = out.get(f"{fn.__name__} {route}", 0) + n
+        if sum(fn.shapes.values()) != fn.launches:
+            raise AssertionError(f"{what}: {fn.__name__} counted {dict(fn.shapes)} over "
+                                 f"{fn.launches} calls")
+    print(f"{what}: W8A8 FFN pair calls by route {out}", flush=True)
     return out
 
 
@@ -2993,6 +3222,7 @@ def main() -> int:
     print(f"int8: served {len(got)} requests in {forwards} forwards, {secs:.3f} s; "
           f"launches {launches}", flush=True)
     check_launches("int8 serving", launches, {n: k * forwards for n, k in PER_FORWARD.items()})
+    check_pair_routes("int8 serving")
     core = AB.attention_core_int8.launches
     if core != launches["attention_block_int8"] + launches["mha_block_int8"]:
         raise AssertionError(f"int8 serving: the attention core launched {core} times, once "
@@ -3036,6 +3266,7 @@ def main() -> int:
           flush=True)
     check_launches("int8 at fp32 serving", launches32,
                    {n: k * forwards for n, k in PER_FORWARD.items()})
+    check_pair_routes("int8 at fp32 serving")
     check_probs("int8 at fp32 serving", got32, clips)
     ref32, plain32_secs = serve(plain32, clips)
     delta32 = prob_delta(got32, ref32, clips)
@@ -3139,6 +3370,7 @@ def main() -> int:
     check_launches("int8 serving, fusion in 4 heads", launches4,
                    {**{n: k * forwards for n, k in PER_FORWARD.items()},
                     "attention_core_int8 (wide tiles)": FUSION_MHA_PER_FORWARD * forwards})
+    check_pair_routes("int8 serving, fusion in 4 heads")
     check_probs("int8 serving, fusion in 4 heads", got4, clips)
     ref4, plain4_secs = serve(plain4, clips)
     delta4 = prob_delta(got4, ref4, clips)
@@ -3151,6 +3383,40 @@ def main() -> int:
     for name, n in launches4.items():
         total[name] += n
     del pipe4, plain4, fusion4
+    torch.cuda.empty_cache()
+    # phase 4e: the int8 tree at the 10 s bucket's served batch, where
+    # WavLM's FFNs and the fusion FFNs over the audio frames take the fused
+    # route that phase 4's batch of 4 leaves to the chain
+    served_b = MEASURED_BUCKET_BATCH[10.0]
+    clips10 = requests(np.random.default_rng(SEED + 17), 2 * served_b)[1::2]  # the 10 s ones
+    pipe_s = StreamingPipeline(wavlm, bert, fusion, **kw)
+    plain_s = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **kw)
+    serve(pipe_s, clips10, served_b)
+    reset_launches()
+    gemm1 = _cuda.ffn_gemm1.launches
+    got_s, secs_s = serve(pipe_s, clips10, served_b)
+    launches_s = read_launches()
+    gemm1 = _cuda.ffn_gemm1.launches - gemm1
+    print(f"int8 at the served batch: {len(got_s)} requests of 10 s in one forward, "
+          f"{secs_s:.3f} s; launches {launches_s}; fused first GEMM {gemm1} launches",
+          flush=True)
+    check_launches("int8 at the served batch", launches_s, PER_FORWARD)
+    routes_s = check_pair_routes("int8 at the served batch")
+    if routes_s.get("ffn_block_int8 fused", 0) < 12 or gemm1 < 12:
+        raise AssertionError(f"int8 at the served batch: WavLM's FFNs left the fused route "
+                             f"({routes_s}, {gemm1} fused first GEMMs)")
+    check_probs("int8 at the served batch", got_s, clips10)
+    ref_s, plain_s_secs = serve(plain_s, clips10, served_b)
+    delta_s = prob_delta(got_s, ref_s, clips10)
+    print(f"int8 at the served batch, kernel vs plain: max prob delta {delta_s:.3g} (gate "
+          f"{PROB_GATE}); plain served in {plain_s_secs:.3f} s", flush=True)
+    if not delta_s <= PROB_GATE:
+        raise AssertionError(f"int8 at the served batch: prob delta {delta_s} > {PROB_GATE}")
+    phases["int8_served_batch"] = dict(launches=launches_s, routes=routes_s, serve_s=secs_s,
+                                       plain_serve_s=plain_s_secs, prob_delta=delta_s)
+    for name, n in launches_s.items():
+        total[name] += n
+    del pipe_s, plain_s
     torch.cuda.empty_cache()
 
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_"))

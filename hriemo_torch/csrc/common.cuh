@@ -70,6 +70,17 @@ __device__ __forceinline__ void load8(const float* p, float* out) {
   out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
 }
 
+// The kernels' per-row int8 quantization (hriemo/ops/fused_ffn.py:64-68,
+// ops/fused_ffn.py quant_rows): the scale of a row whose largest |value| is
+// amax, max(amax, 1e-8) * (1/127), and one value's code, round half to even
+// of an IEEE quotient, clipped to +-127.
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, (float)1e-8), (float)(1.0 / 127.0));
+}
+__device__ __forceinline__ int8_t quant_code(float v, float scale) {
+  return (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v, scale)), -127.f), 127.f);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

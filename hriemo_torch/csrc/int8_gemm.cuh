@@ -6,10 +6,12 @@
 // epilogue then applies the dequant (acc * row_scale) * col_scale, the bias
 // and an op-specific tail in the reference's rounding order.
 //
-// It carries the int8 matmuls of the Pallas kernels
-// hriemo/ops/fused_ffn.py::_kernel_int8 and ::_kernel_mlp2_int8, the
-// projections of hriemo/ops/attention_block.py::_kernel and ::_mha_kernel,
-// and XLA's int8 dot of hriemo/ops/quant.py::int8_linear.
+// It carries the second int8 matmul of the Pallas kernels
+// hriemo/ops/fused_ffn.py::_kernel_int8 and ::_kernel_mlp2_int8 (the first,
+// with its row quantizations, is csrc/ffn_int8.cu, on this file's ring,
+// descriptors and epilogues), the projections of
+// hriemo/ops/attention_block.py::_kernel and ::_mha_kernel, and XLA's int8
+// dot of hriemo/ops/quant.py::int8_linear.
 //
 // What bounds it on the card: int8 tensor-core operations at the main
 // path's 2k rows (1979 TOP/s), which only wgmma reaches; the bytes of W at

@@ -1,11 +1,14 @@
 // Row quantization, the shared int8 GEMM and the fp32 LayerNorm pass.
 //
-// These are the launches from which the port builds three of its Hopper
-// kernels (hriemo_torch/ops/quant.py int8_linear, hriemo_torch/ops/
-// fused_ffn.py ffn_block_int8 and mlp2_int8) and the projections of the
-// attention kernels (hriemo_torch/ops/attention_block.py). Plain C entry
-// points, loaded with ctypes; each returns cudaGetLastError() after its
-// launch and runs on the caller's stream.
+// These are the launches from which the port builds int8_linear
+// (hriemo_torch/ops/quant.py), the second product and the LayerNorm of
+// ffn_block_int8 and mlp2_int8 (hriemo_torch/ops/fused_ffn.py; their first
+// product, with both row quantizations, is csrc/ffn_int8.cu) and, on their
+// chain route (thin grids, the beta gates, route="chain"), the whole of the
+// chain that the fused route replaces, and the
+// projections of the attention kernels (hriemo_torch/ops/attention_block.py).
+// Plain C entry points, loaded with ctypes; each returns cudaGetLastError()
+// after its launch and runs on the caller's stream.
 #include "int8_gemm.cuh"
 
 namespace hr {
@@ -46,11 +49,8 @@ __global__ void rowquant_kernel(const T* __restrict__ x, int K, int div127,
     for (int i = threadIdx.x; i < K; i += blockDim.x) amax = fmaxf(amax, fabsf(load_f(xr + i)));
   }
   amax = block_reduce<true>(amax, red);
-  const float m = fmaxf(amax, (float)1e-8);
-  const float sc = div127 ? __fdiv_rn(m, 127.0f) : __fmul_rn(m, (float)(1.0 / 127.0));
-  const auto quant = [&](float v) {
-    return (int8_t)fminf(fmaxf(rintf(__fdiv_rn(v, sc)), -127.f), 127.f);
-  };
+  const float sc = div127 ? __fdiv_rn(fmaxf(amax, (float)1e-8), 127.0f) : row_scale(amax);
+  const auto quant = [&](float v) { return quant_code(v, sc); };
   if (vec) {
     for (int i = threadIdx.x * VEC; i < K; i += blockDim.x * VEC) {
       float v[VEC];

@@ -31,8 +31,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 # the accurate versions, as in the plain PyTorch versions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-LIBS = ("quant_gemm", "attention", "wavlm_attention", "flash_attention", "ffn_bf16",
-        "conv_stack")
+LIBS = ("quant_gemm", "ffn_int8", "attention", "wavlm_attention", "flash_attention",
+        "ffn_bf16", "conv_stack")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -44,6 +44,10 @@ SIGNATURES = {
         "hr_rowquant": [P, I, I, I, I, P, P, P],
         "hr_int8_gemm": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
         "hr_layernorm": [P, P, P, I, I, F, I, P, P],
+    },
+    "ffn_int8": {
+        "hr_ffn_gemm1": [P, I, I, I, P, P, P, I, I, I, P, P, P],
+        "hr_ffn_gemm1_clusters": [I, I, I, I, I, I],
     },
     "attention": {
         "hr_last_kernel": [],
@@ -262,7 +266,11 @@ def rowquant(x: torch.Tensor, div127: bool):
     check(lib("quant_gemm").hr_rowquant(
         x.data_ptr(), int(x.dtype == torch.bfloat16), m, k, int(div127),
         q.data_ptr(), s.data_ptr(), stream()), "hr_rowquant")
+    rowquant.launches += 1
     return q, s
+
+
+rowquant.launches = 0
 
 
 # Block configurations of the int8 GEMM, by index (csrc/quant_gemm.cu)
@@ -308,4 +316,100 @@ def layernorm(y: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
     check(lib("quant_gemm").hr_layernorm(
         y.data_ptr(), g.data_ptr(), b.data_ptr(), m, n, eps, int(dtype == torch.float32),
         out.data_ptr(), stream()), "hr_layernorm")
+    layernorm.launches += 1
     return out
+
+
+layernorm.launches = 0
+
+
+# Block shapes of the fused first FFN GEMM (csrc/ffn_int8.cu requant_config),
+# by index: (h columns a block, most blocks a cluster, largest K). A cluster
+# spans all F columns of 64 rows, above 8 blocks in a non-portable size; the
+# 64 rows of int8 x (K bytes each) stay in each block's shared memory.
+FFN_CONFIGS = ((384, 8, 1280), (256, 16, 2816))
+H100_SMS = 132
+
+
+def sm_count() -> int:
+    """SMs of the current card (``H100_SMS`` without one)."""
+    if not torch.cuda.is_available():
+        return H100_SMS
+    if not hasattr(sm_count, "n"):
+        sm_count.n = torch.cuda.get_device_properties(torch.cuda.current_device()) \
+            .multi_processor_count
+    return sm_count.n
+
+
+def ffn_cluster(f: int, k: int, config: int = -1) -> tuple[int, int] | None:
+    """``(config, blocks a cluster)`` of the fused first GEMM over ``k``
+    inputs and ``f`` hidden columns: the widest block of :data:`FFN_CONFIGS`
+    that spans ``f`` at that ``k`` (``config`` forces one), or None."""
+    for c, (bn, most, kmax) in enumerate(FFN_CONFIGS):
+        if f % bn == 0 and 1 <= f // bn <= most and k <= kmax and config in (-1, c):
+            return c, f // bn
+    return None
+
+
+# Waves of the fused first product (its blocks over the card's SMs) from
+# which the fused route beats the chain, by block configuration, for the
+# GELU forms and for ReLU (chip_ffn_routes.py, H100 80GB HBM3 at 700 W,
+# PERF.md section 6): a block of 384 columns holds its SM alone, so on a
+# thin grid nothing hides its epilogue, and the chain's smaller blocks win
+# (tanh GELU at 768 -> 3072: 1.13x the chain's time at 1996 rows, 1.04x at
+# 4096, 1.00x at 6144, 0.92x at 8192); two blocks of 256 an SM win from 3072
+# rows at 1024 columns.
+FUSED_MIN_WAVES = ((5.8, 1.9), (0.95, 0.95))
+
+
+def ffn_route(f: int, m: int, k: int, epi: int, sms: int = H100_SMS) -> str:
+    """The FFN pair's route at ``m`` rows of ``k`` inputs and ``f`` hidden
+    columns with the first product's epilogue ``epi``: "fused" where a
+    cluster spans ``f`` (:func:`ffn_cluster`) and its grid covers the card
+    :data:`FUSED_MIN_WAVES` times, else "chain"."""
+    cl = ffn_cluster(f, k)
+    if cl is None:
+        return "chain"
+    waves = -(-m // 64) * cl[1] / sms
+    return "fused" if waves >= FUSED_MIN_WAVES[cl[0]][epi == EPI_RELU_F32] else "chain"
+
+
+def ffn_gemm1(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
+              epi: int, config: int = -1):
+    """``quant_rows(act(int8 W1 . quant_rows(x)))`` in one launch
+    (csrc/ffn_int8.cu): x ``[M, K]`` bf16 or fp32, w ``[F, K]`` int8,
+    ``w_scale [F, 1]``, ``bias [F]``; ``epi`` is ``EPI_GELU_F32``,
+    ``EPI_GELU_ERF_F32`` or ``EPI_RELU_F32``. Returns ``hq [M, F]`` int8 and
+    ``hs [M]`` fp32, bit-equal to :func:`rowquant` of ``int8_gemm``'s fp32 h.
+    ``config`` forces one of :data:`FFN_CONFIGS` (-1: :func:`ffn_cluster`);
+    raises where no cluster spans F. ``ffn_gemm1.launches`` counts launches."""
+    require(x, "x", ACT_DTYPES)
+    m, k = x.shape
+    f = w.shape[0]
+    cl = ffn_cluster(f, k, config)
+    if cl is None or k % 16:
+        raise ValueError(f"fused FFN GEMM: no cluster spans F={f} at K={k} (config "
+                         f"{config}), or K % 16")
+    hq = torch.empty((m, f), dtype=torch.int8, device=x.device)
+    hs = torch.empty((m,), dtype=torch.float32, device=x.device)
+    check(lib("ffn_int8").hr_ffn_gemm1(
+        x.data_ptr(), int(x.dtype == torch.float32), m, k, w.data_ptr(), w_scale.data_ptr(),
+        bias.data_ptr(), f, epi, cl[0], hq.data_ptr(), hs.data_ptr(), stream()),
+        "hr_ffn_gemm1")
+    ffn_gemm1.launches += 1
+    return hq, hs
+
+
+ffn_gemm1.launches = 0
+
+
+def ffn_gemm1_clusters(f: int, m: int, k: int, epi: int, x_f32: bool = False,
+                       config: int = -1) -> int:
+    """How many clusters of :func:`ffn_gemm1`'s instance the card runs at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    cl = ffn_cluster(f, k, config)
+    if cl is None:
+        raise ValueError(f"fused FFN GEMM: no cluster spans F={f} at K={k}")
+    n = lib("ffn_int8").hr_ffn_gemm1_clusters(int(x_f32), m, k, f, epi, cl[0])
+    check(-n if n < 0 else 0, "hr_ffn_gemm1_clusters")
+    return n

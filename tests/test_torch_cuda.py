@@ -112,27 +112,127 @@ def test_int8_linear(gen, m, k, n, bias, dtype):
         _close(got, ref)
 
 
+# (d_in, F, d_out) of the FFN pair at each hidden width a model reaches:
+# WavLM, BERT and the fusion FFNs at d=768; the fusion FFNs at d=256; the
+# beta gate at d=256 (4d -> 256 -> d; at d=768 no cluster spans it, see
+# test_ffn_pair_chain_route)
+PAIR_WIDTHS = {3072: (768, 3072, 768), 1024: (256, 1024, 256), 256: (1024, 256, 256)}
+
+
+def _routes(fn):
+    return dict(fn.routes)
+
+
+def _picked(fn, before, route):
+    """The wrapper took ``route`` once since ``before`` and no other."""
+    want = dict(before)
+    want[route] = want.get(route, 0) + 1
+    assert {k: v for k, v in fn.routes.items() if v} == {k: v for k, v in want.items() if v}
+
+
 @pytest.mark.parametrize("fast_gelu", [True, False])
-@pytest.mark.parametrize("m", [1, 63, 300])
+@pytest.mark.parametrize("m", [1, 63, 300, 2049])
+@pytest.mark.parametrize("f", [256, 1024, 3072])
 @pytest.mark.parametrize("dtype", ACT_DTYPES)
-def test_ffn_block(gen, m, fast_gelu, dtype):
-    pair = _quantized(MLP2(256, 1024, 256), gen)
-    ops = FF.FfnOperands(pair.ops, _randn(gen, 256, dtype=torch.float32).abs(),
-                         _randn(gen, 256, scale=0.1, dtype=torch.float32))
-    x = _randn(gen, m, 256, dtype=dtype)
+def test_ffn_block(gen, m, f, fast_gelu, dtype):
+    """At every hidden width: the route ``_cuda.ffn_route`` picks, counted
+    there, within the sublayer tolerance of plain; the fused route
+    (``route="fused"``) bit-equal to the chain it replaced."""
+    d = PAIR_WIDTHS[f][0] if f != 256 else 256
+    pair = _quantized(MLP2(d, f, d), gen)
+    ops = FF.FfnOperands(pair.ops, _randn(gen, d, dtype=torch.float32).abs(),
+                         _randn(gen, d, scale=0.1, dtype=torch.float32))
+    x = _randn(gen, m, d, dtype=dtype)
+    epi = _cuda.EPI_GELU_F32 if fast_gelu else _cuda.EPI_GELU_ERF_F32
+    before = _routes(FF.ffn_block_int8)
     got = FF.ffn_block_int8(x, ops, 1e-5, fast_gelu)
+    _picked(FF.ffn_block_int8, before, _cuda.ffn_route(f, m, d, epi, _cuda.sm_count()))
     assert got.dtype == dtype
     _close(got, FF.ffn_block_int8_plain(x, ops, 1e-5, fast_gelu))
+    before = _routes(FF.ffn_block_int8)
+    fused = FF.ffn_block_int8(x, ops, 1e-5, fast_gelu, route="fused")
+    _picked(FF.ffn_block_int8, before, "fused")
+    torch.testing.assert_close(fused, got, atol=0, rtol=0)
+    torch.testing.assert_close(fused, FF.ffn_block_int8(x, ops, 1e-5, fast_gelu, route="chain"),
+                               atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("din,f,dout,m", [(256, 1024, 256, 97), (1024, 256, 768, 3)])
+@pytest.mark.parametrize("m", [1, 63, 300, 2049])
+@pytest.mark.parametrize("f", [256, 1024, 3072])
 @pytest.mark.parametrize("dtype", ACT_DTYPES)
-def test_mlp2(gen, din, f, dout, m, dtype):
+def test_mlp2(gen, f, m, dtype):
+    """As :func:`test_ffn_block`, for the ReLU pair without LayerNorm."""
+    din, _, dout = PAIR_WIDTHS[f]
     ops = _quantized(MLP2(din, f, dout), gen).ops
     x = _randn(gen, m, din, dtype=dtype)
+    before = _routes(FF.mlp2_int8)
     got = FF.mlp2_int8(x, ops)
+    _picked(FF.mlp2_int8, before,
+            _cuda.ffn_route(f, m, din, _cuda.EPI_RELU_F32, _cuda.sm_count()))
     assert got.dtype == dtype
     _close(got, FF.mlp2_int8_plain(x, ops))
+    before = _routes(FF.mlp2_int8)
+    fused = FF.mlp2_int8(x, ops, route="fused")
+    _picked(FF.mlp2_int8, before, "fused")
+    torch.testing.assert_close(fused, got, atol=0, rtol=0)
+    torch.testing.assert_close(fused, FF.mlp2_int8(x, ops, route="chain"), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kind,din,f", [("ffn", 128, 1408), ("mlp2", 128, 1408),
+                                        ("mlp2", 3328, 256), ("mlp2", 3072, 256)])
+def test_ffn_pair_chain_route(gen, kind, din, f):
+    """A hidden width no cluster spans (1408), or inputs too wide for the
+    block's shared memory (K=3328, and the beta gate's K=3072 at d=768),
+    takes the named chain, counted there, even at rows where the fused
+    route would be picked; the fused GEMM and a forced fused route refuse
+    them."""
+    m = 9000
+    pair = _quantized(MLP2(din, f, din), gen).ops
+    x = _randn(gen, m, din)
+    assert _cuda.ffn_cluster(f, din) is None
+    fn = FF.ffn_block_int8 if kind == "ffn" else FF.mlp2_int8
+    if kind == "ffn":
+        ops = FF.FfnOperands(pair, _randn(gen, din, dtype=torch.float32).abs(),
+                             _randn(gen, din, scale=0.1, dtype=torch.float32))
+        call = lambda route=None: fn(x, ops, 1e-5, True, route=route)  # noqa: E731
+        ref = FF.ffn_block_int8_plain(x, ops, 1e-5, True)
+    else:
+        call = lambda route=None: fn(x, pair, route=route)  # noqa: E731
+        ref = FF.mlp2_int8_plain(x, pair)
+    before = _routes(fn)
+    got = call()
+    _picked(fn, before, "chain")
+    _close(got, ref)
+    with pytest.raises(ValueError, match="no cluster spans"):
+        _cuda.ffn_gemm1(x, pair.w1, pair.s1, pair.b1, _cuda.EPI_RELU_F32)
+    with pytest.raises(ValueError, match="no cluster spans"):
+        call("fused")
+    with pytest.raises(ValueError, match="unknown route"):
+        call("cluster")
+
+
+@pytest.mark.parametrize("config,din,f", [(0, 768, 768), (1, 256, 1024), (1, 2816, 256)])
+@pytest.mark.parametrize("m", [1, 65, 777])
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_ffn_gemm1_bit_equal(gen, config, din, f, m, dtype):
+    """Each block shape, forced, at a width it spans (the 256-column block
+    also alone, at its widest K): int8 h and its row scales equal the row
+    quantize of the shared GEMM's fp32 h bit for bit (x with a zero row,
+    halves and a repeated maximum)."""
+    pair = _quantized(MLP2(din, f, 256), gen).ops
+    x = _randn(gen, m, din, scale=3.0, dtype=dtype)
+    x[0, :6] = torch.tensor([0.5, -1.5, 2.5, 0.0, 9.0, -9.0])
+    if m > 1:
+        x[1] = 0
+    for epi in (_cuda.EPI_GELU_F32, _cuda.EPI_GELU_ERF_F32, _cuda.EPI_RELU_F32):
+        before = _cuda.ffn_gemm1.launches
+        hq, hs = _cuda.ffn_gemm1(x, pair.w1, pair.s1, pair.b1, epi, config=config)
+        assert _cuda.ffn_gemm1.launches == before + 1
+        xq, xs = _cuda.rowquant(x, div127=False)
+        rq, rs = _cuda.rowquant(_cuda.int8_gemm(xq, xs, pair.w1, pair.s1, pair.b1, epi),
+                                div127=False)
+        torch.testing.assert_close(hq, rq, atol=0, rtol=0)
+        torch.testing.assert_close(hs, rs, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("l", [48, 62, 97, 124, 63, 65, 499, 1024])
