@@ -45,6 +45,18 @@ Phases, any failure exits non-zero:
    card runs at once, the peak memory of one FFN call at 23,808 rows (below
    the M * 3072 * 4 bytes of an fp32 h), and a limit check: a result
    quantized by each block's own maximum must differ from the chain; then
+   the WavLM attention sublayer (``attention_block_int8``) and
+   ``int8_linear`` on both routes: the route the wrapper picks
+   (``AB.attention_route``, ``_cuda.proj_route``) against plain at TOL, the
+   other as ``route_ms``, both within TOL of plain (``int8_linear``'s
+   bit-equal in bf16 and fp32 x), each route's launches a call
+   (``LAUNCHES_PER_CALL``: 3 and 6, 1 and 2), the picked route not the
+   slower by more than ``ROUTE_NOISE`` and ``ROUTE_NOISE_MS``; the sublayer
+   at phase 4's batch (B=4, L=124 and 499) and, last of all, at the bench's
+   served shapes (``SERVED_ATTN``: 1.25 s at B=384, 5 s at B=64, 10 s at
+   B=32) with each launch of both routes timed alone, ``int8_linear`` at
+   1996 rows and at its served calls (``SERVED_LINEAR``), with
+   ``torch._int_mm`` on its int8 operands as ``library_ms``; then
    the two kernels under the int8 wrappers
    alone, beside their own yardsticks: the int8 attention core (``attention_core_int8``) against SDPA,
    with its own limit check (a gated B=4 L=499 result without its last key
@@ -75,8 +87,8 @@ Phases, any failure exits non-zero:
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
    2.5 s and 10 s audio buckets, launch counts per forward (every call of
-   the W8A8 FFN pair on the route ``_cuda.ffn_route`` picks for its rows),
-   probabilities
+   the W8A8 FFN pair, the WavLM sublayer and ``int8_linear`` on the route
+   its wrapper picks for its rows), probabilities
    finite and in [0, 1], and the same requests through the plain versions
    (``use_kernels=False``) within the int8 gate of 0.006; then the same on
    the int8 tree at fp32 compute (``compute_dtype=torch.float32``), whose
@@ -99,7 +111,10 @@ Phases, any failure exits non-zero:
    H100's ``MEASURED_BUCKET_BATCH``): launch counts for one forward, every
    W8A8 FFN pair call on its picked route, WavLM's 12 FFNs over 32 x 499
    rows on the fused route (the first product of ``csrc/ffn_int8.cu``,
-   which phase 4's batch of 4 leaves to the chain), kernel vs plain within
+   which phase 4's batch of 4 leaves to the chain), WavLM's 12 attention
+   sublayers on the fused route (one q/k/v projection and one
+   out-projection with the LayerNorm of ``csrc/proj_int8.cu`` each) and
+   its feature projection on ``int8_linear``'s, kernel vs plain within
    0.006;
 5. the feature-extraction entry point at full width (WavLM base-plus and
    BERT-base, random weights from a seed): a synthetic IEMOCAP tree of 24
@@ -222,6 +237,7 @@ of each phase-6c configuration with torch.profiler
 
 from __future__ import annotations
 
+import collections
 import copy
 import csv
 import functools
@@ -323,7 +339,7 @@ KERNELS = {
                   "hriemo_torch/csrc/ffn_int8.cu"),
     # int8_linear is XLA's int8 dot in the JAX package, not a Pallas kernel
     "int8_linear": (Q.int8_linear, "hriemo/ops/quant.py:85",
-                    "hriemo_torch/csrc/quant_gemm.cu"),
+                    "hriemo_torch/csrc/proj_int8.cu"),
     "wavlm_fused_attention": (WA.wavlm_fused_attention, "hriemo/ops/wavlm_attention.py:34",
                               "hriemo_torch/csrc/wavlm_attention.cu"),
     "onepass_attention": (FA.onepass_attention, "hriemo/ops/flash_attention_pallas.py:81",
@@ -537,6 +553,48 @@ def check_kernels(gen):
               flush=True)
         return got, ref
 
+    def linear_row(shape, x, lin, main=True):
+        """One row of ``int8_linear`` (``lin``: a quantized Linear) on ``x``:
+        the route the wrapper picks (``_cuda.proj_route``) against plain at
+        TOL, ``torch._int_mm`` on its int8 operands as ``library_ms``, the
+        other route as ``route_ms``; the two routes bit-equal in bf16 and
+        fp32 x, one launch a call fused and two on the chain, and the picked
+        route not the slower by more than ROUTE_NOISE and ROUTE_NOISE_MS."""
+        mm, k_ = x.shape
+        n_ = lin.w_int8.shape[0]
+        args = (lin.w_int8, lin.w_scale, lin.bias_f32)
+        routes = {r: (lambda x_, r=r: Q.int8_linear(x_, *args, route=r))
+                  for r in ("fused", "chain")}
+        picked = _cuda.proj_route(n_, mm, k_, x.element_size(), _cuda.sm_count())
+        xq, _ = _cuda.rowquant(x, div127=True)
+        library = None if mm <= 16 else (lambda: torch._int_mm(xq, lin.w_int8.t()))
+        run("int8_linear", shape, lambda: Q.int8_linear(x, *args),
+            lambda: Q.int8_linear_plain(x, *args), library,
+            nbytes(x) + mm * n_ * x.element_size() + k_ * n_ + 8 * n_, 2 * mm * k_ * n_, 0,
+            route=lambda: routes["chain" if picked == "fused" else "fused"](x))
+        rec = rows[-1]
+        rec.update(kernels_line=main, picked=picked, launches_per_call={})
+        for x_ in (x, x.float()):
+            if not torch.equal(routes["fused"](x_), routes["chain"](x_)):
+                raise AssertionError(f"int8_linear {shape} {x_.dtype}: the routes differ")
+        counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.proj_gemm)
+        for route, fn in routes.items():
+            before = sum(c.launches for c in counters)
+            fn(x)
+            rec["launches_per_call"][route] = sum(c.launches for c in counters) - before
+        if rec["launches_per_call"] != LAUNCHES_PER_CALL["int8_linear"]:
+            raise AssertionError(f"int8_linear {shape}: {rec['launches_per_call']} launches")
+        rec["route_check_ms"] = {r: cuda_ms(lambda fn=fn: fn(x), repeats=ROUTE_REPEATS)
+                                 for r, fn in routes.items()}
+        torch.cuda.synchronize()
+        print(f"    the routes bit-equal in bf16 and fp32 x; cluster (config, blocks) "
+              f"{_cuda.proj_cluster(n_, k_)}; launches a call {rec['launches_per_call']}; picks "
+              f"{picked}: {rec['route_check_ms']}", flush=True)
+        for other, t in rec["route_check_ms"].items():
+            if rec["route_check_ms"][picked] > (1 + ROUTE_NOISE) * t + ROUTE_NOISE_MS:
+                raise AssertionError(f"int8_linear {shape}: the {picked} route it picks is "
+                                     f"slower than the {other}: {rec['route_check_ms']}")
+
     def pair_row(kernel, shape, x, ops, main=True):
         """One row of the W8A8 FFN pair (``ops``: FfnOperands for the FFN,
         Mlp2Operands for mlp2) on ``x``: the fused route against plain at
@@ -600,25 +658,95 @@ def check_kernels(gen):
                 raise AssertionError(f"{kernel} {shape}: the {rec['picked']} route it picks "
                                      f"is slower than the {other}: {rec['route_check_ms']}")
 
-    # WavLM attention sublayer, the 10 s bucket
+    def attn_row(shape, x, pos, kb, ops, main=True, split=False):
+        """One row of the WavLM attention sublayer on ``x [B, L, 768]``: the
+        route the wrapper picks (``AB.attention_route``) against plain at
+        TOL, SDPA on the core's q/k/v as ``library_ms``, the other route as
+        ``route_ms``; both routes within TOL of plain, with their launches a
+        call (the fused route at most 3), and the picked route not the
+        slower by more than ROUTE_NOISE and ROUTE_NOISE_MS (medians of
+        ROUTE_REPEATS replays). ``split``: each launch of both routes
+        alone. ``main``: the row may feed the kernels line."""
+        b, l, d = x.shape
+        h, hd, m = 12, 64, b * l
+        routes = {r: (lambda r=r: AB.attention_block_int8(x, ops, pos, kb, 1e-5, route=r))
+                  for r in ("fused", "chain")}
+        plain = lambda: AB.attention_block_int8_plain(x, ops, pos, kb, 1e-5)
+        picked = AB.attention_route(m, d, x.element_size(), _cuda.sm_count())
+        q, k, v = (randn(b, h, l, hd) for _ in range(3))
+        gp = (pos[None].float() + kb[:, None, None, :]).to(torch.bfloat16)
+        run("attention_block_int8", shape, lambda: AB.attention_block_int8(x, ops, pos, kb, 1e-5),
+            plain, lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=gp),
+            nbytes(x, pos, kb, x) + 4 * d * d + 4 * (4 * d) * 2,
+            8 * m * d * d, 4 * b * h * l * l * hd + 2 * m * d * 8,
+            route=routes["chain" if picked == "fused" else "fused"])
+        rec = rows[-1]
+        rec.update(kernels_line=main, picked=picked, launches_per_call={}, route_err={})
+        ref = plain()
+        counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.layernorm, _cuda.proj_gemm,
+                    _cuda.proj_gemm_ln, AB.attention_core_int8)
+        for route, fn in routes.items():
+            before = sum(c.launches for c in counters)
+            got = fn()
+            rec["launches_per_call"][route] = sum(c.launches for c in counters) - before
+            rec["route_err"][route] = compare(f"attention_block_int8 {shape} {route}", got,
+                                              ref)[0]
+        if rec["launches_per_call"] != LAUNCHES_PER_CALL["attention_block_int8"]:
+            raise AssertionError(f"attention_block_int8 {shape}: {rec['launches_per_call']} "
+                                 "launches a call")
+        rec["route_check_ms"] = {r: cuda_ms(fn, repeats=ROUTE_REPEATS) for r, fn in routes.items()}
+        if split:
+            x2 = x.view(m, d)
+            mo = ops.mha
+            gate = (x2, ops.wg, ops.bg, ops.gconst, pos.to(torch.bfloat16))
+            xq, xs = _cuda.rowquant(x2, div127=False)
+            qkv = _cuda.int8_gemm(xq, xs, mo.w_in, mo.s_in, mo.b_in, _cuda.EPI_BF16)
+            qs, ks, vs = qkv.split(d, dim=1)
+            ctx = AB.attention_core_int8(qs, ks, vs, b, h, kbias=kb, gate=gate, panel=False)
+            cq, cs = _cuda.rowquant(ctx, div127=False)
+            y = _cuda.int8_gemm(cq, cs, mo.w_out, mo.s_out, mo.b_out, _cuda.EPI_RESID_LAST,
+                                resid=x2)
+            launches = {
+                "chain: rowquant x": lambda: _cuda.rowquant(x2, div127=False),
+                "chain: q/k/v GEMM": lambda: _cuda.int8_gemm(xq, xs, mo.w_in, mo.s_in, mo.b_in,
+                                                             _cuda.EPI_BF16),
+                "chain: core, two sweeps": lambda: AB.attention_core_int8(
+                    qs, ks, vs, b, h, kbias=kb, gate=gate, panel=False),
+                "chain: rowquant ctx": lambda: _cuda.rowquant(ctx, div127=False),
+                "chain: out GEMM": lambda: _cuda.int8_gemm(cq, cs, mo.w_out, mo.s_out, mo.b_out,
+                                                           _cuda.EPI_RESID_LAST, resid=x2),
+                "chain: LayerNorm": lambda: _cuda.layernorm(y, ops.ln_w, ops.ln_b, 1e-5,
+                                                            x.dtype),
+                "fused: q/k/v projection": lambda: _cuda.proj_gemm(
+                    x2, mo.w_in, mo.s_in, mo.b_in, _cuda.EPI_BF16, div127=False),
+                "fused: core (the panel up to 128 keys)": lambda: AB.attention_core_int8(
+                    qs, ks, vs, b, h, kbias=kb, gate=gate),
+                "fused: out-projection + LayerNorm": lambda: _cuda.proj_gemm_ln(
+                    ctx, mo.w_out, mo.s_out, mo.b_out, x2, ops.ln_w, ops.ln_b, 1e-5),
+            }
+            rec["split_ms"] = {name: cuda_ms(fn) for name, fn in launches.items()}
+            print("    each launch alone: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in rec["split_ms"].items()), flush=True)
+        torch.cuda.synchronize()
+        print(f"    both routes within TOL of plain ({rec['route_err']}); launches a call "
+              f"{rec['launches_per_call']}; picks {picked}: {rec['route_check_ms']}",
+              flush=True)
+        for other, t in rec["route_check_ms"].items():
+            if rec["route_check_ms"][picked] > (1 + ROUTE_NOISE) * t + ROUTE_NOISE_MS:
+                raise AssertionError(f"attention_block_int8 {shape}: the {picked} route it "
+                                     f"picks is slower than the {other}: "
+                                     f"{rec['route_check_ms']}")
+
+    # WavLM attention sublayer, the 2.5 s and 10 s buckets at phase 4's batch
     d, h, hd = 768, 12, 64
     enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1))
     enc.init_weights(gen)
     layer = quantized(enc.encoder.layers[0])
-    for l in (124, 499):  # the 2.5 s and 10 s buckets
+    for l in (124, 499):
         x = randn(B, l, d)
         pos = randn(h, l, l, scale=0.3)
         kb = torch.where(mask(B, l), AB.NEG_INF, 0.0).float()
-        ops = layer.attn_ops
-        q, k, v = (randn(B, h, l, hd) for _ in range(3))
-        gp = (pos[None].float() + kb[:, None, None, :]).to(torch.bfloat16)
-        m = B * l
-        run("attention_block_int8", f"B={B} L={l}",
-            lambda: AB.attention_block_int8(x, ops, pos, kb, 1e-5),
-            lambda: AB.attention_block_int8_plain(x, ops, pos, kb, 1e-5),
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=gp),
-            nbytes(x, pos, kb, x) + 4 * d * d + 4 * (4 * d) * 2,
-            8 * m * d * d, 4 * B * h * l * l * hd + 2 * m * d * 8)
+        attn_row(f"B={B} L={l}", x, pos, kb, layer.attn_ops)
 
     # MHA sublayers: BERT self (12 x 64) and fusion self/cross (8 x 96)
     cases = [(12, 16, 16, True), (12, 64, 64, True), (8, 499, 499, True),
@@ -666,15 +794,12 @@ def check_kernels(gen):
         x = randn(mm, din)
         pair_row("mlp2_int8", f"M={mm} {din}->{fh}->{dout}", x, ops)
 
-    # int8_linear: WavLM's feature projection on the 10 s bucket
+    # int8_linear: WavLM's feature projection on the 10 s bucket at phase
+    # 4's batch
     lin = Linear(512, d)
     init_torch_defaults(lin, gen)
     lin = quantized(lin)
-    x = randn(m, 512)
-    run("int8_linear", f"M={m} 512->{d}",
-        lambda: Q.int8_linear(x, lin.w_int8, lin.w_scale, lin.bias_f32),
-        lambda: Q.int8_linear_plain(x, lin.w_int8, lin.w_scale, lin.bias_f32), None,
-        nbytes(x) + m * d * 2 + 512 * d + 8 * d, 2 * m * 512 * d, 0)
+    linear_row(f"M={m} 512->{d}", randn(m, 512), lin)
 
     def heads(b, l, h, hd, dtype=torch.bfloat16, generator=None):
         """q/k/v as the routes pass them: head views of a [B, L, H*hd] projection."""
@@ -1102,6 +1227,10 @@ def check_kernels(gen):
         k2_edge_check[name] = dropped_tap("conv_stack_k2", "conv4", x3[:1], taps[3:])
         chunk_check[name] = dropped_chunk(wave, w0)
         stats_bits[name] = same_bits(wave, w0)
+    # the WavLM sublayer and int8_linear at the served shapes, last: each
+    # route, each launch alone
+    served_proj_rows(attn_row, linear_row, layer.attn_ops)
+    torch.cuda.empty_cache()
     return rows, dict(ffn_pair=ffn_extra, streaming_last_block=limit_check,
                       onepass_gated_last_tile=gated_check,
                       int8_core_last_tile=core_check, mosei_eval_last_tile=eval_check,
@@ -1120,6 +1249,47 @@ def check_kernels(gen):
 SERVED_FFN_ROWS = (384 * 62, 32 * 499)
 SERVED_MLP2_ROWS = ((768, 3072, 384 * 62), (768, 3072, 384 * 8), (3072, 256, 384),
                     (768, 3072, 4 * 64))
+
+
+# the WavLM attention sublayer at the bench's served shapes: 1.25 s (B=384,
+# L=62), 5 s (B=64, L=249), 10 s (B=32, L=499); int8_linear's calls in the
+# served forward (chip_proj_routes.py --split) as (M, K, N): the feature
+# projection over B x L frames at 1.25 s and 10 s, the decoder's per-op
+# 768 -> 768 over B x 4 rows (1.25 s, 10 s) and over B x 8 (1.25 s) and B x
+# 64 (10 s) memory rows, its FFN (768 -> 2048 -> 768) over B x 4 at 1.25 s
+SERVED_ATTN = ((384, 62), (64, 249), (32, 499))
+SERVED_LINEAR = ((384 * 62, 512, 768), (32 * 499, 512, 768), (1536, 768, 768), (128, 768, 768),
+                 (3072, 768, 768), (2048, 768, 768), (1536, 768, 2048), (1536, 2048, 768))
+# launches a call of the redesigned wrappers on each route: the sublayer's
+# q/k/v projection, core and out-projection with the LayerNorm (the chain:
+# row quantize, q/k/v GEMM, core, row quantize, out GEMM, LayerNorm);
+# int8_linear's projection (the chain: row quantize and GEMM)
+LAUNCHES_PER_CALL = {"attention_block_int8": {"fused": 3, "chain": 6},
+                     "int8_linear": {"fused": 1, "chain": 2}}
+
+
+def served_proj_rows(attn_row, linear_row, attn_ops):
+    """Phase 3's WavLM sublayer and int8_linear rows at the served shapes
+    (inputs from a generator of their own): both routes, the sublayer's
+    launches each alone."""
+    own = torch.Generator().manual_seed(SEED + 19)
+    for b, l in SERVED_ATTN:
+        x = torch.randn(b, l, 768, generator=own).to("cuda", torch.bfloat16)
+        pos = (0.3 * torch.randn(12, l, l, generator=own)).to("cuda", torch.bfloat16)
+        lens = torch.randint(l // 2, l + 1, (b,), generator=own)
+        lens[0] = l
+        kb = torch.where(torch.arange(l)[None, :] >= lens[:, None], AB.NEG_INF, 0.0).float()
+        attn_row(f"B={b} L={l} (served)", x, pos, kb.cuda(), attn_ops, main=False, split=True)
+        del x, pos, kb
+        torch.cuda.empty_cache()
+    lins = {}
+    for mm, k_, n_ in SERVED_LINEAR:
+        if (k_, n_) not in lins:
+            lin = Linear(k_, n_)
+            init_torch_defaults(lin, own)
+            lins[k_, n_] = quantized(lin)
+        x = torch.randn(mm, k_, generator=own).to("cuda", torch.bfloat16)
+        linear_row(f"M={mm} {k_}->{n_} (served)", x, lins[k_, n_], main=False)
 
 
 def own_max_ffn(x, fops):
@@ -1309,7 +1479,8 @@ TILE_KERNELS = {"onepass_attention": ("onepass_mma_kernel", "onepass_wide_kernel
                                       "attn_tf32_kernel", "attn_tf32_wide_kernel"),
                 "streaming_attention": ("streaming_mma_kernel", "streaming_wide_kernel",
                                         "attn_tf32_kernel", "attn_tf32_wide_kernel"),
-                "attention_core_int8": ("onepass_mma_kernel", "onepass_wide_kernel")}
+                "attention_core_int8": ("onepass_mma_kernel", "onepass_wide_kernel",
+                                        "onepass_panel_kernel")}
 CUDA_CORE_KERNELS = ("onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel")
 # the library that launches each core's kernels
 CORE_LIBS = {"onepass_attention": "wavlm_attention", "streaming_attention": "flash_attention",
@@ -1411,7 +1582,7 @@ def long_requests(rng):
 def reset_launches():
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
-    for fn in (FF.ffn_block_int8, FF.mlp2_int8):
+    for fn in (FF.ffn_block_int8, FF.mlp2_int8, AB.attention_block_int8, Q.int8_linear):
         fn.routes.clear()
         fn.shapes.clear()
     for fn in COUNTED_BY_SHAPE:
@@ -1448,6 +1619,31 @@ def check_pair_routes(what):
                                  f"{fn.launches} calls")
     print(f"{what}: W8A8 FFN pair calls by route {out}", flush=True)
     return out
+
+
+def check_proj_routes(what):
+    """Every call of int8_linear and of the WavLM sublayer since
+    ``reset_launches`` took the route that its wrapper picks for its shape
+    (``_cuda.proj_route``, ``AB.attention_route``); returns the calls by
+    (kernel, route)."""
+    sms = _cuda.sm_count()
+    out = collections.Counter()
+    for (route, m, n, k, xb), c in Q.int8_linear.routes.items():
+        if route != _cuda.proj_route(n, m, k, xb, sms):
+            raise AssertionError(f"{what}: int8_linear at M={m} {k}->{n} took the {route} "
+                                 f"route {c} times")
+        out[f"int8_linear {route}"] += c
+    for (route, b, l, d, xb), c in AB.attention_block_int8.shapes.items():
+        if route != AB.attention_route(b * l, d, xb, sms):
+            raise AssertionError(f"{what}: attention_block_int8 at B={b} L={l} took the "
+                                 f"{route} route {c} times")
+        out[f"attention_block_int8 {route}"] += c
+    for fn in (Q.int8_linear, AB.attention_block_int8):
+        if sum(fn.shapes.values()) != fn.launches or sum(fn.routes.values()) != fn.launches:
+            raise AssertionError(f"{what}: {fn.__name__} counted {dict(fn.routes)} over "
+                                 f"{fn.launches} calls")
+    print(f"{what}: int8_linear and WavLM sublayer calls by route {dict(out)}", flush=True)
+    return dict(out)
 
 
 def check_launches(what, got, want):
@@ -3223,6 +3419,7 @@ def main() -> int:
           f"launches {launches}", flush=True)
     check_launches("int8 serving", launches, {n: k * forwards for n, k in PER_FORWARD.items()})
     check_pair_routes("int8 serving")
+    check_proj_routes("int8 serving")
     core = AB.attention_core_int8.launches
     if core != launches["attention_block_int8"] + launches["mha_block_int8"]:
         raise AssertionError(f"int8 serving: the attention core launched {core} times, once "
@@ -3267,6 +3464,7 @@ def main() -> int:
     check_launches("int8 at fp32 serving", launches32,
                    {n: k * forwards for n, k in PER_FORWARD.items()})
     check_pair_routes("int8 at fp32 serving")
+    check_proj_routes("int8 at fp32 serving")
     check_probs("int8 at fp32 serving", got32, clips)
     ref32, plain32_secs = serve(plain32, clips)
     delta32 = prob_delta(got32, ref32, clips)
@@ -3371,6 +3569,7 @@ def main() -> int:
                    {**{n: k * forwards for n, k in PER_FORWARD.items()},
                     "attention_core_int8 (wide tiles)": FUSION_MHA_PER_FORWARD * forwards})
     check_pair_routes("int8 serving, fusion in 4 heads")
+    check_proj_routes("int8 serving, fusion in 4 heads")
     check_probs("int8 serving, fusion in 4 heads", got4, clips)
     ref4, plain4_secs = serve(plain4, clips)
     delta4 = prob_delta(got4, ref4, clips)
@@ -3393,18 +3592,30 @@ def main() -> int:
     plain_s = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **kw)
     serve(pipe_s, clips10, served_b)
     reset_launches()
-    gemm1 = _cuda.ffn_gemm1.launches
+    counters = (_cuda.ffn_gemm1, _cuda.proj_gemm, _cuda.proj_gemm_ln)
+    before = [c.launches for c in counters]
     got_s, secs_s = serve(pipe_s, clips10, served_b)
     launches_s = read_launches()
-    gemm1 = _cuda.ffn_gemm1.launches - gemm1
+    gemm1, proj, proj_ln = (c.launches - n for c, n in zip(counters, before))
     print(f"int8 at the served batch: {len(got_s)} requests of 10 s in one forward, "
-          f"{secs_s:.3f} s; launches {launches_s}; fused first GEMM {gemm1} launches",
-          flush=True)
+          f"{secs_s:.3f} s; launches {launches_s}; fused first GEMM {gemm1} launches, "
+          f"projections {proj}, out-projections with the LayerNorm {proj_ln}", flush=True)
     check_launches("int8 at the served batch", launches_s, PER_FORWARD)
     routes_s = check_pair_routes("int8 at the served batch")
     if routes_s.get("ffn_block_int8 fused", 0) < 12 or gemm1 < 12:
         raise AssertionError(f"int8 at the served batch: WavLM's FFNs left the fused route "
                              f"({routes_s}, {gemm1} fused first GEMMs)")
+    # WavLM's 12 sublayers over 32 x 499 rows and its feature projection take
+    # the fused routes, 3 launches and 1 a call: one q/k/v projection and one
+    # out-projection with the LayerNorm a sublayer, one projection a fused
+    # int8_linear
+    proj_s = check_proj_routes("int8 at the served batch")
+    attn_f, lin_f = (proj_s.get(f"{n} fused", 0) for n in ("attention_block_int8", "int8_linear"))
+    if attn_f != PER_FORWARD["attention_block_int8"] or lin_f < 1 or proj_ln != attn_f \
+            or proj != attn_f + lin_f:
+        raise AssertionError(f"int8 at the served batch: the sublayer and int8_linear routes "
+                             f"{proj_s}, {proj} projections and {proj_ln} with the LayerNorm")
+    routes_s.update(proj_s)
     check_probs("int8 at the served batch", got_s, clips10)
     ref_s, plain_s_secs = serve(plain_s, clips10, served_b)
     delta_s = prob_delta(got_s, ref_s, clips10)

@@ -23,6 +23,33 @@
 // and MUFU work of the exact-p/l contract (two sweeps, accurate expf, a
 // rounded division per score), as in the float route.
 //
+// The gated core at 64 and 96 can also run as onepass_panel_kernel below
+// (key rows up to kPanelMaxKeys, 512), the counterpart of the TPU kernel's
+// one pass over a held row of scores; the sublayer's fused route (three
+// launches: csrc/proj_int8.cu's q/k/v projection, this core, the
+// out-projection with the LayerNorm) takes it up to 128 keys, where it wins
+// (ops/attention_block.py PANEL_MAX_KEYS). Its first sweep computes
+// each score once, QK^T on mma.sync and the scale, gate * pos and key bias
+// in the TPU kernels' order, into a panel in shared memory, with the rows'
+// maxima; then one expf a score, e = exp(s - max) written back and summed
+// into l; then PV over the V tiles with p = e / l rounded as in the two
+// sweeps (the reciprocal and two remainder corrections, then to bf16). So
+// QK^T and the pos tile are computed and read once, where the two-sweep
+// kernel (longer rows, and route="chain") computes them twice and the exp
+// twice. l is the sum over the final maximum, as the plain version's and
+// the TPU kernel's are; it differs from the plain one in fp32 order only.
+// The panel is the lane's own fragments (each lane reads back only what it
+// wrote, as float4, consecutive lanes on consecutive 16 bytes): 64 query
+// rows of 512 keys are 128 KB, so a block of 4 warps holds an SM alone at
+// the longest rows (a block of 2 warps, 32 rows, halved the panel and was
+// no faster at any length, PERF.md section 6: taken out). The ring holds
+// K, the key biases and the pos tile in the first sweep and V in PV. What
+// bounds it (NVIDIA H100 80GB HBM3 at 700 W, chip_proj_routes.py): the
+// per-score FMA and MUFU work, as the two sweeps, and past two key tiles
+// the latency that too few warps an SM leave unhidden: 4 warps a block
+// take 0.207 ms at B=384 L=62 (the two sweeps 0.266, SDPA 0.125) but 0.760
+// at B=32 L=499 (0.512), where one block fits an SM.
+//
 // The gated core at other head dims (hd % 8 == 0, hd <= 256), which no
 // WavLM has: attn_core_kernel on CUDA cores. It stays because the gate-from-x
 // prologue has no wide form and its narrow instances at 32 and 128 would add
@@ -147,6 +174,195 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
   }
 }
 
+constexpr int kPanelMaxKeys = 512;  // the panel kernel's longest key row
+
+// Bytes of one ring stage of onepass_panel_kernel: the K tile, the key
+// biases and the realigned pos tile (V reuses the stage).
+__host__ __device__ constexpr int panel_stage_bytes(int hd) {
+  return kOneBK * (hd + 8) * 2 + kOneBK * 4 + kTcRows * kPosLd * 2;
+}
+__host__ __device__ constexpr int panel_smem_bytes(int hd, int lk) {
+  return 2 * panel_stage_bytes(hd) + (lk + kOneBK - 1) / kOneBK * kOneBK * kTcRows * 4;
+}
+
+// The gated core (gate from x) on a score panel, 4 warps of 16 query rows:
+// Lk <= kPanelMaxKeys.
+template <int HD, int KEYS>
+__global__ void __launch_bounds__(kTcThreads) onepass_panel_kernel(const OnepassArgs a) {
+  using T = __nv_bfloat16;
+  constexpr int NT = kOneBK / 8, ROWS = kTcRows, THREADS = kTcThreads;
+  constexpr int kStage = panel_stage_bytes(HD);
+  static_assert(kStage % 16 == 0, "the panel starts on 16 bytes");
+  extern __shared__ __align__(16) unsigned char ring[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x, i0 = blockIdx.y * ROWS, h = blockIdx.z;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int row0 = i0 + warp * 16;  // this warp's first query row
+  const T* qh = a.q + (size_t)b * a.q_sb + (size_t)h * a.q_sh;
+  const T* kh = a.k + (size_t)b * a.k_sb + (size_t)h * a.k_sh;
+  const T* vh = a.v + (size_t)b * a.v_sb + (size_t)h * a.v_sh;
+  const size_t krow0 = (size_t)b * Lk;  // this element's key 0 in kbias / kpm
+  // pos element (i0, 0) of this head; the tensor's length bounds every copy
+  const size_t pos_i0 = ((size_t)h * Lq + i0) * Lk, pos_len = (size_t)a.H * Lq * Lk;
+  const int nq = min(ROWS, Lq - i0);
+
+  auto Ks = [&](int st) { return reinterpret_cast<T*>(ring + st * kStage); };
+  auto Bs = [&](int st) { return reinterpret_cast<float*>(Ks(st) + kOneBK * (HD + 8)); };
+  auto Ps = [&](int st) { return reinterpret_cast<T*>(Bs(st) + kOneBK); };
+  // [tile * NT + n][THREADS]: the lane's four scores of n-tile n, then their exps
+  float4* const panel = reinterpret_cast<float4*>(ring + 2 * kStage);
+
+  const int ntiles = (Lk + kOneBK - 1) / kOneBK, steps = 2 * ntiles;
+  // step it: K (and biases, pos) of tile it in the first sweep, V of tile
+  // it - ntiles in PV
+  auto issue = [&](int it) {
+    const int st = it & 1, j0 = (it % ntiles) * kOneBK;
+    if (it >= ntiles) {
+      load_rows<HD, kOneBK, false, THREADS>(Ks(st), vh, a.v_sl, j0, Lk, HD, tid);
+      cp_async_commit();
+      return;
+    }
+    load_rows<HD, kOneBK, false, THREADS>(Ks(st), kh, a.k_sl, j0, Lk, HD, tid);
+    if (KEYS == kKeysBias) load_bias<kOneBK, THREADS>(Bs(st), a.kbias + krow0, j0, Lk, tid);
+    // row r from the 16-byte boundary at or below its key j0
+    constexpr int kChunks = kPosLd / 8;
+    for (int idx = tid; idx < ROWS * kChunks; idx += THREADS) {
+      const int r = idx / kChunks, c = idx - r * kChunks;
+      const size_t ad = ((pos_i0 + (size_t)r * Lk + j0) & ~(size_t)7) + 8 * c;
+      const size_t left = r < nq && ad < pos_len ? 2 * (pos_len - ad) : 0;  // bytes
+      const int bytes = left < 16 ? (int)left : 16;
+      cp_async16(Ps(st) + r * kPosLd + 8 * c, a.pos + (bytes ? ad : 0), bytes);
+    }
+    cp_async_commit();
+    if (KEYS == kKeysPad) {
+      // bytes at any alignment: plain loads; the stage is free (see the loop)
+      for (int idx = tid; idx < kOneBK; idx += THREADS) {
+        const int j = j0 + idx;
+        Bs(st)[idx] = j < Lk && a.kpm != nullptr && a.kpm[krow0 + j] ? kNegInf : 0.f;
+      }
+    }
+  };
+  issue(0);
+
+  uint32_t qf[HD / 16][4];
+  load_q<HD>(qf, qh, a.q_sl, row0, Lq, HD, lane);
+  // this lane's rows g and g + 8: gate, and the column of key 0 in its
+  // realigned pos row
+  float gt[2] = {0.f, 0.f};
+  int psh[2];
+#pragma unroll 1
+  for (int r = 0; r < 16 && row0 + r < Lq; ++r) {  // warp-uniform
+    const size_t xo = ((size_t)b * Lq + row0 + r) * a.x_ld + h * HD;
+    const float gr = a.x_f32 ? wavlm_gate(static_cast<const float*>(a.x) + xo, a.wg, a.bg,
+                                          a.gconst[h], HD, lane)
+                             : wavlm_gate(static_cast<const __nv_bfloat16*>(a.x) + xo, a.wg,
+                                          a.bg, a.gconst[h], HD, lane);
+    if (r == g) gt[0] = gr;
+    if (r == g + 8) gt[1] = gr;
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    psh[rr] = (int)((pos_i0 + (size_t)(warp * 16 + g + 8 * rr) * Lk) & 7);
+  float m[2] = {neg_inf(), neg_inf()}, l[2], rl[2];  // rl = 1 / l
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // step it's tiles are in; step it - 1 is done with the other stage
+    if (it + 1 < steps) issue(it + 1);
+    const int st = it & 1;
+    if (it < ntiles) {  // the scores of tile it into the panel, and the lane's row maxima
+      const float* bs = Bs(st);
+      const T* ps = Ps(st) + (warp * 16 + g) * kPosLd;
+      float s[NT][4];
+      qk_tile<HD, NT>(s, qf, Ks(st), lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int c = n * 8 + 2 * t;
+        const float2 kb2 = *reinterpret_cast<const float2*>(bs + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = e >> 1;
+          float x = __fmul_rn(s[n][e], a.scale);
+          x = __fadd_rn(x, __fmul_rn(gt[rr], load_f(ps + rr * 8 * kPosLd + psh[rr] + c + (e & 1))));
+          s[n][e] = __fadd_rn(x, (e & 1) ? kb2.y : kb2.x);
+        }
+      }
+      if ((it + 1) * kOneBK > Lk) mask_keys<NT>(s, Lk - it * kOneBK, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        m[0] = fmaxf(m[0], fmaxf(s[n][0], s[n][1]));
+        m[1] = fmaxf(m[1], fmaxf(s[n][2], s[n][3]));
+        panel[(it * NT + n) * THREADS + tid] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+      }
+    } else {  // PV over V tile it - ntiles
+      if (it == ntiles) {  // the rows' maxima, one exp a score, the sums
+        m[0] = quad_max(m[0]);
+        m[1] = quad_max(m[1]);
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < ntiles * NT; ++k) {
+          float4 v = panel[k * THREADS + tid];
+          v.x = expf(__fadd_rn(v.x, -m[0]));
+          v.y = expf(__fadd_rn(v.y, -m[0]));
+          v.z = expf(__fadd_rn(v.z, -m[1]));
+          v.w = expf(__fadd_rn(v.w, -m[1]));
+          sum0 += v.x + v.y;
+          sum1 += v.z + v.w;
+          panel[k * THREADS + tid] = v;
+        }
+        l[0] = quad_sum(sum0);
+        l[1] = quad_sum(sum1);
+        rl[0] = __frcp_rn(l[0]);
+        rl[1] = __frcp_rn(l[1]);
+      }
+      const int tt = it - ntiles;
+      uint32_t pa[NT / 2][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float4 e = panel[(tt * NT + n) * THREADS + tid];
+        pa[n >> 1][2 * (n & 1)] =
+            pack2<T>(div_rn(e.x, l[0], rl[0]), div_rn(e.y, l[0], rl[0]));
+        pa[n >> 1][2 * (n & 1) + 1] =
+            pack2<T>(div_rn(e.z, l[1], rl[1]), div_rn(e.w, l[1], rl[1]));
+      }
+      pv_tile<HD, NT>(o, pa, Ks(st), lane);
+    }
+  }
+  store_rows<HD>(a.out + (size_t)b * a.o_sb + (size_t)h * a.o_sh, a.o_sl, row0, Lq, HD, o,
+                 lane);
+}
+
+namespace {  // per-library opt-in flags (see csrc/onepass_mma.cuh)
+
+template <int HD, int KEYS>
+void launch_panel(const OnepassArgs& a, int B, cudaStream_t s) {
+  const auto kernel = onepass_panel_kernel<HD, KEYS>;
+  static bool attr_set = false;  // one per instantiation
+  if (!attr_set) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         panel_smem_bytes(HD, kPanelMaxKeys));
+    attr_set = true;
+  }
+  note_launch(kOnepassPanelKernel, HD);
+  kernel<<<dim3(B, (a.Lq + kTcRows - 1) / kTcRows, a.H), kTcThreads,
+           panel_smem_bytes(HD, a.Lk), s>>>(a);
+}
+
+// The panel kernel at head dim hd (64 or 96) and the key-mask kind chosen
+// at run time.
+void launch_panel_keys(const OnepassArgs& a, int B, int hd, int keys, cudaStream_t s) {
+  if (hd == 64 && keys == kKeysBias) launch_panel<64, kKeysBias>(a, B, s);
+  else if (hd == 64) launch_panel<64, kKeysPad>(a, B, s);
+  else if (keys == kKeysBias) launch_panel<96, kKeysBias>(a, B, s);
+  else launch_panel<96, kKeysPad>(a, B, s);
+}
+
+}  // namespace
+
 }  // namespace hr
 
 using namespace hr;
@@ -160,12 +376,15 @@ extern "C" {
 // bf16 by the gate; wg [8, hd] fp32, bg [8] fp32, gconst [H] fp32, pos [H,
 // Lq, Lk] bf16. ctx: [B*Lq, ctx_ld] bf16, head h at column h*hd. Needs
 // hd % 8 == 0 and hd <= 256; gated at head dims other than 64 and 96, Lk <=
-// 1024 (the CUDA-core kernel's score panel).
+// 1024 (the CUDA-core kernel's score panel). panel (non-zero): the gated
+// core at 64 and 96 on onepass_panel_kernel (Lk <= kPanelMaxKeys), else on
+// the two sweeps of onepass_mma_kernel; the ungated core and the CUDA-core
+// kernel ignore it.
 int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const void* v,
                       int v_ld, int B, int Lq, int Lk, int H, int hd, const void* kbias,
                       const void* kpm, const void* x, int x_ld, int x_f32, const void* wg,
                       const void* bg, const void* gconst, const void* pos, void* ctx,
-                      int ctx_ld, void* stream) {
+                      int ctx_ld, int panel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
   using bf = __nv_bfloat16;
@@ -182,7 +401,10 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
     a.pos = static_cast<const bf*>(pos), a.out = static_cast<bf*>(ctx);
     a.o_sb = Lq * ctx_ld, a.o_sh = hd, a.o_sl = ctx_ld;
     const int keys = kbias != nullptr ? kKeysBias : kKeysPad;
-    if (pos != nullptr)
+    if (pos != nullptr && panel) {
+      if (Lk > kPanelMaxKeys) return (int)cudaErrorInvalidValue;
+      launch_panel_keys(a, B, hd, keys, s);
+    } else if (pos != nullptr)
       launch_onepass_mma_keys<kGateFromX>(a, B, hd, keys, s);
     else if (keys == kKeysBias)
       launch_onepass_tile<kKeysBias>(a, B, s);

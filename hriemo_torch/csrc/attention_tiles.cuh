@@ -84,6 +84,7 @@ enum LaunchedKernel : int {
   kStreamingWideKernel,
   kAttnTf32Kernel,
   kAttnTf32WideKernel,
+  kOnepassPanelKernel,
 };
 
 inline std::atomic<int>& last_launch() {

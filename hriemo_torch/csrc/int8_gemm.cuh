@@ -10,8 +10,9 @@
 // hriemo/ops/fused_ffn.py::_kernel_int8 and ::_kernel_mlp2_int8 (the first,
 // with its row quantizations, is csrc/ffn_int8.cu, on this file's ring,
 // descriptors and epilogues), the projections of
-// hriemo/ops/attention_block.py::_kernel and ::_mha_kernel, and XLA's int8
-// dot of hriemo/ops/quant.py::int8_linear.
+// hriemo/ops/attention_block.py::_mha_kernel, and on their chain routes
+// those of ::_kernel and XLA's int8 dot of hriemo/ops/quant.py::int8_linear
+// (their fused routes are csrc/proj_int8.cu, on this file's epilogues).
 //
 // What bounds it on the card: int8 tensor-core operations at the main
 // path's 2k rows (1979 TOP/s), which only wgmma reaches; the bytes of W at

@@ -6,7 +6,9 @@
 // product, with both row quantizations, is csrc/ffn_int8.cu) and, on their
 // chain route (thin grids, the beta gates, route="chain"), the whole of the
 // chain that the fused route replaces, and the
-// projections of the attention kernels (hriemo_torch/ops/attention_block.py).
+// projections of the attention kernels (hriemo_torch/ops/attention_block.py;
+// the WavLM sublayer's and int8_linear's on their chain route only, their
+// fused route is csrc/proj_int8.cu).
 // Plain C entry points, loaded with ctypes; each returns cudaGetLastError()
 // after its launch and runs on the caller's stream.
 #include "int8_gemm.cuh"

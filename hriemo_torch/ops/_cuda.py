@@ -31,8 +31,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 # the accurate versions, as in the plain PyTorch versions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-LIBS = ("quant_gemm", "ffn_int8", "attention", "wavlm_attention", "flash_attention",
-        "ffn_bf16", "conv_stack")
+LIBS = ("quant_gemm", "ffn_int8", "proj_int8", "attention", "wavlm_attention",
+        "flash_attention", "ffn_bf16", "conv_stack")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -49,10 +49,14 @@ SIGNATURES = {
         "hr_ffn_gemm1": [P, I, I, I, P, P, P, I, I, I, P, P, P],
         "hr_ffn_gemm1_clusters": [I, I, I, I, I, I],
     },
+    "proj_int8": {
+        "hr_proj_gemm": [P, I, I, I, P, P, P, I, I, I, I, P, P],
+        "hr_proj_gemm_ln": [P, I, I, P, P, P, I, P, I, P, P, F, I, P, P],
+    },
     "attention": {
         "hr_last_kernel": [],
         "hr_attention_core": [P, I, P, I, P, I, I, I, I, I, I, P, P,
-                              P, I, I, P, P, P, P, P, I, P],
+                              P, I, I, P, P, P, P, P, I, I, P],
     },
     "wavlm_attention": {
         "hr_last_kernel": [],
@@ -212,7 +216,8 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # LaunchedKernel gives them (0: none launched)
 LAUNCHED_KERNELS = (None, "onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel",
                     "onepass_mma_kernel", "onepass_wide_kernel", "streaming_mma_kernel",
-                    "streaming_wide_kernel", "attn_tf32_kernel", "attn_tf32_wide_kernel")
+                    "streaming_wide_kernel", "attn_tf32_kernel", "attn_tf32_wide_kernel",
+                    "onepass_panel_kernel")
 
 
 def last_kernel(name: str) -> tuple[str | None, int]:
@@ -413,3 +418,119 @@ def ffn_gemm1_clusters(f: int, m: int, k: int, epi: int, x_f32: bool = False,
     n = lib("ffn_int8").hr_ffn_gemm1_clusters(int(x_f32), m, k, f, epi, cl[0])
     check(-n if n < 0 else 0, "hr_ffn_gemm1_clusters")
     return n
+
+
+# The projections that quantize their own rows (csrc/proj_int8.cu) run on
+# the blocks of FFN_CONFIGS: a cluster spans all N output columns of 64 rows,
+# and the block's 64 output rows are staged in its freed shared memory
+# (64 x (BN + 8) elements of the output type over the A tiles and the ring).
+PROJ_RING = ((3 * 384 * 128), (3 * 256 * 64))  # bytes of each block's W ring
+
+
+def proj_cluster(n: int, k: int, out_bytes: int = 2,
+                 config: int = -1) -> tuple[int, int] | None:
+    """``(config, blocks a cluster)`` of a projection over ``k`` inputs and
+    ``n`` output columns storing ``out_bytes`` an element: the widest block
+    of :data:`FFN_CONFIGS` that spans ``n`` at that ``k`` and holds its
+    staged rows (``config`` forces one), or None."""
+    for c, (bn, most, kmax) in enumerate(FFN_CONFIGS):
+        room = -(-k // 128) * 64 * 128 + PROJ_RING[c]
+        if (n % bn == 0 and 1 <= n // bn <= most and k <= kmax and k % 16 == 0
+                and 64 * (bn + 8) * out_bytes <= room and config in (-1, c)):
+            return c, n // bn
+    return None
+
+
+# Waves of a projection's cluster grid (its blocks over the card's SMs) from
+# which it beats the chain of a row quantize and the shared GEMM, by block
+# configuration (chip_proj_routes.py, H100 80GB HBM3 at 700 W, PERF.md
+# section 6). One launch of either block takes about 0.014-0.021 ms however
+# few its rows (the quantize, the products and the epilogue of a block run
+# in turn), where the chain's two launches take 0.008-0.013: 768 -> 768
+# over 1,996 rows (0.48 waves of 2 x 384) 0.0167 against 0.0135 ms, over
+# 3,072 (0.73 waves) 0.0172 against 0.0207; 768 -> 2048 over 1,536 rows
+# (1.45 waves of 8 x 256) 0.0184 against 0.0208; 2048 -> 768 over 1,536
+# (0.55 waves of 3 x 256) 0.0383 against 0.0228.
+PROJ_MIN_WAVES = (0.6, 1.2)
+# Waves of the 256-column block's grid from which it serves a width that the
+# 384-column block spans too, at 2048 columns and more (the q/k/v
+# projection: 0.0517 against 0.0574 ms at 4,096 rows, 4.4 waves; 0.0484
+# against 0.0443 at 3,072, 3.3 waves)
+PROJ_WIDE_MIN_WAVES = 4.0
+
+
+def proj_block(n: int, m: int, k: int, out_bytes: int = 2,
+               sms: int = H100_SMS) -> tuple[int, int] | None:
+    """The projection's ``(config, blocks a cluster)`` at ``m`` rows: the
+    256-column block where :func:`proj_cluster` would take the 384-column
+    one at 2048 columns or more and the narrower block's grid covers the
+    card :data:`PROJ_WIDE_MIN_WAVES` times, else :func:`proj_cluster`'s."""
+    cl = proj_cluster(n, k, out_bytes)
+    wide = proj_cluster(n, k, out_bytes, config=1)
+    if (cl is not None and cl[0] == 0 and wide is not None and n >= 2048
+            and -(-m // 64) * wide[1] / sms >= PROJ_WIDE_MIN_WAVES):
+        return wide
+    return cl
+
+
+def proj_route(n: int, m: int, k: int, out_bytes: int = 2, sms: int = H100_SMS) -> str:
+    """A projection's route at ``m`` rows: "fused" where a cluster spans
+    ``n`` (:func:`proj_block`) and its grid covers the card
+    :data:`PROJ_MIN_WAVES` times, else "chain"."""
+    cl = proj_block(n, m, k, out_bytes, sms)
+    if cl is None:
+        return "chain"
+    return "fused" if -(-m // 64) * cl[1] / sms >= PROJ_MIN_WAVES[cl[0]] else "chain"
+
+
+def proj_gemm(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias, epi: int,
+              div127: bool, config: int = -1) -> torch.Tensor:
+    """``epilogue<epi>(w . quant_rows(x))`` in one launch (csrc/proj_int8.cu):
+    x ``[M, K]`` bf16 or fp32, w ``[N, K]`` int8, ``w_scale [N, 1]``, ``bias
+    [N]`` or None; ``epi`` ``EPI_BF16`` (bf16 out) or ``EPI_F32`` (fp32 out,
+    fp32 x, ``div127``); ``div127`` takes quantize_rowwise's scales over the
+    kernels'. Bit-equal to :func:`rowquant` and :func:`int8_gemm`. ``config``
+    forces one of :data:`FFN_CONFIGS` (-1: :func:`proj_block`); raises where
+    no cluster spans N. ``proj_gemm.launches`` counts launches."""
+    m, k = x.shape
+    n = w.shape[0]
+    out_dtype = torch.bfloat16 if epi == EPI_BF16 else torch.float32
+    cl = (proj_block(n, m, k, out_dtype.itemsize, sm_count()) if config == -1
+          else proj_cluster(n, k, out_dtype.itemsize, config))
+    if cl is None:
+        raise ValueError(f"int8 projection: no cluster spans N={n} at K={k} (config {config})")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    check(lib("proj_int8").hr_proj_gemm(
+        x.data_ptr(), int(x.dtype == torch.float32), m, k, w.data_ptr(), w_scale.data_ptr(),
+        ptr(bias), n, epi, int(div127), cl[0], out.data_ptr(), stream()), "hr_proj_gemm")
+    proj_gemm.launches += 1
+    return out
+
+
+proj_gemm.launches = 0
+
+
+def proj_gemm_ln(a: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
+                 resid: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
+                 config: int = -1) -> torch.Tensor:
+    """``LayerNorm(w . quant_rows(a) + bias + resid)`` in one launch
+    (csrc/proj_int8.cu): a ``[M, K]`` bf16 (the attention context), resid
+    ``[M, N]`` bf16 or fp32, output in resid's dtype; its y is
+    :func:`int8_gemm`'s ``EPI_RESID_LAST`` bit for bit, its LayerNorm
+    :func:`layernorm`'s formula with the sums in another order. Raises where
+    no cluster spans N. ``proj_gemm_ln.launches`` counts launches."""
+    m, k = a.shape
+    n = w.shape[0]
+    cl = proj_cluster(n, k, resid.element_size(), config)
+    if cl is None:
+        raise ValueError(f"int8 projection: no cluster spans N={n} at K={k} (config {config})")
+    out = torch.empty((m, n), dtype=resid.dtype, device=a.device)
+    check(lib("proj_int8").hr_proj_gemm_ln(
+        a.data_ptr(), m, k, w.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), n,
+        resid.data_ptr(), int(resid.dtype == torch.float32), g.data_ptr(), b.data_ptr(), eps,
+        cl[0], out.data_ptr(), stream()), "hr_proj_gemm_ln")
+    proj_gemm_ln.launches += 1
+    return out
+
+
+proj_gemm_ln.launches = 0

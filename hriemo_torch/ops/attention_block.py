@@ -20,12 +20,20 @@ dtype, as the TPU kernels store ``x.dtype``, while q/k/v, the position bias
 and the attention core stay bf16, as the TPU kernel casts them
 (``hriemo/ops/attention_block.py:208-213``, ``:449``).
 
-On the card each is a sequence of launches: row quantize (``csrc/
-quant_gemm.cu``), one int8 GEMM for q/k/v (self) or one for q and one for
-k/v (cross) storing bf16 (``csrc/int8_gemm.cuh``, wgmma), the attention
-core (:func:`attention_core_int8`, ``csrc/attention.cu``), row quantize of
-the context, the out-proj GEMM (with the residual epilogue for WavLM) and,
-for WavLM, the LayerNorm pass. The TPU kernel pads rows to 128 and, for
+On the card the WavLM sublayer's fused route is three launches: the q/k/v
+projection that quantizes x's rows itself (``csrc/proj_int8.cu``: a
+thread-block cluster spans the 3D bf16 output columns of 64 rows), the
+gated core (:func:`attention_core_int8`, ``csrc/attention.cu``: on its
+score panel up to 128 keys, else two sweeps), and the out-projection that
+quantizes ctx itself with the residual and the LayerNorm in its epilogue
+(the cluster exchanges the rows' sums), so neither int8 x, int8 ctx, their
+scales nor the fp32 y reach device memory. Its chain route, taken on thin
+grids (:func:`attention_route`), and the MHA sublayer are sequences of
+launches: row quantize (``csrc/quant_gemm.cu``), one int8 GEMM for q/k/v
+(self) or one for q and one for k/v (cross) storing bf16
+(``csrc/int8_gemm.cuh``, wgmma), the core, row quantize of the context, the
+out-proj GEMM (with the residual epilogue for WavLM) and, for WavLM, the
+LayerNorm pass. The TPU kernel pads rows to 128 and, for
 L <= 64, packs several short elements into one tile; that is TPU layout, so
 the port runs every element at its true length and holds the
 per-element result. What bounds them on the card: the core's per-score
@@ -159,7 +167,25 @@ def _rows(t, name, rows, cols, dev, dtypes=(torch.bfloat16,)):
     return t.data_ptr(), t.stride(0)
 
 
-def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gate=None):
+# The gated core's score panel (csrc/attention.cu onepass_panel_kernel): the
+# longest key row it holds (kPanelMaxKeys) and the longest it is taken for.
+# chip_proj_routes.py on the H100 (80GB HBM3, 700 W; PERF.md section 6), the
+# panel / the two sweeps, ms at the served batches: 62 keys 0.207 / 0.266,
+# 124 keys 0.279 / 0.330, 187 keys 0.418 / 0.399, 499 keys 0.760 / 0.512:
+# past two key tiles the panel leaves at most two blocks of 4 warps an SM
+# (one at 512 keys), too few to hide the per-score latency.
+PANEL_CAP_KEYS = 512
+PANEL_MAX_KEYS = 128
+
+
+def core_panel(lk: int, gated: bool) -> bool:
+    """Whether a gated core of ``lk`` keys takes the score panel
+    (:data:`PANEL_MAX_KEYS`) rather than the two sweeps."""
+    return gated and lk <= PANEL_MAX_KEYS
+
+
+def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gate=None,
+                        panel: bool | None = None):
     """The int8 sublayers' attention core: ``softmax(q k^T [+ gate * pos] +
     key bias) v`` per head, fp32 scores, ``p / l`` rounded to bf16 before
     PV. ``q [B*Lq, D]``, ``k``/``v [B*Lk, D]`` bf16, each row contiguous (a
@@ -173,7 +199,9 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
 
     On the CPU the plain version runs; on the card one launch of
     ``csrc/attention.cu`` (tensor cores at every head dim without the gate,
-    at 64 and 96 with it), or a raise.
+    at 64 and 96 with it), or a raise. ``panel``: the gated core at 64 and
+    96 on the score panel (up to ``PANEL_CAP_KEYS`` keys), or on the two
+    sweeps (False); None: :func:`core_panel`.
     """
     if q.device.type == "cpu":
         return attention_core_int8_plain(q, k, v, b, n_heads, kbias, kpm, gate)
@@ -204,9 +232,13 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
                  gconst.data_ptr(), pos.data_ptr()]
     else:
         args += [None, 0, 0, None, None, None, None]
+    if panel is None:
+        panel = core_panel(lk, gate is not None)
+    if panel and lk > PANEL_CAP_KEYS:
+        raise ValueError(f"attention kernel: no score panel holds {lk} keys")
     ctx = torch.empty((b * lq, d), dtype=torch.bfloat16, device=dev)
     _cuda.check(_cuda.lib("attention").hr_attention_core(
-        *args, ctx.data_ptr(), d, _cuda.stream()), "hr_attention_core")
+        *args, ctx.data_ptr(), d, int(panel), _cuda.stream()), "hr_attention_core")
     attention_core_int8.launches += 1
     attention_core_int8.shapes[(b, lq, lk, h, hd)] += 1
     return ctx
@@ -242,13 +274,47 @@ def _check_mha(ops: MhaOperands, d: int, dev):
     _cuda.require(ops.b_out, "b_out", torch.float32, (d,), dev)
 
 
-def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
+# Waves of the out-projection's cluster grid from which the sublayer's fused
+# route beats the chain (chip_proj_routes.py, H100 80GB HBM3 at 700 W,
+# PERF.md section 6): 0.0704 against 0.0737 ms at 32 x 62 rows (0.48
+# waves of 2 x 384), 0.1166 against 0.1186 at 4 x 499; 0.0518 against
+# 0.0429 at 4 x 124 (0.12 waves). The out-projection with the LayerNorm
+# saves the most (0.136 against 0.239 ms at 23,808 rows), the panel core
+# at up to 128 keys the next; the q/k/v projection stays within 2-4% of its
+# chain's two launches.
+ATTN_MIN_WAVES = 0.4
+
+
+def attention_route(m: int, d: int, x_bytes: int = 2, sms: int = _cuda.H100_SMS) -> str:
+    """The WavLM sublayer's route at ``m`` rows of width ``d``: "fused" where
+    a projection cluster spans both its products (q/k/v, ``3d`` bf16
+    columns; the out-projection, ``d`` columns in x's dtype) and the
+    out-projection's grid covers the card :data:`ATTN_MIN_WAVES` times,
+    else "chain"."""
+    cl = _cuda.proj_cluster(d, d, x_bytes)
+    if cl is None or _cuda.proj_cluster(3 * d, d, 2) is None:
+        return "chain"
+    return "fused" if -(-m // 64) * cl[1] / sms >= ATTN_MIN_WAVES else "chain"
+
+
+def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float,
+                         route: str | None = None):
     """WavLM attention sublayer: ``x [B, L, D]`` bf16 or fp32 -> ``LN(x +
     attn(x))`` in x's dtype.
 
     ``pos`` [H, L, L] is the shared position bias, rounded to bf16 as the
     TPU wrapper stores it; ``kbias`` [B, L] fp32 the additive key-padding
     bias (0 valid / NEG_INF pad).
+
+    On the CPU the plain version runs, whatever ``route``. On the card,
+    "fused" is three launches: the q/k/v projection quantizing x's rows
+    itself (``_cuda.proj_gemm``), the gated core (on its score panel up to
+    ``PANEL_MAX_KEYS`` keys), the out-projection quantizing ctx with the
+    residual and the LayerNorm in its epilogue (``_cuda.proj_gemm_ln``);
+    "chain" the six launches it replaced (row quantize, q/k/v GEMM, the
+    two-sweep core, row quantize, out GEMM, LayerNorm); None lets
+    :func:`attention_route` choose by rows. ``.routes`` counts calls by
+    route, ``.shapes`` by (route, B, L, D, x's element bytes).
     """
     b, l, d = x.shape
     if kbias.shape[0] != b:
@@ -264,19 +330,34 @@ def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
     _cuda.require(ops.ln_b, "ln_b", torch.float32, (d,), dev)
     x2 = x.view(b * l, d)
     pos = pos.to(torch.bfloat16)
-    xq, xs = _cuda.rowquant(x2, div127=False)
-    qkv = _cuda.int8_gemm(xq, xs, m.w_in, m.s_in, m.b_in, _cuda.EPI_BF16)
-    q, k, v = qkv.split(d, dim=1)
-    ctx = attention_core_int8(q, k, v, b, h, kbias=kbias,
-                              gate=(x2, ops.wg, ops.bg, ops.gconst, pos))
-    cq, cs = _cuda.rowquant(ctx, div127=False)
-    y = _cuda.int8_gemm(cq, cs, m.w_out, m.s_out, m.b_out, _cuda.EPI_RESID_LAST, resid=x2)
-    out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps, x.dtype)
+    gate = (x2, ops.wg, ops.bg, ops.gconst, pos)
+    if route is None:
+        route = attention_route(b * l, d, x.element_size(), _cuda.sm_count())
+    if route == "fused":
+        qkv = _cuda.proj_gemm(x2, m.w_in, m.s_in, m.b_in, _cuda.EPI_BF16, div127=False)
+        q, k, v = qkv.split(d, dim=1)
+        ctx = attention_core_int8(q, k, v, b, h, kbias=kbias, gate=gate)
+        out = _cuda.proj_gemm_ln(ctx, m.w_out, m.s_out, m.b_out, x2, ops.ln_w, ops.ln_b, eps)
+    elif route == "chain":
+        xq, xs = _cuda.rowquant(x2, div127=False)
+        qkv = _cuda.int8_gemm(xq, xs, m.w_in, m.s_in, m.b_in, _cuda.EPI_BF16)
+        q, k, v = qkv.split(d, dim=1)
+        ctx = attention_core_int8(q, k, v, b, h, kbias=kbias, gate=gate, panel=False)
+        cq, cs = _cuda.rowquant(ctx, div127=False)
+        y = _cuda.int8_gemm(cq, cs, m.w_out, m.s_out, m.b_out, _cuda.EPI_RESID_LAST,
+                            resid=x2)
+        out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps, x.dtype)
+    else:
+        raise ValueError(f"W8A8 attention sublayer: unknown route {route!r}")
     attention_block_int8.launches += 1
+    attention_block_int8.routes[route] += 1
+    attention_block_int8.shapes[route, b, l, d, x.element_size()] += 1
     return out.view(b, l, d)
 
 
 attention_block_int8.launches = 0
+attention_block_int8.routes = collections.Counter()
+attention_block_int8.shapes = collections.Counter()  # by (route, B, L, D, x bytes)
 
 
 def mha_block_int8_plain(xq, xkv, ops: MhaOperands, key_padding_mask):

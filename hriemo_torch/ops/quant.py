@@ -24,6 +24,7 @@ module's ``max(amax, eps) / 127`` and the kernels' ``max(amax, eps) * (1/127)``
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 
@@ -91,17 +92,23 @@ def int8_linear_plain(x, w_int8, w_scale, bias=None):
     return y.to(x.dtype).reshape(*shape[:-1], w_int8.shape[0])
 
 
-def int8_linear(x, w_int8, w_scale, bias=None):
+def int8_linear(x, w_int8, w_scale, bias=None, route: str | None = None):
     """``x @ W^T + b`` with W pre-quantized (``[out, in]`` int8, ``[out, 1]``
     fp32 scales) and x quantized per row on the fly; ``bias`` fp32 or None.
 
     Replaces no Pallas kernel: in JAX this is XLA's int8 ``dot_general``
-    (``hriemo/ops/quant.py:85``). On the card it is one row-quantize launch
-    and one launch of the shared int8 GEMM (``csrc/int8_gemm.cuh``), whose
-    epilogue applies the dequant and bias and stores x's dtype (bf16 or
-    fp32, as the JAX function returns ``x.dtype``). It is bound by
-    the weight bytes at the decoder's few rows and by int8 tensor-core
-    operations at WavLM's feature projection.
+    (``hriemo/ops/quant.py:85``). On the card, route "fused" is one launch
+    of the projection that quantizes its own rows (``csrc/proj_int8.cu``:
+    a thread-block cluster spans the output columns of 64 rows, x's rows are
+    quantized once into each block's shared memory), "chain" a row-quantize
+    launch and the shared int8 GEMM (``csrc/int8_gemm.cuh``); both apply
+    the dequant and bias and store x's dtype (bf16 or fp32, as the JAX
+    function returns ``x.dtype``), bit-equal to each other. None lets
+    ``_cuda.proj_route`` choose by rows; a width no cluster spans takes the
+    chain. It is bound by the weight bytes at the decoder's few rows and by
+    int8 tensor-core operations at WavLM's feature projection.
+    ``.shapes`` counts calls by (M, N, K), ``.routes`` by (route, M, N, K,
+    x's element bytes).
     """
     if x.device.type == "cpu":
         return int8_linear_plain(x, w_int8, w_scale, bias)
@@ -113,13 +120,25 @@ def int8_linear(x, w_int8, w_scale, bias=None):
     _cuda.require(w_scale, "w_scale", torch.float32, (n, 1), x.device)
     if bias is not None:
         _cuda.require(bias, "bias", torch.float32, (n,), x.device)
-    xq, xs = _cuda.rowquant(x2, div127=True)
-    y = _cuda.int8_gemm(xq, xs, w_int8, w_scale, bias, _cuda.out_epi(x.dtype))
+    m, epi = x2.shape[0], _cuda.out_epi(x.dtype)
+    if route is None:
+        route = _cuda.proj_route(n, m, k, x.element_size(), _cuda.sm_count())
+    if route == "fused":
+        y = _cuda.proj_gemm(x2, w_int8, w_scale, bias, epi, div127=True)
+    elif route == "chain":
+        xq, xs = _cuda.rowquant(x2, div127=True)
+        y = _cuda.int8_gemm(xq, xs, w_int8, w_scale, bias, epi)
+    else:
+        raise ValueError(f"int8_linear: unknown route {route!r}")
     int8_linear.launches += 1
+    int8_linear.shapes[m, n, k] += 1
+    int8_linear.routes[route, m, n, k, x.element_size()] += 1
     return y.reshape(*shape[:-1], n)
 
 
 int8_linear.launches = 0
+int8_linear.shapes = collections.Counter()  # calls by (M, N, K)
+int8_linear.routes = collections.Counter()  # calls by (route, M, N, K, x bytes)
 
 
 def _excluded(name: str, exclude) -> bool:

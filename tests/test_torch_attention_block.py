@@ -40,13 +40,16 @@ def _wavlm_layer(rng, d=D, h=H):
     return ap, p_ln
 
 
-def test_attention_block_matches_pallas_kernel():
+# L=96 as tests/test_attention_block.py; L=62, the 1.25 s bucket, where the
+# TPU kernel packs short elements into one tile (L <= 64)
+@pytest.mark.parametrize("l", [96, 62])
+def test_attention_block_matches_pallas_kernel(l):
     rng = np.random.default_rng(0)
     ap, p_ln = _wavlm_layer(rng)
-    x = rng.standard_normal((B, L, D)).astype(np.float32) * 0.5
-    pos = rng.standard_normal((H, L, L)).astype(np.float32) * 0.3
-    lens = np.array([L, L - 17, L // 2])
-    kpb = np.where(np.arange(L)[None, :] < lens[:, None], 0.0, NEG_INF).astype(np.float32)
+    x = rng.standard_normal((B, l, D)).astype(np.float32) * 0.5
+    pos = rng.standard_normal((H, l, l)).astype(np.float32) * 0.3
+    lens = np.array([l, l - 17, l // 2])
+    kpb = np.where(np.arange(l)[None, :] < lens[:, None], 0.0, NEG_INF).astype(np.float32)
 
     apq = quantize_tree_for_serving(_bf16_tree(ap), min_dim=64)
     ref = attention_block_int8(apq, _bf16_tree(p_ln), jnp.asarray(x, jnp.bfloat16),
@@ -65,6 +68,57 @@ def test_attention_block_matches_pallas_kernel():
 
     with pytest.raises(ValueError):  # a mis-batched key bias is refused
         TA.attention_block_int8(bf16(x), ops, bf16(pos), torch.from_numpy(kpb[:1]), EPS)
+
+
+@pytest.mark.parametrize("route", [None, "fused", "chain"])
+def test_cpu_attention_block_takes_plain_on_either_route(route):
+    """On CPU tensors the sublayer runs its plain version whatever the route
+    argument (chosen or forced), and launches nothing."""
+    rng = np.random.default_rng(5)
+    ap, p_ln = _wavlm_layer(rng)
+    holder = torch.nn.Module()
+    holder.attn, holder.ln = WavLMAttention(D, H, None), LayerNorm(D)
+    holder.attn.load_state_dict({k: torch.from_numpy(v) for k, v in flat(ap).items()})
+    holder.ln.load_state_dict({k: torch.from_numpy(v) for k, v in flat(p_ln).items()})
+    quantize_for_serving(holder.to(torch.bfloat16), min_dim=64)
+    ops = TA.wavlm_attn_operands(holder.attn, holder.ln)
+    x = bf16(rng.standard_normal((2, 62, D)).astype(np.float32))
+    pos = bf16(rng.standard_normal((H, 62, 62)).astype(np.float32) * 0.3)
+    kb = torch.zeros(2, 62)
+    routes = dict(TA.attention_block_int8.routes)
+    got = TA.attention_block_int8(x, ops, pos, kb, EPS, route=route)
+    torch.testing.assert_close(got, TA.attention_block_int8_plain(x, ops, pos, kb, EPS),
+                               atol=0, rtol=0)
+    assert TA.attention_block_int8.launches == 0
+    assert dict(TA.attention_block_int8.routes) == routes
+
+
+@pytest.mark.parametrize("m,d,x_bytes,sms,want", [
+    (384 * 62, 768, 2, 132, "fused"),    # the 1.25 s bucket at its served batch
+    (64 * 249, 768, 2, 132, "fused"),    # 5 s
+    (32 * 499, 768, 2, 132, "fused"),    # 10 s
+    (32 * 499, 768, 4, 132, "fused"),    # the int8 tree at fp32 compute
+    (4 * 499, 768, 2, 132, "fused"),     # phase 4's batch at 10 s: 0.48 waves of 2 x 384
+    (4 * 124, 768, 2, 132, "chain"),     # and at 2.5 s: 0.12 waves
+    (4 * 124, 768, 2, 33, "fused"),      # the same grid on a quarter of the SMs
+    (1, 768, 2, 132, "chain"),           # a thin grid: one row block
+    (128 * 250, 128, 2, 132, "chain"),   # no cluster spans the out-projection's 128 columns
+])
+def test_attention_route_choice(m, d, x_bytes, sms, want):
+    """The WavLM sublayer's route by rows, width and x's dtype (plain
+    Python; the card holds each route's output and time)."""
+    assert TA.attention_route(m, d, x_bytes, sms) == want
+
+
+@pytest.mark.parametrize("lk,gated,want", [
+    (62, True, True), (124, True, True), (128, True, True),
+    (129, True, False), (499, True, False), (1024, True, False),  # the two sweeps
+    (62, False, False), (499, False, False),  # the ungated core keeps them in this slice
+])
+def test_core_panel_choice(lk, gated, want):
+    """The gated core's form by key length: the score panel up to
+    PANEL_MAX_KEYS keys (two key tiles), else the two-sweep kernel."""
+    assert TA.core_panel(lk, gated) == want
 
 
 def _mha_pair(d, h, seed):

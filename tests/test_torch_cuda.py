@@ -369,6 +369,181 @@ def test_wrappers_raise_instead_of_falling_back(gen):
         Q.int8_linear(_randn(gen, 256, 8).t(), lin.w_int8, lin.w_scale)
 
 
+# the projections that quantize their own rows (csrc/proj_int8.cu), by
+# (N, K) on the path: the WavLM sublayer's q/k/v (3 x 768 over 768), and
+# int8_linear's widths in the served forward (the decoder's 768 -> 768, its
+# FFN 768 -> 2048 -> 768, the feature projection 512 -> 768)
+PROJ_WIDTHS = [(2304, 768), (768, 768), (768, 512), (2048, 768), (768, 2048)]
+
+
+@pytest.mark.parametrize("n,k", PROJ_WIDTHS)
+@pytest.mark.parametrize("m", [1, 65, 777])
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_proj_gemm_bit_equal(gen, n, k, m, dtype):
+    """Every form of the projection on the path, each block configuration
+    that spans N (forced), equals the chain it replaces bit for bit: the row
+    quantize (the kernels' scales for q/k/v, ``quantize_rowwise``'s for
+    int8_linear) and the shared GEMM's epilogue; x with a zero row, halves
+    and a repeated maximum; int8_linear also without a bias."""
+    _, _, w, w_s = _gemm_operands(gen, 1, n, k)
+    bias = _randn(gen, n, dtype=torch.float32)
+    x = _randn(gen, m, k, scale=3.0, dtype=dtype)
+    x[0, :6] = torch.tensor([0.5, -1.5, 2.5, 0.0, 9.0, -9.0])
+    if m > 1:
+        x[1] = 0
+    forms = [(_cuda.out_epi(dtype), True, bias), (_cuda.out_epi(dtype), True, None)]
+    if n == 3 * k:  # q/k/v: bf16 out over bf16 or fp32 x, the kernels' scales
+        forms.append((_cuda.EPI_BF16, False, bias))
+    for epi, div127, b_ in forms:
+        out_bytes = 2 if epi == _cuda.EPI_BF16 else 4
+        configs = [c for c in (0, 1) if _cuda.proj_cluster(n, k, out_bytes, config=c)]
+        assert configs
+        xq, xs = _cuda.rowquant(x, div127=div127)
+        ref = _cuda.int8_gemm(xq, xs, w, w_s, b_, epi)
+        for c in configs:
+            before = _cuda.proj_gemm.launches
+            got = _cuda.proj_gemm(x, w, w_s, b_, epi, div127, config=c)
+            torch.cuda.synchronize()
+            assert _cuda.proj_gemm.launches == before + 1
+            torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("m", [1, 65, 777, 1996])
+@pytest.mark.parametrize("config", [0, 1])
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_proj_gemm_ln(gen, m, config, dtype):
+    """The out-projection with the residual and the LayerNorm in its
+    epilogue (768 columns over 2 x 384 or 3 x 256 blocks) against the chain
+    (row quantize, the residual GEMM, the LayerNorm pass) at row 1's limit:
+    y is the chain's bit for bit, only the LayerNorm's two sums are taken in
+    another order."""
+    d = 768
+    _, _, w, w_s = _gemm_operands(gen, 1, d, d)
+    bias = _randn(gen, d, dtype=torch.float32)
+    ctx = _randn(gen, m, d, scale=0.2)
+    x = _randn(gen, m, d, dtype=dtype)
+    g, b = _randn(gen, d, dtype=torch.float32).abs(), _randn(gen, d, scale=0.1,
+                                                              dtype=torch.float32)
+    before = _cuda.proj_gemm_ln.launches
+    got = _cuda.proj_gemm_ln(ctx, w, w_s, bias, x, g, b, 1e-5, config=config)
+    torch.cuda.synchronize()
+    assert _cuda.proj_gemm_ln.launches == before + 1 and got.dtype == dtype
+    cq, cs = _cuda.rowquant(ctx, div127=False)
+    y = _cuda.int8_gemm(cq, cs, w, w_s, bias, _cuda.EPI_RESID_LAST, resid=x)
+    _close(got, _cuda.layernorm(y, g, b, 1e-5, dtype))
+    _close(got, FF.layer_norm_rows(y, g, b, 1e-5).to(dtype))
+
+
+# the gated core's score panel at key lengths that end and cut it: the
+# 1.25 s bucket (62), one past (63), the 5 s and 10 s buckets, its longest row
+@pytest.mark.parametrize("l", [62, 63, 128, 249, 499, 512])
+@pytest.mark.parametrize("hd", [64, 96])
+def test_attention_core_panel(gen, l, hd):
+    """The panel kernel against the plain version and the two-sweep kernel
+    on the same inputs, at ATTN_TOL, at every length it holds (the wrapper
+    takes it up to 128 keys): element 1 padded, element 2 with every key
+    masked (a finite average of v)."""
+    b, h = 3, 4
+    d = h * hd
+    qkv = _randn(gen, b * l, 3 * d)
+    qkv[:, :d] *= hd ** -0.5
+    q, k, v = qkv.split(d, dim=1)
+    kb = torch.where(_pad_mask([l, l - 17, 0], l), AB.NEG_INF, 0.0).float()
+    gate = (_randn(gen, b * l, d), _randn(gen, 8, hd, scale=0.1, dtype=torch.float32),
+            _randn(gen, 8, scale=0.1, dtype=torch.float32), _randn(gen, h, dtype=torch.float32),
+            _randn(gen, h, l, l, scale=0.3))
+    got = AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, panel=True)
+    _cuda.last_kernel("attention")
+    AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, panel=True)
+    assert _cuda.last_kernel("attention") == ("onepass_panel_kernel", hd)
+    two = AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, panel=False)
+    assert _cuda.last_kernel("attention") == ("onepass_mma_kernel", hd)
+    ref = AB.attention_core_int8_plain(q, k, v, b, h, kbias=kb, gate=gate)
+    assert torch.isfinite(got).all()
+    _close_attention(got.view(b, l, d), ref.view(b, l, d))
+    _close_attention(got.view(b, l, d), two.view(b, l, d))
+
+
+@pytest.mark.parametrize("l", [62, 499, 1024])
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_attention_block_routes(gen, l, dtype):
+    """Both routes of the WavLM sublayer against the plain version, with
+    their launches a call: three on the fused route (the q/k/v projection,
+    the core, the out-projection with the LayerNorm), six on the chain; 1024
+    keys take the two-sweep core on either."""
+    d, h = 768, 12
+    holder = torch.nn.Module()
+    holder.attn, holder.ln = WavLMAttention(d, h, None), LayerNorm(d)
+    holder = _quantized(holder, gen)
+    ops = AB.wavlm_attn_operands(holder.attn, holder.ln)
+    x = _randn(gen, 2, l, d, dtype=dtype)
+    pos = _randn(gen, h, l, l, scale=0.3)
+    kb = torch.where(_pad_mask([l, l // 2], l), AB.NEG_INF, 0.0).float()
+    ref = AB.attention_block_int8_plain(x, ops, pos, kb, 1e-5)
+    counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.layernorm, _cuda.proj_gemm,
+                _cuda.proj_gemm_ln, AB.attention_core_int8)
+    for route, launches in (("fused", 3), ("chain", 6)):
+        before = sum(c.launches for c in counters), AB.attention_block_int8.routes[route]
+        got = AB.attention_block_int8(x, ops, pos, kb, 1e-5, route=route)
+        torch.cuda.synchronize()
+        assert sum(c.launches for c in counters) - before[0] == launches
+        assert AB.attention_block_int8.routes[route] == before[1] + 1
+        assert got.dtype == dtype
+        _close(got, ref)
+
+
+def test_projection_routes_no_cluster_takes_the_chain(gen):
+    """A width no cluster spans takes the named chain, counted there, at rows
+    where the fused route would be picked; forcing the fused route raises.
+    int8_linear at N=200 (no multiple of 256 or 384); the sublayer at d=128
+    (its out-projection's 128 columns)."""
+    lin = _quantized(Linear(256, 200), gen)
+    x = _randn(gen, 30000, 256)
+    assert _cuda.proj_cluster(200, 256) is None
+    before = Q.int8_linear.routes["chain", 30000, 200, 256, 2]
+    got = Q.int8_linear(x, lin.w_int8, lin.w_scale, lin.bias_f32)
+    assert Q.int8_linear.routes["chain", 30000, 200, 256, 2] == before + 1
+    _close(got, Q.int8_linear_plain(x, lin.w_int8, lin.w_scale, lin.bias_f32))
+    with pytest.raises(ValueError, match="no cluster spans"):
+        Q.int8_linear(x, lin.w_int8, lin.w_scale, lin.bias_f32, route="fused")
+    with pytest.raises(ValueError, match="unknown route"):
+        Q.int8_linear(x, lin.w_int8, lin.w_scale, lin.bias_f32, route="cluster")
+    d, h, l = 128, 2, 250
+    holder = torch.nn.Module()
+    holder.attn, holder.ln = WavLMAttention(d, h, None), LayerNorm(d)
+    holder = _quantized(holder, gen)
+    ops = AB.wavlm_attn_operands(holder.attn, holder.ln)
+    xa = _randn(gen, 128, l, d)
+    pos = _randn(gen, h, l, l, scale=0.3)
+    kb = torch.zeros(128, l, device="cuda")
+    assert AB.attention_route(128 * l, d) == "chain"
+    before = AB.attention_block_int8.routes["chain"]
+    got = AB.attention_block_int8(xa, ops, pos, kb, 1e-5)
+    assert AB.attention_block_int8.routes["chain"] == before + 1
+    _close(got, AB.attention_block_int8_plain(xa, ops, pos, kb, 1e-5))
+    with pytest.raises(ValueError, match="no cluster spans"):
+        AB.attention_block_int8(xa, ops, pos, kb, 1e-5, route="fused")
+
+
+@pytest.mark.parametrize("m", [1, 4096])
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_int8_linear_routes(gen, m, dtype):
+    """int8_linear's two routes give the same bits, one launch on the fused
+    route and two on the chain, each counted by (route, M, N, K)."""
+    lin = _quantized(Linear(512, 768), gen)
+    x = _randn(gen, m, 512, dtype=dtype)
+    counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.proj_gemm)
+    outs = {}
+    for route, launches in (("fused", 1), ("chain", 2)):
+        key = (route, m, 768, 512, x.element_size())
+        before = sum(c.launches for c in counters), Q.int8_linear.routes[key]
+        outs[route] = Q.int8_linear(x, lin.w_int8, lin.w_scale, lin.bias_f32, route=route)
+        torch.cuda.synchronize()
+        assert sum(c.launches for c in counters) - before[0] == launches
+        assert Q.int8_linear.routes[key] == before[1] + 1
+    torch.testing.assert_close(outs["fused"], outs["chain"], atol=0, rtol=0)
+
+
 def _heads_view(gen, b, l, h, hd, dtype):
     """[B, H, L, hd] head view of a [B, L, H*hd] projection, as the routes pass it."""
     return _randn(gen, b, l, h * hd, dtype=dtype).view(b, l, h, hd).transpose(1, 2)

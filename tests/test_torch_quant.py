@@ -16,6 +16,7 @@ import hriemo_torch.frontends as TF
 import hriemo_torch.models as TM
 from hriemo_torch.core import masking as TMK
 from hriemo_torch.nn.layers import layer_norm
+from hriemo_torch.ops import _cuda as TC
 from hriemo_torch.ops import quant as TQ
 from hriemo_torch.utils.convert import load_flat_params
 
@@ -109,6 +110,87 @@ def test_int8_linear_matches_jax():
     got = TQ.int8_linear(torch.from_numpy(x), wq, ws, torch.from_numpy(b))
     np.testing.assert_allclose(np32(got), np.asarray(ref), atol=FP32_TOL, rtol=FP32_TOL)
     assert TQ.int8_linear.launches == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("route", [None, "fused", "chain"])
+def test_cpu_int8_linear_takes_plain_on_either_route(route):
+    """On CPU tensors int8_linear runs its plain version whatever the route
+    argument (chosen or forced): the JAX result, no launch, no route
+    counted."""
+    rng = np.random.default_rng(4)
+    w = (rng.standard_normal((768, 512)) * 0.05).astype(np.float32)
+    x = rng.standard_normal((3, 7, 512)).astype(np.float32)
+    jp = JQ.quantize_linear_params({"weight": jnp.asarray(w)})
+    ref = JQ.int8_linear(jp, jnp.asarray(x))
+    wq, ws = TQ.quantize_linear_params(torch.from_numpy(w))
+    routes = dict(TQ.int8_linear.routes)
+    got = TQ.int8_linear(torch.from_numpy(x), wq, ws, route=route)
+    np.testing.assert_allclose(np32(got), np.asarray(ref), atol=FP32_TOL, rtol=FP32_TOL)
+    assert TQ.int8_linear.launches == 0 and dict(TQ.int8_linear.routes) == routes
+
+
+@pytest.mark.parametrize("n,k,out_bytes,config,want", [
+    (2304, 768, 2, -1, (0, 6)),    # the WavLM sublayer's q/k/v: 6 blocks of 384
+    (768, 768, 2, -1, (0, 2)),     # its out-projection, int8_linear 768 -> 768
+    (768, 768, 4, -1, (0, 2)),     # fp32 x: fp32 rows staged
+    (768, 768, 2, 1, (1, 3)),      # 3 x 256 forced
+    (768, 512, 2, -1, (0, 2)),     # the feature projection
+    (2048, 768, 2, -1, (1, 8)),    # the decoder's FFN in: 8 x 256
+    (768, 2048, 2, -1, (1, 3)),    # and out: K past the 384-column block's memory
+    (768, 2048, 4, -1, (1, 3)),
+    (256, 512, 4, -1, (1, 1)),
+    (256, 256, 4, -1, None),       # 64 fp32 rows of 264 do not fit two A tiles and the ring
+    (200, 256, 2, -1, None),       # no block spans 200 columns
+    (768, 3072, 2, -1, None),      # K past both blocks' shared memory
+    (8192, 256, 2, -1, None),      # past the largest cluster
+    (768, 760, 2, -1, None),       # K % 16
+])
+def test_proj_cluster_choice(n, k, out_bytes, config, want):
+    """The projection's block and cluster by output and input width and the
+    stored element's bytes (plain Python; the card holds the kernels)."""
+    assert TC.proj_cluster(n, k, out_bytes, config) == want
+
+
+def test_proj_cluster_spans_every_path_width():
+    """Every (N, K) of the served forward's projections has a cluster, for
+    bf16 and fp32 outputs: the sublayer's q/k/v and out-projection,
+    int8_linear's decoder, decoder FFN and feature-projection widths."""
+    for n, k in ((2304, 768), (768, 768), (768, 512), (2048, 768), (768, 2048)):
+        for out_bytes in (2, 4):
+            cfg, blocks = TC.proj_cluster(n, k, out_bytes)
+            bn, most, kmax = TC.FFN_CONFIGS[cfg]
+            assert bn * blocks == n and blocks <= most and k <= kmax
+
+
+@pytest.mark.parametrize("n,m,k,out_bytes,sms,want", [
+    (768, 23808, 512, 2, 132, "fused"),   # the feature projection at 1.25 s (384 x 62)
+    (768, 15968, 512, 2, 132, "fused"),   # and at 10 s (32 x 499)
+    (768, 15968, 512, 4, 132, "fused"),   # fp32 x
+    (768, 1996, 512, 2, 132, "chain"),    # phase 4's 10 s batch: 0.48 waves of 2 x 384
+    (768, 3072, 768, 2, 132, "fused"),    # the decoder's cross-attention k/v at 1.25 s
+    (768, 1536, 768, 2, 132, "chain"),    # its 4-query rows at 1.25 s (384 x 4)
+    (768, 1536, 768, 2, 66, "fused"),     # the same grid on half the SMs
+    (2048, 1536, 768, 2, 132, "fused"),   # the decoder FFN's first Linear: 1.45 waves of 8 x 256
+    (768, 1536, 2048, 2, 132, "chain"),   # its second: 0.55 waves of 3 x 256
+    (768, 128, 768, 2, 132, "chain"),     # the 10 s batch's 32 x 4 rows
+    (200, 30000, 256, 2, 132, "chain"),   # no cluster spans 200 columns
+])
+def test_proj_route_choice(n, m, k, out_bytes, sms, want):
+    """int8_linear's route by rows, widths and the card's SMs (plain
+    Python; the card holds each route's output and time)."""
+    assert TC.proj_route(n, m, k, out_bytes, sms) == want
+
+
+@pytest.mark.parametrize("n,m,k,want", [
+    (2304, 23808, 768, (1, 9)),   # the q/k/v projection at 1.25 s: 256-column blocks
+    (2304, 4096, 768, (1, 9)),    # 4.4 waves of 9 x 256
+    (2304, 3072, 768, (0, 6)),    # 3.3 waves: the 384-column block
+    (768, 23808, 768, (0, 2)),    # below 2048 columns the widest block spans
+    (2048, 23808, 768, (1, 8)),   # only the 256-column block spans 2048
+])
+def test_proj_block_choice(n, m, k, want):
+    """The projection's block by rows where both blocks span its width."""
+    assert TC.proj_block(n, m, k) == want
 
 
 def _tiny_models():
