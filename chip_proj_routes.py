@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the W8A8 projections' fused route beats the chain, by rows.
 
-    python3 chip_proj_routes.py [--split] [--repeats N]
+    python3 chip_proj_routes.py [--split | --mha | --mha-routes | --mha-model] [--repeats N]
 
 Run from the repository root on a machine with one NVIDIA GPU and ``nvcc``;
 it takes its timing from ``chip_smoke.py`` (CUDA-event ms of a CUDA graph of
@@ -20,7 +20,19 @@ WavLM attention sublayer's chain alone (row quantize of x, the q/k/v GEMM,
 the gated core with SDPA beside it, row quantize of ctx, the out-projection,
 the LayerNorm) at the bench's served shapes (1.25 s at B=384, 5 s at B=64,
 10 s at B=32), and lists ``int8_linear``'s calls in one eager forward of the
-served int8 stack by (M, N, K) at the same buckets. Prints the card's name
+served int8 stack by (M, N, K) at the same buckets. ``--mha`` times each
+launch of the MHA sublayer (csrc/proj_int8.cu, csrc/attention.cu) on both
+routes at every call site of the served buckets (BERT self; the fusion
+stack's audio self, text self, audio->text, text->audio), beside the
+caller's plain ``layer_norm(x + y)`` and SDPA for the core, with the store
+forms' bit-equality and the LayerNorm form's largest difference from the
+chain, then the ungated core on its score panel against the two sweeps at
+the served audio key lengths; ``--mha-routes`` times both routes of each call site over a ladder of
+batches, with the caller's LayerNorm and without; ``--mha-model`` prints the
+readings behind ``AB.mha_route``'s estimate with the LayerNorm (clusters
+the card runs at once, each projection and the out-projection with the
+LayerNorm on both routes by rows beside the estimate, both routes of the MHA
+where they come close). Prints the card's name
 and power limit first and a JSON line of every reading last.
 """
 
@@ -38,12 +50,23 @@ import chip_smoke as C
 from hriemo_torch import bench as HB
 from hriemo_torch.frontends import WavLMConfig, WavLMEncoder
 from hriemo_torch.infer.streaming import MEASURED_BUCKET_BATCH
+from hriemo_torch.nn.attention import MultiheadAttention
+from hriemo_torch.nn.layers import init_torch_defaults, layer_norm
 from hriemo_torch.ops import _cuda
 from hriemo_torch.ops import attention_block as AB
 from hriemo_torch.ops import quant as Q
 
 # (bucket seconds, batch, frames) of the served WavLM attention sublayer
 SERVED_ATTN = ((1.25, 384, 62), (5.0, 64, 249), (10.0, 32, 499))
+# (bucket seconds, batch, audio frames, text tokens) of the served MHA
+# sublayers (HB.BUCKET_LT, MEASURED_BUCKET_BATCH)
+SERVED_MHA = ((1.25, 384, 62, 8), (5.0, 64, 249, 20), (10.0, 32, 499, 64))
+# the MHA sublayer's call sites of a served forward: (name, heads, query
+# length, key length) with "a" the audio frames and "t" the text tokens; the
+# LayerNorm's eps of each caller (BERT 1e-12, the fusion layers 1e-5)
+MHA_SITES = (("BERT self", 12, "t", "t", 1e-12), ("audio self", 8, "a", "a", 1e-5),
+             ("text self", 8, "t", "t", 1e-5), ("audio->text", 8, "a", "t", 1e-5),
+             ("text->audio", 8, "t", "a", 1e-5))
 
 
 def card() -> str:
@@ -110,6 +133,298 @@ def chain_split(gen, repeats):
               + f"; six launches summed {launches:.4f} ms", flush=True)
         del x, pos, kb, x2, xq, qkv, q, k, v, ctx, cq, y, amask
         torch.cuda.empty_cache()
+    return out
+
+
+def mha_case(gen, mods, b, la, lt, h, q_of, k_of, eps, d=768):
+    """Inputs of one MHA call site: xq, xkv (xq itself for self-attention),
+    the key padding mask (element 0 full, the others padded at random) and
+    the caller's LayerNorm (bf16 values, as on the served bf16 tree, in the
+    fp32 copies that ``LayerNorm.norm`` hands the kernel)."""
+    lq, lk = (la if w == "a" else lt for w in (q_of, k_of))
+    if h not in mods:
+        mod = MultiheadAttention(d, h)
+        init_torch_defaults(mod, gen)
+        mods[h] = C.quantized(mod).ops
+    xq = torch.randn(b, lq, d, generator=gen).to("cuda", torch.bfloat16)
+    xkv = xq if q_of == k_of else torch.randn(b, lk, d, generator=gen).to("cuda", torch.bfloat16)
+    lens = torch.randint(max(1, lk // 2), lk + 1, (b,), generator=gen)
+    lens[0] = lk
+    kpm = (torch.arange(lk)[None, :] >= lens[:, None]).cuda()
+    ln_w = (torch.rand(d, generator=gen) + 0.5).to("cuda", torch.bfloat16).float()
+    ln_b = (0.1 * torch.randn(d, generator=gen)).to("cuda", torch.bfloat16).float()
+    return mods[h], xq, xkv, kpm, (ln_w, ln_b, eps), lq, lk
+
+
+def mha_forms(xq, xkv, ops, kpm, norm):
+    """The fused route against the chain, the core on the two sweeps on
+    both: the store forms bit-equal (raises otherwise), the LayerNorm form's
+    largest difference and the share of its elements that differ."""
+    def both(nm):
+        return [C.mha_fused_two_sweeps(xq, xkv, ops, kpm, nm),
+                AB.mha_block_int8(xq, xkv, ops, kpm, nm, route="chain")]
+    fused, chain = both(None)
+    if not torch.equal(fused, chain):
+        raise AssertionError(f"MHA {tuple(xq.shape)} x {tuple(xkv.shape)}: the fused store form "
+                             f"differs from the chain by {(fused - chain).abs().max().item()}")
+    fused, chain = both(norm)
+    diff = (fused.float() - chain.float()).abs()
+    return dict(store_bit_equal=True, ln_max_abs_diff=diff.max().item(),
+                ln_share_differing=(diff > 0).float().mean().item())
+
+
+# the ungated core's key lengths: the audio frames of every bucket at its
+# served batch (audio self: Lq = Lk; text -> audio: the bucket's text tokens
+# as queries), and the panel's longest row
+MHA_CORE_SHAPES = ((384, 62, 8), (256, 93, 12), (192, 124, 12), (128, 155, 16),
+                   (128, 187, 16), (64, 218, 20), (64, 249, 20), (64, 280, 24),
+                   (64, 312, 24), (64, 343, 32), (64, 374, 32), (32, 405, 32),
+                   (32, 436, 32), (32, 499, 64), (32, 512, 64))
+
+
+def mha_core_sweep(gen, repeats):
+    """The ungated core (8 heads of 96) on its score panel beside the
+    two-sweep kernel and SDPA at the audio key lengths of the served
+    buckets, audio self and text -> audio, each held to its plain version at
+    ``ATTN_TOL``."""
+    out, h, d = [], 8, 768
+    for b, la, lt in MHA_CORE_SHAPES:
+        for site, lq in (("audio self", la), ("text->audio", lt)):
+            q = torch.randn(b * lq, d, generator=gen).to("cuda", torch.bfloat16) * 96 ** -0.5
+            kv = torch.randn(b * la, 2 * d, generator=gen).to("cuda", torch.bfloat16)
+            k, v = kv.split(d, dim=1)
+            lens = torch.randint(la // 2, la + 1, (b,), generator=gen)
+            lens[0] = la
+            kpm = (torch.arange(la)[None, :] >= lens[:, None]).cuda()
+            plain = AB.attention_core_int8_plain(q, k, v, b, h, kpm=kpm)
+            rec = dict(site=site, B=b, Lq=lq, Lk=la, ms={}, err={},
+                       picked="panel" if AB.core_panel(la, False, 96) else "two sweeps")
+            for name, panel in (("two sweeps", False), ("panel", True)):
+                fn = lambda panel=panel: AB.attention_core_int8(q, k, v, b, h, kpm=kpm,
+                                                                panel=panel)
+                rec["err"][name] = C.compare(f"core {site} B={b} {lq}x{la} {name}", fn(),
+                                             plain, C.ATTN_TOL[torch.bfloat16])[0]
+                rec["ms"][name] = C.cuda_ms(fn, repeats=repeats)
+            qh = q.view(b, lq, h, -1).transpose(1, 2)
+            kh, vh = (t.reshape(b, la, h, -1).transpose(1, 2) for t in (k, v))
+            rec["ms"]["SDPA"] = C.cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=~kpm[:, None, None, :], scale=1.0), repeats=repeats)
+            out.append(rec)
+            print(f"ungated core {site} B={b} {lq}x{la}: " + ", ".join(
+                f"{n} {t:.4f} ms" for n, t in rec["ms"].items())
+                + f"; max |d| vs plain {rec['err']}; takes {rec['picked']}", flush=True)
+            del q, kv, k, v, kpm, plain, qh, kh, vh
+        torch.cuda.empty_cache()
+    return out
+
+
+def mha_split(gen, repeats):
+    """Each launch of the MHA sublayer's chain alone at every call site of
+    the served buckets, beside the caller's plain ``layer_norm(x + y)`` and
+    SDPA on the core's q/k/v."""
+    mods, out = {}, []
+    for sec, b, la, lt in SERVED_MHA:
+        for site, h, q_of, k_of, eps in MHA_SITES:
+            d = 768
+            ops, xq, xkv, kpm, norm, lq, lk = mha_case(gen, mods, b, la, lt, h, q_of, k_of, eps)
+            self_attn = xkv is xq
+            x2, kv2 = xq.view(b * lq, d), xkv.view(b * lk, d)
+            aq, aqs = _cuda.rowquant(x2, div127=False)
+            ak, aks = _cuda.rowquant(kv2, div127=False)
+            if self_attn:
+                qkv = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16)
+                q, k, v = qkv.split(d, dim=1)
+            else:
+                q = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
+                                    w_rows=(0, d))
+                k, v = _cuda.int8_gemm(ak, aks, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
+                                       w_rows=(d, 2 * d)).split(d, dim=1)
+            ctx = AB.attention_core_int8(q, k, v, b, h, kpm=kpm, panel=False)
+            cq, cs = _cuda.rowquant(ctx, div127=False)
+            y = _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out, _cuda.EPI_BF16)
+            qh = q.view(b, lq, h, -1).transpose(1, 2)
+            kh, vh = (t.view(b, lk, h, -1).transpose(1, 2) for t in (k, v))
+            amask = ~kpm[:, None, None, :]
+            calls = {"chain + LN": lambda: AB.mha_block_int8(xq, xkv, ops, kpm, norm,
+                                                             route="chain"),
+                     "fused + LN": lambda: AB.mha_block_int8(xq, xkv, ops, kpm, norm,
+                                                             route="fused"),
+                     "rowquant xq": lambda: _cuda.rowquant(x2, div127=False)}
+            if self_attn:
+                calls["q/k/v GEMM"] = lambda: _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in,
+                                                              ops.b_in, _cuda.EPI_BF16)
+            else:
+                calls["rowquant xkv"] = lambda: _cuda.rowquant(kv2, div127=False)
+                calls["q GEMM"] = lambda: _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in,
+                                                          _cuda.EPI_BF16, w_rows=(0, d))
+                calls["k/v GEMM"] = lambda: _cuda.int8_gemm(ak, aks, ops.w_in, ops.s_in,
+                                                            ops.b_in, _cuda.EPI_BF16,
+                                                            w_rows=(d, 2 * d))
+            calls.update({
+                "core": lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm, panel=False),
+                "rowquant ctx": lambda: _cuda.rowquant(ctx, div127=False),
+                "out GEMM": lambda: _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out,
+                                                    _cuda.EPI_BF16),
+                "plain LN(x + y)": lambda: layer_norm(xq + y.view(b, lq, d), *norm),
+                "SDPA (core's yardstick)": lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=amask, scale=1.0)})
+            if self_attn:
+                calls["fused: q/k/v projection"] = lambda: _cuda.proj_gemm(
+                    x2, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16, div127=False)
+            else:
+                calls["fused: q projection"] = lambda: _cuda.proj_gemm(
+                    x2, ops.w_in[:d], ops.s_in[:d], ops.b_in[:d], _cuda.EPI_BF16, div127=False)
+                calls["fused: k/v projection"] = lambda: _cuda.proj_gemm(
+                    kv2, ops.w_in[d:], ops.s_in[d:], ops.b_in[d:], _cuda.EPI_BF16, div127=False)
+            panel = AB.core_panel(lk, False, d // h)
+            calls[f"fused: core ({'panel' if panel else 'two sweeps'})"] = \
+                lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm)
+            ln32 = (norm[0].float(), norm[1].float(), norm[2])
+            calls["fused: out-projection + LN"] = lambda: _cuda.proj_gemm_ln(
+                ctx, ops.w_out, ops.s_out, ops.b_out, x2, ln32[0], ln32[1], eps, rounded=True)
+            ms = {name: C.cuda_ms(fn, repeats=repeats) for name, fn in calls.items()}
+            summed = sum(t for n, t in ms.items() if not n.startswith(("fused", "chain", "SDPA")))
+            rec = dict(bucket=sec, site=site, B=b, Lq=lq, Lk=lk, H=h, ms=ms,
+                       launches_summed_ms=summed, picked=AB.mha_route(
+                           b, lq, lk, d, h, 2, True, not self_attn, _cuda.sm_count()),
+                       **mha_forms(xq, xkv, ops, kpm, norm))
+            out.append(rec)
+            print(f"row 2 at {sec} s, {site} (B={b}, {lq}x{lk}, H={h}): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + f"; chain launches summed {summed:.4f} ms; picks {rec['picked']}; store "
+                  f"forms bit-equal, the LN form max |d| {rec['ln_max_abs_diff']:.4g} "
+                  f"({rec['ln_share_differing']:.4%} of elements differ)", flush=True)
+            del xq, xkv, kpm, x2, kv2, aq, ak, q, k, v, ctx, cq, y, qh, kh, vh, amask
+            torch.cuda.empty_cache()
+    return out
+
+
+MHA_LADDER = (1, 2, 4, 8, 16, 32, 64, 128, 384)
+
+
+def mha_route_sweep(gen, repeats):
+    """Each call site of the served buckets' lengths on both routes, with
+    the caller's LayerNorm and without, over a ladder of batches (rows): ms
+    of each, the waves of the out-projection's cluster grid, the route that
+    ``AB.mha_route`` picks and whether it was the faster."""
+    mods, out = {}, []
+    sms = _cuda.sm_count()
+    for sec, _, la, lt in SERVED_MHA:
+        for site, h, q_of, k_of, eps in MHA_SITES:
+            for b in MHA_LADDER:
+                ops, xq, xkv, kpm, norm, lq, lk = mha_case(gen, mods, b, la, lt, h, q_of, k_of,
+                                                           eps)
+                cross = xkv is not xq
+                cl = _cuda.proj_cluster(768, 768, 2)
+                rec = dict(bucket=sec, site=site, B=b, Lq=lq, Lk=lk, M=b * lq,
+                           waves=-(-b * lq // 64) * cl[1] / sms, ms={}, picked={})
+                for nm, tag in ((norm, "LN"), (None, "store")):
+                    for route in ("fused", "chain"):
+                        rec["ms"][f"{route} {tag}"] = C.cuda_ms(
+                            lambda route=route, nm=nm: AB.mha_block_int8(xq, xkv, ops, kpm, nm,
+                                                                         route=route),
+                            repeats=repeats)
+                    picked = AB.mha_route(b, lq, lk, 768, h, 2, nm is not None, cross, sms)
+                    t = {r: rec["ms"][f"{r} {tag}"] for r in ("fused", "chain")}
+                    rec["picked"][tag] = (picked, t[picked] <= min(t.values()))
+                out.append(rec)
+                print(f"{sec} s {site} B={b} ({lq}x{lk}, M={b * lq}, waves {rec['waves']:.2f}): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in rec["ms"].items())
+                      + "; picks " + ", ".join(f"{k} {p}" + ("" if ok else " (not the faster)")
+                                               for k, (p, ok) in rec["picked"].items()),
+                      flush=True)
+                del xq, xkv, kpm
+            torch.cuda.empty_cache()
+    return out
+
+
+# rows of the route estimate's readings, and the MHA calls where its two
+# routes come close: (B, Lq, Lk, heads, cross) at phase 3's batch and around
+# it, cross-attention from few queries to 250-1000 keys
+MODEL_ROWS = (64, 256, 512, 1024, 1536, 1920, 1984, 2048, 2560, 3072, 3968, 4096, 6144, 8192)
+MODEL_MHA = ((1, 16, 499, 8, True), (2, 16, 499, 8, True), (4, 16, 499, 8, True),
+             (8, 16, 499, 8, True), (4, 64, 499, 8, True), (8, 64, 499, 8, True),
+             (4, 16, 250, 8, True), (4, 16, 1000, 8, True), (4, 499, 16, 8, True),
+             (4, 499, 64, 8, True), (4, 16, 16, 12, False), (4, 64, 64, 12, False),
+             (4, 499, 499, 8, False))
+
+
+def mha_model(gen, repeats):
+    """The readings behind ``AB.mha_route``'s estimate with the caller's
+    LayerNorm: the clusters of each projection the card runs at once (the
+    projection's own instance beside the FFN's of the same block), each
+    projection of the MHA (q ``d``, k/v ``2d``, q/k/v ``3d`` columns at K =
+    768) that quantizes its own rows against the chain's row quantize and
+    GEMM over a ladder of rows, the out-projection with the LayerNorm against
+    the chain's out GEMM and plain ``layer_norm(x + y)``, each beside
+    ``AB._proj_ms``'s estimate; then both routes of the MHA where they come
+    close, with the route ``AB.mha_route`` picks."""
+    d, sms = 768, _cuda.sm_count()
+    out = dict(clusters=[], proj=[], out_ln=[], mha=[])
+    for n in (d, 2 * d, 3 * d, 4 * d):
+        for c in (0, 1):
+            cl = _cuda.proj_cluster(n, d, 2, config=c)
+            if cl is None:
+                continue
+            rec = dict(N=n, config=c, blocks=cl[1], proj=_cuda.proj_clusters(n, d, c),
+                       ffn=_cuda.ffn_gemm1_clusters(n, 4096, d, _cuda.EPI_GELU_F32, config=c)
+                       if _cuda.ffn_cluster(n, d, c) == cl else None)
+            out["clusters"].append(rec)
+            print(f"N={n} config {c}: {cl[1]} blocks a cluster, {rec['proj']} clusters at once "
+                  f"(the FFN's instance: {rec['ffn']})", flush=True)
+    mods = {}
+    ops, *_ = mha_case(gen, mods, 1, 62, 8, 8, "a", "t", 1e-5)
+    w, s, bias = ops.w_in, ops.s_in, ops.b_in
+    for n in (d, 2 * d, 3 * d):
+        for m in MODEL_ROWS:
+            x = torch.randn(m, d, generator=gen).to("cuda", torch.bfloat16)
+            fused = C.cuda_ms(lambda: _cuda.proj_gemm(x, w[:n], s[:n], bias[:n], _cuda.EPI_BF16,
+                                                      div127=False), repeats=repeats)
+
+            def chain():
+                a, sa = _cuda.rowquant(x, div127=False)
+                return _cuda.int8_gemm(a, sa, w, s, bias, _cuda.EPI_BF16, w_rows=(0, n))
+            rec = dict(N=n, M=m, fused_ms=fused, chain_ms=C.cuda_ms(chain, repeats=repeats),
+                       est_fused_ms=AB._proj_ms(n, m, d, True, sms),
+                       est_chain_ms=AB._proj_ms(n, m, d, False, sms))
+            out["proj"].append(rec)
+            print(f"projection {d}->{n} M={m}: fused {fused:.4f} (est {rec['est_fused_ms']:.4f}) "
+                  f"chain {rec['chain_ms']:.4f} (est {rec['est_chain_ms']:.4f})", flush=True)
+    ln = ((torch.rand(d, generator=gen) + 0.5).cuda(), (0.1 * torch.randn(d, generator=gen)).cuda(),
+          1e-5)
+    for m in MODEL_ROWS:
+        ctx = torch.randn(m, d, generator=gen).to("cuda", torch.bfloat16)
+        x = torch.randn(m, d, generator=gen).to("cuda", torch.bfloat16)
+
+        def out_chain(with_ln):
+            a, sa = _cuda.rowquant(ctx, div127=False)
+            y = _cuda.int8_gemm(a, sa, ops.w_out, ops.s_out, ops.b_out, _cuda.EPI_BF16)
+            return AB._add_norm(x, y, ln) if with_ln else y
+        rec = dict(M=m, fused_ms=C.cuda_ms(lambda: _cuda.proj_gemm_ln(
+            ctx, ops.w_out, ops.s_out, ops.b_out, x, *ln, rounded=True), repeats=repeats),
+            chain_ln_ms=C.cuda_ms(lambda: out_chain(True), repeats=repeats),
+            chain_store_ms=C.cuda_ms(lambda: out_chain(False), repeats=repeats))
+        out["out_ln"].append(rec)
+        print(f"out-projection + LN M={m}: fused {rec['fused_ms']:.4f}, chain + plain LN "
+              f"{rec['chain_ln_ms']:.4f} (the chain's store {rec['chain_store_ms']:.4f})",
+              flush=True)
+    for b, lq, lk, h, cross in MODEL_MHA:
+        xq = torch.randn(b, lq, d, generator=gen).to("cuda", torch.bfloat16)
+        xkv = torch.randn(b, lk, d, generator=gen).to("cuda", torch.bfloat16) if cross else xq
+        lens = torch.randint(lk // 2, lk + 1, (b,), generator=gen)
+        lens[0] = lk
+        kpm = (torch.arange(lk)[None, :] >= lens[:, None]).cuda()
+        if h not in mods:
+            mod = MultiheadAttention(d, h)
+            init_torch_defaults(mod, gen)
+            mods[h] = C.quantized(mod).ops
+        ms = {r: C.cuda_ms(lambda r=r: AB.mha_block_int8(xq, xkv, mods[h], kpm, ln, route=r),
+                           repeats=repeats) for r in ("fused", "chain")}
+        picked = AB.mha_route(b, lq, lk, d, h, 2, True, cross, sms)
+        out["mha"].append(dict(B=b, Lq=lq, Lk=lk, H=h, cross=cross, ms=ms, picked=picked))
+        print(f"MHA with the LayerNorm, B={b} {'cross' if cross else 'self'} {lq}x{lk} H={h}: "
+              f"fused {ms['fused']:.4f}, chain {ms['chain']:.4f}; picks {picked}"
+              + ("" if ms[picked] <= min(ms.values()) else " (not the faster)"), flush=True)
     return out
 
 
@@ -269,6 +584,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--split", action="store_true",
                     help="time each launch of the sublayer's chain and list int8_linear's calls")
+    ap.add_argument("--mha", action="store_true",
+                    help="time each launch of the MHA sublayer's routes at the served call sites")
+    ap.add_argument("--mha-routes", action="store_true",
+                    help="sweep both routes of the MHA sublayer over a ladder of batches")
+    ap.add_argument("--mha-model", action="store_true",
+                    help="the readings behind the MHA route's estimate with the LayerNorm")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -279,7 +600,15 @@ def main() -> int:
     _cuda.build_all()
     gen = torch.Generator().manual_seed(C.SEED + 23)
     out = dict(card=smi)
-    if args.split:
+    if args.mha_model:
+        out["mha_model"] = mha_model(gen, args.repeats)
+    elif args.mha or args.mha_routes:
+        if args.mha:
+            out["mha_split"] = mha_split(gen, args.repeats)
+            out["mha_core"] = mha_core_sweep(gen, args.repeats)
+        if args.mha_routes:
+            out["mha_routes"] = mha_route_sweep(gen, args.repeats)
+    elif args.split:
         out["chain_split"] = chain_split(gen, args.repeats)
         out["int8_linear_shapes"] = linear_shapes()
     else:

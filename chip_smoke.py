@@ -56,7 +56,23 @@ Phases, any failure exits non-zero:
    served shapes (``SERVED_ATTN``: 1.25 s at B=384, 5 s at B=64, 10 s at
    B=32) with each launch of both routes timed alone, ``int8_linear`` at
    1996 rows and at its served calls (``SERVED_LINEAR``), with
-   ``torch._int_mm`` on its int8 operands as ``library_ms``; then
+   ``torch._int_mm`` on its int8 operands as ``library_ms``, and the MHA
+   sublayer (``mha_block_int8``) at phase 4's batch (B=4: BERT self at 16
+   and 64 tokens, the fusion stack's self and cross attentions at 16-499;
+   the kernels line's rows, the store form without the LayerNorm beside
+   them against plain) and at every call site of the served buckets
+   (``SERVED_MHA``: BERT self, the fusion stack's audio self, text self,
+   audio->text and text->audio at 1.25 s, 5 s and 10 s) with its caller's
+   LayerNorm, on both routes: the picked one (``AB.mha_route``) against
+   plain at TOL, SDPA as ``library_ms``, the other as ``route_ms``, each
+   route's launches a call (``LAUNCHES_PER_CALL``: fused 3 self and 4 cross,
+   the chain 5 and 7 and the plain LayerNorm), with the core on the two
+   sweeps on both the store form bit-equal to the chain and the LayerNorm
+   form within one bf16 ulp of the chain's plain one, the picked route not
+   the slower by more than ``ROUTE_NOISE`` and ``ROUTE_NOISE_MS``; the
+   ungated core on its score panel at those call sites (an entry of its own
+   in the kernels line) against plain at ``ATTN_TOL``, SDPA and the two
+   sweeps; then
    the two kernels under the int8 wrappers
    alone, beside their own yardsticks: the int8 attention core (``attention_core_int8``) against SDPA,
    with its own limit check (a gated B=4 L=499 result without its last key
@@ -88,7 +104,8 @@ Phases, any failure exits non-zero:
    text buckets 8..64, random weights from a seed): 16 requests across the
    2.5 s and 10 s audio buckets, launch counts per forward (every call of
    the W8A8 FFN pair, the WavLM sublayer and ``int8_linear`` on the route
-   its wrapper picks for its rows), probabilities
+   its wrapper picks for its rows; the ungated score panel as often as the
+   MHA calls' shapes put their cores there, ``mha_panels``), probabilities
    finite and in [0, 1], and the same requests through the plain versions
    (``use_kernels=False``) within the int8 gate of 0.006; then the same on
    the int8 tree at fp32 compute (``compute_dtype=torch.float32``), whose
@@ -107,15 +124,19 @@ Phases, any failure exits non-zero:
    phase 4's 16 requests: the fusion stack's 8 MHA sublayers a forward run
    their core on the wide tile instance (launch counts), kernel vs plain
    within 0.006;
-4e. the int8 tree at the 10 s bucket's served batch (32 clips, the
-   H100's ``MEASURED_BUCKET_BATCH``): launch counts for one forward, every
-   W8A8 FFN pair call on its picked route, WavLM's 12 FFNs over 32 x 499
-   rows on the fused route (the first product of ``csrc/ffn_int8.cu``,
-   which phase 4's batch of 4 leaves to the chain), WavLM's 12 attention
-   sublayers on the fused route (one q/k/v projection and one
-   out-projection with the LayerNorm of ``csrc/proj_int8.cu`` each) and
-   its feature projection on ``int8_linear``'s, kernel vs plain within
-   0.006;
+4e. the int8 tree at the 10 s and the 1.25 s buckets' served batches (32
+   and 384 clips, the H100's ``MEASURED_BUCKET_BATCH``), one forward each:
+   launch counts, every W8A8 FFN pair call on its picked route, WavLM's 12
+   FFNs over 32 x 499 or 384 x 62 rows on the fused route (the first
+   product of ``csrc/ffn_int8.cu``, which phase 4's batch of 4 leaves to the
+   chain), WavLM's 12 attention sublayers on the fused route (one q/k/v
+   projection and one out-projection with the LayerNorm of
+   ``csrc/proj_int8.cu`` each), its feature projection on
+   ``int8_linear``'s, the 20 MHA sublayers on the fused route with their
+   callers' LayerNorms in the out-projection, the ungated cores on the
+   score panel (``PANEL_PER_FORWARD``: all 20 at 1.25 s; at 10 s all but
+   the two audio self-attentions and the two text->audio ones over 499
+   frames), kernel vs plain within 0.006;
 5. the feature-extraction entry point at full width (WavLM base-plus and
    BERT-base, random weights from a seed): a synthetic IEMOCAP tree of 24
    utterances, the port's index builder, ``extract_iemocap`` audio (seq and
@@ -224,7 +245,8 @@ Phases, any failure exits non-zero:
    ``MEASURED_BUCKET_BATCH`` (three repeats; ``mfu`` in (0, 1]) and its
    scheduler block on 256 clips of its stream, each printed as a JSON line;
 11. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
-   phases 4-9; the wide tile instances as entries of their own); then the
+   phases 4-9; the wide tile instances and the ungated score panel as
+   entries of their own); then the
    last line ``{"ok": true, "device": {...}}``.
 
 ``--outlier-sweep`` instead runs only phase 8b's outlier over layers and
@@ -367,8 +389,14 @@ WIDE_KERNELS = {
                                          "hriemo_torch/csrc/flash_attention.cu"),
     "attention_core_int8 (wide tiles)": ("hriemo/ops/attention_block.py:508",
                                          "hriemo_torch/csrc/onepass_mma.cuh"),
+    # the MHA sublayer's core on the score panel (onepass_panel_kernel
+    # without the gate); its launches, a share of attention_core_int8's, are
+    # counted by AB.attention_core_int8.panels and held in phase 4e
+    "attention_core_int8 (ungated panel)": ("hriemo/ops/attention_block.py:508",
+                                            "hriemo_torch/csrc/attention.cu"),
 }
 LAUNCH_NAMES = (*KERNELS, *WIDE_KERNELS)
+PANEL = "attention_core_int8 (ungated panel)"
 # the two kernels under the int8 wrappers, counted by shape too
 COUNTED_BY_SHAPE = (AB.attention_core_int8, _cuda.int8_gemm)
 COUNTED_BY_HEAD_DIM = (FA.onepass_attention, FA.streaming_attention)
@@ -378,6 +406,11 @@ PER_FORWARD = {"attention_block_int8": 12, "mha_block_int8": 20, "ffn_block_int8
                "mlp2_int8": 5, "int8_linear": 21}
 # of the 20 MHA sublayers, the fusion stack's (the other 12 are BERT's)
 FUSION_MHA_PER_FORWARD = 8
+# the MHA sublayers' cores on the ungated score panel in one forward of
+# phase 4e's served batches: every one at 1.25 s (8 text tokens, 62
+# frames); at 10 s all but the 2 audio self-attentions and the 2
+# text->audio ones, whose 499 audio keys take the two sweeps
+PANEL_PER_FORWARD = {1.25: 20, 10.0: 16}
 # the bf16 tree: WavLM attention on the fused kernel at 499 frames (10 s),
 # per op at 124 (2.5 s, below its 128-frame gate)
 PER_FORWARD_BF16 = {10.0: {"wavlm_fused_attention": 12}, 2.5: {}}
@@ -719,7 +752,7 @@ def check_kernels(gen):
                                                             x.dtype),
                 "fused: q/k/v projection": lambda: _cuda.proj_gemm(
                     x2, mo.w_in, mo.s_in, mo.b_in, _cuda.EPI_BF16, div127=False),
-                "fused: core (the panel up to 128 keys)": lambda: AB.attention_core_int8(
+                "fused: core (the panel up to PANEL_MAX_KEYS)": lambda: AB.attention_core_int8(
                     qs, ks, vs, b, h, kbias=kb, gate=gate),
                 "fused: out-projection + LayerNorm": lambda: _cuda.proj_gemm_ln(
                     ctx, mo.w_out, mo.s_out, mo.b_out, x2, ops.ln_w, ops.ln_b, 1e-5),
@@ -737,6 +770,63 @@ def check_kernels(gen):
                                      f"picks is slower than the {other}: "
                                      f"{rec['route_check_ms']}")
 
+    def mha_row(shape, xq, xkv, kpm, ops, norm, main=True):
+        """One row of the MHA sublayer with its caller's LayerNorm ``norm``
+        (or None): the route the wrapper picks (``AB.mha_route``) against
+        plain at TOL, SDPA on the core's q/k/v as ``library_ms``, the other
+        route as ``route_ms``; each route's launches a call
+        (``LAUNCHES_PER_CALL``); with the core on the two sweeps on both
+        routes, the store form bit-equal to the chain and the LayerNorm form
+        within one bf16 ulp of the chain's plain one; the picked route not
+        the slower by more than ROUTE_NOISE and ROUTE_NOISE_MS (medians of
+        ROUTE_REPEATS replays). ``main``: the row may feed the kernels
+        line."""
+        b, lq, d_ = xq.shape
+        lk, h_ = xkv.shape[1], ops.n_heads
+        hd_, cross = d_ // h_, xkv is not xq
+        routes = {r: (lambda r=r: AB.mha_block_int8(xq, xkv, ops, kpm, norm, route=r))
+                  for r in ("fused", "chain")}
+        picked = AB.mha_route(b, lq, lk, d_, h_, xq.element_size(), norm is not None, cross,
+                              _cuda.sm_count())
+        q, k, v = randn(b, h_, lq, hd_), randn(b, h_, lk, hd_), randn(b, h_, lk, hd_)
+        amask = ~kpm[:, None, None, :]
+        run("mha_block_int8", shape, lambda: AB.mha_block_int8(xq, xkv, ops, kpm, norm),
+            lambda: AB.mha_block_int8_plain(xq, xkv, ops, kpm, norm),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
+            nbytes(xq, kpm, xq) + (nbytes(xkv) if cross else 0) + 4 * d_ * d_ + 4 * 4 * d_ * 2
+            + (8 * d_ if norm is not None else 0),
+            4 * b * lq * d_ * d_ + 4 * b * lk * d_ * d_, 4 * b * h_ * lq * lk * hd_,
+            route=routes["chain" if picked == "fused" else "fused"])
+        rec = rows[-1]
+        rec.update(kernels_line=main, picked=picked, launches_per_call={})
+        counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.proj_gemm, _cuda.proj_gemm_ln,
+                    AB.attention_core_int8)
+        for route, fn in routes.items():
+            before = sum(c.launches for c in counters)
+            fn()
+            rec["launches_per_call"][route] = sum(c.launches for c in counters) - before
+            if rec["launches_per_call"][route] != LAUNCHES_PER_CALL["mha_block_int8"][route][cross]:
+                raise AssertionError(f"mha_block_int8 {shape}: {rec['launches_per_call']} "
+                                     "launches a call")
+        chain = AB.mha_block_int8(xq, xkv, ops, kpm, None, route="chain")
+        if not torch.equal(mha_fused_two_sweeps(xq, xkv, ops, kpm, None), chain):
+            raise AssertionError(f"mha_block_int8 {shape}: the fused store form differs from "
+                                 "the chain")
+        if norm is not None:
+            rec["ln_diff"] = ln_within_ulp(f"mha_block_int8 {shape}",
+                                           mha_fused_two_sweeps(xq, xkv, ops, kpm, norm),
+                                           AB.mha_block_int8(xq, xkv, ops, kpm, norm,
+                                                             route="chain"))
+        rec["route_check_ms"] = {r: cuda_ms(fn, repeats=ROUTE_REPEATS) for r, fn in routes.items()}
+        torch.cuda.synchronize()
+        print(f"    the store form bit-equal to the chain, the LayerNorm form (max |d|, share "
+              f"differing) {rec.get('ln_diff')}; launches a call {rec['launches_per_call']}; "
+              f"picks {picked}: {rec['route_check_ms']}", flush=True)
+        for other, t in rec["route_check_ms"].items():
+            if rec["route_check_ms"][picked] > (1 + ROUTE_NOISE) * t + ROUTE_NOISE_MS:
+                raise AssertionError(f"mha_block_int8 {shape}: the {picked} route it picks is "
+                                     f"slower than the {other}: {rec['route_check_ms']}")
+
     # WavLM attention sublayer, the 2.5 s and 10 s buckets at phase 4's batch
     d, h, hd = 768, 12, 64
     enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1))
@@ -748,7 +838,9 @@ def check_kernels(gen):
         kb = torch.where(mask(B, l), AB.NEG_INF, 0.0).float()
         attn_row(f"B={B} L={l}", x, pos, kb, layer.attn_ops)
 
-    # MHA sublayers: BERT self (12 x 64) and fusion self/cross (8 x 96)
+    # MHA sublayers: BERT self (12 x 64) and fusion self/cross (8 x 96) with
+    # their callers' LayerNorms (eps 1e-12 and 1e-5), the form phases 4-9
+    # run (the kernels line's rows); the store form without it beside them
     cases = [(12, 16, 16, True), (12, 64, 64, True), (8, 499, 499, True),
              (8, 16, 499, False), (8, 499, 16, False), (8, 64, 499, False),
              (8, 499, 64, False)]
@@ -762,15 +854,20 @@ def check_kernels(gen):
         xq = randn(B, lq, d)
         xkv = xq if self_attn else randn(B, lk, d)
         kpm = mask(B, lk)
+        norm = (randn(d, dtype=torch.float32).abs() + 0.5,
+                randn(d, scale=0.1, dtype=torch.float32), 1e-12 if h == 12 else 1e-5)
+        shape = f"B={B} {'self' if self_attn else 'cross'} {lq}x{lk} H={h}"
+        mha_row(f"{shape} (LN)", xq, xkv, kpm, ops, norm)
         q, k, v = randn(B, h, lq, hd), randn(B, h, lk, hd), randn(B, h, lk, hd)
         amask = ~kpm[:, None, None, :]
         mq, mk = B * lq, B * lk
-        run("mha_block_int8", f"B={B} {'self' if self_attn else 'cross'} {lq}x{lk} H={h}",
+        run("mha_block_int8", shape,
             lambda: AB.mha_block_int8(xq, xkv, ops, kpm),
             lambda: AB.mha_block_int8_plain(xq, xkv, ops, kpm),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
             nbytes(xq, kpm, xq) + (0 if self_attn else nbytes(xkv)) + 4 * d * d + 4 * 4 * d * 2,
             2 * mq * d * d * 2 + 2 * mk * d * 2 * d, 4 * B * h * lq * lk * hd)
+        rows[-1]["kernels_line"] = False
 
     # FFN block (WavLM 10 s bucket rows), mlp2 (fusion FFN and beta gate):
     # the fused route (csrc/ffn_int8.cu, then the shared GEMM) against plain
@@ -1228,8 +1325,10 @@ def check_kernels(gen):
         chunk_check[name] = dropped_chunk(wave, w0)
         stats_bits[name] = same_bits(wave, w0)
     # the WavLM sublayer and int8_linear at the served shapes, last: each
-    # route, each launch alone
+    # route, each launch alone; then the MHA sublayer's call sites
     served_proj_rows(attn_row, linear_row, layer.attn_ops)
+    torch.cuda.empty_cache()
+    served_mha_rows(mha_row, run, rows)
     torch.cuda.empty_cache()
     return rows, dict(ffn_pair=ffn_extra, streaming_last_block=limit_check,
                       onepass_gated_last_tile=gated_check,
@@ -1265,7 +1364,10 @@ SERVED_LINEAR = ((384 * 62, 512, 768), (32 * 499, 512, 768), (1536, 768, 768), (
 # row quantize, q/k/v GEMM, core, row quantize, out GEMM, LayerNorm);
 # int8_linear's projection (the chain: row quantize and GEMM)
 LAUNCHES_PER_CALL = {"attention_block_int8": {"fused": 3, "chain": 6},
-                     "int8_linear": {"fused": 1, "chain": 2}}
+                     "int8_linear": {"fused": 1, "chain": 2},
+                     # self-attention; cross-attention (the chain's plain
+                     # LayerNorm launches PyTorch's own kernels beside these)
+                     "mha_block_int8": {"fused": (3, 4), "chain": (5, 7)}}
 
 
 def served_proj_rows(attn_row, linear_row, attn_ops):
@@ -1290,6 +1392,120 @@ def served_proj_rows(attn_row, linear_row, attn_ops):
             lins[k_, n_] = quantized(lin)
         x = torch.randn(mm, k_, generator=own).to("cuda", torch.bfloat16)
         linear_row(f"M={mm} {k_}->{n_} (served)", x, lins[k_, n_], main=False)
+
+
+# the MHA sublayer's call sites at the bench's served shapes: (batch, audio
+# frames, text tokens) of the 1.25 s, 5 s and 10 s buckets
+# (MEASURED_BUCKET_BATCH, bench.BUCKET_LT); (name, heads, query and key
+# sides, the caller's LayerNorm eps): BERT self, the fusion stack's audio
+# self, text self, audio->text, text->audio
+SERVED_MHA = ((384, 62, 8), (64, 249, 20), (32, 499, 64))
+MHA_SITES = (("BERT self", 12, "t", "t", 1e-12), ("audio self", 8, "a", "a", 1e-5),
+             ("text self", 8, "t", "t", 1e-5), ("audio->text", 8, "a", "t", 1e-5),
+             ("text->audio", 8, "t", "a", 1e-5))
+
+
+def ln_within_ulp(name, got, ref):
+    """Two bf16 LayerNorm outputs that differ only in the order of their
+    fp32 sums: each element within one bf16 ulp of the larger magnitude
+    (a magnitude under 2^-8 counted as 2^-8) and at most 1% of them
+    differing (an add rounded once where the caller rounds twice moves a
+    third); fp32 within 1e-5. Returns the max |d| and the share
+    differing."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    share = (diff > 0).float().mean().item()
+    if got.dtype == torch.float32:
+        bad = diff > 1e-5 + 1e-5 * r.abs()
+    else:
+        mag = torch.maximum(torch.maximum(g.abs(), r.abs()),
+                            torch.tensor(2.0 ** -8, device=g.device))
+        bad = diff > torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    if bad.any() or share > 0.01 or not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: the LayerNorm form is {int(bad.sum())} elements beyond "
+                             f"one ulp of the chain's, {share:.4f} of them differ")
+    return diff.max().item(), share
+
+
+def mha_fused_two_sweeps(xq, xkv, ops, kpm, norm):
+    """``mha_block_int8``'s fused route built from its public pieces, with
+    the core on the two sweeps as the chain runs it: the projections that
+    quantize their own rows (q/k/v, or q and k/v), the core, and the
+    out-projection storing xq's dtype or, with ``norm``, taking the residual
+    and the LayerNorm. Bit-equal to ``route="chain"`` in the store form."""
+    b, lq, d = xq.shape
+    x2 = xq.view(b * lq, d)
+    if xkv is xq:
+        q, k, v = _cuda.proj_gemm(x2, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
+                                  div127=False).split(d, dim=1)
+    else:
+        q = _cuda.proj_gemm(x2, ops.w_in[:d], ops.s_in[:d], ops.b_in[:d], _cuda.EPI_BF16,
+                            div127=False)
+        k, v = _cuda.proj_gemm(xkv.reshape(-1, d), ops.w_in[d:], ops.s_in[d:], ops.b_in[d:],
+                               _cuda.EPI_BF16, div127=False).split(d, dim=1)
+    ctx = AB.attention_core_int8(q, k, v, b, ops.n_heads, kpm=kpm, panel=False)
+    if norm is None:
+        out = _cuda.proj_gemm(ctx, ops.w_out, ops.s_out, ops.b_out, _cuda.out_epi(xq.dtype),
+                              div127=False)
+    else:
+        out = _cuda.proj_gemm_ln(ctx, ops.w_out, ops.s_out, ops.b_out, x2, *norm, rounded=True)
+    return out.view(b, lq, d)
+
+
+def mha_panels():
+    """The ungated score-panel launches that the MHA calls since
+    ``reset_launches`` should have made: one a fused call whose key length
+    and head dim ``AB.core_panel`` puts on the panel (the chain keeps the
+    two sweeps)."""
+    return sum(c for (route, _, _, lk, d, h, *_), c in AB.mha_block_int8.shapes.items()
+               if route == "fused" and AB.core_panel(lk, False, d // h))
+
+
+def served_mha_rows(mha_row, run, rows):
+    """Phase 3's MHA sublayer rows at the served call sites with their
+    callers' LayerNorms (inputs from a generator of their own), and the
+    ungated core on its score panel there, against plain at ATTN_TOL, SDPA
+    as ``library_ms`` and the two sweeps as ``route_ms``: the rows of the
+    kernels line's ungated panel entry."""
+    own = torch.Generator().manual_seed(SEED + 20)
+    d, mods = 768, {}
+    for b, la, lt in SERVED_MHA:
+        for site, h, q_of, k_of, eps in MHA_SITES:
+            if h not in mods:
+                mod = MultiheadAttention(d, h)
+                init_torch_defaults(mod, own)
+                mods[h] = quantized(mod).ops
+            lq, lk = (la if s_ == "a" else lt for s_ in (q_of, k_of))
+            xq = torch.randn(b, lq, d, generator=own).to("cuda", torch.bfloat16)
+            xkv = xq if q_of == k_of else \
+                torch.randn(b, lk, d, generator=own).to("cuda", torch.bfloat16)
+            lens = torch.randint(max(1, lk // 2), lk + 1, (b,), generator=own)
+            lens[0] = lk
+            kpm = (torch.arange(lk)[None, :] >= lens[:, None]).cuda()
+            norm = ((torch.rand(d, generator=own) + 0.5).cuda(),
+                    (0.1 * torch.randn(d, generator=own)).cuda(), eps)
+            mha_row(f"{site} B={b} {lq}x{lk} H={h} (served, LN)", xq, xkv, kpm, mods[h], norm,
+                    main=False)
+            hd = d // h
+            if AB.core_panel(lk, False, hd):
+                q = torch.randn(b * lq, d, generator=own).to("cuda", torch.bfloat16) * hd ** -0.5
+                kv = torch.randn(b * lk, 2 * d, generator=own).to("cuda", torch.bfloat16)
+                k, v = kv.split(d, dim=1)
+                qh = q.view(b, lq, h, hd).transpose(1, 2)
+                kh, vh = (t.reshape(b, lk, h, hd).transpose(1, 2) for t in (k, v))
+                run("attention_core_int8", f"B={b} {site} {lq}x{lk} H={h} (ungated panel)",
+                    lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm,
+                                                   panel=True).view(b, lq, d),
+                    lambda: AB.attention_core_int8_plain(q, k, v, b, h, kpm=kpm).view(b, lq, d),
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=~kpm[:, None, None, :], scale=1.0),
+                    nbytes(q, k, v, q, kpm), 0, 4 * b * h * lq * lk * hd,
+                    tol=ATTN_TOL[torch.bfloat16],
+                    route=lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm, panel=False))
+                rows[-1].update(kernels_line=False, wide_entry=PANEL)
+                del q, kv, k, v, qh, kh, vh
+            del xq, xkv, kpm
+        torch.cuda.empty_cache()
 
 
 def own_max_ffn(x, fops):
@@ -1582,12 +1798,14 @@ def long_requests(rng):
 def reset_launches():
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
-    for fn in (FF.ffn_block_int8, FF.mlp2_int8, AB.attention_block_int8, Q.int8_linear):
+    for fn in (FF.ffn_block_int8, FF.mlp2_int8, AB.attention_block_int8, AB.mha_block_int8,
+               Q.int8_linear):
         fn.routes.clear()
         fn.shapes.clear()
     for fn in COUNTED_BY_SHAPE:
         fn.launches = 0
         fn.shapes.clear()
+    AB.attention_core_int8.panels.clear()
     for fn in COUNTED_BY_HEAD_DIM:
         fn.head_dims.clear()
 
@@ -1599,6 +1817,7 @@ def read_launches():
             n for (hd, _), n in fn.head_dims.items() if hd > 128)
     out["attention_core_int8 (wide tiles)"] = sum(
         n for key, n in AB.attention_core_int8.shapes.items() if key[-1] > 128)
+    out[PANEL] = AB.attention_core_int8.panels[False]
     return out
 
 
@@ -1622,10 +1841,10 @@ def check_pair_routes(what):
 
 
 def check_proj_routes(what):
-    """Every call of int8_linear and of the WavLM sublayer since
-    ``reset_launches`` took the route that its wrapper picks for its shape
-    (``_cuda.proj_route``, ``AB.attention_route``); returns the calls by
-    (kernel, route)."""
+    """Every call of int8_linear, of the WavLM sublayer and of the MHA
+    sublayer since ``reset_launches`` took the route that its wrapper picks
+    for its shape (``_cuda.proj_route``, ``AB.attention_route``,
+    ``AB.mha_route``); returns the calls by (kernel, route)."""
     sms = _cuda.sm_count()
     out = collections.Counter()
     for (route, m, n, k, xb), c in Q.int8_linear.routes.items():
@@ -1638,12 +1857,80 @@ def check_proj_routes(what):
             raise AssertionError(f"{what}: attention_block_int8 at B={b} L={l} took the "
                                  f"{route} route {c} times")
         out[f"attention_block_int8 {route}"] += c
-    for fn in (Q.int8_linear, AB.attention_block_int8):
+    for (route, b, lq, lk, d, h, xb, norm, cross), c in AB.mha_block_int8.shapes.items():
+        if route != AB.mha_route(b, lq, lk, d, h, xb, norm, cross, sms):
+            raise AssertionError(f"{what}: mha_block_int8 at B={b} {lq}x{lk} (LayerNorm "
+                                 f"{norm}, cross {cross}) took the {route} route {c} times")
+        out[f"mha_block_int8 {route}"] += c
+    for fn in (Q.int8_linear, AB.attention_block_int8, AB.mha_block_int8):
         if sum(fn.shapes.values()) != fn.launches or sum(fn.routes.values()) != fn.launches:
             raise AssertionError(f"{what}: {fn.__name__} counted {dict(fn.routes)} over "
                                  f"{fn.launches} calls")
-    print(f"{what}: int8_linear and WavLM sublayer calls by route {dict(out)}", flush=True)
+    print(f"{what}: int8_linear, WavLM and MHA sublayer calls by route {dict(out)}", flush=True)
     return dict(out)
+
+
+def short_requests(rng, n: int):
+    """``n`` int16 PCM clips of 1.0-1.25 s (the 1.25 s bucket) with texts of
+    2-3 words (its 8-token text bucket)."""
+    words = np.array("happy sad angry neutral really very today fine so not".split())
+    return [((rng.standard_normal(int(rng.uniform(1.0, 1.25) * 16000)) * 3000).astype(np.int16),
+             " ".join(rng.choice(words, int(rng.integers(2, 4)))), f"s{i}") for i in range(n)]
+
+
+def served_batch(wavlm, bert, fusion, kw, sec, clips):
+    """Phase 4e at one bucket: its served batch in one eager forward of the
+    int8 tree. Holds the launches (``PER_FORWARD``), every FFN pair, WavLM
+    sublayer, ``int8_linear`` and MHA call on its picked route, WavLM's 12
+    FFNs and 12 sublayers and the feature projection fused, the 20 MHA
+    sublayers fused with their callers' LayerNorms (one out-projection with
+    the LayerNorm and one or two projections each), the ungated cores on the
+    score panel (``PANEL_PER_FORWARD``), and kernel vs plain within the
+    gate. Returns the phase's record and its launches."""
+    pipe = StreamingPipeline(wavlm, bert, fusion, **kw)
+    plain = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **kw)
+    if {pipe._bucket_for([c[0]], 16000) for c in clips} != {sec}:
+        raise AssertionError(f"served batch: not all clips in the {sec:g} s bucket")
+    what = f"int8 at the {sec:g} s served batch"
+    serve(pipe, clips, len(clips))
+    reset_launches()
+    counters = (_cuda.ffn_gemm1, _cuda.proj_gemm, _cuda.proj_gemm_ln)
+    before = [c.launches for c in counters]
+    got, secs = serve(pipe, clips, len(clips))
+    launches = read_launches()
+    gemm1, proj, proj_ln = (c.launches - n for c, n in zip(counters, before))
+    print(f"{what}: {len(got)} requests in one forward, {secs:.3f} s; launches {launches}; "
+          f"fused first GEMM {gemm1} launches, projections {proj}, out-projections with the "
+          f"LayerNorm {proj_ln}", flush=True)
+    check_launches(what, launches, dict(PER_FORWARD, **{PANEL: PANEL_PER_FORWARD[sec]}))
+    routes = check_pair_routes(what)
+    if routes.get("ffn_block_int8 fused", 0) < 12 or gemm1 < 12:
+        raise AssertionError(f"{what}: WavLM's FFNs left the fused route ({routes}, {gemm1} "
+                             "fused first GEMMs)")
+    # WavLM's 12 sublayers and its feature projection take the fused routes
+    # (3 launches and 1 a call); the 20 MHA sublayers with their callers'
+    # LayerNorms too (3 launches self, 4 cross): each fused call one
+    # out-projection with the LayerNorm and one projection (two cross)
+    proj_s = check_proj_routes(what)
+    attn_f, lin_f, mha_f = (proj_s.get(f"{n} fused", 0)
+                            for n in ("attention_block_int8", "int8_linear", "mha_block_int8"))
+    mha_proj = sum(c * (2 if cross else 1) for (r, *_, norm, cross), c
+                   in AB.mha_block_int8.shapes.items() if r == "fused" and norm)
+    if attn_f != PER_FORWARD["attention_block_int8"] or lin_f < 1 \
+            or mha_f != PER_FORWARD["mha_block_int8"] or proj_ln != attn_f + mha_f \
+            or proj != attn_f + lin_f + mha_proj:
+        raise AssertionError(f"{what}: the sublayer, MHA and int8_linear routes {proj_s}, "
+                             f"{proj} projections and {proj_ln} with the LayerNorm")
+    routes.update(proj_s)
+    check_probs(what, got, clips)
+    ref, plain_secs = serve(plain, clips, len(clips))
+    delta = prob_delta(got, ref, clips)
+    print(f"{what}, kernel vs plain: max prob delta {delta:.3g} (gate {PROB_GATE}); plain "
+          f"served in {plain_secs:.3f} s", flush=True)
+    if not delta <= PROB_GATE:
+        raise AssertionError(f"{what}: prob delta {delta} > {PROB_GATE}")
+    return dict(launches=launches, routes=routes, serve_s=secs, plain_serve_s=plain_secs,
+                prob_delta=delta), launches
 
 
 def check_launches(what, got, want):
@@ -2809,10 +3096,11 @@ def int8_report(smi: str):
 # trees with one Linear of a fused block kept in full precision: the block
 # runs per op, so its kernel launches once fewer a forward and its int8
 # Linears that stay int8 go through int8_linear (the WavLM attention's core
-# through the fused float core at 499 frames); every other block as before
+# through the fused float core at 499 frames; the BERT MHA's core off the
+# ungated score panel); every other block as before
 SPLIT_BLOCKS = {
     "feed_forward/output_dense": {"ffn_block_int8": -1, "int8_linear": 1},
-    "attention/self/key": {"mha_block_int8": -1, "int8_linear": 3},
+    "attention/self/key": {"mha_block_int8": -1, "int8_linear": 3, PANEL: -1},
     "attention/k_proj": {"attention_block_int8": -1, "int8_linear": 3,
                          "wavlm_fused_attention": 1},
 }
@@ -3106,7 +3394,8 @@ def mesh_serving(mesh, clips):
     W8A8 and the bf16 trees at full width through the kernels, then every
     request's probabilities and beta gathered over the data group
     (``mesh.gather_rows``). Returns ``{tree: (probabilities by uid of every
-    request, this rank's launches, seconds)}``."""
+    request, this rank's launches, seconds, the ungated panel launches its
+    MHA calls should have made)}``."""
     from hriemo_torch.parallel import mesh as PM
 
     wavlm, bert, fusion = serving_models(torch.Generator().manual_seed(SEED + 3))
@@ -3119,7 +3408,7 @@ def mesh_serving(mesh, clips):
         reset_launches()
         t = time.perf_counter()
         got, _ = serve(pipe, mine)
-        launches = read_launches()
+        launches, panels = read_launches(), mha_panels()
         probs, beta = (torch.from_numpy(np.stack([got[c[2]][i] for c in mine])).cuda()
                        for i in (0, 1))
         probs, beta = PM.gather_rows([probs, beta], mesh)
@@ -3127,7 +3416,7 @@ def mesh_serving(mesh, clips):
             raise AssertionError(f"mesh serving {tree}: gathered {tuple(probs.shape)} "
                                  f"probabilities for {len(clips)} requests")
         out[tree] = ({c[2]: p for c, p in zip(clips, probs.cpu().numpy())}, launches,
-                     time.perf_counter() - t)
+                     time.perf_counter() - t, panels)
         del pipe
     return out
 
@@ -3194,7 +3483,7 @@ def mesh_rank(dev, clips):
     rec["steps_s"] = time.perf_counter() - t
     t = time.perf_counter()
     served = mesh_serving(meshes["dp"], clips)
-    for _, ll, _ in served.values():
+    for _, ll, _, _ in served.values():
         for name, n in ll.items():
             total[name] += n
     rec["serving"] = served
@@ -3258,13 +3547,14 @@ def mesh_phase(smi, root: pathlib.Path, clips, int8_ref, bf16_ref):
     for tree, ref in (("int8", int8_ref), ("bf16", bf16_ref)):
         delta = 0.0
         for rank, (rr, _) in enumerate(ranks):  # each rank holds every request
-            probs, ll, secs = rr["serving"][tree]
+            probs, ll, secs, panels = rr["serving"][tree]
             if sorted(probs) != sorted(ref):
                 raise AssertionError(f"mesh serving {tree} rank {rank}: requests "
                                      f"{sorted(probs)}, phase 4 served {sorted(ref)}")
             delta = max(delta, max(float(np.abs(p - ref[u][0]).max()) for u, p in probs.items()))
             want = ({n: 2 * k for n, k in PER_FORWARD.items()} if tree == "int8"
                     else {n: k for per in PER_FORWARD_BF16.values() for n, k in per.items()})
+            want[PANEL] = panels
             check_launches(f"mesh serving {tree} rank {rank}", ll, want)
         if not delta <= DP_SERVE_TOL:
             raise AssertionError(f"mesh serving {tree}: max |p - single-process p| {delta} > "
@@ -3417,7 +3707,8 @@ def main() -> int:
     forwards = len(clips) // B
     print(f"int8: served {len(got)} requests in {forwards} forwards, {secs:.3f} s; "
           f"launches {launches}", flush=True)
-    check_launches("int8 serving", launches, {n: k * forwards for n, k in PER_FORWARD.items()})
+    check_launches("int8 serving", launches, {**{n: k * forwards for n, k in PER_FORWARD.items()},
+                                              PANEL: mha_panels()})
     check_pair_routes("int8 serving")
     check_proj_routes("int8 serving")
     core = AB.attention_core_int8.launches
@@ -3462,7 +3753,7 @@ def main() -> int:
     print(f"int8 at fp32: served {len(got32)} requests in {secs32:.3f} s; launches {launches32}",
           flush=True)
     check_launches("int8 at fp32 serving", launches32,
-                   {n: k * forwards for n, k in PER_FORWARD.items()})
+                   {**{n: k * forwards for n, k in PER_FORWARD.items()}, PANEL: mha_panels()})
     check_pair_routes("int8 at fp32 serving")
     check_proj_routes("int8 at fp32 serving")
     check_probs("int8 at fp32 serving", got32, clips)
@@ -3567,7 +3858,8 @@ def main() -> int:
           f"{launches4}", flush=True)
     check_launches("int8 serving, fusion in 4 heads", launches4,
                    {**{n: k * forwards for n, k in PER_FORWARD.items()},
-                    "attention_core_int8 (wide tiles)": FUSION_MHA_PER_FORWARD * forwards})
+                    "attention_core_int8 (wide tiles)": FUSION_MHA_PER_FORWARD * forwards,
+                    PANEL: mha_panels()})
     check_pair_routes("int8 serving, fusion in 4 heads")
     check_proj_routes("int8 serving, fusion in 4 heads")
     check_probs("int8 serving, fusion in 4 heads", got4, clips)
@@ -3583,52 +3875,20 @@ def main() -> int:
         total[name] += n
     del pipe4, plain4, fusion4
     torch.cuda.empty_cache()
-    # phase 4e: the int8 tree at the 10 s bucket's served batch, where
-    # WavLM's FFNs and the fusion FFNs over the audio frames take the fused
-    # route that phase 4's batch of 4 leaves to the chain
-    served_b = MEASURED_BUCKET_BATCH[10.0]
-    clips10 = requests(np.random.default_rng(SEED + 17), 2 * served_b)[1::2]  # the 10 s ones
-    pipe_s = StreamingPipeline(wavlm, bert, fusion, **kw)
-    plain_s = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **kw)
-    serve(pipe_s, clips10, served_b)
-    reset_launches()
-    counters = (_cuda.ffn_gemm1, _cuda.proj_gemm, _cuda.proj_gemm_ln)
-    before = [c.launches for c in counters]
-    got_s, secs_s = serve(pipe_s, clips10, served_b)
-    launches_s = read_launches()
-    gemm1, proj, proj_ln = (c.launches - n for c, n in zip(counters, before))
-    print(f"int8 at the served batch: {len(got_s)} requests of 10 s in one forward, "
-          f"{secs_s:.3f} s; launches {launches_s}; fused first GEMM {gemm1} launches, "
-          f"projections {proj}, out-projections with the LayerNorm {proj_ln}", flush=True)
-    check_launches("int8 at the served batch", launches_s, PER_FORWARD)
-    routes_s = check_pair_routes("int8 at the served batch")
-    if routes_s.get("ffn_block_int8 fused", 0) < 12 or gemm1 < 12:
-        raise AssertionError(f"int8 at the served batch: WavLM's FFNs left the fused route "
-                             f"({routes_s}, {gemm1} fused first GEMMs)")
-    # WavLM's 12 sublayers over 32 x 499 rows and its feature projection take
-    # the fused routes, 3 launches and 1 a call: one q/k/v projection and one
-    # out-projection with the LayerNorm a sublayer, one projection a fused
-    # int8_linear
-    proj_s = check_proj_routes("int8 at the served batch")
-    attn_f, lin_f = (proj_s.get(f"{n} fused", 0) for n in ("attention_block_int8", "int8_linear"))
-    if attn_f != PER_FORWARD["attention_block_int8"] or lin_f < 1 or proj_ln != attn_f \
-            or proj != attn_f + lin_f:
-        raise AssertionError(f"int8 at the served batch: the sublayer and int8_linear routes "
-                             f"{proj_s}, {proj} projections and {proj_ln} with the LayerNorm")
-    routes_s.update(proj_s)
-    check_probs("int8 at the served batch", got_s, clips10)
-    ref_s, plain_s_secs = serve(plain_s, clips10, served_b)
-    delta_s = prob_delta(got_s, ref_s, clips10)
-    print(f"int8 at the served batch, kernel vs plain: max prob delta {delta_s:.3g} (gate "
-          f"{PROB_GATE}); plain served in {plain_s_secs:.3f} s", flush=True)
-    if not delta_s <= PROB_GATE:
-        raise AssertionError(f"int8 at the served batch: prob delta {delta_s} > {PROB_GATE}")
-    phases["int8_served_batch"] = dict(launches=launches_s, routes=routes_s, serve_s=secs_s,
-                                       plain_serve_s=plain_s_secs, prob_delta=delta_s)
-    for name, n in launches_s.items():
-        total[name] += n
-    del pipe_s, plain_s
-    torch.cuda.empty_cache()
+    # phase 4e: the int8 tree at the 10 s and 1.25 s buckets' served
+    # batches, where WavLM's FFNs and the fusion FFNs over the audio frames
+    # take the fused route that phase 4's batch of 4 leaves to the chain,
+    # and (1.25 s) every MHA core its score panel
+    for sec, clips_s, bucket_s in (
+            (10.0, requests(np.random.default_rng(SEED + 17),
+                            2 * MEASURED_BUCKET_BATCH[10.0])[1::2], (2.5,)),
+            (1.25, short_requests(np.random.default_rng(SEED + 21),
+                                  MEASURED_BUCKET_BATCH[1.25]), (1.25,))):
+        phases[f"int8_served_batch_{sec:g}s"], ll = served_batch(
+            wavlm, bert, fusion, dict(kw, bucket_seconds=bucket_s), sec, clips_s)
+        for name, n in ll.items():
+            total[name] += n
+        torch.cuda.empty_cache()
 
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:

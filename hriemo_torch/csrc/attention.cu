@@ -23,18 +23,22 @@
 // and MUFU work of the exact-p/l contract (two sweeps, accurate expf, a
 // rounded division per score), as in the float route.
 //
-// The gated core at 64 and 96 can also run as onepass_panel_kernel below
-// (key rows up to kPanelMaxKeys, 512), the counterpart of the TPU kernel's
-// one pass over a held row of scores; the sublayer's fused route (three
-// launches: csrc/proj_int8.cu's q/k/v projection, this core, the
-// out-projection with the LayerNorm) takes it up to 128 keys, where it wins
-// (ops/attention_block.py PANEL_MAX_KEYS). Its first sweep computes
+// The core at 64 and 96, gated or not, can also run as onepass_panel_kernel
+// below (key rows up to kPanelMaxKeys, 512), the counterpart of the TPU
+// kernels' one pass over a held row of scores. The sublayers' fused routes
+// take it up to the key lengths where it wins (ops/attention_block.py
+// PANEL_MAX_KEYS, 128 gated, 320 ungated): the gated core in the WavLM sublayer (three launches:
+// csrc/proj_int8.cu's q/k/v projection, this core, the out-projection with
+// the LayerNorm) and the ungated one in the MHA sublayer (BERT's 12 x 64 and
+// the fusion stack's 8 x 96: text rows of 8-64 tokens, audio rows of
+// 62-312 frames). Its first sweep computes
 // each score once, QK^T on mma.sync and the scale, gate * pos and key bias
-// in the TPU kernels' order, into a panel in shared memory, with the rows'
-// maxima; then one expf a score, e = exp(s - max) written back and summed
-// into l; then PV over the V tiles with p = e / l rounded as in the two
-// sweeps (the reciprocal and two remainder corrections, then to bf16). So
-// QK^T and the pos tile are computed and read once, where the two-sweep
+// in the TPU kernels' order (no gate: the scale and the key bias, as the
+// two-sweep kernel's ungated form), into a panel in shared memory, with the
+// rows' maxima; then one expf a score, e = exp(s - max) written back and
+// summed into l; then PV over the V tiles with p = e / l rounded as in the
+// two sweeps (the reciprocal and two remainder corrections, then to bf16).
+// So QK^T and the pos tile are computed and read once, where the two-sweep
 // kernel (longer rows, and route="chain") computes them twice and the exp
 // twice. l is the sum over the final maximum, as the plain version's and
 // the TPU kernel's are; it differs from the plain one in fp32 order only.
@@ -43,12 +47,14 @@
 // rows of 512 keys are 128 KB, so a block of 4 warps holds an SM alone at
 // the longest rows (a block of 2 warps, 32 rows, halved the panel and was
 // no faster at any length, PERF.md section 6: taken out). The ring holds
-// K, the key biases and the pos tile in the first sweep and V in PV. What
-// bounds it (NVIDIA H100 80GB HBM3 at 700 W, chip_proj_routes.py): the
-// per-score FMA and MUFU work, as the two sweeps, and past two key tiles
-// the latency that too few warps an SM leave unhidden: 4 warps a block
-// take 0.207 ms at B=384 L=62 (the two sweeps 0.266, SDPA 0.125) but 0.760
-// at B=32 L=499 (0.512), where one block fits an SM.
+// K, the key biases and (gated) the pos tile in the first sweep and V in
+// PV; ungated it is 27 KB at HD 96, so up to five key tiles (320 keys, a
+// 109 KB block) two blocks share an SM. What bounds it (NVIDIA H100 80GB
+// HBM3 at 700 W, chip_proj_routes.py): the per-score FMA and MUFU work, as
+// the two sweeps, and the latency that too few warps an SM leave unhidden:
+// 4 warps a block take 0.207 ms gated at B=384 L=62 (the two sweeps 0.266,
+// SDPA 0.125) but 0.760 at B=32 L=499 (0.512), where one block fits an SM;
+// ungated 0.1794 at B=64 L=312 (0.2057) but 0.3648 at L=343 (0.2806).
 //
 // The gated core at other head dims (hd % 8 == 0, hd <= 256), which no
 // WavLM has: attn_core_kernel on CUDA cores. It stays because the gate-from-x
@@ -177,21 +183,22 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
 constexpr int kPanelMaxKeys = 512;  // the panel kernel's longest key row
 
 // Bytes of one ring stage of onepass_panel_kernel: the K tile, the key
-// biases and the realigned pos tile (V reuses the stage).
-__host__ __device__ constexpr int panel_stage_bytes(int hd) {
-  return kOneBK * (hd + 8) * 2 + kOneBK * 4 + kTcRows * kPosLd * 2;
+// biases and, gated, the realigned pos tile (V reuses the stage).
+__host__ __device__ constexpr int panel_stage_bytes(int hd, bool gated) {
+  return kOneBK * (hd + 8) * 2 + kOneBK * 4 + (gated ? kTcRows * kPosLd * 2 : 0);
 }
-__host__ __device__ constexpr int panel_smem_bytes(int hd, int lk) {
-  return 2 * panel_stage_bytes(hd) + (lk + kOneBK - 1) / kOneBK * kOneBK * kTcRows * 4;
+__host__ __device__ constexpr int panel_smem_bytes(int hd, int lk, bool gated) {
+  return 2 * panel_stage_bytes(hd, gated) +
+         (lk + kOneBK - 1) / kOneBK * kOneBK * kTcRows * 4;
 }
 
-// The gated core (gate from x) on a score panel, 4 warps of 16 query rows:
-// Lk <= kPanelMaxKeys.
-template <int HD, int KEYS>
+// The core on a score panel, 4 warps of 16 query rows: Lk <= kPanelMaxKeys.
+// GATED: WavLM's gate from x times pos added to each score.
+template <int HD, int KEYS, bool GATED>
 __global__ void __launch_bounds__(kTcThreads) onepass_panel_kernel(const OnepassArgs a) {
   using T = __nv_bfloat16;
   constexpr int NT = kOneBK / 8, ROWS = kTcRows, THREADS = kTcThreads;
-  constexpr int kStage = panel_stage_bytes(HD);
+  constexpr int kStage = panel_stage_bytes(HD, GATED);
   static_assert(kStage % 16 == 0, "the panel starts on 16 bytes");
   extern __shared__ __align__(16) unsigned char ring[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -225,14 +232,16 @@ __global__ void __launch_bounds__(kTcThreads) onepass_panel_kernel(const Onepass
     }
     load_rows<HD, kOneBK, false, THREADS>(Ks(st), kh, a.k_sl, j0, Lk, HD, tid);
     if (KEYS == kKeysBias) load_bias<kOneBK, THREADS>(Bs(st), a.kbias + krow0, j0, Lk, tid);
-    // row r from the 16-byte boundary at or below its key j0
-    constexpr int kChunks = kPosLd / 8;
-    for (int idx = tid; idx < ROWS * kChunks; idx += THREADS) {
-      const int r = idx / kChunks, c = idx - r * kChunks;
-      const size_t ad = ((pos_i0 + (size_t)r * Lk + j0) & ~(size_t)7) + 8 * c;
-      const size_t left = r < nq && ad < pos_len ? 2 * (pos_len - ad) : 0;  // bytes
-      const int bytes = left < 16 ? (int)left : 16;
-      cp_async16(Ps(st) + r * kPosLd + 8 * c, a.pos + (bytes ? ad : 0), bytes);
+    if (GATED) {
+      // row r from the 16-byte boundary at or below its key j0
+      constexpr int kChunks = kPosLd / 8;
+      for (int idx = tid; idx < ROWS * kChunks; idx += THREADS) {
+        const int r = idx / kChunks, c = idx - r * kChunks;
+        const size_t ad = ((pos_i0 + (size_t)r * Lk + j0) & ~(size_t)7) + 8 * c;
+        const size_t left = r < nq && ad < pos_len ? 2 * (pos_len - ad) : 0;  // bytes
+        const int bytes = left < 16 ? (int)left : 16;
+        cp_async16(Ps(st) + r * kPosLd + 8 * c, a.pos + (bytes ? ad : 0), bytes);
+      }
     }
     cp_async_commit();
     if (KEYS == kKeysPad) {
@@ -250,20 +259,22 @@ __global__ void __launch_bounds__(kTcThreads) onepass_panel_kernel(const Onepass
   // this lane's rows g and g + 8: gate, and the column of key 0 in its
   // realigned pos row
   float gt[2] = {0.f, 0.f};
-  int psh[2];
+  int psh[2] = {0, 0};
+  if (GATED) {
 #pragma unroll 1
-  for (int r = 0; r < 16 && row0 + r < Lq; ++r) {  // warp-uniform
-    const size_t xo = ((size_t)b * Lq + row0 + r) * a.x_ld + h * HD;
-    const float gr = a.x_f32 ? wavlm_gate(static_cast<const float*>(a.x) + xo, a.wg, a.bg,
-                                          a.gconst[h], HD, lane)
-                             : wavlm_gate(static_cast<const __nv_bfloat16*>(a.x) + xo, a.wg,
-                                          a.bg, a.gconst[h], HD, lane);
-    if (r == g) gt[0] = gr;
-    if (r == g + 8) gt[1] = gr;
-  }
+    for (int r = 0; r < 16 && row0 + r < Lq; ++r) {  // warp-uniform
+      const size_t xo = ((size_t)b * Lq + row0 + r) * a.x_ld + h * HD;
+      const float gr = a.x_f32 ? wavlm_gate(static_cast<const float*>(a.x) + xo, a.wg, a.bg,
+                                            a.gconst[h], HD, lane)
+                               : wavlm_gate(static_cast<const __nv_bfloat16*>(a.x) + xo, a.wg,
+                                            a.bg, a.gconst[h], HD, lane);
+      if (r == g) gt[0] = gr;
+      if (r == g + 8) gt[1] = gr;
+    }
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr)
-    psh[rr] = (int)((pos_i0 + (size_t)(warp * 16 + g + 8 * rr) * Lk) & 7);
+    for (int rr = 0; rr < 2; ++rr)
+      psh[rr] = (int)((pos_i0 + (size_t)(warp * 16 + g + 8 * rr) * Lk) & 7);
+  }
   float m[2] = {neg_inf(), neg_inf()}, l[2], rl[2];  // rl = 1 / l
   float o[HD / 8][4];
 #pragma unroll
@@ -287,7 +298,8 @@ __global__ void __launch_bounds__(kTcThreads) onepass_panel_kernel(const Onepass
         for (int e = 0; e < 4; ++e) {
           const int rr = e >> 1;
           float x = __fmul_rn(s[n][e], a.scale);
-          x = __fadd_rn(x, __fmul_rn(gt[rr], load_f(ps + rr * 8 * kPosLd + psh[rr] + c + (e & 1))));
+          if (GATED)
+            x = __fadd_rn(x, __fmul_rn(gt[rr], load_f(ps + rr * 8 * kPosLd + psh[rr] + c + (e & 1))));
           s[n][e] = __fadd_rn(x, (e & 1) ? kb2.y : kb2.x);
         }
       }
@@ -338,27 +350,28 @@ __global__ void __launch_bounds__(kTcThreads) onepass_panel_kernel(const Onepass
 
 namespace {  // per-library opt-in flags (see csrc/onepass_mma.cuh)
 
-template <int HD, int KEYS>
+template <int HD, int KEYS, bool GATED>
 void launch_panel(const OnepassArgs& a, int B, cudaStream_t s) {
-  const auto kernel = onepass_panel_kernel<HD, KEYS>;
+  const auto kernel = onepass_panel_kernel<HD, KEYS, GATED>;
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         panel_smem_bytes(HD, kPanelMaxKeys));
+                         panel_smem_bytes(HD, kPanelMaxKeys, GATED));
     attr_set = true;
   }
   note_launch(kOnepassPanelKernel, HD);
   kernel<<<dim3(B, (a.Lq + kTcRows - 1) / kTcRows, a.H), kTcThreads,
-           panel_smem_bytes(HD, a.Lk), s>>>(a);
+           panel_smem_bytes(HD, a.Lk, GATED), s>>>(a);
 }
 
-// The panel kernel at head dim hd (64 or 96) and the key-mask kind chosen
-// at run time.
+// The panel kernel at head dim hd (64 or 96), gated or not, and the
+// key-mask kind chosen at run time.
+template <bool GATED>
 void launch_panel_keys(const OnepassArgs& a, int B, int hd, int keys, cudaStream_t s) {
-  if (hd == 64 && keys == kKeysBias) launch_panel<64, kKeysBias>(a, B, s);
-  else if (hd == 64) launch_panel<64, kKeysPad>(a, B, s);
-  else if (keys == kKeysBias) launch_panel<96, kKeysBias>(a, B, s);
-  else launch_panel<96, kKeysPad>(a, B, s);
+  if (hd == 64 && keys == kKeysBias) launch_panel<64, kKeysBias, GATED>(a, B, s);
+  else if (hd == 64) launch_panel<64, kKeysPad, GATED>(a, B, s);
+  else if (keys == kKeysBias) launch_panel<96, kKeysBias, GATED>(a, B, s);
+  else launch_panel<96, kKeysPad, GATED>(a, B, s);
 }
 
 }  // namespace
@@ -376,10 +389,11 @@ extern "C" {
 // bf16 by the gate; wg [8, hd] fp32, bg [8] fp32, gconst [H] fp32, pos [H,
 // Lq, Lk] bf16. ctx: [B*Lq, ctx_ld] bf16, head h at column h*hd. Needs
 // hd % 8 == 0 and hd <= 256; gated at head dims other than 64 and 96, Lk <=
-// 1024 (the CUDA-core kernel's score panel). panel (non-zero): the gated
-// core at 64 and 96 on onepass_panel_kernel (Lk <= kPanelMaxKeys), else on
-// the two sweeps of onepass_mma_kernel; the ungated core and the CUDA-core
-// kernel ignore it.
+// 1024 (the CUDA-core kernel's score panel). panel (non-zero): the core at
+// 64 and 96, gated or not, on onepass_panel_kernel (Lk <= kPanelMaxKeys),
+// else on the two sweeps of onepass_mma_kernel (the wide tiles ungated
+// above 128); the gated CUDA-core kernel ignores it, and the ungated core
+// at another head dim refuses it.
 int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const void* v,
                       int v_ld, int B, int Lq, int Lk, int H, int hd, const void* kbias,
                       const void* kpm, const void* x, int x_ld, int x_f32, const void* wg,
@@ -401,9 +415,10 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
     a.pos = static_cast<const bf*>(pos), a.out = static_cast<bf*>(ctx);
     a.o_sb = Lq * ctx_ld, a.o_sh = hd, a.o_sl = ctx_ld;
     const int keys = kbias != nullptr ? kKeysBias : kKeysPad;
-    if (pos != nullptr && panel) {
-      if (Lk > kPanelMaxKeys) return (int)cudaErrorInvalidValue;
-      launch_panel_keys(a, B, hd, keys, s);
+    if (panel) {
+      if (Lk > kPanelMaxKeys || (hd != 64 && hd != 96)) return (int)cudaErrorInvalidValue;
+      if (pos != nullptr) launch_panel_keys<true>(a, B, hd, keys, s);
+      else launch_panel_keys<false>(a, B, hd, keys, s);
     } else if (pos != nullptr)
       launch_onepass_mma_keys<kGateFromX>(a, B, hd, keys, s);
     else if (keys == kKeysBias)

@@ -1,12 +1,17 @@
 // W8A8 projections that quantize their own rows (hriemo_torch/ops/quant.py
-// int8_linear; the q/k/v projection and the out-projection of
-// hriemo_torch/ops/attention_block.py attention_block_int8):
+// int8_linear; the projections of the two int8 attention sublayers of
+// hriemo_torch/ops/attention_block.py, attention_block_int8 and
+// mha_block_int8):
 //
 //   store:      out = epilogue<EPI>(W . quant_rows(x))            (x's rows
 //               quantized by the kernels' _quant_rows, or DIV127 by
 //               quantize_rowwise's max(amax, 1e-8) / 127)
 //   LayerNorm:  out = LN((W . quant_rows(ctx)) * cs * ws + b + x)  (x: the
-//               residual, out in x's dtype)
+//               residual, out in x's dtype; WavLM's sublayer)
+//   rounded:    out = LN(rnd(rnd((W . quant_rows(ctx)) * cs * ws + b) + x))
+//               (rnd: to x's dtype; the MHA sublayer's caller adds its
+//               residual to the stored output in x's dtype, then takes its
+//               post-norm LayerNorm, as BERT and the fusion layers do)
 //
 // in one launch each, over the torch-layout int8 W [N, K]. They replace the
 // chain of a row-quantize launch (csrc/quant_gemm.cu hr_rowquant), the
@@ -29,7 +34,9 @@
 //   the outputs are the chain's bits; the block's 64 rows are staged in the
 //   freed shared memory and stored as 16-byte vectors;
 // - the LayerNorm epilogue forms y = ((acc * cs) * ws + b) + x as
-//   kEpiResidLast does, then the rows' sums: over each thread's columns in
+//   kEpiResidLast does (rounded form: the store epilogue's value rounded to
+//   x's dtype, plus x, rounded again: the chain's stored output and the
+//   caller's add, bit for bit), then the rows' sums: over each thread's columns in
 //   order, its quad, the block's warpgroups in order, and the cluster's
 //   blocks in rank order over distributed shared memory; the mean as
 //   hr_layernorm takes it (an IEEE quotient), then the centred squares the
@@ -69,8 +76,9 @@ __device__ __forceinline__ float quad_total(float v) {
 }
 
 // A: [M, K] of T; W: [N, K] int8; ws, bias (or NULL) [N] fp32; a cluster of
-// gridDim.x blocks spans N. LN: resid [M, N] of OT, ln_g, ln_b [N] fp32.
-// out [M, N] of OT. K % 16 == 0, N % BN == 0.
+// gridDim.x blocks spans N. LN: resid [M, N] of OT, ln_g, ln_b [N] fp32;
+// EPI kEpiResidLast adds resid in fp32, a store epilogue (kEpiBf16,
+// kEpiF32) is the rounded form. out [M, N] of OT. K % 16 == 0, N % BN == 0.
 template <int BNW, int WGN, int STAGES, int WK, int MINB, int EPI, bool DIV127, bool LN,
           typename T, typename OT>
 __global__ void __launch_bounds__(128 * WGN, MINB)
@@ -112,10 +120,16 @@ proj_gemm_kernel(const T* __restrict__ A, const int8_t* __restrict__ W,
     float x0 = 0.f, x1 = 0.f, x2 = 0.f, x3 = 0.f;  // the residual (LN)
     if (LN && in_lo) load2(resid + (size_t)(m0 + r_lo) * N + n, x0, x1);
     if (LN && in_hi) load2(resid + (size_t)(m0 + r_hi) * N + n, x2, x3);
-    const float v0 = epilogue<EPI>(acc[4 * j], xs_lo, w2.x, b2.x, x0);
-    const float v1 = epilogue<EPI>(acc[4 * j + 1], xs_lo, w2.y, b2.y, x1);
-    const float v2 = epilogue<EPI>(acc[4 * j + 2], xs_hi, w2.x, b2.x, x2);
-    const float v3 = epilogue<EPI>(acc[4 * j + 3], xs_hi, w2.y, b2.y, x3);
+    float v0 = epilogue<EPI>(acc[4 * j], xs_lo, w2.x, b2.x, x0);
+    float v1 = epilogue<EPI>(acc[4 * j + 1], xs_lo, w2.y, b2.y, x1);
+    float v2 = epilogue<EPI>(acc[4 * j + 2], xs_hi, w2.x, b2.x, x2);
+    float v3 = epilogue<EPI>(acc[4 * j + 3], xs_hi, w2.y, b2.y, x3);
+    if (LN && EPI != kEpiResidLast) {  // the rounded form
+      v0 = round_as<OT>(__fadd_rn(round_as<OT>(v0), x0));
+      v1 = round_as<OT>(__fadd_rn(round_as<OT>(v1), x1));
+      v2 = round_as<OT>(__fadd_rn(round_as<OT>(v2), x2));
+      v3 = round_as<OT>(__fadd_rn(round_as<OT>(v3), x3));
+    }
     if (LN) {
       s_lo = __fadd_rn(__fadd_rn(s_lo, v0), v1);
       s_hi = __fadd_rn(__fadd_rn(s_hi, v2), v3);
@@ -227,7 +241,7 @@ namespace {  // per-library opt-in flags (see csrc/onepass_mma.cuh)
 
 template <int BNW, int WGN, int STAGES, int WK, int MINB, int EPI, bool DIV127, bool LN,
           typename T, typename OT>
-cudaError_t proj_launch(const ProjArgs& g) {
+cudaError_t proj_launch(const ProjArgs& g, int* clusters) {
   using C = FfnTile<BNW, WGN, STAGES, WK, MINB>;
   const auto kernel = proj_gemm_kernel<BNW, WGN, STAGES, WK, MINB, EPI, DIV127, LN, T, OT>;
   const int ktiles = (g.K + kGemmBK - 1) / kGemmBK;
@@ -254,6 +268,7 @@ cudaError_t proj_launch(const ProjArgs& g) {
   cfg.stream = g.stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  if (clusters) return cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel, &cfg);
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(g.a), g.w, g.ws, g.bias,
                             static_cast<const OT*>(g.resid), g.ln_g, g.ln_b, g.eps, g.M, g.N,
                             g.K, static_cast<OT*>(g.out));
@@ -263,10 +278,10 @@ cudaError_t proj_launch(const ProjArgs& g) {
 // FFN_CONFIGS): 0 six warpgroups of 64 columns, one block an SM; 1 two of
 // 128 on 64-byte W tiles, two blocks an SM up to K = 896.
 template <int EPI, bool DIV127, bool LN, typename T, typename OT>
-cudaError_t proj_config(const ProjArgs& g, int config) {
+cudaError_t proj_config(const ProjArgs& g, int config, int* clusters = nullptr) {
   switch (config) {
-    case 0: return proj_launch<64, 6, 3, 128, 1, EPI, DIV127, LN, T, OT>(g);
-    case 1: return proj_launch<128, 2, 3, 64, 2, EPI, DIV127, LN, T, OT>(g);
+    case 0: return proj_launch<64, 6, 3, 128, 1, EPI, DIV127, LN, T, OT>(g, clusters);
+    case 1: return proj_launch<128, 2, 3, 64, 2, EPI, DIV127, LN, T, OT>(g, clusters);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -282,9 +297,11 @@ extern "C" {
 // x [M, K] fp32 (x_f32 = 1) or bf16; w [N, K] int8; ws [N], b [N] (or NULL)
 // fp32; out [M, N]: epilogue<epi>(w . quant_rows(x)), bit-equal to
 // hr_rowquant(x, div127) and hr_int8_gemm(epi) of its codes. The forms on
-// the path: epi kEpiBf16 (bf16 out) at div127 0 (q/k/v) over bf16 or fp32
-// x, and at div127 1 (int8_linear) over bf16 x; epi kEpiF32 (fp32 out) at
-// div127 1 over fp32 x (int8_linear). config 0 or 1 as hr_ffn_gemm1's: N
+// the path: epi kEpiBf16 (bf16 out) at div127 0 (q/k/v; the MHA's
+// out-projection over bf16 ctx) over bf16 or fp32 x, and at div127 1
+// (int8_linear) over bf16 x; epi kEpiF32 (fp32 out) at div127 1 over fp32 x
+// (int8_linear) and at div127 0 over bf16 x (the MHA's out-projection on an
+// fp32 tree). config 0 or 1 as hr_ffn_gemm1's: N
 // a multiple of its columns, in a cluster of at most 16 blocks, K % 16 ==
 // 0, every pointer 16-byte aligned (the wrapper checks).
 int hr_proj_gemm(const void* x, int x_f32, int M, int K, const void* w, const void* ws,
@@ -304,6 +321,8 @@ int hr_proj_gemm(const void* x, int x_f32, int M, int K, const void* w, const vo
     err = proj_config<kEpiBf16, true, false, bf, bf>(g, config);
   else if (epi == kEpiF32 && div127 && x_f32)
     err = proj_config<kEpiF32, true, false, float, float>(g, config);
+  else if (epi == kEpiF32 && !div127 && !x_f32)
+    err = proj_config<kEpiF32, false, false, bf, float>(g, config);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -312,10 +331,13 @@ int hr_proj_gemm(const void* x, int x_f32, int M, int K, const void* w, const vo
 // in resid's dtype: LayerNorm(((w . quant_rows(a)) * cs * ws + b) + resid)
 // with fp32 statistics. Its y is hr_int8_gemm's kEpiResidLast of
 // hr_rowquant's codes bit for bit; the LayerNorm is hr_layernorm's formula
-// with its two sums in another order. config as hr_proj_gemm's.
+// with its two sums in another order. rounded (non-zero): y = rnd(rnd(w .
+// quant_rows(a) * cs * ws + b) + resid), rnd to resid's dtype: hr_int8_gemm's
+// store epilogue in resid's dtype plus resid in that dtype, bit for bit.
+// config as hr_proj_gemm's.
 int hr_proj_gemm_ln(const void* a, int M, int K, const void* w, const void* ws, const void* b,
                     int N, const void* resid, int resid_f32, const void* g, const void* beta,
-                    float eps, int config, void* out, void* stream) {
+                    float eps, int rounded, int config, void* out, void* stream) {
   if (M <= 0) return (int)cudaGetLastError();
   if (K % 16) return (int)cudaErrorInvalidValue;
   const ProjArgs args{a, static_cast<const int8_t*>(w), static_cast<const float*>(ws),
@@ -323,10 +345,26 @@ int hr_proj_gemm_ln(const void* a, int M, int K, const void* w, const void* ws, 
                       static_cast<const float*>(beta), eps, M, N, K, out,
                       static_cast<cudaStream_t>(stream)};
   using bf = __nv_bfloat16;
-  const cudaError_t err =
-      resid_f32 ? proj_config<kEpiResidLast, false, true, bf, float>(args, config)
-                : proj_config<kEpiResidLast, false, true, bf, bf>(args, config);
+  cudaError_t err;
+  if (rounded)
+    err = resid_f32 ? proj_config<kEpiF32, false, true, bf, float>(args, config)
+                    : proj_config<kEpiBf16, false, true, bf, bf>(args, config);
+  else
+    err = resid_f32 ? proj_config<kEpiResidLast, false, true, bf, float>(args, config)
+                    : proj_config<kEpiResidLast, false, true, bf, bf>(args, config);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// How many clusters of hr_proj_gemm's bf16-storing instance over bf16 x at
+// these arguments the card runs at once (cudaOccupancyMaxActiveClusters), or
+// minus the CUDA error.
+int hr_proj_gemm_clusters(int M, int K, int N, int config) {
+  const ProjArgs g{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 0.f, M, N, K,
+                   nullptr, nullptr};
+  int n = 0;
+  const cudaError_t err =
+      proj_config<kEpiBf16, false, false, __nv_bfloat16, __nv_bfloat16>(g, config, &n);
+  return err != cudaSuccess ? -(int)err : n;
 }
 
 }  // extern "C"

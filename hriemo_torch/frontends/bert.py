@@ -90,8 +90,9 @@ class BertLayer(nn.Module):
         h = self.n_heads
         ln = self.attention["output"]["LayerNorm"]
         if self.mha_ops is not None and use_mha_block(True, l, l, d, h):
+            # the residual and the LayerNorm in the kernel's out-projection
             fn = mha_block_int8 if self.use_kernels else mha_block_int8_plain
-            return layer_norm(x + fn(x, x, self.mha_ops, kpm), ln.weight, ln.bias, self.eps)
+            return fn(x, x, self.mha_ops, kpm, ln.norm(self.eps))
 
         def proj(name):
             return self.attention["self"][name](x).reshape(b, l, h, d // h).transpose(1, 2)

@@ -5,7 +5,10 @@ Per layer: intra-modal self-attention per modality (+ residual + LN),
 then audio-queries-text and text-queries-audio cross-attention, each
 followed by residual + LN and a ReLU FFN(4d) + residual + LN. In training,
 dropout at JAX's sites (``:64-107``): on each attention's probabilities
-and on each sublayer output before its residual. ``return_attention``
+and on each sublayer output before its residual. Where no dropout acts
+and no map is kept, each attention hands its residual and post-norm
+LayerNorm to the MHA call (``norm=``), whose int8 kernel takes them into
+its out-projection; the result is the same. ``return_attention``
 adds, per layer, a dict of the four head-averaged ``[B, Lq, Lk]`` maps
 ``audio_self``, ``text_self``, ``audio_queries_text`` and
 ``text_queries_audio``.
@@ -36,25 +39,31 @@ class CrossModalBlock(nn.Module):
                 return_attention: bool = False):
         rs = RngStream(generator)
         drop = lambda x: dropout(x, self.dropout, rs(), self.training)  # noqa: E731
+        # no dropout and no map kept: the MHA takes the residual and the
+        # post-norm LayerNorm into its call (its kernel's out-projection)
+        fold = not return_attention and not (self.training and self.dropout > 0.0)
         maps = {}
 
-        def attend(name, mha, q, kv, mask):
-            out = mha(q, kv, kv, mask, rs(), need_weights=return_attention)
+        def attend(name, mha, q, kv, mask, ln):
+            """``ln(q + drop(mha(q, kv)))``, drawing the same generators."""
+            g = rs()
+            if fold:
+                rs()  # the dropout site the fold passes over
+                return mha(q, kv, kv, mask, g, norm=ln.norm())
+            out = mha(q, kv, kv, mask, g, need_weights=return_attention)
             if return_attention:
                 out, maps[name] = out
-            return out
+            return ln(q + drop(out))
 
-        a_sa = attend("audio_self", self.self_attn_a, h_a, h_a, mask_a)
-        h_a_self = self.self_norm_a(h_a + drop(a_sa))
-        t_sa = attend("text_self", self.self_attn_t, h_t, h_t, mask_t)
-        h_t_self = self.self_norm_t(h_t + drop(t_sa))
+        h_a_self = attend("audio_self", self.self_attn_a, h_a, h_a, mask_a, self.self_norm_a)
+        h_t_self = attend("text_self", self.self_attn_t, h_t, h_t, mask_t, self.self_norm_t)
 
-        a2t = attend("audio_queries_text", self.attn_a2t, h_a_self, h_t_self, mask_t)
-        h_a_cm = self.norm_a1(h_a_self + drop(a2t))
+        h_a_cm = attend("audio_queries_text", self.attn_a2t, h_a_self, h_t_self, mask_t,
+                        self.norm_a1)
         h_a_cm = self.norm_a2(h_a_cm + drop(self.ffn_a(h_a_cm)))
 
-        t2a = attend("text_queries_audio", self.attn_t2a, h_t_self, h_a_self, mask_a)
-        h_t_cm = self.norm_t1(h_t_self + drop(t2a))
+        h_t_cm = attend("text_queries_audio", self.attn_t2a, h_t_self, h_a_self, mask_a,
+                        self.norm_t1)
         h_t_cm = self.norm_t2(h_t_cm + drop(self.ffn_t(h_t_cm)))
         return (h_a_cm, h_t_cm, maps) if return_attention else (h_a_cm, h_t_cm)
 

@@ -16,6 +16,11 @@ dtype, then, in training, dropout on them (``:159-164``).
 Lq, Lk]``, taken before dropout and cast to the query's dtype
 (``:158-160``); such a call takes neither the MHA kernel nor ``flash_mha``,
 since neither holds the probabilities (``:85``, ``:131-143``).
+
+``norm=(weight, bias, eps)`` returns the caller's post-norm ``layer_norm(query
++ out)`` instead of ``out``: the MHA kernel takes it into its
+out-projection, every other route applies it after the output projection.
+A caller passes it only where nothing (no dropout) acts between the two.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from ..ops.attention_block import (MhaOperands, mha_block_int8, mha_block_int8_p
                                    mha_operands, use_mha_block)
 from ..ops.flash_attention import flash_mha, flash_mha_plain, use_flash
 from ..ops.quant import int8_linear, int8_linear_plain, quantize_linear_params
-from .layers import Linear, dropout as _dropout
+from .layers import Linear, dropout as _dropout, layer_norm
 
 
 class MultiheadAttention(nn.Module):
@@ -62,9 +67,10 @@ class MultiheadAttention(nn.Module):
                     and self.out_proj.w_int8 is not None else None)
 
     def forward(self, query, key, value, key_padding_mask=None, generator=None,
-                need_weights: bool = False):
+                need_weights: bool = False, norm=None):
         """Returns the attention output ``[B, Lq, d]``, or with
-        ``need_weights`` the pair ``(output, weights [B, Lq, Lk])``. In
+        ``need_weights`` the pair ``(output, weights [B, Lq, Lk])``; with
+        ``norm`` the output is ``layer_norm(query + output, *norm)``. In
         training with ``dropout > 0``, ``generator`` draws the
         probabilities' mask."""
         d = query.shape[-1]
@@ -72,7 +78,7 @@ class MultiheadAttention(nn.Module):
         if (self.ops is not None and key is value and not need_weights
                 and use_mha_block(True, query.shape[1], key.shape[1], d, h)):
             fn = mha_block_int8 if self.use_kernels else mha_block_int8_plain
-            return fn(query, key, self.ops, key_padding_mask)
+            return fn(query, key, self.ops, key_padding_mask, norm)
 
         if self.in_proj_w_int8 is not None:
             lin = int8_linear if self.use_kernels else int8_linear_plain
@@ -108,4 +114,6 @@ class MultiheadAttention(nn.Module):
             out = (probs.float() @ heads(v).float()).to(query.dtype)
         out = out.transpose(1, 2).reshape(query.shape[0], query.shape[1], d)
         out = self.out_proj(out)
+        if norm is not None:
+            out = layer_norm(query + out, *norm)
         return (out, weights) if need_weights else out

@@ -171,6 +171,22 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(d))
         self.bias = nn.Parameter(torch.zeros(d))
+        self.fp32 = None  # fp32 copies of the weights for a kernel's epilogue
+
+    def prepare_kernels(self, fuse_blocks: bool = True) -> None:
+        """fp32 copies of the weights, taken once, for a kernel that applies
+        this LayerNorm in its epilogue (``ops.attention_block.mha_block_int8``,
+        which takes fp32 only). Like every operand ``quantize_for_serving``
+        derives, they are taken again after the weights change."""
+        self.fp32 = ((self.weight.detach().float(), self.bias.detach().float())
+                     if fuse_blocks else None)
+
+    def norm(self, eps: float | None = None):
+        """``(weight, bias, eps)`` as a kernel's ``norm`` argument: the fp32
+        copies once prepared, else the parameters themselves (the same
+        values)."""
+        w, b = self.fp32 if self.fp32 is not None else (self.weight, self.bias)
+        return w, b, self.eps if eps is None else eps
 
     def forward(self, x, eps: float | None = None):
         return layer_norm(x, self.weight, self.bias, self.eps if eps is None else eps)

@@ -51,7 +51,8 @@ SIGNATURES = {
     },
     "proj_int8": {
         "hr_proj_gemm": [P, I, I, I, P, P, P, I, I, I, I, P, P],
-        "hr_proj_gemm_ln": [P, I, I, P, P, P, I, P, I, P, P, F, I, P, P],
+        "hr_proj_gemm_ln": [P, I, I, P, P, P, I, P, I, P, P, F, I, I, P, P],
+        "hr_proj_gemm_clusters": [I, I, I, I],
     },
     "attention": {
         "hr_last_kernel": [],
@@ -483,13 +484,42 @@ def proj_route(n: int, m: int, k: int, out_bytes: int = 2, sms: int = H100_SMS) 
     return "fused" if -(-m // 64) * cl[1] / sms >= PROJ_MIN_WAVES[cl[0]] else "chain"
 
 
+# Clusters of a projection that an NVIDIA H100 80GB HBM3 runs at once, by
+# (block configuration, blocks a cluster), at K = 768 (chip_proj_routes.py
+# --mha-model): a cluster sits in one GPC, so fewer than SMs / blocks fit
+# (4 blocks of 384 columns: 30, not 33).
+H100_PROJ_CLUSTERS = {(0, 2): 66, (0, 4): 30, (0, 6): 17, (0, 8): 15,
+                      (1, 3): 79, (1, 6): 39, (1, 9): 23, (1, 12): 16}
+
+
+def proj_clusters(n: int, k: int, config: int, sms: int = H100_SMS) -> int:
+    """How many clusters of :func:`proj_gemm` over ``k`` inputs and ``n``
+    columns in block configuration ``config`` the card runs at once
+    (``cudaOccupancyMaxActiveClusters``, read once a shape); without a card,
+    :data:`H100_PROJ_CLUSTERS`, else one cluster for each cluster's worth of
+    ``sms``."""
+    blocks = n // FFN_CONFIGS[config][0]
+    if not torch.cuda.is_available():
+        known = H100_PROJ_CLUSTERS.get((config, blocks)) if sms == H100_SMS else None
+        return known or max(1, sms // blocks)
+    key = (n, k, config)
+    if key not in proj_clusters.seen:
+        got = lib("proj_int8").hr_proj_gemm_clusters(64, k, n, config)
+        check(-got if got < 0 else 0, "hr_proj_gemm_clusters")
+        proj_clusters.seen[key] = max(1, got)
+    return proj_clusters.seen[key]
+
+
+proj_clusters.seen = {}
+
+
 def proj_gemm(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias, epi: int,
               div127: bool, config: int = -1) -> torch.Tensor:
     """``epilogue<epi>(w . quant_rows(x))`` in one launch (csrc/proj_int8.cu):
     x ``[M, K]`` bf16 or fp32, w ``[N, K]`` int8, ``w_scale [N, 1]``, ``bias
-    [N]`` or None; ``epi`` ``EPI_BF16`` (bf16 out) or ``EPI_F32`` (fp32 out,
-    fp32 x, ``div127``); ``div127`` takes quantize_rowwise's scales over the
-    kernels'. Bit-equal to :func:`rowquant` and :func:`int8_gemm`. ``config``
+    [N]`` or None; ``epi`` ``EPI_BF16`` (bf16 out) or ``EPI_F32`` (fp32 out:
+    fp32 x with ``div127``, or bf16 x without); ``div127`` takes
+    quantize_rowwise's scales over the kernels'. Bit-equal to :func:`rowquant` and :func:`int8_gemm`. ``config``
     forces one of :data:`FFN_CONFIGS` (-1: :func:`proj_block`); raises where
     no cluster spans N. ``proj_gemm.launches`` counts launches."""
     m, k = x.shape
@@ -512,13 +542,16 @@ proj_gemm.launches = 0
 
 def proj_gemm_ln(a: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
                  resid: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
-                 config: int = -1) -> torch.Tensor:
+                 config: int = -1, rounded: bool = False) -> torch.Tensor:
     """``LayerNorm(w . quant_rows(a) + bias + resid)`` in one launch
     (csrc/proj_int8.cu): a ``[M, K]`` bf16 (the attention context), resid
     ``[M, N]`` bf16 or fp32, output in resid's dtype; its y is
     :func:`int8_gemm`'s ``EPI_RESID_LAST`` bit for bit, its LayerNorm
-    :func:`layernorm`'s formula with the sums in another order. Raises where
-    no cluster spans N. ``proj_gemm_ln.launches`` counts launches."""
+    :func:`layernorm`'s formula with the sums in another order. ``rounded``:
+    y is the projection stored in resid's dtype (:func:`out_epi`) plus resid
+    in that dtype, bit for bit, as a caller that adds its residual to the
+    stored output computes it. Raises where no cluster spans N.
+    ``proj_gemm_ln.launches`` counts launches."""
     m, k = a.shape
     n = w.shape[0]
     cl = proj_cluster(n, k, resid.element_size(), config)
@@ -528,7 +561,7 @@ def proj_gemm_ln(a: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: 
     check(lib("proj_int8").hr_proj_gemm_ln(
         a.data_ptr(), m, k, w.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), n,
         resid.data_ptr(), int(resid.dtype == torch.float32), g.data_ptr(), b.data_ptr(), eps,
-        cl[0], out.data_ptr(), stream()), "hr_proj_gemm_ln")
+        int(rounded), cl[0], out.data_ptr(), stream()), "hr_proj_gemm_ln")
     proj_gemm_ln.launches += 1
     return out
 

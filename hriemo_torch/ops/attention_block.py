@@ -12,8 +12,11 @@ Two Hopper kernels, each with its plain PyTorch version beside it:
   LayerNorm.
 * :func:`mha_block_int8` replaces ``_mha_kernel`` (``:508``), a torch-MHA
   sublayer, self or cross: the same int8 projections and core with a
-  key-padding bias, returning the output before the residual, in xq's
-  dtype.
+  key-padding bias, returning the output before the residual in xq's dtype,
+  or, given the caller's post-norm LayerNorm, ``LN(xq + out)`` with both
+  roundings to xq's dtype that the callers' add takes (BERT's
+  ``hriemo/frontends/bert.py:80-81``, the fusion layers'
+  ``hriemo/models/cross_modal_block_tacfn.py:74,93``).
 
 x is bf16 or fp32: the residual, the LayerNorm and the output follow its
 dtype, as the TPU kernels store ``x.dtype``, while q/k/v, the position bias
@@ -27,13 +30,19 @@ gated core (:func:`attention_core_int8`, ``csrc/attention.cu``: on its
 score panel up to 128 keys, else two sweeps), and the out-projection that
 quantizes ctx itself with the residual and the LayerNorm in its epilogue
 (the cluster exchanges the rows' sums), so neither int8 x, int8 ctx, their
-scales nor the fp32 y reach device memory. Its chain route, taken on thin
-grids (:func:`attention_route`), and the MHA sublayer are sequences of
-launches: row quantize (``csrc/quant_gemm.cu``), one int8 GEMM for q/k/v
-(self) or one for q and one for k/v (cross) storing bf16
-(``csrc/int8_gemm.cuh``, wgmma), the core, row quantize of the context, the
-out-proj GEMM (with the residual epilogue for WavLM) and, for WavLM, the
-LayerNorm pass. The TPU kernel pads rows to 128 and, for
+scales nor the fp32 y reach device memory. The MHA sublayer's fused route is
+the same three launches, four for cross-attention (q from xq, k/v from
+xkv), with the ungated core (its panel up to 320 keys) and an
+out-projection that stores xq's dtype or, with the caller's LayerNorm, adds
+the residual in xq's dtype before the norm. Their chain
+routes, taken on thin grids (:func:`attention_route`, :func:`mha_route`),
+are the sequences of launches they replaced: row quantize
+(``csrc/quant_gemm.cu``), one int8 GEMM for q/k/v (self) or one for q and
+one for k/v (cross) storing bf16 (``csrc/int8_gemm.cuh``, wgmma), the
+two-sweep core, row quantize of the context, the out-proj GEMM (with the
+residual epilogue for WavLM) and the LayerNorm: for WavLM the
+``hr_layernorm`` pass, for the MHA the caller's plain PyTorch one. The TPU
+kernel pads rows to 128 and, for
 L <= 64, packs several short elements into one tile; that is TPU layout, so
 the port runs every element at its true length and holds the
 per-element result. What bounds them on the card: the core's per-score
@@ -167,21 +176,29 @@ def _rows(t, name, rows, cols, dev, dtypes=(torch.bfloat16,)):
     return t.data_ptr(), t.stride(0)
 
 
-# The gated core's score panel (csrc/attention.cu onepass_panel_kernel): the
-# longest key row it holds (kPanelMaxKeys) and the longest it is taken for.
-# chip_proj_routes.py on the H100 (80GB HBM3, 700 W; PERF.md section 6), the
-# panel / the two sweeps, ms at the served batches: 62 keys 0.207 / 0.266,
-# 124 keys 0.279 / 0.330, 187 keys 0.418 / 0.399, 499 keys 0.760 / 0.512:
-# past two key tiles the panel leaves at most two blocks of 4 warps an SM
-# (one at 512 keys), too few to hide the per-score latency.
+# The core's score panel (csrc/attention.cu onepass_panel_kernel): the head
+# dims it serves, the longest key row it holds (kPanelMaxKeys) and the
+# longest it is taken for, gated and ungated. chip_proj_routes.py on the H100
+# (80GB HBM3, 700 W; PERF.md section 6), the panel / the two sweeps, ms at
+# the served batches. Gated: 62 keys 0.207 / 0.266, 124 keys 0.279 / 0.330,
+# 187 keys 0.418 / 0.399, 499 keys 0.760 / 0.512: past two key tiles the
+# gated panel leaves at most two blocks of 4 warps an SM (one at 512 keys),
+# too few to hide the per-score latency. Ungated (8 x 96, no pos tile in
+# the ring): 62 keys 0.0659 / 0.0740, 249 keys 0.1228 / 0.1375, 312 keys
+# 0.1794 / 0.2057, then 343 keys 0.3648 / 0.2806: the panel of five key
+# tiles (320 keys) is the longest with which two blocks share an SM.
+PANEL_HEAD_DIMS = (64, 96)
 PANEL_CAP_KEYS = 512
 PANEL_MAX_KEYS = 128
+PANEL_MAX_KEYS_UNGATED = 320
 
 
-def core_panel(lk: int, gated: bool) -> bool:
-    """Whether a gated core of ``lk`` keys takes the score panel
-    (:data:`PANEL_MAX_KEYS`) rather than the two sweeps."""
-    return gated and lk <= PANEL_MAX_KEYS
+def core_panel(lk: int, gated: bool, hd: int = 64) -> bool:
+    """Whether a core of ``lk`` keys at head dim ``hd`` takes the score
+    panel (:data:`PANEL_MAX_KEYS` gated, :data:`PANEL_MAX_KEYS_UNGATED`
+    without the gate; head dims :data:`PANEL_HEAD_DIMS`) rather than the
+    two sweeps."""
+    return hd in PANEL_HEAD_DIMS and lk <= (PANEL_MAX_KEYS if gated else PANEL_MAX_KEYS_UNGATED)
 
 
 def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gate=None,
@@ -195,13 +212,14 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
     bf16, wg [8, hd], bg [8], gconst [H], pos [H, Lq, Lk] bf16)`` for
     WavLM's gated position bias. Returns ``ctx [B*Lq, D]`` bf16.
     ``attention_core_int8.launches`` counts its launches, ``.shapes`` the
-    same by ``(B, Lq, Lk, H, hd)``.
+    same by ``(B, Lq, Lk, H, hd)``, ``.panels`` those on the score panel by
+    whether gated.
 
     On the CPU the plain version runs; on the card one launch of
     ``csrc/attention.cu`` (tensor cores at every head dim without the gate,
-    at 64 and 96 with it), or a raise. ``panel``: the gated core at 64 and
-    96 on the score panel (up to ``PANEL_CAP_KEYS`` keys), or on the two
-    sweeps (False); None: :func:`core_panel`.
+    at 64 and 96 with it), or a raise. ``panel``: the core at 64 and 96,
+    gated or not, on the score panel (up to ``PANEL_CAP_KEYS`` keys), or on
+    the two sweeps (False); None: :func:`core_panel`.
     """
     if q.device.type == "cpu":
         return attention_core_int8_plain(q, k, v, b, n_heads, kbias, kpm, gate)
@@ -233,19 +251,22 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
     else:
         args += [None, 0, 0, None, None, None, None]
     if panel is None:
-        panel = core_panel(lk, gate is not None)
-    if panel and lk > PANEL_CAP_KEYS:
-        raise ValueError(f"attention kernel: no score panel holds {lk} keys")
+        panel = core_panel(lk, gate is not None, hd)
+    if panel and (lk > PANEL_CAP_KEYS or hd not in PANEL_HEAD_DIMS):
+        raise ValueError(f"attention kernel: no score panel holds {lk} keys at head dim {hd}")
     ctx = torch.empty((b * lq, d), dtype=torch.bfloat16, device=dev)
     _cuda.check(_cuda.lib("attention").hr_attention_core(
         *args, ctx.data_ptr(), d, int(panel), _cuda.stream()), "hr_attention_core")
     attention_core_int8.launches += 1
     attention_core_int8.shapes[(b, lq, lk, h, hd)] += 1
+    if panel:
+        attention_core_int8.panels[gate is not None] += 1
     return ctx
 
 
 attention_core_int8.launches = 0
 attention_core_int8.shapes = collections.Counter()  # by (B, Lq, Lk, H, hd)
+attention_core_int8.panels = collections.Counter()  # on the score panel, by gated
 
 
 def attention_block_int8_plain(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
@@ -360,7 +381,14 @@ attention_block_int8.routes = collections.Counter()
 attention_block_int8.shapes = collections.Counter()  # by (route, B, L, D, x bytes)
 
 
-def mha_block_int8_plain(xq, xkv, ops: MhaOperands, key_padding_mask):
+def _add_norm(xq, y, norm):
+    """The callers' ``layer_norm(xq + y)``: the add in xq's dtype, fp32
+    statistics, the result in xq's dtype (``nn.layers.layer_norm``)."""
+    ln_w, ln_b, eps = norm
+    return layer_norm_rows((xq + y).float(), ln_w, ln_b, eps).to(xq.dtype)
+
+
+def mha_block_int8_plain(xq, xkv, ops: MhaOperands, key_padding_mask, norm=None):
     """Plain PyTorch version of :func:`mha_block_int8`."""
     b, lq, d = xq.shape
     lk = xkv.shape[1]
@@ -374,16 +402,121 @@ def mha_block_int8_plain(xq, xkv, ops: MhaOperands, key_padding_mask):
     ctx = attention_core_int8_plain(q, k, v, b, h, kpm=key_padding_mask)
     cq, cs = quant_rows(ctx.float())
     y = int8_matmul_exact(cq, ops.w_out) * cs * ops.s_out[:, 0] + ops.b_out
-    return y.to(xq.dtype).reshape(b, lq, d)
+    y = y.to(xq.dtype).reshape(b, lq, d)
+    return y if norm is None else _add_norm(xq, y, norm)
 
 
-def mha_block_int8(xq, xkv, ops: MhaOperands, key_padding_mask):
+# Waves of the out-projection's cluster grid from which the MHA sublayer's
+# fused route beats the chain without the caller's LayerNorm
+# (chip_proj_routes.py --mha-routes, H100 80GB HBM3 at 700 W, PERF.md
+# section 6): below, one fused launch's fixed cost loses (audio -> text
+# 0.0557 against 0.0444 ms at 0.47 waves); above, fused wins by up to 20%
+# (BERT self 0.1032 against 0.1285 at 0.73 waves, audio -> text 0.0648
+# against 0.0763 at 0.94) or loses by at most 5% where the q/k/v
+# projection's 3-6% over its chain is not made up (10 s BERT self 0.1009
+# against 0.0962 at 0.97 waves).
+MHA_STORE_MIN_WAVES = 0.6
+# With the caller's LayerNorm, the two routes' launches other than the core
+# estimated from card readings at K = 768, scaled with K
+# (chip_proj_routes.py --mha-model, H100 80GB HBM3 at 700 W, PERF.md
+# section 6). A projection that quantizes its own rows takes
+# PROJ_FIRST_WAVE_MS plus PROJ_WAVE_MS[config] for each wave of the
+# clusters the card runs at once (_cuda.proj_clusters): k/v over 1,920 rows
+# (30 clusters of 4 blocks, as many as the card holds) 0.0157 ms, over
+# 1,984 (31) 0.0280, over 3,968 (62) 0.0419; the out-projection with the
+# LayerNorm PROJ_LN_WAVE_MS a wave (0.0211-0.0237 up to 4,096 rows). The
+# chain's row quantize and GEMM take CHAIN_PROJ_MS[0] or, where more,
+# CHAIN_PROJ_MS[1] plus their int8 operations at CHAIN_PROJ_MS[2] a ms (k/v
+# 0.0087 at 64 rows, 0.0211 at 1,984, 0.0767 at 8,192); the caller's plain
+# LayerNorm PLAIN_LN_MS[0] plus PLAIN_LN_MS[1] an element, or
+# PLAIN_LN_MS[2] an element where more (0.0258 at 64 x 768, 0.0897 at
+# 4,096 x 768). The fused route saves the LayerNorm's launches but pays a
+# fused projection's fixed time at any rows: cross-attention from a few
+# query rows to keys whose k/v grid spills into a second wave is no faster
+# fused (B=4 16 x 499: 0.0914 against 0.0921 ms; another card read 0.0941
+# against 0.0882), so the fused route must be estimated
+# MHA_FUSED_MARGIN_MS faster, about the estimate's error at such shapes.
+# Where the core takes the score panel, which the chain never does, the
+# fused route was the faster at every rung of the ladder (--mha-routes: at
+# most 0.974 of the chain's time over 117 rungs).
+PROJ_FIRST_WAVE_MS = 0.0015
+PROJ_WAVE_MS = (0.0138, 0.0172)
+PROJ_LN_WAVE_MS = 0.0215
+CHAIN_PROJ_MS = (0.0085, 0.003, 2.6e11)
+PLAIN_LN_MS = (0.025, 1.5e-8, 2.9e-8)
+MHA_FUSED_MARGIN_MS = 0.002
+
+
+def _proj_ms(n: int, m: int, k: int, fused: bool, sms: int) -> float:
+    """Estimated ms of a projection of ``m`` rows over ``k`` inputs to ``n``
+    bf16 columns: :func:`_cuda.proj_gemm` (``fused``) or the chain's row
+    quantize and int8 GEMM."""
+    if not fused:
+        return max(CHAIN_PROJ_MS[0], CHAIN_PROJ_MS[1] + 2 * m * n * k / CHAIN_PROJ_MS[2])
+    config, _ = _cuda.proj_block(n, m, k, 2, sms)
+    return (PROJ_FIRST_WAVE_MS + _waves(m, n, k, config, sms) * PROJ_WAVE_MS[config]) * k / 768
+
+
+def _waves(m: int, n: int, k: int, config: int, sms: int) -> int:
+    """Waves of a projection's grid of ``m`` rows (a cluster for each 64)
+    over the clusters the card runs at once."""
+    return -(-(-(-m // 64)) // _cuda.proj_clusters(n, k, config, sms))
+
+
+def mha_route(b: int, lq: int, lk: int, d: int, heads: int, x_bytes: int = 2,
+              norm: bool = True, cross: bool = False, sms: int = _cuda.H100_SMS) -> str:
+    """The MHA sublayer's route at batch ``b``, ``lq`` queries and ``lk``
+    keys of width ``d`` in ``heads`` heads: "chain" where no projection
+    cluster spans a product (q/k/v, ``3d`` bf16 columns; for
+    cross-attention q, ``d``, and k/v, ``2d``; the out-projection, ``d``
+    columns in x's dtype). Else, without the caller's LayerNorm, "fused"
+    where the out-projection's grid covers the card
+    :data:`MHA_STORE_MIN_WAVES` times; with it, "fused" where the core takes
+    the score panel (:func:`core_panel`) or the fused projections' estimated
+    time (:func:`_proj_ms`, the out-projection with the LayerNorm) is
+    :data:`MHA_FUSED_MARGIN_MS` below the chain's with the plain LayerNorm."""
+    m = b * lq
+    cl = _cuda.proj_cluster(d, d, x_bytes)
+    ins = ((d, m), (2 * d, b * lk)) if cross else ((3 * d, m),)
+    if cl is None or any(_cuda.proj_cluster(n, d, 2) is None for n, _ in ins):
+        return "chain"
+    if not norm:
+        return "fused" if -(-m // 64) * cl[1] / sms >= MHA_STORE_MIN_WAVES else "chain"
+    if core_panel(lk, False, d // heads):
+        return "fused"
+    fused = sum(_proj_ms(n, r, d, True, sms) for n, r in ins) \
+        + _waves(m, d, d, cl[0], sms) * PROJ_LN_WAVE_MS * d / 768
+    chain = sum(_proj_ms(n, r, d, False, sms) for n, r in ins) + _proj_ms(d, m, d, False, sms) \
+        + max(PLAIN_LN_MS[0] + PLAIN_LN_MS[1] * m * d, PLAIN_LN_MS[2] * m * d)
+    return "fused" if fused < chain - MHA_FUSED_MARGIN_MS else "chain"
+
+
+def mha_block_int8(xq, xkv, ops: MhaOperands, key_padding_mask, norm=None,
+                   route: str | None = None):
     """Fused int8 MHA sublayer: ``xq [B, Lq, D]``, ``xkv [B, Lk, D]``,
     ``key_padding_mask [B, Lk]`` bool True = PAD or None. Returns the
-    pre-residual output ``[B, Lq, D]`` in xq's dtype. Self-attention
-    (``xkv is xq``) quantizes once and runs one q/k/v GEMM."""
+    pre-residual output ``[B, Lq, D]`` in xq's dtype or, with ``norm =
+    (ln_w, ln_b, eps)``, the caller's post-norm ``LN(xq + out)`` (the add in
+    xq's dtype, fp32 statistics; on the card ``ln_w`` and ``ln_b`` are fp32,
+    as ``nn.layers.LayerNorm.norm`` hands them out). Self-attention (``xkv
+    is xq``) quantizes once and runs one q/k/v product.
+
+    On the CPU the plain version runs, whatever ``route``. On the card,
+    "fused" is three launches for self-attention, four for cross: the
+    projections quantizing their rows themselves (``_cuda.proj_gemm``; q
+    and k/v from row blocks of ``w_in``), the core (on its score panel where
+    :func:`core_panel` takes it), and the
+    out-projection quantizing ctx, storing xq's dtype or taking the
+    residual and the LayerNorm in its epilogue (``_cuda.proj_gemm_ln``,
+    ``rounded``); "chain" the launches it replaced (row quantize of xq and
+    of xkv, the q/k/v GEMM or the q and k/v GEMMs, the two-sweep core, row
+    quantize of ctx, the out GEMM), then the caller's plain LayerNorm; None
+    lets :func:`mha_route` choose by rows. ``.routes`` counts calls by
+    route, ``.shapes`` by (route, B, Lq, Lk, D, heads, x's element bytes,
+    with the LayerNorm, cross-attention).
+    """
     if xq.device.type == "cpu":
-        return mha_block_int8_plain(xq, xkv, ops, key_padding_mask)
+        return mha_block_int8_plain(xq, xkv, ops, key_padding_mask, norm)
     b, lq, d = xq.shape
     lk = xkv.shape[1]
     h = ops.n_heads
@@ -391,25 +524,63 @@ def mha_block_int8(xq, xkv, ops: MhaOperands, key_padding_mask):
     _cuda.require(xq, "xq", _cuda.ACT_DTYPES)
     _cuda.require(xkv, "xkv", xq.dtype, (b, lk, d), dev)
     _check_mha(ops, d, dev)
-    aq, aqs = _cuda.rowquant(xq.view(b * lq, d), div127=False)
-    if xkv is xq:
-        qkv = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16)
-        q, k, v = qkv.split(d, dim=1)
+    self_attn = xkv is xq
+    if norm is not None:
+        _cuda.require(norm[0], "ln_w", torch.float32, (d,), dev)
+        _cuda.require(norm[1], "ln_b", torch.float32, (d,), dev)
+    if route is None:
+        route = mha_route(b, lq, lk, d, h, xq.element_size(), norm is not None, not self_attn,
+                          _cuda.sm_count())
+    x2, kv2 = xq.view(b * lq, d), xkv.view(b * lk, d)
+    if route == "fused":
+        if self_attn:
+            qkv = _cuda.proj_gemm(x2, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16, div127=False)
+            q, k, v = qkv.split(d, dim=1)
+        else:
+            q = _cuda.proj_gemm(x2, ops.w_in[:d], ops.s_in[:d], ops.b_in[:d], _cuda.EPI_BF16,
+                                div127=False)
+            kv = _cuda.proj_gemm(kv2, ops.w_in[d:], ops.s_in[d:], ops.b_in[d:], _cuda.EPI_BF16,
+                                 div127=False)
+            k, v = kv.split(d, dim=1)
+        ctx = attention_core_int8(q, k, v, b, h, kpm=key_padding_mask)
+        if norm is None:
+            out = _cuda.proj_gemm(ctx, ops.w_out, ops.s_out, ops.b_out, _cuda.out_epi(xq.dtype),
+                                  div127=False)
+        else:
+            out = _cuda.proj_gemm_ln(ctx, ops.w_out, ops.s_out, ops.b_out, x2, norm[0], norm[1],
+                                     norm[2], rounded=True)
+        out = out.view(b, lq, d)
+    elif route == "chain":
+        aq, aqs = _cuda.rowquant(x2, div127=False)
+        if self_attn:
+            qkv = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16)
+            q, k, v = qkv.split(d, dim=1)
+        else:
+            ak, aks = _cuda.rowquant(kv2, div127=False)
+            q = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
+                                w_rows=(0, d))
+            kv = _cuda.int8_gemm(ak, aks, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
+                                 w_rows=(d, 2 * d))
+            k, v = kv.split(d, dim=1)
+        ctx = attention_core_int8(q, k, v, b, h, kpm=key_padding_mask, panel=False)
+        cq, cs = _cuda.rowquant(ctx, div127=False)
+        out = _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out,
+                              _cuda.out_epi(xq.dtype)).view(b, lq, d)
+        if norm is not None:
+            out = _add_norm(xq, out, norm)
     else:
-        ak, aks = _cuda.rowquant(xkv.view(b * lk, d), div127=False)
-        q = _cuda.int8_gemm(aq, aqs, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
-                            w_rows=(0, d))
-        kv = _cuda.int8_gemm(ak, aks, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
-                             w_rows=(d, 2 * d))
-        k, v = kv.split(d, dim=1)
-    ctx = attention_core_int8(q, k, v, b, h, kpm=key_padding_mask)
-    cq, cs = _cuda.rowquant(ctx, div127=False)
-    y = _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out, _cuda.out_epi(xq.dtype))
+        raise ValueError(f"W8A8 MHA sublayer: unknown route {route!r}")
     mha_block_int8.launches += 1
-    return y.view(b, lq, d)
+    mha_block_int8.routes[route] += 1
+    mha_block_int8.shapes[route, b, lq, lk, d, h, xq.element_size(), norm is not None,
+                          not self_attn] += 1
+    return out
 
 
 mha_block_int8.launches = 0
+mha_block_int8.routes = collections.Counter()
+# by (route, B, Lq, Lk, D, heads, x bytes, with the LayerNorm, cross-attention)
+mha_block_int8.shapes = collections.Counter()
 
 
 def use_mha_block(quantized: bool, lq: int, lk: int, d: int, n_heads: int) -> bool:

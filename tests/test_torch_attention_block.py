@@ -11,11 +11,13 @@ import torch
 
 from hriemo.core.masking import NEG_INF
 from hriemo.nn.attention import mha_apply, mha_init
+from hriemo.nn.layers import layer_norm_apply
 from hriemo.ops.attention_block import attention_block_int8, mha_block_int8
 from hriemo.ops.quant import quantize_tree_for_serving
 from hriemo_torch.frontends.wavlm import WavLMAttention
 from hriemo_torch.nn.attention import MultiheadAttention
 from hriemo_torch.nn.layers import LayerNorm
+from hriemo_torch.ops import _cuda
 from hriemo_torch.ops import attention_block as TA
 from hriemo_torch.ops.quant import quantize_for_serving
 
@@ -110,31 +112,81 @@ def test_attention_route_choice(m, d, x_bytes, sms, want):
     assert TA.attention_route(m, d, x_bytes, sms) == want
 
 
-@pytest.mark.parametrize("lk,gated,want", [
-    (62, True, True), (124, True, True), (128, True, True),
-    (129, True, False), (499, True, False), (1024, True, False),  # the two sweeps
-    (62, False, False), (499, False, False),  # the ungated core keeps them in this slice
+@pytest.mark.parametrize("lk,gated,hd,want", [
+    (62, True, 64, True), (124, True, 64, True), (128, True, 96, True),
+    (129, True, 64, False), (499, True, 64, False), (1024, True, 64, False),  # the two sweeps
+    (8, False, 64, True), (62, False, 96, True), (249, False, 96, True),   # the ungated panel
+    (320, False, 64, True), (321, False, 96, False), (499, False, 96, False),
+    (62, True, 32, False), (62, False, 128, False), (62, False, 192, False),  # no panel there
 ])
-def test_core_panel_choice(lk, gated, want):
-    """The gated core's form by key length: the score panel up to
-    PANEL_MAX_KEYS keys (two key tiles), else the two-sweep kernel."""
-    assert TA.core_panel(lk, gated) == want
+def test_core_panel_choice(lk, gated, hd, want):
+    """The core's form by key length and head dim: the score panel up to
+    PANEL_MAX_KEYS keys gated and PANEL_MAX_KEYS_UNGATED without the gate,
+    at head dims 64 and 96, else the two-sweep kernel."""
+    assert TA.core_panel(lk, gated, hd) == want
 
 
-def _mha_pair(d, h, seed):
+@pytest.mark.parametrize("b,lq,lk,heads,x_bytes,norm,cross,sms,want", [
+    (384, 62, 62, 8, 2, True, False, 132, "fused"),    # audio self at 1.25 s, its served batch
+    (384, 8, 8, 12, 2, True, False, 132, "fused"),     # BERT self there
+    (384, 8, 62, 8, 2, True, True, 132, "fused"),      # text -> audio
+    (32, 499, 64, 8, 4, True, True, 132, "fused"),     # audio -> text at 10 s, an fp32 tree
+    (4, 16, 16, 12, 2, True, False, 132, "fused"),     # phase 4's batch: the norm's launches
+    (4, 16, 16, 12, 2, False, False, 132, "chain"),    # a thin grid without the norm
+    (384, 8, 8, 12, 2, False, False, 132, "fused"),    # from 0.6 waves: 0.73
+    (4, 499, 499, 8, 2, False, False, 132, "chain"),   # 0.48
+    (8, 499, 64, 8, 2, False, True, 132, "fused"),     # cross alike: 0.95
+    (4, 499, 64, 8, 2, False, True, 132, "chain"),
+    (4, 64, 64, 12, 2, False, False, 1, "fused"),      # 4 row blocks on one SM
+    # with the norm and the core on the two sweeps, by the estimate: k/v over
+    # 1,996 rows spills into a second wave of clusters, which 16 or 64 query
+    # rows do not make up; one wave (998 rows), three nearly full (3,992 rows)
+    # or more query rows do
+    (4, 16, 499, 8, 2, True, True, 132, "chain"),
+    (4, 64, 499, 8, 2, True, True, 132, "chain"),
+    (2, 16, 499, 8, 2, True, True, 132, "fused"),
+    (8, 16, 499, 8, 2, True, True, 132, "fused"),
+    (32, 64, 499, 8, 2, True, True, 132, "fused"),     # text -> audio at 10 s
+    (32, 499, 499, 8, 2, True, False, 132, "fused"),   # audio self there
+])
+def test_mha_route_choice(b, lq, lk, heads, x_bytes, norm, cross, sms, want):
+    """The MHA sublayer's route by shape, x's dtype, the caller's LayerNorm
+    and the form (plain Python; the card holds each route's output and
+    time)."""
+    assert TA.mha_route(b, lq, lk, 768, heads, x_bytes, norm, cross, sms) == want
+
+
+def test_mha_route_without_a_cluster_takes_the_chain():
+    """No cluster spans d=128 (the out-projection's 128 columns)."""
+    assert TA.mha_route(1000, 1000, 1000, 128, 2) == "chain"
+
+
+def test_mha_route_estimate_counts_cluster_waves():
+    """Without a card the estimate takes the H100's clusters at once (30 of
+    4 blocks, not 132 / 4), so a k/v grid one cluster past them costs a
+    second wave; with fewer SMs, one cluster for each cluster's worth."""
+    assert _cuda.proj_clusters(1536, 768, 0) == 30
+    assert _cuda.proj_clusters(1536, 768, 0, sms=64) == 16
+    one, two = (TA._proj_ms(1536, m, 768, True, 132) for m in (1920, 1984))
+    assert two > 1.8 * one
+    assert TA._proj_ms(1536, 1984, 768, False, 132) < two
+
+
+def _mha_pair(d, h, seed, dtype=torch.bfloat16):
     """Random packed-MHA params (non-zero biases), as the JAX int8 tree and
-    as a quantized port module."""
+    as a quantized port module, in ``dtype`` (bf16 or fp32)."""
     p = mha_init(jax.random.key(seed), d)
     rng = np.random.default_rng(seed)
     p["in_proj_bias"] = jnp.asarray(rng.standard_normal(3 * d) * 0.05, jnp.float32)
     p["out_proj"]["bias"] = jnp.asarray(rng.standard_normal(d) * 0.05, jnp.float32)
     mod = MultiheadAttention(d, h)
     mod.load_state_dict({k: torch.from_numpy(v) for k, v in flat(p).items()})
-    quantize_for_serving(mod.to(torch.bfloat16), min_dim=128)
-    return quantize_tree_for_serving(_bf16_tree(p), min_dim=128), mod
+    quantize_for_serving(mod.to(dtype), min_dim=128)
+    jp = _bf16_tree(p) if dtype == torch.bfloat16 else p
+    return quantize_tree_for_serving(jp, min_dim=128), mod
 
 
-@pytest.mark.parametrize("d,h,b,lq,lk,self_attn", [
+MHA_SHAPES = [
     (256, 4, 2, 96, 96, True),
     (256, 4, 2, 96, 40, False),
     (256, 4, 2, 9, 96, False),
@@ -146,23 +198,91 @@ def _mha_pair(d, h, seed):
     (256, 8, 2, 96, 96, True),      # hd=32 and 128: the card's tile instances
     (256, 2, 2, 96, 40, False),     #   beside 64 and 96
     (384, 2, 2, 50, 50, True),      # hd=192: the wide tile instance
-])
-def test_mha_block_matches_pallas_kernel(d, h, b, lq, lk, self_attn):
-    jp, mod = _mha_pair(d, h, seed=d + lq + lk)
+]
+
+
+def _mha_inputs(d, b, lq, lk, self_attn, dtype=torch.bfloat16):
+    """xq, xkv and a ragged key padding mask, as JAX arrays and tensors."""
     rng = np.random.default_rng(lq * lk)
     xq = rng.standard_normal((b, lq, d)).astype(np.float32) * 0.5
     xkv = xq if self_attn else rng.standard_normal((b, lk, d)).astype(np.float32) * 0.5
     lens = rng.integers(1, lk + 1, size=b)
     lens[0] = lk
     mask = np.arange(lk)[None, :] >= lens[:, None]
-    jq = jnp.asarray(xq, jnp.bfloat16)
-    jkv = jq if self_attn else jnp.asarray(xkv, jnp.bfloat16)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jq = jnp.asarray(xq, jdt)
+    jkv = jq if self_attn else jnp.asarray(xkv, jdt)
+    tq = torch.from_numpy(xq).to(dtype)
+    tkv = tq if self_attn else torch.from_numpy(xkv).to(dtype)
+    return jq, jkv, tq, tkv, mask
+
+
+@pytest.mark.parametrize("d,h,b,lq,lk,self_attn", MHA_SHAPES)
+def test_mha_block_matches_pallas_kernel(d, h, b, lq, lk, self_attn):
+    jp, mod = _mha_pair(d, h, seed=d + lq + lk)
+    jq, jkv, tq, tkv, mask = _mha_inputs(d, b, lq, lk, self_attn)
     ref = mha_block_int8(jp, jq, jkv, jnp.asarray(mask), h)
-    tq = bf16(xq)
-    tkv = tq if self_attn else bf16(xkv)
     got = TA.mha_block_int8(tq, tkv, mod.ops, torch.from_numpy(mask))
     assert got.shape == (b, lq, d) and got.dtype == torch.bfloat16
     assert_kernel_close(got, np.asarray(ref, np.float32))
+
+
+def _norm_pair(d, seed, dtype):
+    """The caller's LayerNorm weights rounded to ``dtype``, as JAX params
+    and as the port's ``norm`` tensors."""
+    rng = np.random.default_rng(seed)
+    w = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    tw, tb = torch.from_numpy(w).to(dtype), torch.from_numpy(b).to(dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    return {"weight": jnp.asarray(w, jdt), "bias": jnp.asarray(b, jdt)}, tw, tb
+
+
+@pytest.mark.parametrize("eps", [1e-12, 1e-5])   # BERT's, the fusion layers'
+@pytest.mark.parametrize("d,h,b,lq,lk,self_attn", MHA_SHAPES)
+def test_mha_block_with_norm_matches_pallas_kernel(d, h, b, lq, lk, self_attn, eps):
+    """With the caller's post-norm LayerNorm: JAX's kernel followed by the
+    callers' bf16 add and ``layer_norm_apply`` (BERT, the fusion layers)."""
+    jp, mod = _mha_pair(d, h, seed=d + lq + lk)
+    jq, jkv, tq, tkv, mask = _mha_inputs(d, b, lq, lk, self_attn)
+    jln, tw, tb = _norm_pair(d, lq + lk, torch.bfloat16)
+    ref = layer_norm_apply(jln, jq + mha_block_int8(jp, jq, jkv, jnp.asarray(mask), h), eps)
+    got = TA.mha_block_int8(tq, tkv, mod.ops, torch.from_numpy(mask), norm=(tw, tb, eps))
+    assert got.shape == (b, lq, d) and got.dtype == torch.bfloat16
+    assert_kernel_close(got, np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("d,h,b,lq,lk,self_attn", [MHA_SHAPES[i] for i in (0, 1, 3)])
+def test_mha_block_with_norm_fp32_matches_pallas_kernel(d, h, b, lq, lk, self_attn):
+    """An fp32 tree (the int8 tree at fp32 compute): fp32 activations, the
+    output, the residual and the LayerNorm in fp32."""
+    jp, mod = _mha_pair(d, h, seed=d + lq + lk, dtype=torch.float32)
+    jq, jkv, tq, tkv, mask = _mha_inputs(d, b, lq, lk, self_attn, torch.float32)
+    jln, tw, tb = _norm_pair(d, lq + lk, torch.float32)
+    ref = layer_norm_apply(jln, jq + mha_block_int8(jp, jq, jkv, jnp.asarray(mask), h), 1e-5)
+    got = TA.mha_block_int8(tq, tkv, mod.ops, torch.from_numpy(mask), norm=(tw, tb, 1e-5))
+    assert got.dtype == torch.float32
+    assert_kernel_close(got, np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("route", [None, "fused", "chain"])
+@pytest.mark.parametrize("with_norm", [False, True])
+def test_cpu_mha_block_takes_plain_on_either_route(route, with_norm):
+    """On CPU tensors the MHA sublayer runs its plain version whatever the
+    route (chosen or forced), with or without the caller's LayerNorm, and
+    launches and counts nothing."""
+    d, h = 256, 4
+    _, mod = _mha_pair(d, h, seed=11)
+    _, _, tq, tkv, mask = _mha_inputs(d, 3, 20, 33, False)
+    _, tw, tb = _norm_pair(d, 5, torch.bfloat16)
+    norm = (tw, tb, 1e-5) if with_norm else None
+    kpm = torch.from_numpy(mask)
+    routes, launches = dict(TA.mha_block_int8.routes), TA.mha_block_int8.launches
+    got = TA.mha_block_int8(tq, tkv, mod.ops, kpm, norm, route=route)
+    torch.testing.assert_close(got, TA.mha_block_int8_plain(tq, tkv, mod.ops, kpm, norm),
+                               atol=0, rtol=0)
+    assert TA.mha_block_int8.launches == launches
+    assert dict(TA.mha_block_int8.routes) == routes
 
 
 @pytest.mark.parametrize("lq", [4, 16])

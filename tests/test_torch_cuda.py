@@ -492,6 +492,163 @@ def test_attention_block_routes(gen, l, dtype):
         _close(got, ref)
 
 
+def _ln_diff(got, ref):
+    """The largest |got - ref| of two LayerNorm outputs and the share of
+    elements whose bits differ. bf16: each within one bf16 ulp of the larger
+    of the two magnitudes, a magnitude under 2^-8 counted as 2^-8 (the fp32
+    sums in another order move a result by about 1e-6, more than an ulp of
+    the tiniest values), and at most 1% of the elements differ (an add that
+    rounds once where the caller rounds twice moves a third of them); fp32
+    within 1e-5."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype and torch.isfinite(got).all()
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(g, r, atol=1e-5, rtol=1e-5)
+        return diff.max().item(), (diff > 0).float().mean().item()
+    mag = torch.maximum(torch.maximum(g.abs(), r.abs()), torch.tensor(2.0 ** -8, device=g.device))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    assert (diff <= ulp).all(), f"{int((diff > ulp).sum())} elements beyond one ulp"
+    share = (diff > 0).float().mean().item()
+    assert share <= 0.01, f"{share:.4f} of the elements differ"
+    return diff.max().item(), share
+
+
+@pytest.mark.parametrize("m", [1, 65, 777, 23808])
+@pytest.mark.parametrize("config", [0, 1])
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_proj_gemm_ln_rounded(gen, m, config, dtype):
+    """The MHA sublayer's out-projection with its caller's residual and
+    LayerNorm (``rounded``): the projection stored in x's dtype, x added in
+    x's dtype, the LayerNorm against the chain's store GEMM, the plain add
+    and ``layer_norm_rows``; and the fp32 store form over bf16 ctx (an fp32
+    tree's MHA output) bit-equal to the chain."""
+    d = 768
+    _, _, w, w_s = _gemm_operands(gen, 1, d, d)
+    bias = _randn(gen, d, dtype=torch.float32)
+    ctx = _randn(gen, m, d, scale=0.2)
+    x = _randn(gen, m, d, dtype=dtype)
+    g, b = _randn(gen, d, dtype=torch.float32).abs(), _randn(gen, d, scale=0.1,
+                                                              dtype=torch.float32)
+    before = _cuda.proj_gemm_ln.launches
+    got = _cuda.proj_gemm_ln(ctx, w, w_s, bias, x, g, b, 1e-12, config=config, rounded=True)
+    torch.cuda.synchronize()
+    assert _cuda.proj_gemm_ln.launches == before + 1 and got.dtype == dtype
+    cq, cs = _cuda.rowquant(ctx, div127=False)
+    y = _cuda.int8_gemm(cq, cs, w, w_s, bias, _cuda.out_epi(dtype))
+    print(f"M={m} config {config} {dtype}: max |d| and share differing "
+          f"{_ln_diff(got, FF.layer_norm_rows((x + y).float(), g, b, 1e-12).to(dtype))}")
+    if dtype == torch.float32 and _cuda.proj_cluster(d, d, 4, config=config):
+        torch.testing.assert_close(
+            _cuda.proj_gemm(ctx, w, w_s, bias, _cuda.EPI_F32, div127=False, config=config), y,
+            atol=0, rtol=0)
+
+
+# the MHA sublayer's call sites at d=768: BERT self (12 x 64) at 8 and 64
+# tokens, the fusion stack's audio self, text self and both cross
+# attentions (8 x 96) at the panel's and the two sweeps' key lengths
+MHA_SITES = [(12, 8, 8, True), (12, 64, 64, True), (8, 62, 62, True), (8, 499, 499, True),
+             (8, 62, 8, False), (8, 8, 62, False), (8, 499, 64, False), (8, 64, 499, False),
+             (8, 130, 9, False)]
+
+
+def _mha_fused_two_sweeps(xq, xkv, ops, kpm, norm):
+    """The MHA sublayer's fused route from its public pieces with the core on
+    the two sweeps, as the chain runs it: the projections that quantize
+    their own rows, the core, the out-projection storing xq's dtype or with
+    the residual and the LayerNorm."""
+    b, lq, d = xq.shape
+    x2 = xq.view(b * lq, d)
+    if xkv is xq:
+        q, k, v = _cuda.proj_gemm(x2, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
+                                  div127=False).split(d, dim=1)
+    else:
+        q = _cuda.proj_gemm(x2, ops.w_in[:d], ops.s_in[:d], ops.b_in[:d], _cuda.EPI_BF16,
+                            div127=False)
+        k, v = _cuda.proj_gemm(xkv.reshape(-1, d), ops.w_in[d:], ops.s_in[d:], ops.b_in[d:],
+                               _cuda.EPI_BF16, div127=False).split(d, dim=1)
+    ctx = AB.attention_core_int8(q, k, v, b, ops.n_heads, kpm=kpm, panel=False)
+    if norm is None:
+        out = _cuda.proj_gemm(ctx, ops.w_out, ops.s_out, ops.b_out, _cuda.out_epi(xq.dtype),
+                              div127=False)
+    else:
+        out = _cuda.proj_gemm_ln(ctx, ops.w_out, ops.s_out, ops.b_out, x2, *norm, rounded=True)
+    return out.view(b, lq, d)
+
+
+@pytest.mark.parametrize("h,lq,lk,self_attn", MHA_SITES)
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_mha_block_routes(gen, h, lq, lk, self_attn, dtype):
+    """Both routes of the MHA sublayer with and without the caller's
+    LayerNorm, launches a call (fused: 3 self, 4 cross; chain: 5 and 7 and
+    the plain LayerNorm); the fused route's pieces with the core on the two
+    sweeps: the store form bit-equal to the chain, the LayerNorm form within
+    one bf16 ulp of the chain's plain one (its largest difference printed);
+    each route as the wrapper runs it (the fused core on the panel up to its
+    key length) within the sublayer tolerance of the plain version."""
+    d, b = 768, 6
+    ops = _quantized(MultiheadAttention(d, h), gen).ops
+    xq = _randn(gen, b, lq, d, dtype=dtype)
+    xkv = xq if self_attn else _randn(gen, b, lk, d, dtype=dtype)
+    kpm = _pad_mask([lk, max(1, lk // 3), 0, lk, max(1, lk - 1), max(1, lk // 2)], lk)
+    ln = (_randn(gen, d, dtype=torch.float32).abs() + 0.5,
+          _randn(gen, d, scale=0.1, dtype=torch.float32), 1e-12 if h == 12 else 1e-5)
+    counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.proj_gemm, _cuda.proj_gemm_ln,
+                AB.attention_core_int8)
+    want = {"fused": 3 if self_attn else 4, "chain": 5 if self_attn else 7}
+    for norm in (None, ln):
+        outs = {}
+        for route in ("fused", "chain"):
+            before = sum(c.launches for c in counters), AB.mha_block_int8.routes[route]
+            outs[route] = AB.mha_block_int8(xq, xkv, ops, kpm, norm, route=route)
+            torch.cuda.synchronize()
+            assert sum(c.launches for c in counters) - before[0] == want[route]
+            assert AB.mha_block_int8.routes[route] == before[1] + 1
+            assert outs[route].dtype == dtype and outs[route].shape == (b, lq, d)
+        two = _mha_fused_two_sweeps(xq, xkv, ops, kpm, norm)
+        if norm is None:
+            torch.testing.assert_close(two, outs["chain"], atol=0, rtol=0)
+        else:
+            print(f"{h}x{d // h} {lq}x{lk} {dtype}: the LayerNorm form against the chain, max "
+                  f"|d| and share differing {_ln_diff(two, outs['chain'])}")
+        ref = AB.mha_block_int8_plain(xq, xkv, ops, kpm, norm)
+        for route in ("fused", "chain"):
+            _close(outs[route], ref)
+
+
+# the ungated core's score panel at the MHA sublayer's key lengths (8 and
+# 64 tokens, 62 and 124 frames), one past a tile, past the panel's
+# threshold and at its longest row; cross shapes both ways
+@pytest.mark.parametrize("lq,lk", [(8, 8), (64, 64), (62, 62), (124, 124), (62, 8), (8, 62),
+                                   (65, 65), (20, 129), (499, 499), (64, 512)])
+@pytest.mark.parametrize("hd", [64, 96])
+def test_attention_core_panel_ungated(gen, lq, lk, hd):
+    """The ungated panel kernel (bool padding mask, additive bias, no mask)
+    against the plain version and the two-sweep kernel on the same inputs at
+    ATTN_TOL; element 2 with every key PAD still averages v."""
+    b, h = 3, 4
+    d = h * hd
+    q = _randn(gen, b * lq, 2 * d, scale=hd ** -0.5)[:, d:]
+    kv = _randn(gen, b * lk, 2 * d)
+    k, v = kv[:, :d], kv[:, d:]
+    pad = _pad_mask([lk, max(1, lk // 3), 0], lk)
+    for kw in (dict(kpm=pad), dict(kbias=torch.where(pad, AB.NEG_INF, 0.0).float()), {}):
+        got = AB.attention_core_int8(q, k, v, b, h, panel=True, **kw)
+        _cuda.last_kernel("attention")
+        AB.attention_core_int8(q, k, v, b, h, panel=True, **kw)
+        assert _cuda.last_kernel("attention") == ("onepass_panel_kernel", hd)
+        two = AB.attention_core_int8(q, k, v, b, h, panel=False, **kw)
+        assert _cuda.last_kernel("attention") == ("onepass_mma_kernel", hd)
+        ref = AB.attention_core_int8_plain(q, k, v, b, h, **kw)
+        assert torch.isfinite(got).all()
+        _close_attention(got.view(b, lq, d), ref.view(b, lq, d))
+        _close_attention(got.view(b, lq, d), two.view(b, lq, d))
+    assert AB.core_panel(lk, False, hd) == (lk <= AB.PANEL_MAX_KEYS_UNGATED)
+    with pytest.raises(ValueError, match="no score panel"):  # no panel at head dim 32
+        AB.attention_core_int8(_randn(gen, b * lq, 128), _randn(gen, b * lk, 128),
+                               _randn(gen, b * lk, 128), b, 4, panel=True)
+
+
 def test_projection_routes_no_cluster_takes_the_chain(gen):
     """A width no cluster spans takes the named chain, counted there, at rows
     where the fused route would be picked; forcing the fused route raises.

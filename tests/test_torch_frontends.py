@@ -124,3 +124,27 @@ def test_bert_int8_matches_jax_kernel_path(monkeypatch):
         got, pool = tm(torch.from_numpy(ids), torch.from_numpy(mask))
     assert_kernel_close(got, np.asarray(ref, np.float32))
     assert_kernel_close(pool, np.asarray(ref_pool, np.float32))
+
+
+def test_bert_int8_attention_takes_its_layer_norm_into_the_mha():
+    """An int8 BERT layer hands its attention LayerNorm (eps 1e-12) to the
+    MHA sublayer: on the CPU the result is the unfolded ``layer_norm(x +
+    mha(x))`` of the parent bit for bit, through the LayerNorm's fp32 copies."""
+    import hriemo_torch.ops.attention_block as TA
+    from hriemo_torch.nn.layers import layer_norm
+    cfg = TF.BertConfig.tiny(hidden_size=D, num_attention_heads=4, intermediate_size=512,
+                             num_hidden_layers=1)
+    tm = TF.BertEncoder(cfg)
+    tm.init_weights(torch.Generator().manual_seed(3))
+    quantize_for_serving(tm.to(torch.bfloat16))
+    layer = tm.encoder.layer[0]
+    ln = layer.attention["output"]["LayerNorm"]
+    assert layer.mha_ops is not None and ln.fp32 is not None
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 16, D)).astype(np.float32)).to(torch.bfloat16)
+    kpm = torch.from_numpy(np.arange(16)[None, :] >= np.array([[16], [9], [1]]))
+    with torch.no_grad():
+        got = layer._attention(x, kpm)
+        ref = layer_norm(x + TA.mha_block_int8_plain(x, x, layer.mha_ops, kpm), ln.weight,
+                         ln.bias, cfg.layer_norm_eps)
+    assert torch.equal(got, ref)

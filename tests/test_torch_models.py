@@ -75,3 +75,54 @@ def test_fusion_int8_matches_jax_kernel_path(monkeypatch):
     got = _run_port(tm, *ins, torch.bfloat16)
     for g, r in zip(got, ref):
         assert_kernel_close(g, np.asarray(r, np.float32))
+
+
+def _unfolded_tacfn(block, h_a, h_t, mask_a, mask_t, generator):
+    """The TACFN block's forward before its LayerNorms went into the MHA
+    calls: ``ln(q + drop(mha(q, kv)))`` at each attention, the same
+    generators drawn in the same order."""
+    from hriemo_torch.models._common import RngStream
+    from hriemo_torch.nn.layers import dropout
+    rs = RngStream(generator)
+    drop = lambda x: dropout(x, block.dropout, rs(), block.training)  # noqa: E731
+
+    def attend(mha, q, kv, mask, ln):
+        return ln(q + drop(mha(q, kv, kv, mask, rs())))
+
+    h_a_self = attend(block.self_attn_a, h_a, h_a, mask_a, block.self_norm_a)
+    h_t_self = attend(block.self_attn_t, h_t, h_t, mask_t, block.self_norm_t)
+    h_a_cm = attend(block.attn_a2t, h_a_self, h_t_self, mask_t, block.norm_a1)
+    h_a_cm = block.norm_a2(h_a_cm + drop(block.ffn_a(h_a_cm)))
+    h_t_cm = attend(block.attn_t2a, h_t_self, h_a_self, mask_a, block.norm_t1)
+    return h_a_cm, block.norm_t2(h_t_cm + drop(block.ffn_t(h_t_cm)))
+
+
+@pytest.mark.parametrize("int8,training", [(False, True), (False, False), (True, False)])
+def test_tacfn_block_layer_norm_fold_is_bit_equal(int8, training):
+    """The TACFN block hands each attention's residual and LayerNorm to its
+    MHA call when no dropout acts (eval: per op on fp32, the int8 MHA
+    sublayer on the int8 tree); a training forward with dropout 0.1 keeps
+    the unfolded path. Either way the result is the unfolded forward's bit
+    for bit, on the same generator."""
+    from hriemo_torch.nn.layers import init_torch_defaults
+    d = 128
+    block = TM.TacfnCrossModalBlock(d, 4, dropout=0.1)
+    init_torch_defaults(block, torch.Generator().manual_seed(1))
+    dtype = torch.float32
+    if int8:
+        dtype = torch.bfloat16
+        quantize_for_serving(block.to(dtype), min_dim=64)
+        assert block.self_attn_a.ops is not None and block.self_norm_a.fp32 is not None
+    block.train(training)
+    ins = _inputs(np.random.default_rng(9), 3, 20, 9, d)
+    h_a, m_a, h_t, m_t = (torch.from_numpy(t) for t in ins)
+    h_a, h_t = h_a.to(dtype), h_t.to(dtype)
+    with torch.no_grad():
+        got = block(h_a, h_t, m_a, m_t, torch.Generator().manual_seed(4))
+        ref = _unfolded_tacfn(block, h_a, h_t, m_a, m_t, torch.Generator().manual_seed(4))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    if training:  # dropout acted: the eval forward differs
+        block.eval()
+        with torch.no_grad():
+            assert not torch.equal(block(h_a, h_t, m_a, m_t)[0], got[0])
