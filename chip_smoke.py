@@ -24,7 +24,7 @@ Phases, any failure exits non-zero:
    ``ms / library_ms``), beside the least time the card could take; for the
    float FFN and the conv stack, the routed path's time (``route_ms``: cuBLAS
    and LayerNorm; the Gram-matrix GroupNorm statistics for the stats, cuDNN
-   conv4..6 for K2, cuDNN ``_feature_encoder`` for the fused stack) instead;
+   conv4..6 for K2, the cuDNN route's convs for the fused stack) instead;
    the W8A8 FFN pair (``ffn_block_int8``, ``mlp2_int8``) at the 10 s
    bucket's 1996 rows and the beta gate's 4, and after every other timing
    at the bench's served rows (WavLM/BERT FFN over 384 x 62 and 32 x 499
@@ -98,14 +98,20 @@ Phases, any failure exits non-zero:
    three TF32 products); then the int8 core
    alone at B=4 self 499² on the tiles at d=256 in 8 heads and d=768 in 6
    and 4 (hd 32, 128, 192), against SDPA, the hd-192 one also held without
-   its last key tile;
+   its last key tile; last, the conv stack's stages at the served batches
+   of the 1.25 s, 5 s and 10 s buckets (``SERVED_CONV``, bf16), each
+   against its plain version with its cuDNN route's counterpart as
+   ``route_ms``, the route ``conv_stack_route`` picks not the slower by more
+   than ``ROUTE_NOISE`` and ``ROUTE_NOISE_MS``;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
    2.5 s and 10 s audio buckets, launch counts per forward (every call of
    the W8A8 FFN pair, the WavLM sublayer and ``int8_linear`` on the route
    its wrapper picks for its rows; the ungated score panel as often as the
-   MHA calls' shapes put their cores there, ``mha_panels``), probabilities
+   MHA calls' shapes put their cores there, ``mha_panels``; the feature
+   encoder on the route ``conv_stack_route`` picks, the conv-stack kernels
+   once a forward where it picks them, ``stack_launches``), probabilities
    finite and in [0, 1], and the same requests through the plain versions
    (``use_kernels=False``) within the int8 gate of 0.006; then the same on
    the int8 tree at fp32 compute (``compute_dtype=torch.float32``), whose
@@ -136,7 +142,9 @@ Phases, any failure exits non-zero:
    callers' LayerNorms in the out-projection, the ungated cores on the
    score panel (``PANEL_PER_FORWARD``: all 20 at 1.25 s; at 10 s all but
    the two audio self-attentions and the two text->audio ones over 499
-   frames), kernel vs plain within 0.006;
+   frames), the feature encoder on the conv-stack kernels (stats, K1, K2
+   once each), kernel vs plain within 0.006, and the same tree with the
+   encoder forced onto its cuDNN route within 0.006 of it;
 5. the feature-extraction entry point at full width (WavLM base-plus and
    BERT-base, random weights from a seed): a synthetic IEMOCAP tree of 24
    utterances, the port's index builder, ``extract_iemocap`` audio (seq and
@@ -200,7 +208,8 @@ Phases, any failure exits non-zero:
    the wide tiles);
 8. (a) every serving kernel against its plain version at every audio bucket
    (``hriemo_torch.tools.kernel_numerics``: 45 rows, B=8, full width, the
-   JAX tool's limits; ``chip_smoke_out/kernel_numerics_h100.json``); (b)
+   JAX tool's limits, and the served conv stack at the 14 buckets;
+   ``chip_smoke_out/kernel_numerics_h100.json``); (b)
    ``int8_numerics_report`` on WavLM base-plus, BERT-base and the fusion
    model (d=768, fp32, seed 0) with 4 requests through the kernels, on clean
    weights and with an outlier channel in one WavLM FFN: the envelope must be
@@ -238,7 +247,8 @@ Phases, any failure exits non-zero:
    replaying one CUDA graph per input signature against the same pipeline
    eager (``cuda_graphs=False``, as phases 4-9 serve, so that the launch
    counters count every forward) on the W8A8 and the bf16 trees at the 2.5 s
-   and 10 s buckets, probabilities and beta bit-equal, twice; three
+   and 10 s buckets, probabilities and beta bit-equal, twice, each captured
+   forward running the conv-stack kernels; three
    back-to-back flushes of the 10 s bucket through ``stream_bucketed(
    pad_flush=True)``, one graph, each flush bit-equal to its eager result;
    then the bench's bucket measurement at those two buckets at their
@@ -424,6 +434,13 @@ PER_FORWARD_LONG = {30.0: {"wavlm_fused_attention": 12, "onepass_attention": 2},
 PER_FORWARD_EXTRACT = {"wavlm_fused_attention": 12}
 PER_FORWARD_FORCED = {"wavlm_fused_attention": 12, "ffn_block_bf16": 12,
                       "conv_stack_stats": 1, "conv_stack_k1": 1, "conv_stack_k2": 1}
+# the feature encoder on the conv-stack kernels: one launch of each a
+# forward that CS.conv_stack_route sends there (bf16 on the card). Every
+# phase that counts launches also holds each of its encoder's routes to the
+# rule (stack_launches); phase 4e requires the kernels at the served batches.
+STACK = ("conv_stack_stats", "conv_stack_k1", "conv_stack_k2")
+PER_FORWARD_STACK = dict.fromkeys(STACK, 1)
+ROUTED = CS.use_conv_stack   # the route, which phases 4e and 5 replace for a run
 # training: the gradient of the fusion step, kernel route against the plain
 # one, in relative norm |g - r| <= tol |r|: in fp32 each leaf within 1e-4,
 # in bf16 the whole gradient (all leaves together) within 5e-2. Element by
@@ -459,8 +476,9 @@ LOSS_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # probabilities, phase 6c's bf16 forward limit. A limit on probabilities
 # cannot show a wrong core, so phase 3 holds both cores at these shapes at
 # ATTN_TOL, which rejects each without its last key tile.
-E2E_KERNELS = {"int8": ("attention_block_int8", "mha_block_int8", "ffn_block_int8", "mlp2_int8"),
-               "bf16": ("wavlm_fused_attention",)}
+E2E_KERNELS = {"int8": ("attention_block_int8", "mha_block_int8", "ffn_block_int8", "mlp2_int8",
+                        *STACK),
+               "bf16": ("wavlm_fused_attention", *STACK)}
 LONG_MOSEI = {"long_onepass": (1100, 2000), "long_streaming": (2100, 2300)}
 EVAL_TOL = LOSS_RTOL[torch.bfloat16]
 TRAIN_AUDIO = (1499, 2249)   # one-pass and streaming audio self-attention (30 s, 45 s)
@@ -566,15 +584,16 @@ def check_kernels(gen):
         return (torch.arange(l)[None, :] >= lens[:, None]).to(dev)
 
     def run(kernel, shape, fn, plain, library, nbytes_, int8_ops, bf16_ops, fp32_ops=0,
-            tf32_ops=0, tol=TOL, route=None):
+            tf32_ops=0, tol=TOL, route=None, iters=20):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         err, med = compare(f"{kernel} {shape}", got, ref, tol)
         b_ms, b_by = bound(nbytes_, int8_ops, bf16_ops, fp32_ops, tf32_ops)
+        ms = functools.partial(cuda_ms, iters=iters)
         rec = dict(kernel=kernel, shape=shape, max_abs_err=err, median_abs_err=med,
-                   ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
-                   library_ms=None if library is None else cuda_ms(library),
-                   route_ms=None if route is None else cuda_ms(route),
+                   ms=ms(fn), plain_ms=ms(plain),
+                   library_ms=None if library is None else ms(library),
+                   route_ms=None if route is None else ms(route),
                    bound_ms=b_ms, bound_by=b_by)
         rec["ms_over_library"] = None if library is None else rec["ms"] / rec["library_ms"]
         rows.append(rec)
@@ -1076,7 +1095,8 @@ def check_kernels(gen):
                                                               enc.config)),
                        plain_ms=cuda_ms(lambda: CS.conv_stack_fused(
                            enc.feature_extractor, wave, enc.config, use_kernels=False)),
-                       route_ms=cuda_ms(lambda: route_enc._feature_encoder(wave)),
+                       route_ms=cuda_ms(lambda: route_enc._cudnn_convs(
+                           wave[:, None, :], range(7), wave).transpose(1, 2).contiguous()),
                        bound_ms=sum(r["bound_ms"] for r in rows[-3:]))
             rows.append(rec)
             print(f"  conv_stack_fused       {tag:28s} vs fp32 route max|d| {err:.3g}  "
@@ -1330,6 +1350,7 @@ def check_kernels(gen):
     torch.cuda.empty_cache()
     served_mha_rows(mha_row, run, rows)
     torch.cuda.empty_cache()
+    served_conv_rows(run, rows, gen)
     return rows, dict(ffn_pair=ffn_extra, streaming_last_block=limit_check,
                       onepass_gated_last_tile=gated_check,
                       int8_core_last_tile=core_check, mosei_eval_last_tile=eval_check,
@@ -1594,6 +1615,68 @@ def served_pair_rows(pair_row, fops, mlp2_ops):
     return out
 
 
+# rows 9-11 at the bench's served batches (MEASURED_BUCKET_BATCH): the
+# stages of the encoder that the served bf16 forward routes to the kernels
+SERVED_CONV = (1.25, 5.0, 10.0)
+
+
+def served_conv_rows(run, rows, gen):
+    """Phase 3's conv-stack rows at ``SERVED_CONV``'s buckets and their
+    served batches, bf16, tanh GELU, last of all: each stage against its
+    plain version (``STATS_TOL``, ``CONV_TOL``) on the prepared operands,
+    with its cuDNN route's counterpart as ``route_ms`` (the Gram-matrix
+    statistics; cuDNN conv0 with the GroupNorm apply and conv1..3 with their
+    GELUs; conv4..6 with theirs and the final transpose), and the route
+    ``CS.conv_stack_route`` picks."""
+    enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1, fast_gelu=True))
+    enc.init_weights(gen)
+    enc = enc.to("cuda", torch.bfloat16).eval()
+    w0, gn_w, gn_b, *taps = CS.prepared_operands(enc.feature_extractor, torch.bfloat16)
+    conv0 = enc.feature_extractor.conv_layers[0].conv
+    for sec in SERVED_CONV:
+        b, tw = MEASURED_BUCKET_BATCH[sec], int(sec * 16000)
+        wave = (torch.randn(b, tw, generator=gen) * 0.1).to("cuda", torch.bfloat16)
+        lens = CS.conv_lengths(tw)
+        tag = f"B={b} Tw={tw} bfloat16 (served)"
+        with torch.no_grad():
+            stats = CS.conv_stack_stats_plain(wave, w0)
+            x3 = CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], EPS, True)
+            out = CS.conv_stack_k2_plain(x3, *taps[3:], True)
+            mv = CS.group_norm_stats_from_waveform(wave, conv0.weight)
+            x3_cf = x3.transpose(1, 2).contiguous()
+        ops0 = 2 * b * lens[0] * 512 * 10
+        ops1 = ops0 + 2 * b * sum(lens[1:4]) * 512 * 512 * 3
+        ops2 = 2 * b * (3 * lens[4] + 2 * lens[5] + 2 * lens[6]) * 512 * 512
+        timing = dict(iters=3)
+        run("conv_stack_stats", tag, lambda: CS.conv_stack_stats(wave, w0),
+            lambda: CS.conv_stack_stats_plain(wave, w0), None, nbytes(wave, w0, stats), 0, ops0,
+            tol=STATS_TOL, route=lambda: CS.group_norm_stats_from_waveform(wave, conv0.weight),
+            **timing)
+        run("conv_stack_k1", tag,
+            lambda: CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, *taps[:3], EPS, True),
+            lambda: CS.conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, *taps[:3], EPS, True),
+            None, nbytes(wave, stats, w0, gn_w, gn_b, *taps[:3], x3), 0, ops1,
+            tol=CONV_TOL[torch.bfloat16],
+            route=lambda: enc._cudnn_convs(wave[:, None, :], range(4), stats=mv), **timing)
+        run("conv_stack_k2", tag, lambda: CS.conv_stack_k2(x3, *taps[3:], True),
+            lambda: CS.conv_stack_k2_plain(x3, *taps[3:], True), None,
+            nbytes(x3, *taps[3:], out), 0, ops2, tol=CONV_TOL[torch.bfloat16],
+            route=lambda: enc._cudnn_convs(x3_cf, range(4, 7)).transpose(1, 2).contiguous(),
+            **timing)
+        picked = CS.conv_stack_route("cuda", torch.bfloat16, b, tw)
+        kern, route = (sum(r[k] for r in rows[-3:]) for k in ("ms", "route_ms"))
+        for r in rows[-3:]:
+            r.update(served_bucket_s=sec, picked=picked)
+        print(f"  conv stack {tag}: kernels {kern:.4f} ms, cuDNN route {route:.4f} ms; the "
+              f"rule picks {picked}", flush=True)
+        mine, other = (kern, route) if picked == "fused" else (route, kern)
+        if mine > (1 + ROUTE_NOISE) * other + ROUTE_NOISE_MS:
+            raise AssertionError(f"conv stack {tag}: the {picked} route it picks is the slower: "
+                                 f"kernels {kern} ms, cuDNN route {route} ms")
+        del stats, x3, out, mv, x3_cf, wave
+        torch.cuda.empty_cache()
+
+
 def ffn_backward_check(x, w1, b1, w2, b2, g, b):
     """ffn_block_bf16's gradients of x and W1 (kernel forward, backward
     through the unfused reference) against autograd through the plain
@@ -1808,6 +1891,7 @@ def reset_launches():
     AB.attention_core_int8.panels.clear()
     for fn in COUNTED_BY_HEAD_DIM:
         fn.head_dims.clear()
+    ROUTED.routes.clear()
 
 
 def read_launches():
@@ -1885,8 +1969,10 @@ def served_batch(wavlm, bert, fusion, kw, sec, clips):
     FFNs and 12 sublayers and the feature projection fused, the 20 MHA
     sublayers fused with their callers' LayerNorms (one out-projection with
     the LayerNorm and one or two projections each), the ungated cores on the
-    score panel (``PANEL_PER_FORWARD``), and kernel vs plain within the
-    gate. Returns the phase's record and its launches."""
+    score panel (``PANEL_PER_FORWARD``), the feature encoder on the conv-stack
+    kernels (``PER_FORWARD_STACK``), kernel vs plain within the gate, and
+    the same tree with the encoder's route forced onto cuDNN within the gate
+    of it. Returns the phase's record and its launches."""
     pipe = StreamingPipeline(wavlm, bert, fusion, **kw)
     plain = StreamingPipeline(wavlm, bert, fusion, use_kernels=False, **kw)
     if {pipe._bucket_for([c[0]], 16000) for c in clips} != {sec}:
@@ -1902,7 +1988,11 @@ def served_batch(wavlm, bert, fusion, kw, sec, clips):
     print(f"{what}: {len(got)} requests in one forward, {secs:.3f} s; launches {launches}; "
           f"fused first GEMM {gemm1} launches, projections {proj}, out-projections with the "
           f"LayerNorm {proj_ln}", flush=True)
-    check_launches(what, launches, dict(PER_FORWARD, **{PANEL: PANEL_PER_FORWARD[sec]}))
+    if stack_launches(what) != PER_FORWARD_STACK:
+        raise AssertionError(f"{what}: the feature encoder left the conv-stack kernels "
+                             f"({dict(ROUTED.routes)})")
+    check_launches(what, launches, dict(PER_FORWARD, **PER_FORWARD_STACK,
+                                        **{PANEL: PANEL_PER_FORWARD[sec]}))
     routes = check_pair_routes(what)
     if routes.get("ffn_block_int8 fused", 0) < 12 or gemm1 < 12:
         raise AssertionError(f"{what}: WavLM's FFNs left the fused route ({routes}, {gemm1} "
@@ -1929,13 +2019,46 @@ def served_batch(wavlm, bert, fusion, kw, sec, clips):
           f"served in {plain_secs:.3f} s", flush=True)
     if not delta <= PROB_GATE:
         raise AssertionError(f"{what}: prob delta {delta} > {PROB_GATE}")
+    del plain
+    # the same tree with the feature encoder forced onto the cuDNN route:
+    # routing it to the kernels must cost no fidelity
+    cudnn = StreamingPipeline(wavlm, bert, fusion, **kw)
+    CS.use_conv_stack = lambda *a: False
+    try:
+        off, off_secs = serve(cudnn, clips, len(clips))
+    finally:
+        CS.use_conv_stack = ROUTED
+    off_delta = prob_delta(got, off, clips)
+    print(f"{what}, the conv-stack route vs the cuDNN route: max prob delta {off_delta:.3g} "
+          f"(gate {PROB_GATE}); cuDNN route served in {off_secs:.3f} s", flush=True)
+    if not off_delta <= PROB_GATE:
+        raise AssertionError(f"{what}: conv-stack route vs cuDNN route prob delta {off_delta} "
+                             f"> {PROB_GATE}")
     return dict(launches=launches, routes=routes, serve_s=secs, plain_serve_s=plain_secs,
-                prob_delta=delta), launches
+                prob_delta=delta, cudnn_route_prob_delta=off_delta,
+                cudnn_route_serve_s=off_secs), launches
+
+
+def stack_launches(what):
+    """The feature encoder's routes since ``reset_launches``: each one the
+    route ``CS.conv_stack_route`` picks for its (B, Tw, dtype) on the card.
+    Returns the conv-stack kernels' launches its fused calls make."""
+    fused = 0
+    for (route, b, tw, dt), n in ROUTED.routes.items():
+        want = CS.conv_stack_route("cuda", getattr(torch, dt), b, tw)
+        if route != want:
+            raise AssertionError(f"{what}: the feature encoder at B={b} Tw={tw} {dt} took the "
+                                 f"{route} route {n} times, the rule picks {want}")
+        fused += n if route == "fused" else 0
+    return dict.fromkeys(STACK, fused)
 
 
 def check_launches(what, got, want):
     """``want`` maps kernel name -> launches; every other kernel of ``got``
-    must be 0."""
+    must be 0. The conv-stack kernels that ``want`` does not name are held
+    to the encoder's routes since ``reset_launches`` (``stack_launches``)."""
+    if not set(STACK) & set(want):
+        want = {**stack_launches(what), **want}
     for name in got:
         if got[name] != want.get(name, 0):
             raise AssertionError(f"{what}: {name} launched {got[name]} times, "
@@ -2988,7 +3111,8 @@ def kernel_numerics(smi: str):
     results = KN.Checks("cuda", SEED).run_all(lambda line: print("  " + line, flush=True))
     rep = KN.report(results, smi, SEED)
     (OUT / "kernel_numerics_h100.json").write_text(json.dumps(rep, indent=1))
-    missing = set(KN.expected_rows()) - {(r["kernel"], r["shape"]) for r in rep["rows"]}
+    missing = set(KN.expected_rows() + KN.port_rows()) - {(r["kernel"], r["shape"])
+                                                          for r in rep["rows"]}
     bad = [r for r in rep["rows"] if not r["max_delta"] <= r["threshold"]]
     if missing or bad:
         raise AssertionError(f"kernel numerics: missing {sorted(missing)}, over their limit {bad}")
@@ -3395,7 +3519,8 @@ def mesh_serving(mesh, clips):
     request's probabilities and beta gathered over the data group
     (``mesh.gather_rows``). Returns ``{tree: (probabilities by uid of every
     request, this rank's launches, seconds, the ungated panel launches its
-    MHA calls should have made)}``."""
+    MHA calls should have made, the conv-stack launches its encoder's
+    routes should have made)}``."""
     from hriemo_torch.parallel import mesh as PM
 
     wavlm, bert, fusion = serving_models(torch.Generator().manual_seed(SEED + 3))
@@ -3409,6 +3534,7 @@ def mesh_serving(mesh, clips):
         t = time.perf_counter()
         got, _ = serve(pipe, mine)
         launches, panels = read_launches(), mha_panels()
+        stack = stack_launches(f"mesh serving {tree} rank {mesh.data_rank}")
         probs, beta = (torch.from_numpy(np.stack([got[c[2]][i] for c in mine])).cuda()
                        for i in (0, 1))
         probs, beta = PM.gather_rows([probs, beta], mesh)
@@ -3416,7 +3542,7 @@ def mesh_serving(mesh, clips):
             raise AssertionError(f"mesh serving {tree}: gathered {tuple(probs.shape)} "
                                  f"probabilities for {len(clips)} requests")
         out[tree] = ({c[2]: p for c, p in zip(clips, probs.cpu().numpy())}, launches,
-                     time.perf_counter() - t, panels)
+                     time.perf_counter() - t, panels, stack)
         del pipe
     return out
 
@@ -3483,7 +3609,7 @@ def mesh_rank(dev, clips):
     rec["steps_s"] = time.perf_counter() - t
     t = time.perf_counter()
     served = mesh_serving(meshes["dp"], clips)
-    for _, ll, _, _ in served.values():
+    for _, ll, *_ in served.values():
         for name, n in ll.items():
             total[name] += n
     rec["serving"] = served
@@ -3547,13 +3673,14 @@ def mesh_phase(smi, root: pathlib.Path, clips, int8_ref, bf16_ref):
     for tree, ref in (("int8", int8_ref), ("bf16", bf16_ref)):
         delta = 0.0
         for rank, (rr, _) in enumerate(ranks):  # each rank holds every request
-            probs, ll, secs, panels = rr["serving"][tree]
+            probs, ll, secs, panels, stack = rr["serving"][tree]
             if sorted(probs) != sorted(ref):
                 raise AssertionError(f"mesh serving {tree} rank {rank}: requests "
                                      f"{sorted(probs)}, phase 4 served {sorted(ref)}")
             delta = max(delta, max(float(np.abs(p - ref[u][0]).max()) for u, p in probs.items()))
             want = ({n: 2 * k for n, k in PER_FORWARD.items()} if tree == "int8"
                     else {n: k for per in PER_FORWARD_BF16.values() for n, k in per.items()})
+            want.update(stack)
             want[PANEL] = panels
             check_launches(f"mesh serving {tree} rank {rank}", ll, want)
         if not delta <= DP_SERVE_TOL:
@@ -3607,7 +3734,11 @@ def graph_phase(smi, wavlm, bert, fusion):
             waves, texts = [c[0] for c in mine], [c[1] for c in mine]
             want = eager.infer(waves, texts)
             for i in range(2):  # the replay right after the capture, then a later one
+                before = CS.conv_stack_k1.launches
                 got = graphed.infer(waves, texts)
+                if i == 0 and CS.conv_stack_k1.launches == before:
+                    raise AssertionError(f"graph replay {tree} {sec:g} s: the captured forward "
+                                         "did not run the conv-stack kernels")
                 for what, g, w in zip(("probabilities", "beta"), got, want):
                     if g.shape != w.shape or not np.array_equal(g, w):
                         raise AssertionError(
@@ -3823,8 +3954,8 @@ def main() -> int:
             got_l, secs_l = serve(pk, pair, batch=2)
             ll = read_launches()
             # the int8 trees' other kernels run too; the float trees run none
-            names = ("attention_block_int8", *PER_FORWARD_LONG[30.0], "streaming_attention") \
-                if tree.startswith("int8") else KERNELS
+            names = ("attention_block_int8", *PER_FORWARD_LONG[30.0], "streaming_attention",
+                     *STACK) if tree.startswith("int8") else KERNELS
             check_launches(f"{tree} {sec:g} s", {n: ll[n] for n in names},
                            PER_FORWARD_LONG[sec])
             check_probs(f"{tree} {sec:g} s", got_l, pair)

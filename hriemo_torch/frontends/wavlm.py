@@ -1,10 +1,11 @@
 """WavLM audio frontend (port of ``hriemo/frontends/wavlm.py``, eval path).
 
-Conv feature encoder (GroupNorm statistics from the waveform's Gram
-matrix; the fused conv-stack kernels of ``ops.conv_stack`` behind the JAX
-package's gate, which is off), feature projection, convolutional positional embedding, and a
-post-norm encoder with WavLM's gated relative position bias. Parameter
-names are the HF ``WavLMModel`` state-dict names the JAX package uses.
+Conv feature encoder (the conv-stack kernels of ``ops.conv_stack`` where
+the card's readings route a bf16 waveform, else cuDNN convs with GroupNorm
+statistics from the waveform's Gram matrix), feature projection,
+convolutional positional embedding, and a post-norm encoder with WavLM's
+gated relative position bias. Parameter names are the HF ``WavLMModel``
+state-dict names the JAX package uses.
 
 An int8 tree (``ops.quant.quantize_for_serving``) at a length the
 attention kernel takes runs each layer as two kernels: the attention
@@ -239,21 +240,36 @@ class WavLMEncoder(nn.Module):
         self.encoder.layers[0].attention.rel_attn_embed.weight.normal_(0.0, 0.02, generator=gen)
 
     def _feature_encoder(self, input_values):
+        """``input_values [B, Tw]`` -> conv features ``[B, T', C]``: the
+        conv-stack kernels where ``conv_stack.use_conv_stack`` routes the
+        waveform (``conv_stack.conv_stack_route``: bf16 on the card), else
+        the cuDNN convs with the Gram-matrix GroupNorm statistics."""
         cfg = self.config
-        if conv_stack.use_conv_stack(cfg, self.feature_extractor):
-            # the fused stack, routed off as in hriemo/frontends/wavlm.py:206-213
+        if conv_stack.use_conv_stack(cfg, self.feature_extractor, input_values):
             return conv_stack.conv_stack_fused(self.feature_extractor, input_values, cfg,
                                                self.use_kernels)
-        x = input_values[:, None, :]
-        for i, layer in enumerate(self.feature_extractor.conv_layers):
-            conv = layer.conv
+        layers = range(len(cfg.conv_dim))
+        return self._cudnn_convs(input_values[:, None, :], layers, input_values).transpose(
+            1, 2).contiguous()  # [B, T', C]
+
+    def _cudnn_convs(self, x, layers, wave=None, stats=None):
+        """The cuDNN route's convs ``layers`` (each with its GELU; conv0 with
+        its GroupNorm) over ``x [B, C_in, T]`` channel-first. conv0's
+        ``(mean, var)`` come from ``stats`` if given, else from the
+        waveform's Gram matrix (``wave``, the base conv0 without bias) or
+        from conv0's output."""
+        cfg = self.config
+        convs = self.feature_extractor.conv_layers
+        for i in layers:
+            conv = convs[i].conv
             x = conv(x)
             if i == 0:
-                gp = layer.layer_norm
-                if (cfg.conv_kernel[0] == 10 and cfg.conv_stride[0] == 5
+                gp = convs[0].layer_norm
+                if stats is not None:
+                    mean, var = stats
+                elif (cfg.conv_kernel[0] == 10 and cfg.conv_stride[0] == 5
                         and conv.bias is None):
-                    mean, var = conv_stack.group_norm_stats_from_waveform(input_values,
-                                                                          conv.weight)
+                    mean, var = conv_stack.group_norm_stats_from_waveform(wave, conv.weight)
                 else:  # GroupNorm with one channel per group
                     xf = x.float()
                     mean = xf.mean(-1)
@@ -263,7 +279,7 @@ class WavLMEncoder(nn.Module):
                      * gp.weight.float()[None, :, None]
                      + gp.bias.float()[None, :, None]).to(x.dtype)
             x = gelu(x, cfg.fast_gelu)
-        return x.transpose(1, 2).contiguous()  # [B, T', C]
+        return x
 
     def _embed(self, feats, frame_mask=None):
         """Feature projection of the conv features ``[B, T', C]`` (pad frames

@@ -27,9 +27,13 @@ Two parts:
 
   Rounding points are the TPU kernels': fp32 sums, GroupNorm and GELU (the
   config's tanh or erf) in fp32, each conv's output cast to the input dtype
-  before the next conv, conv0's output normalised before any rounding. The
-  JAX package routes the stack off (:func:`use_conv_stack`), and so does
-  the port; it is forward-only, like the TPU kernels.
+  before the next conv, conv0's output normalised before any rounding. It
+  is forward-only, like the TPU kernels.
+
+The JAX package routes the stack off, after a TPU's readings; the port
+routes the served encoder by the H100's (:func:`conv_stack_route`,
+:func:`use_conv_stack`): every bf16 waveform on the card takes the
+kernels, fp32 and the CPU take the cuDNN route of ``frontends/wavlm.py``.
 
 Stage operands: the waveform ``[B, Tw]`` and weights in its dtype, conv0's
 weight as ``[C, 10]``, conv1..6 tap-major ``[K, C_out, C_in]``
@@ -37,6 +41,8 @@ weight as ``[C, 10]``, conv1..6 tap-major ``[K, C_out, C_in]``
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -185,6 +191,19 @@ def _conv_launches(x, taps_seq, fast_gelu):
     return x
 
 
+def _conv0_launch(wave, stats, w0, gn_w, gn_b, eps: float, fast_gelu: bool):
+    """K1's first launch on the card: conv0, GroupNorm and GELU into a new
+    ``[B, n0, C]`` tensor in the waveform's dtype (checked by the caller)."""
+    b, tw = wave.shape
+    n0 = conv_lengths(tw)[0]
+    x0 = torch.empty((b, n0, CHANNELS), dtype=wave.dtype, device=wave.device)
+    _cuda.check(_cuda.lib("conv_stack").hr_conv0_gn(
+        int(wave.dtype == torch.float32), wave.data_ptr(), b, tw, stats.data_ptr(),
+        w0.data_ptr(), gn_w.data_ptr(), gn_b.data_ptr(), 1.0 / n0, eps, int(fast_gelu), n0,
+        x0.data_ptr(), _cuda.stream()), "hr_conv0_gn")
+    return x0
+
+
 def conv_stack_stats(wave, w0):
     """Sum and sum of squares over time of conv0 ``[B, 2, C]`` fp32, over
     its ``(Tw - 10) // 5 + 1`` valid rows. ``wave [B, Tw]`` bf16 or fp32;
@@ -229,12 +248,8 @@ def conv_stack_k1(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu
     _cuda.require(gn_b, "gn_b", torch.float32, (CHANNELS,), dev)
     for taps, name in ((w1, "w1"), (w2, "w2"), (w3, "w3")):
         _check_taps(taps, 3, dt, dev, name)
-    x0 = torch.empty((b, lens[0], CHANNELS), dtype=dt, device=dev)
-    _cuda.check(_cuda.lib("conv_stack").hr_conv0_gn(
-        int(dt == torch.float32), wave.data_ptr(), b, tw, stats.data_ptr(), w0.data_ptr(),
-        gn_w.data_ptr(), gn_b.data_ptr(), 1.0 / lens[0], eps, int(fast_gelu), lens[0],
-        x0.data_ptr(), _cuda.stream()), "hr_conv0_gn")
-    x = _conv_launches(x0, (w1, w2, w3), fast_gelu)
+    x = _conv_launches(_conv0_launch(wave, stats, w0, gn_w, gn_b, eps, fast_gelu),
+                       (w1, w2, w3), fast_gelu)
     conv_stack_k1.launches += 1
     return x
 
@@ -279,16 +294,43 @@ def stack_operands(feature_extractor, dtype):
             *(conv_taps(layers[i].conv.weight, dtype) for i in range(1, 7)))
 
 
+def prepared_operands(feature_extractor, dtype):
+    """:func:`stack_operands` taken once and kept on ``feature_extractor``
+    (``stack_ops``), so that a forward, and a CUDA graph's replay, makes no
+    copy of the weights. They are taken again when a weight changes (another
+    tensor, or an in-place write, which moves its version counter) or for
+    another dtype; a graph captured before must then be captured again, as
+    for every operand ``quantize_for_serving`` derives."""
+    layers = feature_extractor.conv_layers
+    gn = layers[0].layer_norm
+    weights = [layer.conv.weight for layer in layers] + [gn.weight, gn.bias]
+    try:
+        key = (dtype, *((id(w), w.data_ptr(), w._version) for w in weights))
+    except RuntimeError:  # inference tensors keep no version counter: nothing to key on
+        return stack_operands(feature_extractor, dtype)
+    kept = getattr(feature_extractor, "stack_ops", None)
+    if kept is None or kept[0] != key:
+        feature_extractor.stack_ops = kept = (key, stack_operands(feature_extractor, dtype))
+    return kept[1]
+
+
+def base_pattern(cfg) -> bool:
+    """The stack's encoder: the base 7-layer conv pattern, equal widths, no
+    conv bias (the card's kernels also need :data:`CHANNELS`)."""
+    return (tuple(cfg.conv_kernel) == KERNEL and tuple(cfg.conv_stride) == STRIDE
+            and not cfg.conv_bias and len(set(cfg.conv_dim)) == 1)
+
+
 def conv_stack_fused(feature_extractor, wave, cfg, use_kernels: bool = True):
     """Full WavLM feature encoder: ``wave [B, Tw]`` -> ``[B, t_out, C]`` in
     the waveform's dtype (``hriemo/ops/conv_stack.py::conv_stack_fused``).
     ``cfg`` must have the base 7-layer pattern without conv bias;
-    ``use_kernels=False`` runs the three plain versions."""
-    if (tuple(cfg.conv_kernel) != KERNEL or tuple(cfg.conv_stride) != STRIDE
-            or cfg.conv_bias or len(set(cfg.conv_dim)) != 1):
+    ``use_kernels=False`` runs the three plain versions. The weights come
+    from :func:`prepared_operands`."""
+    if not base_pattern(cfg):
         raise ValueError("conv_stack_fused: needs the base 7-layer conv pattern, "
                          "equal widths and no conv bias")
-    w0, gn_w, gn_b, *taps = stack_operands(feature_extractor, wave.dtype)
+    w0, gn_w, gn_b, *taps = prepared_operands(feature_extractor, wave.dtype)
     stats_fn, k1, k2 = ((conv_stack_stats, conv_stack_k1, conv_stack_k2) if use_kernels else
                         (conv_stack_stats_plain, conv_stack_k1_plain, conv_stack_k2_plain))
     x3 = k1(wave, stats_fn(wave, w0), w0, gn_w, gn_b, *taps[:3], cfg.layer_norm_eps,
@@ -296,9 +338,37 @@ def conv_stack_fused(feature_extractor, wave, cfg, use_kernels: bool = True):
     return k2(x3, *taps[3:], cfg.fast_gelu)
 
 
-def use_conv_stack(cfg, feature_extractor) -> bool:
-    """Routing of the feature encoder to :func:`conv_stack_fused`: off, as in
-    the JAX package (``hriemo/ops/conv_stack.py:277-313``: the fused stack
-    lost the whole-model comparison on its TPU). The port keeps that
-    routing; a caller may force it on."""
-    return False
+def conv_stack_route(device_type: str, dtype, b: int, tw: int) -> str:
+    """The feature encoder's route for a ``[b, tw]`` waveform of ``dtype``
+    on a device of ``device_type``: "fused" (:func:`conv_stack_fused`) where
+    the card's readings show stats + K1 + K2 faster than the cuDNN route,
+    else "cudnn". On an NVIDIA H100 80GB HBM3 at 700 W (``python3
+    chip_conv_routes.py``, PERF.md section 5) they are in bf16 at every
+    shape read: 4.65-4.92x less time at the 14 served (bucket, batch) pairs,
+    2.66x at the thinnest grid (B=1, 3.75 s), each of the three launches
+    faster than its counterpart alone; so no shape bound. The CPU takes the
+    cuDNN route's code, as the JAX package does off its TPU; fp32 stays
+    there too (its 3xTF32 stack is held to 2e-4/2e-3 of the route, its
+    extraction gate is 1e-4); so does a waveform too short for one output
+    frame, which the kernels refuse."""
+    if device_type != "cuda" or dtype != torch.bfloat16 or b < 1 or conv_lengths(tw)[6] < 1:
+        return "cudnn"
+    return "fused"
+
+
+def use_conv_stack(cfg, feature_extractor, wave) -> bool:
+    """Routing of the feature encoder to :func:`conv_stack_fused`: the base
+    pattern at the kernels' width (:data:`CHANNELS`) and
+    :func:`conv_stack_route`. It replaces the JAX package's gate, which is
+    off because the fused Pallas stack lost the whole-model comparison on a
+    TPU v5e (``hriemo/ops/conv_stack.py:277-313``): a measurement of that
+    chip, not a semantic of the model. ``use_conv_stack.routes`` counts the
+    decisions by (route, B, Tw, dtype)."""
+    b, tw = wave.shape
+    route = (conv_stack_route(wave.device.type, wave.dtype, b, tw)
+             if base_pattern(cfg) and cfg.conv_dim[0] == CHANNELS else "cudnn")
+    use_conv_stack.routes[route, b, tw, str(wave.dtype)[6:]] += 1
+    return route == "fused"
+
+
+use_conv_stack.routes = collections.Counter()

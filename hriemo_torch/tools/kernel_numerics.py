@@ -10,7 +10,10 @@ bucket, the int8 FFN block at the smallest and the largest bucket's rows,
 ``mlp2_int8`` at the beta gate's rectangle, the flash cores and the
 GroupNorm statistics. Batch 8, full width, random weights from ``--seed``.
 The rows are the ``(kernel, shape)`` set of the JAX package's
-``kernel_numerics.json``; the buckets are the port's own
+``kernel_numerics.json`` and, of the port's own, the conv stack (stats, K1
+and K2 as the served bf16 encoder runs them) at every audio bucket, its
+clips zero-padded past their lengths as a bucket pads them; the buckets
+are the port's own
 (``infer/e2e_infer.py``'s ``--bucket_seconds`` and ``--text_bucket_tokens``),
 and the pass limits the JAX tool's.
 
@@ -38,6 +41,9 @@ THRESH = {  # the JAX tool's pass limits (tools/kernel_numerics.py:55-62)
     "mlp2": 0.05,
     "flash_mha": 0.02,
     "groupnorm_stats": 1e-3,
+    # the port's own row: the served feature encoder's conv stack (bf16
+    # outputs of O(1)), at the sublayers' limit
+    "conv_stack": 0.05,
 }
 
 
@@ -75,6 +81,13 @@ def expected_rows() -> list[tuple[str, str]]:
              ("flash_mha", f"Lq={la} Lk={la}"), ("flash_mha", f"Lq={la} Lk=128"),
              ("groupnorm_stats", "mean"), ("groupnorm_stats", "var")]
     return rows
+
+
+def port_rows() -> list[tuple[str, str]]:
+    """The rows beyond the JAX tool's: the served conv stack at every audio
+    bucket."""
+    audio, _ = serving_buckets()
+    return [("conv_stack", f"Tw={int(sec * 16_000)} (bucket {sec}s)") for sec in audio]
 
 
 def _delta(a, b) -> float:
@@ -213,10 +226,28 @@ class Checks:
         self.record("groupnorm_stats", "mean", km, rm)
         self.record("groupnorm_stats", "var", kv, rv)
 
+    @torch.no_grad()
+    def conv_stack(self):
+        from ..frontends.wavlm import WavLMConfig, WavLMEncoder
+        from ..ops import conv_stack as CS
+
+        cfg = WavLMConfig(num_hidden_layers=1, fast_gelu=True)
+        enc = WavLMEncoder(cfg)
+        enc.init_weights(self.gen)
+        fe = enc.to(self.dev, torch.bfloat16).eval().feature_extractor
+        for sec in self.frames:
+            tw = int(sec * 16_000)
+            lens = torch.randint(tw // 2, tw + 1, (self.b,), generator=self.gen)
+            keep = (torch.arange(tw)[None, :] < lens[:, None]).to(self.dev, torch.bfloat16)
+            wave = self.randn(self.b, tw, scale=0.1) * keep
+            self.record("conv_stack", f"Tw={tw} (bucket {sec}s)",
+                        CS.conv_stack_fused(fe, wave, cfg),
+                        CS.conv_stack_fused(fe, wave, cfg, use_kernels=False))
+
     def run_all(self, log=print) -> list:
         done = 0
         for fn in (self.wavlm_attention_block, self.mha_block, self.ffn_block, self.mlp2,
-                   self.flash_mha, self.groupnorm_stats):
+                   self.flash_mha, self.groupnorm_stats, self.conv_stack):
             fn()
             for name, tag, d in self.results[done:]:
                 log(f"{name:24s} {tag:22s} max|d| = {d:.3e}  "

@@ -1,10 +1,13 @@
 """PyTorch port: the fused WavLM conv stack (hriemo_torch/ops/conv_stack.py)
 against the JAX Pallas kernels in interpret mode (CPU), each plain stage
-against the port's routed feature encoder, and the routing gate. The
+against the port's routed feature encoder, the route rule, the prepared
+operands, and the whole encoder with the route forced on against JAX's. The
 base-plus conv pattern at 128 channels and the tolerances of
 tests/test_conv_stack.py."""
 
+import copy
 import dataclasses
+import types
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,6 +18,7 @@ from hriemo.frontends import WavLMConfig, WavLMEncoder
 from hriemo.ops.conv_stack import _conv_k2s2, _conv_k3s2
 from hriemo.ops.conv_stack import conv_stack_fused as jax_conv_stack
 import hriemo_torch.frontends as TF
+from hriemo_torch.infer.streaming import MEASURED_BUCKET_BATCH
 from hriemo_torch.nn.layers import gelu
 from hriemo_torch.ops import conv_stack as CS
 from hriemo_torch.ops.fused_ffn import gelu_fp32
@@ -96,11 +100,29 @@ def test_bf16_close_to_fp32_route(encoders):
     np.testing.assert_allclose(got.float().numpy(), ref.numpy(), atol=0.15, rtol=0.15)
 
 
+def _on_card(b, tw, dtype=torch.bfloat16):
+    """What the route reads of a waveform on the card (shape, device,
+    dtype), without one."""
+    return types.SimpleNamespace(shape=(b, tw), device=torch.device("cuda"), dtype=dtype)
+
+
 def test_gate_is_off_and_forcing_it_keeps_the_encoder(encoders, monkeypatch):
+    """The rule: on the CPU the gate is off for every config (the cuDNN
+    route's code, as in JAX); on the card it is on for the base-plus
+    encoder's bf16 waveforms and off in fp32 and for a pattern or width the
+    kernels do not take. Forced on, the port's encoder runs the fused stack
+    (its plain versions here) and keeps the routed encoder's output."""
     _, tm = encoders
-    for cfg in (TF.WavLMConfig.base_plus(), TF.WavLMConfig.tiny(), tm.config):
-        assert not CS.use_conv_stack(cfg, tm.feature_extractor)
     wave = torch.from_numpy(_wave(5, 2, 16000))
+    before = sum(CS.use_conv_stack.routes.values())
+    for cfg in (TF.WavLMConfig.base_plus(), TF.WavLMConfig.tiny(), tm.config):
+        assert not CS.use_conv_stack(cfg, tm.feature_extractor, wave)
+        assert not CS.use_conv_stack(cfg, tm.feature_extractor, wave.to(torch.bfloat16))
+        assert not CS.use_conv_stack(cfg, tm.feature_extractor, _on_card(2, 16000, torch.float32))
+        assert CS.use_conv_stack(cfg, tm.feature_extractor, _on_card(2, 16000)) == (
+            cfg == TF.WavLMConfig.base_plus())
+    assert sum(CS.use_conv_stack.routes.values()) == before + 12
+    assert CS.use_conv_stack.routes["fused", 2, 16000, "bfloat16"] >= 1
     mask = torch.ones(2, 16000, dtype=torch.int32)
     mask[1, 9000:] = 0
     calls = []
@@ -109,11 +131,84 @@ def test_gate_is_off_and_forcing_it_keeps_the_encoder(encoders, monkeypatch):
     with torch.no_grad():
         routed, fm = tm(wave, mask)
         assert not calls
-        monkeypatch.setattr(CS, "use_conv_stack", lambda cfg, fe: True)
+        monkeypatch.setattr(CS, "use_conv_stack", lambda cfg, fe, wave: True)
         forced, fm_forced = tm(wave, mask)
     assert calls == [1]
     np.testing.assert_array_equal(fm.numpy(), fm_forced.numpy())
     np.testing.assert_allclose(forced.numpy(), routed.numpy(), atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("sec,b", sorted(MEASURED_BUCKET_BATCH.items()))
+def test_route_rule_at_the_served_batches(sec, b):
+    """The route as a pure function of (device type, dtype, B, Tw): the
+    kernels for every served bf16 flush on the card; the cuDNN route on the
+    CPU and in fp32."""
+    tw = int(sec * 16000)
+    assert CS.conv_stack_route("cuda", torch.bfloat16, b, tw) == "fused"
+    assert CS.conv_stack_route("cpu", torch.bfloat16, b, tw) == "cudnn"
+    assert CS.conv_stack_route("cuda", torch.float32, b, tw) == "cudnn"
+    assert CS.conv_stack_route("cpu", torch.float32, b, tw) == "cudnn"
+
+
+@pytest.mark.parametrize("b,tw,want", [
+    (1, 400, "fused"),       # one output frame
+    (1, 399, "cudnn"),       # none: the kernels refuse it
+    (8, 160000, "fused"),
+    (1, 16000, "fused"),
+    (4, 60000, "fused"),
+    (0, 16000, "cudnn"),
+])
+def test_route_rule_edges(b, tw, want):
+    assert CS.conv_stack_route("cuda", torch.bfloat16, b, tw) == want
+    assert CS.conv_stack_route("cuda", torch.float16, b, tw) == "cudnn"
+
+
+def test_prepared_operands_kept_until_the_weights_change(encoders):
+    """The stack's operands are taken once per weights and dtype: the same
+    tensors on the next call, the same values as stack_operands; taken again
+    after an in-place write to a weight and for another dtype."""
+    _, tm = encoders
+    fe = copy.deepcopy(tm.feature_extractor)
+    first = CS.prepared_operands(fe, torch.float32)
+    assert CS.prepared_operands(fe, torch.float32) is first
+    for got, want in zip(first, CS.stack_operands(fe, torch.float32)):
+        assert torch.equal(got, want)
+    with torch.no_grad():
+        fe.conv_layers[4].conv.weight.mul_(2.0)
+    second = CS.prepared_operands(fe, torch.float32)
+    assert second is not first
+    assert torch.equal(second[6], CS.conv_taps(fe.conv_layers[4].conv.weight, torch.float32))
+    assert torch.equal(second[6], 2.0 * first[6])
+    third = CS.prepared_operands(fe, torch.bfloat16)
+    assert [t.dtype for t in third] == [torch.bfloat16] + [torch.float32] * 2 + [
+        torch.bfloat16] * 6
+    assert CS.prepared_operands(fe, torch.bfloat16) is third
+
+
+@pytest.mark.parametrize("tw", [16000, 40000])
+def test_encoder_with_the_route_forced_matches_jax(encoders, monkeypatch, tw):
+    """The port's whole WavLMEncoder forward with the conv-stack route
+    forced on (its plain stats, K1 and K2 on the CPU) against JAX's WavLM
+    forward with its gate forced on (the Pallas stack in interpret mode),
+    fp32, one element padded: tests/test_conv_stack.py's 2e-4/2e-3."""
+    import hriemo.ops.conv_stack as jax_cs
+
+    jm, tm = encoders
+    wave = _wave(tw + 3, 2, tw)
+    mask = np.ones((2, tw), np.int32)
+    mask[1, tw // 2 + 123:] = 0
+    monkeypatch.setattr(jax_cs, "use_conv_stack", lambda cfg, params: True)
+    monkeypatch.setattr(CS, "use_conv_stack", lambda cfg, fe, wave: True)
+    ref, fm_ref = jm.apply(jm.params, jnp.asarray(wave), jnp.asarray(mask))
+    calls = []
+    monkeypatch.setattr(CS, "conv_stack_k2_plain",
+                        lambda *a, _f=CS.conv_stack_k2_plain: calls.append(1) or _f(*a))
+    with torch.no_grad():
+        got, fm = tm(torch.from_numpy(wave), torch.from_numpy(mask))
+    assert calls == [1]
+    np.testing.assert_array_equal(fm.numpy(), np.asarray(fm_ref))
+    assert got.shape == ref.shape == (2, CS.conv_lengths(tw)[6], CFG.hidden_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4, rtol=2e-3)
 
 
 def _bf16_steps(got, ref):

@@ -12,10 +12,13 @@ port is installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import copy
+
 import pytest
 import torch
 
 from hriemo_torch.frontends.wavlm import WavLMAttention, WavLMConfig, WavLMEncoder
+from hriemo_torch.infer.streaming import MEASURED_BUCKET_BATCH
 from hriemo_torch.nn.attention import MultiheadAttention
 from hriemo_torch.nn.layers import MLP2, LayerNorm, Linear, init_torch_defaults
 from hriemo_torch.ops import _cuda
@@ -1075,6 +1078,91 @@ def test_conv_stack_fused_matches_routed_encoder(gen):
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-3)
 
 
+def _served_encoder(gen):
+    """WavLM base-plus's feature encoder as served: bf16, tanh GELU (one
+    transformer layer)."""
+    enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1, fast_gelu=True))
+    enc.init_weights(gen)
+    return enc.to("cuda", torch.bfloat16).eval()
+
+
+@pytest.mark.parametrize("sec,b", sorted(MEASURED_BUCKET_BATCH.items()))
+def test_conv_stack_route_at_the_served_pairs(gen, sec, b):
+    """At each served (bucket, batch), bf16: stats + K1 + K2 against the
+    cuDNN route, each timed as chip_smoke.py times a row (a CUDA graph of
+    calls, the median of 5 replays). The route the rule picks is the faster,
+    or within ROUTE_NOISE (2%) and ROUTE_NOISE_MS (1 us) of it; the kernels'
+    output is within the bf16 envelope (EXTRACT_ENVELOPE) of the route's."""
+    from chip_smoke import EXTRACT_ENVELOPE, ROUTE_NOISE, ROUTE_NOISE_MS, cuda_ms
+
+    enc = _served_encoder(gen)
+    tw = int(sec * 16000)
+    wave = _randn(gen, b, tw, scale=0.1)
+    routes = {"fused": lambda: CS.conv_stack_fused(enc.feature_extractor, wave, enc.config),
+              "cudnn": lambda: enc._cudnn_convs(wave[:, None, :], range(7), wave).transpose(
+                  1, 2).contiguous()}
+    with torch.no_grad():
+        got, ref = routes["fused"](), routes["cudnn"]()
+        torch.testing.assert_close(got.float(), ref.float(), **EXTRACT_ENVELOPE)
+        iters = max(3, min(20, int(2e8 // (b * tw))))
+        ms = {r: cuda_ms(fn, iters=iters, repeats=5) for r, fn in routes.items()}
+    picked = CS.conv_stack_route("cuda", torch.bfloat16, b, tw)
+    other = "cudnn" if picked == "fused" else "fused"
+    print(f"{sec} s B={b}: {ms}, picked {picked}")
+    assert ms[picked] <= (1 + ROUTE_NOISE) * ms[other] + ROUTE_NOISE_MS, (picked, ms)
+
+
+def test_wavlm_forward_launches_the_conv_stack_once(gen):
+    """A bf16 WavLM forward on the card launches stats, K1 and K2 once each
+    (one fused route decision); with use_kernels=False it runs their plain
+    versions, launching none, within the sublayer tolerance; an fp32 forward
+    stays on the cuDNN route."""
+    from hriemo_torch.nn.layers import set_use_kernels
+
+    enc = _served_encoder(gen)
+    wave = _randn(gen, 4, 40000, scale=0.1)
+    mask = torch.ones(4, 40000, dtype=torch.int32, device="cuda")
+    mask[1, 30000:] = 0
+    counters = (CS.conv_stack_stats, CS.conv_stack_k1, CS.conv_stack_k2)
+
+    def forward(model, w):
+        before = [c.launches for c in counters]
+        fused = CS.use_conv_stack.routes["fused", 4, 40000, str(w.dtype)[6:]]
+        with torch.no_grad():
+            out, _ = model(w, mask)
+        torch.cuda.synchronize()
+        return out, [c.launches - n for c, n in zip(counters, before)], \
+            CS.use_conv_stack.routes["fused", 4, 40000, str(w.dtype)[6:]] - fused
+
+    out, launches, fused = forward(enc, wave)
+    assert launches == [1, 1, 1] and fused == 1
+    plain, launches, fused = forward(set_use_kernels(copy.deepcopy(enc), False), wave)
+    assert launches == [0, 0, 0] and fused == 1
+    _close(out, plain)
+    _, launches, fused = forward(copy.deepcopy(enc).float(), wave.float())
+    assert launches == [0, 0, 0] and fused == 0
+
+
+def test_conv_stack_prepared_operands_bit_equal(gen):
+    """The operands prepared once give the same bits as the ones a call
+    took before (stack_operands), and so does the stack on them."""
+    enc = _served_encoder(gen)
+    fe = enc.feature_extractor
+    wave = _randn(gen, 3, 40000, scale=0.1)
+    prepared = CS.prepared_operands(fe, torch.bfloat16)
+    fresh = CS.stack_operands(fe, torch.bfloat16)
+    assert CS.prepared_operands(fe, torch.bfloat16) is prepared
+    for a, b in zip(prepared, fresh):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    w0, gn_w, gn_b, *taps = fresh
+    with torch.no_grad():
+        got = CS.conv_stack_fused(fe, wave, enc.config)
+        x3 = CS.conv_stack_k1(wave, CS.conv_stack_stats(wave, w0), w0, gn_w, gn_b, *taps[:3],
+                              enc.config.layer_norm_eps, True)
+        want = CS.conv_stack_k2(x3, *taps[3:], True)
+    assert torch.equal(got, want)
+
+
 def test_new_kernels_raise_instead_of_falling_back(gen):
     w1, b1, w2, b2, g, b = _ffn_operands(gen, 256, 1024, torch.bfloat16)
     x = _randn(gen, 8, 256)
@@ -1274,6 +1362,23 @@ def _graph_models(gen):
                                       (wc, bc, fusion))
 
 
+def _graph_models_base_convs(gen):
+    """``_graph_models`` with WavLM on the base conv pattern at 512 channels,
+    which bf16 routes to the conv-stack kernels."""
+    from hriemo_torch import bench
+    from hriemo_torch.frontends.bert import BertConfig
+
+    wc = WavLMConfig.tiny(hidden_size=256, num_attention_heads=4, intermediate_size=512,
+                          num_hidden_layers=2, fast_gelu=True, conv_dim=(512,) * 7,
+                          conv_kernel=CS.KERNEL, conv_stride=CS.STRIDE)
+    bc = BertConfig.tiny(vocab_size=30522, hidden_size=256, num_attention_heads=4,
+                         intermediate_size=512, num_hidden_layers=2, fast_gelu=True)
+    fusion = dict(d_model=256, num_emotions=4, n_heads=8, num_layers_fusion=1,
+                  num_layers_decoder=1, beta_hidden=128)
+    return bench.build_serving_models(int(torch.randint(0, 1 << 30, (1,), generator=gen)),
+                                      (wc, bc, fusion))
+
+
 def _graph_pipe(models, int8, graphs):
     from hriemo_torch import bench
 
@@ -1302,6 +1407,27 @@ def test_graph_replay_matches_eager(gen, int8):
         for g, w in zip(got, want):
             assert g.shape == w.shape and (g == w).all()
     assert len(graphed._graphs) == 1 and not eager._graphs
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_graph_replay_runs_the_conv_stack(gen, int8):
+    """The conv-stack kernels capture into the pipeline's one graph per input
+    signature (their workspaces from the caching allocator, their operands
+    prepared in the eager warm-up) and replay it: the eager forward's bits,
+    twice, and no launch counted after the capture."""
+    models = _graph_models_base_convs(gen)
+    graphed, eager = _graph_pipe(models, int8, True), _graph_pipe(models, int8, False)
+    clips = _graph_clips(gen, 6)
+    waves, texts = [c[0] for c in clips], [c[1] for c in clips]
+    before = CS.conv_stack_k1.launches
+    want = eager.infer(waves, texts)
+    assert CS.conv_stack_k1.launches == before + 1
+    for i in range(3):  # the capture (warm-up and capture: two calls), then replays
+        got = graphed.infer(waves, texts)
+        assert CS.conv_stack_k1.launches == before + 3
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and (g == w).all()
+    assert len(graphed._graphs) == 1
 
 
 def test_back_to_back_flushes_keep_their_results(gen):

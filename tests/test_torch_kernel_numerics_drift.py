@@ -41,6 +41,16 @@ def test_covers_every_bucket_of_the_port(artifact):
     assert sum(k == "wavlm_attention_block" for k, _ in rows) == len(audio) == 14
 
 
+def test_covers_the_conv_stack_at_every_bucket(artifact):
+    """The port's own rows: the served conv stack at each of the 14 audio
+    buckets."""
+    rows = {(r["kernel"], r["shape"]) for r in artifact["rows"]}
+    want = KN.port_rows()
+    assert len(want) == len(set(want)) == 14
+    assert not set(want) & set(KN.expected_rows())
+    assert not [k for k in want if k not in rows]
+
+
 def test_every_delta_within_its_limit(artifact):
     for r in artifact["rows"]:
         assert r["threshold"] == KN.THRESH[r["kernel"]], r
@@ -64,7 +74,9 @@ def test_tool_runs_on_the_cpu():
     assert [s for k, s, _ in results if k in ("wavlm_attention_block", "ffn_block")] == [
         "L=62 (bucket 1.25s)", "L=499 (bucket 10.0s)", "M=62", "M=499"]
     assert sum(k == "mha_block" for k, _, _ in results) == 6
-    assert all(d == 0.0 for _, _, d in results) and len(results) == 15
+    assert [s for k, s, _ in results if k == "conv_stack"] == [
+        "Tw=20000 (bucket 1.25s)", "Tw=160000 (bucket 10.0s)"]
+    assert all(d == 0.0 for _, _, d in results) and len(results) == 17
     rep = KN.report(results, "cpu", 0)
     assert rep["rows"][0] == {"kernel": "wavlm_attention_block",
                               "shape": "L=62 (bucket 1.25s)", "max_delta": 0.0,
