@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the W8A8 projections' fused route beats the chain, by rows.
 
-    python3 chip_proj_routes.py [--split | --mha | --mha-routes | --mha-model] [--repeats N]
+    python3 chip_proj_routes.py [--split | --mha | --mha-routes | --mha-model | --cores]
+                                [--repeats N]
 
 Run from the repository root on a machine with one NVIDIA GPU and ``nvcc``;
 it takes its timing from ``chip_smoke.py`` (CUDA-event ms of a CUDA graph of
@@ -32,14 +33,20 @@ batches, with the caller's LayerNorm and without; ``--mha-model`` prints the
 readings behind ``AB.mha_route``'s estimate with the LayerNorm (clusters
 the card runs at once, each projection and the out-projection with the
 LayerNorm on both routes by rows beside the estimate, both routes of the MHA
-where they come close). Prints the card's name
+where they come close); ``--cores`` times the int8 core's three kernels
+(the two sweeps, the score panel, the wgmma warpgroups) beside SDPA and
+the plain version at every served WavLM length at its served batch and at
+B = 1 and 4 (3.75 s, 10 s), gated 12 x 64 and ungated 8 x 96, and counts
+the compiled instructions of each kernel at head dim 64. Prints the card's name
 and power limit first and a JSON line of every reading last.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import pathlib
 import subprocess
 import sys
 
@@ -103,7 +110,7 @@ def chain_split(gen, repeats):
         qkv = _cuda.int8_gemm(xq, xs, m_ops.w_in, m_ops.s_in, m_ops.b_in, _cuda.EPI_BF16)
         q, k, v = qkv.split(d, dim=1)
         gate = (x2, ops.wg, ops.bg, ops.gconst, pos)
-        ctx = AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, panel=False)
+        ctx = AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, kernel="sweeps")
         cq, cs = _cuda.rowquant(ctx, div127=False)
         y = _cuda.int8_gemm(cq, cs, m_ops.w_out, m_ops.s_out, m_ops.b_out,
                             _cuda.EPI_RESID_LAST, resid=x2)
@@ -115,7 +122,8 @@ def chain_split(gen, repeats):
             "rowquant x": lambda: _cuda.rowquant(x2, div127=False),
             "qkv GEMM": lambda: _cuda.int8_gemm(xq, xs, m_ops.w_in, m_ops.s_in, m_ops.b_in,
                                                 _cuda.EPI_BF16),
-            "core": lambda: AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, panel=False),
+            "core": lambda: AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate,
+                                                   kernel="sweeps"),
             "rowquant ctx": lambda: _cuda.rowquant(ctx, div127=False),
             "out GEMM": lambda: _cuda.int8_gemm(cq, cs, m_ops.w_out, m_ops.s_out, m_ops.b_out,
                                                 _cuda.EPI_RESID_LAST, resid=x2),
@@ -198,10 +206,10 @@ def mha_core_sweep(gen, repeats):
             kpm = (torch.arange(la)[None, :] >= lens[:, None]).cuda()
             plain = AB.attention_core_int8_plain(q, k, v, b, h, kpm=kpm)
             rec = dict(site=site, B=b, Lq=lq, Lk=la, ms={}, err={},
-                       picked="panel" if AB.core_panel(la, False, 96) else "two sweeps")
-            for name, panel in (("two sweeps", False), ("panel", True)):
-                fn = lambda panel=panel: AB.attention_core_int8(q, k, v, b, h, kpm=kpm,
-                                                                panel=panel)
+                       picked=AB.core_kernel(la, False, 96, b))
+            for name in AB.CORE_KERNELS:
+                fn = lambda name=name: AB.attention_core_int8(q, k, v, b, h, kpm=kpm,
+                                                              kernel=name)
                 rec["err"][name] = C.compare(f"core {site} B={b} {lq}x{la} {name}", fn(),
                                              plain, C.ATTN_TOL[torch.bfloat16])[0]
                 rec["ms"][name] = C.cuda_ms(fn, repeats=repeats)
@@ -239,7 +247,7 @@ def mha_split(gen, repeats):
                                     w_rows=(0, d))
                 k, v = _cuda.int8_gemm(ak, aks, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
                                        w_rows=(d, 2 * d)).split(d, dim=1)
-            ctx = AB.attention_core_int8(q, k, v, b, h, kpm=kpm, panel=False)
+            ctx = AB.attention_core_int8(q, k, v, b, h, kpm=kpm, kernel="sweeps")
             cq, cs = _cuda.rowquant(ctx, div127=False)
             y = _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out, _cuda.EPI_BF16)
             qh = q.view(b, lq, h, -1).transpose(1, 2)
@@ -261,7 +269,7 @@ def mha_split(gen, repeats):
                                                             ops.b_in, _cuda.EPI_BF16,
                                                             w_rows=(d, 2 * d))
             calls.update({
-                "core": lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm, panel=False),
+                "core": lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm, kernel="sweeps"),
                 "rowquant ctx": lambda: _cuda.rowquant(ctx, div127=False),
                 "out GEMM": lambda: _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out,
                                                     _cuda.EPI_BF16),
@@ -276,8 +284,7 @@ def mha_split(gen, repeats):
                     x2, ops.w_in[:d], ops.s_in[:d], ops.b_in[:d], _cuda.EPI_BF16, div127=False)
                 calls["fused: k/v projection"] = lambda: _cuda.proj_gemm(
                     kv2, ops.w_in[d:], ops.s_in[d:], ops.b_in[d:], _cuda.EPI_BF16, div127=False)
-            panel = AB.core_panel(lk, False, d // h)
-            calls[f"fused: core ({'panel' if panel else 'two sweeps'})"] = \
+            calls[f"fused: core ({AB.core_kernel(lk, False, d // h, b)})"] = \
                 lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm)
             ln32 = (norm[0].float(), norm[1].float(), norm[2])
             calls["fused: out-projection + LN"] = lambda: _cuda.proj_gemm_ln(
@@ -543,9 +550,9 @@ def route_sweep(gen, repeats):
         q, k, v, kb, gate = gated_qkv(gen, b, l, ops)
         plain = AB.attention_core_int8_plain(q, k, v, b, h, kbias=kb, gate=gate)
         rec = dict(B=b, L=l, ms={}, err={})
-        for name, panel in (("two sweeps", False), ("panel", True)):
-            fn = lambda panel=panel: AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate,
-                                                            panel=panel)
+        for name in AB.CORE_KERNELS:
+            fn = lambda name=name: AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate,
+                                                          kernel=name)
             rec["err"][name] = C.compare(f"core B={b} L={l} {name}", fn(), plain,
                                          C.ATTN_TOL[torch.bfloat16])[0]
             rec["ms"][name] = C.cuda_ms(fn, repeats=repeats)
@@ -580,6 +587,115 @@ def route_sweep(gen, repeats):
     return out
 
 
+# the int8 core at every served WavLM length (the audio frames of the 14
+# buckets, hriemo_torch.tools.kernel_numerics.bucket_frames) at its served
+# batch (MEASURED_BUCKET_BATCH), and the thin grids B = 1 and 4 at 3.75 s and
+# 10 s: WavLM's gated 12 x 64 and the fusion stack's ungated audio
+# self-attention, 8 x 96
+THIN_CORES = ((3.75, 1), (3.75, 4), (10.0, 1), (10.0, 4))
+
+
+def core_cases():
+    from hriemo_torch.tools.kernel_numerics import bucket_frames
+
+    frames = bucket_frames(MEASURED_BUCKET_BATCH)
+    return [(sec, MEASURED_BUCKET_BATCH[sec], frames[sec]) for sec in MEASURED_BUCKET_BATCH] + \
+        [(sec, b, frames[sec]) for sec, b in THIN_CORES]
+
+
+def core_inputs(gen, b, l, gated, ops):
+    """q/k/v as column blocks of a packed projection (1/sqrt(hd) in q), the
+    key bias (gated: fp32 -1e9 / 0 with the gate's x and pos) or the padding
+    mask, and SDPA's materialised bias on the same inputs."""
+    if gated:
+        q, k, v, kb, gate = gated_qkv(gen, b, l, ops)
+        amask = (AB._gate(*gate[:4], b, l, 12) * gate[4].float()[None]
+                 + kb[:, None, None, :]).to(torch.bfloat16)
+        return q, k, v, dict(kbias=kb, gate=gate), amask, 12
+    h, d = 8, 768
+    qkv = torch.randn(b * l, 3 * d, generator=gen).to("cuda", torch.bfloat16)
+    qkv[:, :d] *= (d // h) ** -0.5
+    q, k, v = qkv.split(d, dim=1)
+    lens = torch.randint(l // 2, l + 1, (b,), generator=gen)
+    lens[0] = l
+    kpm = (torch.arange(l)[None, :] >= lens[:, None]).cuda()
+    return q, k, v, dict(kpm=kpm), ~kpm[:, None, None, :], h
+
+
+def core_bound_ms(b, l, h, hd, gated):
+    """The least time of the core on this card: its bytes (q, k, v, ctx,
+    pos, x and the key bias or mask, each once) at the HBM rate against its
+    bf16 products (QK^T and PV) at the tensor-core rate."""
+    rows = b * l * h * hd
+    nbytes = 4 * rows * 2 + (h * l * l * 2 + rows * 2 + b * l * 4 if gated else b * l)
+    return max(nbytes / C.PEAK_BYTES, 4 * b * h * l * l * hd / C.PEAK_BF16) * 1e3
+
+
+def core_sweep(gen, repeats):
+    """Each core kernel (the two sweeps, the panel, the wgmma warpgroups) and
+    SDPA on the same q/k/v at every served WavLM length and the thin grids,
+    gated 12 x 64 and ungated 8 x 96; each kernel held to the plain version
+    at ``ATTN_TOL``; the kernel ``AB.core_kernel`` picks, and whether it was
+    the fastest of the three."""
+    ops = attn_layer(gen).attn_ops
+    out = []
+    for gated in (True, False):
+        for sec, b, l in core_cases():
+            q, k, v, kw, amask, h = core_inputs(gen, b, l, gated, ops)
+            hd = 768 // h
+            plain = AB.attention_core_int8_plain(q, k, v, b, h, **kw)
+            rec = dict(gated=gated, bucket=sec, B=b, L=l, H=h, hd=hd, ms={}, err={},
+                       picked=AB.core_kernel(l, gated, hd, b),
+                       bound_ms=core_bound_ms(b, l, h, hd, gated))
+            for name in AB.CORE_KERNELS:
+                fn = lambda name=name: AB.attention_core_int8(q, k, v, b, h, kernel=name, **kw)
+                rec["err"][name] = C.compare(f"core {'gated' if gated else 'ungated'} B={b} "
+                                             f"L={l} {name}", fn(), plain,
+                                             C.ATTN_TOL[torch.bfloat16])[0]
+                rec["ms"][name] = C.cuda_ms(fn, repeats=repeats)
+            qh, kh, vh = (t.view(b, l, h, -1).transpose(1, 2) for t in (q, k, v))
+            rec["ms"]["SDPA"] = C.cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=amask, scale=1.0), repeats=repeats)
+            rec["ms"]["plain"] = C.cuda_ms(
+                lambda: AB.attention_core_int8_plain(q, k, v, b, h, **kw), iters=3)
+            kernels = {n: rec["ms"][n] for n in AB.CORE_KERNELS}
+            rec["fastest"] = min(kernels, key=kernels.get)
+            out.append(rec)
+            print(f"{'gated' if gated else 'ungated'} core {h}x{hd} {sec} s B={b} L={l}: "
+                  + ", ".join(f"{n} {t:.4f}" for n, t in rec["ms"].items())
+                  + f" ms; bound {rec['bound_ms']:.4f}; max |d| vs plain {rec['err']}; picks "
+                  f"{rec['picked']}, fastest {rec['fastest']}", flush=True)
+            del q, k, v, kw, amask, plain, qh, kh, vh
+            torch.cuda.empty_cache()
+    return out
+
+
+def sass_counts():
+    """Instructions of each compiled int8 core kernel at head dim 64, by
+    opcode class, from ``cuobjdump -sass`` of the built library (a static
+    count: every loop of onepass_wgmma_kernel is unrolled over its KT key
+    tiles, so its consumer code runs once a block)."""
+    import re
+
+    so = _cuda._build_dir() / "libattention.so"
+    tool = pathlib.Path(_cuda._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if not re.search(r"onepass_(wgmma|mma|panel)_kernel.*Li64E", name):
+            continue
+        ops = collections.Counter()
+        for line in block.splitlines():
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+            if m:
+                ops[m.group(2).split(".")[0]] += 1
+        out[name] = dict(total=sum(ops.values()), **dict(ops.most_common(14)))
+        print(f"SASS {name}: {out[name]}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--split", action="store_true",
@@ -590,6 +706,8 @@ def main() -> int:
                     help="sweep both routes of the MHA sublayer over a ladder of batches")
     ap.add_argument("--mha-model", action="store_true",
                     help="the readings behind the MHA route's estimate with the LayerNorm")
+    ap.add_argument("--cores", action="store_true",
+                    help="time the int8 core's kernels at every served WavLM length")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -600,7 +718,10 @@ def main() -> int:
     _cuda.build_all()
     gen = torch.Generator().manual_seed(C.SEED + 23)
     out = dict(card=smi)
-    if args.mha_model:
+    if args.cores:
+        out["cores"] = core_sweep(gen, args.repeats)
+        out["sass"] = sass_counts()
+    elif args.mha_model:
         out["mha_model"] = mha_model(gen, args.repeats)
     elif args.mha or args.mha_routes:
         if args.mha:

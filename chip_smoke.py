@@ -72,7 +72,12 @@ Phases, any failure exits non-zero:
    the slower by more than ``ROUTE_NOISE`` and ``ROUTE_NOISE_MS``; the
    ungated core on its score panel at those call sites (an entry of its own
    in the kernels line) against plain at ``ATTN_TOL``, SDPA and the two
-   sweeps; then
+   sweeps; the wgmma core (``onepass_wgmma_kernel``, an entry of its own) at
+   the served batches of 156, 249, 374 and 499 frames gated (12 x 64) and 343
+   and 499 ungated (8 x 96), each against plain at ``ATTN_TOL`` with its limit
+   check (the result without its last key tile must fail), SDPA on the
+   materialised bias as ``library_ms`` and the parent's two sweeps as
+   ``route_ms``, the score panel beside them; then
    the two kernels under the int8 wrappers
    alone, beside their own yardsticks: the int8 attention core (``attention_core_int8``) against SDPA,
    with its own limit check (a gated B=4 L=499 result without its last key
@@ -109,7 +114,8 @@ Phases, any failure exits non-zero:
    2.5 s and 10 s audio buckets, launch counts per forward (every call of
    the W8A8 FFN pair, the WavLM sublayer and ``int8_linear`` on the route
    its wrapper picks for its rows; the ungated score panel as often as the
-   MHA calls' shapes put their cores there, ``mha_panels``; the feature
+   MHA calls' shapes put their cores there and the wgmma core as often as
+   the WavLM and MHA calls' shapes put theirs there, ``core_launches``; the feature
    encoder on the route ``conv_stack_route`` picks, the conv-stack kernels
    once a forward where it picks them, ``stack_launches``), probabilities
    finite and in [0, 1], and the same requests through the plain versions
@@ -142,7 +148,9 @@ Phases, any failure exits non-zero:
    callers' LayerNorms in the out-projection, the ungated cores on the
    score panel (``PANEL_PER_FORWARD``: all 20 at 1.25 s; at 10 s all but
    the two audio self-attentions and the two text->audio ones over 499
-   frames), the feature encoder on the conv-stack kernels (stats, K1, K2
+   frames) and on the wgmma core (``WGMMA_PER_FORWARD``: none at 1.25 s,
+   whose 62 frames are one key tile; at 10 s WavLM's 12 and those 4), the
+   feature encoder on the conv-stack kernels (stats, K1, K2
    once each), kernel vs plain within 0.006, and the same tree with the
    encoder forced onto its cuDNN route within 0.006 of it;
 5. the feature-extraction entry point at full width (WavLM base-plus and
@@ -255,8 +263,8 @@ Phases, any failure exits non-zero:
    ``MEASURED_BUCKET_BATCH`` (three repeats; ``mfu`` in (0, 1]) and its
    scheduler block on 256 clips of its stream, each printed as a JSON line;
 11. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
-   phases 4-9; the wide tile instances and the ungated score panel as
-   entries of their own); then the
+   phases 4-9; the wide tile instances, the ungated score panel and the
+   wgmma core as entries of their own); then the
    last line ``{"ok": true, "device": {...}}``.
 
 ``--outlier-sweep`` instead runs only phase 8b's outlier over layers and
@@ -400,13 +408,18 @@ WIDE_KERNELS = {
     "attention_core_int8 (wide tiles)": ("hriemo/ops/attention_block.py:508",
                                          "hriemo_torch/csrc/onepass_mma.cuh"),
     # the MHA sublayer's core on the score panel (onepass_panel_kernel
-    # without the gate); its launches, a share of attention_core_int8's, are
-    # counted by AB.attention_core_int8.panels and held in phase 4e
+    # without the gate) and both sublayers' core on the wgmma warpgroups
+    # (onepass_wgmma_kernel); their launches, shares of attention_core_int8's,
+    # are counted by AB.attention_core_int8.kernels and held in phase 4e
     "attention_core_int8 (ungated panel)": ("hriemo/ops/attention_block.py:508",
                                             "hriemo_torch/csrc/attention.cu"),
+    "attention_core_int8 (wgmma core)": ("hriemo/ops/attention_block.py:169",
+                                         "hriemo_torch/csrc/onepass_wgmma.cuh"),
 }
 LAUNCH_NAMES = (*KERNELS, *WIDE_KERNELS)
 PANEL = "attention_core_int8 (ungated panel)"
+WGMMA = "attention_core_int8 (wgmma core)"
+WAVLM_HEADS = 12  # WavLM base-plus, the gated core's heads on every path
 # the two kernels under the int8 wrappers, counted by shape too
 COUNTED_BY_SHAPE = (AB.attention_core_int8, _cuda.int8_gemm)
 COUNTED_BY_HEAD_DIM = (FA.onepass_attention, FA.streaming_attention)
@@ -416,11 +429,13 @@ PER_FORWARD = {"attention_block_int8": 12, "mha_block_int8": 20, "ffn_block_int8
                "mlp2_int8": 5, "int8_linear": 21}
 # of the 20 MHA sublayers, the fusion stack's (the other 12 are BERT's)
 FUSION_MHA_PER_FORWARD = 8
-# the MHA sublayers' cores on the ungated score panel in one forward of
-# phase 4e's served batches: every one at 1.25 s (8 text tokens, 62
-# frames); at 10 s all but the 2 audio self-attentions and the 2
-# text->audio ones, whose 499 audio keys take the two sweeps
+# the cores of one forward of phase 4e's served batches by AB.core_kernel:
+# on the ungated score panel every MHA core at 1.25 s (8 text tokens, 62
+# frames, one key tile); at 10 s all but the 2 audio self-attentions and the
+# 2 text->audio ones, whose 499 audio keys take the wgmma core with WavLM's
+# 12 gated cores (at 1.25 s those take the gated panel)
 PANEL_PER_FORWARD = {1.25: 20, 10.0: 16}
+WGMMA_PER_FORWARD = {1.25: 0, 10.0: 16}
 # the bf16 tree: WavLM attention on the fused kernel at 499 frames (10 s),
 # per op at 124 (2.5 s, below its 128-frame gate)
 PER_FORWARD_BF16 = {10.0: {"wavlm_fused_attention": 12}, 2.5: {}}
@@ -754,7 +769,8 @@ def check_kernels(gen):
             xq, xs = _cuda.rowquant(x2, div127=False)
             qkv = _cuda.int8_gemm(xq, xs, mo.w_in, mo.s_in, mo.b_in, _cuda.EPI_BF16)
             qs, ks, vs = qkv.split(d, dim=1)
-            ctx = AB.attention_core_int8(qs, ks, vs, b, h, kbias=kb, gate=gate, panel=False)
+            ctx = AB.attention_core_int8(qs, ks, vs, b, h, kbias=kb, gate=gate,
+                                         kernel="sweeps")
             cq, cs = _cuda.rowquant(ctx, div127=False)
             y = _cuda.int8_gemm(cq, cs, mo.w_out, mo.s_out, mo.b_out, _cuda.EPI_RESID_LAST,
                                 resid=x2)
@@ -763,7 +779,7 @@ def check_kernels(gen):
                 "chain: q/k/v GEMM": lambda: _cuda.int8_gemm(xq, xs, mo.w_in, mo.s_in, mo.b_in,
                                                              _cuda.EPI_BF16),
                 "chain: core, two sweeps": lambda: AB.attention_core_int8(
-                    qs, ks, vs, b, h, kbias=kb, gate=gate, panel=False),
+                    qs, ks, vs, b, h, kbias=kb, gate=gate, kernel="sweeps"),
                 "chain: rowquant ctx": lambda: _cuda.rowquant(ctx, div127=False),
                 "chain: out GEMM": lambda: _cuda.int8_gemm(cq, cs, mo.w_out, mo.s_out, mo.b_out,
                                                            _cuda.EPI_RESID_LAST, resid=x2),
@@ -771,7 +787,7 @@ def check_kernels(gen):
                                                             x.dtype),
                 "fused: q/k/v projection": lambda: _cuda.proj_gemm(
                     x2, mo.w_in, mo.s_in, mo.b_in, _cuda.EPI_BF16, div127=False),
-                "fused: core (the panel up to PANEL_MAX_KEYS)": lambda: AB.attention_core_int8(
+                "fused: core (AB.core_kernel's)": lambda: AB.attention_core_int8(
                     qs, ks, vs, b, h, kbias=kb, gate=gate),
                 "fused: out-projection + LayerNorm": lambda: _cuda.proj_gemm_ln(
                     ctx, mo.w_out, mo.s_out, mo.b_out, x2, ops.ln_w, ops.ln_b, 1e-5),
@@ -1350,10 +1366,13 @@ def check_kernels(gen):
     torch.cuda.empty_cache()
     served_mha_rows(mha_row, run, rows)
     torch.cuda.empty_cache()
+    wgmma_check = served_core_rows(run, rows, layer.attn_ops)
+    torch.cuda.empty_cache()
     served_conv_rows(run, rows, gen)
     return rows, dict(ffn_pair=ffn_extra, streaming_last_block=limit_check,
                       onepass_gated_last_tile=gated_check,
-                      int8_core_last_tile=core_check, mosei_eval_last_tile=eval_check,
+                      int8_core_last_tile=core_check, wgmma_core_last_tile=wgmma_check,
+                      mosei_eval_last_tile=eval_check,
                       flash_last_tile=flash_check,
                       conv_k1_tile_edge=edge_check,
                       conv_k2_tile_edge=k2_edge_check, stats_last_chunk=chunk_check,
@@ -1464,7 +1483,7 @@ def mha_fused_two_sweeps(xq, xkv, ops, kpm, norm):
                             div127=False)
         k, v = _cuda.proj_gemm(xkv.reshape(-1, d), ops.w_in[d:], ops.s_in[d:], ops.b_in[d:],
                                _cuda.EPI_BF16, div127=False).split(d, dim=1)
-    ctx = AB.attention_core_int8(q, k, v, b, ops.n_heads, kpm=kpm, panel=False)
+    ctx = AB.attention_core_int8(q, k, v, b, ops.n_heads, kpm=kpm, kernel="sweeps")
     if norm is None:
         out = _cuda.proj_gemm(ctx, ops.w_out, ops.s_out, ops.b_out, _cuda.out_epi(xq.dtype),
                               div127=False)
@@ -1473,13 +1492,20 @@ def mha_fused_two_sweeps(xq, xkv, ops, kpm, norm):
     return out.view(b, lq, d)
 
 
-def mha_panels():
-    """The ungated score-panel launches that the MHA calls since
-    ``reset_launches`` should have made: one a fused call whose key length
-    and head dim ``AB.core_panel`` puts on the panel (the chain keeps the
-    two sweeps)."""
-    return sum(c for (route, _, _, lk, d, h, *_), c in AB.mha_block_int8.shapes.items()
-               if route == "fused" and AB.core_panel(lk, False, d // h))
+def core_launches():
+    """The core launches on the ungated score panel and on the wgmma core
+    that the int8 sublayer calls since ``reset_launches`` should have made:
+    one a fused call whose shape ``AB.core_kernel`` sends there (the chains
+    keep the two sweeps); WavLM's sublayers gated at WAVLM_HEADS heads."""
+    out = {PANEL: 0, WGMMA: 0}
+    for (route, b, l, d, _), c in AB.attention_block_int8.shapes.items():
+        if route == "fused" and AB.core_kernel(l, True, d // WAVLM_HEADS, b) == "wgmma":
+            out[WGMMA] += c
+    for (route, b, _, lk, d, h, *_), c in AB.mha_block_int8.shapes.items():
+        kernel = AB.core_kernel(lk, False, d // h, b)
+        if route == "fused" and kernel != "sweeps":
+            out[PANEL if kernel == "panel" else WGMMA] += c
+    return out
 
 
 def served_mha_rows(mha_row, run, rows):
@@ -1508,7 +1534,7 @@ def served_mha_rows(mha_row, run, rows):
             mha_row(f"{site} B={b} {lq}x{lk} H={h} (served, LN)", xq, xkv, kpm, mods[h], norm,
                     main=False)
             hd = d // h
-            if AB.core_panel(lk, False, hd):
+            if AB.core_kernel(lk, False, hd, b) == "panel":
                 q = torch.randn(b * lq, d, generator=own).to("cuda", torch.bfloat16) * hd ** -0.5
                 kv = torch.randn(b * lk, 2 * d, generator=own).to("cuda", torch.bfloat16)
                 k, v = kv.split(d, dim=1)
@@ -1516,17 +1542,95 @@ def served_mha_rows(mha_row, run, rows):
                 kh, vh = (t.reshape(b, lk, h, hd).transpose(1, 2) for t in (k, v))
                 run("attention_core_int8", f"B={b} {site} {lq}x{lk} H={h} (ungated panel)",
                     lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm,
-                                                   panel=True).view(b, lq, d),
+                                                   kernel="panel").view(b, lq, d),
                     lambda: AB.attention_core_int8_plain(q, k, v, b, h, kpm=kpm).view(b, lq, d),
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qh, kh, vh, attn_mask=~kpm[:, None, None, :], scale=1.0),
                     nbytes(q, k, v, q, kpm), 0, 4 * b * h * lq * lk * hd,
                     tol=ATTN_TOL[torch.bfloat16],
-                    route=lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm, panel=False))
+                    route=lambda: AB.attention_core_int8(q, k, v, b, h, kpm=kpm,
+                                                         kernel="sweeps"))
                 rows[-1].update(kernels_line=False, wide_entry=PANEL)
                 del q, kv, k, v, qh, kh, vh
             del xq, xkv, kpm
         torch.cuda.empty_cache()
+
+
+# the wgmma core's rows of phase 3, (bucket seconds, gated) at the bucket's
+# frames and served batch: WavLM's 12 x 64 at 3.125, 5, 7.5 and 10 s, the
+# fusion stack's audio self-attention (8 x 96) at 6.875 and 10 s
+WGMMA_ROWS = ((3.125, True), (5.0, True), (7.5, True), (10.0, True), (6.875, False),
+              (10.0, False))
+# lane instructions a score of onepass_wgmma_kernel at HD 64 with four tiles
+# a consumer, gated, from cuobjdump -sass of the build by opcode class
+# (chip_proj_routes.py --cores; PERF.md section 6): the per-score classes
+# (FFMA, FADD, FMUL, SHF, LDS, MUFU, FMNMX, F2FP) over its 128 scores a
+# thread, less the gate prologue's; counted as two fp32 operations each (an
+# FFMA's) for the row's bound
+WGMMA_INSTR_PER_SCORE = 26
+
+
+def served_core_rows(run, rows, wops):
+    """Phase 3's rows of the wgmma core (the kernels line's entry) at
+    ``WGMMA_ROWS`` (inputs from a generator of their own): against plain at
+    ATTN_TOL, SDPA on the materialised bias as ``library_ms``, the parent's
+    two sweeps as ``route_ms``, the score panel beside them, and ATTN_TOL's
+    limit check at each shape (the result without its last key tile must
+    fail). Returns the limit checks' readings."""
+    from hriemo_torch.tools.kernel_numerics import bucket_frames
+
+    own = torch.Generator().manual_seed(SEED + 22)
+    frames, d, checks = bucket_frames(MEASURED_BUCKET_BATCH), 768, {}
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=own) * scale).to("cuda", torch.bfloat16)
+
+    for sec, gated in WGMMA_ROWS:
+        b, l = MEASURED_BUCKET_BATCH[sec], frames[sec]
+        h = WAVLM_HEADS if gated else 8
+        hd = d // h
+        qkv = rn(b * l, 3 * d)
+        qkv[:, :d] *= hd ** -0.5
+        q, k, v = qkv.split(d, dim=1)
+        lens = torch.randint(l // 2, l + 1, (b,), generator=own)
+        lens[0] = l
+        pad = (torch.arange(l)[None, :] >= lens[:, None]).cuda()
+        if gated:
+            kw = dict(kbias=torch.where(pad, AB.NEG_INF, 0.0).float(),
+                      gate=(rn(b * l, d), wops.wg, wops.bg, wops.gconst, rn(h, l, l, scale=0.3)))
+            amask = (AB._gate(*kw["gate"][:4], b, l, h) * kw["gate"][4].float()[None]
+                     + kw["kbias"][:, None, None, :]).to(torch.bfloat16)
+            extra = nbytes(kw["gate"][0], kw["gate"][4], kw["kbias"])
+        else:
+            kw, amask, extra = dict(kpm=pad), ~pad[:, None, None, :], nbytes(pad)
+        qh, kh, vh = (t.view(b, l, h, hd).transpose(1, 2) for t in (q, k, v))
+
+        def core(kernel):
+            return AB.attention_core_int8(q, k, v, b, h, kernel=kernel, **kw).view(b, l, d)
+
+        def upto(n):  # plain over the first n keys
+            cut = lambda t: t.view(b, l, d)[:, :n].reshape(b * n, d)
+            kwn = dict(kpm=pad[:, :n]) if not gated else dict(
+                kbias=kw["kbias"][:, :n], gate=(*kw["gate"][:4], kw["gate"][4][:, :, :n]))
+            return AB.attention_core_int8_plain(q, cut(k), cut(v), b, h, **kwn).view(b, l, d)
+
+        scores = b * h * l * l
+        shape = f"B={b} {'gated' if gated else 'self'} {l}x{l} H={h} (wgmma core)"
+        run("attention_core_int8", shape, lambda: core("wgmma"), lambda: upto(l),
+            lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, attn_mask=amask,
+                                                                     scale=1.0),
+            nbytes(q, k, v, q) + extra, 0, 4 * scores * hd, 2 * scores * WGMMA_INSTR_PER_SCORE,
+            tol=ATTN_TOL[torch.bfloat16], route=lambda: core("sweeps"))
+        rec = rows[-1]
+        rec.update(kernels_line=False, wide_entry=WGMMA, picked=AB.core_kernel(l, gated, hd, b),
+                   panel_ms=cuda_ms(lambda: core("panel")))
+        print(f"    the score panel {rec['panel_ms']:.4f} ms; the rule picks {rec['picked']}",
+              flush=True)
+        checks[shape] = dropped_tile(f"attention_core_int8 {shape}", ONEPASS_KEY_TILE, l,
+                                     torch.bfloat16, upto)
+        del q, k, v, qkv, kw, amask, qh, kh, vh, pad
+        torch.cuda.empty_cache()
+    return checks
 
 
 def own_max_ffn(x, fops):
@@ -1779,7 +1883,7 @@ TILE_KERNELS = {"onepass_attention": ("onepass_mma_kernel", "onepass_wide_kernel
                 "streaming_attention": ("streaming_mma_kernel", "streaming_wide_kernel",
                                         "attn_tf32_kernel", "attn_tf32_wide_kernel"),
                 "attention_core_int8": ("onepass_mma_kernel", "onepass_wide_kernel",
-                                        "onepass_panel_kernel")}
+                                        "onepass_panel_kernel", "onepass_wgmma_kernel")}
 CUDA_CORE_KERNELS = ("onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel")
 # the library that launches each core's kernels
 CORE_LIBS = {"onepass_attention": "wavlm_attention", "streaming_attention": "flash_attention",
@@ -1888,7 +1992,7 @@ def reset_launches():
     for fn in COUNTED_BY_SHAPE:
         fn.launches = 0
         fn.shapes.clear()
-    AB.attention_core_int8.panels.clear()
+    AB.attention_core_int8.kernels.clear()
     for fn in COUNTED_BY_HEAD_DIM:
         fn.head_dims.clear()
     ROUTED.routes.clear()
@@ -1901,7 +2005,9 @@ def read_launches():
             n for (hd, _), n in fn.head_dims.items() if hd > 128)
     out["attention_core_int8 (wide tiles)"] = sum(
         n for key, n in AB.attention_core_int8.shapes.items() if key[-1] > 128)
-    out[PANEL] = AB.attention_core_int8.panels[False]
+    kernels = AB.attention_core_int8.kernels
+    out[PANEL] = kernels[("panel", False)]
+    out[WGMMA] = kernels[("wgmma", True)] + kernels[("wgmma", False)]
     return out
 
 
@@ -1969,7 +2075,8 @@ def served_batch(wavlm, bert, fusion, kw, sec, clips):
     FFNs and 12 sublayers and the feature projection fused, the 20 MHA
     sublayers fused with their callers' LayerNorms (one out-projection with
     the LayerNorm and one or two projections each), the ungated cores on the
-    score panel (``PANEL_PER_FORWARD``), the feature encoder on the conv-stack
+    score panel (``PANEL_PER_FORWARD``), the cores on the wgmma warpgroups
+    (``WGMMA_PER_FORWARD``), the feature encoder on the conv-stack
     kernels (``PER_FORWARD_STACK``), kernel vs plain within the gate, and
     the same tree with the encoder's route forced onto cuDNN within the gate
     of it. Returns the phase's record and its launches."""
@@ -1992,7 +2099,10 @@ def served_batch(wavlm, bert, fusion, kw, sec, clips):
         raise AssertionError(f"{what}: the feature encoder left the conv-stack kernels "
                              f"({dict(ROUTED.routes)})")
     check_launches(what, launches, dict(PER_FORWARD, **PER_FORWARD_STACK,
-                                        **{PANEL: PANEL_PER_FORWARD[sec]}))
+                                        **{PANEL: PANEL_PER_FORWARD[sec],
+                                           WGMMA: WGMMA_PER_FORWARD[sec]}))
+    if core_launches() != {PANEL: PANEL_PER_FORWARD[sec], WGMMA: WGMMA_PER_FORWARD[sec]}:
+        raise AssertionError(f"{what}: the calls' shapes give the cores {core_launches()}")
     routes = check_pair_routes(what)
     if routes.get("ffn_block_int8 fused", 0) < 12 or gemm1 < 12:
         raise AssertionError(f"{what}: WavLM's FFNs left the fused route ({routes}, {gemm1} "
@@ -3226,7 +3336,7 @@ SPLIT_BLOCKS = {
     "feed_forward/output_dense": {"ffn_block_int8": -1, "int8_linear": 1},
     "attention/self/key": {"mha_block_int8": -1, "int8_linear": 3, PANEL: -1},
     "attention/k_proj": {"attention_block_int8": -1, "int8_linear": 3,
-                         "wavlm_fused_attention": 1},
+                         "wavlm_fused_attention": 1, WGMMA: -1},
 }
 SPLIT_TREES = ("b/encoder/layer/0/attention/self/key", "w/encoder/layers/3/attention/k_proj")
 
@@ -3518,8 +3628,8 @@ def mesh_serving(mesh, clips):
     W8A8 and the bf16 trees at full width through the kernels, then every
     request's probabilities and beta gathered over the data group
     (``mesh.gather_rows``). Returns ``{tree: (probabilities by uid of every
-    request, this rank's launches, seconds, the ungated panel launches its
-    MHA calls should have made, the conv-stack launches its encoder's
+    request, this rank's launches, seconds, the ungated panel and wgmma core
+    launches its attention calls should have made, the conv-stack launches its encoder's
     routes should have made)}``."""
     from hriemo_torch.parallel import mesh as PM
 
@@ -3533,7 +3643,7 @@ def mesh_serving(mesh, clips):
         reset_launches()
         t = time.perf_counter()
         got, _ = serve(pipe, mine)
-        launches, panels = read_launches(), mha_panels()
+        launches, cores = read_launches(), core_launches()
         stack = stack_launches(f"mesh serving {tree} rank {mesh.data_rank}")
         probs, beta = (torch.from_numpy(np.stack([got[c[2]][i] for c in mine])).cuda()
                        for i in (0, 1))
@@ -3542,7 +3652,7 @@ def mesh_serving(mesh, clips):
             raise AssertionError(f"mesh serving {tree}: gathered {tuple(probs.shape)} "
                                  f"probabilities for {len(clips)} requests")
         out[tree] = ({c[2]: p for c, p in zip(clips, probs.cpu().numpy())}, launches,
-                     time.perf_counter() - t, panels, stack)
+                     time.perf_counter() - t, cores, stack)
         del pipe
     return out
 
@@ -3673,7 +3783,7 @@ def mesh_phase(smi, root: pathlib.Path, clips, int8_ref, bf16_ref):
     for tree, ref in (("int8", int8_ref), ("bf16", bf16_ref)):
         delta = 0.0
         for rank, (rr, _) in enumerate(ranks):  # each rank holds every request
-            probs, ll, secs, panels, stack = rr["serving"][tree]
+            probs, ll, secs, cores, stack = rr["serving"][tree]
             if sorted(probs) != sorted(ref):
                 raise AssertionError(f"mesh serving {tree} rank {rank}: requests "
                                      f"{sorted(probs)}, phase 4 served {sorted(ref)}")
@@ -3681,7 +3791,7 @@ def mesh_phase(smi, root: pathlib.Path, clips, int8_ref, bf16_ref):
             want = ({n: 2 * k for n, k in PER_FORWARD.items()} if tree == "int8"
                     else {n: k for per in PER_FORWARD_BF16.values() for n, k in per.items()})
             want.update(stack)
-            want[PANEL] = panels
+            want.update(cores)
             check_launches(f"mesh serving {tree} rank {rank}", ll, want)
         if not delta <= DP_SERVE_TOL:
             raise AssertionError(f"mesh serving {tree}: max |p - single-process p| {delta} > "
@@ -3839,7 +3949,7 @@ def main() -> int:
     print(f"int8: served {len(got)} requests in {forwards} forwards, {secs:.3f} s; "
           f"launches {launches}", flush=True)
     check_launches("int8 serving", launches, {**{n: k * forwards for n, k in PER_FORWARD.items()},
-                                              PANEL: mha_panels()})
+                                              **core_launches()})
     check_pair_routes("int8 serving")
     check_proj_routes("int8 serving")
     core = AB.attention_core_int8.launches
@@ -3884,7 +3994,7 @@ def main() -> int:
     print(f"int8 at fp32: served {len(got32)} requests in {secs32:.3f} s; launches {launches32}",
           flush=True)
     check_launches("int8 at fp32 serving", launches32,
-                   {**{n: k * forwards for n, k in PER_FORWARD.items()}, PANEL: mha_panels()})
+                   {**{n: k * forwards for n, k in PER_FORWARD.items()}, **core_launches()})
     check_pair_routes("int8 at fp32 serving")
     check_proj_routes("int8 at fp32 serving")
     check_probs("int8 at fp32 serving", got32, clips)
@@ -3990,7 +4100,7 @@ def main() -> int:
     check_launches("int8 serving, fusion in 4 heads", launches4,
                    {**{n: k * forwards for n, k in PER_FORWARD.items()},
                     "attention_core_int8 (wide tiles)": FUSION_MHA_PER_FORWARD * forwards,
-                    PANEL: mha_panels()})
+                    **core_launches()})
     check_pair_routes("int8 serving, fusion in 4 heads")
     check_proj_routes("int8 serving, fusion in 4 heads")
     check_probs("int8 serving, fusion in 4 heads", got4, clips)

@@ -23,15 +23,20 @@
 // and MUFU work of the exact-p/l contract (two sweeps, accurate expf, a
 // rounded division per score), as in the float route.
 //
-// The core at 64 and 96, gated or not, can also run as onepass_panel_kernel
-// below (key rows up to kPanelMaxKeys, 512), the counterpart of the TPU
-// kernels' one pass over a held row of scores. The sublayers' fused routes
-// take it up to the key lengths where it wins (ops/attention_block.py
-// PANEL_MAX_KEYS, 128 gated, 320 ungated): the gated core in the WavLM sublayer (three launches:
-// csrc/proj_int8.cu's q/k/v projection, this core, the out-projection with
-// the LayerNorm) and the ungated one in the MHA sublayer (BERT's 12 x 64 and
-// the fusion stack's 8 x 96: text rows of 8-64 tokens, audio rows of
-// 62-312 frames). Its first sweep computes
+// The core at 64 and 96, gated or not, runs on three kernels (hr_attention_core's
+// `kernel`): the two sweeps above; onepass_wgmma_kernel (csrc/onepass_wgmma.cuh,
+// key rows up to kWgMaxKeys, 512: wgmma warpgroups fed by a producer warp,
+// every score of a 64-row block in registers); and onepass_panel_kernel below
+// (key rows up to kPanelMaxKeys, 512), the counterpart of the TPU kernels' one
+// pass over a held row of scores. The sublayers' fused routes take the one
+// ops/attention_block.py core_kernel picks from the card's readings (the
+// wgmma core gated from 65 keys; the panel gated for one key tile and,
+// ungated, at the served batches up to 320 keys but for four key tiles): the
+// gated core in the WavLM sublayer (three launches: csrc/proj_int8.cu's
+// q/k/v projection, this core, the out-projection with the LayerNorm) and
+// the ungated one in the MHA sublayer (BERT's 12 x 64 and the fusion stack's
+// 8 x 96: text rows of 8-64 tokens, audio rows of 62-499 frames); their
+// chain routes keep the two sweeps. The panel's first sweep computes
 // each score once, QK^T on mma.sync and the scale, gate * pos and key bias
 // in the TPU kernels' order (no gate: the scale and the key bias, as the
 // two-sweep kernel's ungated form), into a panel in shared memory, with the
@@ -50,11 +55,13 @@
 // K, the key biases and (gated) the pos tile in the first sweep and V in
 // PV; ungated it is 27 KB at HD 96, so up to five key tiles (320 keys, a
 // 109 KB block) two blocks share an SM. What bounds it (NVIDIA H100 80GB
-// HBM3 at 700 W, chip_proj_routes.py): the per-score FMA and MUFU work, as
-// the two sweeps, and the latency that too few warps an SM leave unhidden:
-// 4 warps a block take 0.207 ms gated at B=384 L=62 (the two sweeps 0.266,
-// SDPA 0.125) but 0.760 at B=32 L=499 (0.512), where one block fits an SM;
-// ungated 0.1794 at B=64 L=312 (0.2057) but 0.3648 at L=343 (0.2806).
+// HBM3 at 700 W, chip_proj_routes.py --cores): the per-score FMA and MUFU
+// work, as the two sweeps, and the latency that too few warps an SM leave
+// unhidden: 4 warps a block take 0.2046 ms gated at B=384 L=62 (the two
+// sweeps 0.2666, the wgmma core 0.2280, SDPA 0.1261) but 0.7581 at B=32
+// L=499 (0.5084; the wgmma core 0.2682), where one block fits an SM;
+// ungated 0.1827 at B=64 L=312 (0.2074; 0.2040) but 0.3668 at L=343
+// (0.2812; 0.2471).
 //
 // The gated core at other head dims (hd % 8 == 0, hd <= 256), which no
 // WavLM has: attn_core_kernel on CUDA cores. It stays because the gate-from-x
@@ -63,7 +70,7 @@
 // per (query tile of kQT rows, head, batch element). The whole key row of
 // scores stays in shared memory (Lk <= 1024 on every routed shape), so
 // softmax is exact and one-pass, as in the TPU kernel:
-#include "onepass_mma.cuh"
+#include "onepass_wgmma.cuh"
 
 namespace hr {
 
@@ -181,6 +188,10 @@ __global__ void attn_core_kernel(const __nv_bfloat16* __restrict__ q, int q_ld,
 }
 
 constexpr int kPanelMaxKeys = 512;  // the panel kernel's longest key row
+
+// The int8 core's kernels at head dims 64 and 96, as hr_attention_core takes
+// them (ops/attention_block.py CORE_KERNELS)
+enum CoreKernel : int { kCoreSweeps = 0, kCorePanel = 1, kCoreWgmma = 2 };
 
 // Bytes of one ring stage of onepass_panel_kernel: the K tile, the key
 // biases and, gated, the realigned pos tile (V reuses the stage).
@@ -389,16 +400,17 @@ extern "C" {
 // bf16 by the gate; wg [8, hd] fp32, bg [8] fp32, gconst [H] fp32, pos [H,
 // Lq, Lk] bf16. ctx: [B*Lq, ctx_ld] bf16, head h at column h*hd. Needs
 // hd % 8 == 0 and hd <= 256; gated at head dims other than 64 and 96, Lk <=
-// 1024 (the CUDA-core kernel's score panel). panel (non-zero): the core at
-// 64 and 96, gated or not, on onepass_panel_kernel (Lk <= kPanelMaxKeys),
-// else on the two sweeps of onepass_mma_kernel (the wide tiles ungated
-// above 128); the gated CUDA-core kernel ignores it, and the ungated core
-// at another head dim refuses it.
+// 1024 (the CUDA-core kernel's score panel). kernel: the core at 64 and 96,
+// gated or not, on the two sweeps of onepass_mma_kernel (kCoreSweeps; the
+// wide tiles ungated above 128), on onepass_panel_kernel (kCorePanel, Lk <=
+// kPanelMaxKeys) or on onepass_wgmma_kernel (kCoreWgmma, Lk <= kWgMaxKeys,
+// csrc/onepass_wgmma.cuh); the gated CUDA-core kernel ignores it, and the
+// ungated core at another head dim refuses all but the two sweeps.
 int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const void* v,
                       int v_ld, int B, int Lq, int Lk, int H, int hd, const void* kbias,
                       const void* kpm, const void* x, int x_ld, int x_f32, const void* wg,
                       const void* bg, const void* gconst, const void* pos, void* ctx,
-                      int ctx_ld, int panel, void* stream) {
+                      int ctx_ld, int kernel, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Lq <= 0) return (int)cudaGetLastError();
   using bf = __nv_bfloat16;
@@ -415,10 +427,17 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
     a.pos = static_cast<const bf*>(pos), a.out = static_cast<bf*>(ctx);
     a.o_sb = Lq * ctx_ld, a.o_sh = hd, a.o_sl = ctx_ld;
     const int keys = kbias != nullptr ? kKeysBias : kKeysPad;
-    if (panel) {
-      if (Lk > kPanelMaxKeys || (hd != 64 && hd != 96)) return (int)cudaErrorInvalidValue;
+    if (kernel != kCoreSweeps && hd != 64 && hd != 96) return (int)cudaErrorInvalidValue;
+    if (kernel == kCoreWgmma) {
+      if (Lk > kWgMaxKeys) return (int)cudaErrorInvalidValue;
+      return launch_onepass_wgmma(a, B, hd, pos != nullptr, s);
+    }
+    if (kernel == kCorePanel) {
+      if (Lk > kPanelMaxKeys) return (int)cudaErrorInvalidValue;
       if (pos != nullptr) launch_panel_keys<true>(a, B, hd, keys, s);
       else launch_panel_keys<false>(a, B, hd, keys, s);
+    } else if (kernel != kCoreSweeps) {
+      return (int)cudaErrorInvalidValue;
     } else if (pos != nullptr)
       launch_onepass_mma_keys<kGateFromX>(a, B, hd, keys, s);
     else if (keys == kKeysBias)

@@ -85,6 +85,7 @@ enum LaunchedKernel : int {
   kAttnTf32Kernel,
   kAttnTf32WideKernel,
   kOnepassPanelKernel,
+  kOnepassWgmmaKernel,
 };
 
 inline std::atomic<int>& last_launch() {

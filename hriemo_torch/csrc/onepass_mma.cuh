@@ -1,7 +1,9 @@
 // The one-pass 16-bit attention core on the tensor cores, shared by the
 // float route (csrc/wavlm_attention.cu: wavlm_fused_attention,
 // onepass_attention; bf16 or fp16) and the int8 sublayers' core
-// (csrc/attention.cu: attention_block_int8, mha_block_int8; bf16):
+// (csrc/attention.cu: attention_block_int8, mha_block_int8; bf16; on their
+// chain routes, past 512 keys and at head dims other than 64 and 96: from 65
+// keys their fused routes mostly take csrc/onepass_wgmma.cuh):
 //
 //   s   = (q . k^T) * scale  [+ gate[i] * pos[h,i,j]]  + key bias[b,j]   (fp32)
 //   out = ((exp(s - max s) / sum) -> T) . v                          (fp32 sums -> T)

@@ -218,7 +218,7 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 LAUNCHED_KERNELS = (None, "onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel",
                     "onepass_mma_kernel", "onepass_wide_kernel", "streaming_mma_kernel",
                     "streaming_wide_kernel", "attn_tf32_kernel", "attn_tf32_wide_kernel",
-                    "onepass_panel_kernel")
+                    "onepass_panel_kernel", "onepass_wgmma_kernel")
 
 
 def last_kernel(name: str) -> tuple[str | None, int]:

@@ -26,13 +26,15 @@ and the attention core stay bf16, as the TPU kernel casts them
 On the card the WavLM sublayer's fused route is three launches: the q/k/v
 projection that quantizes x's rows itself (``csrc/proj_int8.cu``: a
 thread-block cluster spans the 3D bf16 output columns of 64 rows), the
-gated core (:func:`attention_core_int8`, ``csrc/attention.cu``: on its
-score panel up to 128 keys, else two sweeps), and the out-projection that
+gated core (:func:`attention_core_int8`, ``csrc/attention.cu``: the wgmma
+warpgroups of ``csrc/onepass_wgmma.cuh`` from 65 keys, its score panel
+below, :func:`core_kernel`), and the out-projection that
 quantizes ctx itself with the residual and the LayerNorm in its epilogue
 (the cluster exchanges the rows' sums), so neither int8 x, int8 ctx, their
 scales nor the fp32 y reach device memory. The MHA sublayer's fused route is
 the same three launches, four for cross-attention (q from xq, k/v from
-xkv), with the ungated core (its panel up to 320 keys) and an
+xkv), with the ungated core (the panel or the wgmma warpgroups by
+:func:`core_kernel`) and an
 out-projection that stores xq's dtype or, with the caller's LayerNorm, adds
 the residual in xq's dtype before the norm. Their chain
 routes, taken on thin grids (:func:`attention_route`, :func:`mha_route`),
@@ -46,7 +48,8 @@ kernel pads rows to 128 and, for
 L <= 64, packs several short elements into one tile; that is TPU layout, so
 the port runs every element at its true length and holds the
 per-element result. What bounds them on the card: the core's per-score
-work under its exact-p/l contract at L=499 (see ``csrc/onepass_mma.cuh``),
+work under its exact-p/l contract and the bytes each block loads (see
+``csrc/onepass_wgmma.cuh``),
 the projection GEMMs' int8 operations, and the host's launches at short L.
 """
 
@@ -176,33 +179,61 @@ def _rows(t, name, rows, cols, dev, dtypes=(torch.bfloat16,)):
     return t.data_ptr(), t.stride(0)
 
 
-# The core's score panel (csrc/attention.cu onepass_panel_kernel): the head
-# dims it serves, the longest key row it holds (kPanelMaxKeys) and the
-# longest it is taken for, gated and ungated. chip_proj_routes.py on the H100
-# (80GB HBM3, 700 W; PERF.md section 6), the panel / the two sweeps, ms at
-# the served batches. Gated: 62 keys 0.207 / 0.266, 124 keys 0.279 / 0.330,
-# 187 keys 0.418 / 0.399, 499 keys 0.760 / 0.512: past two key tiles the
-# gated panel leaves at most two blocks of 4 warps an SM (one at 512 keys),
-# too few to hide the per-score latency. Ungated (8 x 96, no pos tile in
-# the ring): 62 keys 0.0659 / 0.0740, 249 keys 0.1228 / 0.1375, 312 keys
-# 0.1794 / 0.2057, then 343 keys 0.3648 / 0.2806: the panel of five key
-# tiles (320 keys) is the longest with which two blocks share an SM.
-PANEL_HEAD_DIMS = (64, 96)
+# The core's kernels at head dims 64 and 96 (csrc/attention.cu CoreKernel,
+# by the code hr_attention_core takes): the two sweeps of
+# onepass_mma_kernel (csrc/onepass_mma.cuh, any key length), the score
+# panel (onepass_panel_kernel, up to PANEL_CAP_KEYS keys) and the wgmma
+# warpgroups (onepass_wgmma_kernel, csrc/onepass_wgmma.cuh, up to
+# WGMMA_CAP_KEYS). Every other head dim runs on the two sweeps' tile
+# instances (or, gated, the CUDA-core kernel).
+CORE_KERNELS = ("sweeps", "panel", "wgmma")
+CORE_HEAD_DIMS = (64, 96)
 PANEL_CAP_KEYS = 512
-PANEL_MAX_KEYS = 128
+WGMMA_CAP_KEYS = 512
+# The rule between them, from chip_proj_routes.py --cores on the H100 (80GB
+# HBM3, 700 W; PERF.md section 6), ms at the served batches, the wgmma core
+# against the better of the other two:
+# - gated (WavLM, 12 x 64): the panel only for one key tile (62 keys: 0.2053
+#   against 0.2287, where one consumer warpgroup has no tile); the wgmma core
+#   from 65 keys (93: 0.3027 against the panel's 0.3577; 156: 0.2616 against
+#   the sweeps' 0.3899; 499: 0.2728 against 0.5121), and at B = 1 and 4;
+# - ungated (8 x 96): the panel up to PANEL_MAX_KEYS_UNGATED keys at the
+#   served batches (62-187 keys: 0.0664-0.1250 against 0.0965-0.1291;
+#   281-312: 0.1759-0.1792 against 0.1992-0.2003, where five tiles leave the
+#   consumers unequal and hd 96 spills on the four-tile instance), except four
+#   key tiles (193-256: 218 keys 0.0984 against 0.1184, two tiles a
+#   consumer); the wgmma core past the panel (343: 0.2489 against the sweeps'
+#   0.2802) and below PANEL_MIN_BATCH elements (B = 1 and 4 at 187 keys:
+#   0.0064 / 0.0069 against 0.0097 / 0.0102), except one key tile.
+PANEL_MAX_KEYS = 64
 PANEL_MAX_KEYS_UNGATED = 320
+PANEL_MIN_BATCH = 16
+# How much slower than the fastest of the three the rule's kernel may read
+# at a served shape: gated 124 keys at B=192 read 0.2853 against the
+# panel's 0.2796 ms (2.0%), and one kernel's reading moves by up to 2%
+# between calls on the card.
+CORE_ROUTE_MARGIN = 0.05
 
 
-def core_panel(lk: int, gated: bool, hd: int = 64) -> bool:
-    """Whether a core of ``lk`` keys at head dim ``hd`` takes the score
-    panel (:data:`PANEL_MAX_KEYS` gated, :data:`PANEL_MAX_KEYS_UNGATED`
-    without the gate; head dims :data:`PANEL_HEAD_DIMS`) rather than the
-    two sweeps."""
-    return hd in PANEL_HEAD_DIMS and lk <= (PANEL_MAX_KEYS if gated else PANEL_MAX_KEYS_UNGATED)
+def core_kernel(lk: int, gated: bool, hd: int = 64, b: int = 1) -> str:
+    """The kernel of :data:`CORE_KERNELS` that a core of ``b`` elements of
+    ``lk`` keys at head dim ``hd``, gated or not, takes: "sweeps" past
+    :data:`WGMMA_CAP_KEYS` keys and at head dims other than
+    :data:`CORE_HEAD_DIMS`; "panel" up to :data:`PANEL_MAX_KEYS` keys (one
+    key tile), and without the gate up to :data:`PANEL_MAX_KEYS_UNGATED`
+    from :data:`PANEL_MIN_BATCH` elements, except four key tiles (193-256
+    keys); else "wgmma"."""
+    if hd not in CORE_HEAD_DIMS or lk > WGMMA_CAP_KEYS:
+        return "sweeps"
+    if lk <= PANEL_MAX_KEYS:
+        return "panel"
+    if gated or lk > PANEL_MAX_KEYS_UNGATED or b < PANEL_MIN_BATCH or 192 < lk <= 256:
+        return "wgmma"
+    return "panel"
 
 
 def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gate=None,
-                        panel: bool | None = None):
+                        kernel: str | None = None):
     """The int8 sublayers' attention core: ``softmax(q k^T [+ gate * pos] +
     key bias) v`` per head, fp32 scores, ``p / l`` rounded to bf16 before
     PV. ``q [B*Lq, D]``, ``k``/``v [B*Lk, D]`` bf16, each row contiguous (a
@@ -212,14 +243,14 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
     bf16, wg [8, hd], bg [8], gconst [H], pos [H, Lq, Lk] bf16)`` for
     WavLM's gated position bias. Returns ``ctx [B*Lq, D]`` bf16.
     ``attention_core_int8.launches`` counts its launches, ``.shapes`` the
-    same by ``(B, Lq, Lk, H, hd)``, ``.panels`` those on the score panel by
-    whether gated.
+    same by ``(B, Lq, Lk, H, hd)``, ``.kernels`` by ``(kernel, gated)``,
+    the kernel asked for at head dims 64 and 96.
 
     On the CPU the plain version runs; on the card one launch of
     ``csrc/attention.cu`` (tensor cores at every head dim without the gate,
-    at 64 and 96 with it), or a raise. ``panel``: the core at 64 and 96,
-    gated or not, on the score panel (up to ``PANEL_CAP_KEYS`` keys), or on
-    the two sweeps (False); None: :func:`core_panel`.
+    at 64 and 96 with it), or a raise. ``kernel``: one of
+    :data:`CORE_KERNELS` at head dims 64 and 96 (other head dims take only
+    "sweeps"); None: :func:`core_kernel`.
     """
     if q.device.type == "cpu":
         return attention_core_int8_plain(q, k, v, b, n_heads, kbias, kpm, gate)
@@ -232,6 +263,13 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
         raise ValueError(f"attention kernel: key length {lk} > 1024")
     if kbias is not None and kpm is not None:
         raise ValueError("attention kernel: give kbias or kpm, not both")
+    if kernel is None:
+        kernel = core_kernel(lk, gate is not None, hd, b)
+    if kernel not in CORE_KERNELS:
+        raise ValueError(f"attention kernel: unknown core {kernel!r}")
+    cap = {"panel": PANEL_CAP_KEYS, "wgmma": WGMMA_CAP_KEYS}.get(kernel)
+    if cap is not None and (lk > cap or hd not in CORE_HEAD_DIMS):
+        raise ValueError(f"attention kernel: no {kernel} core holds {lk} keys at head dim {hd}")
     args = [*_rows(q, "q", b * lq, d, dev), *_rows(k, "k", b * lk, d, dev),
             *_rows(v, "v", b * lk, d, dev), b, lq, lk, h, hd]
     if kbias is not None:
@@ -250,23 +288,20 @@ def attention_core_int8(q, k, v, b: int, n_heads: int, kbias=None, kpm=None, gat
                  gconst.data_ptr(), pos.data_ptr()]
     else:
         args += [None, 0, 0, None, None, None, None]
-    if panel is None:
-        panel = core_panel(lk, gate is not None, hd)
-    if panel and (lk > PANEL_CAP_KEYS or hd not in PANEL_HEAD_DIMS):
-        raise ValueError(f"attention kernel: no score panel holds {lk} keys at head dim {hd}")
     ctx = torch.empty((b * lq, d), dtype=torch.bfloat16, device=dev)
     _cuda.check(_cuda.lib("attention").hr_attention_core(
-        *args, ctx.data_ptr(), d, int(panel), _cuda.stream()), "hr_attention_core")
+        *args, ctx.data_ptr(), d, CORE_KERNELS.index(kernel), _cuda.stream()),
+        "hr_attention_core")
     attention_core_int8.launches += 1
     attention_core_int8.shapes[(b, lq, lk, h, hd)] += 1
-    if panel:
-        attention_core_int8.panels[gate is not None] += 1
+    if hd in CORE_HEAD_DIMS:
+        attention_core_int8.kernels[(kernel, gate is not None)] += 1
     return ctx
 
 
 attention_core_int8.launches = 0
 attention_core_int8.shapes = collections.Counter()  # by (B, Lq, Lk, H, hd)
-attention_core_int8.panels = collections.Counter()  # on the score panel, by gated
+attention_core_int8.kernels = collections.Counter()  # by (kernel, gated) at hd 64 and 96
 
 
 def attention_block_int8_plain(x, ops: WavLMAttnOperands, pos, kbias, eps: float):
@@ -329,8 +364,8 @@ def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float,
 
     On the CPU the plain version runs, whatever ``route``. On the card,
     "fused" is three launches: the q/k/v projection quantizing x's rows
-    itself (``_cuda.proj_gemm``), the gated core (on its score panel up to
-    ``PANEL_MAX_KEYS`` keys), the out-projection quantizing ctx with the
+    itself (``_cuda.proj_gemm``), the gated core (on the kernel
+    :func:`core_kernel` picks), the out-projection quantizing ctx with the
     residual and the LayerNorm in its epilogue (``_cuda.proj_gemm_ln``);
     "chain" the six launches it replaced (row quantize, q/k/v GEMM, the
     two-sweep core, row quantize, out GEMM, LayerNorm); None lets
@@ -363,7 +398,7 @@ def attention_block_int8(x, ops: WavLMAttnOperands, pos, kbias, eps: float,
         xq, xs = _cuda.rowquant(x2, div127=False)
         qkv = _cuda.int8_gemm(xq, xs, m.w_in, m.s_in, m.b_in, _cuda.EPI_BF16)
         q, k, v = qkv.split(d, dim=1)
-        ctx = attention_core_int8(q, k, v, b, h, kbias=kbias, gate=gate, panel=False)
+        ctx = attention_core_int8(q, k, v, b, h, kbias=kbias, gate=gate, kernel="sweeps")
         cq, cs = _cuda.rowquant(ctx, div127=False)
         y = _cuda.int8_gemm(cq, cs, m.w_out, m.s_out, m.b_out, _cuda.EPI_RESID_LAST,
                             resid=x2)
@@ -436,9 +471,10 @@ MHA_STORE_MIN_WAVES = 0.6
 # fused (B=4 16 x 499: 0.0914 against 0.0921 ms; another card read 0.0941
 # against 0.0882), so the fused route must be estimated
 # MHA_FUSED_MARGIN_MS faster, about the estimate's error at such shapes.
-# Where the core takes the score panel, which the chain never does, the
-# fused route was the faster at every rung of the ladder (--mha-routes: at
-# most 0.974 of the chain's time over 117 rungs).
+# Where the core takes the score panel or the wgmma core, which the chain
+# (on the two sweeps) never does, the fused route is taken: with the panel it
+# was the faster at every rung of the ladder (--mha-routes: at most 0.974 of
+# the chain's time over 117 rungs).
 PROJ_FIRST_WAVE_MS = 0.0015
 PROJ_WAVE_MS = (0.0138, 0.0172)
 PROJ_LN_WAVE_MS = 0.0215
@@ -472,7 +508,8 @@ def mha_route(b: int, lq: int, lk: int, d: int, heads: int, x_bytes: int = 2,
     columns in x's dtype). Else, without the caller's LayerNorm, "fused"
     where the out-projection's grid covers the card
     :data:`MHA_STORE_MIN_WAVES` times; with it, "fused" where the core takes
-    the score panel (:func:`core_panel`) or the fused projections' estimated
+    a kernel other than the two sweeps (:func:`core_kernel`) or the fused
+    projections' estimated
     time (:func:`_proj_ms`, the out-projection with the LayerNorm) is
     :data:`MHA_FUSED_MARGIN_MS` below the chain's with the plain LayerNorm."""
     m = b * lq
@@ -482,7 +519,7 @@ def mha_route(b: int, lq: int, lk: int, d: int, heads: int, x_bytes: int = 2,
         return "chain"
     if not norm:
         return "fused" if -(-m // 64) * cl[1] / sms >= MHA_STORE_MIN_WAVES else "chain"
-    if core_panel(lk, False, d // heads):
+    if core_kernel(lk, False, d // heads, b) != "sweeps":
         return "fused"
     fused = sum(_proj_ms(n, r, d, True, sms) for n, r in ins) \
         + _waves(m, d, d, cl[0], sms) * PROJ_LN_WAVE_MS * d / 768
@@ -504,8 +541,8 @@ def mha_block_int8(xq, xkv, ops: MhaOperands, key_padding_mask, norm=None,
     On the CPU the plain version runs, whatever ``route``. On the card,
     "fused" is three launches for self-attention, four for cross: the
     projections quantizing their rows themselves (``_cuda.proj_gemm``; q
-    and k/v from row blocks of ``w_in``), the core (on its score panel where
-    :func:`core_panel` takes it), and the
+    and k/v from row blocks of ``w_in``), the core (on the kernel
+    :func:`core_kernel` picks), and the
     out-projection quantizing ctx, storing xq's dtype or taking the
     residual and the LayerNorm in its epilogue (``_cuda.proj_gemm_ln``,
     ``rounded``); "chain" the launches it replaced (row quantize of xq and
@@ -562,7 +599,7 @@ def mha_block_int8(xq, xkv, ops: MhaOperands, key_padding_mask, norm=None,
             kv = _cuda.int8_gemm(ak, aks, ops.w_in, ops.s_in, ops.b_in, _cuda.EPI_BF16,
                                  w_rows=(d, 2 * d))
             k, v = kv.split(d, dim=1)
-        ctx = attention_core_int8(q, k, v, b, h, kpm=key_padding_mask, panel=False)
+        ctx = attention_core_int8(q, k, v, b, h, kpm=key_padding_mask, kernel="sweeps")
         cq, cs = _cuda.rowquant(ctx, div127=False)
         out = _cuda.int8_gemm(cq, cs, ops.w_out, ops.s_out, ops.b_out,
                               _cuda.out_epi(xq.dtype)).view(b, lq, d)

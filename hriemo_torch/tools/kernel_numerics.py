@@ -12,7 +12,9 @@ GroupNorm statistics. Batch 8, full width, random weights from ``--seed``.
 The rows are the ``(kernel, shape)`` set of the JAX package's
 ``kernel_numerics.json`` and, of the port's own, the conv stack (stats, K1
 and K2 as the served bf16 encoder runs them) at every audio bucket, its
-clips zero-padded past their lengths as a bucket pads them; the buckets
+clips zero-padded past their lengths as a bucket pads them, and WavLM's
+gated int8 core on its wgmma warpgroups (``csrc/onepass_wgmma.cuh``,
+``kernel="wgmma"``) at every audio bucket; the buckets
 are the port's own
 (``infer/e2e_infer.py``'s ``--bucket_seconds`` and ``--text_bucket_tokens``),
 and the pass limits the JAX tool's.
@@ -41,9 +43,11 @@ THRESH = {  # the JAX tool's pass limits (tools/kernel_numerics.py:55-62)
     "mlp2": 0.05,
     "flash_mha": 0.02,
     "groupnorm_stats": 1e-3,
-    # the port's own row: the served feature encoder's conv stack (bf16
-    # outputs of O(1)), at the sublayers' limit
+    # the port's own rows: the served feature encoder's conv stack (bf16
+    # outputs of O(1)) and the WavLM core on its wgmma warpgroups (bf16 ctx of
+    # O(1)), at the sublayers' limit
     "conv_stack": 0.05,
+    "int8_core_wgmma": 0.05,
 }
 
 
@@ -84,10 +88,13 @@ def expected_rows() -> list[tuple[str, str]]:
 
 
 def port_rows() -> list[tuple[str, str]]:
-    """The rows beyond the JAX tool's: the served conv stack at every audio
-    bucket."""
+    """The rows beyond the JAX tool's: the served conv stack and the gated
+    int8 core on its wgmma warpgroups (csrc/onepass_wgmma.cuh) at every
+    audio bucket."""
     audio, _ = serving_buckets()
-    return [("conv_stack", f"Tw={int(sec * 16_000)} (bucket {sec}s)") for sec in audio]
+    frames = bucket_frames(audio)
+    return [("conv_stack", f"Tw={int(sec * 16_000)} (bucket {sec}s)") for sec in audio] + \
+        [("int8_core_wgmma", f"L={frames[sec]} (bucket {sec}s)") for sec in audio]
 
 
 def _delta(a, b) -> float:
@@ -244,10 +251,37 @@ class Checks:
                         CS.conv_stack_fused(fe, wave, cfg),
                         CS.conv_stack_fused(fe, wave, cfg, use_kernels=False))
 
+    @torch.no_grad()
+    def int8_core_wgmma(self):
+        """WavLM's gated core alone (12 x 64, the gate of a base-plus layer,
+        pos from its table) on the wgmma warpgroups, whichever kernel the
+        served rule picks at the bucket."""
+        from ..frontends.wavlm import WavLMConfig, WavLMEncoder, relative_position_buckets
+        from ..ops import attention_block as AB
+        from ..ops.quant import quantize_for_serving
+
+        cfg = WavLMConfig(num_hidden_layers=1, fast_gelu=True)
+        enc = WavLMEncoder(cfg)
+        enc.init_weights(self.gen)
+        layer = quantize_for_serving(enc.to(self.dev, torch.bfloat16).eval()).encoder.layers[0]
+        ops, table = layer.attn_ops, layer.attention.rel_attn_embed.weight
+        d, h = cfg.hidden_size, ops.mha.n_heads
+        for sec, l in self.frames.items():
+            qkv = self.randn(self.b * l, 3 * d)
+            qkv[:, :d] *= (d // h) ** -0.5
+            q, k, v = qkv.split(d, dim=1)
+            pos = table[relative_position_buckets(cfg, l, self.dev)].permute(2, 0, 1)
+            kw = dict(kbias=torch.where(self.lengths_mask(l), AB.NEG_INF, 0.0).float(),
+                      gate=(self.randn(self.b * l, d, scale=0.3), ops.wg, ops.bg, ops.gconst,
+                            pos.to(torch.bfloat16).contiguous()))
+            self.record("int8_core_wgmma", f"L={l} (bucket {sec}s)",
+                        AB.attention_core_int8(q, k, v, self.b, h, kernel="wgmma", **kw),
+                        AB.attention_core_int8_plain(q, k, v, self.b, h, **kw))
+
     def run_all(self, log=print) -> list:
         done = 0
         for fn in (self.wavlm_attention_block, self.mha_block, self.ffn_block, self.mlp2,
-                   self.flash_mha, self.groupnorm_stats, self.conv_stack):
+                   self.flash_mha, self.groupnorm_stats, self.conv_stack, self.int8_core_wgmma):
             fn()
             for name, tag, d in self.results[done:]:
                 log(f"{name:24s} {tag:22s} max|d| = {d:.3e}  "

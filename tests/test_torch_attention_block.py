@@ -42,9 +42,18 @@ def _wavlm_layer(rng, d=D, h=H):
     return ap, p_ln
 
 
+# key lengths just past the gated panel's old limit (128) and the first
+# served bucket past it (156), past the ungated panel's limit (320) and the
+# first served bucket past that (343): the card holds the int8 core's three
+# kernels to the plain core that these cases hold to the Pallas kernels,
+# gated here (hd 64) and ungated in the MHA cases (hd 96), padded elements
+# in both
+CORE_BOUNDARY_KEYS = [129, 156, 321, 343]
+
+
 # L=96 as tests/test_attention_block.py; L=62, the 1.25 s bucket, where the
 # TPU kernel packs short elements into one tile (L <= 64)
-@pytest.mark.parametrize("l", [96, 62])
+@pytest.mark.parametrize("l", [96, 62, *CORE_BOUNDARY_KEYS])
 def test_attention_block_matches_pallas_kernel(l):
     rng = np.random.default_rng(0)
     ap, p_ln = _wavlm_layer(rng)
@@ -112,18 +121,31 @@ def test_attention_route_choice(m, d, x_bytes, sms, want):
     assert TA.attention_route(m, d, x_bytes, sms) == want
 
 
-@pytest.mark.parametrize("lk,gated,hd,want", [
-    (62, True, 64, True), (124, True, 64, True), (128, True, 96, True),
-    (129, True, 64, False), (499, True, 64, False), (1024, True, 64, False),  # the two sweeps
-    (8, False, 64, True), (62, False, 96, True), (249, False, 96, True),   # the ungated panel
-    (320, False, 64, True), (321, False, 96, False), (499, False, 96, False),
-    (62, True, 32, False), (62, False, 128, False), (62, False, 192, False),  # no panel there
+@pytest.mark.parametrize("lk,gated,hd,b,want", [
+    (62, True, 64, 384, "panel"), (124, True, 64, 192, "wgmma"), (128, True, 96, 64, "wgmma"),
+    (129, True, 64, 128, "wgmma"), (499, True, 64, 32, "wgmma"), (1024, True, 64, 4, "sweeps"),
+    (8, False, 64, 384, "panel"), (62, False, 96, 384, "panel"), (249, False, 96, 64, "wgmma"),
+    (320, False, 64, 64, "panel"), (321, False, 96, 64, "wgmma"), (499, False, 96, 32, "wgmma"),
+    (62, True, 32, 4, "sweeps"), (62, False, 128, 4, "sweeps"), (62, False, 192, 4, "sweeps"),
+    # the gated core: the panel for one key tile, the wgmma core to 512 keys
+    (64, True, 64, 384, "panel"), (65, True, 64, 256, "wgmma"), (512, True, 64, 32, "wgmma"),
+    (513, True, 64, 32, "sweeps"), (187, True, 64, 1, "wgmma"), (64, True, 96, 1, "panel"),
+    # ungated at the served batches: the panel to 320 keys but for four tiles
+    (192, False, 96, 128, "panel"), (193, False, 96, 64, "wgmma"), (256, False, 64, 64, "wgmma"),
+    (257, False, 96, 64, "panel"), (312, False, 96, 64, "panel"), (512, False, 96, 32, "wgmma"),
+    (513, False, 96, 32, "sweeps"),
+    # thin grids: the wgmma core below PANEL_MIN_BATCH elements, but one key tile
+    (187, False, 96, 4, "wgmma"), (187, False, 96, 15, "wgmma"), (187, False, 96, 16, "panel"),
+    (64, False, 96, 1, "panel"), (600, False, 96, 1, "sweeps"),
 ])
-def test_core_panel_choice(lk, gated, hd, want):
-    """The core's form by key length and head dim: the score panel up to
-    PANEL_MAX_KEYS keys gated and PANEL_MAX_KEYS_UNGATED without the gate,
-    at head dims 64 and 96, else the two-sweep kernel."""
-    assert TA.core_panel(lk, gated, hd) == want
+def test_core_panel_choice(lk, gated, hd, b, want):
+    """The core's kernel by key length, gate, head dim and batch
+    (``core_kernel``): the score panel for one key tile, and without the
+    gate up to PANEL_MAX_KEYS_UNGATED keys from PANEL_MIN_BATCH elements
+    but for four key tiles; the wgmma core to WGMMA_CAP_KEYS keys at head
+    dims 64 and 96; else the two sweeps."""
+    assert TA.core_kernel(lk, gated, hd, b) == want
+    assert want in TA.CORE_KERNELS
 
 
 @pytest.mark.parametrize("b,lq,lk,heads,x_bytes,norm,cross,sms,want", [
@@ -138,15 +160,22 @@ def test_core_panel_choice(lk, gated, hd, want):
     (8, 499, 64, 8, 2, False, True, 132, "fused"),     # cross alike: 0.95
     (4, 499, 64, 8, 2, False, True, 132, "chain"),
     (4, 64, 64, 12, 2, False, False, 1, "fused"),      # 4 row blocks on one SM
-    # with the norm and the core on the two sweeps, by the estimate: k/v over
-    # 1,996 rows spills into a second wave of clusters, which 16 or 64 query
-    # rows do not make up; one wave (998 rows), three nearly full (3,992 rows)
-    # or more query rows do
-    (4, 16, 499, 8, 2, True, True, 132, "chain"),
-    (4, 64, 499, 8, 2, True, True, 132, "chain"),
+    # with the norm and the core on the wgmma warpgroups, which the chain never
+    # runs (the card: fused 0.0789 / 0.0791 against the chain's 0.0917 /
+    # 0.0940 ms)
+    (4, 16, 499, 8, 2, True, True, 132, "fused"),
+    (4, 64, 499, 8, 2, True, True, 132, "fused"),
     (2, 16, 499, 8, 2, True, True, 132, "fused"),
     (8, 16, 499, 8, 2, True, True, 132, "fused"),
     (32, 64, 499, 8, 2, True, True, 132, "fused"),     # text -> audio at 10 s
+    # with the norm and the core on the two sweeps (past the wgmma core's 512
+    # keys), by the estimate: the fused projections' waves of clusters (the
+    # k/v grid of 2,400 or 2,000 rows spills into a partly filled wave)
+    # against the chain's launches
+    (4, 16, 600, 8, 2, True, True, 132, "chain"),
+    (2, 16, 600, 8, 2, True, True, 132, "fused"),
+    (4, 16, 1000, 8, 2, True, True, 132, "fused"),
+    (2, 16, 1000, 8, 2, True, True, 132, "chain"),
     (32, 499, 499, 8, 2, True, False, 132, "fused"),   # audio self there
 ])
 def test_mha_route_choice(b, lq, lk, heads, x_bytes, norm, cross, sms, want):
@@ -217,7 +246,8 @@ def _mha_inputs(d, b, lq, lk, self_attn, dtype=torch.bfloat16):
     return jq, jkv, tq, tkv, mask
 
 
-@pytest.mark.parametrize("d,h,b,lq,lk,self_attn", MHA_SHAPES)
+@pytest.mark.parametrize("d,h,b,lq,lk,self_attn",
+                         MHA_SHAPES + [(384, 4, 2, l, l, True) for l in CORE_BOUNDARY_KEYS])
 def test_mha_block_matches_pallas_kernel(d, h, b, lq, lk, self_attn):
     jp, mod = _mha_pair(d, h, seed=d + lq + lk)
     jq, jkv, tq, tkv, mask = _mha_inputs(d, b, lq, lk, self_attn)

@@ -443,9 +443,9 @@ def test_proj_gemm_ln(gen, m, config, dtype):
 @pytest.mark.parametrize("hd", [64, 96])
 def test_attention_core_panel(gen, l, hd):
     """The panel kernel against the plain version and the two-sweep kernel
-    on the same inputs, at ATTN_TOL, at every length it holds (the wrapper
-    takes it up to 128 keys): element 1 padded, element 2 with every key
-    masked (a finite average of v)."""
+    on the same inputs, at ATTN_TOL, at every length it holds (the rule
+    takes it gated for one key tile): element 1 padded, element 2 with every
+    key masked (a finite average of v)."""
     b, h = 3, 4
     d = h * hd
     qkv = _randn(gen, b * l, 3 * d)
@@ -455,11 +455,11 @@ def test_attention_core_panel(gen, l, hd):
     gate = (_randn(gen, b * l, d), _randn(gen, 8, hd, scale=0.1, dtype=torch.float32),
             _randn(gen, 8, scale=0.1, dtype=torch.float32), _randn(gen, h, dtype=torch.float32),
             _randn(gen, h, l, l, scale=0.3))
-    got = AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, panel=True)
+    got = AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, kernel="panel")
     _cuda.last_kernel("attention")
-    AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, panel=True)
+    AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, kernel="panel")
     assert _cuda.last_kernel("attention") == ("onepass_panel_kernel", hd)
-    two = AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, panel=False)
+    two = AB.attention_core_int8(q, k, v, b, h, kbias=kb, gate=gate, kernel="sweeps")
     assert _cuda.last_kernel("attention") == ("onepass_mma_kernel", hd)
     ref = AB.attention_core_int8_plain(q, k, v, b, h, kbias=kb, gate=gate)
     assert torch.isfinite(got).all()
@@ -570,7 +570,7 @@ def _mha_fused_two_sweeps(xq, xkv, ops, kpm, norm):
                             div127=False)
         k, v = _cuda.proj_gemm(xkv.reshape(-1, d), ops.w_in[d:], ops.s_in[d:], ops.b_in[d:],
                                _cuda.EPI_BF16, div127=False).split(d, dim=1)
-    ctx = AB.attention_core_int8(q, k, v, b, ops.n_heads, kpm=kpm, panel=False)
+    ctx = AB.attention_core_int8(q, k, v, b, ops.n_heads, kpm=kpm, kernel="sweeps")
     if norm is None:
         out = _cuda.proj_gemm(ctx, ops.w_out, ops.s_out, ops.b_out, _cuda.out_epi(xq.dtype),
                               div127=False)
@@ -636,20 +636,135 @@ def test_attention_core_panel_ungated(gen, lq, lk, hd):
     k, v = kv[:, :d], kv[:, d:]
     pad = _pad_mask([lk, max(1, lk // 3), 0], lk)
     for kw in (dict(kpm=pad), dict(kbias=torch.where(pad, AB.NEG_INF, 0.0).float()), {}):
-        got = AB.attention_core_int8(q, k, v, b, h, panel=True, **kw)
+        got = AB.attention_core_int8(q, k, v, b, h, kernel="panel", **kw)
         _cuda.last_kernel("attention")
-        AB.attention_core_int8(q, k, v, b, h, panel=True, **kw)
+        AB.attention_core_int8(q, k, v, b, h, kernel="panel", **kw)
         assert _cuda.last_kernel("attention") == ("onepass_panel_kernel", hd)
-        two = AB.attention_core_int8(q, k, v, b, h, panel=False, **kw)
+        two = AB.attention_core_int8(q, k, v, b, h, kernel="sweeps", **kw)
         assert _cuda.last_kernel("attention") == ("onepass_mma_kernel", hd)
         ref = AB.attention_core_int8_plain(q, k, v, b, h, **kw)
         assert torch.isfinite(got).all()
         _close_attention(got.view(b, lq, d), ref.view(b, lq, d))
         _close_attention(got.view(b, lq, d), two.view(b, lq, d))
-    assert AB.core_panel(lk, False, hd) == (lk <= AB.PANEL_MAX_KEYS_UNGATED)
-    with pytest.raises(ValueError, match="no score panel"):  # no panel at head dim 32
+    # at the served batches the rule takes the panel to 320 keys but for four
+    # key tiles
+    assert (AB.core_kernel(lk, False, hd, 64) == "panel") == (
+        lk <= AB.PANEL_MAX_KEYS or (lk <= AB.PANEL_MAX_KEYS_UNGATED and not 192 < lk <= 256))
+    with pytest.raises(ValueError, match="no panel core"):  # no panel at head dim 32
         AB.attention_core_int8(_randn(gen, b * lq, 128), _randn(gen, b * lk, 128),
-                               _randn(gen, b * lk, 128), b, 4, panel=True)
+                               _randn(gen, b * lk, 128), b, 4, kernel="panel")
+
+
+# the served WavLM lengths (the 14 buckets' frames), one past a key tile and
+# the wgmma core's longest row
+WGMMA_KEYS = [62, 65, 93, 124, 129, 156, 187, 218, 249, 281, 312, 343, 374, 406, 437, 499, 512]
+
+
+@pytest.mark.parametrize("lk", WGMMA_KEYS)
+@pytest.mark.parametrize("hd", [64, 96])
+@pytest.mark.parametrize("mode", ["gated", "kpm"])
+def test_attention_core_wgmma(gen, lk, hd, mode):
+    """The wgmma core (``onepass_wgmma_kernel``) against the plain version
+    at ATTN_TOL, gated (fp32 key bias) and ungated (bool padding mask), q/k/v
+    read in place from packed projections, 65 query rows (a second row
+    block of one row): element 1 padded, element 2 with every key masked
+    (a finite average of v). The same core without its last key tile must
+    fail ATTN_TOL."""
+    b, h, lq = 3, 4, 65
+    d = h * hd
+    q = _randn(gen, b * lq, 3 * d, scale=hd ** -0.5)[:, d:2 * d]
+    kv = _randn(gen, b * lk, 2 * d)
+    k, v = kv[:, :d], kv[:, d:]
+    pad = _pad_mask([lk, max(1, lk - 17), 0], lk)
+    gate = None
+    if mode == "gated":
+        kw = dict(kbias=torch.where(pad, AB.NEG_INF, 0.0).float())
+        gate = (_randn(gen, b * lq, d), _randn(gen, 8, hd, scale=0.1, dtype=torch.float32),
+                _randn(gen, 8, scale=0.1, dtype=torch.float32), _randn(gen, h, dtype=torch.float32),
+                _randn(gen, h, lq, lk, scale=0.3))
+        kw["gate"] = gate
+    else:
+        kw = dict(kpm=pad)
+    _cuda.last_kernel("attention")
+    got = AB.attention_core_int8(q, k, v, b, h, kernel="wgmma", **kw)
+    torch.cuda.synchronize()
+    assert _cuda.last_kernel("attention") == ("onepass_wgmma_kernel", hd)
+    assert torch.isfinite(got).all()
+    ref = AB.attention_core_int8_plain(q, k, v, b, h, **kw)
+    _close_attention(got.view(b, lq, d), ref.view(b, lq, d))
+    n = (lk - 1) // 64 * 64  # without the last key tile
+    cut = lambda t: t.reshape(b, lk, d)[:, :n].reshape(b * n, d)
+    kwn = dict(kpm=pad[:, :n]) if gate is None else dict(
+        kbias=kw["kbias"][:, :n], gate=(*gate[:4], gate[4][:, :, :n]))
+    if n:
+        wrong = AB.attention_core_int8_plain(q, cut(k), cut(v), b, h, **kwn)
+        with pytest.raises(AssertionError):
+            _close_attention(wrong.view(b, lq, d), ref.view(b, lq, d))
+
+
+# the served cores by (gated, head dim, batch, key length): WavLM's at
+# served batches either side of the panel's one key tile and past the old
+# limits, the fusion stack's audio self-attention at its panel's edges, and
+# the thin grids
+ROUTE_CORES = [(True, 64, 384, 62), (True, 64, 192, 124), (True, 64, 128, 156),
+               (True, 64, 64, 249), (True, 64, 32, 499), (True, 64, 1, 187), (True, 64, 4, 499),
+               (False, 96, 384, 62), (False, 96, 128, 187), (False, 96, 64, 249),
+               (False, 96, 64, 312), (False, 96, 64, 343), (False, 96, 32, 499),
+               (False, 96, 4, 187), (False, 96, 1, 499)]
+
+
+@pytest.mark.parametrize("gated,hd,b,lk", ROUTE_CORES)
+def test_core_route_picks_the_fastest(gen, gated, hd, b, lk):
+    """The kernel ``AB.core_kernel`` picks is the fastest of the three, or
+    within CORE_ROUTE_MARGIN of it, each timed as chip_smoke.py times a row
+    (a CUDA graph of calls, the median of 5 replays); every kernel within
+    ATTN_TOL of the plain version."""
+    from chip_smoke import cuda_ms
+
+    d = 768
+    h = d // hd
+    qkv = _randn(gen, b * lk, 3 * d)
+    qkv[:, :d] *= hd ** -0.5
+    q, k, v = qkv.split(d, dim=1)
+    pad = _pad_mask([lk] + [max(1, lk // 2)] * (b - 1), lk)
+    if gated:
+        kw = dict(kbias=torch.where(pad, AB.NEG_INF, 0.0).float(),
+                  gate=(_randn(gen, b * lk, d), _randn(gen, 8, hd, scale=0.1, dtype=torch.float32),
+                        _randn(gen, 8, scale=0.1, dtype=torch.float32),
+                        _randn(gen, h, dtype=torch.float32), _randn(gen, h, lk, lk, scale=0.3)))
+    else:
+        kw = dict(kpm=pad)
+    ref = AB.attention_core_int8_plain(q, k, v, b, h, **kw)
+    ms = {}
+    for kernel in AB.CORE_KERNELS:
+        fn = lambda kernel=kernel: AB.attention_core_int8(q, k, v, b, h, kernel=kernel, **kw)
+        _close_attention(fn().view(b, lk, d), ref.view(b, lk, d))
+        ms[kernel] = cuda_ms(fn, repeats=5)
+    picked = AB.core_kernel(lk, gated, hd, b)
+    print(f"{'gated' if gated else 'ungated'} {h}x{hd} B={b} L={lk}: {ms}, picked {picked}")
+    assert ms[picked] <= (1 + AB.CORE_ROUTE_MARGIN) * min(ms.values()), (picked, ms)
+
+
+def test_wgmma_core_refused_launches_raise(gen):
+    """What the wgmma core does not take raises, in the wrapper or from the
+    C entry point, never falling back: more keys than it holds, a head dim
+    other than 64 and 96, and the C entry point's own refusal."""
+    b, h, hd = 2, 4, 64
+    d = h * hd
+    with pytest.raises(ValueError, match="no wgmma core"):
+        AB.attention_core_int8(_randn(gen, b * 8, d), _randn(gen, b * 513, d),
+                               _randn(gen, b * 513, d), b, h, kernel="wgmma")
+    with pytest.raises(ValueError, match="no wgmma core"):
+        AB.attention_core_int8(_randn(gen, b * 8, 128), _randn(gen, b * 8, 128),
+                               _randn(gen, b * 8, 128), b, 4, kernel="wgmma")
+    q, k, v = _randn(gen, b * 8, d), _randn(gen, b * 600, d), _randn(gen, b * 600, d)
+    ctx = torch.empty_like(q)
+    err = _cuda.lib("attention").hr_attention_core(
+        q.data_ptr(), d, k.data_ptr(), d, v.data_ptr(), d, b, 8, 600, h, hd, None, None,
+        None, 0, 0, None, None, None, None, ctx.data_ptr(), d, AB.CORE_KERNELS.index("wgmma"),
+        _cuda.stream())
+    with pytest.raises(RuntimeError):
+        _cuda.check(err, "hr_attention_core")
 
 
 def test_projection_routes_no_cluster_takes_the_chain(gen):

@@ -45,8 +45,21 @@ def test_covers_the_conv_stack_at_every_bucket(artifact):
     """The port's own rows: the served conv stack at each of the 14 audio
     buckets."""
     rows = {(r["kernel"], r["shape"]) for r in artifact["rows"]}
-    want = KN.port_rows()
+    want = [k for k in KN.port_rows() if k[0] == "conv_stack"]
     assert len(want) == len(set(want)) == 14
+    assert not set(want) & set(KN.expected_rows())
+    assert not [k for k in want if k not in rows]
+
+
+def test_covers_the_wgmma_core_at_every_bucket(artifact):
+    """The port's own rows: WavLM's gated int8 core on its wgmma warpgroups
+    at each of the 14 audio buckets' frames, and no other port rows."""
+    rows = {(r["kernel"], r["shape"]) for r in artifact["rows"]}
+    want = [k for k in KN.port_rows() if k[0] == "int8_core_wgmma"]
+    audio, _ = KN.serving_buckets()
+    frames = KN.bucket_frames(audio)
+    assert want == [("int8_core_wgmma", f"L={frames[sec]} (bucket {sec}s)") for sec in audio]
+    assert len(set(want)) == 14 and len(KN.port_rows()) == 28
     assert not set(want) & set(KN.expected_rows())
     assert not [k for k in want if k not in rows]
 
@@ -76,7 +89,9 @@ def test_tool_runs_on_the_cpu():
     assert sum(k == "mha_block" for k, _, _ in results) == 6
     assert [s for k, s, _ in results if k == "conv_stack"] == [
         "Tw=20000 (bucket 1.25s)", "Tw=160000 (bucket 10.0s)"]
-    assert all(d == 0.0 for _, _, d in results) and len(results) == 17
+    assert [s for k, s, _ in results if k == "int8_core_wgmma"] == [
+        "L=62 (bucket 1.25s)", "L=499 (bucket 10.0s)"]
+    assert all(d == 0.0 for _, _, d in results) and len(results) == 19
     rep = KN.report(results, "cpu", 0)
     assert rep["rows"][0] == {"kernel": "wavlm_attention_block",
                               "shape": "L=62 (bucket 1.25s)", "max_delta": 0.0,
