@@ -107,7 +107,11 @@ Phases, any failure exits non-zero:
    of the 1.25 s, 5 s and 10 s buckets (``SERVED_CONV``, bf16), each
    against its plain version with its cuDNN route's counterpart as
    ``route_ms``, the route ``conv_stack_route`` picks not the slower by more
-   than ``ROUTE_NOISE`` and ``ROUTE_NOISE_MS``;
+   than ``ROUTE_NOISE`` and ``ROUTE_NOISE_MS``, K1 and K2 also timed on the
+   parent's GEMM pipeline (``parent_ms``), and each of conv1..6 alone on the
+   TMA GEMM (``CS.conv_gemm``, an entry of its own in the kernels line) at
+   ``CONV_TOL``, beside the parent pipeline and ``F.conv1d`` as
+   ``library_ms``;
 4. the int8 serving path end to end at full width (WavLM base-plus,
    BERT-base, fusion 768/8 heads/2/2/256/4 emotions, W8A8, pcm16 transport,
    text buckets 8..64, random weights from a seed): 16 requests across the
@@ -117,7 +121,8 @@ Phases, any failure exits non-zero:
    MHA calls' shapes put their cores there and the wgmma core as often as
    the WavLM and MHA calls' shapes put theirs there, ``core_launches``; the feature
    encoder on the route ``conv_stack_route`` picks, the conv-stack kernels
-   once a forward where it picks them, ``stack_launches``), probabilities
+   once a forward where it picks them and in bf16 the TMA GEMM six times,
+   ``stack_launches``), probabilities
    finite and in [0, 1], and the same requests through the plain versions
    (``use_kernels=False``) within the int8 gate of 0.006; then the same on
    the int8 tree at fp32 compute (``compute_dtype=torch.float32``), whose
@@ -394,6 +399,10 @@ KERNELS = {
                       "hriemo_torch/csrc/conv_stack.cu"),
     "conv_stack_k2": (CS.conv_stack_k2, "hriemo/ops/conv_stack.py:152",
                       "hriemo_torch/csrc/conv_stack.cu"),
+    # the bf16 GEMM under K1's conv1..3 and K2's conv4..6 (the TPU kernels'
+    # stride-2 convs, _k1_kernel's and _k2_kernel's), counted by launch
+    "conv_gemm": (CS.conv_gemm, "hriemo/ops/conv_stack.py:128",
+                  "hriemo_torch/csrc/tma_gemm.cuh"),
 }
 # the wide tile instances (HD 192 and 256, csrc/attention_tiles.cuh) as
 # entries of their own in the kernels line: (TPU kernel, CUDA source). Their
@@ -453,8 +462,12 @@ PER_FORWARD_FORCED = {"wavlm_fused_attention": 12, "ffn_block_bf16": 12,
 # forward that CS.conv_stack_route sends there (bf16 on the card). Every
 # phase that counts launches also holds each of its encoder's routes to the
 # rule (stack_launches); phase 4e requires the kernels at the served batches.
-STACK = ("conv_stack_stats", "conv_stack_k1", "conv_stack_k2")
-PER_FORWARD_STACK = dict.fromkeys(STACK, 1)
+# In bf16 each of K1's and K2's convs is one launch of the TMA GEMM
+# (CS.conv_gemm): six a forward; fp32 runs none.
+CONV_GEMM = "conv_gemm"
+CONV_GEMMS_PER_STACK = 6
+STACK = ("conv_stack_stats", "conv_stack_k1", "conv_stack_k2", CONV_GEMM)
+PER_FORWARD_STACK = {**dict.fromkeys(STACK[:3], 1), CONV_GEMM: CONV_GEMMS_PER_STACK}
 ROUTED = CS.use_conv_stack   # the route, which phases 4e and 5 replace for a run
 # training: the gradient of the fusion step, kernel route against the plain
 # one, in relative norm |g - r| <= tol |r|: in fp32 each leaf within 1e-4,
@@ -1767,9 +1780,22 @@ def served_conv_rows(run, rows, gen):
             nbytes(x3, *taps[3:], out), 0, ops2, tol=CONV_TOL[torch.bfloat16],
             route=lambda: enc._cudnn_convs(x3_cf, range(4, 7)).transpose(1, 2).contiguous(),
             **timing)
+        stage_rows = rows[-3:]
+        # K1 and K2 with their convs on the parent's GEMM pipeline (the cp.async
+        # GEMM of csrc/float_wgmma.cuh), timed beside
+        rows[-2]["parent_ms"] = cuda_ms(lambda: CS._conv_launches(CS._conv0_launch(
+            wave, stats, w0, gn_w, gn_b, EPS, True), taps[:3], True, cp_async=True), **timing)
+        rows[-1]["parent_ms"] = cuda_ms(lambda: CS._conv_launches(
+            x3, taps[3:], True, cp_async=True), **timing)
+        served_gemm_rows(run, rows, tag, taps, wave, stats, w0, gn_w, gn_b)
+        for r, convs in zip(stage_rows[1:], (rows[-6:-3], rows[-3:])):
+            r["library_ms"] = sum(c["library_ms"] for c in convs)
+            print(f"  {r['kernel']:22s} {tag:28s} TMA GEMM {r['ms']:.4f} ms, parent pipeline "
+                  f"{r['parent_ms']:.4f} ms; its convs' F.conv1d {r['library_ms']:.4f} ms",
+                  flush=True)
         picked = CS.conv_stack_route("cuda", torch.bfloat16, b, tw)
-        kern, route = (sum(r[k] for r in rows[-3:]) for k in ("ms", "route_ms"))
-        for r in rows[-3:]:
+        kern, route = (sum(r[k] for r in stage_rows) for k in ("ms", "route_ms"))
+        for r in stage_rows:
             r.update(served_bucket_s=sec, picked=picked)
         print(f"  conv stack {tag}: kernels {kern:.4f} ms, cuDNN route {route:.4f} ms; the "
               f"rule picks {picked}", flush=True)
@@ -1779,6 +1805,51 @@ def served_conv_rows(run, rows, gen):
                                  f"kernels {kern} ms, cuDNN route {route} ms")
         del stats, x3, out, mv, x3_cf, wave
         torch.cuda.empty_cache()
+
+
+def served_gemm_rows(run, rows, tag, taps, wave, stats, w0, gn_w, gn_b):
+    """Phase 3's rows of the TMA GEMM (``CS.conv_gemm``) at one served pair:
+    each of conv1..6 alone on the kernels' chain (conv0's pass, then each
+    conv's kernel output), against its plain version at ``CONV_TOL``, with
+    :func:`conv_gemm_yardsticks`."""
+    timing = dict(iters=3)
+    with torch.no_grad():
+        x = CS._conv0_launch(wave, stats, w0, gn_w, gn_b, EPS, True)
+        for i, w in enumerate(taps, start=1):
+            m = (x.shape[1] - w.shape[0]) // 2 + 1
+            out = torch.empty((x.shape[0], m, CS.CHANNELS), dtype=x.dtype, device=x.device)
+            got, _ = run(CONV_GEMM, f"conv{i} {tag}", lambda: CS.conv_gemm(x, w, True),
+                         lambda: CS._conv_s2(x, w, True), None, nbytes(x, w, out), 0,
+                         2 * x.shape[0] * m * CS.CHANNELS * CS.CHANNELS * w.shape[0],
+                         tol=CONV_TOL[torch.bfloat16], **timing)
+            rows[-1].update(conv_gemm_yardsticks(x, w, **timing))
+            rows[-1]["ms_over_library"] = rows[-1]["ms"] / rows[-1]["library_ms"]
+            print(f"  {CONV_GEMM:22s} conv{i} {tag}: parent pipeline "
+                  f"{rows[-1]['parent_ms']:.4f} ms, F.conv1d {rows[-1]['library_ms']:.4f} ms "
+                  f"({rows[-1]['library_layout']})", flush=True)
+            del out
+            x = got
+    del x
+
+
+def conv_gemm_yardsticks(x, w, **timing) -> dict:
+    """What one stride-2 conv on the TMA GEMM is timed beside, over ``x [B,
+    T, C]`` bf16 and taps ``w [k, C, C]``: the parent pipeline's time
+    (``parent_ms``, the cp.async GEMM of csrc/float_wgmma.cuh) and, as
+    ``library_ms``, ``F.conv1d`` in bf16 on the same conv without its GELU
+    in the faster of two layouts (channels first, made outside the call;
+    the ``[B, T, C]`` rows as a channels-last view), which
+    ``library_layout`` names (``library_both``: each layout's time)."""
+    wc = w.permute(1, 2, 0).contiguous()             # [C_out, C_in, k]
+    x_cf = x.transpose(1, 2).contiguous()
+    lib = {"channels_first": cuda_ms(lambda: torch.nn.functional.conv1d(
+               x_cf, wc, stride=2), **timing),
+           "channels_last_view": cuda_ms(lambda: torch.nn.functional.conv1d(
+               x.transpose(1, 2), wc, stride=2), **timing)}
+    layout = min(lib, key=lib.get)
+    return dict(library_ms=lib[layout], library_layout=layout, library_both=lib,
+                parent_ms=cuda_ms(lambda: CS._conv_launches(x, (w,), True, cp_async=True),
+                                  **timing))
 
 
 def ffn_backward_check(x, w1, b1, w2, b2, g, b):
@@ -2153,14 +2224,16 @@ def stack_launches(what):
     """The feature encoder's routes since ``reset_launches``: each one the
     route ``CS.conv_stack_route`` picks for its (B, Tw, dtype) on the card.
     Returns the conv-stack kernels' launches its fused calls make."""
-    fused = 0
+    fused = gemms = 0
     for (route, b, tw, dt), n in ROUTED.routes.items():
         want = CS.conv_stack_route("cuda", getattr(torch, dt), b, tw)
         if route != want:
             raise AssertionError(f"{what}: the feature encoder at B={b} Tw={tw} {dt} took the "
                                  f"{route} route {n} times, the rule picks {want}")
-        fused += n if route == "fused" else 0
-    return dict.fromkeys(STACK, fused)
+        if route == "fused":
+            fused += n
+            gemms += CONV_GEMMS_PER_STACK * n if dt == "bfloat16" else 0
+    return {**dict.fromkeys(STACK[:3], fused), CONV_GEMM: gemms}
 
 
 def check_launches(what, got, want):
@@ -2360,8 +2433,10 @@ def extraction(gen, smi: str, root: pathlib.Path):
             st = EX.extract_audio(args("audio", dtype), rows[:8], out(f"forced_{dtype}"),
                                   model=wavlm)
             ll = read_launches()
+            forced = dict(PER_FORWARD_FORCED,
+                          **{CONV_GEMM: CONV_GEMMS_PER_STACK if dtype == "bfloat16" else 0})
             check_launches(f"forced gates {dtype}", ll,
-                           {n: k * st["forwards"] for n, k in PER_FORWARD_FORCED.items()})
+                           {n: k * st["forwards"] for n, k in forced.items()})
             for name, n in ll.items():
                 total[name] += n
             print(f"forced gates {dtype}: launches {ll}", flush=True)

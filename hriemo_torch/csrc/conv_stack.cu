@@ -15,20 +15,22 @@
 // [512, 10]).
 //
 // Design.
-// - Every stride-2 conv, conv1..6, is one launch of hr_conv_s2: one
-//   large-tile GEMM of csrc/float_wgmma.cuh (wgmma in bf16, 3xTF32 in fp32)
-//   over a strided view of its input (output row r of batch element b is
-//   the k*512 contiguous elements from input row 2r on: lda = 2*512, K =
-//   k*512, tap j of the tap-major weights read as it is, no copy; batch on
-//   the grid's z axis, rows past the conv's length zero-filled by the copy
-//   and never stored). K1 is conv0's pass and three such launches, K2 three
+// - Every stride-2 conv, conv1..6, is one GEMM launch over a strided view of
+//   its input: output row r of batch element b is the k*512 contiguous
+//   elements from input row 2r on (K = k*512, tap j of the tap-major weights
+//   read as it is, no copy). In bf16 it is hr_conv_s2_tma, the TMA GEMM of
+//   csrc/tma_gemm.cuh (x's even and odd rows as two tensor maps bounded per
+//   batch element, a producer warp's loads into an mbarrier ring, two
+//   consumer warpgroups of 64 x 256, one persistent block an SM); in fp32
+//   hr_conv_s2, the 3xTF32 large-tile GEMM of csrc/float_wgmma.cuh (lda =
+//   2*512, batch on the grid's z axis, rows past the conv's length
+//   zero-filled by the copy; its bf16 instance is kept as the yardstick of
+//   the TMA GEMM). K1 is conv0's pass and three such launches, K2 three
 //   (ops/conv_stack.py _conv_launches); their workspaces come from the
 //   caching allocator. Every weight tile staged in shared memory feeds 128
 //   output rows and no halo row is recomputed, where the first versions'
 //   blocks of 8 output frames recomputed their halo rows and streamed every
-//   conv's weights from L2 (K2, counted from its code: about 3.7 MB of L2
-//   reads a block in bf16, 1.85 GB at 8 x 10 s), and ran fp32 on CUDA-core
-//   FMAs.
+//   conv's weights from L2, and ran fp32 on CUDA-core FMAs.
 // - conv0 (one input channel, 10 taps: 1.3% of the stack's operations) runs
 //   on CUDA cores, 10 FMAs an output in tap order, in both of its users.
 //   K1's pass normalises it, applies GELU and writes [B, n0, 512] in T. The
@@ -41,22 +43,21 @@
 //   cancels when conv0's outputs are nearly constant, and K1's variance,
 //   unclamped like the TPU kernel's, could go negative.)
 //
-// What bounds them (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and
-// hriemo_torch/utils/float_gemm_variants.py, PERF.md §6), at 8 x 10 s:
-// - K1 1.52 ms in bf16, 5.57 in fp32: the three conv GEMMs 1.20 / 5.23 ms,
-//   30% / 41% of their tensor-core bound (0.36 ms in bf16, 2.14 in fp32 as
-//   three TF32 products), held back by the GEMM's pipeline
-//   (csrc/float_wgmma.cuh); the conv0 pass 0.31 / 0.30 ms, the CUDA cores'
-//   GroupNorm and accurate GELU per element more than its bytes.
-// - K2 0.158 ms in bf16, 0.606 in fp32 (the first version 0.332 / 1.762):
-//   the same GEMM at 37.7 GFLOP (conv4 25.1, conv5 8.4, conv6 4.2), 24% /
-//   38% of its bound (0.038 / 0.229 ms); conv5 and conv6 fill only 256 and
-//   128 blocks of 128 x 128. Short clips gain nothing: at 1 s and B = 1 the
-//   three GEMMs have 4 column blocks each and take 0.073 ms in bf16 (the
-//   first version 0.064).
-// - The stats 0.082 ms in bf16 and 0.081 in fp32 (the first version 0.719 /
-//   0.744), CUDA-core bound: 13 fp32 operations a conv0 output, 1.7 G.
+// What bounds them (NVIDIA H100 80GB HBM3, 700 W; chip_conv_routes.py
+// --gemms and chip_smoke.py, PERF.md sections 5-6):
+// - The conv GEMMs, bound by bf16 tensor-core operations: at 1.25 s x 384
+//   K1's three take 3.85 ms against a 2.14 ms bound (55%; the cp.async
+//   pipeline 7.07), K2's 0.45 against 0.23 (51%; 0.86); at 8 x 10 s 0.59
+//   and 0.074 against 0.36 and 0.038. The TMA GEMM's epilogue (the IEEE
+//   GELU and the store), which no product overlaps, takes what its main
+//   loop leaves (csrc/tma_gemm.cuh). fp32 at 8 x 10 s: K1 5.57 ms, K2 0.606,
+//   the GEMMs at 41% and 38% of three TF32 products at 495 TFLOP/s.
+// - conv0's pass (GroupNorm and the accurate GELU per element on CUDA cores)
+//   and the stats: 1.48 and 0.44 ms at 1.25 s x 384, 0.31 and 0.082
+//   at 8 x 10 s; the stats CUDA-core bound, 13 fp32 operations a conv0
+//   output.
 #include "float_wgmma.cuh"
+#include "tma_gemm.cuh"
 
 namespace hr {
 
@@ -249,6 +250,38 @@ int hr_conv_s2(int fp32, const void* x, long long x_batch, int lda, int K, const
   else
     launch_float_gemm<__nv_bfloat16, kFepGelu>(g, B, s);
   return (int)cudaGetLastError();
+}
+
+// The same conv in bf16 on the TMA GEMM (csrc/tma_gemm.cuh): x [B, t_in,
+// 512] and taps [k, 512, 512] bf16, k 2 or 3; out [B, M, 512], M = (t_in -
+// k) / 2 + 1; column tiles of bn (128 or 256) columns, `grid` persistent
+// blocks (ops/_cuda.py tma_gemm_plan). x's even rows are one tensor map and
+// its odd rows another, each with a row stride of 2 * 512. Returns
+// cudaErrorInvalidValue for arguments it does not take and where the driver
+// refuses a tensor map.
+int hr_conv_s2_tma(const void* x, int B, int t_in, int k, const void* taps, int M, int fast_gelu,
+                   int bn, int grid, void* out, void* stream) {
+  if (B < 1 || (k != 2 && k != 3) || t_in < k || M != (t_in - k) / 2 + 1 || grid < 1 ||
+      (bn != 128 && bn != 256))
+    return (int)cudaErrorInvalidValue;
+  const long long elem = (long long)t_in * kC;
+  CUtensorMap a0, a1, w, o;
+  const cuuint64_t odims[3] = {kC, (cuuint64_t)M, (cuuint64_t)B};
+  const cuuint64_t ostrides[2] = {kC * 2, (cuuint64_t)M * kC * 2};
+  const cuuint32_t obox[3] = {64, 64, 1};
+  if (!tg_a_map(&a0, x, kC, (t_in + 1) / 2, B, 2 * kC, elem) ||
+      !tg_a_map(&a1, static_cast<const __nv_bfloat16*>(x) + kC, kC, t_in / 2, B, 2 * kC, elem) ||
+      !tg_w_map(&w, taps, kC, (long long)k * kC, bn) ||
+      !tg_map(&o, out, 3, odims, ostrides, obox))
+    return (int)cudaErrorInvalidValue;
+  TgArgs g{};
+  g.taps = k, g.ksteps_tap = kC / kTgBK, g.wrow_tap = kC;
+  g.m_tiles = (M + kTgBM - 1) / kTgBM, g.n_tiles = kC / bn;
+  g.tiles = B * g.m_tiles * g.n_tiles;
+  g.f.M = M, g.f.N = kC, g.f.fast = fast_gelu;
+  g.f.out = out, g.f.out_batch = (long long)M * kC, g.f.ldo = kC;
+  return launch_tma_gemm_bn<kFepGelu>(bn, a0, a1, w, o, g, grid,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

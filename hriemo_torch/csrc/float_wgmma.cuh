@@ -1,8 +1,12 @@
 // Large-tile float GEMM for Hopper: C = epilogue(A . W^T), fp32 sums, over
 // operands of T = bf16 (wgmma bf16 x bf16 -> fp32) or T = fp32 (3xTF32 on
-// wgmma tf32). It carries the float FFN block's two products
+// wgmma tf32). It carries, in fp32, the float FFN block's two products
 // (csrc/ffn_bf16.cu) and the conv stack's stride-2 convs conv1..6
-// (csrc/conv_stack.cu: K1's conv1..3, K2's conv4..6).
+// (csrc/conv_stack.cu: K1's conv1..3, K2's conv4..6). In bf16 both run on
+// csrc/tma_gemm.cuh; this file's bf16 instance serves only the convs as
+// the yardstick that GEMM is timed beside (ops/conv_stack.py _conv_launches
+// with cp_async=True). The epilogues and FloatGemmArgs are
+// csrc/float_epilogue.cuh's, which both GEMMs include.
 //
 // Operands. A row m (of M) is K contiguous elements at a + m * lda, batch
 // element z (the grid's z axis) at a + z * a_batch: a stride-2 conv with k
@@ -46,45 +50,24 @@
 // T(gelu(acc)). IEEE operations only (no fast math).
 //
 // Readings (NVIDIA H100 80GB HBM3, 700 W; hriemo_torch/utils/
-// float_gemm_variants.py, PERF.md §6): the float FFN at M = 3992, fp32, max
-// |error| 4.9e-6 against the plain version, 8.1e-5 without the fp32 partial
-// sums, 3.6e-3 with one TF32 product; K1 at 8 x 10 s 8.8e-6, 1.5e-4, 1.1e-2.
-// bf16 with one block an SM and a 5- or 7-stage ring: 0.2475 / 0.2554 ms for
-// that FFN against 0.1813.
-// What bounds it: the tensor cores wait on the pipeline. At M = 3992 the
-// bf16 products run at 201 TFLOP/s (K = 768, GELU epilogue) and 237 (K =
-// 3072), K1's at 294, 20-30% of the 989 TFLOP/s peak; fp32 at 29-41% of its
-// three TF32 products at 495. Every thread issues copies and the block
-// synchronises each stage (no producer warp, no TMA), and in fp32 the split
-// and three products' operand reads load shared memory.
+// float_gemm_variants.py, chip_conv_routes.py --gemms, PERF.md §6): the
+// float FFN at M = 3992, fp32, max |error| 4.9e-6 against the plain version,
+// 8.1e-5 without the fp32 partial sums, 3.6e-3 with one TF32 product; K1 at
+// 8 x 10 s 8.8e-6, 1.5e-4, 1.1e-2. bf16 with one block an SM and a 5- or
+// 7-stage ring: 0.2475 / 0.2554 ms for that FFN against 0.1813.
+// What bounds it: the tensor cores wait on the pipeline. In bf16 K1's three
+// conv GEMMs at 1.25 s x 384 take 7.07 ms (30% of their bound; the TMA
+// GEMM 3.85) and the FFN at M = 3992 0.187 ms (erf; the TMA GEMM 0.155);
+// fp32 runs at 29-41% of its three TF32 products at 495. Every thread
+// issues copies and the block synchronises each stage (no producer warp,
+// no TMA), and in fp32 the split and three products' operand reads load
+// shared memory.
 #pragma once
 
+#include "float_epilogue.cuh"
 #include "int8_gemm.cuh"
 
 namespace hr {
-
-enum FloatEpilogue : int {
-  kFepBiasGelu = 0,   // T out = T(gelu(acc + bias))          the FFN's hidden h
-  kFepResidBias = 1,  // fp32 out = (resid + acc) + bias       the FFN's y
-  kFepGelu = 2,       // T out = T(gelu(acc))                  the convs
-};
-
-struct FloatGemmArgs {
-  const void* a;         // A [M, K] of T, rows lda apart; batch z at a + z * a_batch
-  long long a_batch;
-  int lda;
-  const void* w;         // W of T: K-element k of column n at w + (k/ktap)*w_tap + n*ldw + k%ktap
-  long long w_tap;
-  int ldw, ktap;
-  int M, N, K;
-  const float* bias;     // [N] (kFepBiasGelu, kFepResidBias)
-  const void* resid;     // [M, ldr] of T (kFepResidBias)
-  int ldr;
-  void* out;             // row m of batch z at out + z * out_batch + m * ldo
-  long long out_batch;
-  int ldo;
-  int fast;              // tanh GELU, else erf
-};
 
 template <typename T>
 struct FloatTile {
@@ -156,24 +139,6 @@ __device__ __forceinline__ void split_tile(const uint8_t* tile, uint8_t* small, 
     const float4 v = t[i];
     s[i] = make_float4(part(v.x), part(v.y), part(v.z), part(v.w));
   }
-}
-
-// The epilogue of two adjacent columns n, n + 1 of row m; o is their offset
-// in the output.
-template <int EPI, typename T>
-__device__ __forceinline__ void epi_store(const FloatGemmArgs& g, size_t o, int m, int n,
-                                          float v0, float v1) {
-  if (EPI == kFepResidBias) {
-    const T* r = static_cast<const T*>(g.resid) + (size_t)m * g.ldr + n;
-    store2(static_cast<float*>(g.out) + o, __fadd_rn(__fadd_rn(load_f(r), v0), g.bias[n]),
-           __fadd_rn(__fadd_rn(load_f(r + 1), v1), g.bias[n + 1]));
-    return;
-  }
-  if (EPI == kFepBiasGelu) {
-    v0 = __fadd_rn(v0, g.bias[n]);
-    v1 = __fadd_rn(v1, g.bias[n + 1]);
-  }
-  store2(static_cast<T*>(g.out) + o, gelu(v0, g.fast), gelu(v1, g.fast));
 }
 
 template <typename T, int EPI>

@@ -1,0 +1,123 @@
+// Hopper's copy machinery, shared by the kernels that use it
+// (csrc/onepass_wgmma.cuh, csrc/tma_gemm.cuh): mbarriers, TMA loads and
+// stores through tensor maps, bulk copies, and the host's tensor-map encoder.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hr {
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// one arrival when this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+// Waits for the phase of parity `parity` to complete. A barrier that never
+// completes (a fault) traps after 2^22 polls, seconds, rather than hanging
+// the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 22)) __trap();
+  }
+}
+// One box of a 3D tensor map (column c0, row c1, batch element c2) into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                          int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned, completing on `bar`, whose transaction count the caller raised
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_add_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+// One box of a 2D tensor map (column c0, row c1) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load2(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// One box of shared memory at `src` to a 3D tensor map at (c0, c1, c2), in
+// this thread's bulk async-group; elements past the map's dims are not
+// written.
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)));
+}
+
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
+// query (no -lcuda).
+inline TensorMapEncode tensor_map_encoder() {
+  static const TensorMapEncode fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<TensorMapEncode>(p) : nullptr;
+  }();
+  return fn;
+}
+
+}  // namespace hr

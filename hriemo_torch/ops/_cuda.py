@@ -74,12 +74,14 @@ SIGNATURES = {
                                    P, P, I, I, I, I, P],
     },
     "ffn_bf16": {
-        "hr_ffn_gemms": [I, P, P, P, P, P, I, I, I, I, P, P, P],
+        "hr_ffn_gemms": [P, P, P, P, P, I, I, I, I, P, P, P],
+        "hr_ffn_gemms_tma": [P, P, P, P, P, I, I, I, I, P, P, I, I, I, I, P],
     },
     "conv_stack": {
         "hr_conv_stats": [I, P, I, I, P, I, I, P, P, P],
         "hr_conv0_gn": [I, P, I, I, P, P, P, P, F, F, I, I, P, P],
         "hr_conv_s2": [I, P, L, I, I, P, I, I, I, P, P],
+        "hr_conv_s2_tma": [P, I, I, I, P, I, I, I, I, P, P],
     },
 }
 
@@ -345,6 +347,35 @@ def sm_count() -> int:
         sm_count.n = torch.cuda.get_device_properties(torch.cuda.current_device()) \
             .multi_processor_count
     return sm_count.n
+
+
+# The bf16 GEMM on TMA and warpgroups (csrc/tma_gemm.cuh): rows of a tile,
+# and its column-tile instances
+TMA_BM = 128
+TMA_BN = (256, 128)
+# A 128-column tile's time over half a 256-column tile's, where each takes
+# one wave: 1.05-1.17 on an NVIDIA H100 80GB HBM3 at 700 W (both instances
+# at the served pairs and thin grids, chip_conv_routes.py --gemms, PERF.md
+# section 6); at this cost every plan there read within 8% of the faster.
+TMA_NARROW_COST = 1.1
+
+
+def tma_gemm_plan(b: int, m: int, n: int, sms: int = H100_SMS,
+                  bn: int | None = None) -> tuple[int, int]:
+    """``(BN, blocks)`` of the persistent TMA GEMM over ``b`` batch elements
+    of ``m`` rows and ``n`` columns on ``sms`` SMs: the 256-column tile,
+    unless 128-column tiles finish sooner counting whole waves (a block's
+    tiles, :data:`TMA_NARROW_COST` apiece against 2 for a 256-column tile),
+    as on thin grids where the wide tiles leave SMs idle; ``bn`` forces one.
+    One block an SM, at most one a tile."""
+    row_tiles = b * -(-m // TMA_BM)
+    tiles = {w: row_tiles * -(-n // w) for w in TMA_BN}
+    if bn is None:
+        waves = {w: -(-t // sms) for w, t in tiles.items()}
+        bn = 128 if TMA_NARROW_COST * waves[128] < 2 * waves[256] else 256
+    if bn not in tiles:
+        raise ValueError(f"TMA GEMM: no {bn}-column instance (has {TMA_BN})")
+    return bn, min(sms, tiles[bn])
 
 
 def ffn_cluster(f: int, k: int, config: int = -1) -> tuple[int, int] | None:

@@ -21,7 +21,8 @@ Two parts:
     GroupNorm from those sums (``var = s2/n - mean^2``, no clamp, unlike
     the Gram route), GELU, conv1..3, ``[B, t3, C]``; on the card conv0 is
     one pass and each of conv1..3 one GEMM over :func:`conv_rows`, the
-    strided view of its input;
+    strided view of its input (in bf16 :func:`conv_gemm`, the TMA GEMM of
+    ``csrc/tma_gemm.cuh``);
   - :func:`conv_stack_k2` replaces ``_k2_kernel`` (``:263``): conv4..6,
     ``[B, t_out, C]``, on the card one such GEMM each.
 
@@ -176,12 +177,54 @@ def _check_taps(taps, k, dtype, dev, name):
     _cuda.require(taps, name, dtype, (k, CHANNELS, CHANNELS), dev)
 
 
-def _conv_launches(x, taps_seq, fast_gelu):
+def conv_gemm(x, taps, fast_gelu: bool, bn: int | None = None):
+    """gelu(stride-2 conv) of ``x [B, T, C]`` bf16 with ``taps [k, C, C]``
+    (k 2 or 3): ``[B, (T - k) // 2 + 1, C]`` bf16, one launch of the TMA
+    GEMM (csrc/conv_stack.cu ``hr_conv_s2_tma``) over x's even and odd rows
+    as two tensor maps, on the plan of ``_cuda.tma_gemm_plan`` (``bn``
+    forces its column tile). The plain version is ``_conv_s2``, which the
+    CPU takes. ``conv_gemm.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return _conv_s2(x, taps, fast_gelu)
+    return _conv_gemm_into(x, taps, fast_gelu, None, bn)
+
+
+conv_gemm.launches = 0
+
+
+def _conv_gemm_into(x, taps, fast_gelu, out, bn=None):
+    """:func:`conv_gemm`'s launch on the card into ``out [B, M, C]`` bf16, or
+    into a new tensor where ``out`` is None; returns it."""
+    b, t, _ = x.shape
+    k = taps.shape[0]
+    _cuda.require(x, "x", torch.bfloat16, (b, t, CHANNELS))
+    _check_taps(taps, k, torch.bfloat16, x.device, "taps")
+    if k not in (2, 3) or t < k:
+        raise ValueError(f"conv_gemm: {k} taps over {t} rows")
+    m = (t - k) // 2 + 1
+    bn, grid = _cuda.tma_gemm_plan(b, m, CHANNELS, _cuda.sm_count(), bn)
+    if out is None:
+        out = torch.empty((b, m, CHANNELS), dtype=x.dtype, device=x.device)
+    _cuda.require(out, "out", torch.bfloat16, (b, m, CHANNELS), x.device)
+    _cuda.check(_cuda.lib("conv_stack").hr_conv_s2_tma(
+        x.data_ptr(), b, t, k, taps.data_ptr(), m, int(fast_gelu), bn, grid, out.data_ptr(),
+        _cuda.stream()), "hr_conv_s2_tma")
+    conv_gemm.launches += 1
+    return out
+
+
+def _conv_launches(x, taps_seq, fast_gelu, cp_async: bool = False):
     """gelu(stride-2 conv) for each of ``taps_seq`` in turn, from ``x [B, T,
     C]`` on the card: one GEMM launch each over :func:`conv_rows` of the
-    previous output, into a new tensor from the caching allocator."""
+    previous output, into a new tensor from the caching allocator. bf16
+    takes :func:`conv_gemm`, fp32 the 3xTF32 GEMM of csrc/float_wgmma.cuh
+    (``hr_conv_s2``); ``cp_async`` puts bf16 there too, as the yardstick
+    that the TMA GEMM is timed beside."""
     lib, fp32 = _cuda.lib("conv_stack"), int(x.dtype == torch.float32)
     for taps in taps_seq:
+        if not (fp32 or cp_async):
+            x = _conv_gemm_into(x, taps, fast_gelu, None)
+            continue
         rows = conv_rows(x, taps.shape[0])
         x = torch.empty((x.shape[0], rows.shape[1], CHANNELS), dtype=x.dtype, device=x.device)
         _cuda.check(lib.hr_conv_s2(
@@ -233,7 +276,8 @@ def conv_stack_k1(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps: float, fast_gelu
     """conv0, GroupNorm (from ``stats``, :func:`conv_stack_stats`), GELU and
     conv1..3 (taps ``[3, C, C]``): ``[B, t3, C]`` in the waveform's dtype.
     On the card four launches: conv0 into a ``[B, n0, C]`` workspace, then
-    each conv one GEMM over :func:`conv_rows` of the previous output."""
+    each conv one GEMM over :func:`conv_rows` of the previous output (in
+    bf16 :func:`conv_gemm`)."""
     if wave.device.type == "cpu":
         return conv_stack_k1_plain(wave, stats, w0, gn_w, gn_b, w1, w2, w3, eps, fast_gelu)
     _check_wave(wave, "conv_stack_k1")

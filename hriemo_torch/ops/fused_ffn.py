@@ -323,10 +323,17 @@ def _ffn_bf16_launch(x, w1, b1, w2, b2, ln_w, ln_b, eps, fast_gelu):
         raise ValueError(f"ffn_block_bf16: widths {d}, {f} must be multiples of 32")
     h = torch.empty((m, f), dtype=dt, device=dev)
     y = torch.empty((m, d), dtype=torch.float32, device=dev)
-    _cuda.check(_cuda.lib("ffn_bf16").hr_ffn_gemms(
-        int(dt == torch.float32), x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), m, d, f, int(fast_gelu), h.data_ptr(), y.data_ptr(), _cuda.stream()),
-        "hr_ffn_gemms")
+    if dt == torch.bfloat16:  # the TMA GEMM (csrc/tma_gemm.cuh)
+        sms = _cuda.sm_count()
+        plan = (*_cuda.tma_gemm_plan(1, m, f, sms), *_cuda.tma_gemm_plan(1, m, d, sms))
+        _cuda.check(_cuda.lib("ffn_bf16").hr_ffn_gemms_tma(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), m, d, f,
+            int(fast_gelu), h.data_ptr(), y.data_ptr(), *plan, _cuda.stream()),
+            "hr_ffn_gemms_tma")
+    else:  # fp32: 3xTF32 on csrc/float_wgmma.cuh
+        _cuda.check(_cuda.lib("ffn_bf16").hr_ffn_gemms(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), m, d, f,
+            int(fast_gelu), h.data_ptr(), y.data_ptr(), _cuda.stream()), "hr_ffn_gemms")
     out = _cuda.layernorm(y, ln_w, ln_b, eps, dt)
     ffn_block_bf16.launches += 1
     return out
@@ -355,8 +362,9 @@ def ffn_block_bf16(x, w1, b1, w2, b2, ln_w, ln_b, eps: float = 1e-5, fast_gelu: 
     D]`` bf16 or fp32, torch-layout weights ``w1 [F, D]``, ``w2 [D, F]`` of
     x's dtype, fp32 ``b1``, ``b2``, ``ln_w``, ``ln_b``; returns ``[M, D]``
     in x's dtype. On the CPU the plain version runs; on the card three
-    launches (or a raise). Differentiable: the backward recomputes through
-    :func:`ffn_reference`."""
+    launches (or a raise), the bf16 products on the TMA GEMM
+    (``csrc/tma_gemm.cuh``), fp32's in 3xTF32 (``csrc/float_wgmma.cuh``).
+    Differentiable: the backward recomputes through :func:`ffn_reference`."""
     return _FfnBf16.apply(x, w1, b1, w2, b2, ln_w, ln_b, eps, fast_gelu)
 
 

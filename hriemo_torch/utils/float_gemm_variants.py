@@ -18,10 +18,12 @@ temporary directory, none in the repository:
   tensor core's own sums over the whole K;
 - ``fp32 1xTF32``: big.big only, one TF32 product.
 
-Each runs ``ffn_block_bf16`` at M = 3992 and 1996 (WavLM's 768 -> 3072 ->
-768, tanh GELU) and ``conv_stack_k1`` at 8 x 10 s, bf16 and fp32, on the
-same inputs: max and median |error| against the plain versions (TF32 off)
-under ``chip_smoke.py``'s tolerances (``TOL`` / ``FP32_TOL``, ``CONV_TOL``)
+Each runs ``ffn_block_bf16`` in fp32 at M = 3992 and 1996 (WavLM's 768 ->
+3072 -> 768, tanh GELU; bf16 runs on ``csrc/tma_gemm.cuh``) and
+``conv_stack_k1``'s convs at 8 x 10 s, bf16 and fp32, bf16 forced onto this
+GEMM (``conv_stack._conv_launches`` with ``cp_async``), on the same inputs:
+max and median |error| against the plain versions (TF32 off) under
+``chip_smoke.py``'s tolerances (``FP32_TOL``, ``CONV_TOL``)
 and CUDA-event ms, beside the FFN's cuBLAS + LayerNorm route; then, for the
 build as it is, device ms by kernel from ``torch.profiler`` (the two GEMMs
 and the LayerNorm; conv0 and the three conv GEMMs). Prints the card's name
@@ -42,7 +44,7 @@ import tempfile
 
 import torch
 
-from chip_smoke import CONV_TOL, EPS, FP32_TOL, TOL, compare, cuda_ms
+from chip_smoke import CONV_TOL, EPS, FP32_TOL, compare, cuda_ms
 from hriemo_torch.frontends import WavLMConfig, WavLMEncoder
 from hriemo_torch.nn.layers import gelu, layer_norm
 from hriemo_torch.ops import _cuda
@@ -127,19 +129,19 @@ def cases(gen):
 
     out = []
     d, f = 768, 3072
+    dt = torch.float32
     for m in (3992, 1996):
-        for dt in (torch.bfloat16, torch.float32):
-            w1, w2 = randn(f, d, scale=0.05, dtype=dt), randn(d, f, scale=0.05, dtype=dt)
-            b1, b2, g, b = randn(f, scale=0.02), randn(d, scale=0.02), 1.0 + randn(d, scale=0.1), \
-                randn(d, scale=0.1)
-            x = randn(m, d, dtype=dt)
-            ops = (x, w1, b1, w2, b2, g, b, 1e-5, True)
-            out.append((f"ffn_block_bf16 M={m}", dt,
-                        lambda ops=ops: FF.ffn_block_bf16(*ops),
-                        lambda ops=ops: FF.ffn_block_bf16_plain(*ops),
-                        FP32_TOL if dt == torch.float32 else TOL,
-                        lambda x=x, w1=w1, w2=w2, b1=b1.to(dt), b2=b2.to(dt), g=g, b=b: layer_norm(
-                            x + (gelu(x @ w1.t() + b1, True) @ w2.t() + b2), g, b, 1e-5)))
+        w1, w2 = randn(f, d, scale=0.05, dtype=dt), randn(d, f, scale=0.05, dtype=dt)
+        b1, b2, g, b = randn(f, scale=0.02), randn(d, scale=0.02), 1.0 + randn(d, scale=0.1), \
+            randn(d, scale=0.1)
+        x = randn(m, d, dtype=dt)
+        ops = (x, w1, b1, w2, b2, g, b, 1e-5, True)
+        out.append((f"ffn_block_bf16 M={m}", dt,
+                    lambda ops=ops: FF.ffn_block_bf16(*ops),
+                    lambda ops=ops: FF.ffn_block_bf16_plain(*ops),
+                    FP32_TOL,
+                    lambda x=x, w1=w1, w2=w2, b1=b1.to(dt), b2=b2.to(dt), g=g, b=b: layer_norm(
+                        x + (gelu(x @ w1.t() + b1, True) @ w2.t() + b2), g, b, 1e-5)))
     enc = WavLMEncoder(WavLMConfig(num_hidden_layers=1))
     enc.init_weights(gen)
     enc = enc.to(dev).eval()
@@ -148,7 +150,9 @@ def cases(gen):
         wave = randn(8, 160000, scale=0.3, dtype=dt)
         stats = CS.conv_stack_stats_plain(wave, w0)
         args = (wave, stats, w0, gn_w, gn_b, *taps[:3], EPS, False)
-        out.append(("conv_stack_k1 B=8 Tw=160000", dt, lambda a=args: CS.conv_stack_k1(*a),
+        out.append(("conv_stack_k1 B=8 Tw=160000", dt,
+                    lambda a=args: CS._conv_launches(CS._conv0_launch(*a[:5], EPS, False), a[5:8],
+                                                     False, cp_async=True),
                     lambda a=args: CS.conv_stack_k1_plain(*a), CONV_TOL[dt], None))
     return out
 

@@ -221,15 +221,37 @@ def _bf16_steps(got, ref):
     return np.abs(a - r) / 2.0 ** (np.floor(np.log2(mag)) - 7)
 
 
+def _tma_tap_rows(x, k):
+    """The rows of a stride-2 conv with ``k`` taps over ``x [B, T, C]`` as
+    the bf16 TMA GEMM's tensor maps describe them (csrc/conv_stack.cu
+    hr_conv_s2_tma, csrc/tma_gemm.cuh): map 0 is x's even rows, ceil(T / 2)
+    of them, map 1 its odd rows, T // 2; tap j of output row r is row r + j
+    // 2 of map j % 2, zeros past the map's rows. The k parts ``[B, t_out,
+    C]``."""
+    t_out = (x.shape[1] - k) // 2 + 1
+    maps = (x[:, 0::2], x[:, 1::2])
+    assert maps[0].shape[1] == -(-x.shape[1] // 2) and maps[1].shape[1] == x.shape[1] // 2
+    parts = []
+    for j in range(k):
+        rows = maps[j % 2][:, j // 2:j // 2 + t_out]
+        parts.append(torch.nn.functional.pad(rows, (0, 0, 0, t_out - rows.shape[1])))
+    return parts
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t", [40, 41])
+@pytest.mark.parametrize("t", [40, 41, 255, 258, 259])
 @pytest.mark.parametrize("k", [3, 2])
 def test_strided_view_conv_matches_jax(k, t, dtype):
     """The view the card's K1 convs read (conv_rows: rows 2C apart, K = k*C,
     tap j at K-offset j*C) times the tap-major weights gives the JAX
     kernels' stride-2 convs (_conv_k3s2 / _conv_k2s2, which take an even T:
     odd T gets one zero row, whose output row is not a valid row) and the
-    port's tap-by-tap _conv_s2: fp32 at 1e-5, bf16 within one step."""
+    port's tap-by-tap _conv_s2: fp32 at 1e-5, bf16 within one step. So does
+    the bf16 TMA GEMM's description of the same rows (_tma_tap_rows), and
+    conv_gemm, which takes the plain version on the CPU. The TMA GEMM's 128-row tile: t = 255 gives
+    127 output rows (one short of a tile, k = 2 and 3), 258 gives 128 (k =
+    3) and 129 (k = 2), 259 gives 129 (one row past, k = 2 and 3; odd t, so
+    the last row's third tap reads x's last row)."""
     rng = np.random.default_rng(100 * k + t)
     c = 64
     x = rng.standard_normal((1, t, c)).astype(np.float32)
@@ -253,6 +275,10 @@ def test_strided_view_conv_matches_jax(k, t, dtype):
     ref = np.asarray(ref.astype(jnp.float32))[None, :t_out]
     port = CS._conv_s2(xt, tt, True).float().numpy()
     assert got.dtype == dtype and got.shape == port.shape == ref.shape
+    taps_rows = torch.cat([part.float() for part in _tma_tap_rows(xt, k)], dim=-1)
+    torch.testing.assert_close(taps_rows, rows.float(), atol=0, rtol=0)
+    torch.testing.assert_close(CS.conv_gemm(xt, tt, True), CS._conv_s2(xt, tt, True),
+                               atol=0, rtol=0)
     for want in (ref, port):
         if dtype == torch.float32:
             np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
@@ -281,7 +307,7 @@ def _jax_k2(x, taps, jdt):
 
 
 @pytest.mark.parametrize("product", ["fp32", "3xtf32", "bf16"])
-@pytest.mark.parametrize("t3", [259, 517, 1033])
+@pytest.mark.parametrize("t3", [259, 517, 1033, 255, 1017, 258])
 def test_k2_as_strided_row_gemms_matches_jax(t3, product):
     """K2 as the card runs it: conv4, conv5 and conv6 each one GEMM over
     conv_rows of its input (tap-major weights read as [C_out, k*C_in]), with
@@ -290,7 +316,9 @@ def test_k2_as_strided_row_gemms_matches_jax(t3, product):
     chain of _conv_k3s2 / _conv_k2s2 on the same input (the JAX chain's
     previous output); in fp32 also the whole chain, conv_stack_k2, against
     the JAX chain. t3 = 259, 517 and 1033 put t4, t5 and t6 at 129: one row
-    past a 128-row GEMM tile. fp32 at 1e-5; bf16 within one step a conv."""
+    past a 128-row GEMM tile; 255 and 1017 put t4 and t6 at 127, one short
+    of it, and 258 (an even conv4 input) t4 at 128. fp32 at 1e-5; bf16
+    within one step a conv."""
     rng = np.random.default_rng(t3)
     c = 64
     x = rng.standard_normal((t3, c)).astype(np.float32)
@@ -301,7 +329,8 @@ def test_k2_as_strided_row_gemms_matches_jax(t3, product):
     xt = torch.from_numpy(x)[None].to(dtype)
     tt = [torch.from_numpy(w).to(dtype) for w in taps]
     refs = _jax_k2(x, taps, jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
-    assert 129 in [r.shape[1] for r in refs]      # one row past a GEMM tile
+    edge = {259: 129, 517: 129, 1033: 129, 255: 127, 1017: 127, 258: 128}[t3]
+    assert edge in [r.shape[1] for r in refs]     # at a GEMM tile's edge
 
     def check(got, ref):
         assert got.dtype == dtype and got.shape == ref.shape
@@ -316,6 +345,10 @@ def test_k2_as_strided_row_gemms_matches_jax(t3, product):
         wk = w.permute(1, 0, 2).reshape(c, -1)      # [C_out, k*C_in], as the GEMM reads it
         check(gelu_fp32(mm(rows.float(), wk.float().t()), True).to(dtype), ref)
         check(CS._conv_s2(inp, w, True), ref)
+        if dtype == torch.bfloat16:                 # the TMA GEMM's taps of the same rows
+            parts = _tma_tap_rows(inp, w.shape[0])
+            check(gelu_fp32(sum(p.float() @ w[j].float().t() for j, p in enumerate(parts)),
+                            True).to(dtype), ref)
         inp = torch.from_numpy(ref).to(dtype)       # exact: the JAX output was stored in dtype
     if dtype == torch.float32:
         check(CS.conv_stack_k2(xt, *tt, True), refs[-1])
@@ -364,3 +397,49 @@ def test_stats_in_chunk_order(encoders, n0, dtype):
     ref = jax_conv_stack(jm.params["feature_extractor"], jnp.asarray(wave.numpy()), CFG)
     assert got.shape == ref.shape == (2, CS.conv_lengths(tw)[6], 128)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,m,n,want", [
+    (384, 1999, 512, (256, 132)),   # conv1 at 1.25 s x 384: 12,288 wide tiles, 93.1 waves
+    (32, 499, 512, (256, 132)),     # conv6 at 10 s x 32: 256 wide tiles, 2 waves (4 narrow)
+    (4, 187, 512, (128, 32)),       # conv6 at 3.75 s x 4: 16 wide tiles, 32 narrow, one wave
+    (1, 49, 512, (128, 4)),         # conv6 at 1 s x 1: the parent's 4 blocks
+    (1, 3992, 3072, (256, 132)),    # the float FFN's first product at M = 3992
+    (1, 3992, 768, (256, 96)),      # its second: 96 wide tiles, 192 narrow (2 waves)
+])
+def test_tma_gemm_plan(b, m, n, want):
+    """The persistent TMA GEMM's plan (_cuda.tma_gemm_plan): one block an
+    SM and at most one a tile; the 128-column tile where it cuts the waves
+    by more than its cost (TMA_NARROW_COST), else the 256-column one; a
+    forced tile kept, an unknown one refused."""
+    from hriemo_torch.ops import _cuda
+
+    assert _cuda.tma_gemm_plan(b, m, n, 132) == want
+    rows = b * -(-m // _cuda.TMA_BM)
+    for bn in _cuda.TMA_BN:
+        assert _cuda.tma_gemm_plan(b, m, n, 132, bn=bn) == (bn, min(132, rows * -(-n // bn)))
+    waves = {bn: -(-rows * -(-n // bn) // 132) for bn in _cuda.TMA_BN}
+    cost = {256: 2 * waves[256], 128: _cuda.TMA_NARROW_COST * waves[128]}
+    assert cost[want[0]] == min(cost.values())
+    with pytest.raises(ValueError):
+        _cuda.tma_gemm_plan(b, m, n, 132, bn=64)
+
+
+@pytest.mark.parametrize("bn", [128, 256])
+def test_tile_faults(bn):
+    """chip_conv_routes.py --stress's count of faulty output tiles (128 rows
+    by the column tile): a NaN marks a tile never stored, a finite value
+    outside CONV_TOL a wrong one; a partial last row tile counts; values
+    within the tolerance count for nothing."""
+    from chip_conv_routes import tile_faults
+
+    ref = torch.randn(2, 300, 512, generator=torch.Generator().manual_seed(0)).bfloat16()
+    got = ref.clone()
+    got[0, 5, 7] += 0.01                        # within CONV_TOL
+    assert tile_faults(got, ref, bn) == (0, 0)
+    got[1, 299, 511] = float("nan")             # the last, partial row tile
+    got[1, 130:140, 0:3] = float("nan")         # one more tile
+    got[0, 0, 300] = 1e8                        # wrong in column tile 300 // bn
+    assert tile_faults(got, ref, bn) == (2, 1)
+    got[0, 0, 400] = -1e8                       # another column tile only at bn 128
+    assert tile_faults(got, ref, bn) == (2, 2 if bn == 128 else 1)

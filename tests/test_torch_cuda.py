@@ -1112,6 +1112,119 @@ def test_conv_stack_stages(gen, b, tw, dtype):
             _close(got, want)
 
 
+def _served_conv_shapes():
+    """(B, t_in, k) of conv1..6 at each served (bucket, batch), the batch cut
+    to 8 at most, and at B = 1 at 1 s."""
+    shapes = []
+    for sec, b in sorted(MEASURED_BUCKET_BATCH.items()) + [(1.0, 1)]:
+        lens = CS.conv_lengths(int(sec * 16000))
+        shapes += [(min(b, 8), t_in, k) for t_in, k in zip(lens[:6], CS.KERNEL[1:])]
+    return shapes
+
+
+def _conv_gemm_check(gen, b, t_in, k, bn=None):
+    x = _randn(gen, b, t_in, 512)
+    taps = _randn(gen, k, 512, 512, scale=(2.0 / (k * 512)) ** 0.5)
+    before = CS.conv_gemm.launches
+    got = CS.conv_gemm(x, taps, True, bn=bn)
+    ref = CS._conv_s2(x, taps, True)
+    torch.cuda.synchronize()
+    assert CS.conv_gemm.launches == before + 1
+    assert got.shape == ref.shape == (b, (t_in - k) // 2 + 1, 512)
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("b,t_in,k", _served_conv_shapes())
+def test_conv_gemm_at_the_served_shapes(gen, b, t_in, k):
+    """The bf16 TMA GEMM (csrc/tma_gemm.cuh) against the plain stride-2 conv
+    at every conv's shape of the served pairs, on the tile the plan picks."""
+    _conv_gemm_check(gen, b, t_in, k)
+
+
+@pytest.mark.parametrize("b,t_in,k", [
+    (1, 257, 3), (1, 258, 2),    # 128 output rows: one whole tile
+    (2, 259, 3), (2, 258, 3),    # 129 and 128 rows of an odd and an even t_in
+    (3, 255, 3), (3, 254, 2),    # 127 rows: one short of a tile; the next element's rows
+    (3, 260, 2), (2, 517, 3),    # 130 and 258 rows: a tile runs past each element's end
+    (1, 4, 3), (5, 3, 2),        # one output row
+])
+@pytest.mark.parametrize("bn", [128, 256])
+def test_conv_gemm_at_tile_edges(gen, b, t_in, k, bn):
+    """Each column tile at output lengths around the 128-row tile, with
+    batch elements whose rows a tile runs past (the maps' batch dimension
+    must give zeros there, the output map must not store them), odd and
+    even t_in (the even-row map one row longer than the odd-row one)."""
+    _conv_gemm_check(gen, b, t_in, k, bn)
+
+
+def test_conv_gemm_refused_launch_raises(gen):
+    """What the TMA GEMM does not take raises, in the wrapper or from the C
+    entry's error code, and nothing falls back to another pipeline."""
+    x = _randn(gen, 2, 259, 512)
+    taps = _randn(gen, 3, 512, 512, scale=0.03)
+    with pytest.raises(ValueError):     # no 64-column instance
+        CS.conv_gemm(x, taps, True, bn=64)
+    with pytest.raises(TypeError):      # bf16 only
+        CS.conv_gemm(x.float(), taps.float(), True)
+    with pytest.raises(ValueError):     # a strided view is refused, not copied
+        CS.conv_gemm(x[:, ::2], taps, True)
+    with pytest.raises(ValueError):     # four taps
+        CS.conv_gemm(x, _randn(gen, 4, 512, 512), True)
+    out = torch.empty((2, 129, 512), dtype=torch.bfloat16, device="cuda")
+    lib = _cuda.lib("conv_stack")
+    before = CS.conv_gemm.launches
+    for m, bn, grid in ((129, 64, 132), (129, 256, 0), (128, 256, 132)):
+        with pytest.raises(RuntimeError):
+            _cuda.check(lib.hr_conv_s2_tma(x.data_ptr(), 2, 259, 3, taps.data_ptr(), m, 1, bn,
+                                           grid, out.data_ptr(), _cuda.stream()),
+                        "hr_conv_s2_tma")
+    with pytest.raises(ValueError):     # an output of another length
+        CS._conv_gemm_into(x, taps, True, out[:, :128].contiguous())
+    assert CS.conv_gemm.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_stack_convs_launch_the_tma_gemm(gen, dtype):
+    """In bf16 K1's three convs and K2's launch the TMA GEMM, one launch
+    each; the cp.async GEMM, forced as the yardstick, launches none and
+    agrees with it; fp32 keeps its 3xTF32 pipeline."""
+    _, (w0, gn_w, gn_b, *taps) = _stack_operands(gen, dtype)
+    wave = _randn(gen, 2, 40000, scale=0.3, dtype=dtype)
+    stats = CS.conv_stack_stats(wave, w0)
+    before = CS.conv_gemm.launches
+    x3 = CS.conv_stack_k1(wave, stats, w0, gn_w, gn_b, *taps[:3], 1e-5, True)
+    out = CS.conv_stack_k2(x3, *taps[3:], True)
+    per_stage = 3 if dtype == torch.bfloat16 else 0
+    assert CS.conv_gemm.launches == before + 2 * per_stage
+    x3p = CS._conv_launches(CS._conv0_launch(wave, stats, w0, gn_w, gn_b, 1e-5, True),
+                            taps[:3], True, cp_async=True)
+    outp = CS._conv_launches(x3, taps[3:], True, cp_async=True)
+    torch.cuda.synchronize()
+    assert CS.conv_gemm.launches == before + 2 * per_stage
+    for got, ref in ((x3, x3p), (out, outp)):
+        if dtype == torch.float32:
+            assert torch.equal(got, ref)
+        else:
+            _close(got, ref)
+
+
+@pytest.mark.parametrize("b,t_in,k", [(8, 3999, 3), (8, 1999, 3), (5, 259, 3), (3, 260, 2)])
+@pytest.mark.parametrize("bn", [128, 256])
+def test_conv_gemm_stores_every_tile(gen, b, t_in, k, bn):
+    """Twenty launches in a row, each into an output filled with NaN: every
+    element is stored every time (a tile left unstored would keep its NaN,
+    where an output from the caching allocator would hide it behind an
+    earlier launch's values) and holds the plain version's tolerance."""
+    x = _randn(gen, b, t_in, 512)
+    taps = _randn(gen, k, 512, 512, scale=(2.0 / (k * 512)) ** 0.5)
+    ref = CS._conv_s2(x, taps, True)
+    for _ in range(20):
+        got = CS._conv_gemm_into(x, taps, True, torch.full_like(ref, float("nan")), bn)
+        torch.cuda.synchronize()
+        assert not got.isnan().any()
+        _close(got, ref)
+
+
 def test_conv_stack_k1_shorter_than_a_tile(gen):
     _, (w0, gn_w, gn_b, *taps) = _stack_operands(gen, torch.float32)
     wave = _randn(gen, 2, 300, scale=0.3, dtype=torch.float32)  # 6 conv3 rows
