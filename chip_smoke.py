@@ -77,7 +77,14 @@ Phases, any failure exits non-zero:
    and 499 ungated (8 x 96), each against plain at ``ATTN_TOL`` with its limit
    check (the result without its last key tile must fail), SDPA on the
    materialised bias as ``library_ms`` and the parent's two sweeps as
-   ``route_ms``, the score panel beside them; then
+   ``route_ms``, the score panel beside them; every row of the float
+   one-pass core (rows 6-7) in bf16 and fp16 on the kernel
+   ``WA.onepass_kernel`` picks, with the parent's ``mma.sync`` kernel as
+   ``route_ms``, every kernel that takes the shape timed (``kernel_ms``) and
+   the pick within ``WA.ONEPASS_ROUTE_MARGIN`` and ``ROUTE_NOISE_MS`` of the
+   fastest, each wgmma row an entry of its own (``ONEPASS_ENTRIES``), and,
+   last of all, row 6 at the bf16 tree's served shapes (B=64 L=249, B=32
+   L=499, 8 x 499) with its limit check at the picked kernel's key tile; then
    the two kernels under the int8 wrappers
    alone, beside their own yardsticks: the int8 attention core (``attention_core_int8``) against SDPA,
    with its own limit check (a gated B=4 L=499 result without its last key
@@ -268,8 +275,9 @@ Phases, any failure exits non-zero:
    ``MEASURED_BUCKET_BATCH`` (three repeats; ``mfu`` in (0, 1]) and its
    scheduler block on 256 clips of its stream, each printed as a JSON line;
 11. a JSON line ``{"kernels": [...]}`` (launches over the main-path runs of
-   phases 4-9; the wide tile instances, the ungated score panel and the
-   wgmma core as entries of their own); then the
+   phases 4-9; the wide tile instances, the ungated score panel, the
+   wgmma core and the float one-pass core's wgmma kernels as entries of
+   their own); then the
    last line ``{"ok": true, "device": {...}}``.
 
 ``--outlier-sweep`` instead runs only phase 8b's outlier over layers and
@@ -367,6 +375,7 @@ TF32_PRODUCTS = 3
 TEXT_BUCKETS = (8, 12, 16, 20, 24, 32, 64)   # bench.py:172
 EPS = 1e-5                # WavLM's layer_norm_eps (GroupNorm)
 ONEPASS_KEY_TILE = 64     # keys per tile of the bf16 one-pass kernels (csrc/onepass_mma.cuh)
+WIDE_SWEEPS_KEY_TILE = 32  # keys per tile of the wgmma sweeps at HD 192, 256 (onepass_wgmma.cuh)
 TF32_KEY_TILE = 32        # keys per tile of the fp32 kernels (csrc/attention_tf32.cuh)
 OUT = pathlib.Path("chip_smoke_out")
 _MAKE_TRAIN_STEP = TS.make_train_step   # the trainers' step, before run_trainer wraps it
@@ -411,7 +420,7 @@ KERNELS = {
 # paths is an MHA sublayer's, ungated).
 WIDE_KERNELS = {
     "onepass_attention (wide tiles)": ("hriemo/ops/flash_attention_pallas.py:81",
-                                       "hriemo_torch/csrc/onepass_mma.cuh"),
+                                       "hriemo_torch/csrc/onepass_wgmma.cuh"),
     "streaming_attention (wide tiles)": ("hriemo/ops/flash_attention_pallas.py:38",
                                          "hriemo_torch/csrc/flash_attention.cu"),
     "attention_core_int8 (wide tiles)": ("hriemo/ops/attention_block.py:508",
@@ -424,7 +433,24 @@ WIDE_KERNELS = {
                                             "hriemo_torch/csrc/attention.cu"),
     "attention_core_int8 (wgmma core)": ("hriemo/ops/attention_block.py:169",
                                          "hriemo_torch/csrc/onepass_wgmma.cuh"),
+    # the float one-pass core on the wgmma warpgroups (csrc/onepass_wgmma.cuh
+    # via csrc/attention_wgmma.cu): every score held, and the two sweeps;
+    # their launches, shares of their wrappers', are counted by the wrappers'
+    # .kernels (ONEPASS_ENTRIES)
+    "wavlm_fused_attention (wgmma held)": ("hriemo/ops/wavlm_attention.py:34",
+                                           "hriemo_torch/csrc/onepass_wgmma.cuh"),
+    "wavlm_fused_attention (wgmma sweeps)": ("hriemo/ops/wavlm_attention.py:34",
+                                             "hriemo_torch/csrc/onepass_wgmma.cuh"),
+    "onepass_attention (wgmma sweeps)": ("hriemo/ops/flash_attention_pallas.py:81",
+                                         "hriemo_torch/csrc/onepass_wgmma.cuh"),
 }
+# the kernels line's entry of each (wrapper, WA.onepass_kernel's kernel) on
+# the wgmma warpgroups; the ungated held form runs on no path
+ONEPASS_ENTRIES = {("wavlm_fused_attention", "wgmma"): "wavlm_fused_attention (wgmma held)",
+                   ("wavlm_fused_attention", "wgmma_sweeps"):
+                       "wavlm_fused_attention (wgmma sweeps)",
+                   ("onepass_attention", "wgmma_sweeps"): "onepass_attention (wgmma sweeps)"}
+HELD = ONEPASS_ENTRIES["wavlm_fused_attention", "wgmma"]
 LAUNCH_NAMES = (*KERNELS, *WIDE_KERNELS)
 PANEL = "attention_core_int8 (ungated panel)"
 WGMMA = "attention_core_int8 (wgmma core)"
@@ -447,7 +473,7 @@ PANEL_PER_FORWARD = {1.25: 20, 10.0: 16}
 WGMMA_PER_FORWARD = {1.25: 0, 10.0: 16}
 # the bf16 tree: WavLM attention on the fused kernel at 499 frames (10 s),
 # per op at 124 (2.5 s, below its 128-frame gate)
-PER_FORWARD_BF16 = {10.0: {"wavlm_fused_attention": 12}, 2.5: {}}
+PER_FORWARD_BF16 = {10.0: {"wavlm_fused_attention": 12, HELD: 12}, 2.5: {}}
 # long clips, per forward: WavLM attention at 1499 frames (30 s) on the
 # fused kernel, at 2249 (45 s) per op; the fusion stack's two audio
 # self-attentions on the one-pass kernel up to 2048 keys, streaming beyond
@@ -959,6 +985,31 @@ def check_kernels(gen):
             return ops, 0, 0
         return 0, 0, TF32_PRODUCTS * ops
 
+    def onepass_extra(wrapper, call, b, h, lk, hd, gated, dt):
+        """Beside the float one-pass core's row just run (``call(None)``, the
+        kernel WA.onepass_kernel picks; ``route_ms`` the parent's mma.sync
+        kernel, ``call("mma")``): every kernel that takes the shape
+        (WA.onepass_kernels), each the median of ROUTE_REPEATS replays, and
+        the pick within ONEPASS_ROUTE_MARGIN and ROUTE_NOISE_MS of the
+        fastest. A row on a wgmma kernel feeds that kernel's entry of the
+        kernels line. Returns the key tile of the kernel picked."""
+        rec = rows[-1]
+        picked = WA.onepass_kernel(lk, hd, gated, dt, b=b, h=h, sms=_cuda.sm_count())
+        rec["picked"] = picked
+        rec["kernel_ms"] = {kn: cuda_ms(lambda kn=kn: call(kn), repeats=ROUTE_REPEATS)
+                            for kn in WA.onepass_kernels(lk, hd, gated, dt)}
+        torch.cuda.synchronize()
+        best = min(rec["kernel_ms"].values())
+        print(f"    by kernel {rec['kernel_ms']}; the rule picks {picked}", flush=True)
+        if rec["kernel_ms"][picked] > (1 + WA.ONEPASS_ROUTE_MARGIN) * best + ROUTE_NOISE_MS:
+            raise AssertionError(f"{wrapper} {rec['shape']}: the {picked} kernel it picks is "
+                                 f"slower than the fastest: {rec['kernel_ms']}")
+        if (wrapper, picked) in ONEPASS_ENTRIES:
+            rec["wide_entry"] = ONEPASS_ENTRIES[wrapper, picked]
+        if dt == torch.float32:
+            return TF32_KEY_TILE
+        return WIDE_SWEEPS_KEY_TILE if picked == "wgmma_sweeps" and hd > 96 else ONEPASS_KEY_TILE
+
     # WavLM gated-bias attention core, float trees: the 5 s and 10 s buckets
     # at B=4, 30 s at B=2; fp32: the 10 s bucket at B=4, the long fp32 30 s
     # clips at B=2 and the fp32 extraction batch (8 x 10 s)
@@ -972,12 +1023,16 @@ def check_kernels(gen):
         pos = randn(h, l, l, scale=0.3, dtype=dt)
         kb = torch.where(mask(bb, l), AB.NEG_INF, 0.0).float()
         amask = (gate.float()[..., None] * pos.float()[None] + kb[:, None, None, :]).to(dt)
-        run("wavlm_fused_attention", f"B={bb} L={l} {str(dt)[6:]}",
-            lambda: WA.wavlm_fused_attention(q, k, v, gate, pos, kb),
+        call = lambda kn, q=q, k=k, v=v, gate=gate, pos=pos, kb=kb: \
+            WA.wavlm_fused_attention(q, k, v, gate, pos, kb, kn)
+        f32 = dt == torch.float32
+        run("wavlm_fused_attention", f"B={bb} L={l} {str(dt)[6:]}", lambda: call(None),
             lambda: WA.wavlm_fused_attention_plain(q, k, v, gate, pos, kb),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
             nbytes(q, k, v, gate, pos, kb, q), 0, *attn_ops(dt, bb, h, l, l, hd),
-            tol=ATTN_TOL[dt])
+            tol=ATTN_TOL[dt], route=None if f32 else lambda: call("mma"))
+        if not f32:
+            onepass_extra("wavlm_fused_attention", call, bb, h, l, hd, True, dt)
         if (bb, l) == (2, 1499):
             gated_upto[dt] = lambda n, q=q, k=k, v=v, gate=gate, pos=pos, kb=kb: \
                 WA.wavlm_fused_attention_plain(q, k[:, :, :n], v[:, :, :n], gate, pos[:, :, :n],
@@ -1001,11 +1056,16 @@ def check_kernels(gen):
             kpm = mask(2, l)
             bias = FA.key_bias(kpm, 2, l, dev)
             amask = ~kpm[:, None, None, :]
+            extra = name == "onepass_attention" and dt != torch.float32
+            call = lambda kn, q=q, k=k, v=v, bias=bias: FA.onepass_attention(q, k, v, bias, kn)
             run(name, f"B=2 {l}x{l} H={h} hd={hd} {str(dt)[6:]}",
                 lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
                                                                          attn_mask=amask),
-                nbytes(q, k, v, bias, q), 0, *attn_ops(dt, 2, h, l, l, hd), tol=ATTN_TOL[dt])
+                nbytes(q, k, v, bias, q), 0, *attn_ops(dt, 2, h, l, l, hd), tol=ATTN_TOL[dt],
+                route=(lambda: call("mma")) if extra else None)
+            if extra:
+                onepass_extra(name, call, 2, h, l, hd, False, dt)
             if name == "streaming_attention":  # the kernel's key block in each dtype
                 limit_check[str(dt)[6:]] = dropped_tile(
                     name, FA.BK if dt == torch.bfloat16 else TF32_KEY_TILE, l, dt,
@@ -1028,11 +1088,15 @@ def check_kernels(gen):
         kpm = (torch.arange(l)[None, :] >= torch.tensor(lens)[:, None]).to(dev)
         bias = FA.key_bias(kpm, eb, l, dev)
         amask = ~kpm[:, None, None, :]
+        onepass = name == "onepass_attention"
+        call = lambda kn, q=q, k=k, v=v, bias=bias: FA.onepass_attention(q, k, v, bias, kn)
         run(name, f"B={eb} {l}x{l} H={h} hd={hd} bfloat16",
             lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
             nbytes(q, k, v, bias, q), 0, *attn_ops(torch.bfloat16, eb, h, l, l, hd),
-            tol=ATTN_TOL[torch.bfloat16])
+            tol=ATTN_TOL[torch.bfloat16], route=(lambda: call("mma")) if onepass else None)
+        if onepass:
+            onepass_extra(name, call, eb, h, l, hd, False, torch.bfloat16)
         eval_upto[name] = (l, lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
                            plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
 
@@ -1224,14 +1288,15 @@ def check_kernels(gen):
     pos = randn(h, 1499, 1499, scale=0.3, dtype=torch.float16, generator=own)
     kb = torch.where(mask(2, 1499, own), AB.NEG_INF, 0.0).float()
     amask = (gate.float()[..., None] * pos.float()[None] + kb[:, None, None, :]).half()
-    run("wavlm_fused_attention", "B=2 L=1499 float16",
-        lambda: WA.wavlm_fused_attention(q, k, v, gate, pos, kb),
+    call = lambda kn: WA.wavlm_fused_attention(q, k, v, gate, pos, kb, kn)
+    run("wavlm_fused_attention", "B=2 L=1499 float16", lambda: call(None),
         lambda: WA.wavlm_fused_attention_plain(q, k, v, gate, pos, kb),
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
         nbytes(q, k, v, gate, pos, kb, q), 0, *attn_ops(torch.float16, 2, h, 1499, 1499, hd),
-        tol=ATTN_TOL[torch.float16])
+        tol=ATTN_TOL[torch.float16], route=lambda: call("mma"))
+    tile16 = onepass_extra("wavlm_fused_attention", call, 2, h, 1499, hd, True, torch.float16)
     flash_upto["wavlm_fused_attention float16"] = (
-        1499, ONEPASS_KEY_TILE, torch.float16,
+        1499, tile16, torch.float16,
         lambda n, q=q, k=k, v=v, gate=gate, pos=pos, kb=kb: WA.wavlm_fused_attention_plain(
             q, k[:, :, :n], v[:, :, :n], gate, pos[:, :, :n], kb[:, :n]))
     lens7d = {split: [a for a, _ in long_lengths(np.random.default_rng(SEED + 7))[split]]
@@ -1249,11 +1314,16 @@ def check_kernels(gen):
         bias = FA.key_bias(kpm, bb, l, dev)
         amask = ~kpm[:, None, None, :]
         shape = f"B={bb} {l}x{l} H={h} hd={hd} {str(dt)[6:]}"
+        extra = name == "onepass_attention" and dt != torch.float32
+        call = lambda kn: FA.onepass_attention(q, k, v, bias, kn)
         got, ref = run(name, shape, lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
                        lambda: torch.nn.functional.scaled_dot_product_attention(
                            q, k, v, attn_mask=amask),
                        nbytes(q, k, v, bias, q), 0, *attn_ops(dt, bb, h, l, l, hd),
-                       tol=ATTN_TOL[dt])
+                       tol=ATTN_TOL[dt], route=(lambda: call("mma")) if extra else None)
+        tile = onepass_extra(name, call, bb, h, l, hd, False, dt) if extra else \
+            TF32_KEY_TILE if dt == torch.float32 else \
+            ONEPASS_KEY_TILE if name == "onepass_attention" else FA.BK
         if hd not in (64, 96):
             rows[-1].update(tile_instance(name, hd, lambda: fn(q, k, v, bias), dt))
             err, _ = compare(f"{name} {shape} on CUDA cores",
@@ -1267,8 +1337,6 @@ def check_kernels(gen):
                 raise AssertionError(f"{name} {shape}: {rows[-1]['ms']:.4f} ms on the tile "
                                      f"instance, {rows[-1]['parent_ms']:.4f} on CUDA cores")
         del got, ref
-        tile = (TF32_KEY_TILE if dt == torch.float32 else
-                ONEPASS_KEY_TILE if name == "onepass_attention" else FA.BK)
         flash_upto[f"{name} {h}x{hd} {str(dt)[6:]}"] = (
             l, tile, dt, lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
             plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
@@ -1382,7 +1450,39 @@ def check_kernels(gen):
     wgmma_check = served_core_rows(run, rows, layer.attn_ops)
     torch.cuda.empty_cache()
     served_conv_rows(run, rows, gen)
+    torch.cuda.empty_cache()
+    # row 6 at the bf16 tree's served shapes (WavLM's gated core, 12 x 64: 5 s
+    # at B=64 L=249, 10 s at B=32 L=499, the extraction batch 8 x 499), last,
+    # inputs from a generator of their own: the rule's kernel against plain,
+    # SDPA, the parent's mma.sync kernel, every kernel that takes the shape,
+    # and ATTN_TOL's limit check at the picked kernel's key tile
+    own = torch.Generator().manual_seed(SEED + 24)
+    served_check = {}
+    h, hd = WAVLM_HEADS, 64
+    for bb, l in ((MEASURED_BUCKET_BATCH[5.0], 249), (MEASURED_BUCKET_BATCH[10.0], 499),
+                  (8, 499)):
+        q, k, v = (heads(bb, l, h, hd, generator=own) for _ in range(3))
+        gate = (torch.rand(bb, h, l, generator=own) * 1.5 + 0.5).to(dev)
+        pos = randn(h, l, l, scale=0.3, generator=own)
+        kb = torch.where(mask(bb, l, own), AB.NEG_INF, 0.0).float()
+        amask = (gate[..., None] * pos.float()[None] + kb[:, None, None, :]).to(torch.bfloat16)
+        call = lambda kn: WA.wavlm_fused_attention(q, k, v, gate, pos, kb, kn)
+        shape = f"B={bb} L={l} bfloat16 (served)"
+        run("wavlm_fused_attention", shape, lambda: call(None),
+            lambda: WA.wavlm_fused_attention_plain(q, k, v, gate, pos, kb),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
+            nbytes(q, k, v, gate, pos, kb, q), 0, *attn_ops(torch.bfloat16, bb, h, l, l, hd),
+            tol=ATTN_TOL[torch.bfloat16], route=lambda: call("mma"))
+        rows[-1]["kernels_line"] = False
+        tile = onepass_extra("wavlm_fused_attention", call, bb, h, l, hd, True, torch.bfloat16)
+        served_check[shape] = dropped_tile(
+            f"wavlm_fused_attention {shape}", tile, l, torch.bfloat16,
+            lambda n: WA.wavlm_fused_attention_plain(q, k[:, :, :n], v[:, :, :n], gate,
+                                                     pos[:, :, :n], kb[:, :n]))
+        del q, k, v, gate, pos, kb, amask
+        torch.cuda.empty_cache()
     return rows, dict(ffn_pair=ffn_extra, streaming_last_block=limit_check,
+                      onepass_served_last_tile=served_check,
                       onepass_gated_last_tile=gated_check,
                       int8_core_last_tile=core_check, wgmma_core_last_tile=wgmma_check,
                       mosei_eval_last_tile=eval_check,
@@ -1950,7 +2050,8 @@ def same_bits(wave, w0):
 # instances, and the CUDA-core kernels that the head dims on the tiles must
 # no longer reach
 TILE_KERNELS = {"onepass_attention": ("onepass_mma_kernel", "onepass_wide_kernel",
-                                      "attn_tf32_kernel", "attn_tf32_wide_kernel"),
+                                      "attn_tf32_kernel", "attn_tf32_wide_kernel",
+                                      "onepass_wgmma_kernel", "onepass_sweeps_kernel"),
                 "streaming_attention": ("streaming_mma_kernel", "streaming_wide_kernel",
                                         "attn_tf32_kernel", "attn_tf32_wide_kernel"),
                 "attention_core_int8": ("onepass_mma_kernel", "onepass_wide_kernel",
@@ -1976,11 +2077,16 @@ def tile_instance(name, hd, fn, dtype=torch.bfloat16) -> dict:
     instance = (_cuda.lib("flash_attention").hr_streaming_instance(hd, code)
                 if name == "streaming_attention"
                 else _cuda.lib("wavlm_attention").hr_onepass_instance(hd, 0, code))
-    _cuda.last_kernel(CORE_LIBS[name])  # clears the record
+    # the one-pass core's wgmma kernels are launched by a library of their own
+    libs = (CORE_LIBS[name], "attention_wgmma") if name == "onepass_attention" \
+        else (CORE_LIBS[name],)
+    for lib in libs:
+        _cuda.last_kernel(lib)  # clears the record
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernel, kernel_hd = _cuda.last_kernel(CORE_LIBS[name])
+    launched = [r for r in map(_cuda.last_kernel, libs) if r[0] is not None]
+    kernel, kernel_hd = launched[0] if len(launched) == 1 else (None, 0)
     names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if instance == 0 or kernel not in TILE_KERNELS[name] or kernel_hd != instance:
         raise AssertionError(f"{name} at head dim {hd}: instance {instance}, launched "
@@ -2064,6 +2170,8 @@ def reset_launches():
         fn.launches = 0
         fn.shapes.clear()
     AB.attention_core_int8.kernels.clear()
+    WA.wavlm_fused_attention.kernels.clear()
+    FA.onepass_attention.kernels.clear()
     for fn in COUNTED_BY_HEAD_DIM:
         fn.head_dims.clear()
     ROUTED.routes.clear()
@@ -2079,6 +2187,8 @@ def read_launches():
     kernels = AB.attention_core_int8.kernels
     out[PANEL] = kernels[("panel", False)]
     out[WGMMA] = kernels[("wgmma", True)] + kernels[("wgmma", False)]
+    for (wrapper, kernel), entry in ONEPASS_ENTRIES.items():
+        out[entry] = KERNELS[wrapper][0].kernels[kernel]
     return out
 
 
@@ -2242,6 +2352,12 @@ def check_launches(what, got, want):
     to the encoder's routes since ``reset_launches`` (``stack_launches``)."""
     if not set(STACK) & set(want):
         want = {**stack_launches(what), **want}
+    # the float one-pass core's wgmma kernels take shares of their wrapper's
+    # launches (each call the kernel WA.onepass_kernel picks for its shape):
+    # any share where ``want`` does not name them
+    for (wrapper, _), entry in ONEPASS_ENTRIES.items():
+        if entry not in want and got.get(entry, 0) <= want.get(wrapper, 0):
+            want = {**want, entry: got.get(entry, 0)}
     for name in got:
         if got[name] != want.get(name, 0):
             raise AssertionError(f"{what}: {name} launched {got[name]} times, "

@@ -430,7 +430,8 @@ int hr_attention_core(const void* q, int q_ld, const void* k, int k_ld, const vo
     if (kernel != kCoreSweeps && hd != 64 && hd != 96) return (int)cudaErrorInvalidValue;
     if (kernel == kCoreWgmma) {
       if (Lk > kWgMaxKeys) return (int)cudaErrorInvalidValue;
-      return launch_onepass_wgmma(a, B, hd, pos != nullptr, s);
+      return pos != nullptr ? launch_onepass_wgmma<kGateFromX, false>(a, B, s)
+                            : launch_onepass_wgmma<kNoGate, false>(a, B, s);
     }
     if (kernel == kCorePanel) {
       if (Lk > kPanelMaxKeys) return (int)cudaErrorInvalidValue;

@@ -86,6 +86,7 @@ enum LaunchedKernel : int {
   kAttnTf32WideKernel,
   kOnepassPanelKernel,
   kOnepassWgmmaKernel,
+  kOnepassSweepsKernel,
 };
 
 inline std::atomic<int>& last_launch() {

@@ -1,6 +1,9 @@
-// The one-pass 16-bit attention core on the tensor cores, shared by the
-// float route (csrc/wavlm_attention.cu: wavlm_fused_attention,
-// onepass_attention; bf16 or fp16) and the int8 sublayers' core
+// The one-pass 16-bit attention core on mma.sync, shared by the float route
+// (csrc/wavlm_attention.cu: wavlm_fused_attention, onepass_attention; bf16
+// or fp16; where ops/wavlm_attention.py onepass_kernel keeps "mma": head
+// dims 32, 40, 128 and the others off 64, 96 and 136-256, past 2048 keys,
+// and the grids where the card read it faster than csrc/onepass_wgmma.cuh's
+// warpgroups, which take the rest) and the int8 sublayers' core
 // (csrc/attention.cu: attention_block_int8, mha_block_int8; bf16; on their
 // chain routes, past 512 keys and at head dims other than 64 and 96: from 65
 // keys their fused routes mostly take csrc/onepass_wgmma.cuh):

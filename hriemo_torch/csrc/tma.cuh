@@ -49,6 +49,16 @@ __device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, 
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
+// One box of a 4D tensor map (column c0, row c1, head c2, batch element c3)
+// into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                          int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
 // `bytes` (a multiple of 16) from global to shared memory, both 16-byte
 // aligned, completing on `bar`, whose transaction count the caller raised
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {

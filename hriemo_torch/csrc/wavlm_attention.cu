@@ -15,10 +15,18 @@
 //   hriemo/ops/flash_attention_pallas.py::_onepass_kernel, gate = pos = NULL,
 //     routed for 1024 <= Lq and 1024 <= Lk <= 2048.
 //
-// Which kernel runs is decided by onepass_instance alone (exported as
-// hr_onepass_instance): without a gate, bf16, fp16 and fp32 run every head
-// dim up to 256 on the tensor cores at the tile instance HD =
-// tile_head_dim(hd), the smallest of 32, 64, 96, 128, 192 and 256 at or
+// Which library runs is decided first by the caller's rule,
+// ops/wavlm_attention.py onepass_kernel (from the card's readings): in bf16
+// and fp16 csrc/attention_wgmma.cu's wgmma warpgroups take head dims 64 and
+// 96 (every score held up to 512 keys; the two sweeps to 2048 where their
+// 128-row blocks fill enough of the card) and, ungated, 136-256 (the two
+// sweeps where their rounds of blocks beat this library's). This library
+// keeps fp32, head dims 8-56 and 72-88 and 104-128, the gate off 64 and 96,
+// past 2048 keys, views TMA cannot describe, and the grids where its kernels
+// read faster. Which of its kernels runs is decided by onepass_instance
+// alone (exported as hr_onepass_instance): without a gate, bf16, fp16 and
+// fp32 run every head dim up to 256 on the tensor cores at the tile instance
+// HD = tile_head_dim(hd), the smallest of 32, 64, 96, 128, 192 and 256 at or
 // above hd (hd 8-32 at 32, 40-64 at 64, 72-96 at 96, 104-128 at 128,
 // 136-192 at 192, 200-256 at 256); the gate runs there only at its own
 // instances' head dims, 64 (WavLM) and 96.

@@ -32,7 +32,7 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 LIBS = ("quant_gemm", "ffn_int8", "proj_int8", "attention", "wavlm_attention",
-        "flash_attention", "ffn_bf16", "conv_stack")
+        "attention_wgmma", "flash_attention", "ffn_bf16", "conv_stack")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -66,6 +66,13 @@ SIGNATURES = {
         "hr_onepass_max_smem_bytes": [],
         "hr_onepass_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
                                  P, P, P, P, I, I, I, I, P],
+    },
+    "attention_wgmma": {
+        "hr_last_kernel": [],
+        "hr_onepass_wgmma_instance": [I, I, I, I],
+        "hr_onepass_wgmma_max_keys": [I],
+        "hr_onepass_wgmma": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
+                             P, P, P, P, I, I, I, I, P],
     },
     "flash_attention": {
         "hr_last_kernel": [],
@@ -220,7 +227,7 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 LAUNCHED_KERNELS = (None, "onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel",
                     "onepass_mma_kernel", "onepass_wide_kernel", "streaming_mma_kernel",
                     "streaming_wide_kernel", "attn_tf32_kernel", "attn_tf32_wide_kernel",
-                    "onepass_panel_kernel", "onepass_wgmma_kernel")
+                    "onepass_panel_kernel", "onepass_wgmma_kernel", "onepass_sweeps_kernel")
 
 
 def last_kernel(name: str) -> tuple[str | None, int]:

@@ -49,7 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.masking import NEG_INF
 from . import _cuda
 from .attention_block import softmax_pv
-from .wavlm_attention import onepass_launch, scaled_scores
+from .wavlm_attention import onepass_launch, onepass_route, scaled_scores
 
 # one-pass path while K/V and the fp32 score panel fit (flash_attention_pallas.py:107)
 ONEPASS_MAX_LK = 2048
@@ -62,19 +62,24 @@ def onepass_attention_plain(q, k, v, bias):
     return softmax_pv(scaled_scores(q, k) + bias.float()[:, None, None, :], v)
 
 
-def onepass_attention(q, k, v, bias):
+def onepass_attention(q, k, v, bias, kernel: str | None = None):
     """q ``[B, H, Lq, hd]``, k/v ``[B, H, Lk, hd]`` (bf16, fp16 or fp32, views read in
-    place), bias ``[B, Lk]`` fp32 additive. Returns ``[B, H, Lq, hd]``."""
+    place), bias ``[B, Lk]`` fp32 additive. Returns ``[B, H, Lq, hd]``. On
+    the card, ``kernel`` forces one of ``ONEPASS_KERNELS`` (None: the
+    rule's, ``ops/wavlm_attention.py onepass_kernel``)."""
     if q.device.type == "cpu":
         return onepass_attention_plain(q, k, v, bias)
-    out = onepass_launch(q, k, v, bias)
+    kernel = kernel or onepass_route(q, k, v, False)
+    out = onepass_launch(q, k, v, bias, kernel=kernel)
     onepass_attention.launches += 1
     onepass_attention.head_dims[(q.shape[-1], q.dtype)] += 1
+    onepass_attention.kernels[kernel] += 1
     return out
 
 
 onepass_attention.launches = 0
 onepass_attention.head_dims = collections.Counter()
+onepass_attention.kernels = collections.Counter()
 
 
 def streaming_attention_plain(q, k, v, bias):

@@ -1005,6 +1005,151 @@ def test_fp32_attention_at_large_scores(gen, kernel, hd):
         _close_attention(one_tf32, ref)
 
 
+# ------------------------------------------- the one-pass cores on wgmma (PR 24)
+# Key lengths at the held form's tile and route edges (64-key tiles, 512
+# keys) and the two sweeps' (64-key tiles at hd 64 and 96, 32 on the wide
+# tiles) up to the one-pass limit; odd lengths leave the gated pos rows off
+# 16-byte alignment
+ONEPASS_KEYS = [128, 129, 192, 193, 256, 257, 511, 512, 513, 1024, 2047, 2048]
+ONEPASS_HEADS = [(64, True), (96, True), (64, False), (96, False), (136, False), (192, False),
+                 (200, False), (256, False)]
+WGMMA_CASES = [(kernel, lk, hd, gated) for lk in ONEPASS_KEYS for hd, gated in ONEPASS_HEADS
+               for kernel in WA.onepass_kernels(lk, hd, gated, torch.bfloat16)[1:]]
+
+
+def _onepass_case(gen, b, h, lq, lk, hd, dtype, gated):
+    """(the wrapper called with a kernel, its plain version, the wrapper) on
+    head views, element 1 (where b > 1) with every key masked."""
+    q = _heads_view(gen, b, lq, h, hd, dtype)
+    k, v = (_heads_view(gen, b, lk, h, hd, dtype) for _ in range(2))
+    lens = ([lk, 0] + [lk // 3] * b)[:b]
+    kb = torch.where(_pad_mask(lens, lk), AB.NEG_INF, 0.0).float()
+    if not gated:
+        return (lambda kernel=None: FA.onepass_attention(q, k, v, kb, kernel),
+                lambda: FA.onepass_attention_plain(q, k, v, kb), FA.onepass_attention)
+    gate = (torch.rand(b, h, lq, generator=gen) * 1.5 + 0.5).to("cuda", dtype)
+    pos = _randn(gen, h, lq, lk, scale=0.3, dtype=dtype)
+    return (lambda kernel=None: WA.wavlm_fused_attention(q, k, v, gate, pos, kb, kernel),
+            lambda: WA.wavlm_fused_attention_plain(q, k, v, gate, pos, kb),
+            WA.wavlm_fused_attention)
+
+
+def _run_counted(fn, wrapper, kernel, hd, forced):
+    """One call, counted once on the wrapper and once under its kernel, and
+    launched as that kernel at its tile instance (the library's record)."""
+    before, by_kernel = wrapper.launches, wrapper.kernels[kernel]
+    _cuda.last_kernel("attention_wgmma")
+    got = fn(kernel if forced else None)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and wrapper.kernels[kernel] == by_kernel + 1
+    inst = hd if hd <= 96 else 192 if hd <= 192 else 256
+    name = "onepass_wgmma_kernel" if kernel == "wgmma" else "onepass_sweeps_kernel"
+    assert _cuda.last_kernel("attention_wgmma") == (name, inst)
+    return got
+
+
+@pytest.mark.parametrize("kernel,lk,hd,gated", WGMMA_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_onepass_wgmma_kernels(gen, kernel, lk, hd, gated, dtype):
+    """Each wgmma kernel, pinned through the wrapper's ``kernel``, at every
+    key length it takes at the tile and route edges, in bf16 and fp16, Lq
+    not a multiple of 64 or 128, one element with every key masked: within
+    ATTN_TOL of the plain version, counted once on its wrapper."""
+    lq = lk + 37 if lk < 2000 else lk - 61
+    fn, plain, wrapper = _onepass_case(gen, 3, 2, lq, lk, hd, dtype, gated)
+    got = _run_counted(fn, wrapper, kernel, hd, forced=True)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close_attention(got, plain())
+
+
+# the rows 6-7 grids the paths run (phase 3's shapes) and thin grids: (B, H,
+# L, hd, gated)
+ONEPASS_GRIDS = [(64, 12, 249, 64, True), (32, 12, 499, 64, True), (8, 12, 499, 64, True),
+                 (2, 12, 1499, 64, True), (2, 8, 1499, 96, False), (16, 4, 1951, 64, False),
+                 (2, 4, 1499, 192, False), (16, 1, 1951, 256, False), (1, 1, 499, 64, True),
+                 (1, 1, 1499, 64, True), (1, 1, 1024, 96, False), (1, 1, 1951, 256, False)]
+
+
+@pytest.mark.parametrize("b,h,l,hd,gated", ONEPASS_GRIDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_onepass_wgmma_grids(gen, b, h, l, hd, gated, dtype):
+    """The kernel ``WA.onepass_route`` picks at the paths' grids and thin
+    ones runs, counted under its name, within ATTN_TOL of plain."""
+    fn, plain, wrapper = _onepass_case(gen, b, h, l, l, hd, dtype, gated)
+    # head views: strides TMA describes
+    kernel = WA.onepass_kernel(l, hd, gated, dtype, b=b, h=h, sms=_cuda.sm_count())
+    if kernel == "mma":
+        before = wrapper.kernels["mma"]
+        got = fn()
+        assert wrapper.kernels["mma"] == before + 1
+    else:
+        got = _run_counted(fn, wrapper, kernel, hd, forced=False)
+    _close_attention(got, plain())
+
+
+# rows 6-7 at the paths' shapes: (B, H, L, hd, gated, dtype)
+ROUTE_ONEPASS = [(64, 12, 249, 64, True, torch.bfloat16), (32, 12, 499, 64, True, torch.bfloat16),
+                 (8, 12, 499, 64, True, torch.bfloat16), (2, 12, 1499, 64, True, torch.bfloat16),
+                 (2, 12, 1499, 64, True, torch.float16), (2, 8, 1499, 96, False, torch.bfloat16),
+                 (16, 4, 1951, 64, False, torch.bfloat16), (16, 4, 1951, 64, False, torch.float16),
+                 (2, 4, 1499, 192, False, torch.bfloat16), (16, 1, 1951, 256, False, torch.bfloat16),
+                 (16, 8, 1951, 32, False, torch.bfloat16), (16, 2, 1951, 128, False, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,h,l,hd,gated,dtype", ROUTE_ONEPASS)
+def test_onepass_route_picks_the_fastest(gen, b, h, l, hd, gated, dtype):
+    """The kernel ``WA.onepass_kernel`` picks is the fastest of those that
+    take the shape, or within ONEPASS_ROUTE_MARGIN of it (each timed as
+    chip_smoke.py times a row)."""
+    from chip_smoke import cuda_ms
+
+    fn, plain, _ = _onepass_case(gen, b, h, l, l, hd, dtype, gated)
+    ms = {kn: cuda_ms(lambda kn=kn: fn(kn), repeats=5)
+          for kn in WA.onepass_kernels(l, hd, gated, dtype)}
+    picked = WA.onepass_kernel(l, hd, gated, dtype, b=b, h=h, sms=_cuda.sm_count())
+    print(f"{'gated' if gated else 'ungated'} {h}x{hd} B={b} L={l} {dtype}: {ms}, picked {picked}")
+    assert ms[picked] <= (1 + WA.ONEPASS_ROUTE_MARGIN) * min(ms.values()), (picked, ms)
+
+
+def test_onepass_wgmma_refused_launches_raise(gen):
+    """What a wgmma kernel does not take raises from its C entry point,
+    never falling back: the held form past 512 keys, the two sweeps past
+    2048 keys, at hd 40 and gated on the wide tiles, fp32; and the CUDA-core
+    yardstick names no wgmma kernel."""
+    def case(lk, hd, dtype, gated):
+        return _onepass_case(gen, 2, 2, 64, lk, hd, dtype, gated)[0]
+    for fn, kernel in ((case(513, 64, torch.bfloat16, True), "wgmma"),
+                       (case(2049, 64, torch.bfloat16, False), "wgmma_sweeps"),
+                       (case(256, 40, torch.bfloat16, False), "wgmma_sweeps"),
+                       (case(256, 192, torch.bfloat16, True), "wgmma_sweeps"),
+                       (case(256, 64, torch.float32, True), "wgmma"),
+                       (case(256, 64, torch.float32, False), "wgmma_sweeps")):
+        with pytest.raises(RuntimeError, match="hr_onepass_wgmma"):
+            fn(kernel)
+    q = _heads_view(gen, 1, 64, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel"):
+        WA.onepass_launch(q, q, q, torch.zeros(1, 64, device="cuda"), cuda_cores=True,
+                          kernel="wgmma")
+
+
+def test_onepass_wgmma_instances(gen):
+    """The C entry point's instances: the held form at hd 64 and 96, the
+    two sweeps there and, ungated, at the wide tiles 192 (hd 136-192) and
+    256 (200-256), bf16 and fp16 only; and its key limits."""
+    inst = _cuda.lib("attention_wgmma").hr_onepass_wgmma_instance
+    for code in (_cuda.DTYPE_CODES[torch.bfloat16], _cuda.DTYPE_CODES[torch.float16]):
+        for hd in range(8, 257, 8):
+            narrow = hd if hd in (64, 96) else 0
+            wide = 192 if 136 <= hd <= 192 else 256 if hd >= 200 else 0
+            assert inst(hd, 1, code, 1) == inst(hd, 0, code, 1) == narrow
+            assert inst(hd, 1, code, 2) == narrow
+            assert inst(hd, 0, code, 2) == (narrow or wide)
+    assert inst(64, 0, _cuda.DTYPE_CODES[torch.float32], 1) == 0
+    assert inst(64, 0, _cuda.DTYPE_CODES[torch.float32], 2) == 0
+    keys = _cuda.lib("attention_wgmma").hr_onepass_wgmma_max_keys
+    assert (keys(1), keys(2)) == (WA.HELD_MAX_KEYS, WA.SWEEPS_MAX_KEYS)
+
+
 def _ffn_operands(gen, d, f, dtype):
     f32 = torch.float32
     return (_randn(gen, f, d, scale=0.05, dtype=dtype), _randn(gen, f, scale=0.02, dtype=f32),
@@ -1048,20 +1193,34 @@ def test_ffn_block_bf16_backward(gen):
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("lk", [1024, 2049])   # one-pass; streaming, a 1-key last block
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_mha_backward(gen, lk, dtype):
-    """flash_mha on the card (the kernel forward, the backward recomputed
-    over 512-key blocks) gives the gradients of autograd through its plain
-    version, with padding: fp32 at 1e-4, bf16 within 5e-2 in relative norm."""
+# (key length, dtype, B, heads, head dim, the one-pass kernel the rule
+# picks): the mma.sync two sweeps (B=2 4 x 96: 64 blocks of 128 rows), the
+# wgmma sweeps (B=8 4 x 96: 256 blocks; 4 x 192 at B=2 and 1499 keys),
+# fp32, streaming
+FLASH_BACKWARD = [(1024, torch.float32, 2, 4, 96, "mma"), (1024, torch.bfloat16, 2, 4, 96, "mma"),
+                  (1024, torch.bfloat16, 8, 4, 96, "wgmma_sweeps"),
+                  (1499, torch.bfloat16, 2, 4, 192, "wgmma_sweeps"),
+                  (2049, torch.float32, 2, 4, 96, None), (2049, torch.bfloat16, 2, 4, 96, None)]
+
+
+@pytest.mark.parametrize("lk,dtype,b,h,hd,kernel", FLASH_BACKWARD)
+def test_flash_mha_backward(gen, lk, dtype, b, h, hd, kernel):
+    """flash_mha on the card (the kernel forward, on the one-pass kernel the
+    rule picks for the shape, or streaming past 2048 keys (a 1-key last
+    block); the backward recomputed over 512-key blocks) gives the gradients
+    of autograd through its plain version, with padding: fp32 at 1e-4, bf16
+    within 5e-2 in relative norm."""
     def heads():
-        return _randn(gen, 2, lk, 4 * 96, dtype=dtype).view(2, lk, 4, 96).transpose(1, 2)
+        return _randn(gen, b, lk, h * hd, dtype=dtype).view(b, lk, h, hd).transpose(1, 2)
     q, k, v, g = heads(), heads(), heads(), heads()
-    mask = _pad_mask([lk, lk - 300], lk)
+    mask = _pad_mask([lk, lk - 300] * (b // 2), lk)
     grads = []
     for fn in (FA.flash_mha, FA.flash_mha_plain):
+        before = FA.onepass_attention.kernels[kernel]
         ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
         fn(*ins, mask).backward(g)
+        if kernel is not None and fn is FA.flash_mha:
+            assert FA.onepass_attention.kernels[kernel] == before + 1
         grads.append([t.grad for t in ins])
     for got, ref in zip(*grads):
         assert torch.isfinite(got).all() and got.dtype == dtype
@@ -1545,13 +1704,15 @@ def test_flash_fallbacks_at_head_dim_32(gen, lk, dtype):
         _close_attention(got, ref)
 
 
-@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("dtype,kernel", [
+    (dt, kernel) for dt in ATTN_DTYPES for kernel in (None, "mma", "wgmma", "wgmma_sweeps")
+    if dt != torch.float32 or kernel in (None, "mma")])
 @pytest.mark.parametrize("l", [499, 130])
-def test_wavlm_fused_attention_gradient_bit_equal(gen, dtype, l):
-    """The kernel forward's backward recomputes through the plain version
-    and never reads the kernel's output: every gradient (q, k, v, gate,
-    position_bias, key_padding_bias) equals autograd through the plain
-    version bit for bit."""
+def test_wavlm_fused_attention_gradient_bit_equal(gen, dtype, l, kernel):
+    """The kernel forward (the rule's, or each kernel pinned) recomputes
+    through the plain version in its backward and never reads the kernel's
+    output: every gradient (q, k, v, gate, position_bias, key_padding_bias)
+    equals autograd through the plain version bit for bit."""
     b, h, hd = 2, 12, 64
     q, k, v = (_heads_view(gen, b, l, h, hd, dtype) for _ in range(3))
     gate = (torch.rand(b, h, l, generator=gen) * 1.5 + 0.5).to("cuda", dtype)
@@ -1559,11 +1720,12 @@ def test_wavlm_fused_attention_gradient_bit_equal(gen, dtype, l):
     kb = torch.where(_pad_mask([l, l - 77], l), AB.NEG_INF, 0.0).float()
     g = _randn(gen, b, h, l, hd, dtype=dtype)
     grads = []
-    for fn in (WA.wavlm_fused_attention, WA.wavlm_fused_attention_plain):
+    fused = lambda *a: WA.wavlm_fused_attention(*a, kernel=kernel)
+    for fn in (fused, WA.wavlm_fused_attention_plain):
         ins = [t.detach().requires_grad_(True) for t in (q, k, v, gate, pos, kb)]
         before = WA.wavlm_fused_attention.launches
         out = fn(*ins)
-        assert WA.wavlm_fused_attention.launches == before + (fn is WA.wavlm_fused_attention)
+        assert WA.wavlm_fused_attention.launches == before + (fn is fused)
         grads.append(torch.autograd.grad(out, ins, g))
     for got, ref in zip(*grads):
         assert got.dtype == ref.dtype and torch.isfinite(got).all()
