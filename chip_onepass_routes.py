@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The float one-pass attention core's kernels on the card, shape by shape.
+"""The float one-pass and streaming attention cores' kernels on the card, shape by shape.
 
-    python3 chip_onepass_routes.py [--check] [--repeats N]
+    python3 chip_onepass_routes.py [--streaming] [--check] [--repeats N]
 
 Run from the repository root on a machine with one NVIDIA GPU and ``nvcc``;
 it takes its timing from ``chip_smoke.py`` (CUDA-event ms of a CUDA graph of
@@ -19,6 +19,18 @@ never calls) at the served shapes of rows 6 and 7 and over a ladder of key
 lengths, head dims and batches, and names the kernel
 ``WA.onepass_kernel`` picks and the fastest. A JSON line of every reading
 comes last; the whole lands in ``chip_smoke_out/onepass_routes_h100.json``.
+
+``--streaming`` does the same for the streaming core (row 8,
+``FA.STREAMING_KERNELS``: "mma", the parent's ``mma.sync`` kernels;
+"wgmma", 128 query rows a block; "wgmma_split", 64 with O split): ptxas's
+report of ``csrc/streaming_wgmma.cu``'s instances; with ``--check`` each
+wgmma kernel against ``streaming_attention_plain`` at ``ATTN_TOL`` over key
+lengths past 2048 and at the step edges, every instance and the zero-filled
+head dims, ``Lq`` off 128, an element whose keys are all masked; without,
+every kernel that takes each shape beside SDPA at row 8's shapes and over a
+ladder of key lengths (2049-4096), head dims and batches (thin and full
+grids), with ``FA.streaming_kernel``'s pick and the fastest
+(``chip_smoke_out/streaming_routes_h100.json``).
 """
 
 from __future__ import annotations
@@ -53,7 +65,7 @@ def ptxas() -> list[dict]:
     """ptxas's report of every wgmma kernel instance, from the build logs
     (each function's stack and spill line comes before its register line)."""
     out = []
-    for name in ("attention_wgmma", "attention"):
+    for name in ("attention_wgmma", "attention", "streaming_wgmma"):
         log = (_cuda._build_dir() / f"lib{name}.log").read_text()
         fn, spill = None, {}
         for line in log.splitlines():
@@ -67,7 +79,7 @@ def ptxas() -> list[dict]:
                 spill = dict(stack=int(m.group(1)), spill_stores=int(m.group(2)),
                              spill_loads=int(m.group(3)))
             m = re.search(r"Used (\d+) registers", line)
-            if fn and m and ("wgmma" in fn or "sweeps" in fn):
+            if fn and m and ("wgmma" in fn or "sweeps" in fn or "stats_mma" in fn):
                 pretty = subprocess.run(["c++filt", fn], capture_output=True,
                                         text=True).stdout.strip() or fn
                 out.append(dict(library=name, kernel=pretty, registers=int(m.group(1)), **spill))
@@ -212,10 +224,99 @@ def sweep(gen, repeats) -> list[dict]:
     return out
 
 
+STREAM_EDGE_KEYS = (1, 127, 129, 2049, 2177, 2249, 4096)
+STREAM_HEAD_DIMS = (32, 40, 64, 96, 104, 128, 136, 192, 200, 256)
+
+
+def streaming_inputs(gen, b, lq, lk, h, hd, dt, masked=False):
+    q, k, v, kb, _, _ = inputs(gen, b, lq, lk, h, hd, dt, False, masked)
+    return q, k, v, kb
+
+
+def streaming_check(gen) -> list[dict]:
+    """Each wgmma kernel of the streaming core against plain at ATTN_TOL."""
+    cases = [(3, 2, lk, hd) for lk in STREAM_EDGE_KEYS for hd in STREAM_HEAD_DIMS]
+    cases += [(1, 1, 2249, 96), (2, 8, 2249, 96), (16, 4, 2267, 64), (2, 4, 2249, 192),
+              (16, 1, 2267, 256), (16, 2, 2267, 128), (16, 8, 2267, 32)]
+    out, bad = [], []
+    for b, h, lk, hd in cases:
+        for dt in (torch.bfloat16, torch.float16):
+            lq = lk + 37 if lk < 2000 else lk - 61
+            q, k, v, kb = streaming_inputs(gen, b, lq, lk, h, hd, dt, masked=True)
+            ref = FA.streaming_attention_plain(q, k, v, kb)
+            for kernel in FA.streaming_kernels(hd, dt)[1:]:
+                tag = f"{kernel} B={b} H={h} {lq}x{lk} hd={hd} {dt}"
+                try:
+                    got = FA.streaming_attention(q, k, v, kb, kernel=kernel)
+                    torch.cuda.synchronize()
+                    err, med = C.compare(tag, got, ref, C.ATTN_TOL[dt])
+                    out.append(dict(case=tag, max_abs_err=err, median=med))
+                except AssertionError as e:
+                    bad.append(tag)
+                    print(f"  FAIL {tag}: {e}", flush=True)
+            del q, k, v, kb, ref
+    print(f"streaming check: {len(out)} cases within ATTN_TOL, {len(bad)} outside", flush=True)
+    if bad:
+        raise SystemExit(1)
+    return out
+
+
+def streaming_shapes():
+    """(label, B, L, H, hd, dtype): row 8 at the paths' and phase 3's
+    shapes, then ladders of key lengths, head dims and batches."""
+    bf, f16 = torch.bfloat16, torch.float16
+    out = [("row 8 45 s", 2, 2249, 8, 96, bf), ("row 8 45 s", 2, 2249, 8, 96, f16),
+           ("row 8 eval", 16, 2267, 4, 64, bf), ("row 8 eval", 16, 2267, 4, 64, f16),
+           ("row 8 hd 32", 16, 2267, 8, 32, bf), ("row 8 hd 128", 16, 2267, 2, 128, bf),
+           ("row 8 hd 40", 16, 2267, 8, 40, bf), ("row 8 hd 192", 2, 2249, 4, 192, bf),
+           ("row 8 hd 192", 2, 2249, 4, 192, f16), ("row 8 hd 256", 16, 2267, 1, 256, bf),
+           ("row 8 hd 256", 16, 2267, 1, 256, f16)]
+    for lk in (2049, 2560, 3072, 4096):
+        for h, hd in ((8, 96), (4, 64), (2, 128), (4, 192), (1, 256)):
+            out.append(("ladder", 2, lk, h, hd, bf))
+    for hd, h in ((128, 2), (128, 6), (104, 2), (192, 4), (256, 1)):
+        for b in (1, 2, 4, 8, 16, 32):
+            out.append(("ladder", b, 2249, h, hd, bf))
+    for b in (1, 4, 16):
+        out.append(("ladder", b, 2249, 8, 96, bf))
+        out.append(("ladder", b, 2249, 4, 64, bf))
+        out.append(("ladder", b, 2249, 8, 32, bf))
+    return out
+
+
+def streaming_sweep(gen, repeats) -> list[dict]:
+    out = []
+    for label, b, l, h, hd, dt in streaming_shapes():
+        q, k, v, kb = streaming_inputs(gen, b, l, l, h, hd, dt)
+        amask = kb[:, None, None, :].to(dt)
+        ms = {kn: C.cuda_ms(lambda kn=kn: FA.streaming_attention(q, k, v, kb, kernel=kn),
+                            repeats=repeats)
+              for kn in FA.streaming_kernels(hd, dt)}
+        sdpa = C.cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=amask), repeats=repeats)
+        picked = FA.streaming_route(q, k, v)
+        fastest = min(ms, key=ms.get)
+        ops = 4 * b * h * l * l * hd
+        rec = dict(label=label, B=b, L=l, H=h, hd=hd, dtype=str(dt)[6:], ms=ms, sdpa_ms=sdpa,
+                   picked=picked, fastest=fastest, picked_over_fastest=ms[picked] / ms[fastest],
+                   bound_ms=C.bound(C.nbytes(q, k, v, kb, q), bf16_ops=ops)[0],
+                   blocks128=b * h * -(-l // 128))
+        out.append(rec)
+        print(f"  {label:14s} B={b:3d} L={l:4d} {h:2d}x{hd:3d} {rec['dtype']:9s} "
+              + "  ".join(f"{kn} {t:.4f}" for kn, t in ms.items())
+              + f"  SDPA {sdpa:.4f}  bound {rec['bound_ms']:.4f}  picks {picked} "
+              f"({rec['picked_over_fastest']:.3f} of the fastest, {fastest})", flush=True)
+        del q, k, v, kb, amask
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--check", action="store_true",
                     help="hold the new kernels to plain at the edges, and stop")
+    ap.add_argument("--streaming", action="store_true",
+                    help="the streaming core (row 8) instead of the one-pass core")
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -228,11 +329,12 @@ def main() -> int:
     gen = torch.Generator().manual_seed(C.SEED + 24)
     out = dict(card=smi, ptxas=ptxas())
     if args.check:
-        out["check"] = check(gen)
+        out["check"] = (streaming_check if args.streaming else check)(gen)
     else:
-        out["sweep"] = sweep(gen, args.repeats)
+        out["sweep"] = (streaming_sweep if args.streaming else sweep)(gen, args.repeats)
     C.OUT.mkdir(exist_ok=True)
-    (C.OUT / "onepass_routes_h100.json").write_text(json.dumps(out, indent=1))
+    name = "streaming_routes_h100.json" if args.streaming else "onepass_routes_h100.json"
+    (C.OUT / name).write_text(json.dumps(out, indent=1))
     print(json.dumps(out))
     return 0
 

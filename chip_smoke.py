@@ -82,7 +82,11 @@ Phases, any failure exits non-zero:
    ``WA.onepass_kernel`` picks, with the parent's ``mma.sync`` kernel as
    ``route_ms``, every kernel that takes the shape timed (``kernel_ms``) and
    the pick within ``WA.ONEPASS_ROUTE_MARGIN`` and ``ROUTE_NOISE_MS`` of the
-   fastest, each wgmma row an entry of its own (``ONEPASS_ENTRIES``), and,
+   fastest, each wgmma row an entry of its own (``ONEPASS_ENTRIES``); every
+   row of the streaming core (row 8) in bf16 and fp16 likewise on the kernel
+   ``FA.streaming_kernel`` picks (``STREAMING_ENTRIES``, the margin
+   ``FA.STREAMING_ROUTE_MARGIN``); the stats beside the parent's CUDA-core
+   kernel (``parent_ms``) at 8 x 10 s and the served buckets; and,
    last of all, row 6 at the bf16 tree's served shapes (B=64 L=249, B=32
    L=499, 8 x 499) with its limit check at the picked kernel's key tile; then
    the two kernels under the int8 wrappers
@@ -422,7 +426,7 @@ WIDE_KERNELS = {
     "onepass_attention (wide tiles)": ("hriemo/ops/flash_attention_pallas.py:81",
                                        "hriemo_torch/csrc/onepass_wgmma.cuh"),
     "streaming_attention (wide tiles)": ("hriemo/ops/flash_attention_pallas.py:38",
-                                         "hriemo_torch/csrc/flash_attention.cu"),
+                                         "hriemo_torch/csrc/streaming_wgmma.cuh"),
     "attention_core_int8 (wide tiles)": ("hriemo/ops/attention_block.py:508",
                                          "hriemo_torch/csrc/onepass_mma.cuh"),
     # the MHA sublayer's core on the score panel (onepass_panel_kernel
@@ -443,6 +447,13 @@ WIDE_KERNELS = {
                                              "hriemo_torch/csrc/onepass_wgmma.cuh"),
     "onepass_attention (wgmma sweeps)": ("hriemo/ops/flash_attention_pallas.py:81",
                                          "hriemo_torch/csrc/onepass_wgmma.cuh"),
+    # the streaming core on the wgmma warpgroups (csrc/streaming_wgmma.cuh via
+    # csrc/streaming_wgmma.cu): 128 query rows a block, and the O split of 64;
+    # shares of streaming_attention's launches, by its .kernels
+    "streaming_attention (wgmma)": ("hriemo/ops/flash_attention_pallas.py:38",
+                                    "hriemo_torch/csrc/streaming_wgmma.cuh"),
+    "streaming_attention (wgmma split)": ("hriemo/ops/flash_attention_pallas.py:38",
+                                          "hriemo_torch/csrc/streaming_wgmma.cuh"),
 }
 # the kernels line's entry of each (wrapper, WA.onepass_kernel's kernel) on
 # the wgmma warpgroups; the ungated held form runs on no path
@@ -451,6 +462,10 @@ ONEPASS_ENTRIES = {("wavlm_fused_attention", "wgmma"): "wavlm_fused_attention (w
                        "wavlm_fused_attention (wgmma sweeps)",
                    ("onepass_attention", "wgmma_sweeps"): "onepass_attention (wgmma sweeps)"}
 HELD = ONEPASS_ENTRIES["wavlm_fused_attention", "wgmma"]
+# the kernels line's entry of each FA.streaming_kernel kernel on the wgmma warpgroups
+STREAMING_ENTRIES = {("streaming_attention", "wgmma"): "streaming_attention (wgmma)",
+                     ("streaming_attention", "wgmma_split"): "streaming_attention (wgmma split)"}
+SHARED_ENTRIES = {**ONEPASS_ENTRIES, **STREAMING_ENTRIES}
 LAUNCH_NAMES = (*KERNELS, *WIDE_KERNELS)
 PANEL = "attention_core_int8 (ungated panel)"
 WGMMA = "attention_core_int8 (wgmma core)"
@@ -1010,6 +1025,28 @@ def check_kernels(gen):
             return TF32_KEY_TILE
         return WIDE_SWEEPS_KEY_TILE if picked == "wgmma_sweeps" and hd > 96 else ONEPASS_KEY_TILE
 
+    def streaming_extra(call, b, h, lk, hd, dt):
+        """Beside the streaming core's row just run (``call(None)``, the
+        kernel FA.streaming_kernel picks; ``route_ms`` the parent's mma.sync
+        kernel, ``call("mma")``): every kernel that takes the shape
+        (FA.streaming_kernels), each the median of ROUTE_REPEATS replays,
+        and the pick within STREAMING_ROUTE_MARGIN and ROUTE_NOISE_MS of the
+        fastest. A row on a wgmma kernel feeds that kernel's entry of the
+        kernels line."""
+        rec = rows[-1]
+        picked = FA.streaming_kernel(lk, hd, dt, b=b, h=h, sms=_cuda.sm_count())
+        rec["picked"] = picked
+        rec["kernel_ms"] = {kn: cuda_ms(lambda kn=kn: call(kn), repeats=ROUTE_REPEATS)
+                            for kn in FA.streaming_kernels(hd, dt)}
+        torch.cuda.synchronize()
+        best = min(rec["kernel_ms"].values())
+        print(f"    by kernel {rec['kernel_ms']}; the rule picks {picked}", flush=True)
+        if rec["kernel_ms"][picked] > (1 + FA.STREAMING_ROUTE_MARGIN) * best + ROUTE_NOISE_MS:
+            raise AssertionError(f"streaming_attention {rec['shape']}: the {picked} kernel it "
+                                 f"picks is slower than the fastest: {rec['kernel_ms']}")
+        if ("streaming_attention", picked) in STREAMING_ENTRIES:
+            rec["kernel_entry"] = STREAMING_ENTRIES["streaming_attention", picked]
+
     # WavLM gated-bias attention core, float trees: the 5 s and 10 s buckets
     # at B=4, 30 s at B=2; fp32: the 10 s bucket at B=4, the long fp32 30 s
     # clips at B=2 and the fp32 extraction batch (8 x 10 s)
@@ -1056,16 +1093,18 @@ def check_kernels(gen):
             kpm = mask(2, l)
             bias = FA.key_bias(kpm, 2, l, dev)
             amask = ~kpm[:, None, None, :]
-            extra = name == "onepass_attention" and dt != torch.float32
-            call = lambda kn, q=q, k=k, v=v, bias=bias: FA.onepass_attention(q, k, v, bias, kn)
+            extra = dt != torch.float32
+            call = lambda kn, q=q, k=k, v=v, bias=bias, fn=fn: fn(q, k, v, bias, kn)
             run(name, f"B=2 {l}x{l} H={h} hd={hd} {str(dt)[6:]}",
                 lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v,
                                                                          attn_mask=amask),
                 nbytes(q, k, v, bias, q), 0, *attn_ops(dt, 2, h, l, l, hd), tol=ATTN_TOL[dt],
                 route=(lambda: call("mma")) if extra else None)
-            if extra:
+            if extra and name == "onepass_attention":
                 onepass_extra(name, call, 2, h, l, hd, False, dt)
+            elif extra:
+                streaming_extra(call, 2, h, l, hd, dt)
             if name == "streaming_attention":  # the kernel's key block in each dtype
                 limit_check[str(dt)[6:]] = dropped_tile(
                     name, FA.BK if dt == torch.bfloat16 else TF32_KEY_TILE, l, dt,
@@ -1088,15 +1127,16 @@ def check_kernels(gen):
         kpm = (torch.arange(l)[None, :] >= torch.tensor(lens)[:, None]).to(dev)
         bias = FA.key_bias(kpm, eb, l, dev)
         amask = ~kpm[:, None, None, :]
-        onepass = name == "onepass_attention"
-        call = lambda kn, q=q, k=k, v=v, bias=bias: FA.onepass_attention(q, k, v, bias, kn)
+        call = lambda kn, q=q, k=k, v=v, bias=bias, fn=fn: fn(q, k, v, bias, kn)
         run(name, f"B={eb} {l}x{l} H={h} hd={hd} bfloat16",
             lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=amask),
             nbytes(q, k, v, bias, q), 0, *attn_ops(torch.bfloat16, eb, h, l, l, hd),
-            tol=ATTN_TOL[torch.bfloat16], route=(lambda: call("mma")) if onepass else None)
-        if onepass:
+            tol=ATTN_TOL[torch.bfloat16], route=lambda: call("mma"))
+        if name == "onepass_attention":
             onepass_extra(name, call, eb, h, l, hd, False, torch.bfloat16)
+        else:
+            streaming_extra(call, eb, h, l, hd, torch.bfloat16)
         eval_upto[name] = (l, lambda n, q=q, k=k, v=v, bias=bias, plain=plain:
                            plain(q, k[:, :, :n], v[:, :, :n], bias[:, :n]))
 
@@ -1160,6 +1200,9 @@ def check_kernels(gen):
             run("conv_stack_stats", tag, lambda: CS.conv_stack_stats(wave, w0),
                 lambda: CS.conv_stack_stats_plain(wave, w0), None,
                 nbytes(wave, w0, stats), *conv_ops(ops0), tol=STATS_TOL)
+            if dt == torch.bfloat16:  # the parent's CUDA-core kernel, timed beside
+                rows[-1]["parent_ms"] = cuda_ms(
+                    lambda: CS._stats_launch(wave, w0, cuda_cores=True))
             late_routes.append((rows[-1], lambda wave=wave, conv=route_convs[0].conv: lambda:
                                 CS.group_norm_stats_from_waveform(wave, conv.weight)))
             run("conv_stack_k1", tag,
@@ -1314,14 +1357,17 @@ def check_kernels(gen):
         bias = FA.key_bias(kpm, bb, l, dev)
         amask = ~kpm[:, None, None, :]
         shape = f"B={bb} {l}x{l} H={h} hd={hd} {str(dt)[6:]}"
-        extra = name == "onepass_attention" and dt != torch.float32
-        call = lambda kn: FA.onepass_attention(q, k, v, bias, kn)
+        extra = dt != torch.float32
+        call = lambda kn: fn(q, k, v, bias, kn)
         got, ref = run(name, shape, lambda: fn(q, k, v, bias), lambda: plain(q, k, v, bias),
                        lambda: torch.nn.functional.scaled_dot_product_attention(
                            q, k, v, attn_mask=amask),
                        nbytes(q, k, v, bias, q), 0, *attn_ops(dt, bb, h, l, l, hd),
                        tol=ATTN_TOL[dt], route=(lambda: call("mma")) if extra else None)
-        tile = onepass_extra(name, call, bb, h, l, hd, False, dt) if extra else \
+        if extra and name == "streaming_attention":
+            streaming_extra(call, bb, h, l, hd, dt)
+        tile = onepass_extra(name, call, bb, h, l, hd, False, dt) \
+            if extra and name == "onepass_attention" else \
             TF32_KEY_TILE if dt == torch.float32 else \
             ONEPASS_KEY_TILE if name == "onepass_attention" else FA.BK
         if hd not in (64, 96):
@@ -1881,6 +1927,11 @@ def served_conv_rows(run, rows, gen):
             route=lambda: enc._cudnn_convs(x3_cf, range(4, 7)).transpose(1, 2).contiguous(),
             **timing)
         stage_rows = rows[-3:]
+        # the stats on the parent's CUDA-core kernel, timed beside
+        stage_rows[0]["parent_ms"] = cuda_ms(lambda: CS._stats_launch(wave, w0, cuda_cores=True),
+                                             **timing)
+        print(f"  conv_stack_stats       {tag:28s} tensor cores {stage_rows[0]['ms']:.4f} ms, "
+              f"parent (CUDA cores) {stage_rows[0]['parent_ms']:.4f} ms", flush=True)
         # K1 and K2 with their convs on the parent's GEMM pipeline (the cp.async
         # GEMM of csrc/float_wgmma.cuh), timed beside
         rows[-2]["parent_ms"] = cuda_ms(lambda: CS._conv_launches(CS._conv0_launch(
@@ -2053,11 +2104,13 @@ TILE_KERNELS = {"onepass_attention": ("onepass_mma_kernel", "onepass_wide_kernel
                                       "attn_tf32_kernel", "attn_tf32_wide_kernel",
                                       "onepass_wgmma_kernel", "onepass_sweeps_kernel"),
                 "streaming_attention": ("streaming_mma_kernel", "streaming_wide_kernel",
+                                        "streaming_wgmma_kernel",
                                         "attn_tf32_kernel", "attn_tf32_wide_kernel"),
                 "attention_core_int8": ("onepass_mma_kernel", "onepass_wide_kernel",
                                         "onepass_panel_kernel", "onepass_wgmma_kernel")}
 CUDA_CORE_KERNELS = ("onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel")
 # the library that launches each core's kernels
+WGMMA_LIBS = {"onepass_attention": "attention_wgmma", "streaming_attention": "streaming_wgmma"}
 CORE_LIBS = {"onepass_attention": "wavlm_attention", "streaming_attention": "flash_attention",
              "attention_core_int8": "attention"}
 
@@ -2077,9 +2130,8 @@ def tile_instance(name, hd, fn, dtype=torch.bfloat16) -> dict:
     instance = (_cuda.lib("flash_attention").hr_streaming_instance(hd, code)
                 if name == "streaming_attention"
                 else _cuda.lib("wavlm_attention").hr_onepass_instance(hd, 0, code))
-    # the one-pass core's wgmma kernels are launched by a library of their own
-    libs = (CORE_LIBS[name], "attention_wgmma") if name == "onepass_attention" \
-        else (CORE_LIBS[name],)
+    # the float cores' wgmma kernels are launched by libraries of their own
+    libs = (CORE_LIBS[name], WGMMA_LIBS[name]) if name in WGMMA_LIBS else (CORE_LIBS[name],)
     for lib in libs:
         _cuda.last_kernel(lib)  # clears the record
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2172,6 +2224,7 @@ def reset_launches():
     AB.attention_core_int8.kernels.clear()
     WA.wavlm_fused_attention.kernels.clear()
     FA.onepass_attention.kernels.clear()
+    FA.streaming_attention.kernels.clear()
     for fn in COUNTED_BY_HEAD_DIM:
         fn.head_dims.clear()
     ROUTED.routes.clear()
@@ -2187,7 +2240,7 @@ def read_launches():
     kernels = AB.attention_core_int8.kernels
     out[PANEL] = kernels[("panel", False)]
     out[WGMMA] = kernels[("wgmma", True)] + kernels[("wgmma", False)]
-    for (wrapper, kernel), entry in ONEPASS_ENTRIES.items():
+    for (wrapper, kernel), entry in SHARED_ENTRIES.items():
         out[entry] = KERNELS[wrapper][0].kernels[kernel]
     return out
 
@@ -2352,10 +2405,11 @@ def check_launches(what, got, want):
     to the encoder's routes since ``reset_launches`` (``stack_launches``)."""
     if not set(STACK) & set(want):
         want = {**stack_launches(what), **want}
-    # the float one-pass core's wgmma kernels take shares of their wrapper's
-    # launches (each call the kernel WA.onepass_kernel picks for its shape):
-    # any share where ``want`` does not name them
-    for (wrapper, _), entry in ONEPASS_ENTRIES.items():
+    # the float one-pass and streaming cores' wgmma kernels take shares of
+    # their wrapper's launches (each call the kernel WA.onepass_kernel or
+    # FA.streaming_kernel picks for its shape): any share where ``want`` does
+    # not name them
+    for (wrapper, _), entry in SHARED_ENTRIES.items():
         if entry not in want and got.get(entry, 0) <= want.get(wrapper, 0):
             want = {**want, entry: got.get(entry, 0)}
     for name in got:
@@ -4393,7 +4447,7 @@ def main() -> int:
                             library_ms=main_row["library_ms"], route_ms=main_row["route_ms"],
                             shape=main_row["shape"]))
     for name, (replaces, source) in WIDE_KERNELS.items():
-        mine = [r for r in rows if r.get("wide_entry") == name]
+        mine = [r for r in rows if name in (r.get("wide_entry"), r.get("kernel_entry"))]
         # bf16 (the int8 core's rows are bf16 and name no dtype)
         main_row = max((r for r in mine if r["shape"].split()[-1] not in ("float32", "float16")),
                        key=lambda r: r["ms"])

@@ -87,6 +87,7 @@ enum LaunchedKernel : int {
   kOnepassPanelKernel,
   kOnepassWgmmaKernel,
   kOnepassSweepsKernel,
+  kStreamingWgmmaKernel,
 };
 
 inline std::atomic<int>& last_launch() {

@@ -32,9 +32,11 @@
 //   blocks of 8 output frames recomputed their halo rows and streamed every
 //   conv's weights from L2, and ran fp32 on CUDA-core FMAs.
 // - conv0 (one input channel, 10 taps: 1.3% of the stack's operations) runs
-//   on CUDA cores, 10 FMAs an output in tap order, in both of its users.
-//   K1's pass normalises it, applies GELU and writes [B, n0, 512] in T. The
-//   stats are a two-level sum in a fixed order: a block per (chunk of
+//   in K1's pass on CUDA cores, 10 FMAs an output in tap order; the pass
+//   normalises it, applies GELU and writes [B, n0, 512] in T. The stats take
+//   it on the tensor cores in bf16 (conv_stats_mma_kernel: the phase view's
+//   rows against w0 padded to 16 taps, as the TPU kernel's _gemm), on CUDA
+//   cores in fp32. The stats are a two-level sum in a fixed order: a block per (chunk of
 //   kStatsRows rows, batch element) sums its chunk's rows in order for all
 //   512 channels into a [B, chunks, 2, 512] fp32 workspace, then a second
 //   launch adds the chunks in chunk order. No atomics: the sums, and K1's
@@ -53,9 +55,10 @@
 //   loop leaves (csrc/tma_gemm.cuh). fp32 at 8 x 10 s: K1 5.57 ms, K2 0.606,
 //   the GEMMs at 41% and 38% of three TF32 products at 495 TFLOP/s.
 // - conv0's pass (GroupNorm and the accurate GELU per element on CUDA cores)
-//   and the stats: 1.48 and 0.44 ms at 1.25 s x 384, 0.31 and 0.082
-//   at 8 x 10 s; the stats CUDA-core bound, 13 fp32 operations a conv0
-//   output.
+//   and the stats: 1.48 and 0.14 ms at 1.25 s x 384, 0.31 and 0.031 at 8 x
+//   10 s (bf16). The stats' CUDA-core kernel, 13 fp32 operations a conv0
+//   output, took 0.44 and 0.082; on the tensor cores about two remain, and
+//   they read 11% of their operations bound.
 #include "float_wgmma.cuh"
 #include "tma_gemm.cuh"
 
@@ -116,6 +119,106 @@ conv_stats_part_kernel(const T* __restrict__ wave, int Tw, const T* __restrict__
   float* p = part + ((size_t)b * gridDim.x + blockIdx.x) * 2 * kC + c;
   store2(p, s[0], s[1]);
   store2(p + kC, q[0], q[1]);
+}
+
+// The stats' first level in bf16, conv0 on the tensor cores as the TPU
+// kernel takes it (_gemm of the phase view [rows, 16] and w0 padded to 16
+// taps): the same chunks and the same part[b][chunk][2][512] as
+// conv_stats_part_kernel. The chunk's samples arrive by one bulk copy (the
+// whole 16-byte chunks from the boundary at or below its first sample; a
+// tail of the waveform's last chunk by a copy that fills zeros). Warp w owns
+// channels 64w .. 64w + 63, eight n-tiles whose B fragments (w0's taps, k
+// 10..15 zero) stay in registers; each 16-row tile of the chunk is one A
+// fragment (row r's k-th element the sample 5r + k, rows past n0 zero) and
+// eight mma.sync.m16n8k16 with fp32 sums. Each lane adds its outputs to its
+// columns' s and q, row tile after row tile, its row g before g + 8; then
+// the eight lanes that share columns are added by a fixed shuffle tree. No
+// atomics: the same bits on every call. About two fp32 instructions an
+// output remain (an add and an FMA), against the CUDA-core kernel's 13.
+__global__ void __launch_bounds__(kConvThreads)
+conv_stats_mma_kernel(const __nv_bfloat16* __restrict__ wave, int Tw, size_t total,
+                      const __nv_bfloat16* __restrict__ w0, int n0, float* __restrict__ part) {
+  // from the 16-byte boundary below the chunk's first sample: up to 7
+  // samples before it, its 5 * kStatsRows + 5, and a zero-filled tail
+  __shared__ __align__(128) uint16_t zs[(kStatsSamples + 7 + 7) / 8 * 8];
+  __shared__ __align__(8) uint64_t bar_mem;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y, r0 = blockIdx.x * kStatsRows;
+  const int rows = min(kStatsRows, n0 - r0);
+  const size_t e0 = (size_t)b * Tw + (size_t)5 * r0, st = e0 & ~(size_t)7;
+  const int off = (int)(e0 - st);
+  const uint32_t bar = smem_addr(&bar_mem);
+  if (tid == 0) {
+    mbar_init(bar, 2);  // the expect_tx arrival and the tail copy's
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // the samples the chunk's rows read (within the waveform: row n0 - 1
+    // ends at sample Tw - 1 at the latest), whole 16-byte chunks by one bulk
+    // copy, and where the tensor ends within the last chunk, that chunk's
+    // samples by a copy that fills zeros
+    const size_t n = (size_t)off + 5 * rows + 5;
+    size_t nb = (n + 7) & ~(size_t)7;
+    if (st + nb > total) nb = (total - st) & ~(size_t)7;
+    mbar_expect_tx(bar, (int)(2 * nb));
+    if (nb > 0) bulk_load(smem_addr(zs), wave + st, (int)(2 * nb), bar);
+    if (nb < n) cp_async16(zs + nb, wave + st + nb, (int)(2 * (n - nb)));
+    mbar_arrive_cp_async(bar);
+  }
+  // w0's taps as the B fragments of this warp's n-tiles: column g of n-tile
+  // j is channel 64 warp + 8 j + g; k 2t, 2t + 1 and (t = 0 only) 8, 9
+  uint32_t bf[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const __nv_bfloat16* wr = w0 + (size_t)(64 * warp + 8 * j + g) * 10;
+    bf[j][0] = *reinterpret_cast<const uint32_t*>(wr + 2 * t);
+    bf[j][1] = t == 0 ? *reinterpret_cast<const uint32_t*>(wr + 8) : 0u;
+  }
+  mbar_wait(bar, 0);
+  auto pair = [&](int i) {  // samples i and i + 1, the lower in the low half
+    return (uint32_t)zs[i] | ((uint32_t)zs[i + 1] << 16);
+  };
+  float s[8][2] = {}, q[8][2] = {};
+  for (int r = 0; r < rows; r += 16) {
+    const int ra = r + g, rb = ra + 8;
+    const uint32_t a0 = ra < rows ? pair(off + 5 * ra + 2 * t) : 0u;
+    const uint32_t a1 = rb < rows ? pair(off + 5 * rb + 2 * t) : 0u;
+    const uint32_t a2 = t == 0 && ra < rows ? pair(off + 5 * ra + 8) : 0u;
+    const uint32_t a3 = t == 0 && rb < rows ? pair(off + 5 * rb + 8) : 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float x[4] = {0.f, 0.f, 0.f, 0.f};  // rows ra (0, 1) and rb (2, 3), columns 2t, 2t + 1
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3])
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(bf[j][0]), "r"(bf[j][1]));
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = __fadd_rn(__fadd_rn(s[j][e], x[e]), x[2 + e]);
+        q[j][e] = __fmaf_rn(x[2 + e], x[2 + e], __fmaf_rn(x[e], x[e], q[j][e]));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = __fadd_rn(s[j][e], __shfl_xor_sync(0xffffffffu, s[j][e], o));
+        q[j][e] = __fadd_rn(q[j][e], __shfl_xor_sync(0xffffffffu, q[j][e], o));
+      }
+  if (g == 0) {
+    float* p = part + ((size_t)b * gridDim.x + blockIdx.x) * 2 * kC + 64 * warp + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      store2(p + 8 * j, s[j][0], s[j][1]);
+      store2(p + kC + 8 * j, q[j][0], q[j][1]);
+    }
+  }
 }
 
 // The stats' second level: element i of the [2, 512] sums of batch element
@@ -195,9 +298,11 @@ extern "C" {
 
 // wave [B, Tw] and w0 [512, 10]: fp32 (fp32 != 0) or bf16; n0 = (Tw - 10)
 // / 5 + 1 >= 1; part [B, chunks, 2, 512] fp32 workspace, chunks = ceil(n0 /
-// 256); out [B, 2, 512] fp32.
+// 256); out [B, 2, 512] fp32. bf16 runs conv0 on the tensor cores
+// (conv_stats_mma_kernel), or with cuda_cores = 1 on CUDA cores (the
+// yardstick chip_smoke.py times beside it); fp32 runs on CUDA cores.
 int hr_conv_stats(int fp32, const void* wave, int B, int Tw, const void* w0, int n0,
-                  int chunks, void* part, void* out, void* stream) {
+                  int chunks, void* part, void* out, int cuda_cores, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n0 < 1 || chunks != (n0 + kStatsRows - 1) / kStatsRows) return (int)cudaErrorInvalidValue;
   if (B > 0) {
@@ -206,10 +311,14 @@ int hr_conv_stats(int fp32, const void* wave, int B, int Tw, const void* w0, int
       conv_stats_part_kernel<float><<<grid, kConvThreads, 0, s>>>(
           static_cast<const float*>(wave), Tw, static_cast<const float*>(w0), n0,
           static_cast<float*>(part));
-    else
+    else if (cuda_cores)
       conv_stats_part_kernel<__nv_bfloat16><<<grid, kConvThreads, 0, s>>>(
           static_cast<const __nv_bfloat16*>(wave), Tw, static_cast<const __nv_bfloat16*>(w0), n0,
           static_cast<float*>(part));
+    else
+      conv_stats_mma_kernel<<<grid, kConvThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(wave), Tw, (size_t)B * Tw,
+          static_cast<const __nv_bfloat16*>(w0), n0, static_cast<float*>(part));
     conv_stats_sum_kernel<<<dim3(2 * kC / kConvThreads, B), kConvThreads, 0, s>>>(
         static_cast<const float*>(part), chunks, static_cast<float*>(out));
   }

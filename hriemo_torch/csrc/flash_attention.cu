@@ -21,7 +21,13 @@
 // past Lk are simply absent (the TPU wrapper pads them with NEG_INF, which
 // adds exact zeros unless a row's keys are all masked).
 //
-// Which kernel runs is decided by tile_head_dim alone (csrc/
+// In bf16 and fp16 the port runs the wgmma warpgroups of
+// csrc/streaming_wgmma.cuh (csrc/streaming_wgmma.cu) wherever
+// ops/flash_attention.py streaming_kernel picks them, which is every
+// phase-3 shape; the mma.sync kernels here stay built as their yardstick and
+// for the thin grids the rule keeps on them, and serve fp32.
+//
+// Which kernel of this library runs is decided by tile_head_dim alone (csrc/
 // attention_tiles.cuh, exported as hr_streaming_instance): bf16 and fp16
 // run every head dim up to 256 on the tensor cores at the tile instance HD,
 // the smallest of 32, 64, 96, 128, 192 and 256 at or above hd (hd 8-32 at

@@ -32,7 +32,7 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 LIBS = ("quant_gemm", "ffn_int8", "proj_int8", "attention", "wavlm_attention",
-        "attention_wgmma", "flash_attention", "ffn_bf16", "conv_stack")
+        "attention_wgmma", "flash_attention", "streaming_wgmma", "ffn_bf16", "conv_stack")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -80,12 +80,18 @@ SIGNATURES = {
         "hr_streaming_attention": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
                                    P, P, I, I, I, I, P],
     },
+    "streaming_wgmma": {
+        "hr_last_kernel": [],
+        "hr_streaming_wgmma_instance": [I, I, I],
+        "hr_streaming_wgmma": [I, P, I, I, I, P, I, I, I, P, I, I, I, I, I, I, I, I, F,
+                               P, P, I, I, I, I, P],
+    },
     "ffn_bf16": {
         "hr_ffn_gemms": [P, P, P, P, P, I, I, I, I, P, P, P],
         "hr_ffn_gemms_tma": [P, P, P, P, P, I, I, I, I, P, P, I, I, I, I, P],
     },
     "conv_stack": {
-        "hr_conv_stats": [I, P, I, I, P, I, I, P, P, P],
+        "hr_conv_stats": [I, P, I, I, P, I, I, P, P, I, P],
         "hr_conv0_gn": [I, P, I, I, P, P, P, P, F, F, I, I, P, P],
         "hr_conv_s2": [I, P, L, I, I, P, I, I, I, P, P],
         "hr_conv_s2_tma": [P, I, I, I, P, I, I, I, I, P, P],
@@ -227,7 +233,8 @@ DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 LAUNCHED_KERNELS = (None, "onepass_attn_kernel", "streaming_attn_kernel", "attn_core_kernel",
                     "onepass_mma_kernel", "onepass_wide_kernel", "streaming_mma_kernel",
                     "streaming_wide_kernel", "attn_tf32_kernel", "attn_tf32_wide_kernel",
-                    "onepass_panel_kernel", "onepass_wgmma_kernel", "onepass_sweeps_kernel")
+                    "onepass_panel_kernel", "onepass_wgmma_kernel", "onepass_sweeps_kernel",
+                    "streaming_wgmma_kernel")
 
 
 def last_kernel(name: str) -> tuple[str | None, int]:

@@ -15,8 +15,10 @@ Two parts:
   - :func:`conv_stack_stats` replaces ``_stats_kernel`` (``pallas_call`` at
     ``:228``): per-channel sum and sum of squares of conv0 over its valid
     rows, ``[B, 2, C]`` fp32; on the card fp32 partial sums over chunks of
-    :data:`STATS_ROWS` rows, added in chunk order by a second launch, so
-    that the sums have the same bits on every run;
+    :data:`STATS_ROWS` rows (in bf16 conv0 on the tensor cores, the phase
+    view's rows against w0 padded to 16 taps, as the TPU kernel's ``_gemm``),
+    added in chunk order by a second launch, so that the sums have the same
+    bits on every run;
   - :func:`conv_stack_k1` replaces ``_k1_kernel`` (``:243``): conv0,
     GroupNorm from those sums (``var = s2/n - mean^2``, no clamp, unlike
     the Gram route), GELU, conv1..3, ``[B, t3, C]``; on the card conv0 is
@@ -250,9 +252,19 @@ def _conv0_launch(wave, stats, w0, gn_w, gn_b, eps: float, fast_gelu: bool):
 def conv_stack_stats(wave, w0):
     """Sum and sum of squares over time of conv0 ``[B, 2, C]`` fp32, over
     its ``(Tw - 10) // 5 + 1`` valid rows. ``wave [B, Tw]`` bf16 or fp32;
-    ``w0 [C, 10]`` in the waveform's dtype."""
+    ``w0 [C, 10]`` in the waveform's dtype. On the card bf16 takes conv0 on
+    the tensor cores (``conv_stats_mma_kernel``), fp32 on CUDA cores."""
     if wave.device.type == "cpu":
         return conv_stack_stats_plain(wave, w0)
+    out = _stats_launch(wave, w0)
+    conv_stack_stats.launches += 1
+    return out
+
+
+def _stats_launch(wave, w0, cuda_cores: bool = False):
+    """:func:`conv_stack_stats`'s two launches on the card (uncounted);
+    ``cuda_cores`` runs bf16's first level on the CUDA-core kernel, the
+    yardstick that the tensor-core one is timed beside."""
     _check_wave(wave, "conv_stack_stats")
     b, tw = wave.shape
     n0 = conv_lengths(tw)[0]
@@ -264,8 +276,7 @@ def conv_stack_stats(wave, w0):
     out = torch.empty((b, 2, CHANNELS), dtype=torch.float32, device=wave.device)
     _cuda.check(_cuda.lib("conv_stack").hr_conv_stats(
         int(wave.dtype == torch.float32), wave.data_ptr(), b, tw, w0.data_ptr(), n0, chunks,
-        part.data_ptr(), out.data_ptr(), _cuda.stream()), "hr_conv_stats")
-    conv_stack_stats.launches += 1
+        part.data_ptr(), out.data_ptr(), int(cuda_cores), _cuda.stream()), "hr_conv_stats")
     return out
 
 

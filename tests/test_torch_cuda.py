@@ -953,7 +953,10 @@ def test_attention_launch_record(gen, dtype):
     """Each library records the attention kernel it launched last and its
     head dim (``_cuda.last_kernel``): the tile kernel of the dispatched
     instance, narrow or wide, and with ``cuda_cores`` the CUDA-core kernel
-    at hd; reading the record clears it."""
+    at hd; reading the record clears it. The streaming core is pinned to
+    ``csrc/flash_attention.cu`` (``kernel="mma"``), which bf16 and fp16 leave
+    for the wgmma library where the rule picks it (that library's record:
+    ``test_streaming_wgmma_kernels``)."""
     b, h, l = 2, 2, 80
     wide, narrow = ("attn_tf32_wide_kernel", "attn_tf32_kernel") if dtype == torch.float32 \
         else ("streaming_wide_kernel", "streaming_mma_kernel")
@@ -961,7 +964,7 @@ def test_attention_launch_record(gen, dtype):
         q, k, v = (_heads_view(gen, b, l, h, hd, dtype) for _ in range(3))
         kb = torch.zeros(b, l, device="cuda")
         _cuda.last_kernel("flash_attention")
-        FA.streaming_attention(q, k, v, kb)
+        FA.streaming_attention(q, k, v, kb, "mma")
         assert _cuda.last_kernel("flash_attention") == (wide if inst > 128 else narrow, inst)
         assert _cuda.last_kernel("flash_attention") == (None, 0)
         FA.streaming_launch(q, k, v, kb, cuda_cores=True)
@@ -1148,6 +1151,125 @@ def test_onepass_wgmma_instances(gen):
     assert inst(64, 0, _cuda.DTYPE_CODES[torch.float32], 2) == 0
     keys = _cuda.lib("attention_wgmma").hr_onepass_wgmma_max_keys
     assert (keys(1), keys(2)) == (WA.HELD_MAX_KEYS, WA.SWEEPS_MAX_KEYS)
+
+
+# the streaming core's wgmma kernels (ops/flash_attention.py
+# STREAMING_KERNELS): every instance (hd 32, 64, 96 and 128 on the 128-row
+# form, 40 zero-filled to 64; 128, 192 and 256 on the O split, 136
+# zero-filled to 192), key lengths past the one-pass limit with a partial
+# last 128-key step (2049: one key; 2177; 2249, the 45 s clips)
+STREAMING_CASES = [(kernel, hd) for hd in (32, 40, 64, 96, 128, 136, 192, 256)
+                   for kernel in FA.streaming_kernels(hd, torch.bfloat16)[1:]]
+
+
+def _streaming_case(gen, b, h, lq, lk, hd, dtype):
+    """(the wrapper called with a kernel, its plain version) on head views of
+    [B, L, H*hd] projections, element 1 (where b > 1) with every key
+    masked."""
+    q = _heads_view(gen, b, lq, h, hd, dtype)
+    k, v = (_heads_view(gen, b, lk, h, hd, dtype) for _ in range(2))
+    lens = ([lk, 0] + [lk // 3] * b)[:b]
+    kb = torch.where(_pad_mask(lens, lk), AB.NEG_INF, 0.0).float()
+    return (lambda kernel=None: FA.streaming_attention(q, k, v, kb, kernel),
+            lambda: FA.streaming_attention_plain(q, k, v, kb))
+
+
+def _run_streaming(fn, kernel, hd, forced):
+    """One call, counted once on the wrapper and once under its kernel, and
+    launched as streaming_wgmma_kernel at its tile instance."""
+    wrapper = FA.streaming_attention
+    before, by_kernel = wrapper.launches, wrapper.kernels[kernel]
+    _cuda.last_kernel("streaming_wgmma")
+    got = fn(kernel if forced else None)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and wrapper.kernels[kernel] == by_kernel + 1
+    inst = next(t for t in (32, 64, 96, 128, 192, 256) if t >= hd)
+    assert _cuda.last_kernel("streaming_wgmma") == ("streaming_wgmma_kernel", inst)
+    return got
+
+
+@pytest.mark.parametrize("kernel,hd", STREAMING_CASES)
+@pytest.mark.parametrize("lk", [2049, 2177, 2249])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_streaming_wgmma_kernels(gen, kernel, hd, lk, dtype):
+    """Each wgmma kernel of the streaming core, pinned through the wrapper's
+    ``kernel``, in bf16 and fp16, Lq not a multiple of 128 (or 64), one
+    element with every key masked: within ATTN_TOL of the plain version,
+    counted once on its wrapper."""
+    fn, plain = _streaming_case(gen, 3, 2, lk - 61, lk, hd, dtype)
+    got = _run_streaming(fn, kernel, hd, forced=True)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _close_attention(got, plain())
+
+
+# row 8 at the paths' and phase 3's shapes, and thin grids: (B, H, L, hd, dtype)
+ROUTE_STREAMING = [(2, 8, 2249, 96, torch.bfloat16), (2, 8, 2249, 96, torch.float16),
+                   (16, 4, 2267, 64, torch.bfloat16), (16, 8, 2267, 32, torch.bfloat16),
+                   (16, 2, 2267, 128, torch.bfloat16), (16, 8, 2267, 40, torch.bfloat16),
+                   (2, 4, 2249, 192, torch.bfloat16), (16, 1, 2267, 256, torch.bfloat16),
+                   (2, 4, 2049, 64, torch.bfloat16), (2, 2, 2249, 128, torch.bfloat16),
+                   (4, 2, 2249, 128, torch.bfloat16), (1, 1, 2249, 256, torch.float16)]
+
+
+@pytest.mark.parametrize("b,h,l,hd,dtype", ROUTE_STREAMING)
+def test_streaming_route_picks_the_fastest(gen, b, h, l, hd, dtype):
+    """The kernel ``FA.streaming_kernel`` picks runs, counted under its
+    name, within ATTN_TOL of plain, and is the fastest of those that take
+    the shape or within STREAMING_ROUTE_MARGIN of it (each timed as
+    chip_smoke.py times a row)."""
+    from chip_smoke import cuda_ms
+
+    fn, plain = _streaming_case(gen, b, h, l, l, hd, dtype)
+    picked = FA.streaming_kernel(l, hd, dtype, b=b, h=h, sms=_cuda.sm_count())
+    if picked == "mma":
+        before = FA.streaming_attention.kernels["mma"]
+        got = fn()
+        assert FA.streaming_attention.kernels["mma"] == before + 1
+    else:
+        got = _run_streaming(fn, picked, hd, forced=False)
+    _close_attention(got, plain())
+    ms = {kn: cuda_ms(lambda kn=kn: fn(kn), repeats=5) for kn in FA.streaming_kernels(hd, dtype)}
+    print(f"{h}x{hd} B={b} L={l} {dtype}: {ms}, picked {picked}")
+    assert ms[picked] <= (1 + FA.STREAMING_ROUTE_MARGIN) * min(ms.values()), (picked, ms)
+
+
+def test_streaming_wgmma_refused_launches_raise(gen):
+    """What a wgmma kernel does not take raises from its C entry point,
+    never falling back: the 128-row form past 128, the split below 104, fp32;
+    and a view TMA cannot describe raises before any launch whatever the
+    kernel; the CUDA-core yardstick names no wgmma kernel."""
+    def case(hd, dtype):
+        return _streaming_case(gen, 2, 2, 64, 2049, hd, dtype)[0]
+    for fn, kernel in ((case(136, torch.bfloat16), "wgmma"),
+                       (case(64, torch.bfloat16), "wgmma_split"),
+                       (case(64, torch.float32), "wgmma"),
+                       (case(256, torch.float32), "wgmma_split")):
+        with pytest.raises(RuntimeError, match="hr_streaming_wgmma"):
+            fn(kernel)
+    q = _randn(gen, 1, 2049, 2 * 97, dtype=torch.bfloat16)[..., :192].view(1, 2049, 2, 96) \
+        .transpose(1, 2)   # rows 388 bytes apart: no tensor map, no aligned rows
+    kb = torch.zeros(1, 2049, device="cuda")
+    assert FA.streaming_route(q, q, q) == "mma"
+    for kernel in FA.STREAMING_KERNELS:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            FA.streaming_attention(q, q, q, kb, kernel)
+    q = _heads_view(gen, 1, 2049, 2, 96, torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel"):
+        FA.streaming_launch(q, q, q, kb, cuda_cores=True, kernel="wgmma")
+
+
+def test_streaming_wgmma_instances(gen):
+    """The C entry point's instances: the 128-row form at 32, 64, 96 and 128
+    (hd 8-128), the split at 128, 192 and 256 (hd 104-256), bf16 and fp16
+    only."""
+    inst = _cuda.lib("streaming_wgmma").hr_streaming_wgmma_instance
+    for code in (_cuda.DTYPE_CODES[torch.bfloat16], _cuda.DTYPE_CODES[torch.float16]):
+        for hd in range(8, 257, 8):
+            tile = next(t for t in (32, 64, 96, 128, 192, 256) if t >= hd)
+            assert inst(hd, code, 1) == (tile if tile <= 128 else 0)
+            assert inst(hd, code, 2) == (tile if tile >= 128 else 0)
+    assert inst(64, _cuda.DTYPE_CODES[torch.float32], 1) == 0
+    assert inst(12, _cuda.DTYPE_CODES[torch.bfloat16], 1) == 0
 
 
 def _ffn_operands(gen, d, f, dtype):
@@ -1443,6 +1565,24 @@ def test_conv_stack_stats_same_bits_every_call(gen, dtype):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     torch.testing.assert_close(first, CS.conv_stack_stats_plain(wave, w0), rtol=1e-4, atol=1e-2)
+    # n0 one row short of, on, and one past a chunk (STATS_ROWS) and a
+    # 16-row tile of the tensor-core kernel, each Tw at both ends of its n0
+    # (the last sample read, and four past it), at B = 3 so that one element's
+    # chunk ends where the next begins
+    for n0 in (15, 16, 17, CS.STATS_ROWS - 1, CS.STATS_ROWS, CS.STATS_ROWS + 1,
+               2 * CS.STATS_ROWS + 1):
+        for tw in (5 * (n0 - 1) + 10, 5 * (n0 - 1) + 14):
+            assert CS.conv_lengths(tw)[0] == n0
+            wave = _randn(gen, 3, tw, scale=0.3, dtype=dtype)
+            first = CS.conv_stack_stats(wave, w0)
+            second = CS.conv_stack_stats(wave, w0)
+            torch.cuda.synchronize()
+            assert torch.equal(first, second), (n0, tw)
+            torch.testing.assert_close(first, CS.conv_stack_stats_plain(wave, w0), rtol=1e-4,
+                                       atol=1e-2)
+            if dtype == torch.bfloat16:  # the parent's CUDA-core kernel agrees as well
+                torch.testing.assert_close(CS._stats_launch(wave, w0, cuda_cores=True), first,
+                                           rtol=1e-4, atol=1e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -122,3 +122,73 @@ def test_fp32_wide_head_dims_at_large_scores(kernel, lk, hd):
     got = torch_fn(qt, kt, vt, torch.from_numpy(bias))
     assert got.dtype == torch.float32 and got.shape == q.shape
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+# ---- the streaming core's route (ops/flash_attention.py streaming_kernel): a
+# pure function of the shape, pinned here; the card's readings behind its
+# constants are in its comment, and tests/test_torch_cuda.py holds the pick
+# to the fastest kernel on the card
+BF16, FP16 = torch.bfloat16, torch.float16
+# (lk, hd, B, H, kernel): phase 3's row-8 shapes (45 s clips, the uncapped
+# MOSEI eval at 4, 8, 2 and 1 heads, the 4-head decoder), and the thin grids
+# where a wave of blocks decides
+STREAMING_PICKS = [(2249, 96, 2, 8, "wgmma"), (2267, 64, 16, 4, "wgmma"),
+                   (2267, 32, 16, 8, "wgmma"), (2267, 128, 16, 2, "wgmma"),
+                   (2267, 40, 16, 8, "wgmma"), (2249, 192, 2, 4, "wgmma_split"),
+                   (2267, 256, 16, 1, "wgmma_split"), (2249, 136, 2, 4, "wgmma_split"),
+                   (2049, 64, 2, 4, "mma"), (2560, 64, 2, 4, "wgmma"),
+                   (2249, 96, 1, 8, "wgmma"), (2249, 128, 1, 2, "wgmma_split"),
+                   (2249, 128, 2, 2, "wgmma"), (2249, 128, 4, 2, "wgmma_split"),
+                   (2249, 128, 32, 2, "wgmma"), (2049, 128, 2, 2, "wgmma_split"),
+                   (4096, 128, 2, 2, "wgmma"), (2249, 104, 16, 2, "wgmma"),
+                   (2249, 256, 32, 1, "wgmma_split"), (2249, 192, 1, 4, "wgmma_split")]
+
+
+@pytest.mark.parametrize("lk,hd,b,h,want", STREAMING_PICKS)
+@pytest.mark.parametrize("dtype", [BF16, FP16])
+def test_streaming_kernel_picks(lk, hd, b, h, want, dtype):
+    assert TF.streaming_kernel(lk, hd, dtype, b=b, h=h) == want
+
+
+@pytest.mark.parametrize("hd", [8, 32, 40, 64, 96, 104, 128, 136, 192, 200, 256])
+def test_streaming_kernels_by_head_dim(hd):
+    """"wgmma" at every instance up to 128, "wgmma_split" at 128-256 (hd
+    104-256), both in bf16 and fp16 only; fp32 keeps "mma" alone."""
+    want = ("mma", *(("wgmma",) if hd <= 128 else ()), *(("wgmma_split",) if hd > 96 else ()))
+    for dtype in (BF16, FP16):
+        assert TF.streaming_kernels(hd, dtype) == want
+    assert TF.streaming_kernels(hd, torch.float32) == ("mma",)
+    assert TF.streaming_kernel(2249, hd, torch.float32, b=16, h=4) == "mma"
+
+
+@pytest.mark.parametrize("hd", [12, 260])
+def test_streaming_kernel_off_the_instances(hd):
+    """A head dim no instance takes (not a multiple of 8, or past 256) is
+    left to "mma", whose launch refuses it."""
+    assert TF.streaming_kernels(hd, BF16) == ("mma",)
+    assert TF.streaming_kernel(2249, hd, BF16, b=2, h=8) == "mma"
+
+
+def test_streaming_kernel_needs_views_tma_describes():
+    """A view whose strides are not whole 16-byte steps stays on "mma",
+    decided from the strides before any launch; head views of a [B, L,
+    H*hd] projection are described."""
+    good, bad = (2249 * 768, 96, 768) * 3, (2249 * 772, 96, 772) * 3
+    assert TF.streaming_kernel(2249, 96, BF16, good, b=2, h=8) == "wgmma"
+    assert TF.streaming_kernel(2249, 96, BF16, bad, b=2, h=8) == "mma"
+    assert TF.streaming_kernel(2249, 192, FP16, bad[:3] * 3, b=2, h=4) == "mma"
+    heads = lambda t: t.view(2, 2249, 8, 96).transpose(1, 2)
+    q = heads(torch.zeros(2, 2249, 768, dtype=BF16))
+    assert TF.streaming_route(q, q, q) == "wgmma"
+    padded = heads(torch.zeros(2, 2249, 772, dtype=BF16)[..., :768])
+    assert TF.streaming_route(padded, q, q) == "mma"
+
+
+@pytest.mark.parametrize("kernel", [None, *TF.STREAMING_KERNELS])
+def test_streaming_cpu_tensors_take_the_plain_version_whatever_the_kernel(kernel):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(lq=140, lk=300, seed=5))
+    bias = torch.from_numpy(_bias(300, True))
+    before = dict(TF.streaming_attention.kernels), TF.streaming_attention.launches
+    got = TF.streaming_attention(q, k, v, bias, kernel)
+    torch.testing.assert_close(got, TF.streaming_attention_plain(q, k, v, bias), atol=0, rtol=0)
+    assert (dict(TF.streaming_attention.kernels), TF.streaming_attention.launches) == before
