@@ -358,8 +358,7 @@ MODEL_MHA = ((1, 16, 499, 8, True), (2, 16, 499, 8, True), (4, 16, 499, 8, True)
 
 def mha_model(gen, repeats):
     """The readings behind ``AB.mha_route``'s estimate with the caller's
-    LayerNorm: the clusters of each projection the card runs at once (the
-    projection's own instance beside the FFN's of the same block), each
+    LayerNorm: the clusters of each projection the card runs at once, each
     projection of the MHA (q ``d``, k/v ``2d``, q/k/v ``3d`` columns at K =
     768) that quantizes its own rows against the chain's row quantize and
     GEMM over a ladder of rows, the out-projection with the LayerNorm against
@@ -373,12 +372,10 @@ def mha_model(gen, repeats):
             cl = _cuda.proj_cluster(n, d, 2, config=c)
             if cl is None:
                 continue
-            rec = dict(N=n, config=c, blocks=cl[1], proj=_cuda.proj_clusters(n, d, c),
-                       ffn=_cuda.ffn_gemm1_clusters(n, 4096, d, _cuda.EPI_GELU_F32, config=c)
-                       if _cuda.ffn_cluster(n, d, c) == cl else None)
+            rec = dict(N=n, config=c, blocks=cl[1], proj=_cuda.proj_clusters(n, d, c))
             out["clusters"].append(rec)
-            print(f"N={n} config {c}: {cl[1]} blocks a cluster, {rec['proj']} clusters at once "
-                  f"(the FFN's instance: {rec['ffn']})", flush=True)
+            print(f"N={n} config {c}: {cl[1]} blocks a cluster, {rec['proj']} clusters at once",
+                  flush=True)
     mods = {}
     ops, *_ = mha_case(gen, mods, 1, 62, 8, 8, "a", "t", 1e-5)
     w, s, bias = ops.w_in, ops.s_in, ops.b_in

@@ -29,22 +29,26 @@ Phases, any failure exits non-zero:
    bucket's 1996 rows and the beta gate's 4, and after every other timing
    at the bench's served rows (WavLM/BERT FFN over 384 x 62 and 32 x 499
    frames, the fusion FFN over 384 x 62 audio and 384 x 8 text rows and
-   over phase 4's 4 x 64 text rows, the beta gate over 384): the fused route
-   (``route="fused"``) bit-equal to
-   the chain it replaced (``route="chain"``, its time as ``route_ms``) in
-   bf16 and fp32 x, with ``torch._int_mm`` on its two products as
-   ``library_ms``, its launches a call (at most 3 and 2), its cluster, and
-   the route the wrapper picks for the shape, which must not be the slower
-   by more than ``ROUTE_NOISE`` (2%) and ``ROUTE_NOISE_MS`` (1 us): the
-   chain for the FFN at 1996 rows and the fusion FFN at 256, the fused
-   route at the served WavLM and fusion rows and for mlp2 at 1996 (the beta
-   gate's 256 columns over 3072 inputs, which no cluster spans, are timed
-   on the chain alone); then
-   the first GEMM by block shape (8 x 384, 12 x 256) and the second by the
-   shared GEMM's configurations at 1996 and 23,808 rows, the clusters the
-   card runs at once, the peak memory of one FFN call at 23,808 rows (below
-   the M * 3072 * 4 bytes of an fp32 h), and a limit check: a result
-   quantized by each block's own maximum must differ from the chain; then
+   over phase 4's 4 x 64 text rows, the beta gate over 384): the route the
+   wrapper picks for the shape (``_cuda.ffn_route``) against plain, beside
+   the other route (``route_ms``: the chain where the TMA route is picked,
+   else the TMA route where it takes the widths) and ``torch._int_mm`` on
+   its two products (``library_ms``); in bf16 and fp32 x the TMA route's
+   (``csrc/ffn_tma.cu``) x and h codes and scales
+   bit-equal to the chain's and its output bit-equal to the chain (mlp2)
+   or within TOL of plain (the FFN: its LayerNorm sums in another order);
+   each route's launches a call (at most 3) and time, the picked route not
+   the slower by more than ``ROUTE_NOISE`` (2%) and ``ROUTE_NOISE_MS`` (1
+   us): the TMA route at the served WavLM, BERT and fusion rows and at
+   1996, the chain for the fusion FFN at 256 (the beta gate's 256 columns
+   over 3072 inputs, which the TMA route does not take, are timed on the
+   chain alone); then the chain's first three launches, its second product
+   by the shared GEMM's configurations and each launch of the TMA route at
+   1996 and 23,808 rows, the clusters the card runs at once, the peak memory
+   of one FFN call at 23,808 rows on each route (the TMA route's below the
+   M * 3072 * 4 bytes of an fp32 h), and a limit check: a result quantized
+   by each block's own maximum must differ from the chain;
+   then
    the WavLM attention sublayer (``attention_block_int8``) and
    ``int8_linear`` on both routes: the route the wrapper picks
    (``AB.attention_route``, ``_cuda.proj_route``) against plain at TOL, the
@@ -155,9 +159,8 @@ Phases, any failure exits non-zero:
 4e. the int8 tree at the 10 s and the 1.25 s buckets' served batches (32
    and 384 clips, the H100's ``MEASURED_BUCKET_BATCH``), one forward each:
    launch counts, every W8A8 FFN pair call on its picked route, WavLM's 12
-   FFNs over 32 x 499 or 384 x 62 rows on the fused route (the first
-   product of ``csrc/ffn_int8.cu``, which phase 4's batch of 4 leaves to the
-   chain), WavLM's 12 attention sublayers on the fused route (one q/k/v
+   FFNs over 32 x 499 or 384 x 62 rows on the TMA route (the first product
+   of ``csrc/ffn_tma.cu``), WavLM's 12 attention sublayers on the fused route (one q/k/v
    projection and one out-projection with the LayerNorm of
    ``csrc/proj_int8.cu`` each), its feature projection on
    ``int8_linear``'s, the 20 MHA sublayers on the fused route with their
@@ -274,7 +277,9 @@ Phases, any failure exits non-zero:
    and 10 s buckets, probabilities and beta bit-equal, twice, each captured
    forward running the conv-stack kernels; three
    back-to-back flushes of the 10 s bucket through ``stream_bucketed(
-   pad_flush=True)``, one graph, each flush bit-equal to its eager result;
+   pad_flush=True)``, one graph, each flush bit-equal to its eager result,
+   and again through the graph with each flush's outputs cloned on the card
+   behind its pinned copy, each read one flush later bit-equal to its clone;
    then the bench's bucket measurement at those two buckets at their
    ``MEASURED_BUCKET_BATCH`` (three repeats; ``mfu`` in (0, 1]) and its
    scheduler block on 256 clips of its stream, each printed as a JSON line;
@@ -392,9 +397,9 @@ KERNELS = {
     "mha_block_int8": (AB.mha_block_int8, "hriemo/ops/attention_block.py:508",
                        "hriemo_torch/csrc/attention.cu"),
     "ffn_block_int8": (FF.ffn_block_int8, "hriemo/ops/fused_ffn.py:94",
-                       "hriemo_torch/csrc/ffn_int8.cu"),
+                       "hriemo_torch/csrc/ffn_tma.cu"),
     "mlp2_int8": (FF.mlp2_int8, "hriemo/ops/fused_ffn.py:71",
-                  "hriemo_torch/csrc/ffn_int8.cu"),
+                  "hriemo_torch/csrc/ffn_tma.cu"),
     # int8_linear is XLA's int8 dot in the JAX package, not a Pallas kernel
     "int8_linear": (Q.int8_linear, "hriemo/ops/quant.py:85",
                     "hriemo_torch/csrc/proj_int8.cu"),
@@ -454,6 +459,10 @@ WIDE_KERNELS = {
                                     "hriemo_torch/csrc/streaming_wgmma.cuh"),
     "streaming_attention (wgmma split)": ("hriemo/ops/flash_attention_pallas.py:38",
                                           "hriemo_torch/csrc/streaming_wgmma.cuh"),
+    # the W8A8 FFN pair on the TMA route (csrc/ffn_tma.cu: x's quantize and
+    # the two persistent products); calls of its wrappers on that route
+    "ffn_block_int8 (tma)": ("hriemo/ops/fused_ffn.py:94", "hriemo_torch/csrc/ffn_tma.cu"),
+    "mlp2_int8 (tma)": ("hriemo/ops/fused_ffn.py:71", "hriemo_torch/csrc/ffn_tma.cu"),
 }
 # the kernels line's entry of each (wrapper, WA.onepass_kernel's kernel) on
 # the wgmma warpgroups; the ungated held form runs on no path
@@ -465,6 +474,11 @@ HELD = ONEPASS_ENTRIES["wavlm_fused_attention", "wgmma"]
 # the kernels line's entry of each FA.streaming_kernel kernel on the wgmma warpgroups
 STREAMING_ENTRIES = {("streaming_attention", "wgmma"): "streaming_attention (wgmma)",
                      ("streaming_attention", "wgmma_split"): "streaming_attention (wgmma split)"}
+# the kernels line's entry of the W8A8 FFN pair's calls on the TMA route
+# (csrc/ffn_tma.cu), shares of its wrappers' calls by their .routes; every
+# call's route is held to _cuda.ffn_route by check_pair_routes
+TMA_ENTRIES = {("ffn_block_int8", "tma"): "ffn_block_int8 (tma)",
+               ("mlp2_int8", "tma"): "mlp2_int8 (tma)"}
 SHARED_ENTRIES = {**ONEPASS_ENTRIES, **STREAMING_ENTRIES}
 LAUNCH_NAMES = (*KERNELS, *WIDE_KERNELS)
 PANEL = "attention_core_int8 (ungated panel)"
@@ -718,65 +732,85 @@ def check_kernels(gen):
 
     def pair_row(kernel, shape, x, ops, main=True):
         """One row of the W8A8 FFN pair (``ops``: FfnOperands for the FFN,
-        Mlp2Operands for mlp2) on ``x``: the fused route against plain at
-        TOL (timed beside the chain, ``route_ms``, and ``_int_mm`` on its two
-        products, ``library_ms``), bit-equal to the chain in bf16 and fp32
-        x, with each route's launches a call; the route the wrapper picks
-        for the shape (``_cuda.ffn_route``) must not be the slower by more
-        than ROUTE_NOISE and ROUTE_NOISE_MS (medians of ROUTE_REPEATS replays
-        each). Where no cluster spans the widths (the beta gate's 256
-        columns over 3072 inputs) the chain is the kernel, and the row holds
-        that it is picked. ``main``: the row may feed the kernels line."""
+        Mlp2Operands for mlp2) on ``x``: the route the wrapper picks for the
+        shape (``_cuda.ffn_route``) against plain at TOL, timed beside the
+        other route (``route_ms``; none where the TMA route does not take
+        the widths) and ``_int_mm`` on its two products (``library_ms``). In
+        bf16 and fp32 x: the TMA route's x quantize, ``hq`` and ``hs``
+        bit-equal to the chain's, its output bit-equal to the chain (mlp2) or
+        within TOL of plain (the FFN, whose LayerNorm sums in another order).
+        Each route's launches a call (at most 3); each route timed as the
+        median of ROUTE_REPEATS replays, the picked one not the slower by
+        more than ROUTE_NOISE and ROUTE_NOISE_MS. ``main``: the row may feed
+        the kernels line."""
         ffn = kernel == "ffn_block_int8"
         p = ops.pair if ffn else ops
-        fused = (lambda x_: FF.ffn_block_int8(x_, ops, 1e-5, True, route="fused")) if ffn \
-            else (lambda x_: FF.mlp2_int8(x_, ops, route="fused"))
-        chain = (lambda x_: FF.ffn_block_int8(x_, ops, 1e-5, True, route="chain")) if ffn \
-            else (lambda x_: FF.mlp2_int8(x_, ops, route="chain"))
-        plain = (lambda: FF.ffn_block_int8_plain(x, ops, 1e-5, True)) if ffn else \
-            (lambda: FF.mlp2_int8_plain(x, ops))
+
+        def call(x_, route):
+            if ffn:
+                return FF.ffn_block_int8(x_, ops, 1e-5, True, route=route)
+            return FF.mlp2_int8(x_, ops, route=route)
+
+        plain = (lambda x_: FF.ffn_block_int8_plain(x_, ops, 1e-5, True)) if ffn else \
+            (lambda x_: FF.mlp2_int8_plain(x_, ops))
         mm, (fh, din), dout = x.shape[0], p.w1.shape, p.w2.shape[0]
         epi = _cuda.EPI_GELU_F32 if ffn else _cuda.EPI_RELU_F32
-        cluster = _cuda.ffn_cluster(fh, din)
-        routes = {"chain": chain} if cluster is None else {"fused": fused, "chain": chain}
+        plan = _cuda.ffn_tma_plan(fh, din, dout, ln=ffn)
+        names = (("tma",) if plan else ()) + ("chain",)
+        routes = {r: (lambda x_, r=r: call(x_, r)) for r in names}
+        picked = _cuda.ffn_route(fh, mm, din, epi, _cuda.sm_count(), n=dout)
+        beside = next((r for r in names if r != picked), None)
         xq, xs = _cuda.rowquant(x, div127=False)
         hq, _ = _cuda.rowquant(_cuda.int8_gemm(xq, xs, p.w1, p.s1, p.b1, epi), div127=False)
         library = None if mm <= 16 else (  # _int_mm takes more than 16 rows
             lambda: (torch._int_mm(xq, p.w1.t()), torch._int_mm(hq, p.w2.t())))
-        run(kernel, shape, lambda: next(iter(routes.values()))(x), plain, library,
+        run(kernel, shape, lambda: call(x, None), lambda: plain(x), library,
             nbytes(x) + mm * dout * x.element_size() + (din + dout) * fh
             + 8 * (fh + dout) + (8 * dout if ffn else 0),
-            2 * mm * fh * (din + dout), 0, route=None if cluster is None else lambda: chain(x))
+            2 * mm * fh * (din + dout), 0,
+            route=None if beside is None else (lambda: routes[beside](x)))
         rec = rows[-1]
-        rec["kernels_line"] = main
-        rec["cluster"] = cluster
-        if cluster is not None:
-            for x_ in (x, x.float()):
-                got_, ref_ = fused(x_), chain(x_)
-                if not torch.equal(got_, ref_):
-                    raise AssertionError(f"{kernel} {shape} {x_.dtype}: fused route differs "
+        rec.update(kernels_line=main, tma_plan=plan, picked=picked, beside=beside)
+        if picked == "tma":
+            rec["kernel_entry"] = f"{kernel} (tma)"
+        for x_ in (x, x.float()):
+            ref_ = routes["chain"](x_)
+            if plan is not None:
+                tq, ts = _cuda.ffn_tma_xquant(x_)
+                rq, rs = _cuda.rowquant(x_, div127=False)
+                hq_, hs_ = _cuda.ffn_tma_gemm1(tq, ts, p.w1, p.s1, p.b1, epi)
+                cq, cs = _cuda.rowquant(_cuda.int8_gemm(rq, rs, p.w1, p.s1, p.b1, epi),
+                                        div127=False)
+                if not (torch.equal(tq, rq) and torch.equal(ts, rs) and torch.equal(hq_, cq)
+                        and torch.equal(hs_, cs)):
+                    raise AssertionError(f"{kernel} {shape} {x_.dtype}: the TMA route's "
+                                         "x or h codes and scales differ from the chain's")
+                got_ = routes["tma"](x_)
+                if ffn:
+                    compare(f"{kernel} {shape} {x_.dtype} tma", got_, plain(x_))
+                elif not torch.equal(got_, ref_):
+                    raise AssertionError(f"{kernel} {shape} {x_.dtype}: TMA route differs "
                                          f"from the chain by "
                                          f"{(got_.float() - ref_.float()).abs().max()}")
-        counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.ffn_gemm1, _cuda.layernorm)
+        counters = (_cuda.rowquant, _cuda.int8_gemm, _cuda.layernorm,
+                    _cuda.ffn_tma_xquant, _cuda.ffn_tma_gemm1, _cuda.ffn_tma_gemm2)
         rec["launches_per_call"] = {}
         for route, fn in routes.items():
             before = sum(c.launches for c in counters)
             fn(x)
             rec["launches_per_call"][route] = sum(c.launches for c in counters) - before
-        most = 3 if ffn else 2
-        if rec["launches_per_call"].get("fused", 0) > most:
+        if rec["launches_per_call"].get("tma", 0) > 3:
             raise AssertionError(f"{kernel} {shape}: {rec['launches_per_call']} launches a call")
-        rec["picked"] = _cuda.ffn_route(fh, mm, din, epi, _cuda.sm_count())
         rec["route_check_ms"] = {r: cuda_ms(lambda fn=fn: fn(x), repeats=ROUTE_REPEATS)
                                  for r, fn in routes.items()}
         torch.cuda.synchronize()
-        print(f"    {'no cluster spans it' if cluster is None else 'bit-equal to the chain'} "
-              f"in bf16 and fp32 x; cluster (config, blocks) {cluster}; launches a call "
-              f"{rec['launches_per_call']}; picks {rec['picked']}: {rec['route_check_ms']}",
-              flush=True)
+        print(f"    routes {names}: TMA codes bit-equal to the chain's "
+              f"(in bf16 and fp32 x); TMA blocks {plan}; "
+              f"launches a call {rec['launches_per_call']}; picks {picked}: "
+              f"{rec['route_check_ms']}", flush=True)
         for other, t in rec["route_check_ms"].items():
-            if rec["route_check_ms"][rec["picked"]] > (1 + ROUTE_NOISE) * t + ROUTE_NOISE_MS:
-                raise AssertionError(f"{kernel} {shape}: the {rec['picked']} route it picks "
+            if rec["route_check_ms"][picked] > (1 + ROUTE_NOISE) * t + ROUTE_NOISE_MS:
+                raise AssertionError(f"{kernel} {shape}: the {picked} route it picks "
                                      f"is slower than the {other}: {rec['route_check_ms']}")
 
     def attn_row(shape, x, pos, kb, ops, main=True, split=False):
@@ -959,9 +993,8 @@ def check_kernels(gen):
         rows[-1]["kernels_line"] = False
 
     # FFN block (WavLM 10 s bucket rows), mlp2 (fusion FFN and beta gate):
-    # the fused route (csrc/ffn_int8.cu, then the shared GEMM) against plain
-    # at TOL and bit for bit against the chain it replaced (route="chain":
-    # the parent's five and four launches, route_ms), in bf16 and in fp32 x;
+    # the picked route against plain at TOL, the other as route_ms (the TMA
+    # route's codes bit-equal to the chain's), in bf16 and in fp32 x;
     # library_ms is torch._int_mm on the two products' own int8 operands
     f = 3072
     ff = MLP2(d, f, d)
@@ -1793,14 +1826,17 @@ def served_core_rows(run, rows, wops):
 
 
 def own_max_ffn(x, fops):
-    """What a fused FFN whose blocks quantized h by their own columns' |max|
-    would give: the fused first GEMM on each block's 384 columns alone (a
-    cluster of one), the codes side by side with block 0's row scales, then
-    the second GEMM and the LayerNorm. It must differ from the chain."""
+    """What an FFN whose clusters quantized h by their own columns' |max|
+    would give: the TMA route's first product on each 384 columns alone (a
+    cluster of two 192-column blocks), the codes side by side with the first
+    group's row scales, then the second GEMM and the LayerNorm. It must
+    differ from the chain."""
     p = fops.pair
-    bn = _cuda.FFN_CONFIGS[0][0]
-    parts = [_cuda.ffn_gemm1(x, p.w1[c:c + bn], p.s1[c:c + bn], p.b1[c:c + bn],
-                             _cuda.EPI_GELU_F32, config=0) for c in range(0, p.w1.shape[0], bn)]
+    cols = 384
+    xq, xs = _cuda.ffn_tma_xquant(x)
+    parts = [_cuda.ffn_tma_gemm1(xq, xs, p.w1[c:c + cols], p.s1[c:c + cols], p.b1[c:c + cols],
+                                 _cuda.EPI_GELU_F32, bn=192)
+             for c in range(0, p.w1.shape[0], cols)]
     y = _cuda.int8_gemm(torch.cat([q for q, _ in parts], dim=1), parts[0][1], p.w2, p.s2, p.b2,
                         _cuda.EPI_RESID_FIRST, resid=x)
     return _cuda.layernorm(y, fops.ln_w, fops.ln_b, 1e-5, x.dtype)
@@ -1808,13 +1844,13 @@ def own_max_ffn(x, fops):
 
 def served_pair_rows(pair_row, fops, mlp2_ops):
     """Phase 3's W8A8 FFN pair at the served rows (inputs from a generator of
-    their own), then at the 10 s bucket's 1996 rows and at 23,808: the first
-    GEMM by each block shape (12 x 256 beside 8 x 384), the second by each
-    block configuration of the shared GEMM, the clusters the card runs at
-    once, the peak memory of one FFN call on each route against M * F * 4
-    bytes (the fp32 h that the fused route never allocates), and the limit
-    check: a result quantized by each block's own maximum must differ from
-    the chain."""
+    their own), then at the 10 s bucket's 1996 rows and at 23,808: the
+    chain's first three launches, its second product by each block
+    configuration of the shared GEMM, each launch of the TMA route alone,
+    the clusters the card runs at once, the peak memory of one FFN call on
+    each route against M * F * 4 bytes (the fp32 h that the TMA route does
+    not allocate), and the limit check: a result quantized by each block's
+    own maximum must differ from the chain."""
     own = torch.Generator().manual_seed(SEED + 15)
     xs = {}
     for mm in SERVED_FFN_ROWS:
@@ -1824,35 +1860,42 @@ def served_pair_rows(pair_row, fops, mlp2_ops):
         x = (torch.randn(mm, din, generator=own)).to("cuda", torch.bfloat16)
         pair_row("mlp2_int8", f"M={mm} {din}->{fh}->768 (served)", x, mlp2_ops[din, fh],
                  main=False)
-    out = dict(gemm1_ms={}, gemm2_ms={}, clusters={}, peak_memory={})
+    out = dict(gemm1_ms={}, gemm2_ms={}, tma_ms={}, clusters={}, peak_memory={})
     p = fops.pair
     for mm in (B * 499, SERVED_FFN_ROWS[0]):
         x = xs.get((mm, 768))
         if x is None:
             x = xs[mm, 768] = (torch.randn(mm, 768, generator=own)).to("cuda", torch.bfloat16)
-        times = {f"{_cuda.FFN_CONFIGS[c][0]} columns": cuda_ms(
-            lambda c=c: _cuda.ffn_gemm1(x, p.w1, p.s1, p.b1, _cuda.EPI_GELU_F32, config=c))
-            for c in (0, 1)}
-        times["chain's first three launches"] = cuda_ms(lambda: _cuda.rowquant(
-            _cuda.int8_gemm(*_cuda.rowquant(x, div127=False), p.w1, p.s1, p.b1,
-                            _cuda.EPI_GELU_F32), div127=False))
+        times = {"chain's first three launches": cuda_ms(lambda: FF._chain_hidden(
+            x, p, _cuda.EPI_GELU_F32))}
         out["gemm1_ms"][mm] = times
-        hq, hs = _cuda.ffn_gemm1(x, p.w1, p.s1, p.b1, _cuda.EPI_GELU_F32)
+        hq, hs = FF._chain_hidden(x, p, _cuda.EPI_GELU_F32)
         out["gemm2_ms"][mm] = {name: cuda_ms(lambda c=c: _cuda.int8_gemm(
             hq, hs, p.w2, p.s2, p.b2, _cuda.EPI_RESID_FIRST, resid=x, config=c))
             for c, name in enumerate(_cuda.GEMM_CONFIGS)}
-        print(f"  ffn_block_int8 M={mm}: first GEMM by block {times}; second GEMM by "
-              f"configuration {out['gemm2_ms'][mm]}", flush=True)
-    for f_, mm, k_, c in ((3072, B * 499, 768, 0), (3072, B * 499, 768, 1),
-                          (1024, 15968, 256, 1), (256, 384, 1024, 1)):
-        n = _cuda.ffn_gemm1_clusters(f_, mm, k_, _cuda.EPI_GELU_F32, config=c)
-        cn = f_ // _cuda.FFN_CONFIGS[c][0]
-        out["clusters"][f"F={f_} {cn} x {_cuda.FFN_CONFIGS[c][0]}"] = n
-        print(f"  fused first GEMM, F={f_} in {cn} blocks of {_cuda.FFN_CONFIGS[c][0]} "
-              f"columns: {n} clusters at once ({n * cn} blocks)", flush=True)
+        tq, ts = _cuda.ffn_tma_xquant(x)
+        th, ts_ = _cuda.ffn_tma_gemm1(tq, ts, p.w1, p.s1, p.b1, _cuda.EPI_GELU_F32)
+        norm = (fops.ln_w, fops.ln_b, 1e-5)
+        out["tma_ms"][mm] = {
+            "x quantize": cuda_ms(lambda: _cuda.ffn_tma_xquant(x)),
+            "first product": cuda_ms(lambda: _cuda.ffn_tma_gemm1(tq, ts, p.w1, p.s1, p.b1,
+                                                                 _cuda.EPI_GELU_F32)),
+            "second product with the LayerNorm": cuda_ms(lambda: _cuda.ffn_tma_gemm2(
+                th, ts_, p.w2, p.s2, p.b2, x.dtype, resid=x, norm=norm))}
+        print(f"  ffn_block_int8 M={mm}: the chain's first product {times}; second GEMM by "
+              f"configuration {out['gemm2_ms'][mm]}; the TMA route's launches "
+              f"{out['tma_ms'][mm]}", flush=True)
+    for f_, k_, n_, bn2 in ((3072, 768, 768, 128), (1024, 256, 256, 128)):
+        bn1 = _cuda.ffn_tma_block1(f_, k_)
+        n1 = _cuda.ffn_tma_clusters(1, f_, k_, _cuda.EPI_GELU_F32, bn1)
+        n2 = _cuda.ffn_tma_clusters(2, f_, 0, 0, bn2, n=n_)
+        out["clusters"][f"TMA F={f_} {f_ // bn1} x {bn1}; N={n_} {n_ // bn2} x {bn2}"] = [n1, n2]
+        print(f"  TMA route at {k_}->{f_}->{n_}: first product {f_ // bn1} blocks of {bn1} "
+              f"columns, {n1} clusters at once; second with the LayerNorm {n_ // bn2} of "
+              f"{bn2}, {n2} clusters at once", flush=True)
     mm = SERVED_FFN_ROWS[0]
     x = xs[mm, 768]
-    for route in ("fused", "chain"):
+    for route in ("tma", "chain"):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1863,9 +1906,9 @@ def served_pair_rows(pair_row, fops, mlp2_ops):
     limit = mm * 3072 * 4
     print(f"  ffn_block_int8 M={mm}: peak memory growth of one call {out['peak_memory']} "
           f"bytes (fp32 h: {limit})", flush=True)
-    if not out["peak_memory"]["fused"] < limit:
-        raise AssertionError(f"fused FFN at M={mm}: peak memory growth "
-                             f"{out['peak_memory']['fused']} >= {limit}")
+    if not out["peak_memory"]["tma"] < limit:
+        raise AssertionError(f"TMA FFN at M={mm}: peak memory growth "
+                             f"{out['peak_memory']['tma']} >= {limit}")
     x = xs[B * 499, 768]
     wrong = own_max_ffn(x, fops)
     ref = FF.ffn_block_int8(x, fops, 1e-5, True, route="chain")
@@ -2242,6 +2285,8 @@ def read_launches():
     out[WGMMA] = kernels[("wgmma", True)] + kernels[("wgmma", False)]
     for (wrapper, kernel), entry in SHARED_ENTRIES.items():
         out[entry] = KERNELS[wrapper][0].kernels[kernel]
+    for (wrapper, route), entry in TMA_ENTRIES.items():
+        out[entry] = KERNELS[wrapper][0].routes[route]
     return out
 
 
@@ -2306,7 +2351,8 @@ def served_batch(wavlm, bert, fusion, kw, sec, clips):
     """Phase 4e at one bucket: its served batch in one eager forward of the
     int8 tree. Holds the launches (``PER_FORWARD``), every FFN pair, WavLM
     sublayer, ``int8_linear`` and MHA call on its picked route, WavLM's 12
-    FFNs and 12 sublayers and the feature projection fused, the 20 MHA
+    FFNs on the TMA route, its 12 sublayers and the feature projection
+    fused, the 20 MHA
     sublayers fused with their callers' LayerNorms (one out-projection with
     the LayerNorm and one or two projections each), the ungated cores on the
     score panel (``PANEL_PER_FORWARD``), the cores on the wgmma warpgroups
@@ -2321,14 +2367,14 @@ def served_batch(wavlm, bert, fusion, kw, sec, clips):
     what = f"int8 at the {sec:g} s served batch"
     serve(pipe, clips, len(clips))
     reset_launches()
-    counters = (_cuda.ffn_gemm1, _cuda.proj_gemm, _cuda.proj_gemm_ln)
+    counters = (_cuda.ffn_tma_gemm1, _cuda.proj_gemm, _cuda.proj_gemm_ln)
     before = [c.launches for c in counters]
     got, secs = serve(pipe, clips, len(clips))
     launches = read_launches()
     gemm1, proj, proj_ln = (c.launches - n for c, n in zip(counters, before))
     print(f"{what}: {len(got)} requests in one forward, {secs:.3f} s; launches {launches}; "
-          f"fused first GEMM {gemm1} launches, projections {proj}, out-projections with the "
-          f"LayerNorm {proj_ln}", flush=True)
+          f"TMA first products {gemm1} launches, projections {proj}, out-projections with "
+          f"the LayerNorm {proj_ln}", flush=True)
     if stack_launches(what) != PER_FORWARD_STACK:
         raise AssertionError(f"{what}: the feature encoder left the conv-stack kernels "
                              f"({dict(ROUTED.routes)})")
@@ -2338,9 +2384,9 @@ def served_batch(wavlm, bert, fusion, kw, sec, clips):
     if core_launches() != {PANEL: PANEL_PER_FORWARD[sec], WGMMA: WGMMA_PER_FORWARD[sec]}:
         raise AssertionError(f"{what}: the calls' shapes give the cores {core_launches()}")
     routes = check_pair_routes(what)
-    if routes.get("ffn_block_int8 fused", 0) < 12 or gemm1 < 12:
-        raise AssertionError(f"{what}: WavLM's FFNs left the fused route ({routes}, {gemm1} "
-                             "fused first GEMMs)")
+    if routes.get("ffn_block_int8 tma", 0) < 12 or gemm1 < 12:
+        raise AssertionError(f"{what}: WavLM's FFNs left the TMA route ({routes}, {gemm1} "
+                             "TMA first products)")
     # WavLM's 12 sublayers and its feature projection take the fused routes
     # (3 launches and 1 a call); the 20 MHA sublayers with their callers'
     # LayerNorms too (3 launches self, 4 cross): each fused call one
@@ -2407,9 +2453,9 @@ def check_launches(what, got, want):
         want = {**stack_launches(what), **want}
     # the float one-pass and streaming cores' wgmma kernels take shares of
     # their wrapper's launches (each call the kernel WA.onepass_kernel or
-    # FA.streaming_kernel picks for its shape): any share where ``want`` does
-    # not name them
-    for (wrapper, _), entry in SHARED_ENTRIES.items():
+    # FA.streaming_kernel picks for its shape), and so do the FFN pair's
+    # calls on the TMA route: any share where ``want`` does not name them
+    for (wrapper, _), entry in (*SHARED_ENTRIES.items(), *TMA_ENTRIES.items()):
         if entry not in want and got.get(entry, 0) <= want.get(wrapper, 0):
             want = {**want, entry: got.get(entry, 0)}
     for name in got:
@@ -3609,6 +3655,11 @@ def serve_split(stack, apply_fn, args, exclude):
         moves = next(m for suffix, m in SPLIT_BLOCKS.items() if p.endswith(suffix))
         for name, n in moves.items():
             want[name] += n
+    # where a wrapper's calls moved, its calls on the TMA route are a share
+    # of them (check_launches); their routes follow their shapes
+    for (wrapper, _), entry in TMA_ENTRIES.items():
+        if want[wrapper] != counts["whole"][wrapper]:
+            del want[entry]
     check_launches(f"tree without {sorted(exclude)}", counts["split"], want)
     delta = float((outs["split"]["probs"] - ref["probs"]).abs().max())
     print(f"int8 tree without {sorted(exclude)} through the kernels: launches "
@@ -4064,7 +4115,8 @@ def mesh_phase(smi, root: pathlib.Path, clips, int8_ref, bf16_ref):
 # phase 10: the serving bench's path. Graph replay against the eager forward
 # at the 2.5 s and 10 s buckets on the W8A8 and the bf16 trees, bit for bit;
 # three back-to-back flushes of one bucket (one graph, replayed while the
-# previous flush's result waits to be read); then the bench's own functions
+# previous flush's result waits to be read), each flush's pinned host copy
+# bit-equal to a clone of its outputs taken on the card; then the bench's own functions
 # at two buckets and on a short clip stream.
 GRAPH_BUCKETS = (2.5, 10.0)
 BENCH_REPEATS = 3
@@ -4113,18 +4165,49 @@ def graph_phase(smi, wavlm, bert, fusion):
     runs = {}
     for graphs in (True, False):
         pipe = bench.serving_pipeline(models, "cuda", buckets=GRAPH_BUCKETS, cuda_graphs=graphs)
-        runs[graphs] = {u: (p, b) for ps, bs, us in pipe.stream_bucketed(
-            same, bucket_batch={10.0: 4}, pad_flush=True) for u, p, b in zip(us, ps, bs)}
+        flushes = list(pipe.stream_bucketed(same, bucket_batch={10.0: 4}, pad_flush=True))
+        runs[graphs] = {u: (p, b) for ps, bs, us in flushes for u, p, b in zip(us, ps, bs)}
         if graphs and len(pipe._graphs) != 1:
             raise AssertionError(f"back-to-back flushes: {len(pipe._graphs)} graphs, one expected")
+        if graphs:
+            # the same flushes again through the captured graph, each flush's
+            # outputs also cloned on the card right behind the enqueue of its
+            # pinned copy and its event (no host wait): after the stream's
+            # end, each clone against what was read through the pinned copy
+            # one flush later
+            clones = []
+            copy_out = pipe._copy_out
+
+            def keep(outs, copy_out=copy_out, clones=clones):
+                handle = copy_out(outs)
+                clones.append(tuple(o.clone() for o in outs))
+                return handle
+
+            pipe._copy_out = keep
+            again = list(pipe.stream_bucketed(same, bucket_batch={10.0: 4}, pad_flush=True))
+            torch.cuda.synchronize()
+            if len(clones) != len(again):
+                raise AssertionError(f"back-to-back flushes: {len(clones)} copies out for "
+                                     f"{len(again)} flushes")
+            for i, ((ps, bs, us), (pc, bc)) in enumerate(zip(again, clones)):
+                if not (np.array_equal(ps, pc.cpu().numpy()) and
+                        np.array_equal(bs, bc.cpu().numpy())):
+                    raise AssertionError(f"back-to-back flushes: flush {i} read through its "
+                                         "pinned copy one flush later differs from its outputs")
+                for u, p_, b_ in zip(us, ps, bs):
+                    if not (np.array_equal(runs[True][u][0], p_) and
+                            np.array_equal(runs[True][u][1], b_)):
+                        raise AssertionError(f"back-to-back flushes: {u} differs between two "
+                                             "streams through one graph")
         del pipe
     for u, (p, b) in runs[False].items():
         if not (np.array_equal(runs[True][u][0], p) and np.array_equal(runs[True][u][1], b)):
             raise AssertionError(f"back-to-back flushes: {u}'s result differs from the eager "
                                  "forward's (a later replay overwrote it?)")
-    rec["back_to_back"] = dict(flushes=3, bit_equal=True)
+    rec["back_to_back"] = dict(flushes=3, bit_equal=True, pinned_copy_bit_equal=True)
     print("three back-to-back flushes of the 10 s bucket through one graph: each bit-equal to "
-          "the eager forward", flush=True)
+          "the eager forward, and each flush's pinned copy, read one flush later, bit-equal "
+          "to its outputs cloned on the card", flush=True)
     torch.cuda.empty_cache()
 
     # the bench's functions: two buckets at their measured batches, three

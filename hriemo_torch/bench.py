@@ -349,9 +349,9 @@ def bench_scheduler(pipe, bucket_stats: dict, bucket_batch: dict | None = None,
                             sec=pipe._bucket_for(waveforms, sample_rate)))
         return out
 
-    def dispatch(arrs):
+    def dispatch(arrs, rows=None):
         t = time.perf_counter()
-        out = orig_dispatch(arrs)
+        out = orig_dispatch(arrs, rows)
         flushes[-1]["dispatch_s"] = time.perf_counter() - t
         return out
 
@@ -442,7 +442,7 @@ def bench_scheduler(pipe, bucket_stats: dict, bucket_batch: dict | None = None,
         note=("stream_bucketed as served: int16 PCM clips, pcm16 transport, hash tokenizer, "
               "host preprocess overlapped with the device by the one-deep pending queue, "
               "pad_flush static shapes, each bucket's graph captured before the timed run. "
-              "host_ms = preprocess + _dispatch (pinning, H2D enqueue, replay enqueue); "
+              "host_ms = preprocess + _dispatch (pinning, H2D enqueue, replay enqueue, D2H enqueue); "
               "device_ms = CUDA events around each replay and its output copy; flush "
               "latency = start of a flush's preprocess to its result in host memory "
               f"({len(flushes)} flushes: p99 is their largest ones); device_resident re-runs "

@@ -1,13 +1,23 @@
-// The prologue and main loop of the W8A8 products whose A operand is quantized
-// by rows inside the product, over a thread-block cluster: csrc/ffn_int8.cu
-// (the FFN pair's first product, which requantizes h) and csrc/proj_int8.cu
-// (the projections, which store, or add the residual and take the
-// LayerNorm). Moved here from csrc/ffn_int8.cu, whose notes describe the
-// design: a block owns 64 rows and BN columns, a cluster of N / BN blocks
-// spans all N columns of its rows; x's rows are quantized once for the
-// cluster into every block's shared memory (over distributed shared memory)
-// and stay there for the whole product; the W tiles stream through a ring
-// by cp.async into int8_gemm.cuh's wgmma m64n{64,128}k32 s8.
+// The prologue and main loop of the W8A8 projections whose A operand is
+// quantized by rows inside the product, over a thread-block cluster
+// (csrc/proj_int8.cu: the projections, which store, or add the residual and
+// take the LayerNorm). The design, first written for the FFN pair's first
+// product (since replaced by csrc/ffn_tma.cu, which keeps quant_byte):
+// - a block owns 64 rows and BN columns (six warpgroups of 64 columns or
+//   two of 128), and a cluster of N / BN blocks spans all N columns of its
+//   rows;
+// - x's row quantize, once for the cluster: block `rank` takes every cn-th
+//   of the 64 rows, a 16-element chunk a thread, reads them for the rows'
+//   |max| (a shared-memory atomicMax on the bits) and again for the codes,
+//   and stores each 16-byte chunk of codes and each row's scale into the
+//   shared memory of every block of the cluster (over distributed shared
+//   memory, once a cluster barrier shows every block started), where the
+//   64 rows of int8 x stay for the whole product, tile by tile in the
+//   128-byte swizzle that the wgmma descriptors of int8_gemm.cuh name;
+// - the W tiles stream through a ring by cp.async into int8_gemm.cuh's
+//   wgmma m64n{64,128}k32 s8, one warpgroup per column slice.
+// A block of 384 columns holds its SM alone, so its quantize, products and
+// epilogue run one after another.
 #pragma once
 
 #include <cooperative_groups.h>

@@ -6,10 +6,10 @@
 // epilogue then applies the dequant (acc * row_scale) * col_scale, the bias
 // and an op-specific tail in the reference's rounding order.
 //
-// It carries the second int8 matmul of the Pallas kernels
-// hriemo/ops/fused_ffn.py::_kernel_int8 and ::_kernel_mlp2_int8 (the first,
-// with its row quantizations, is csrc/ffn_int8.cu, on this file's ring,
-// descriptors and epilogues), the projections of
+// It carries both int8 matmuls of the Pallas kernels
+// hriemo/ops/fused_ffn.py::_kernel_int8 and ::_kernel_mlp2_int8 on their
+// chain route (their TMA route, csrc/ffn_tma.cu, takes this file's
+// epilogues), the projections of
 // hriemo/ops/attention_block.py::_mha_kernel, and on their chain routes
 // those of ::_kernel and XLA's int8 dot of hriemo/ops/quant.py::int8_linear
 // (their fused routes are csrc/proj_int8.cu, on this file's epilogues).

@@ -24,8 +24,7 @@
 // x (:193) and ctx (:302) in VMEM and never writes y; here neither the int8
 // rows nor their scales nor the fp32 y reach device memory:
 //
-// - the product is csrc/cluster_gemm.cuh's, as the FFN pair's first product
-//   (csrc/ffn_int8.cu) runs it: a cluster of N / BN blocks spans all N
+// - the product is csrc/cluster_gemm.cuh's: a cluster of N / BN blocks spans all N
 //   columns of 64 rows (6 x 384 at N=2304; 2 x 384 or 3 x 256 at 768), x is
 //   quantized once for the cluster into every block's shared memory;
 // - the store epilogue applies int8_gemm.cuh's own epilogue<EPI> to the
@@ -45,8 +44,8 @@
 //
 // What bounds them: the products' int8 tensor-core operations at the
 // sublayer's rows (2 * M * K * N), and at the decoder's few rows W's bytes.
-// What holds them back is what holds csrc/ffn_int8.cu: a block of 384
-// columns holds its SM alone, so its quantize, products and epilogue do not
+// What holds them back is what held the FFN pair's first product on the
+// same blocks (now csrc/ffn_tma.cu): a block of 384 columns holds its SM alone, so its quantize, products and epilogue do not
 // overlap; on a thin grid the chain's smaller blocks win, and the wrappers
 // choose the route by rows (hriemo_torch/ops/_cuda.py proj_route, measured
 // by chip_proj_routes.py).
@@ -274,8 +273,8 @@ cudaError_t proj_launch(const ProjArgs& g, int* clusters) {
                             g.K, static_cast<OT*>(g.out));
 }
 
-// The block configurations of csrc/ffn_int8.cu (hriemo_torch/ops/_cuda.py
-// FFN_CONFIGS): 0 six warpgroups of 64 columns, one block an SM; 1 two of
+// The block configurations (hriemo_torch/ops/_cuda.py
+// PROJ_CONFIGS): 0 six warpgroups of 64 columns, one block an SM; 1 two of
 // 128 on 64-byte W tiles, two blocks an SM up to K = 896.
 template <int EPI, bool DIV127, bool LN, typename T, typename OT>
 cudaError_t proj_config(const ProjArgs& g, int config, int* clusters = nullptr) {
@@ -301,7 +300,7 @@ extern "C" {
 // out-projection over bf16 ctx) over bf16 or fp32 x, and at div127 1
 // (int8_linear) over bf16 x; epi kEpiF32 (fp32 out) at div127 1 over fp32 x
 // (int8_linear) and at div127 0 over bf16 x (the MHA's out-projection on an
-// fp32 tree). config 0 or 1 as hr_ffn_gemm1's: N
+// fp32 tree). config 0 or 1 of proj_config: N
 // a multiple of its columns, in a cluster of at most 16 blocks, K % 16 ==
 // 0, every pointer 16-byte aligned (the wrapper checks).
 int hr_proj_gemm(const void* x, int x_f32, int M, int K, const void* w, const void* ws,

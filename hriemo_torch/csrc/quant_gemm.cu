@@ -2,10 +2,9 @@
 //
 // These are the launches from which the port builds int8_linear
 // (hriemo_torch/ops/quant.py), the second product and the LayerNorm of
-// ffn_block_int8 and mlp2_int8 (hriemo_torch/ops/fused_ffn.py; their first
-// product, with both row quantizations, is csrc/ffn_int8.cu) and, on their
+// ffn_block_int8 and mlp2_int8 (hriemo_torch/ops/fused_ffn.py) on their
 // chain route (thin grids, the beta gates, route="chain"), the whole of the
-// chain that the fused route replaces, and the
+// chain that the TMA route (csrc/ffn_tma.cu) replaces, and the
 // projections of the attention kernels (hriemo_torch/ops/attention_block.py;
 // the WavLM sublayer's and int8_linear's on their chain route only, their
 // fused route is csrc/proj_int8.cu).

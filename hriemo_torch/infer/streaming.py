@@ -12,8 +12,12 @@ text to the smallest text bucket that covers its longest real text, which
 is output-exact (BERT is mask-exact and the fused mask ORs the text mask).
 
 The host feed overlaps the device: inputs go through pinned host memory
-with a non-blocking copy, a flush only enqueues its forward, and its
-result is read back one flush later, after the next batch is prepared.
+with a non-blocking copy, a flush enqueues its forward and, right behind
+it, a non-blocking copy of its outputs into pinned host buffers of its own
+with an event after that copy; its result is read one flush later, after
+the next flush is enqueued, and the host then waits for that event only,
+not for the next flush's forward, as the JAX package's ``np.asarray`` of
+the pending flush waits for that flush alone.
 
 On the card the forward of each input signature (shapes, dtypes; the
 transport and the tree are the pipeline's) is captured once as a
@@ -238,21 +242,45 @@ class StreamingPipeline:
 
     # -------------------------------------------------------------- device
 
-    def _dispatch(self, arrs):
+    def _dispatch(self, arrs, rows: int | None = None):
         """Copy a host batch to the device (pinned, non-blocking; with graphs
-        straight into the graph's input buffers) and enqueue its forward.
-        Returns device tensors; nothing waits for the device."""
+        straight into the graph's input buffers), enqueue its forward and
+        the copy of its outputs (their first ``rows``) to the host
+        (:meth:`_copy_out`). Returns the handle :meth:`_host` reads; nothing
+        waits for the device."""
         ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
         if self.device.type == "cuda":
             ts = [t.pin_memory() for t in ts]
             if not self.cuda_graphs:
                 ts = [t.to(self.device, non_blocking=True) for t in ts]
-        return self._forward(*ts)
+        outs = self._forward(*ts)
+        return self._copy_out(outs if rows is None else tuple(o[:rows] for o in outs))
 
-    @staticmethod
-    def _host(result):
-        probs, beta = result
-        return probs.cpu().numpy(), beta.cpu().numpy()
+    def _copy_out(self, outs):
+        """Enqueue the copy of one flush's device outputs into pinned host
+        buffers allocated for that flush, then an event: ``(host tensors,
+        event)``. Each flush has buffers of its own (PyTorch's pinned-memory
+        cache hands a block out again only after the copies recorded on it
+        have completed and the tensor, and any numpy view of it, is gone),
+        so a flush in flight never overwrites a result that was handed out.
+        The copy reads the tensors that :meth:`_forward` returns (with graphs
+        the clone of the graph's outputs) and is ordered before the next
+        flush on the stream. On the CPU: the outputs as they are, no event."""
+        if self.device.type != "cuda":
+            return outs, None
+        host = tuple(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                     .copy_(o, non_blocking=True) for o in outs)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _host(self, handle):
+        """numpy ``(probs, beta)`` of a flush: waits for its copy's event
+        only (not for flushes enqueued after it)."""
+        outs, done = handle
+        if done is not None:
+            done.synchronize()
+        return tuple(o.numpy() for o in outs)
 
     def infer(self, waveforms, texts, sample_rate: int = 16_000):
         return self._host(self._dispatch(self.preprocess(waveforms, texts, sample_rate)))
@@ -296,9 +324,9 @@ class StreamingPipeline:
             target = bucket_batch.get(sec, default_batch)
             if pad_flush and n < target:
                 q = q + [(np.zeros(sample_rate // 100, np.float32), "", None)] * (target - n)
-            probs, beta = self._dispatch(self.preprocess(
-                [c[0] for c in q], [c[1] for c in q], sample_rate))
-            return (probs[:n], beta[:n]), [c[2] for c in q[:n]]
+            handle = self._dispatch(self.preprocess(
+                [c[0] for c in q], [c[1] for c in q], sample_rate), rows=n)
+            return handle, [c[2] for c in q[:n]]
 
         def flushes():
             for i, clip in enumerate(clips):

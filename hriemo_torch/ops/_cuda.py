@@ -22,6 +22,7 @@ import pathlib
 import subprocess
 import threading
 import time
+import weakref
 
 import torch
 
@@ -31,7 +32,7 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 # the accurate versions, as in the plain PyTorch versions.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
-LIBS = ("quant_gemm", "ffn_int8", "proj_int8", "attention", "wavlm_attention",
+LIBS = ("quant_gemm", "ffn_tma", "proj_int8", "attention", "wavlm_attention",
         "attention_wgmma", "flash_attention", "streaming_wgmma", "ffn_bf16", "conv_stack")
 
 P = ctypes.c_void_p
@@ -45,9 +46,13 @@ SIGNATURES = {
         "hr_int8_gemm": [P, P, P, P, P, P, I, I, I, I, I, I, P, P],
         "hr_layernorm": [P, P, P, I, I, F, I, P, P],
     },
-    "ffn_int8": {
-        "hr_ffn_gemm1": [P, I, I, I, P, P, P, I, I, I, P, P, P],
-        "hr_ffn_gemm1_clusters": [I, I, I, I, I, I],
+    "ffn_tma": {
+        "hr_ffn_tma_xquant": [P, I, I, I, P, P, P],
+        "hr_ffn_tma_wmap": [P, I, I, I, P],
+        "hr_ffn_tma_gemm1": [P, P, I, I, P, P, P, I, I, I, I, P, P, P],
+        "hr_ffn_tma_gemm1_clusters": [I, I, I, I],
+        "hr_ffn_tma_gemm2": [P, P, I, I, P, P, P, I, P, P, P, F, I, I, I, I, P, P],
+        "hr_ffn_tma_gemm2_clusters": [I, I, I, I, I],
     },
     "proj_int8": {
         "hr_proj_gemm": [P, I, I, I, P, P, P, I, I, I, I, P, P],
@@ -345,11 +350,12 @@ def layernorm(y: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
 layernorm.launches = 0
 
 
-# Block shapes of the fused first FFN GEMM (csrc/ffn_int8.cu requant_config),
-# by index: (h columns a block, most blocks a cluster, largest K). A cluster
-# spans all F columns of 64 rows, above 8 blocks in a non-portable size; the
-# 64 rows of int8 x (K bytes each) stay in each block's shared memory.
-FFN_CONFIGS = ((384, 8, 1280), (256, 16, 2816))
+# Block shapes of the projections that quantize their own rows
+# (csrc/proj_int8.cu proj_config), by index: (output columns a block, most
+# blocks a cluster, largest K). A cluster spans all N columns of 64 rows,
+# above 8 blocks in a non-portable size; the 64 rows of int8 x (K bytes
+# each) stay in each block's shared memory.
+PROJ_CONFIGS = ((384, 8, 1280), (256, 16, 2816))
 H100_SMS = 132
 
 
@@ -392,82 +398,248 @@ def tma_gemm_plan(b: int, m: int, n: int, sms: int = H100_SMS,
     return bn, min(sms, tiles[bn])
 
 
-def ffn_cluster(f: int, k: int, config: int = -1) -> tuple[int, int] | None:
-    """``(config, blocks a cluster)`` of the fused first GEMM over ``k``
-    inputs and ``f`` hidden columns: the widest block of :data:`FFN_CONFIGS`
-    that spans ``f`` at that ``k`` (``config`` forces one), or None."""
-    for c, (bn, most, kmax) in enumerate(FFN_CONFIGS):
-        if f % bn == 0 and 1 <= f // bn <= most and k <= kmax and config in (-1, c):
-            return c, f // bn
-    return None
-
-
-# Waves of the fused first product (its blocks over the card's SMs) from
-# which the fused route beats the chain, by block configuration, for the
-# GELU forms and for ReLU (chip_ffn_routes.py, H100 80GB HBM3 at 700 W,
-# PERF.md section 6): a block of 384 columns holds its SM alone, so on a
-# thin grid nothing hides its epilogue, and the chain's smaller blocks win
-# (tanh GELU at 768 -> 3072: 1.13x the chain's time at 1996 rows, 1.04x at
-# 4096, 1.00x at 6144, 0.92x at 8192); two blocks of 256 an SM win from 3072
-# rows at 1024 columns.
-FUSED_MIN_WAVES = ((5.8, 1.9), (0.95, 0.95))
-
-
-def ffn_route(f: int, m: int, k: int, epi: int, sms: int = H100_SMS) -> str:
-    """The FFN pair's route at ``m`` rows of ``k`` inputs and ``f`` hidden
-    columns with the first product's epilogue ``epi``: "fused" where a
-    cluster spans ``f`` (:func:`ffn_cluster`) and its grid covers the card
-    :data:`FUSED_MIN_WAVES` times, else "chain"."""
-    cl = ffn_cluster(f, k)
-    if cl is None:
+def ffn_route(f: int, m: int, k: int, epi: int, sms: int = H100_SMS,
+              n: int | None = None) -> str:
+    """The FFN pair's route at ``m`` rows of ``k`` inputs, ``f`` hidden
+    columns and ``n`` outputs (``k`` by default, as the FFN block has) with
+    the first product's epilogue ``epi``: "tma" where :func:`ffn_tma_plan`
+    takes the widths and the first product's row tiles cover the clusters
+    the card runs at once :data:`TMA_MIN_WAVES` times, else "chain"."""
+    n = k if n is None else n
+    plan = ffn_tma_plan(f, k, n, ln=epi != EPI_RELU_F32)
+    if plan is None:
         return "chain"
-    waves = -(-m // 64) * cl[1] / sms
-    return "fused" if waves >= FUSED_MIN_WAVES[cl[0]][epi == EPI_RELU_F32] else "chain"
+    waves = -(-m // 64) / ffn_tma_clusters(1, f, k, epi, plan[0], sms=sms)
+    return "tma" if waves >= TMA_MIN_WAVES[epi == EPI_RELU_F32] else "chain"
 
 
-def ffn_gemm1(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias: torch.Tensor,
-              epi: int, config: int = -1):
-    """``quant_rows(act(int8 W1 . quant_rows(x)))`` in one launch
-    (csrc/ffn_int8.cu): x ``[M, K]`` bf16 or fp32, w ``[F, K]`` int8,
-    ``w_scale [F, 1]``, ``bias [F]``; ``epi`` is ``EPI_GELU_F32``,
-    ``EPI_GELU_ERF_F32`` or ``EPI_RELU_F32``. Returns ``hq [M, F]`` int8 and
-    ``hs [M]`` fp32, bit-equal to :func:`rowquant` of ``int8_gemm``'s fp32 h.
-    ``config`` forces one of :data:`FFN_CONFIGS` (-1: :func:`ffn_cluster`);
-    raises where no cluster spans F. ``ffn_gemm1.launches`` counts launches."""
+# The FFN pair on TMA pipelines (csrc/ffn_tma.cu): columns a block of each
+# product, widest first. The first product's cluster of f / bn blocks (a
+# power of two up to 16) keeps each block's bn x k slice of W1 in shared
+# memory beside a ring of at least two 8 KB x tiles; the second product's
+# LayerNorm cluster spans n in n / 128 blocks (up to 8; with the LayerNorm a
+# 192-column block spilled the values of y it holds, and was slower).
+FFN_TMA_BN = (192, 128)
+FFN_TMA_SMEM = 232448
+# Waves of the first product's row tiles (64 rows) over the clusters the
+# card runs at once, from which the TMA route beats the chain, for the GELU
+# forms and for ReLU (chip_ffn_routes.py --split, NVIDIA H100 80GB HBM3 at 700 W,
+# PERF.md section 6). A persistent cluster takes its row tiles one after
+# another, so on a thin grid it pays its W1 load and its epilogues with few
+# SMs busy: at 768 -> 3072 (16 blocks, 7 clusters) the tanh FFN over 256
+# rows (0.6 waves) took 0.0354 ms against the chain's 0.0329, over 1,024
+# (2.3) 0.0471 against 0.0520; the ReLU pair over 256 rows 0.0361 against
+# 0.0294, over 1,024 0.0452 against 0.0489; the beta gate at d=256 (2
+# blocks, 66 clusters) over 4,096 rows (0.97 waves) 0.0238 against 0.0301;
+# the ReLU pair at 256 -> 1024 (8 blocks, 15 clusters) over 1,024 rows (1.07
+# waves) 0.0207 against 0.0204, over 3,072 0.0280 against 0.0349.
+TMA_MIN_WAVES = (2.0, 0.75)
+# Clusters of each product that an NVIDIA H100 80GB HBM3 runs at once, by
+# (product, blocks a cluster), for the route rule without a card
+# (cudaOccupancyMaxActiveClusters, read by chip_smoke.py phase 3 and
+# PERF.md section 6): a cluster sits in one GPC, so 16 blocks fit 7 times.
+H100_FFN_TMA_CLUSTERS = {(1, 16): 7, (1, 8): 15, (1, 2): 66, (2, 6): 17, (2, 2): 66}
+
+
+def _pow2(c: int) -> bool:
+    return c >= 1 and c & (c - 1) == 0
+
+
+def ffn_tma_smem1(bn: int, k: int, stages: int, cn: int) -> int:
+    """Shared memory of the first product's block over a cluster of ``cn``
+    blocks (csrc/ffn_tma.cu ``Ft1Layout``)."""
+    return (-(-k // 128) * bn * 128 + stages * 64 * 128 + 2 * 64 * (bn + 16)
+            + 2 * 2 * 64 * 4 + 2 * 2 * cn * 64 * 4 + (2 * 8 + 1 + 4) * 8 + 1024)
+
+
+def ffn_tma_block1(f: int, k: int) -> int | None:
+    """Columns a block of the TMA route's first product over ``k`` inputs
+    and ``f`` hidden columns, or None (its W1 slice does not fit beside the
+    ring: the beta gate's 3072 inputs)."""
+    if k % 16:
+        return None
+    return next((b for b in FFN_TMA_BN if f % b == 0 and _pow2(f // b) and f // b <= 16
+                 and ffn_tma_smem1(b, k, 2, f // b) <= FFN_TMA_SMEM), None)
+
+
+def ffn_tma_block2(n: int, k: int, ln: bool) -> int | None:
+    """Columns a block of the TMA route's second product over ``k`` inputs
+    and ``n`` outputs, or None: with the LayerNorm (``ln``) 128, its cluster
+    of ``n / 128`` blocks spanning ``n``; without, the widest of
+    :data:`FFN_TMA_BN` that divides ``n``."""
+    if k % 16:
+        return None
+    if ln:
+        return 128 if n % 128 == 0 and n // 128 <= 8 else None
+    return next((b for b in FFN_TMA_BN if n % b == 0), None)
+
+
+def ffn_tma_plan(f: int, k: int, n: int, ln: bool = True) -> tuple[int, int] | None:
+    """``(bn1, bn2)`` of the TMA route over ``k`` inputs, ``f`` hidden
+    columns and ``n`` outputs (:func:`ffn_tma_block1`,
+    :func:`ffn_tma_block2`), or None where either product takes no block."""
+    bn1, bn2 = ffn_tma_block1(f, k), ffn_tma_block2(n, f, ln)
+    return None if bn1 is None or bn2 is None else (bn1, bn2)
+
+
+def ffn_tma_clusters(product: int, f: int, k: int, epi: int, bn: int, n: int | None = None,
+                     x_f32: bool = False, ln: bool = True, sms: int = H100_SMS) -> int:
+    """How many clusters of the TMA route's first (``product`` 1: ``f``
+    columns over ``k`` inputs) or second product (2: ``n`` columns over
+    ``f`` inputs) the card runs at once (``cudaOccupancyMaxActiveClusters``,
+    read once a shape); without a card :data:`H100_FFN_TMA_CLUSTERS`, else
+    one cluster for each cluster's worth of ``sms``."""
+    cn = f // bn if product == 1 else (n // bn if ln else 1)
+    if not torch.cuda.is_available():
+        known = H100_FFN_TMA_CLUSTERS.get((product, cn)) if sms == H100_SMS else None
+        return known or max(1, sms // cn)
+    key = (product, f, k, epi, bn, n, x_f32, ln)
+    if key not in ffn_tma_clusters.seen:
+        tma = lib("ffn_tma")
+        got = (tma.hr_ffn_tma_gemm1_clusters(k, f, epi, bn) if product == 1 else
+               tma.hr_ffn_tma_gemm2_clusters(f, n, int(x_f32), int(ln), bn))
+        check(-got if got < 0 else 0, f"hr_ffn_tma_gemm{product}_clusters")
+        if got == 0:
+            raise RuntimeError(f"FFN TMA product {product}: no cluster of {cn} blocks fits "
+                               f"({torch.cuda.get_device_name()})")
+        ffn_tma_clusters.seen[key] = got
+    return ffn_tma_clusters.seen[key]
+
+
+ffn_tma_clusters.seen = {}
+
+
+def ffn_tma_wmap(w: torch.Tensor, bn: int) -> int:
+    """Host address of the tensor map of an int8 weight ``w [rows, K]`` in
+    boxes of ``bn`` rows for either TMA product (``hr_ffn_tma_wmap``),
+    encoded once a weight tensor, address and block width and kept while the
+    tensor lives (:data:`_WMAPS`), so a call encodes only the maps of its
+    activations."""
+    key = (id(w), w.data_ptr(), tuple(w.shape), bn)
+    hit = _WMAPS.get(key)
+    if hit is None or hit[0]() is not w:
+        buf = (ctypes.c_uint8 * 128)()
+        rows, k = w.shape
+        check(lib("ffn_tma").hr_ffn_tma_wmap(w.data_ptr(), k, rows, bn, ctypes.addressof(buf)),
+              "hr_ffn_tma_wmap")
+        _WMAPS[key] = (weakref.ref(w, lambda _, key=key: _WMAPS.pop(key, None)), buf)
+    return ctypes.addressof(_WMAPS[key][1])
+
+
+# the encoded weight maps: (id, address, shape, bn) -> (weak reference, map)
+_WMAPS: dict = {}
+
+
+def ffn_tma_xquant(x: torch.Tensor):
+    """x's row quantize for the TMA route (csrc/ffn_tma.cu, one warp a row):
+    ``(q [M, K] int8, s [M] fp32)``, :func:`rowquant`'s bits with
+    ``div127=False``. ``ffn_tma_xquant.launches`` counts launches."""
     require(x, "x", ACT_DTYPES)
     m, k = x.shape
+    if k % 16:
+        raise ValueError(f"FFN TMA x quantize needs K % 16 == 0, got {k}")
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    s = torch.empty((m,), dtype=torch.float32, device=x.device)
+    check(lib("ffn_tma").hr_ffn_tma_xquant(
+        x.data_ptr(), int(x.dtype == torch.float32), m, k, q.data_ptr(), s.data_ptr(), stream()),
+        "hr_ffn_tma_xquant")
+    ffn_tma_xquant.launches += 1
+    return q, s
+
+
+ffn_tma_xquant.launches = 0
+
+
+def ffn_tma_gemm1(xq: torch.Tensor, xs: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                  bias: torch.Tensor, epi: int, bn: int | None = None, out=None):
+    """``quant_rows(act(int8 W1 . xq * xs))`` on the TMA route's first
+    product (csrc/ffn_tma.cu): ``xq [M, K]`` int8 and ``xs [M]`` from
+    :func:`ffn_tma_xquant` (or :func:`rowquant`), w ``[F, K]`` int8,
+    ``w_scale [F, 1]``, ``bias [F]``; ``epi`` is ``EPI_GELU_F32``,
+    ``EPI_GELU_ERF_F32`` or ``EPI_RELU_F32``. Returns ``hq [M, F]`` int8 and
+    ``hs [M]`` fp32, bit-equal to :func:`rowquant` of ``int8_gemm``'s fp32
+    h. ``bn`` forces a block width; ``out=(hq, hs)`` stores into those
+    tensors. ``ffn_tma_gemm1.launches`` counts launches."""
+    m, k = xq.shape
     f = w.shape[0]
-    cl = ffn_cluster(f, k, config)
-    if cl is None or k % 16:
-        raise ValueError(f"fused FFN GEMM: no cluster spans F={f} at K={k} (config "
-                         f"{config}), or K % 16")
-    hq = torch.empty((m, f), dtype=torch.int8, device=x.device)
-    hs = torch.empty((m,), dtype=torch.float32, device=x.device)
-    check(lib("ffn_int8").hr_ffn_gemm1(
-        x.data_ptr(), int(x.dtype == torch.float32), m, k, w.data_ptr(), w_scale.data_ptr(),
-        bias.data_ptr(), f, epi, cl[0], hq.data_ptr(), hs.data_ptr(), stream()),
-        "hr_ffn_gemm1")
-    ffn_gemm1.launches += 1
+    bn = ffn_tma_block1(f, k) if bn is None else bn
+    if bn is None:
+        raise ValueError(f"FFN TMA first product: no block takes F={f} at K={k}")
+    for t, name, dt, shape in ((xq, "xq", torch.int8, (m, k)), (xs, "xs", torch.float32, (m,)),
+                               (w, "w1", torch.int8, (f, k)),
+                               (w_scale, "s1", torch.float32, (f, 1)),
+                               (bias, "b1", torch.float32, (f,))):
+        require(t, name, dt, shape, xq.device)
+    if out is None:
+        out = (torch.empty((m, f), dtype=torch.int8, device=xq.device),
+               torch.empty((m,), dtype=torch.float32, device=xq.device))
+    hq, hs = out
+    require(hq, "hq", torch.int8, (m, f), xq.device)
+    require(hs, "hs", torch.float32, (m,), xq.device)
+    clusters = ffn_tma_clusters(1, f, k, epi, bn)
+    check(lib("ffn_tma").hr_ffn_tma_gemm1(
+        xq.data_ptr(), xs.data_ptr(), m, k, ffn_tma_wmap(w, bn), w_scale.data_ptr(),
+        bias.data_ptr(), f, epi, bn, clusters, hq.data_ptr(), hs.data_ptr(), stream()),
+        "hr_ffn_tma_gemm1")
+    ffn_tma_gemm1.launches += 1
     return hq, hs
 
 
-ffn_gemm1.launches = 0
+ffn_tma_gemm1.launches = 0
 
 
-def ffn_gemm1_clusters(f: int, m: int, k: int, epi: int, x_f32: bool = False,
-                       config: int = -1) -> int:
-    """How many clusters of :func:`ffn_gemm1`'s instance the card runs at
-    once (``cudaOccupancyMaxActiveClusters``)."""
-    cl = ffn_cluster(f, k, config)
-    if cl is None:
-        raise ValueError(f"fused FFN GEMM: no cluster spans F={f} at K={k}")
-    n = lib("ffn_int8").hr_ffn_gemm1_clusters(int(x_f32), m, k, f, epi, cl[0])
-    check(-n if n < 0 else 0, "hr_ffn_gemm1_clusters")
-    return n
+def ffn_tma_gemm2(hq: torch.Tensor, hs: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                  bias: torch.Tensor, out_dtype: torch.dtype, resid: torch.Tensor | None = None,
+                  norm: tuple | None = None, bn: int | None = None,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """The TMA route's second product (csrc/ffn_tma.cu) over ``hq [M, K]``
+    int8 and ``hs [M]``, w ``[N, K]`` int8, ``w_scale [N, 1]``, ``bias
+    [N]``: with ``norm=(g, b, eps)`` and ``resid [M, N]`` of ``out_dtype``,
+    ``LayerNorm((resid + v) + b)`` (:func:`int8_gemm`'s ``EPI_RESID_FIRST``
+    value, then :func:`layernorm`'s formula with its sums in another
+    order); without, :func:`int8_gemm`'s dequant-and-bias epilogue of
+    ``out_dtype`` (bf16 or fp32), bit for bit. ``bn`` forces a block width;
+    ``out`` stores into that tensor. ``ffn_tma_gemm2.launches`` counts
+    launches."""
+    m, k = hq.shape
+    n = w.shape[0]
+    ln = norm is not None
+    if out_dtype not in ACT_DTYPES:
+        raise TypeError(f"FFN TMA second product: output dtype {out_dtype}")
+    bn = ffn_tma_block2(n, k, ln) if bn is None else bn
+    if bn is None:
+        raise ValueError(f"FFN TMA second product: no block takes N={n} (LayerNorm {ln})")
+    for t, name, dt, shape in ((hq, "hq", torch.int8, (m, k)), (hs, "hs", torch.float32, (m,)),
+                               (w, "w2", torch.int8, (n, k)),
+                               (w_scale, "s2", torch.float32, (n, 1)),
+                               (bias, "b2", torch.float32, (n,))):
+        require(t, name, dt, shape, hq.device)
+    g = b = None
+    eps = 0.0
+    if ln:
+        g, b, eps = norm
+        require(resid, "resid", out_dtype, (m, n), hq.device)
+        require(g, "ln_w", torch.float32, (n,), hq.device)
+        require(b, "ln_b", torch.float32, (n,), hq.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=hq.device)
+    require(out, "out", out_dtype, (m, n), hq.device)
+    f32 = out_dtype == torch.float32
+    clusters = ffn_tma_clusters(2, k, 0, 0, bn, n=n, x_f32=f32, ln=ln)
+    check(lib("ffn_tma").hr_ffn_tma_gemm2(
+        hq.data_ptr(), hs.data_ptr(), m, k, ffn_tma_wmap(w, bn), w_scale.data_ptr(),
+        bias.data_ptr(), n,
+        ptr(resid) if ln else None, ptr(g), ptr(b), eps, int(f32), int(ln), bn, clusters,
+        out.data_ptr(), stream()), "hr_ffn_tma_gemm2")
+    ffn_tma_gemm2.launches += 1
+    return out
+
+
+ffn_tma_gemm2.launches = 0
 
 
 # The projections that quantize their own rows (csrc/proj_int8.cu) run on
-# the blocks of FFN_CONFIGS: a cluster spans all N output columns of 64 rows,
+# the blocks of PROJ_CONFIGS: a cluster spans all N output columns of 64 rows,
 # and the block's 64 output rows are staged in its freed shared memory
 # (64 x (BN + 8) elements of the output type over the A tiles and the ring).
 PROJ_RING = ((3 * 384 * 128), (3 * 256 * 64))  # bytes of each block's W ring
@@ -477,9 +649,9 @@ def proj_cluster(n: int, k: int, out_bytes: int = 2,
                  config: int = -1) -> tuple[int, int] | None:
     """``(config, blocks a cluster)`` of a projection over ``k`` inputs and
     ``n`` output columns storing ``out_bytes`` an element: the widest block
-    of :data:`FFN_CONFIGS` that spans ``n`` at that ``k`` and holds its
+    of :data:`PROJ_CONFIGS` that spans ``n`` at that ``k`` and holds its
     staged rows (``config`` forces one), or None."""
-    for c, (bn, most, kmax) in enumerate(FFN_CONFIGS):
+    for c, (bn, most, kmax) in enumerate(PROJ_CONFIGS):
         room = -(-k // 128) * 64 * 128 + PROJ_RING[c]
         if (n % bn == 0 and 1 <= n // bn <= most and k <= kmax and k % 16 == 0
                 and 64 * (bn + 8) * out_bytes <= room and config in (-1, c)):
@@ -543,7 +715,7 @@ def proj_clusters(n: int, k: int, config: int, sms: int = H100_SMS) -> int:
     (``cudaOccupancyMaxActiveClusters``, read once a shape); without a card,
     :data:`H100_PROJ_CLUSTERS`, else one cluster for each cluster's worth of
     ``sms``."""
-    blocks = n // FFN_CONFIGS[config][0]
+    blocks = n // PROJ_CONFIGS[config][0]
     if not torch.cuda.is_available():
         known = H100_PROJ_CLUSTERS.get((config, blocks)) if sms == H100_SMS else None
         return known or max(1, sms // blocks)
@@ -565,7 +737,7 @@ def proj_gemm(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, bias, epi
     [N]`` or None; ``epi`` ``EPI_BF16`` (bf16 out) or ``EPI_F32`` (fp32 out:
     fp32 x with ``div127``, or bf16 x without); ``div127`` takes
     quantize_rowwise's scales over the kernels'. Bit-equal to :func:`rowquant` and :func:`int8_gemm`. ``config``
-    forces one of :data:`FFN_CONFIGS` (-1: :func:`proj_block`); raises where
+    forces one of :data:`PROJ_CONFIGS` (-1: :func:`proj_block`); raises where
     no cluster spans N. ``proj_gemm.launches`` counts launches."""
     m, k = x.shape
     n = w.shape[0]

@@ -13,45 +13,45 @@ Two Hopper kernels, each with its plain PyTorch version beside it:
   rectangular (the beta gate is 3072 -> 256 -> 768). It carries the fusion
   FFNs and the beta-gate MLP.
 
-On the card each runs its first product as one launch of
-``csrc/ffn_int8.cu`` (``_cuda.ffn_gemm1``): a thread-block cluster spans
-all F hidden columns of 64 rows; x's rows are quantized once for the
-cluster into every block's shared memory, the bias+activation epilogue
-runs in registers, and the hidden activation is requantized there, each
-block reading the others' row maxima from distributed shared memory, so
-neither int8 x nor the fp32 ``[M, F]`` h reaches device memory. The second
-product is the shared int8 GEMM of ``csrc/quant_gemm.cu`` with the
-residual (FFN) or dequant (mlp2) epilogue, in 128 x 128 tiles where they
-give two blocks an SM, and the FFN ends with the LayerNorm pass: three
-launches for the FFN, two for mlp2, bit-equal to the chain they replace. x
-is bf16 or fp32, and the residual read and the output follow its dtype, as
-the TPU kernels store ``x.dtype``. What bounds them: int8 tensor-core
-operations (the two products are 4*M*768*3072 at the main path's widths,
-against ~2.4 MB of weights); the chain also wrote and re-read 24.5 MB of
-fp32 h at M=1996, twice that bound in bytes alone. What holds the fused
-first product back is that nothing overlaps its phases (the kernel's
-source notes say why): a block of 384 columns holds its SM alone, so on a
-thin grid its epilogue shows in full.
+On the card each wrapper takes one of two routes, chosen from the shape
+(``_cuda.ffn_route``; ``route="tma"`` or ``"chain"`` forces one):
 
-So each wrapper chooses its route from the shape (``_cuda.ffn_route``):
-the fused route where its grid covers the card enough times over (the
-tanh-GELU FFN at 768 -> 3072 from about 6,000 rows, the ReLU pair from
-about 2,000; at 1024 columns from about 2,000 rows), the chain on thinner
-grids (BERT's FFNs, B=1, the 10 s bucket at B=4 and the beta gates, whose
-rows are the batch); the thresholds are the H100's, measured by
-``chip_ffn_routes.py``. ``route="fused"`` or
-``route="chain"`` forces one; ``chip_smoke.py`` phase 3 times both beside
-each other and fails where the chosen one is the slower. The chain is the
-parent's: row quantize, int8 GEMM with an fp32 [M, F] output, row quantize
-of h, the second GEMM (and the LayerNorm): five launches for the FFN, four
-for mlp2. A hidden width that no cluster spans (``_cuda.ffn_cluster`` is
-None: F neither 384 * c with c at most 8 nor 256 * c with c at most 16, say
-1408), or an input width whose 64 rows of int8 do not fit the block's
-shared memory (K above 1280 or 2816 by block: the beta gate at d=768,
-3072 -> 256), takes the chain whatever its rows; forcing the fused route
-there raises. Each
-wrapper counts its calls by route in ``.routes`` and by (route, rows,
-inputs, hidden width, epilogue) in ``.shapes``.
+* ``"tma"`` (``csrc/ffn_tma.cu``, three launches): x's row quantize (one
+  warp a row), then two persistent, warp-specialised products fed by TMA.
+  The first spans all F hidden columns of its 64-row tiles with a
+  thread-block cluster (16 x 192 at F=3072), each block keeping its slice
+  of W1 in shared memory; two consumer sets take the tiles in turn, so one
+  set's epilogue (bias, activation, the row maximum over the cluster by
+  asynchronous stores into every block, the requantize) overlaps the other
+  set's products; ``hq``, ``hs`` are the chain's bits. The second takes
+  128-row tiles of hq and, for the FFN, adds the residual and takes the
+  LayerNorm over a cluster spanning the 768 outputs (6 x 128; its sums in
+  another order than the LayerNorm pass: held to the plain version's
+  tolerance); for mlp2 it stores the chain's bits. Neither the fp32 h nor
+  the fp32 y reaches device memory. The weights' tensor maps are encoded
+  once a weight (``_cuda.ffn_tma_wmap``). The beta gate's 3072 inputs (W1's
+  slice does not fit shared memory) and widths no power-of-two cluster
+  spans take the chain.
+* ``"chain"``: row quantize, int8 GEMM with an fp32 [M, F] output, row
+  quantize of h, the second GEMM (and the LayerNorm): five launches for the
+  FFN, four for mlp2.
+
+x is bf16 or fp32, and the residual read and the output follow its dtype,
+as the TPU kernels store ``x.dtype``. What bounds the pair: int8
+tensor-core operations (the two products are 4*M*768*3072 at the main
+path's widths, against ~2.4 MB of weights); the chain also writes and reads
+back the fp32 h, 24.5 MB at M=1996. The TMA route is taken where its first
+product's 64-row tiles cover the clusters the card runs at once
+``_cuda.TMA_MIN_WAVES`` times: 2 waves for the GELU forms, 0.75 for ReLU,
+which at 768 -> 3072 (7 clusters of 16 on an H100) is from 833 rows for
+the GELU FFN and 321 for the ReLU pair. Every served WavLM, BERT and
+fusion FFN at the measured batches takes it; thinner grids (B=1, phase 4's
+text rows, the beta gates) take the chain. The thresholds are the H100's,
+measured by ``chip_ffn_routes.py``; ``chip_smoke.py`` phase 3 times each
+route beside the other and fails where the chosen one is the slower.
+Forcing the TMA route where no block takes the widths raises. Each wrapper
+counts its calls by route in ``.routes`` and by (route, rows, inputs,
+hidden width, epilogue) in ``.shapes``.
 
 A third kernel, :func:`ffn_block_bf16`, replaces ``_kernel_bf16``
 (``:112-124``, ``pallas_call`` at ``:192``): the same block over bf16 or
@@ -179,26 +179,35 @@ def _check_pair(x, p: Mlp2Operands):
     _cuda.require(p.b2, "b2", torch.float32, (dout,), dev)
 
 
-def _hidden(x, p: Mlp2Operands, epi: int, route: str | None):
-    """``(hq, hs, route, config)``: the hidden activation's int8 rows and
-    scales, from the fused first GEMM or from the chain's three launches, as
-    ``route`` asks or, where it is None, as :func:`_cuda.ffn_route` chooses
-    for the shape; and the block configuration of the second product. The
-    fused route takes the shared GEMM's 128 x 128 tiles (config 2) where they
-    give two blocks an SM (over 5632 rows at 768 columns: 0.203 against 0.278
-    ms at M=23808 on the H100), the chain the GEMM's own choice, as before."""
-    f, k = p.w1.shape
-    m, n = x.shape[0], p.w2.shape[0]
+ROUTES = ("tma", "chain")
+
+
+def _route(x, p: Mlp2Operands, epi: int, route: str | None) -> str:
+    """``route`` as the caller forces it, or as :func:`_cuda.ffn_route`
+    chooses it for the shape."""
     if route is None:
-        route = _cuda.ffn_route(f, m, k, epi, _cuda.sm_count())
-    if route == "fused":
-        big = -(-m // 128) * -(-n // 128) >= 2 * _cuda.sm_count()
-        return (*_cuda.ffn_gemm1(x, p.w1, p.s1, p.b1, epi), route, 2 if big else -1)
-    if route != "chain":
+        (f, k), n = p.w1.shape, p.w2.shape[0]
+        return _cuda.ffn_route(f, x.shape[0], k, epi, _cuda.sm_count(), n=n)
+    if route not in ROUTES:
         raise ValueError(f"W8A8 FFN pair: unknown route {route!r}")
+    return route
+
+
+def _tma_pair(x, p: Mlp2Operands, epi: int, norm=None):
+    """The TMA route (csrc/ffn_tma.cu): x's row quantize, then the two
+    products, the second with the residual and LayerNorm ``norm=(g, b,
+    eps)`` or the dequant-and-bias store in x's dtype; three launches."""
+    xq, xs = _cuda.ffn_tma_xquant(x)
+    hq, hs = _cuda.ffn_tma_gemm1(xq, xs, p.w1, p.s1, p.b1, epi)
+    return _cuda.ffn_tma_gemm2(hq, hs, p.w2, p.s2, p.b2, x.dtype,
+                               resid=x if norm is not None else None, norm=norm)
+
+
+def _chain_hidden(x, p: Mlp2Operands, epi: int):
+    """The chain's hidden activation: ``(hq, hs)``, int8 rows and scales of
+    ``act(W1 . quant_rows(x))`` in three launches."""
     xq, xs = _cuda.rowquant(x, div127=False)
-    h = _cuda.int8_gemm(xq, xs, p.w1, p.s1, p.b1, epi)
-    return (*_cuda.rowquant(h, div127=False), route, -1)
+    return _cuda.rowquant(_cuda.int8_gemm(xq, xs, p.w1, p.s1, p.b1, epi), div127=False)
 
 
 def ffn_block_int8(x, ops: FfnOperands, eps: float, fast_gelu: bool,
@@ -207,9 +216,9 @@ def ffn_block_int8(x, ops: FfnOperands, eps: float, fast_gelu: bool,
     x's dtype.
 
     On the CPU the plain version runs, whatever ``route``; on the card three
-    launches on the fused route, the chain's five on the chain (``route``
-    "fused" or "chain" forces one, None lets the shape choose; see the
-    module docstring), no torch compute in between.
+    launches on the TMA route, the chain's five on the chain (``route``
+    "tma" or "chain" forces one, None lets the shape choose; see the module
+    docstring), no torch compute in between.
     """
     if x.device.type == "cpu":
         return ffn_block_int8_plain(x, ops, eps, fast_gelu)
@@ -219,10 +228,13 @@ def ffn_block_int8(x, ops: FfnOperands, eps: float, fast_gelu: bool,
     _cuda.require(ops.ln_w, "ln_w", torch.float32, (d,), x.device)
     _cuda.require(ops.ln_b, "ln_b", torch.float32, (d,), x.device)
     epi = _cuda.EPI_GELU_F32 if fast_gelu else _cuda.EPI_GELU_ERF_F32
-    hq, hs, route, config = _hidden(x, p, epi, route)
-    y = _cuda.int8_gemm(hq, hs, p.w2, p.s2, p.b2, _cuda.EPI_RESID_FIRST, resid=x,
-                        config=config)
-    out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps, x.dtype)
+    route = _route(x, p, epi, route)
+    if route == "tma":
+        out = _tma_pair(x, p, epi, (ops.ln_w, ops.ln_b, eps))
+    else:
+        hq, hs = _chain_hidden(x, p, epi)
+        y = _cuda.int8_gemm(hq, hs, p.w2, p.s2, p.b2, _cuda.EPI_RESID_FIRST, resid=x)
+        out = _cuda.layernorm(y, ops.ln_w, ops.ln_b, eps, x.dtype)
     _count(ffn_block_int8, route, x.shape[0], *p.w1.shape, epi)
     return out
 
@@ -252,15 +264,20 @@ def mlp2_int8_plain(x, ops: Mlp2Operands):
 
 def mlp2_int8(x, ops: Mlp2Operands, route: str | None = None):
     """Fused W8A8 ``Linear -> ReLU -> Linear`` over ``x [..., Din]`` bf16 or
-    fp32, output in x's dtype: two launches on the card's fused route, the
-    chain's four on the chain (``route`` as in :func:`ffn_block_int8`)."""
+    fp32, output in x's dtype: three launches on the card's TMA route, the
+    chain's four on the chain (``route`` as in
+    :func:`ffn_block_int8`)."""
     if x.device.type == "cpu":
         return mlp2_int8_plain(x, ops)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
     _check_pair(x2, ops)
-    hq, hs, route, config = _hidden(x2, ops, _cuda.EPI_RELU_F32, route)
-    y = _cuda.int8_gemm(hq, hs, ops.w2, ops.s2, ops.b2, _cuda.out_epi(x.dtype), config=config)
+    route = _route(x2, ops, _cuda.EPI_RELU_F32, route)
+    if route == "tma":
+        y = _tma_pair(x2, ops, _cuda.EPI_RELU_F32)
+    else:
+        hq, hs = _chain_hidden(x2, ops, _cuda.EPI_RELU_F32)
+        y = _cuda.int8_gemm(hq, hs, ops.w2, ops.s2, ops.b2, _cuda.out_epi(x.dtype))
     _count(mlp2_int8, route, x2.shape[0], *ops.w1.shape, _cuda.EPI_RELU_F32)
     return y.reshape(*shape[:-1], ops.w2.shape[0])
 

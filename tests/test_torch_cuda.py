@@ -117,8 +117,8 @@ def test_int8_linear(gen, m, k, n, bias, dtype):
 
 # (d_in, F, d_out) of the FFN pair at each hidden width a model reaches:
 # WavLM, BERT and the fusion FFNs at d=768; the fusion FFNs at d=256; the
-# beta gate at d=256 (4d -> 256 -> d; at d=768 no cluster spans it, see
-# test_ffn_pair_chain_route)
+# beta gate at d=256 (4d -> 256 -> d; at d=768 the TMA route does not take
+# it, see test_ffn_pair_chain_route)
 PAIR_WIDTHS = {3072: (768, 3072, 768), 1024: (256, 1024, 256), 256: (1024, 256, 256)}
 
 
@@ -139,8 +139,10 @@ def _picked(fn, before, route):
 @pytest.mark.parametrize("dtype", ACT_DTYPES)
 def test_ffn_block(gen, m, f, fast_gelu, dtype):
     """At every hidden width: the route ``_cuda.ffn_route`` picks, counted
-    there, within the sublayer tolerance of plain; the fused route
-    (``route="fused"``) bit-equal to the chain it replaced."""
+    there, within the sublayer tolerance of plain, bit-equal to the chain
+    where it is the chain; the TMA route (``route="tma"``, whose LayerNorm
+    sums in another order) within the tolerance of plain where it takes the
+    widths."""
     d = PAIR_WIDTHS[f][0] if f != 256 else 256
     pair = _quantized(MLP2(d, f, d), gen)
     ops = FF.FfnOperands(pair.ops, _randn(gen, d, dtype=torch.float32).abs(),
@@ -153,11 +155,15 @@ def test_ffn_block(gen, m, f, fast_gelu, dtype):
     assert got.dtype == dtype
     _close(got, FF.ffn_block_int8_plain(x, ops, 1e-5, fast_gelu))
     before = _routes(FF.ffn_block_int8)
-    fused = FF.ffn_block_int8(x, ops, 1e-5, fast_gelu, route="fused")
-    _picked(FF.ffn_block_int8, before, "fused")
-    torch.testing.assert_close(fused, got, atol=0, rtol=0)
-    torch.testing.assert_close(fused, FF.ffn_block_int8(x, ops, 1e-5, fast_gelu, route="chain"),
-                               atol=0, rtol=0)
+    chain = FF.ffn_block_int8(x, ops, 1e-5, fast_gelu, route="chain")
+    _picked(FF.ffn_block_int8, before, "chain")
+    if _cuda.ffn_route(f, m, d, epi, _cuda.sm_count()) != "tma":
+        torch.testing.assert_close(got, chain, atol=0, rtol=0)
+    if _cuda.ffn_tma_plan(f, d, d) is not None:
+        before = _routes(FF.ffn_block_int8)
+        tma = FF.ffn_block_int8(x, ops, 1e-5, fast_gelu, route="tma")
+        _picked(FF.ffn_block_int8, before, "tma")
+        _close(tma, FF.ffn_block_int8_plain(x, ops, 1e-5, fast_gelu))
 
 
 @pytest.mark.parametrize("m", [1, 63, 300, 2049])
@@ -175,24 +181,27 @@ def test_mlp2(gen, f, m, dtype):
     assert got.dtype == dtype
     _close(got, FF.mlp2_int8_plain(x, ops))
     before = _routes(FF.mlp2_int8)
-    fused = FF.mlp2_int8(x, ops, route="fused")
-    _picked(FF.mlp2_int8, before, "fused")
-    torch.testing.assert_close(fused, got, atol=0, rtol=0)
-    torch.testing.assert_close(fused, FF.mlp2_int8(x, ops, route="chain"), atol=0, rtol=0)
+    chain = FF.mlp2_int8(x, ops, route="chain")
+    _picked(FF.mlp2_int8, before, "chain")
+    torch.testing.assert_close(got, chain, atol=0, rtol=0)
+    if _cuda.ffn_tma_plan(f, din, dout, ln=False) is not None:
+        before = _routes(FF.mlp2_int8)
+        tma = FF.mlp2_int8(x, ops, route="tma")
+        _picked(FF.mlp2_int8, before, "tma")
+        torch.testing.assert_close(tma, chain, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("kind,din,f", [("ffn", 128, 1408), ("mlp2", 128, 1408),
                                         ("mlp2", 3328, 256), ("mlp2", 3072, 256)])
 def test_ffn_pair_chain_route(gen, kind, din, f):
-    """A hidden width no cluster spans (1408), or inputs too wide for the
-    block's shared memory (K=3328, and the beta gate's K=3072 at d=768),
-    takes the named chain, counted there, even at rows where the fused
-    route would be picked; the fused GEMM and a forced fused route refuse
-    them."""
+    """A hidden width no power-of-two cluster spans (1408), or inputs too
+    wide for the block's shared memory (K=3328, and the beta gate's K=3072
+    at d=768), takes the named chain, counted there, at rows where the TMA
+    route would be picked; a forced TMA route and an unknown route
+    raise."""
     m = 9000
     pair = _quantized(MLP2(din, f, din), gen).ops
     x = _randn(gen, m, din)
-    assert _cuda.ffn_cluster(f, din) is None
     fn = FF.ffn_block_int8 if kind == "ffn" else FF.mlp2_int8
     if kind == "ffn":
         ops = FF.FfnOperands(pair, _randn(gen, din, dtype=torch.float32).abs(),
@@ -206,36 +215,123 @@ def test_ffn_pair_chain_route(gen, kind, din, f):
     got = call()
     _picked(fn, before, "chain")
     _close(got, ref)
-    with pytest.raises(ValueError, match="no cluster spans"):
-        _cuda.ffn_gemm1(x, pair.w1, pair.s1, pair.b1, _cuda.EPI_RELU_F32)
-    with pytest.raises(ValueError, match="no cluster spans"):
-        call("fused")
+    assert _cuda.ffn_tma_plan(f, din, din, ln=kind == "ffn") is None
+    with pytest.raises(ValueError, match="no block takes"):
+        call("tma")
     with pytest.raises(ValueError, match="unknown route"):
-        call("cluster")
+        call("fused")
 
 
-@pytest.mark.parametrize("config,din,f", [(0, 768, 768), (1, 256, 1024), (1, 2816, 256)])
+@pytest.mark.parametrize("bn,din,f", [(192, 768, 3072), (192, 768, 384), (128, 768, 2048),
+                                      (128, 256, 1024), (128, 1280, 256)])
 @pytest.mark.parametrize("m", [1, 65, 777])
 @pytest.mark.parametrize("dtype", ACT_DTYPES)
-def test_ffn_gemm1_bit_equal(gen, config, din, f, m, dtype):
-    """Each block shape, forced, at a width it spans (the 256-column block
-    also alone, at its widest K): int8 h and its row scales equal the row
-    quantize of the shared GEMM's fp32 h bit for bit (x with a zero row,
-    halves and a repeated maximum)."""
+def test_ffn_tma_gemm1_bit_equal(gen, bn, din, f, m, dtype):
+    """The TMA route's first product at each block width, forced, over
+    clusters of 2 to 16 blocks and up to the widest K a 128-column slice
+    holds, each epilogue: int8 h and its row scales equal the row quantize
+    of the shared GEMM's fp32 h bit for bit (x with a zero row, halves and a
+    repeated maximum); a second call takes the weight's tensor map encoded
+    by the first."""
     pair = _quantized(MLP2(din, f, 256), gen).ops
     x = _randn(gen, m, din, scale=3.0, dtype=dtype)
     x[0, :6] = torch.tensor([0.5, -1.5, 2.5, 0.0, 9.0, -9.0])
     if m > 1:
         x[1] = 0
+    xq, xs = _cuda.ffn_tma_xquant(x)
     for epi in (_cuda.EPI_GELU_F32, _cuda.EPI_GELU_ERF_F32, _cuda.EPI_RELU_F32):
-        before = _cuda.ffn_gemm1.launches
-        hq, hs = _cuda.ffn_gemm1(x, pair.w1, pair.s1, pair.b1, epi, config=config)
-        assert _cuda.ffn_gemm1.launches == before + 1
-        xq, xs = _cuda.rowquant(x, div127=False)
         rq, rs = _cuda.rowquant(_cuda.int8_gemm(xq, xs, pair.w1, pair.s1, pair.b1, epi),
                                 div127=False)
+        for _ in range(2):
+            before = _cuda.ffn_tma_gemm1.launches
+            hq, hs = _cuda.ffn_tma_gemm1(xq, xs, pair.w1, pair.s1, pair.b1, epi, bn=bn)
+            assert _cuda.ffn_tma_gemm1.launches == before + 1
+            torch.testing.assert_close(hq, rq, atol=0, rtol=0)
+            torch.testing.assert_close(hs, rs, atol=0, rtol=0)
+    assert sum(key[0] == id(pair.w1) for key in _cuda._WMAPS) == 1
+
+
+@pytest.mark.parametrize("k", [256, 768, 1024, 3072])
+@pytest.mark.parametrize("m", [1, 7, 9, 1001])
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_ffn_tma_xquant_bit_equal(gen, k, m, dtype):
+    """The TMA route's x quantize (one warp a row) gives ``hr_rowquant``'s
+    codes and scales bit for bit (a zero row, halves, a repeated maximum)."""
+    x = _randn(gen, m, k, scale=3.0, dtype=dtype)
+    x[0, :6] = torch.tensor([0.5, -1.5, 2.5, 0.0, 9.0, -9.0])
+    if m > 1:
+        x[1] = 0
+    q, s = _cuda.ffn_tma_xquant(x)
+    rq, rs = _cuda.rowquant(x, div127=False)
+    torch.testing.assert_close(q, rq, atol=0, rtol=0)
+    torch.testing.assert_close(s, rs, atol=0, rtol=0)
+
+
+# (kind, d_in, F, d_out): WavLM's FFN, the fusion FFN, the d=256 FFN and
+# mlp2 (8 x 128 blocks, the LayerNorm over 2 x 128), the beta gate at d=256
+TMA_WIDTHS = [("ffn", 768, 3072, 768), ("mlp2", 768, 3072, 768), ("ffn", 256, 1024, 256),
+              ("mlp2", 1024, 256, 256)]
+
+
+@pytest.mark.parametrize("kind,din,f,dout", TMA_WIDTHS)
+@pytest.mark.parametrize("m", [1, 63, 129, 3072, 3992])
+@pytest.mark.parametrize("dtype", ACT_DTYPES)
+def test_ffn_tma_stores_every_tile(gen, kind, din, f, dout, m, dtype):
+    """Ten launches of each TMA product in a row, each into outputs filled
+    with what no correct output holds (-128 codes, NaN scales and outputs):
+    every element is stored every time (an output from the caching
+    allocator would hide an unstored tile behind an earlier launch's
+    values); the codes and scales bit-equal to the chain's, mlp2's output
+    bit-equal to the chain's and the FFN's within the tolerance of plain."""
+    pair = _quantized(MLP2(din, f, dout), gen).ops
+    x = _randn(gen, m, din, dtype=dtype)
+    epi = _cuda.EPI_GELU_F32 if kind == "ffn" else _cuda.EPI_RELU_F32
+    xq, xs = _cuda.ffn_tma_xquant(x)
+    rq, rs = _cuda.rowquant(_cuda.int8_gemm(xq, xs, pair.w1, pair.s1, pair.b1, epi),
+                            div127=False)
+    norm = None
+    if kind == "ffn":
+        norm = (_randn(gen, dout, dtype=torch.float32).abs(),
+                _randn(gen, dout, scale=0.1, dtype=torch.float32), 1e-5)
+        ref = FF.ffn_block_int8_plain(x, FF.FfnOperands(pair, *norm[:2]), 1e-5, True)
+    else:
+        ref = FF.mlp2_int8(x, pair, route="chain")
+    for _ in range(10):
+        hq = torch.full((m, f), -128, dtype=torch.int8, device="cuda")
+        hs = torch.full((m,), float("nan"), device="cuda")
+        out = torch.full((m, dout), float("nan"), dtype=dtype, device="cuda")
+        _cuda.ffn_tma_gemm1(xq, xs, pair.w1, pair.s1, pair.b1, epi, out=(hq, hs))
+        _cuda.ffn_tma_gemm2(hq, hs, pair.w2, pair.s2, pair.b2, dtype,
+                            resid=x if norm else None, norm=norm, out=out)
+        torch.cuda.synchronize()
         torch.testing.assert_close(hq, rq, atol=0, rtol=0)
         torch.testing.assert_close(hs, rs, atol=0, rtol=0)
+        assert not out.isnan().any()
+        if kind == "ffn":
+            _close(out, ref)
+        else:
+            torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+def test_ffn_tma_layernorm_takes_128_columns(gen):
+    """The second product with the LayerNorm has the 128-column block only:
+    the route takes it, and a forced 192-column block raises, launching
+    nothing; without the LayerNorm the 192-column block runs."""
+    pair = _quantized(MLP2(768, 3072, 768), gen).ops
+    x = _randn(gen, 300, 768)
+    xq, xs = _cuda.ffn_tma_xquant(x)
+    hq, hs = _cuda.ffn_tma_gemm1(xq, xs, pair.w1, pair.s1, pair.b1, _cuda.EPI_GELU_F32)
+    norm = (_randn(gen, 768, dtype=torch.float32).abs(),
+            _randn(gen, 768, scale=0.1, dtype=torch.float32), 1e-5)
+    assert _cuda.ffn_tma_block2(768, 3072, True) == 128
+    before = _cuda.ffn_tma_gemm2.launches
+    with pytest.raises(RuntimeError):
+        _cuda.ffn_tma_gemm2(hq, hs, pair.w2, pair.s2, pair.b2, x.dtype, resid=x, norm=norm,
+                            bn=192)
+    assert _cuda.ffn_tma_gemm2.launches == before
+    wide = _cuda.ffn_tma_gemm2(hq, hs, pair.w2, pair.s2, pair.b2, x.dtype, bn=192)
+    narrow = _cuda.ffn_tma_gemm2(hq, hs, pair.w2, pair.s2, pair.b2, x.dtype, bn=128)
+    torch.testing.assert_close(wide, narrow, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("l", [48, 62, 97, 124, 63, 65, 499, 1024])

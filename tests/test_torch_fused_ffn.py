@@ -75,6 +75,65 @@ def test_mlp2_matches_pallas_kernel(din, f, dout):
     assert_kernel_close(got, np.asarray(ref, np.float32))
 
 
+@pytest.mark.parametrize("n,ln,want", [
+    (768, True, 128),     # WavLM / BERT FFN: the LayerNorm over 6 x 128
+    (256, True, 128),     # d=256: over 2 x 128
+    (1024, True, 128),    # 8 x 128, the largest LayerNorm cluster
+    (1152, True, None),   # 9 blocks: past the LayerNorm's cluster of 8
+    (768, False, 192),    # mlp2: no LayerNorm, no cluster, the wider block
+    (256, False, 128),    # the beta gate at d=256
+])
+def test_ffn_tma_second_product_width(n, ln, want):
+    """The second product's block width by outputs: 128 columns with the
+    LayerNorm at any rows (a 192-column block spilled the values of y it
+    holds, and was slower), the widest block that divides the outputs
+    without it."""
+    assert TC.ffn_tma_block2(n, 3072, ln) == want
+
+
+# the TMA route's tails (csrc/ffn_tma.cu): one row, rows off its 64-row
+# (first product) and 128-row (second) tiles, fp32 x, the erf GELU, the
+# beta gate's widths; the plain version on the CPU against the Pallas
+# kernels in interpret mode, at the kernel tolerance of torch_port_helpers
+TAILS = [
+    ("ffn", 1, 256, 512, 256, "bfloat16", True),
+    ("ffn", 65, 256, 512, 256, "float32", False),
+    ("ffn", 129, 256, 1024, 256, "bfloat16", False),
+    ("ffn", 193, 256, 512, 256, "float32", True),
+    ("mlp2", 1, 256, 1024, 256, "bfloat16", None),
+    ("mlp2", 65, 256, 1024, 256, "float32", None),
+    ("mlp2", 65, 3072, 256, 768, "bfloat16", None),
+]
+
+
+@pytest.mark.parametrize("kind,m,din,f,dout,dtype,fast_gelu", TAILS)
+def test_pair_tails_match_pallas_kernel(kind, m, din, f, dout, dtype, fast_gelu):
+    rng = np.random.default_rng(m + din + f)
+    p0, p2 = _linear(rng, din, f), _linear(rng, f, dout)
+    x = rng.standard_normal((m, din)).astype(np.float32)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    pair = _port_pair(p0, p2)
+    if kind == "mlp2":
+        ref = JF.mlp2_int8(quantize_linear_params(_jax_bf16(p0)),
+                           quantize_linear_params(_jax_bf16(p2)), jx)
+        got = TF.mlp2_int8(tx, pair.ops)
+    else:
+        ln_w = rng.standard_normal(dout).astype(np.float32) * 0.2 + 1
+        ln_b = rng.standard_normal(dout).astype(np.float32) * 0.1
+        q_in = quantize_linear_params(_jax_bf16(p0))
+        q_out = quantize_linear_params(_jax_bf16(p2))
+        qp = dict(w1_q=q_in["w_int8"].T, w1_s=q_in["w_scale"].T,
+                  b1=q_in["bias"].astype(jnp.float32)[None, :],
+                  w2_q=q_out["w_int8"].T, w2_s=q_out["w_scale"].T,
+                  b2=q_out["bias"].astype(jnp.float32)[None, :])
+        ref = JF.ffn_block_int8(jx, qp, jnp.asarray(ln_w), jnp.asarray(ln_b), 1e-5, fast_gelu)
+        ops = TF.FfnOperands(pair.ops, torch.from_numpy(ln_w), torch.from_numpy(ln_b))
+        got = TF.ffn_block_int8(tx, ops, 1e-5, fast_gelu, route="tma")
+    assert got.dtype == tx.dtype and got.shape == (m, dout)
+    assert_kernel_close(got, np.asarray(ref, np.float32))
+
+
 def test_mlp2_routing_predicate():
     """use_mlp2_int8 without the device test: unquantized or untileable
     pairs run per op, exactly as in JAX."""
@@ -89,44 +148,33 @@ def test_mlp2_routing_predicate():
     assert_kernel_close(pair(bf16(x)), np.asarray(ref, np.float32))
 
 
-@pytest.mark.parametrize("f,k,config,want", [
-    (3072, 768, -1, (0, 8)),     # WavLM / BERT / fusion FFN: 8 blocks of 384
-    (3072, 768, 1, (1, 12)),     # 12 x 256 forced (non-portable)
-    (1024, 256, -1, (1, 4)),     # fusion FFN at d=256
-    (256, 1024, -1, (1, 1)),     # beta gate at d=256: one block of 256
-    (768, 768, -1, (0, 2)),
-    (3072, 1536, -1, (1, 12)),   # K past the 384-column block's shared memory
-    (256, 3072, -1, None),       # beta gate at d=768: 64 rows of K=3072 fit no block
-    (1408, 128, -1, None),       # no cluster spans 1408 columns
-    (1024, 256, 0, None),        # 1024 is no multiple of 384
-    (8192, 256, -1, None),       # 32 blocks of 256: past the largest cluster
-])
-def test_ffn_cluster_choice(f, k, config, want):
-    """The fused first GEMM's block and cluster by hidden and input width
-    (plain Python; the card holds the kernels)."""
-    assert TC.ffn_cluster(f, k, config) == want
-
-
 GELU, ERF, RELU = TC.EPI_GELU_F32, TC.EPI_GELU_ERF_F32, TC.EPI_RELU_F32
 
 
 @pytest.mark.parametrize("f,m,k,epi,sms,want", [
-    (3072, 1996, 768, GELU, 132, "chain"),    # WavLM FFN, 10 s bucket at B=4 (PERF.md row 3)
-    (3072, 3072, 768, GELU, 132, "chain"),    # BERT's FFN at 384 x 8 tokens
-    (3072, 4096, 768, GELU, 132, "chain"),
-    (3072, 6144, 768, GELU, 132, "fused"),
-    (3072, 4096, 768, GELU, 66, "fused"),     # the same grid on half the SMs
-    (3072, 23808, 768, GELU, 132, "fused"),   # WavLM FFN at 384 x 62 frames
-    (3072, 15968, 768, ERF, 132, "fused"),
-    (3072, 1024, 768, RELU, 132, "chain"),
-    (3072, 1996, 768, RELU, 132, "fused"),    # fusion FFN, 10 s bucket at B=4 (row 4)
-    (3072, 3072, 768, RELU, 132, "fused"),    # fusion FFN over 384 x 8 text rows
-    (1024, 1024, 256, RELU, 132, "chain"),    # fusion FFN at d=256
-    (1024, 3072, 256, GELU, 132, "fused"),
-    (256, 4, 3072, RELU, 132, "chain"),       # the beta gate at d=768: no cluster
+    (3072, 1996, 768, GELU, 132, "tma"),      # WavLM FFN, 10 s bucket at B=4 (PERF.md row 3)
+    (3072, 3072, 768, GELU, 132, "tma"),      # BERT's FFN at 384 x 8 tokens
+    (3072, 4096, 768, GELU, 132, "tma"),
+    (3072, 6144, 768, GELU, 132, "tma"),
+    (3072, 4096, 768, GELU, 66, "tma"),       # the same grid on half the SMs
+    (3072, 23808, 768, GELU, 132, "tma"),     # WavLM FFN at 384 x 62 frames
+    (3072, 15968, 768, ERF, 132, "tma"),
+    (3072, 1024, 768, RELU, 132, "tma"),
+    (3072, 1996, 768, RELU, 132, "tma"),      # fusion FFN, 10 s bucket at B=4 (row 4)
+    (3072, 3072, 768, RELU, 132, "tma"),      # fusion FFN over 384 x 8 text rows
+    (1024, 1024, 256, RELU, 132, "tma"),      # fusion FFN at d=256: 1.07 waves of 15
+    (1024, 3072, 256, GELU, 132, "tma"),
+    (256, 4, 3072, RELU, 132, "chain"),       # the beta gate at d=768: W1's slice does not fit
     (256, 384, 3072, RELU, 132, "chain"),
     (256, 384, 1024, RELU, 132, "chain"),     # the beta gate at d=256: a thin grid
-    (1408, 23808, 128, GELU, 132, "chain"),   # no cluster spans 1408 columns
+    (1408, 23808, 128, GELU, 132, "chain"),   # no power-of-two cluster spans 1408 columns
+    (3072, 1024, 768, GELU, 132, "tma"),      # 2.3 waves of the TMA route's 7 clusters
+    (3072, 256, 768, GELU, 132, "chain"),     # 0.6 waves
+    (256, 4096, 1024, RELU, 132, "tma"),      # the beta gate at d=256 over 0.97 waves
+    (256, 1024, 1024, RELU, 132, "chain"),
+    (3072, 499, 768, GELU, 132, "chain"),     # WavLM FFN at B=1 over 10 s
+    (1024, 3072, 256, RELU, 132, "tma"),      # fusion FFN at d=256: 3.2 waves of 15
+    (1024, 8192, 256, RELU, 132, "tma"),
 ])
 def test_ffn_route_choice(f, m, k, epi, sms, want):
     """The pair's route by rows, widths, activation and the card's SMs
@@ -134,18 +182,87 @@ def test_ffn_route_choice(f, m, k, epi, sms, want):
     assert TC.ffn_route(f, m, k, epi, sms) == want
 
 
-def test_ffn_cluster_spans_every_model_width():
-    """Every hidden width a model of the repo reaches is spanned at its
-    input width (WavLM/BERT/fusion at d=768, fusion at d=256, the beta gate
-    at d=256) but the beta gate's 256 columns over 3072 inputs, whose 64
-    rows no block's shared memory holds: it takes the chain at any rows."""
-    for f, k in ((3072, 768), (1024, 256), (256, 1024)):
-        cfg, blocks = TC.ffn_cluster(f, k)
-        bn, most, kmax = TC.FFN_CONFIGS[cfg]
-        assert bn * blocks == f and blocks <= most and k <= kmax
-    assert TC.ffn_cluster(256, 3072) is None
+# the bench's served calls of the pair (chip_smoke.py SERVED_FFN_ROWS,
+# SERVED_MLP2_ROWS, MEASURED_BUCKET_BATCH): WavLM's FFN over B x L frames of
+# every bucket (13,952-23,936 rows; B=1 at 3.75 s: 187), BERT's over B x
+# its text bucket (2,048-3,072), the fusion FFN over the audio and text rows
+# and phase 4's 4 x 64, the beta gate over the batch
+SERVED_PICKS = [
+    ("wavlm", 3072, 768, 768, GELU, (384 * 62, 256 * 93, 192 * 124, 128 * 155, 128 * 187,
+                                     64 * 218, 64 * 249, 32 * 499, 23936, 13952), "tma"),
+    ("wavlm B=1", 3072, 768, 768, GELU, (187,), "chain"),
+    ("bert", 3072, 768, 768, GELU, (2048, 3072), "tma"),
+    ("fusion", 3072, 768, 768, RELU, (384 * 62, 384 * 8, 32 * 499), "tma"),
+    ("fusion, phase 4's text rows", 3072, 768, 768, RELU, (4 * 64,), "chain"),
+    ("beta gate", 256, 3072, 768, RELU, (32, 64, 128, 192, 256, 384), "chain"),
+]
+
+
+@pytest.mark.parametrize("what,f,k,n,epi,rows,want", SERVED_PICKS,
+                         ids=[c[0] for c in SERVED_PICKS])
+def test_ffn_route_served_picks(what, f, k, n, epi, rows, want):
+    """The route at every served call of the pair on an H100's 132 SMs."""
+    for m in rows:
+        assert TC.ffn_route(f, m, k, epi, TC.H100_SMS, n=n) == want, (what, m)
+
+
+@pytest.mark.parametrize("f,k,n,ln,want", [
+    (3072, 768, 768, True, (192, 128)),    # WavLM / BERT FFN: 16 x 192, LayerNorm over 6 x 128
+    (3072, 768, 768, False, (192, 192)),   # fusion FFN
+    (1024, 256, 256, True, (128, 128)),    # d=256: 8 x 128, LayerNorm over 2 x 128
+    (2048, 512, 512, True, (128, 128)),
+    (256, 1024, 256, False, (128, 128)),   # the beta gate at d=256: 2 x 128
+    (256, 3072, 768, False, None),         # the beta gate at d=768: W1's slice does not fit
+    (3072, 1024, 768, True, None),         # 192 x 1024 bytes of W1 do not fit
+    (1408, 128, 128, True, None),          # 11 blocks of 128: no power of two
+    (6144, 768, 768, True, None),          # 32 blocks: past the largest cluster
+    (3072, 768, 1152, True, None),         # 9 blocks of 128: past the LayerNorm's cluster
+    (3072, 768, 1920, True, None),         # 10 blocks: past the LayerNorm's cluster of 8
+])
+def test_ffn_tma_plan(f, k, n, ln, want):
+    """The TMA route's block widths (plain Python; the card's shared memory
+    is csrc/ffn_tma.cu's layout, mirrored by ``ffn_tma_smem1``)."""
+    assert TC.ffn_tma_plan(f, k, n, ln) == want
+    if want is not None:
+        assert TC.ffn_tma_smem1(want[0], k, 2, f // want[0]) <= TC.FFN_TMA_SMEM
+
+
+def test_ffn_tma_spans_every_model_width():
+    """Every pair of widths a model of the repo reaches takes the TMA route
+    (WavLM/BERT/fusion at d=768, fusion at d=256, the beta gate at d=256),
+    each block's W1 slice beside a ring of two x tiles in shared memory, but
+    the beta gate's 256 columns over 3072 inputs, whose W1 slice does not
+    fit: it takes the chain at any rows."""
+    for f, k, n, ln in ((3072, 768, 768, True), (3072, 768, 768, False),
+                        (1024, 256, 256, True), (1024, 256, 256, False),
+                        (256, 1024, 256, False)):
+        bn1, bn2 = TC.ffn_tma_plan(f, k, n, ln)
+        assert f % bn1 == 0 and f // bn1 <= 16 and n % bn2 == 0
+        assert TC.ffn_tma_smem1(bn1, k, 2, f // bn1) <= TC.FFN_TMA_SMEM
+    assert TC.ffn_tma_plan(256, 3072, 768, False) is None
     for m in (1, 384, 23808):
-        assert TC.ffn_route(256, m, 3072, TC.EPI_RELU_F32) == "chain"
+        assert TC.ffn_route(256, m, 3072, TC.EPI_RELU_F32, n=768) == "chain"
+
+
+# the first rows at which the TMA route is taken (TMA_MIN_WAVES: 2 waves of
+# the first product's 64-row tiles over the clusters an H100 runs at once
+# for the GELU forms, 0.75 for ReLU), one row short of each and on it: at
+# 768 -> 3072 (7 clusters of 16), 256 -> 1024 (15 of 8) and the beta gate at
+# d=256 (66 of 2)
+THRESHOLDS = [
+    (3072, 768, 768, GELU, 833), (3072, 768, 768, ERF, 833), (3072, 768, 768, RELU, 321),
+    (1024, 256, 256, GELU, 1857), (1024, 256, 256, RELU, 705), (256, 1024, 256, RELU, 3137),
+]
+
+
+@pytest.mark.parametrize("f,k,n,epi,first", THRESHOLDS,
+                         ids=[f"{c[1]}-{c[0]}-{c[2]}-epi{c[3]}" for c in THRESHOLDS])
+@pytest.mark.parametrize("short", [True, False])
+def test_ffn_route_threshold(f, k, n, epi, first, short):
+    """The route one row below the first row the TMA route takes is the
+    chain, and on it the TMA route."""
+    m = first - 1 if short else first
+    assert TC.ffn_route(f, m, k, epi, TC.H100_SMS, n=n) == ("chain" if short else "tma")
 
 
 @pytest.mark.parametrize("chain", [False, True])
@@ -159,11 +276,12 @@ def test_cpu_wrappers_take_plain_on_either_route(chain):
     ln_b = torch.from_numpy(rng.standard_normal(256).astype(np.float32))
     ops = TF.FfnOperands(pair.ops, ln_w, ln_b)
     x = bf16(rng.standard_normal((9, 256)).astype(np.float32))
-    launches = (TF.ffn_block_int8.launches, TF.mlp2_int8.launches, TC.ffn_gemm1.launches)
-    for route in ("chain",) if chain else (None, "fused"):
+    counters = (TF.ffn_block_int8, TF.mlp2_int8, TC.ffn_tma_xquant, TC.ffn_tma_gemm1,
+                TC.ffn_tma_gemm2, TC.rowquant, TC.int8_gemm, TC.layernorm)
+    launches = tuple(c.launches for c in counters)
+    for route in ("chain",) if chain else (None, "tma"):
         torch.testing.assert_close(TF.ffn_block_int8(x, ops, 1e-5, True, route=route),
                                    TF.ffn_block_int8_plain(x, ops, 1e-5, True), atol=0, rtol=0)
         torch.testing.assert_close(TF.mlp2_int8(x, pair.ops, route=route),
                                    TF.mlp2_int8_plain(x, pair.ops), atol=0, rtol=0)
-    assert (TF.ffn_block_int8.launches, TF.mlp2_int8.launches,
-            TC.ffn_gemm1.launches) == launches
+    assert tuple(c.launches for c in counters) == launches

@@ -158,7 +158,7 @@ def test_proj_cluster_spans_every_path_width():
     for n, k in ((2304, 768), (768, 768), (768, 512), (2048, 768), (768, 2048)):
         for out_bytes in (2, 4):
             cfg, blocks = TC.proj_cluster(n, k, out_bytes)
-            bn, most, kmax = TC.FFN_CONFIGS[cfg]
+            bn, most, kmax = TC.PROJ_CONFIGS[cfg]
             assert bn * blocks == n and blocks <= most and k <= kmax
 
 

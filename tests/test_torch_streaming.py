@@ -184,3 +184,71 @@ def test_entry_point_needs_a_card_unless_cpu_is_asked(models):
         pytest.skip("a CUDA device is present")  # pragma: no cover
     with pytest.raises(RuntimeError, match="no CUDA device"):
         StreamingPipeline(tw, tb, tf, tokenizer=HashTokenizer(99))
+
+
+def _recording(tp):
+    """Wrap ``tp``'s forward, output copy and host read so that each call is
+    logged as ("dispatch" | "copy" | "read", flush number)."""
+    log, count = [], [0]
+    forward, copy_out, host = tp._forward, tp._copy_out, tp._host
+
+    def rec_forward(*args):
+        log.append(("dispatch", count[0]))
+        count[0] += 1
+        return forward(*args)
+
+    def rec_copy(outs):
+        k = count[0] - 1
+        log.append(("copy", k))
+        return copy_out(outs), k
+
+    def rec_host(handle):
+        inner, k = handle
+        log.append(("read", k))
+        return host(inner)
+
+    tp._forward, tp._copy_out, tp._host = rec_forward, rec_copy, rec_host
+    return log
+
+
+def _check_one_behind(log, flushes):
+    """Flush n's outputs are copied out before flush n + 1 is dispatched and
+    read after it, one flush behind; the last is read at the end."""
+    at = {ev: i for i, ev in enumerate(log)}
+    assert len(at) == len(log) == 3 * flushes
+    for n in range(flushes):
+        assert at["dispatch", n] < at["copy", n] < at["read", n]
+        if n + 1 < flushes:
+            assert at["copy", n] < at["dispatch", n + 1] < at["read", n]
+        if n + 2 < flushes:
+            assert at["read", n] < at["dispatch", n + 2]
+    assert log[-1] == ("read", flushes - 1)
+
+
+@pytest.mark.parametrize("which", ["stream", "stream_bucketed"])
+def test_flush_copied_out_before_the_next_and_read_after_it(models, which):
+    """The host feed's order: each flush's outputs are enqueued for the
+    copy to the host right behind its forward, before the next flush is
+    dispatched, and read one flush later; the outputs, their order and
+    their uids are those of the same pipeline unwrapped, bit for bit."""
+    _, (tw, tb, tf) = models
+    make = lambda: StreamingPipeline(tw, tb, tf, tokenizer=HashTokenizer(99),  # noqa: E731
+                                     device="cpu", **SERVE)
+    clips = _requests(2, 7)
+    if which == "stream":
+        batches = [([c[0] for c in clips[i:i + 2]], [c[1] for c in clips[i:i + 2]],
+                    [c[2] for c in clips[i:i + 2]]) for i in (0, 2, 4, 6)]
+        run = lambda tp: list(tp.stream(batches))  # noqa: E731
+    else:
+        run = lambda tp: list(tp.stream_bucketed(clips, default_batch=2,  # noqa: E731
+                                                 pad_flush=True))
+    want = run(make())
+    tp = make()
+    log = _recording(tp)
+    got = run(tp)
+    _check_one_behind(log, len(want))
+    assert len(got) == len(want) >= 3
+    for (p, b, u), (pw, bw, uw) in zip(got, want):
+        assert list(u) == list(uw)
+        np.testing.assert_array_equal(p, pw)
+        np.testing.assert_array_equal(b, bw)
